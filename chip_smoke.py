@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/H100 port (paddle_tpu_torch).
 
-    python3 chip_smoke.py          # from the root of a checkout, one CUDA card
+    python3 chip_smoke.py                 # from the root of a checkout, one CUDA card
+    python3 chip_smoke.py --only kernels  # build + kernel checks only
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
@@ -9,23 +10,36 @@ result line):
 1. the card's name and power limit (nvidia-smi);
 2. the build: every CUDA source under paddle_tpu_torch/csrc, one nvcc each,
    all started together;
-3. each kernel at the serving main path's shapes (batch 8, 12 heads,
-   head_dim 64, block 16, max_len 1024, ragged positions), held against its
-   plain PyTorch version on the card, and timed beside it;
+3. the paged-attention kernels B4/B5 at the serving main path's shapes
+   (batch 8, 12 heads, head_dim 64, block 16, max_len 1024, ragged
+   positions), and the flash-attention kernels B1-B3 at the training main
+   path's shapes (batch 16, 12 heads, S 512, head_dim 64) in four arms
+   (f32 + key-padding mask + dropout 0.1, the training path's; bf16 + mask
+   + dropout 0.1; bf16 causal + dropout 0.1; f32 unmasked), each held
+   against its plain PyTorch version on the card and timed beside it and
+   beside the PyTorch library call (SDPA) where one computes the same;
 4. GPT-2 small (GPTConfig(), weights from numpy seed 0) served through the
    port's DecodeEngine:
    * f32 (TF32 off): greedy tokens == the port's dense generate;
    * bf16: 8 concurrent requests (prompts 17-200 tokens, 32 new, greedy and
      one seeded top-k), tokens/s and TTFT; continuous == sequential;
-   * bf16 with int8 KV pools: 2 requests complete.
-   Each run resets the kernel launch counts just before it and fails if its
-   kernel was never launched.
+   * bf16 with int8 KV pools: 2 requests complete;
+5. BERT pretraining through Program / Executor.run:
+   * card vs CPU: BERT-base widths at 2 layers, S 512, batch 2, f32, TF32
+     off, dropout 0, padding mask; one step from the same startup arrays;
+     the loss and every parameter gradient agree;
+   * BertConfig() at S 512, batch 16, fleet AMP bf16, Adam 1e-4: 2 warm-up
+     and 10 timed steps, finite losses, then one step under torch.profiler.
+Each main-path run resets the kernel launch counts just before it and
+fails if a kernel of its path was never launched.
 
-Output: a `{"kernels": [...]}` line, a `{"serving": ...}` line, and last
-`{"ok": true, "device": {...}}`.
+Output: a `{"kernels": [...]}` line, a `{"serving": ...}` line, a
+`{"training": ...}` line, and last `{"ok": true, "device": {...}}`.
 """
+import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -33,22 +47,77 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = "paddle_tpu_torch/csrc/paged_attention.cu"
-REPLACES = {"f32": "paddle_tpu/ops/pallas/paged_attention.py:98",
-            "bf16": "paddle_tpu/ops/pallas/paged_attention.py:98",
-            "int8": "paddle_tpu/ops/pallas/paged_attention.py:145"}
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and f32
-# CUDA-core rate (the kernel computes in f32 on the CUDA cores)
+_PAGED = ("paddle_tpu_torch/csrc/paged_attention.cu",
+          "paddle_tpu/ops/pallas/paged_attention.py")
+_FLASH = ("paddle_tpu_torch/csrc/flash_attention.cu",
+          "paddle_tpu/ops/pallas/flash_attention.py")
+# one entry per row of the kernels line: the CUDA source, and file:line of
+# the Pallas kernel it replaces
+ROWS = {
+    "paged_decode_f32": (_PAGED[0], f"{_PAGED[1]}:98"),
+    "paged_decode_bf16": (_PAGED[0], f"{_PAGED[1]}:98"),
+    "paged_decode_int8": (_PAGED[0], f"{_PAGED[1]}:145"),
+    "flash_fwd": (_FLASH[0], f"{_FLASH[1]}:145"),
+    "flash_bwd_dq": (_FLASH[0], f"{_FLASH[1]}:282"),
+    "flash_bwd_dkdv": (_FLASH[0], f"{_FLASH[1]}:346"),
+}
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, the f32
+# CUDA-core rate (the kernels compute with scalar FMAs) and the dense bf16
+# tensor-core rate (the MFU denominator, as bench.py counts it)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
-# kernel vs plain version on the card: f32 sums in another order; bf16
+BF16_FLOPS_PER_S = 989.4e12
+# paged kernel vs plain version on the card: f32 sums in another order; bf16
 # outputs round to bf16 (one ulp of an O(1) context is <= 2**-7), and the
 # bf16 probabilities may round to neighbouring values; int8 outputs are f32
 TOLERANCE = {"f32": 1e-5, "bf16": 1.6e-2, "int8": 1e-4}
+# flash kernels vs plain version (max abs error over O / dQ / dK and dV,
+# inputs ~N(0, 1)): f32 sums in another order (the reference suite's own
+# 2e-5 for O and 5e-4 for gradients); bf16 outputs round to bf16 and the
+# kernels round unnormalised probabilities and dS to bf16 where the plain
+# version rounds normalised probabilities only, so a bf16 limit scales
+# with the largest reference value (one bf16 ulp is 2**-7 of it at most)
+FLASH_TOLERANCE = {"float32": {"o": 2e-5, "grad": 5e-4},
+                   "bfloat16": {"o": 2e-2, "grad": 6e-2}}
 
 
 def log(msg):
     print(f"chip_smoke: {msg}", flush=True)
+
+
+def kernel_row(name, **numbers):
+    """A row of the kernels line: its name, route, source and the TPU
+    kernel it replaces, then the measured numbers."""
+    source, replaces = ROWS[name]
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=None, **numbers)
+
+
+def ptxas_report(text):
+    """{mangled entry name: {registers, spill_stores, spill_loads}} from
+    the `nvcc -Xptxas -v` output of one build."""
+    report, entry = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = report.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and entry is not None:
+            entry["spill_stores"], entry["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            entry["registers"] = int(m.group(1))
+    return report
+
+
+def flash_ptxas(report, name, dtype, hd=64):
+    """The ptxas numbers of flash kernel `name` at `dtype` and head_dim
+    `hd` (mangled: <name>_kernelI<f | 13__nv_bfloat16>Li<hd>E)."""
+    t = "f" if dtype == "float32" else "13__nv_bfloat16"
+    key = f"{name}_kernelI{t}Li{hd}E"
+    return next((v for k, v in report.items() if key in k), None)
 
 
 def fail(msg):
@@ -178,16 +247,14 @@ def check_kernels(torch, kernel_mod, paged_ops):
         flops = live * nh * (4 * hd + 5)    # two dots + softmax
         t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
         t_ops = flops / F32_FLOPS_PER_S * 1e3
-        rows[kind] = {
-            "name": kernel_mod.KERNEL_NAMES[kp.dtype], "route": "cuda",
-            "source": SOURCE, "replaces": REPLACES[kind],
-            "launches": None, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+        name = kernel_mod.KERNEL_NAMES[kp.dtype]
+        rows[name] = row = kernel_row(
+            name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=None)
         log(f"kernel {kind}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {rows[kind]['bound_ms']:.4f} ms "
-            f"({rows[kind]['bound_by']})")
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
         del kp, vp, args, got, want, bounded
         torch.cuda.empty_cache()
     return rows
@@ -210,29 +277,349 @@ def serve(torch, serving, engine_kw, requests, sequential=False):
     return comps, wall, stats
 
 
-def device_profile(torch, serve_fn, serving, engine_kw, requests):
-    """One more run of the same requests under torch.profiler: the share of
-    the wall time the card spent in kernels, and the kernels that took
-    most of it. The profiler's own cost lengthens the wall time, so the
-    busy share is a lower bound."""
+def device_profile(torch, run, top=8):
+    """One more run of `run()` (which returns its wall seconds) under
+    torch.profiler: the share of the wall time the card spent in kernels,
+    and the `top` kernels that took most of it. The profiler's own cost
+    lengthens the wall time, so the busy share is a lower bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, wall, _ = serve_fn(torch, serving, engine_kw, requests)
+        wall = run()
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
     if not busy_us:
         return {"device_time": "not measured (no device events)"}
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    by_name = {}            # kernel names cut to 80 characters may collide
+    for e in kernels:
+        name = e.key[:80]
+        by_name[name] = by_name.get(name, 0.0) + e.self_device_time_total
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
     return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
             "device_busy_share": busy_us / 1e6 / wall,
-            "top_kernels_ms": {e.key[:80]: e.self_device_time_total / 1e3
-                               for e in top}}
+            "top_kernels_ms": {name: us / 1e3 for name, us in ranked[:top]}}
+
+
+def _max_err(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+def padding_mask(torch, batch, seq, seed):
+    """The additive key-padding mask the BERT program builds from a feed
+    whose lengths are uniform in [S/2, S] (bench.py:390-394): [B,1,1,S],
+    0 on tokens and -1e9 on padding."""
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(seq // 2, seq + 1, size=(batch, 1))
+    keep = (np.arange(seq)[None, :] < lens).astype(np.float32)
+    return torch.from_numpy(keep * np.float32(1e9) - np.float32(1e9)) \
+        .view(batch, 1, 1, seq).cuda()
+
+
+def flash_bounds(B, nh, S, hd, elem, mask_bytes):
+    """Least time of each flash kernel on this card: every operand read
+    once and every output written once, against the operations of its
+    products (QK^T, PV; + dO V^T, dS K; + P^T dO, dS^T Q) at the peak rate
+    of the operand type (f32 on the CUDA cores, bf16 on the tensor cores)."""
+    t = B * nh * S * hd * elem              # one [B, nh, S, hd] tensor
+    lse = 4 * B * nh * S
+    work = B * nh * S * S * hd
+    rate = F32_FLOPS_PER_S if elem == 4 else BF16_FLOPS_PER_S
+    out = {}
+    for name, n_ops, n_bytes in (
+            ("flash_fwd", 4 * work, 4 * t + lse + mask_bytes),
+            ("flash_bwd_dq", 6 * work, 6 * t + lse + mask_bytes),
+            ("flash_bwd_dkdv", 8 * work, 7 * t + lse + mask_bytes)):
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = n_ops / rate * 1e3
+        out[name] = (max(t_bytes, t_ops),
+                     "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def check_flash_kernels(torch, fa, ptxas):
+    """B1-B3 against their plain version at the training main path's shapes
+    in four arms, and off it at a ragged S with head_dim 128; timed on the
+    training path's arm (f32, key-padding mask, dropout 0.1) and, beside
+    SDPA, at dropout 0."""
+    B, nh, S, hd = 16, 12, 512, 64
+    scale, seed = 1.0 / np.sqrt(hd), 1234
+    mask = padding_mask(torch, B, S, seed=0)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    base = [torch.randn((B, nh, S, hd), generator=g, device="cuda")
+            for _ in range(4)]
+    # S 200 leaves a tail tile of 8 rows; a per-(batch, head) mask with a
+    # row per query, under causal and dropout
+    ragged = [torch.randn((2, 3, 200, 128), generator=g, device="cuda")
+              for _ in range(4)]
+    ragged_mask = torch.where(
+        torch.rand((2, 3, 200, 200), generator=g, device="cuda") < 0.2,
+        -1e9, 0.0)
+    arms = [(base, "float32", mask, False, 0.1),
+            (base, "bfloat16", mask, False, 0.1),
+            (base, "bfloat16", None, True, 0.1),
+            (base, "float32", None, False, 0.0),
+            (ragged, "float32", ragged_mask, True, 0.1)]
+    errs = {n: 0.0 for n in fa.KERNEL_NAMES}
+    for tensors, dtype, m, causal, rate in arms:
+        dt = getattr(torch, dtype)
+        q, k, v, do = (t.to(dt) for t in tensors)
+        kw = dict(scale=1.0 / np.sqrt(q.shape[-1]), causal=causal,
+                  dropout=rate, seed=seed if rate else None, mask=m)
+
+        def run(fn):
+            qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+            o = fn(qq, kk, vv, **kw)
+            return (o.detach(),) + torch.autograd.grad(o, (qq, kk, vv), do)
+
+        got, want = run(fa.flash_attention), run(fa.flash_attention_plain)
+        torch.cuda.synchronize()
+        what = (f"{dtype} {list(q.shape)} mask={m is not None} "
+                f"causal={causal} dropout={rate}")
+        if not all(torch.isfinite(t.float()).all() for t in got):
+            fail(f"flash {what}: non-finite kernel output")
+        arm = {"flash_fwd": _max_err(got[0], want[0]),
+               "flash_bwd_dq": _max_err(got[1], want[1]),
+               "flash_bwd_dkdv": max(_max_err(got[2], want[2]),
+                                     _max_err(got[3], want[3]))}
+        tol = dict(FLASH_TOLERANCE[dtype])
+        if dtype == "bfloat16":
+            tol["o"] *= max(1.0, want[0].float().abs().max().item())
+            tol["grad"] *= max(1.0, max(t.float().abs().max().item()
+                                        for t in want[1:]))
+        log(f"flash arm {what}: max |kernel - plain| O "
+            f"{arm['flash_fwd']:.3e}, dQ {arm['flash_bwd_dq']:.3e}, dK/dV "
+            f"{arm['flash_bwd_dkdv']:.3e} (tolerance O {tol['o']:.1e}, "
+            f"grads {tol['grad']:.1e}; max |O| "
+            f"{want[0].float().abs().max().item():.3f}, max |dQ| "
+            f"{want[1].float().abs().max().item():.3f})")
+        for name, e in arm.items():
+            if e > (tol["o"] if name == "flash_fwd" else tol["grad"]):
+                fail(f"{name} {what}: kernel disagrees with its plain "
+                     f"version: max abs err {e}")
+            if tensors is base and dtype == "float32" and m is not None:
+                errs[name] = e           # the training path's arm
+        del got, want, q, k, v, do
+    del ragged, ragged_mask
+    torch.cuda.empty_cache()
+
+    rows, extra = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        q, k, v, do = (t.to(dt) for t in base)
+        m3, mode = fa.normalize_mask(mask, B, nh, S)
+        m3 = m3.contiguous()
+        times = {}
+        for rate in (0.1, 0.0):
+            args = (q, k, v, m3, mode, seed, scale, False, rate)
+            o, lse = fa.launch_fwd(*args)
+            bargs = (q, k, v, o, lse, do, m3, mode, seed, scale, False, rate)
+            times[rate] = {
+                "flash_fwd": cuda_ms(torch, lambda: fa.launch_fwd(*args)),
+                "flash_bwd_dq": cuda_ms(
+                    torch, lambda: fa.launch_bwd_dq(*bargs)),
+                "flash_bwd_dkdv": cuda_ms(
+                    torch, lambda: fa.launch_bwd_dkdv(*bargs))}
+        extra[dtype] = times
+        if dtype != "float32":
+            continue
+        kw = dict(scale=scale, dropout=0.1, seed=seed, mask=mask)
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        with torch.no_grad():
+            plain_fwd = cuda_ms(torch, lambda: fa.flash_attention_plain(
+                q, k, v, **kw), iters=10, warmup=2)
+        op = fa.flash_attention_plain(qq, kk, vv, **kw)
+        plain_dq = cuda_ms(torch, lambda: torch.autograd.grad(
+            op, qq, do, retain_graph=True), iters=10, warmup=2)
+        plain_dkdv = cuda_ms(torch, lambda: torch.autograd.grad(
+            op, (kk, vv), do, retain_graph=True), iters=10, warmup=2)
+        del op
+        lib_fwd = lib_bwd = None
+        try:
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            lm = mask.to(dt)
+            with torch.no_grad():
+                lib_fwd = cuda_ms(torch, lambda: sdpa(q, k, v, attn_mask=lm,
+                                                      scale=scale))
+            os_ = sdpa(qq, kk, vv, attn_mask=lm, scale=scale)
+            lib_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
+                os_, (qq, kk, vv), do, retain_graph=True))
+            del os_
+        except RuntimeError as e:        # no SDPA backend for these inputs
+            log(f"SDPA not timed: {e}")
+        bounds = flash_bounds(B, nh, S, hd, 4, 4 * B * S)
+        plain = {"flash_fwd": plain_fwd, "flash_bwd_dq": plain_dq,
+                 "flash_bwd_dkdv": plain_dkdv}
+        for name in fa.KERNEL_NAMES:
+            rows[name] = kernel_row(
+                name, max_abs_err=errs[name], ms=times[0.1][name],
+                plain_ms=plain[name], bound_ms=bounds[name][0],
+                bound_by=bounds[name][1],
+                library_ms=lib_fwd if name == "flash_fwd" else lib_bwd,
+                dtype="float32", ms_dropout0=times[0.0][name],
+                ptxas={d: flash_ptxas(ptxas, name, d)
+                       for d in ("float32", "bfloat16")})
+        rows["flash_bwd_dq"]["library_covers"] = "B2+B3 (SDPA backward)"
+        rows["flash_bwd_dkdv"]["library_covers"] = "B2+B3 (SDPA backward)"
+        del qq, kk, vv
+        torch.cuda.empty_cache()
+    bf_bounds = flash_bounds(B, nh, S, hd, 2, 4 * B * S)
+    for name in fa.KERNEL_NAMES:
+        row = rows[name]
+        row["bf16_ms"] = extra["bfloat16"][0.1][name]
+        row["bf16_bound_ms"] = bf_bounds[name][0]
+        log(f"kernel {name}: f32 {row['ms']:.4f} ms (dropout 0: "
+            f"{row['ms_dropout0']:.4f}), bf16 {row['bf16_ms']:.4f} ms; plain "
+            f"{row['plain_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}); SDPA {row['library_ms']}; ptxas "
+            f"{row['ptxas']}")
+    return rows
+
+
+def bert_feed(cfg, batch, seed):
+    """bench.py:383-394's feeds: random ids and labels, per-example lengths
+    uniform in [S/2, S]."""
+    rng = np.random.RandomState(seed)
+    S = cfg.seq_len
+    feed = {"input_ids": rng.randint(0, cfg.vocab_size,
+                                     (batch, S)).astype(np.int64),
+            "mlm_labels": rng.randint(0, cfg.vocab_size,
+                                      (batch, S, 1)).astype(np.int64)}
+    lens = rng.randint(S // 2, S + 1, size=(batch, 1))
+    feed["input_mask"] = (np.arange(S)[None, :] < lens).astype(np.float32)
+    return feed
+
+
+def card_vs_cpu(torch, fa):
+    """One Executor.run step of BERT-base widths at 2 layers on the card and
+    on the CPU from the same startup arrays: f32, TF32 off, dropout 0."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.framework import (Executor, Program, Scope,
+                                            load_numpy, program_guard,
+                                            unique_name)
+    from paddle_tpu_torch.models import bert
+    cfg = bert.BertConfig(num_layers=2, seq_len=512, hidden_dropout=0.0,
+                          attention_dropout=0.0)
+    main, start = Program(), Program()
+    with program_guard(main, start), unique_name.guard():
+        _, _, loss = bert.build_pretrain_program(cfg, use_input_mask=True)
+        _, pgs = optimizer.Adam(learning_rate=1e-4).minimize(loss)
+    cpu_scope = Scope()
+    Executor("cpu").run(start, scope=cpu_scope)
+    arrays = {n: cpu_scope.numpy(n) for n in cpu_scope.local_names()
+              if not n.startswith("__")}
+    feed = bert_feed(cfg, 2, seed=0)
+    fetch = [loss] + [g for _, g in pgs]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        out[dev] = Executor(dev).run(main, feed=feed, fetch_list=fetch,
+                                     scope=load_numpy(Scope(), arrays, dev))
+        log(f"card vs cpu: {dev} step {time.perf_counter() - t0:.2f} s, "
+            f"loss {float(out[dev][0]):.6f}, flash launches "
+            f"{dict(fa.launches)}")
+        if dev == "cuda" and not all(fa.launches.values()):
+            fail(f"card vs cpu: a flash kernel was not launched on the card "
+                 f"step: {fa.launches}")
+    l_gpu, l_cpu = float(out["cuda"][0]), float(out["cpu"][0])
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    grad_rel = {}
+    for (p, _), a, b in zip(pgs, out["cuda"][1:], out["cpu"][1:]):
+        grad_rel[p.name] = float(np.linalg.norm(a - b)
+                                 / max(np.linalg.norm(b), 1e-30))
+    worst = max(grad_rel, key=grad_rel.get)
+    log(f"card vs cpu: loss rel {loss_rel:.2e} (limit 1e-4); worst grad "
+        f"{worst} norm-rel {grad_rel[worst]:.2e} (limit 1e-3) over "
+        f"{len(grad_rel)} parameters")
+    if not np.isfinite(l_gpu) or loss_rel > 1e-4:
+        fail(f"card vs cpu: loss {l_gpu} vs {l_cpu}")
+    bad = {n: r for n, r in grad_rel.items() if not r <= 1e-3}
+    if bad:
+        fail(f"card vs cpu: gradients disagree: {bad}")
+    return {"config": "BertConfig(num_layers=2, seq_len=512), batch 2, f32, "
+                      "TF32 off, dropout 0, padding mask",
+            "loss_cuda": l_gpu, "loss_cpu": l_cpu, "loss_rel": loss_rel,
+            "worst_grad": worst, "worst_grad_norm_rel": grad_rel[worst]}
+
+
+def train_bert(torch, fa, card):
+    """BertConfig() at S 512, batch 16, through build_pretrain_program,
+    fleet AMP bf16 and Adam(1e-4): 2 warm-up and 10 timed steps."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework import (Executor, Program, Scope,
+                                            program_guard, unique_name)
+    from paddle_tpu_torch.models import bert
+    batch, steps = 16, 10
+    cfg = bert.BertConfig()
+    cfg.seq_len = 512
+    main, start = Program(), Program()
+    with program_guard(main, start), unique_name.guard():
+        _, _, loss = bert.build_pretrain_program(cfg, use_input_mask=True)
+        n_params = sum(int(np.prod(v.shape))
+                       for v in main.global_block().vars.values()
+                       if v.persistable and v.shape
+                       and all(d > 0 for d in v.shape))
+        fleet.init(is_collective=True)
+        strategy = fleet.DistributedStrategy()
+        strategy.amp = True
+        fleet.distributed_optimizer(optimizer.Adam(learning_rate=1e-4),
+                                    strategy).minimize(loss)
+    scope, exe = Scope(), Executor("cuda")
+    exe.run(start, scope=scope)
+    feed = bert_feed(cfg, batch, seed=0)
+    losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                            scope=scope)[0]) for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    step_ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(exe.run(main, feed=feed, fetch_list=[loss],
+                                    scope=scope)[0]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)):
+        fail(f"training: non-finite loss in {losses}")
+    if not all(launches.values()):
+        fail(f"training: a flash kernel was never launched: {launches}")
+
+    def one_step():
+        t0 = time.perf_counter()
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    profile = device_profile(torch, one_step, top=16)
+    tokens_per_s = batch * cfg.seq_len * steps / (sum(step_ms) / 1e3)
+    row = {"config": "BertConfig() (12 layers, hidden 768, 12 heads, vocab "
+                     "30522), seq 512, batch 16, padding mask, dropout 0.1, "
+                     "fleet AMP bf16, Adam 1e-4, random weights and labels",
+           "n_params": n_params, "steps": steps, "losses": losses,
+           "tokens_per_s": tokens_per_s,
+           "step_ms_p50": float(np.median(step_ms)),
+           "step_ms": step_ms,
+           "mfu": 6.0 * n_params * tokens_per_s / BF16_FLOPS_PER_S,
+           "peak_memory_gib": peak / 2 ** 30,
+           "launches_per_step": {n: c / steps for n, c in launches.items()},
+           "profile": profile, "card": card}
+    log(f"training: {tokens_per_s:.1f} tokens/s, step p50 "
+        f"{row['step_ms_p50']:.1f} ms, MFU {row['mfu']:.4f}, peak "
+        f"{row['peak_memory_gib']:.2f} GiB, losses {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, launches/step {row['launches_per_step']}")
+    log(f"training step under torch.profiler: {profile}")
+    return row, launches
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", choices=["kernels"], default=None,
+                    help="stop after the kernel checks (no result line)")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -250,6 +637,7 @@ def main():
     from paddle_tpu_torch.observability import metrics
     from paddle_tpu_torch.ops import paged_ops
     from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import paged_attention as kernel_mod
 
     card = card_line()
@@ -261,10 +649,11 @@ def main():
     t0 = time.perf_counter()
     libs = _build.build()
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
-    for name, text in _build.build_log.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"ptxas {name}: {line.strip()}")
+    ptxas = {}
+    for lib, text in sorted(_build.build_log.items()):
+        for entry, numbers in ptxas_report(text).items():
+            log(f"ptxas {lib} {entry}: {numbers}")
+            ptxas[entry] = numbers
 
     # ---- kernels vs plain --------------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -273,6 +662,10 @@ def main():
         f"{torch.backends.cuda.matmul.allow_tf32} cudnn.allow_tf32="
         f"{torch.backends.cudnn.allow_tf32}")
     rows = check_kernels(torch, kernel_mod, paged_ops)
+    rows.update(check_flash_kernels(torch, fa, ptxas))
+    if args.only == "kernels":
+        log("kernel checks passed (--only kernels: no result line)")
+        return 1
 
     # ---- GPT-2 small served through the port --------------------------------
     cfg = GPTConfig()
@@ -283,6 +676,10 @@ def main():
     rng = np.random.default_rng(1)
     R = serving.Request
 
+    def record_launches(name):
+        rows[name]["launches"] = kernel_mod.launches[name]
+        return rows[name]["launches"]
+
     # f32, TF32 off: greedy tokens == dense generate
     p32 = gpt_decode.params_from_numpy(cfg, arrays, device="cuda")
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in (9, 17, 33, 50)]
@@ -291,14 +688,14 @@ def main():
     kernel_mod.reset_launches()
     comps, _, _ = serve(torch, serving, f32_kw,
                         [R(prompt=p, max_new_tokens=16) for p in prompts])
-    rows["f32"]["launches"] = kernel_mod.launches["paged_decode_f32"]
+    n_f32 = record_launches("paged_decode_f32")
     for p, c in zip(prompts, comps):
         dense = gpt_decode.generate(p32, cfg, p[None], 16, device="cuda")
         if dense[0, len(p):].tolist() != c.tokens:
             fail(f"f32 paged tokens {c.tokens} != dense generate "
                  f"{dense[0, len(p):].tolist()} (prompt of {len(p)})")
     log(f"f32 engine: greedy tokens == dense generate for {len(prompts)} "
-        f"prompts; paged_decode_f32 launches {rows['f32']['launches']}")
+        f"prompts; paged_decode_f32 launches {n_f32}")
     del p32
 
     # bf16: 8 concurrent requests
@@ -321,7 +718,7 @@ def main():
     metrics.reset()
     kernel_mod.reset_launches()
     comps, wall, stats = serve(torch, serving, bf16_kw, bf16_requests())
-    rows["bf16"]["launches"] = kernel_mod.launches["paged_decode_bf16"]
+    n_bf16 = record_launches("paged_decode_bf16")
     snap = metrics.snapshot()
     n_tok = sum(len(c.tokens) for c in comps)
     if n_tok != 8 * 32 or any(not 0 <= t < cfg.vocab_size
@@ -332,8 +729,8 @@ def main():
                       sequential=True)
     if [c.tokens for c in seq] != [c.tokens for c in comps]:
         fail("bf16: continuous batching tokens != sequential tokens")
-    profile = device_profile(torch, serve, serving, bf16_kw,
-                             bf16_requests())
+    profile = device_profile(
+        torch, lambda: serve(torch, serving, bf16_kw, bf16_requests())[1])
     log(f"bf16 engine under torch.profiler: {profile}")
     serving_row = {
         "config": "GPT-2 small (GPTConfig()), bf16 weights and KV, "
@@ -346,12 +743,12 @@ def main():
         "tpot_ms_p50": snap["serving.tpot_ms"]["p50"],
         "window_ms_p50": snap["serving.window_ms"]["p50"],
         "windows": stats["windows"],
-        "paged_decode_bf16_launches": rows["bf16"]["launches"],
+        "paged_decode_bf16_launches": n_bf16,
         "profile": profile, "card": card}
     log(f"bf16 engine: {n_tok} tokens in {wall:.3f} s = "
         f"{n_tok / wall:.1f} tok/s, TTFT p50 "
         f"{serving_row['ttft_ms_p50']:.2f} ms; continuous == sequential; "
-        f"paged_decode_bf16 launches {rows['bf16']['launches']}")
+        f"paged_decode_bf16 launches {n_bf16}")
 
     # bf16 with int8 KV pools: 2 requests
     int8_kw = dict(bf16_kw, kv_dtype="int8", kv_scale=8.0, max_slots=2)
@@ -359,17 +756,27 @@ def main():
     comps, _, _ = serve(torch, serving, int8_kw,
                         [R(prompt=prompts[1], max_new_tokens=16),
                          R(prompt=prompts[6], max_new_tokens=16)])
-    rows["int8"]["launches"] = kernel_mod.launches["paged_decode_int8"]
+    n_int8 = record_launches("paged_decode_int8")
     if [len(c.tokens) for c in comps] != [16, 16]:
         fail(f"int8-KV engine: {[len(c.tokens) for c in comps]} tokens")
     log(f"int8-KV engine: 2 requests complete; paged_decode_int8 launches "
-        f"{rows['int8']['launches']}")
+        f"{n_int8}")
+
+    # ---- BERT pretraining through Program / Executor ----------------------
+    del p16, bf16_kw, int8_kw
+    torch.cuda.empty_cache()
+    parity = card_vs_cpu(torch, fa)
+    training, launches = train_bert(torch, fa, card)
+    training["card_vs_cpu"] = parity
+    for name in fa.KERNEL_NAMES:
+        rows[name]["launches"] = launches[name]
 
     for row in rows.values():
         if not row["launches"]:
             fail(f"{row['name']} was never launched on its main path run")
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"serving": serving_row}), flush=True)
+    print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,0 +1,102 @@
+"""fleet on one process (counterpart of paddle_tpu/distributed/fleet/base.py).
+
+`init(is_collective=True)`, a `DistributedStrategy` whose `amp` is honoured,
+and `distributed_optimizer`, whose `minimize` marks the program for AMP as
+the reference does (`base.py:374-379`) and delegates to the inner
+optimizer. This is the entry point `bench.py:bench_bert` uses. Any other
+strategy field set away from its default raises: meshes, recompute,
+layer scan, ZeRO, gradient merge, pipelines and PS mode are not ported.
+On one process the reference's gradient bucketing (`fuse_grad_size_in_mb`)
+is an identity and is left out.
+"""
+from __future__ import annotations
+
+__all__ = ["init", "DistributedStrategy", "distributed_optimizer", "fleet"]
+
+_DEFAULTS = {
+    "amp": False,
+    "amp_configs": {"init_loss_scaling": 32768.0, "use_pure_bf16": True},
+    "recompute": False, "recompute_configs": {"checkpoints": []},
+    "layer_scan": False, "layer_scan_configs": {"segments": []},
+    "gradient_merge": False, "gradient_merge_configs": {"k_steps": 1},
+    "localsgd": False, "localsgd_configs": {"k_steps": 1},
+    "dgc": False, "fp16_allreduce": False, "lars": False, "lars_configs": {},
+    "lamb": False, "lamb_configs": {}, "pipeline": False,
+    "pipeline_configs": {"micro_batch_size": 1, "accumulate_steps": 1},
+    "sharding": False, "sharding_stage": 0, "sharding_configs": {},
+    "fuse_grad_size_in_mb": 32, "tensor_parallel_degree": 1,
+    "pipeline_parallel_degree": 1, "sequence_parallel_degree": 1,
+    "expert_parallel_degree": 1, "tensor_parallel_rules": None,
+    "nccl_comm_num": 1, "use_hierarchical_allreduce": False,
+    "sync_batch_norm": False, "execution_strategy": {},
+    "build_strategy": {}, "a_sync": False, "a_sync_configs": {},
+    "sparse_cache_rows": 0,
+}
+_HONOURED = {"amp", "amp_configs", "fuse_grad_size_in_mb"}
+
+
+class DistributedStrategy:
+    """The reference's strategy fields, with their defaults. Only `amp`
+    (and `amp_configs`) act here; see the module docstring."""
+
+    def __init__(self):
+        for k, v in _DEFAULTS.items():
+            object.__setattr__(self, k, v.copy() if isinstance(v, dict)
+                               else v)
+
+    def __setattr__(self, name, value):
+        if name not in _DEFAULTS:
+            raise AttributeError(
+                f"unknown DistributedStrategy attribute {name!r}; known "
+                f"attributes: {sorted(_DEFAULTS)}")
+        if name not in _HONOURED and value != _DEFAULTS[name]:
+            raise NotImplementedError(
+                f"DistributedStrategy.{name} is not ported yet: the port's "
+                f"fleet runs one process and honours only `amp`")
+        object.__setattr__(self, name, value)
+
+
+class _Fleet:
+    def __init__(self):
+        self._strategy = None
+
+    def init(self, role_maker=None, is_collective=True, strategy=None):
+        if role_maker is not None or not is_collective:
+            raise NotImplementedError(
+                "fleet.init: only is_collective=True on one process is "
+                "ported")
+        self._strategy = strategy or DistributedStrategy()
+        return self
+
+    def distributed_optimizer(self, optimizer, strategy=None):
+        if strategy is not None:
+            self._strategy = strategy
+        return DistributedOptimizer(optimizer,
+                                    self._strategy or DistributedStrategy())
+
+
+class DistributedOptimizer:
+    def __init__(self, inner_opt, strategy: DistributedStrategy):
+        self.inner_opt = inner_opt
+        self.user_defined_strategy = strategy
+
+    def __getattr__(self, item):
+        return getattr(self.inner_opt, item)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        s = self.user_defined_strategy
+        if s.amp:
+            program = loss.block.program
+            program._amp = True
+            program._amp_dtype = ("bfloat16"
+                                  if s.amp_configs.get("use_pure_bf16", True)
+                                  else "float16")
+            program.bump_version()
+        return self.inner_opt.minimize(loss, startup_program, parameter_list,
+                                       no_grad_set)
+
+
+fleet = _Fleet()
+init = fleet.init
+distributed_optimizer = fleet.distributed_optimizer

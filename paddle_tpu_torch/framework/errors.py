@@ -1,5 +1,5 @@
 """Typed errors (the subset of paddle_tpu/framework/errors.py the serving
-slice raises).
+and training slices raise).
 
 Each code is a distinct exception class carrying `.code`, and each also
 subclasses the idiomatic Python builtin, so callers can catch either the
@@ -13,6 +13,7 @@ import enum
 class ErrorCode(enum.IntEnum):
     """Mirrors platform/error_codes.proto."""
     LEGACY = 0
+    INVALID_ARGUMENT = 1
     NOT_FOUND = 2
     UNIMPLEMENTED = 9
 
@@ -45,6 +46,21 @@ def _typed(name, code_, base):
                 {"code": code_, "__doc__": f"ErrorCode.{code_.name}."})
 
 
+InvalidArgumentError = _typed("InvalidArgumentError",
+                              ErrorCode.INVALID_ARGUMENT, ValueError)
 NotFoundError = _typed("NotFoundError", ErrorCode.NOT_FOUND, KeyError)
 UnimplementedError = _typed("UnimplementedError", ErrorCode.UNIMPLEMENTED,
                             NotImplementedError)
+
+
+def _factory(cls):
+    def make(fmt, *args, op=None, var=None):
+        return cls(fmt % args if args else fmt, op=op, var=var)
+    make.__name__ = cls.code.name.title().replace("_", "")
+    return make
+
+
+# the reference's factory spellings: build (not raise) the typed error
+InvalidArgument = _factory(InvalidArgumentError)
+NotFound = _factory(NotFoundError)
+Unimplemented = _factory(UnimplementedError)
