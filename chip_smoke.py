@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/H100 port (paddle_tpu_torch).
 
-    python3 chip_smoke.py                 # from the root of a checkout, one CUDA card
-    python3 chip_smoke.py --only kernels  # build + kernel checks only
+    python3 chip_smoke.py        # from the root of a checkout, one CUDA card
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
@@ -15,9 +14,11 @@ result line):
    positions), and the flash-attention kernels B1-B3 at the training main
    path's shapes (batch 16, 12 heads, S 512, head_dim 64) in four arms
    (f32 + key-padding mask + dropout 0.1, the training path's; bf16 + mask
-   + dropout 0.1; bf16 causal + dropout 0.1; f32 unmasked), each held
-   against its plain PyTorch version on the card and timed beside it and
-   beside the PyTorch library call (SDPA) where one computes the same;
+   + dropout 0.1; bf16 causal + dropout 0.1; f32 unmasked) and off it (f32,
+   S 200, head_dim 128, per-(b, h) mask, causal, dropout 0.1), each held
+   element by element against its plain PyTorch version on the card and
+   timed beside it and beside the PyTorch library call (SDPA) where one
+   computes the same;
 4. GPT-2 small (GPTConfig(), weights from numpy seed 0) served through the
    port's DecodeEngine:
    * f32 (TF32 off): greedy tokens == the port's dense generate;
@@ -36,7 +37,6 @@ fails if a kernel of its path was never launched.
 Output: a `{"kernels": [...]}` line, a `{"serving": ...}` line, a
 `{"training": ...}` line, and last `{"ok": true, "device": {...}}`.
 """
-import argparse
 import json
 import os
 import re
@@ -61,24 +61,33 @@ ROWS = {
     "flash_bwd_dq": (_FLASH[0], f"{_FLASH[1]}:282"),
     "flash_bwd_dkdv": (_FLASH[0], f"{_FLASH[1]}:346"),
 }
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, the f32
-# CUDA-core rate (the kernels compute with scalar FMAs) and the dense bf16
-# tensor-core rate (the MFU denominator, as bench.py counts it)
+# H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bandwidth, the
+# f32 CUDA-core rate (the flash kernels compute with scalar FMAs), the TF32
+# tensor-core rate and the bf16 tensor-core rate (the MFU denominator, as
+# bench.py counts it). f32 operands on the tensor cores at f32 accuracy take
+# three TF32 products (3xTF32): a third of the TF32 rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 494.7e12
 BF16_FLOPS_PER_S = 989.4e12
 # paged kernel vs plain version on the card: f32 sums in another order; bf16
 # outputs round to bf16 (one ulp of an O(1) context is <= 2**-7), and the
 # bf16 probabilities may round to neighbouring values; int8 outputs are f32
 TOLERANCE = {"f32": 1e-5, "bf16": 1.6e-2, "int8": 1e-4}
-# flash kernels vs plain version (max abs error over O / dQ / dK and dV,
-# inputs ~N(0, 1)): f32 sums in another order (the reference suite's own
-# 2e-5 for O and 5e-4 for gradients); bf16 outputs round to bf16 and the
-# kernels round unnormalised probabilities and dS to bf16 where the plain
-# version rounds normalised probabilities only, so a bf16 limit scales
-# with the largest reference value (one bf16 ulp is 2**-7 of it at most)
-FLASH_TOLERANCE = {"float32": {"o": 2e-5, "grad": 5e-4},
-                   "bfloat16": {"o": 2e-2, "grad": 6e-2}}
+# flash kernels vs plain version, element by element over O and over dQ,
+# dK and dV (inputs ~N(0, 1)): |kernel - plain| <= atol + rtol * |plain|.
+# f32 sums in another order: absolute, the reference suite's own 2e-5 for
+# O and 5e-4 for gradients. bf16 outputs round to bf16, one ulp being at
+# most 2**-7 of the value (rtol). atol covers the other rounding points:
+# the kernels round unnormalised probabilities and dS to bf16 where the
+# plain version rounds normalised probabilities only, and they take delta
+# from O as stored in bf16, so on the first causal rows dP - delta leaves
+# a residue where the plain version's cancels exactly. On an H100 at these
+# inputs the largest atol needed was 5.3e-3 (O) and 1.92e-2 (dK, causal),
+# the same in every run; the limits keep a 1.5x margin.
+FLASH_TOLERANCE = {"float32": {"o": (2e-5, 0.0), "grad": (5e-4, 0.0)},
+                   "bfloat16": {"o": (8e-3, 2 ** -7),
+                                "grad": (3e-2, 2 ** -7)}}
 
 
 def log(msg):
@@ -302,8 +311,15 @@ def device_profile(torch, run, top=8):
             "top_kernels_ms": {name: us / 1e3 for name, us in ranked[:top]}}
 
 
-def _max_err(a, b):
-    return (a.float() - b.float()).abs().max().item()
+def flash_agreement(torch, pairs, rtol):
+    """(max |got - want|, the least atol for which |got - want| <= atol +
+    rtol * |want| holds everywhere, the 99th percentile of |got - want|,
+    median |want|) over (got, want) pairs."""
+    diff = torch.cat([(g.float() - w.float()).abs().flatten()
+                      for g, w in pairs])
+    ref = torch.cat([w.float().abs().flatten() for _, w in pairs])
+    return (diff.max().item(), (diff - rtol * ref).max().item(),
+            diff.quantile(0.99).item(), ref.median().item())
 
 
 def padding_mask(torch, batch, seq, seed):
@@ -317,15 +333,13 @@ def padding_mask(torch, batch, seq, seed):
         .view(batch, 1, 1, seq).cuda()
 
 
-def flash_bounds(B, nh, S, hd, elem, mask_bytes):
+def flash_bounds(B, nh, S, hd, elem, mask_bytes, rate):
     """Least time of each flash kernel on this card: every operand read
     once and every output written once, against the operations of its
-    products (QK^T, PV; + dO V^T, dS K; + P^T dO, dS^T Q) at the peak rate
-    of the operand type (f32 on the CUDA cores, bf16 on the tensor cores)."""
+    products (QK^T, PV; + dO V^T, dS K; + P^T dO, dS^T Q) at `rate`."""
     t = B * nh * S * hd * elem              # one [B, nh, S, hd] tensor
     lse = 4 * B * nh * S
     work = B * nh * S * S * hd
-    rate = F32_FLOPS_PER_S if elem == 4 else BF16_FLOPS_PER_S
     out = {}
     for name, n_ops, n_bytes in (
             ("flash_fwd", 4 * work, 4 * t + lse + mask_bytes),
@@ -362,6 +376,7 @@ def check_flash_kernels(torch, fa, ptxas):
             (base, "float32", None, False, 0.0),
             (ragged, "float32", ragged_mask, True, 0.1)]
     errs = {n: 0.0 for n in fa.KERNEL_NAMES}
+    checks = {n: [] for n in fa.KERNEL_NAMES}
     for tensors, dtype, m, causal, rate in arms:
         dt = getattr(torch, dtype)
         q, k, v, do = (t.to(dt) for t in tensors)
@@ -379,28 +394,26 @@ def check_flash_kernels(torch, fa, ptxas):
                 f"causal={causal} dropout={rate}")
         if not all(torch.isfinite(t.float()).all() for t in got):
             fail(f"flash {what}: non-finite kernel output")
-        arm = {"flash_fwd": _max_err(got[0], want[0]),
-               "flash_bwd_dq": _max_err(got[1], want[1]),
-               "flash_bwd_dkdv": max(_max_err(got[2], want[2]),
-                                     _max_err(got[3], want[3]))}
-        tol = dict(FLASH_TOLERANCE[dtype])
-        if dtype == "bfloat16":
-            tol["o"] *= max(1.0, want[0].float().abs().max().item())
-            tol["grad"] *= max(1.0, max(t.float().abs().max().item()
-                                        for t in want[1:]))
-        log(f"flash arm {what}: max |kernel - plain| O "
-            f"{arm['flash_fwd']:.3e}, dQ {arm['flash_bwd_dq']:.3e}, dK/dV "
-            f"{arm['flash_bwd_dkdv']:.3e} (tolerance O {tol['o']:.1e}, "
-            f"grads {tol['grad']:.1e}; max |O| "
-            f"{want[0].float().abs().max().item():.3f}, max |dQ| "
-            f"{want[1].float().abs().max().item():.3f})")
-        for name, e in arm.items():
-            if e > (tol["o"] if name == "flash_fwd" else tol["grad"]):
+        pairs = {"flash_fwd": [(got[0], want[0])],
+                 "flash_bwd_dq": [(got[1], want[1])],
+                 "flash_bwd_dkdv": [(got[2], want[2]), (got[3], want[3])]}
+        for name, ps in pairs.items():
+            atol, rtol = FLASH_TOLERANCE[dtype][
+                "o" if name == "flash_fwd" else "grad"]
+            err, need, p99, typical = flash_agreement(torch, ps, rtol)
+            checks[name].append(dict(
+                arm=what, max_abs_err=err, p99_abs_err=p99, atol_needed=need,
+                atol=atol, rtol=rtol, median_abs_plain=typical))
+            log(f"flash {name} {what}: |kernel - plain| max {err:.3e}, p99 "
+                f"{p99:.3e}; needs atol {need:.3e} beside rtol {rtol:.3g} "
+                f"(atol {atol:.1e}); median |plain| {typical:.3e}")
+            if need > atol:
                 fail(f"{name} {what}: kernel disagrees with its plain "
-                     f"version: max abs err {e}")
+                     f"version: |kernel - plain| exceeds {atol} + {rtol} * "
+                     f"|plain| by up to {need - atol}")
             if tensors is base and dtype == "float32" and m is not None:
-                errs[name] = e           # the training path's arm
-        del got, want, q, k, v, do
+                errs[name] = err         # the training path's arm
+        del got, want, q, k, v, do, pairs, ps
     del ragged, ragged_mask
     torch.cuda.empty_cache()
 
@@ -435,20 +448,18 @@ def check_flash_kernels(torch, fa, ptxas):
         plain_dkdv = cuda_ms(torch, lambda: torch.autograd.grad(
             op, (kk, vv), do, retain_graph=True), iters=10, warmup=2)
         del op
-        lib_fwd = lib_bwd = None
-        try:
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            lm = mask.to(dt)
-            with torch.no_grad():
-                lib_fwd = cuda_ms(torch, lambda: sdpa(q, k, v, attn_mask=lm,
-                                                      scale=scale))
-            os_ = sdpa(qq, kk, vv, attn_mask=lm, scale=scale)
-            lib_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
-                os_, (qq, kk, vv), do, retain_graph=True))
-            del os_
-        except RuntimeError as e:        # no SDPA backend for these inputs
-            log(f"SDPA not timed: {e}")
-        bounds = flash_bounds(B, nh, S, hd, 4, 4 * B * S)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lm = mask.to(dt)
+        with torch.no_grad():
+            lib_fwd = cuda_ms(torch, lambda: sdpa(q, k, v, attn_mask=lm,
+                                                  scale=scale))
+        os_ = sdpa(qq, kk, vv, attn_mask=lm, scale=scale)
+        lib_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
+            os_, (qq, kk, vv), do, retain_graph=True))
+        del os_
+        bounds = flash_bounds(B, nh, S, hd, 4, 4 * B * S, F32_FLOPS_PER_S)
+        tc_bounds = flash_bounds(B, nh, S, hd, 4, 4 * B * S,
+                                 TF32_FLOPS_PER_S / 3)
         plain = {"flash_fwd": plain_fwd, "flash_bwd_dq": plain_dq,
                  "flash_bwd_dkdv": plain_dkdv}
         for name in fa.KERNEL_NAMES:
@@ -457,14 +468,16 @@ def check_flash_kernels(torch, fa, ptxas):
                 plain_ms=plain[name], bound_ms=bounds[name][0],
                 bound_by=bounds[name][1],
                 library_ms=lib_fwd if name == "flash_fwd" else lib_bwd,
+                bound_3xtf32_ms=tc_bounds[name][0],
                 dtype="float32", ms_dropout0=times[0.0][name],
                 ptxas={d: flash_ptxas(ptxas, name, d)
-                       for d in ("float32", "bfloat16")})
+                       for d in ("float32", "bfloat16")},
+                checks=checks[name])
         rows["flash_bwd_dq"]["library_covers"] = "B2+B3 (SDPA backward)"
         rows["flash_bwd_dkdv"]["library_covers"] = "B2+B3 (SDPA backward)"
         del qq, kk, vv
         torch.cuda.empty_cache()
-    bf_bounds = flash_bounds(B, nh, S, hd, 2, 4 * B * S)
+    bf_bounds = flash_bounds(B, nh, S, hd, 2, 4 * B * S, BF16_FLOPS_PER_S)
     for name in fa.KERNEL_NAMES:
         row = rows[name]
         row["bf16_ms"] = extra["bfloat16"][0.1][name]
@@ -472,8 +485,9 @@ def check_flash_kernels(torch, fa, ptxas):
         log(f"kernel {name}: f32 {row['ms']:.4f} ms (dropout 0: "
             f"{row['ms_dropout0']:.4f}), bf16 {row['bf16_ms']:.4f} ms; plain "
             f"{row['plain_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']}); SDPA {row['library_ms']}; ptxas "
-            f"{row['ptxas']}")
+            f"({row['bound_by']}, f32 CUDA cores), 3xTF32 tensor-core "
+            f"bound {row['bound_3xtf32_ms']:.4f} ms; SDPA "
+            f"{row['library_ms']}; ptxas {row['ptxas']}")
     return rows
 
 
@@ -616,10 +630,6 @@ def train_bert(torch, fa, card):
 
 
 def main():
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["kernels"], default=None,
-                    help="stop after the kernel checks (no result line)")
-    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -663,9 +673,6 @@ def main():
         f"{torch.backends.cudnn.allow_tf32}")
     rows = check_kernels(torch, kernel_mod, paged_ops)
     rows.update(check_flash_kernels(torch, fa, ptxas))
-    if args.only == "kernels":
-        log("kernel checks passed (--only kernels: no result line)")
-        return 1
 
     # ---- GPT-2 small served through the port --------------------------------
     cfg = GPTConfig()

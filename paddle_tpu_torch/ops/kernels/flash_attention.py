@@ -24,6 +24,7 @@ import ctypes
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")
 launches = {name: 0 for name in KERNEL_NAMES}
@@ -187,12 +188,19 @@ def _ptr(t):
 
 
 def _unwrap(t):
-    """The plain tensor under torch.func's wrappers: a Function's saved
+    """The plain tensor under one torch.func wrapper: a Function's saved
     tensors come back wrapped (no storage) when torch.func.vjp calls its
-    backward, and a kernel needs the device pointer."""
+    backward, and a kernel needs the device pointer. The kernels' gradients
+    are constants to any transform around that one, so a tensor wrapped
+    twice (grad of grad) raises instead of losing its derivative."""
     from torch._C._functorch import get_unwrapped, is_functorch_wrapped_tensor
-    while t is not None and is_functorch_wrapped_tensor(t):
-        t = get_unwrapped(t)
+    if t is None or not is_functorch_wrapped_tensor(t):
+        return t
+    t = get_unwrapped(t)
+    if is_functorch_wrapped_tensor(t):
+        raise NotImplementedError(
+            "flash_attention's backward is first-order only: it cannot run "
+            "under nested torch.func transforms")
     return t
 
 
@@ -259,7 +267,8 @@ def launch_bwd_dkdv(q, k, v, o, lse, do, mask, mode, seed, scale, causal,
 class FlashAttention(torch.autograd.Function):
     """B1 forward, B2 + B3 backward (`setup_context` style, no ctx use in
     forward, so torch.func.vjp can trace it). The mask is nondiff: its
-    gradient is None (the reference returns a zero cotangent, :521)."""
+    gradient is None (the reference returns a zero cotangent, :521). The
+    backward is first-order only: differentiating it again raises."""
 
     @staticmethod
     def forward(q, k, v, mask, mode, seed, scale, causal, dropout):
@@ -274,6 +283,7 @@ class FlashAttention(torch.autograd.Function):
         ctx.mark_non_differentiable(lse)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, do, _dlse):
         q, k, v, o, lse, mask = (_unwrap(t) for t in ctx.saved_tensors)
         do = _unwrap(do).contiguous()

@@ -250,3 +250,38 @@ def test_autograd_function_under_func_vjp(monkeypatch):
     want = (out,) + pull(do)
     for a, b_ in zip(got, want):
         assert torch.equal(a, b_)
+
+
+def _nested_func_grad(f, q, do):
+    return torch.func.grad(
+        lambda x: torch.func.grad(lambda y: (f(y) * do).sum())(x).sum())(q)
+
+
+def _nested_func_vjp(f, q, do):
+    def dq(x):
+        return torch.func.vjp(f, x)[1](do)[0]
+    return torch.func.vjp(dq, q)[1](do)
+
+
+def _autograd_double_backward(f, q, do):
+    qq, dd = q.clone().requires_grad_(), do.clone().requires_grad_()
+    g, = torch.autograd.grad(f(qq), qq, dd, create_graph=True)
+    g.sum().backward()
+
+
+@pytest.mark.parametrize("nested", [_nested_func_grad, _nested_func_vjp,
+                                    _autograd_double_backward])
+def test_autograd_function_is_first_order_only(monkeypatch, nested):
+    """The kernels' gradients are not differentiable again: a second-order
+    transform over the CUDA path's Function raises instead of treating
+    them as constants."""
+    _fake_launchers(monkeypatch)
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs())
+
+    def f(q):
+        return port_fa.FlashAttention.apply(q, k, v, None, None, 9, SCALE,
+                                            False, 0.1)[0]
+
+    with pytest.raises((NotImplementedError, RuntimeError),
+                       match="first-order only|differentiate twice"):
+        nested(f, q, do)
