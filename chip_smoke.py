@@ -25,24 +25,39 @@ result line):
    * bf16: 8 concurrent requests (prompts 17-200 tokens, 32 new, greedy and
      one seeded top-k), tokens/s and TTFT; continuous == sequential;
    * bf16 with int8 KV pools: 2 requests complete;
-5. BERT pretraining through Program / Executor.run:
+5. the fused flat-bucket optimizer kernels B6-B8 (sgd, momentum with
+   nesterov + l2_decay and plain, adam, adamw) at the main path's bucket
+   sizes (23,440,896 and 7,120,704 elements) and a tail (1,000,003), held
+   BIT FOR BIT against their plain version on the card, timed beside it,
+   beside the bytes bound and beside PyTorch's fused optimizer calls;
+6. BERT pretraining through Program / Executor.run:
    * card vs CPU: BERT-base widths at 2 layers, S 512, batch 2, f32, TF32
      off, dropout 0, padding mask; one step from the same startup arrays;
      the loss and every parameter gradient agree;
-   * BertConfig() at S 512, batch 16, fleet AMP bf16, Adam 1e-4: 2 warm-up
-     and 10 timed steps, finite losses, then one step under torch.profiler.
+   * BertConfig() at S 512, batch 16, fleet AMP bf16, Adam 1e-4, default
+     32 MB gradient buckets, at ZeRO stage 0 and stage 1 in alternation on
+     one host state: 2 warm-up and 10 timed steps each, finite losses,
+     exactly one B8 launch per bucket and step at stage 1, then one step
+     of each under torch.profiler;
+   * under torch.use_deterministic_algorithms: stage 1 against stage 0
+     (BERT-base widths at 2 layers, S 512, batch 2, f32, dropout 0, 3
+     steps), then the off-path arms (2 layers, batch 4, AMP, 3 steps
+     each): stages 2 and 3 against stage 1, SGD, Momentum (nesterov) and
+     AdamW with global-norm clipping at stage 1, each through its kernel.
 Each main-path run resets the kernel launch counts just before it and
 fails if a kernel of its path was never launched.
 
 Output: a `{"kernels": [...]}` line, a `{"serving": ...}` line, a
 `{"training": ...}` line, and last `{"ok": true, "device": {...}}`.
 """
+import contextlib
 import json
 import os
 import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -51,6 +66,8 @@ _PAGED = ("paddle_tpu_torch/csrc/paged_attention.cu",
           "paddle_tpu/ops/pallas/paged_attention.py")
 _FLASH = ("paddle_tpu_torch/csrc/flash_attention.cu",
           "paddle_tpu/ops/pallas/flash_attention.py")
+_ZERO = ("paddle_tpu_torch/csrc/zero_update.cu",
+         "paddle_tpu/ops/pallas/zero_update.py")
 # one entry per row of the kernels line: the CUDA source, and file:line of
 # the Pallas kernel it replaces
 ROWS = {
@@ -60,6 +77,9 @@ ROWS = {
     "flash_fwd": (_FLASH[0], f"{_FLASH[1]}:145"),
     "flash_bwd_dq": (_FLASH[0], f"{_FLASH[1]}:282"),
     "flash_bwd_dkdv": (_FLASH[0], f"{_FLASH[1]}:346"),
+    "zero_sgd": (_ZERO[0], f"{_ZERO[1]}:89"),
+    "zero_momentum": (_ZERO[0], f"{_ZERO[1]}:94"),
+    "zero_adam": (_ZERO[0], f"{_ZERO[1]}:108"),
 }
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bandwidth, the
 # f32 CUDA-core rate (the flash kernels compute with scalar FMAs), the TF32
@@ -88,6 +108,15 @@ TOLERANCE = {"f32": 1e-5, "bf16": 1.6e-2, "int8": 1e-4}
 FLASH_TOLERANCE = {"float32": {"o": (2e-5, 0.0), "grad": (5e-4, 0.0)},
                    "bfloat16": {"o": (8e-3, 2 ** -7),
                                 "grad": (3e-2, 2 ** -7)}}
+# the fused update kernels B6-B8 at the BERT-base stage-1 path's bucket sizes
+# (the word embedding / MLM head bucket, a 32 MB bucket) and a ragged tail;
+# bytes each element moves: sgd reads p, g and writes p; momentum also
+# reads and writes v; adam reads and writes m1 and m2
+ZERO_SIZES = (23_440_896, 7_120_704, 1_000_003)
+ZERO_BYTES_PER_ELEMENT = {"zero_sgd": 12, "zero_momentum": 20,
+                          "zero_adam": 28}
+# the BERT-base stage-1 program at the default 32 MB buckets
+ZERO_MAIN_PATH_BUCKETS = 14
 
 
 def log(msg):
@@ -286,29 +315,51 @@ def serve(torch, serving, engine_kw, requests, sequential=False):
     return comps, wall, stats
 
 
-def device_profile(torch, run, top=8):
+def device_profile(torch, run, top=8, ranges=(), kernels=()):
     """One more run of `run()` (which returns its wall seconds) under
     torch.profiler: the share of the wall time the card spent in kernels,
-    and the `top` kernels that took most of it. The profiler's own cost
-    lengthens the wall time, so the busy share is a lower bound."""
+    the number of device launches, the `top` kernels that took most of the
+    time, the device time of the kernels launched inside each profiler
+    range of `ranges` (see `annotated`) and the span from the first to the
+    last of them on the device timeline, and the device time of the
+    kernels whose names contain each of `kernels`. The profiler's own cost lengthens the wall
+    time, so the busy share is a lower bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall = run()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
+    events = prof.key_averages()
+    # a profiler range also leaves a span on the device timeline: not a
+    # kernel, kept apart
+    spans = {e.key: e.self_device_time_total for e in events
+             if e.device_type == DeviceType.CUDA and e.key in ranges}
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and e.key not in ranges]
+    busy_us = sum(e.self_device_time_total for e in device)
     if not busy_us:
         return {"device_time": "not measured (no device events)"}
     by_name = {}            # kernel names cut to 80 characters may collide
-    for e in kernels:
+    full = {}
+    for e in device:
         name = e.key[:80]
         by_name[name] = by_name.get(name, 0.0) + e.self_device_time_total
+        full[e.key] = full.get(e.key, 0.0) + e.self_device_time_total
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
-    return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
-            "device_busy_share": busy_us / 1e6 / wall,
-            "top_kernels_ms": {name: us / 1e3 for name, us in ranked[:top]}}
+    out = {"wall_s": wall, "device_busy_s": busy_us / 1e6,
+           "device_busy_share": busy_us / 1e6 / wall,
+           "device_launches": int(sum(e.count for e in device)),
+           "top_kernels_ms": {name: us / 1e3 for name, us in ranked[:top]}}
+    for r in ranges:
+        ev = next((e for e in events if e.key == r), None)
+        us = getattr(ev, "device_time_total", 0.0) if ev else 0.0
+        out[f"{r}_device_ms"] = us / 1e3 if us else \
+            "not measured (no device time under the range)"
+        out[f"{r}_device_span_ms"] = spans.get(r, 0.0) / 1e3
+    for k in kernels:
+        out[f"{k}_device_ms"] = sum(us for name, us in full.items()
+                                    if k in name) / 1e3
+    return out
 
 
 def flash_agreement(torch, pairs, rtol):
@@ -491,6 +542,165 @@ def check_flash_kernels(torch, fa, ptxas):
     return rows
 
 
+# the checked arms of B6-B8: (kernel, op type, label, attrs); the first arm
+# of each kernel gives its row of the kernels line
+ZERO_ARMS = (
+    ("zero_sgd", "sgd", "sgd", {}),
+    ("zero_momentum", "momentum", "momentum_nesterov_l2",
+     {"mu": 0.9, "use_nesterov": True, "regularization_method": "l2_decay",
+      "regularization_coeff": 1e-4}),
+    ("zero_momentum", "momentum", "momentum", {"mu": 0.9,
+                                               "use_nesterov": False}),
+    ("zero_adam", "adam", "adam", {"beta1": 0.9, "beta2": 0.999,
+                                   "epsilon": 1e-8}),
+    ("zero_adam", "adamw", "adamw", {"beta1": 0.9, "beta2": 0.999,
+                                     "epsilon": 1e-8, "coeff": 0.01,
+                                     "with_decay": True}),
+)
+
+
+def max_ulp_distance(torch, a, b):
+    """Largest distance between two f32 tensors in units in the last
+    place (the bit patterns mapped to ordered integers)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((ordered(a) - ordered(b)).abs().max().item())
+
+
+def zero_library_call(torch, op_type, label, ins):
+    """The nearest single PyTorch call on the same flat tensors (in place):
+    torch's fused SGD / Adam / AdamW. Not the same function for adam: torch
+    adds eps after the bias correction of m2; the bytes moved are the
+    same. None where the installed torch has no such call."""
+    p, g = ins["Param"], ins["Grad"]
+    if op_type in ("adam", "adamw"):
+        fn = getattr(torch, f"_fused_{op_type}_", None)
+        if fn is None:
+            return None
+        step = [torch.tensor(3.0, device="cuda")]
+        return lambda: fn(p, g, ins["Moment1"], ins["Moment2"], [], step,
+                          lr=1e-3, beta1=0.9, beta2=0.999,
+                          weight_decay=0.01 if op_type == "adamw" else 0.0,
+                          eps=1e-8, amsgrad=False, maximize=False)
+    fn = getattr(torch, "_fused_sgd_", None)
+    if fn is None:
+        return None
+    nesterov = label == "momentum_nesterov_l2"
+    return lambda: fn(p, g, ins.get("Velocity", []),
+                      weight_decay=1e-4 if nesterov else 0.0,
+                      momentum=0.9 if op_type == "momentum" else 0.0,
+                      lr=1e-3, dampening=0.0, nesterov=nesterov,
+                      maximize=False, is_first_step=False)
+
+
+def check_zero_kernels(torch, zk, ptxas):
+    """B6-B8 against their plain version on the card, bit for bit on every
+    output, at the stage-1 path's bucket sizes and a tail; inputs N(0, 1),
+    m2 = |N(0, 1)|. Timed (CUDA events, 5 warm-up, 50 launches) beside the
+    plain version, the bytes bound and torch's fused optimizer call."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    results = {}
+    for kernel, op_type, label, attrs in ZERO_ARMS:
+        state = zk._STATE_SLOTS[op_type]
+        for n in ZERO_SIZES:
+            base = {s: torch.randn(n, generator=gen, device="cuda")
+                    for s in ("Param", "Grad") + state}
+            if "Moment2" in base:
+                base["Moment2"].abs_()
+            scalars = {"LearningRate": [1e-3], "Beta1Pow": [0.9 ** 3],
+                       "Beta2Pow": [0.999 ** 3]}
+
+            def copy():
+                ins = {s: [t.clone()] for s, t in base.items()}
+                for s, v in scalars.items():
+                    ins[s] = [torch.tensor(v, device="cuda")]
+                return ins
+
+            kin, pin = copy(), copy()
+            del base
+            got = zk.fused_flat_update(op_type, kin, attrs)
+            want = zk.fused_flat_update_plain(op_type, pin, attrs)
+            torch.cuda.synchronize()
+            check = {"arm": label, "n": n, "bitwise": True, "max_ulp": 0,
+                     "max_abs_err": 0.0}
+            for slot, (g,) in got.items():
+                w = want[slot][0]
+                if not torch.isfinite(g).all():
+                    fail(f"{label} n={n}: non-finite kernel {slot}")
+                if not torch.equal(g, w):
+                    check["bitwise"] = False
+                    check["max_ulp"] = max(check["max_ulp"],
+                                           max_ulp_distance(torch, g, w))
+                    check["max_abs_err"] = max(
+                        check["max_abs_err"], (g - w).abs().max().item())
+            log(f"kernel {kernel} {label} n={n}: kernel == plain bit for "
+                f"bit: {check['bitwise']} (max {check['max_ulp']} ulp, "
+                f"max abs {check['max_abs_err']:.3e})")
+            if not check["bitwise"]:
+                fail(f"{kernel} {label} n={n}: kernel differs from its plain "
+                     f"version by up to {check['max_ulp']} ulp")
+            del want, pin
+            times = {
+                "ms": cuda_ms(torch, lambda: zk.fused_flat_update(
+                    op_type, kin, attrs)),
+                "plain_ms": cuda_ms(torch, lambda: zk.fused_flat_update_plain(
+                    op_type, kin, attrs)),
+                "bound_ms": n * ZERO_BYTES_PER_ELEMENT[kernel]
+                / HBM_BYTES_PER_S * 1e3}
+            lib = zero_library_call(torch, op_type, label,
+                                    {s: v for s, v in kin.items()})
+            times["library_ms"] = None if lib is None \
+                else cuda_ms(torch, lib)
+            log(f"kernel {kernel} {label} n={n}: {times['ms']:.4f} ms, plain "
+                f"{times['plain_ms']:.4f} ms, bytes bound "
+                f"{times['bound_ms']:.4f} ms, torch fused "
+                f"{times['library_ms']}")
+            results.setdefault(kernel, {}).setdefault(label, {})[n] = \
+                dict(check, **times)
+            del kin, got
+        torch.cuda.empty_cache()
+    rows = {}
+    main_n = ZERO_SIZES[0]
+    for kernel, arms in results.items():
+        label = next(iter(arms))          # the kernel's first arm
+        at = arms[label][main_n]
+        rows[kernel] = kernel_row(
+            kernel, max_abs_err=max(c["max_abs_err"] for a in arms.values()
+                                    for c in a.values()),
+            ms=at["ms"], plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
+            bound_by="bytes", library_ms=at["library_ms"],
+            library_call={"zero_sgd": "torch._fused_sgd_",
+                          "zero_momentum": "torch._fused_sgd_ (momentum)",
+                          "zero_adam": "torch._fused_adam_"}[kernel],
+            n=main_n, dtype="float32",
+            ptxas=next((v for k, v in ptxas.items()
+                        if f"{kernel}_kernel" in k), None),
+            arms={a: {str(n): c for n, c in by_n.items()}
+                  for a, by_n in arms.items()})
+    return rows
+
+
+@contextlib.contextmanager
+def annotated(torch, registry, op_types, label):
+    """Wrap the lowerings of `op_types` in a torch.profiler range `label`,
+    so the profiler can sum the device time of the kernels they launch."""
+    saved = {}
+    for t in op_types:
+        opdef = registry.get(t)
+        saved[t] = opdef.lower
+
+        def wrapped(ctx, ins, attrs, _lower=opdef.lower):
+            with torch.profiler.record_function(label):
+                return _lower(ctx, ins, attrs)
+        opdef.lower = wrapped
+    try:
+        yield
+    finally:
+        for t, lower in saved.items():
+            registry.get(t).lower = lower
+
+
 def bert_feed(cfg, batch, seed):
     """bench.py:383-394's feeds: random ids and labels, per-example lengths
     uniform in [S/2, S]."""
@@ -558,17 +768,22 @@ def card_vs_cpu(torch, fa):
             "worst_grad": worst, "worst_grad_norm_rel": grad_rel[worst]}
 
 
-def train_bert(torch, fa, card):
-    """BertConfig() at S 512, batch 16, through build_pretrain_program,
-    fleet AMP bf16 and Adam(1e-4): 2 warm-up and 10 timed steps."""
-    from paddle_tpu_torch import optimizer
+def build_bert(cfg, stage, opt="adam", amp=True):
+    """(main, startup, loss, n_params) of BERT pretraining minimised
+    through fleet at ZeRO `stage` with the default 32 MB buckets."""
+    from paddle_tpu_torch import clip, optimizer
     from paddle_tpu_torch.distributed import fleet
-    from paddle_tpu_torch.framework import (Executor, Program, Scope,
-                                            program_guard, unique_name)
+    from paddle_tpu_torch.framework import Program, program_guard, unique_name
     from paddle_tpu_torch.models import bert
-    batch, steps = 16, 10
-    cfg = bert.BertConfig()
-    cfg.seq_len = 512
+    make = {
+        "adam": lambda: optimizer.Adam(learning_rate=1e-4),
+        "sgd": lambda: optimizer.SGD(learning_rate=1e-3),
+        "momentum": lambda: optimizer.Momentum(
+            learning_rate=1e-3, momentum=0.9, use_nesterov=True),
+        "adamw_clip": lambda: optimizer.AdamW(
+            learning_rate=1e-4, weight_decay=0.01,
+            grad_clip=clip.GradientClipByGlobalNorm(1.0)),
+    }
     main, start = Program(), Program()
     with program_guard(main, start), unique_name.guard():
         _, _, loss = bert.build_pretrain_program(cfg, use_input_mask=True)
@@ -578,55 +793,234 @@ def train_bert(torch, fa, card):
                        and all(d > 0 for d in v.shape))
         fleet.init(is_collective=True)
         strategy = fleet.DistributedStrategy()
-        strategy.amp = True
-        fleet.distributed_optimizer(optimizer.Adam(learning_rate=1e-4),
-                                    strategy).minimize(loss)
-    scope, exe = Scope(), Executor("cuda")
-    exe.run(start, scope=scope)
+        strategy.amp = amp
+        strategy.sharding_stage = stage
+        fleet.distributed_optimizer(make[opt](), strategy).minimize(loss)
+    return main, start, loss, n_params
+
+
+def op_count(main, op_type):
+    return sum(op.type == op_type for op in main.global_block().ops)
+
+
+def scope_bytes(torch, scope):
+    return sum(v.numel() * v.element_size()
+               for v in (scope.find(n) for n in scope.local_names())
+               if isinstance(v, torch.Tensor))
+
+
+def train_bert(torch, fa, zk, registry, card):
+    """BertConfig() at S 512, batch 16, through build_pretrain_program,
+    fleet AMP bf16 and Adam(1e-4), at ZeRO stage 0 and stage 1 (default 32
+    MB buckets): 2 warm-up and 10 timed steps of each, alternating (ABBA)
+    so that both see one host state; then one profiled step of each."""
+    from paddle_tpu_torch.framework import Executor, Scope
+    from paddle_tpu_torch.models import bert
+    batch, steps = 16, 10
+    cfg = bert.BertConfig()
+    cfg.seq_len = 512
+    exe = Executor("cuda")
+    runs = {}
+    for stage in (0, 1):
+        main, start, loss, n_params = build_bert(cfg, stage)
+        scope = Scope()
+        exe.run(start, scope=scope)
+        runs[stage] = {"main": main, "loss": loss, "scope": scope,
+                       "losses": [], "step_ms": [], "peak": 0,
+                       "launches": {}, "ops": len(main.global_block().ops),
+                       "zero_update_ops": op_count(main, "__zero_update__"),
+                       "bucket_sync_ops": op_count(main, "__bucket_sync__")}
+    resident = {st: scope_bytes(torch, r["scope"]) for st, r in runs.items()}
     feed = bert_feed(cfg, batch, seed=0)
-    losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
-                            scope=scope)[0]) for _ in range(2)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fa.reset_launches()
-    step_ms = []
-    for _ in range(steps):
-        t0 = time.perf_counter()
-        losses.append(float(exe.run(main, feed=feed, fetch_list=[loss],
-                                    scope=scope)[0]))
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = dict(fa.launches)
-    peak = torch.cuda.max_memory_allocated()
-    if not all(np.isfinite(losses)):
-        fail(f"training: non-finite loss in {losses}")
-    if not all(launches.values()):
-        fail(f"training: a flash kernel was never launched: {launches}")
 
-    def one_step():
-        t0 = time.perf_counter()
-        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    def step(stage, timed):
+        r = runs[stage]
         torch.cuda.synchronize()
-        return time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        zk.reset_launches()
+        t0 = time.perf_counter()
+        r["losses"].append(float(exe.run(r["main"], feed=feed,
+                                         fetch_list=[r["loss"]],
+                                         scope=r["scope"])[0]))
+        if timed:
+            r["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            r["peak"] = max(r["peak"], torch.cuda.max_memory_allocated())
+            for name, c in list(fa.launches.items()) + \
+                    list(zk.launches.items()):
+                r["launches"][name] = r["launches"].get(name, 0) + c
 
-    profile = device_profile(torch, one_step, top=16)
-    tokens_per_s = batch * cfg.seq_len * steps / (sum(step_ms) / 1e3)
+    for i in range(2 + steps):
+        for stage in ((0, 1) if i % 2 == 0 else (1, 0)):
+            step(stage, timed=i >= 2)
+
+    records = {}
+    for stage, r in runs.items():
+        if not all(np.isfinite(r["losses"])):
+            fail(f"training stage {stage}: non-finite loss in {r['losses']}")
+        if not all(r["launches"].get(n) for n in fa.KERNEL_NAMES):
+            fail(f"training stage {stage}: a flash kernel was never "
+                 f"launched: {r['launches']}")
+
+        def one_step(r=r):
+            t0 = time.perf_counter()
+            exe.run(r["main"], feed=feed, fetch_list=[r["loss"]],
+                    scope=r["scope"])
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        with annotated(torch, registry, ("adam", "__zero_update__"),
+                       "optimizer_update"):
+            profile = device_profile(torch, one_step, top=16,
+                                     ranges=("optimizer_update",),
+                                     kernels=("zero_adam_kernel",))
+        tokens_per_s = batch * cfg.seq_len * steps / (sum(r["step_ms"]) / 1e3)
+        other = resident[1 - stage]
+        records[stage] = {
+            "zero_stage": stage, "ops": r["ops"],
+            "zero_update_ops": r["zero_update_ops"],
+            "bucket_sync_ops": r["bucket_sync_ops"],
+            "steps": steps, "losses": r["losses"],
+            "tokens_per_s": tokens_per_s,
+            "step_ms_p50": float(np.median(r["step_ms"])),
+            "step_ms": r["step_ms"],
+            "mfu": 6.0 * n_params * tokens_per_s / BF16_FLOPS_PER_S,
+            "peak_memory_gib": r["peak"] / 2 ** 30,
+            "peak_memory_gib_without_other_stage": (r["peak"] - other)
+            / 2 ** 30,
+            "resident_state_gib": resident[stage] / 2 ** 30,
+            "launches_per_step": {n: c / steps
+                                  for n, c in r["launches"].items()},
+            "launches": r["launches"], "profile": profile}
+        log(f"training stage {stage}: {r['ops']} ops ({r['zero_update_ops']}"
+            f" __zero_update__, {r['bucket_sync_ops']} __bucket_sync__), "
+            f"{tokens_per_s:.1f} tokens/s, step p50 "
+            f"{records[stage]['step_ms_p50']:.1f} ms, MFU "
+            f"{records[stage]['mfu']:.4f}, peak "
+            f"{records[stage]['peak_memory_gib']:.2f} GiB (other stage's "
+            f"state {other / 2 ** 30:.2f} GiB resident), losses "
+            f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}, "
+            f"launches/step {records[stage]['launches_per_step']}")
+        log(f"training stage {stage} step under torch.profiler: {profile}")
+    n_b8 = runs[1]["launches"].get("zero_adam", 0)
+    want = ZERO_MAIN_PATH_BUCKETS * steps
+    if runs[1]["zero_update_ops"] != ZERO_MAIN_PATH_BUCKETS or n_b8 != want:
+        fail(f"training stage 1: {runs[1]['zero_update_ops']} buckets and "
+             f"{n_b8} B8 launches in {steps} steps; want "
+             f"{ZERO_MAIN_PATH_BUCKETS} and {want}")
+    if runs[0]["launches"].get("zero_adam", 0):
+        fail("training stage 0 launched B8")
     row = {"config": "BertConfig() (12 layers, hidden 768, 12 heads, vocab "
                      "30522), seq 512, batch 16, padding mask, dropout 0.1, "
                      "fleet AMP bf16, Adam 1e-4, random weights and labels",
-           "n_params": n_params, "steps": steps, "losses": losses,
-           "tokens_per_s": tokens_per_s,
-           "step_ms_p50": float(np.median(step_ms)),
-           "step_ms": step_ms,
-           "mfu": 6.0 * n_params * tokens_per_s / BF16_FLOPS_PER_S,
-           "peak_memory_gib": peak / 2 ** 30,
-           "launches_per_step": {n: c / steps for n, c in launches.items()},
-           "profile": profile, "card": card}
-    log(f"training: {tokens_per_s:.1f} tokens/s, step p50 "
-        f"{row['step_ms_p50']:.1f} ms, MFU {row['mfu']:.4f}, peak "
-        f"{row['peak_memory_gib']:.2f} GiB, losses {losses[0]:.4f} -> "
-        f"{losses[-1]:.4f}, launches/step {row['launches_per_step']}")
-    log(f"training step under torch.profiler: {profile}")
-    return row, launches
+           "n_params": n_params, "card": card,
+           "alternation": "stage 0 and stage 1 steps in ABBA order, one "
+                          "host state; both scopes resident"}
+    row.update(records[0])
+    row["stage1"] = records[1]
+    return row, runs[0]["launches"], runs[1]["launches"]
+
+
+def zero_card_gate(torch, zk):
+    """BERT-base widths at 2 layers, S 512, batch 2, f32, dropout 0: 3
+    steps at stage 1 against the same 3 steps at stage 0 from the same
+    startup values. Losses rtol 1e-6, every parameter max abs 1e-6;
+    bit-identical is expected (B8 equals the plain rule bit for bit)."""
+    from paddle_tpu_torch.framework import Executor, Scope
+    from paddle_tpu_torch.models import bert
+    cfg = bert.BertConfig(num_layers=2, seq_len=512, hidden_dropout=0.0,
+                          attention_dropout=0.0)
+    feeds = [bert_feed(cfg, 2, seed=s) for s in range(3)]
+    out = {}
+    for stage in (0, 1):
+        main, start, loss, _ = build_bert(cfg, stage, amp=False)
+        scope, exe = Scope(), Executor("cuda")
+        exe.run(start, scope=scope)
+        names = [p.name for p in main.all_parameters()]
+        init = {n: scope.find(n).clone() for n in names}
+        zk.reset_launches()
+        losses = [float(exe.run(main, feed=f, fetch_list=[loss],
+                                scope=scope)[0]) for f in feeds]
+        out[stage] = (losses, init, {n: scope.find(n) for n in names},
+                      zk.launches["zero_adam"], op_count(main,
+                                                          "__zero_update__"))
+    (l0, i0, p0, _, _), (l1, i1, p1, n_b8, n_ops) = out[0], out[1]
+    if not all(torch.equal(i0[n], i1[n]) for n in i0):
+        fail("zero card gate: stage 0 and stage 1 start from other values")
+    if not n_ops or n_b8 != 3 * n_ops:
+        fail(f"zero card gate: {n_b8} B8 launches for {n_ops} buckets")
+    loss_rel = max(abs(a - b) / abs(a) for a, b in zip(l0, l1))
+    diffs = {n: (p1[n] - p0[n]).abs().max().item() for n in p0}
+    worst = max(diffs, key=diffs.get)
+    bitwise = l0 == l1 and all(torch.equal(p0[n], p1[n]) for n in p0)
+    log(f"zero card gate: stage 1 vs stage 0, losses {l1} vs {l0}: max rel "
+        f"{loss_rel:.3e} (limit 1e-6); largest parameter difference "
+        f"{diffs[worst]:.3e} in {worst} (limit 1e-6); bit-identical: "
+        f"{bitwise}")
+    if not loss_rel <= 1e-6 or not diffs[worst] <= 1e-6:
+        fail("zero card gate: stage 1 does not train as stage 0")
+    return {"config": "BertConfig(num_layers=2, seq_len=512), batch 2, f32, "
+                      "TF32 off, dropout 0, padding mask, Adam 1e-4, 3 steps",
+            "losses_stage0": l0, "losses_stage1": l1, "loss_max_rel": loss_rel,
+            "param_max_abs_diff": diffs[worst], "worst_param": worst,
+            "bit_identical": bitwise, "b8_launches": n_b8, "buckets": n_ops}
+
+
+def zero_arms(torch, zk):
+    """The off-path arms: BERT-base widths at 2 layers, S 512, batch 4,
+    AMP, 3 steps each. Stages 2 and 3 with Adam against stage 1 (losses
+    rtol 1e-6); SGD, Momentum (nesterov) and AdamW + global-norm clip at
+    stage 1 (the clipped buckets are pre-synced and keep their
+    __bucket_sync__). Each arm fails unless its kernel launched once per
+    bucket and step."""
+    from paddle_tpu_torch.framework import Executor, Scope
+    from paddle_tpu_torch.models import bert
+    cfg = bert.BertConfig(num_layers=2, seq_len=512)
+    feeds = [bert_feed(cfg, 4, seed=s) for s in range(3)]
+    kernel_of = {"adam": "zero_adam", "adamw_clip": "zero_adam",
+                 "sgd": "zero_sgd", "momentum": "zero_momentum"}
+    records, launches = [], {}
+    for opt, stage in (("adam", 1), ("adam", 2), ("adam", 3), ("sgd", 1),
+                       ("momentum", 1), ("adamw_clip", 1)):
+        main, start, loss, _ = build_bert(cfg, stage, opt=opt)
+        scope, exe = Scope(), Executor("cuda")
+        exe.run(start, scope=scope)
+        zk.reset_launches()
+        losses = [float(exe.run(main, feed=f, fetch_list=[loss],
+                                scope=scope)[0]) for f in feeds]
+        kernel = kernel_of[opt]
+        n_ops = op_count(main, "__zero_update__")
+        rec = {"optimizer": opt, "zero_stage": stage, "losses": losses,
+               "zero_update_ops": n_ops,
+               "bucket_sync_ops": op_count(main, "__bucket_sync__"),
+               "kernel": kernel, "launches": zk.launches[kernel],
+               "pre_synced": sorted({op.attrs["pre_synced"]
+                                     for op in main.global_block().ops
+                                     if op.type == "__zero_update__"})}
+        log(f"zero arm {opt} stage {stage}: losses {losses}, {n_ops} "
+            f"buckets, {rec['bucket_sync_ops']} __bucket_sync__, {kernel} "
+            f"launches {rec['launches']}")
+        if not all(np.isfinite(losses)):
+            fail(f"zero arm {opt} stage {stage}: non-finite loss")
+        if not n_ops or rec["launches"] != 3 * n_ops:
+            fail(f"zero arm {opt} stage {stage}: {rec['launches']} {kernel} "
+                 f"launches for {n_ops} buckets")
+        if opt == "adamw_clip" and (rec["pre_synced"] != [True]
+                                    or not rec["bucket_sync_ops"]):
+            fail("zero arm adamw_clip: clipped buckets are not pre-synced")
+        if opt == "adam" and stage > 1:
+            ref = records[0]["losses"]
+            rec["loss_max_rel_vs_stage1"] = max(
+                abs(a - b) / abs(b) for a, b in zip(losses, ref))
+            if not rec["loss_max_rel_vs_stage1"] <= 1e-6:
+                fail(f"zero arm adam stage {stage}: losses {losses} differ "
+                     f"from stage 1's {ref}")
+        if opt in ("sgd", "momentum"):
+            launches[kernel] = rec["launches"]
+        records.append(rec)
+        del main, start, scope, exe
+        torch.cuda.empty_cache()
+    return records, launches
 
 
 def main():
@@ -645,10 +1039,11 @@ def main():
     from paddle_tpu_torch.models import gpt_decode
     from paddle_tpu_torch.models.gpt import GPTConfig
     from paddle_tpu_torch.observability import metrics
-    from paddle_tpu_torch.ops import paged_ops
+    from paddle_tpu_torch.ops import paged_ops, registry
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import paged_attention as kernel_mod
+    from paddle_tpu_torch.ops.kernels import zero_update as zk
 
     card = card_line()
     print(card, flush=True)
@@ -673,6 +1068,7 @@ def main():
         f"{torch.backends.cudnn.allow_tf32}")
     rows = check_kernels(torch, kernel_mod, paged_ops)
     rows.update(check_flash_kernels(torch, fa, ptxas))
+    rows.update(check_zero_kernels(torch, zk, ptxas))
 
     # ---- GPT-2 small served through the port --------------------------------
     cfg = GPTConfig()
@@ -773,10 +1169,26 @@ def main():
     del p16, bf16_kw, int8_kw
     torch.cuda.empty_cache()
     parity = card_vs_cpu(torch, fa)
-    training, launches = train_bert(torch, fa, card)
+    training, launches0, launches1 = train_bert(torch, fa, zk, registry,
+                                                card)
     training["card_vs_cpu"] = parity
     for name in fa.KERNEL_NAMES:
-        rows[name]["launches"] = launches[name]
+        rows[name]["launches"] = launches0[name]
+    rows["zero_adam"]["launches"] = launches1["zero_adam"]
+
+    # ---- ZeRO stages against each other, deterministic algorithms ----------
+    # warn_only: an op without a deterministic implementation warns (the
+    # warnings are printed) instead of stopping the run
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        training["zero_card_gate"] = zero_card_gate(torch, zk)
+        training["zero_arms"], arm_launches = zero_arms(torch, zk)
+    torch.use_deterministic_algorithms(False)
+    for msg in sorted({str(w.message)[:200] for w in caught}):
+        log(f"under deterministic algorithms: {msg}")
+    for name, n in arm_launches.items():
+        rows[name]["launches"] = n
 
     for row in rows.values():
         if not row["launches"]:

@@ -1,13 +1,17 @@
 """fleet on one process (counterpart of paddle_tpu/distributed/fleet/base.py).
 
-`init(is_collective=True)`, a `DistributedStrategy` whose `amp` is honoured,
-and `distributed_optimizer`, whose `minimize` marks the program for AMP as
-the reference does (`base.py:374-379`) and delegates to the inner
-optimizer. This is the entry point `bench.py:bench_bert` uses. Any other
-strategy field set away from its default raises: meshes, recompute,
-layer scan, ZeRO, gradient merge, pipelines and PS mode are not ported.
-On one process the reference's gradient bucketing (`fuse_grad_size_in_mb`)
-is an identity and is left out.
+`init(is_collective=True)`, a `DistributedStrategy`, and
+`distributed_optimizer`, whose `minimize` marks the program for AMP as the
+reference does (`base.py:374-379`), delegates to the inner optimizer, then
+applies gradient bucketing and the ZeRO stage (`base.py:460-516`,
+parallel/zero.py): whenever `fuse_grad_size_in_mb` > 0, at every stage.
+This is the entry point `bench.py:bench_bert` uses.
+
+Honoured: `amp`, `amp_configs`, `fuse_grad_size_in_mb`, `sharding`,
+`sharding_stage`, `sharding_configs` (`stage`, `fuse_grad_size_in_mb`) and
+`FLAGS_zero_stage`. Any other strategy field set away from its default
+raises: meshes, recompute, layer scan, gradient merge, pipelines, LocalSGD
+and PS mode are not ported.
 """
 from __future__ import annotations
 
@@ -32,12 +36,13 @@ _DEFAULTS = {
     "build_strategy": {}, "a_sync": False, "a_sync_configs": {},
     "sparse_cache_rows": 0,
 }
-_HONOURED = {"amp", "amp_configs", "fuse_grad_size_in_mb"}
+_HONOURED = {"amp", "amp_configs", "fuse_grad_size_in_mb", "sharding",
+             "sharding_stage", "sharding_configs"}
 
 
 class DistributedStrategy:
-    """The reference's strategy fields, with their defaults. Only `amp`
-    (and `amp_configs`) act here; see the module docstring."""
+    """The reference's strategy fields, with their defaults. Only AMP,
+    bucketing and ZeRO fields act here; see the module docstring."""
 
     def __init__(self):
         for k, v in _DEFAULTS.items():
@@ -52,7 +57,7 @@ class DistributedStrategy:
         if name not in _HONOURED and value != _DEFAULTS[name]:
             raise NotImplementedError(
                 f"DistributedStrategy.{name} is not ported yet: the port's "
-                f"fleet runs one process and honours only `amp`")
+                f"fleet runs one process and honours only {sorted(_HONOURED)}")
         object.__setattr__(self, name, value)
 
 
@@ -86,15 +91,49 @@ class DistributedOptimizer:
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
         s = self.user_defined_strategy
+        program = loss.block.program
         if s.amp:
-            program = loss.block.program
             program._amp = True
             program._amp_dtype = ("bfloat16"
                                   if s.amp_configs.get("use_pure_bf16", True)
                                   else "float16")
             program.bump_version()
-        return self.inner_opt.minimize(loss, startup_program, parameter_list,
-                                       no_grad_set)
+        result = self.inner_opt.minimize(loss, startup_program,
+                                         parameter_list, no_grad_set)
+
+        from ...flags import flag
+        zero_stage = int(s.sharding_stage or 0)
+        if s.sharding:
+            zero_stage = max(zero_stage,
+                             int((s.sharding_configs or {}).get("stage", 1)))
+        if flag("FLAGS_zero_stage"):
+            zero_stage = max(zero_stage, int(flag("FLAGS_zero_stage")))
+        if zero_stage not in (0, 1, 2, 3):
+            raise ValueError(
+                f"sharding stage {zero_stage} is not supported: this build "
+                "implements ZeRO stages 1 (optimizer state), 2 (+resident "
+                "gradient shards) and 3 (+parameter storage) — "
+                "parallel/zero.py; set strategy.sharding_stage to 1, 2 "
+                "or 3")
+        if zero_stage >= 3 and s.tensor_parallel_degree > 1:
+            raise ValueError(
+                "sharding_stage=3 flat-shards parameter STORAGE over dp and "
+                "cannot compose with tensor_parallel_rules in this build "
+                "(the TP rules would shard the same storage a second way); "
+                "use stage <= 2 with tensor parallelism")
+        bucket_mb = float((s.sharding_configs or {}).get(
+            "fuse_grad_size_in_mb", s.fuse_grad_size_in_mb))
+        if bucket_mb > 0:
+            from ...framework.program import default_startup_program
+            from ...parallel.zero import apply_grad_bucketing
+            apply_grad_bucketing(
+                program, startup_program or default_startup_program(),
+                result[1], bucket_bytes=int(bucket_mb * (1 << 20)),
+                stage=zero_stage)
+        elif zero_stage >= 1:
+            from ...parallel.zero import count_fallback
+            count_fallback("bucketing_disabled")
+        return result
 
 
 fleet = _Fleet()

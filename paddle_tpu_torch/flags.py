@@ -1,7 +1,12 @@
-"""Global flags registry (the serving subset of paddle_tpu/flags.py).
+"""Global flags registry (the serving and ZeRO subset of paddle_tpu/flags.py).
 
 FLAGS_* environment variables seed the initial values at import, as in
 the reference registry; `set_flags` changes them at run time.
+
+`FLAGS_pallas_opt` and the `PADDLE_TPU_PALLAS_OPT` toggle of the reference
+are left out on purpose: on CUDA tensors the `__zero_update__` funnel
+always launches the fused update kernels (ops/kernels/zero_update.py),
+which equal the per-op rule bit for bit.
 """
 from __future__ import annotations
 
@@ -22,6 +27,13 @@ _DEFS: Dict[str, tuple] = {
                                 "shed with reason queue_full"),
     "FLAGS_step_deadline_ms": (0.0, "serving window watchdog; not ported "
                                "yet: DecodeEngine refuses a nonzero value"),
+    "FLAGS_zero_stage": (0, "ZeRO sharding stage applied at fleet minimize "
+                            "time (parallel/zero.py): 1 moves each gradient "
+                            "bucket's optimizer state into flat vars updated "
+                            "by one __zero_update__; 2 also keeps the "
+                            "bucket's gradient in a resident flat buffer; 3 "
+                            "also moves parameter storage into flat buckets "
+                            "unpacked on demand by __zero_gather__"),
 }
 
 _values: Dict[str, Any] = {}

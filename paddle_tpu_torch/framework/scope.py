@@ -40,12 +40,13 @@ class Scope:
 
 def to_numpy(value) -> np.ndarray:
     """Host copy of a scope value; bf16 (which numpy lacks) comes back as
-    float32."""
+    float32. Always a copy: a CPU tensor's `.numpy()` shares its memory,
+    and the optimizer updates the scope's tensors in place."""
     if isinstance(value, torch.Tensor):
         t = value.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
-        return t.cpu().numpy()
+        return np.array(t.cpu().numpy(), copy=True)
     return np.asarray(value)
 
 

@@ -1,4 +1,6 @@
-"""Neural-net layer functions (counterpart of paddle_tpu/layers/nn.py)."""
+"""Neural-net layer functions (counterpart of paddle_tpu/layers/nn.py): the
+ones BERT is built from, and the ones gradient clipping and weight-decay
+regularisation append."""
 from __future__ import annotations
 
 import math
@@ -9,6 +11,8 @@ from ..layer_helper import LayerHelper
 
 __all__ = [
     "data", "fc", "layer_norm", "dropout", "embedding", "elementwise_add",
+    "elementwise_mul", "elementwise_div", "elementwise_max", "sqrt",
+    "square", "sign", "reduce_sum", "clip", "clip_by_norm", "sums",
     "mean", "scale", "reshape", "transpose", "split", "unsqueeze", "slice",
     "fused_attention",
 ]
@@ -102,12 +106,72 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
     return out
 
 
-def elementwise_add(x, y, axis=-1, act=None, name=None):
-    helper = LayerHelper("elementwise_add")
+def _unary_layer(op_type):
+    def f(x, name=None):
+        helper = LayerHelper(op_type)
+        out = helper.create_variable_for_type_inference(x.dtype)
+        helper.append_op(op_type, inputs={"X": [x]}, outputs={"Out": [out]})
+        return out
+    f.__name__ = op_type
+    return f
+
+
+sqrt = _unary_layer("sqrt")
+square = _unary_layer("square")
+sign = _unary_layer("sign")
+
+
+def _binary_layer(op_type):
+    def f(x, y, axis=-1, act=None, name=None):
+        helper = LayerHelper(op_type)
+        out = helper.create_variable_for_type_inference(x.dtype)
+        helper.append_op(op_type, inputs={"X": [x], "Y": [y]},
+                         outputs={"Out": [out]}, attrs={"axis": axis})
+        return helper.append_activation(out, act)
+    f.__name__ = op_type
+    return f
+
+
+elementwise_add = _binary_layer("elementwise_add")
+elementwise_mul = _binary_layer("elementwise_mul")
+elementwise_div = _binary_layer("elementwise_div")
+elementwise_max = _binary_layer("elementwise_max")
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    helper = LayerHelper("reduce_sum")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if dim is None:
+        attrs = {"reduce_all": True, "dim": [0], "keep_dim": keep_dim}
+    else:
+        attrs = {"dim": dim if isinstance(dim, (list, tuple)) else [dim],
+                 "keep_dim": keep_dim, "reduce_all": False}
+    helper.append_op("reduce_sum", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs=attrs)
+    return out
+
+
+def clip(x, min, max, name=None):
+    helper = LayerHelper("clip")
     out = helper.create_variable_for_type_inference(x.dtype)
-    helper.append_op("elementwise_add", inputs={"X": [x], "Y": [y]},
-                     outputs={"Out": [out]}, attrs={"axis": axis})
-    return helper.append_activation(out, act)
+    helper.append_op("clip", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"min": min, "max": max})
+    return out
+
+
+def clip_by_norm(x, max_norm, name=None):
+    helper = LayerHelper("clip_by_norm")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("clip_by_norm", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"max_norm": max_norm})
+    return out
+
+
+def sums(input, out=None):
+    helper = LayerHelper("sum")
+    out = out or helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op("sum", inputs={"X": list(input)}, outputs={"Out": [out]})
+    return out
 
 
 def mean(x, name=None):

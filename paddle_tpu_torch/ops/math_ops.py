@@ -1,7 +1,8 @@
 """Math / elementwise / reduce / matmul lowerings (counterpart of
-paddle_tpu/ops/math_ops.py): the ones the BERT pretrain program uses.
-Large matrix products go to `torch.matmul`, as the reference leaves them
-to XLA."""
+paddle_tpu/ops/math_ops.py): the ones the BERT pretrain program uses, and
+the ones gradient clipping and weight-decay regularisation append
+(clip.py, regularizer.py). Large matrix products go to `torch.matmul`, as
+the reference leaves them to XLA."""
 from __future__ import annotations
 
 import math
@@ -23,10 +24,60 @@ def _bcast_y(x, y, axis):
     return y.reshape(new_shape)
 
 
-@register("elementwise_add")
-def _elementwise_add(ctx, ins, attrs):
-    x, y = ins["X"][0], ins["Y"][0]
-    return {"Out": [x + _bcast_y(x, y, attrs.get("axis", -1))]}
+def _elementwise(name, fn):
+    @register(name)
+    def _lower(ctx, ins, attrs, _fn=fn):
+        x, y = ins["X"][0], ins["Y"][0]
+        return {"Out": [_fn(x, _bcast_y(x, y, attrs.get("axis", -1)))]}
+    return _lower
+
+
+_elementwise("elementwise_add", torch.add)
+_elementwise("elementwise_mul", torch.mul)
+_elementwise("elementwise_div", torch.div)
+_elementwise("elementwise_max", torch.maximum)
+
+
+def _unary(name, fn):
+    @register(name)
+    def _lower(ctx, ins, attrs, _fn=fn):
+        return {"Out": [_fn(ins["X"][0])]}
+    return _lower
+
+
+_unary("sqrt", torch.sqrt)
+_unary("square", torch.square)
+_unary("sign", torch.sign)
+
+
+@register("reduce_sum")
+def _reduce_sum(ctx, ins, attrs):
+    x = ins["X"][0]
+    dim = attrs.get("dim", [0])
+    keep_dim = attrs.get("keep_dim", False)
+    if attrs.get("reduce_all", False) or dim is None:
+        axes = tuple(range(x.dim()))
+    else:
+        dims = dim if isinstance(dim, (list, tuple)) else [dim]
+        axes = tuple(d % x.dim() for d in dims)
+    return {"Out": [torch.sum(x, dim=axes, keepdim=keep_dim)]}
+
+
+@register("clip")
+def _clip(ctx, ins, attrs):
+    return {"Out": [torch.clamp(ins["X"][0], attrs.get("min"),
+                                attrs.get("max"))]}
+
+
+@register("clip_by_norm")
+def _clip_by_norm(ctx, ins, attrs):
+    x = ins["X"][0]
+    max_norm = attrs["max_norm"]
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    scale = torch.where(norm > max_norm,
+                        max_norm / torch.clamp(norm, min=1e-12),
+                        torch.ones((), dtype=norm.dtype, device=x.device))
+    return {"Out": [x * scale.to(x.dtype)]}
 
 
 @register("gelu")

@@ -88,8 +88,10 @@ class OpDef:
 
 
 _REGISTRY: Dict[str, OpDef] = {}
-_LOWERING_MODULES = ("tensor_ops", "math_ops", "nn_ops", "fused_ce",
-                     "attention", "optimizer_ops")
+# modules of the package that register lowerings on import
+_LOWERING_MODULES = ("ops.tensor_ops", "ops.math_ops", "ops.nn_ops",
+                     "ops.fused_ce", "ops.attention", "ops.optimizer_ops",
+                     "parallel.zero")
 _loaded = False
 
 
@@ -99,8 +101,9 @@ def _load_lowerings():
     if not _loaded:
         _loaded = True
         import importlib
+        root = __package__.rpartition(".")[0]
         for m in _LOWERING_MODULES:
-            importlib.import_module(f"{__package__}.{m}")
+            importlib.import_module(f"{root}.{m}")
 
 
 def register(name: str, *, infer=None, is_random=False, nondiff_slots=(),

@@ -1,11 +1,15 @@
 """Optimizers: emit backward + update ops into the program (counterpart of
-paddle_tpu/optimizer.py: `Optimizer.minimize` :160, `AdamOptimizer` :270).
+paddle_tpu/optimizer.py: `Optimizer.minimize` :160, `SGDOptimizer` :202,
+`MomentumOptimizer` :217, `AdamOptimizer` :270, `AdamW` :353).
 
-`minimize` = append_backward + one update op per parameter. Adam keeps
-the reference's ONE shared beta-pow pair, advanced once per step by a
-`scale` op after every update has read it (`_finalize_optimize_ops`).
-Not ported yet (ROADMAP): LR schedulers and LR variables, grad clip,
-regularization, and the other optimizers.
+`minimize` = append_backward, then `apply_gradients`: the grad clip's ops
+(clip.py), each parameter's weight-decay term (regularizer.py, from the
+parameter's own regularizer or the optimizer's `regularization` /
+`weight_decay`), and one update op per parameter. Adam keeps the
+reference's ONE shared beta-pow pair, advanced once per step by a `scale`
+op after every update has read it (`_finalize_optimize_ops`).
+Not ported yet (ROADMAP): LR schedulers and LR variables, and the
+optimizers other than SGD, Momentum, Adam and AdamW.
 """
 from __future__ import annotations
 
@@ -18,7 +22,8 @@ from .framework.dtype import dtype_name
 from .framework.program import OpRole, Variable, default_main_program
 from .layer_helper import LayerHelper
 
-__all__ = ["Optimizer", "Adam", "AdamOptimizer"]
+__all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum",
+           "MomentumOptimizer", "Adam", "AdamOptimizer", "AdamW"]
 
 
 class Optimizer:
@@ -29,10 +34,12 @@ class Optimizer:
             raise NotImplementedError(
                 "only a constant float learning rate is ported; LR "
                 "schedulers and LR variables are not yet (ROADMAP)")
-        if regularization is not None or weight_decay or grad_clip is not None:
-            raise NotImplementedError(
-                "regularization / weight_decay / grad_clip are not ported "
-                "yet (ROADMAP)")
+        if regularization is None and weight_decay:
+            from .regularizer import L2Decay
+            regularization = (weight_decay if not isinstance(
+                weight_decay, (int, float)) else L2Decay(weight_decay))
+        self.regularization = regularization
+        self._grad_clip = grad_clip
         self._learning_rate = learning_rate
         self._parameter_list = (parameter_list if parameter_list is not None
                                 else parameters)
@@ -80,6 +87,9 @@ class Optimizer:
 
     def apply_gradients(self, params_grads):
         block = default_main_program().global_block()
+        if self._grad_clip is not None:
+            params_grads = self._grad_clip(params_grads)
+        params_grads = self._append_regularization(params_grads)
         self._create_accumulators(block, [p for p, _ in params_grads])
         self._create_lr_var()
         for pg in params_grads:
@@ -90,12 +100,60 @@ class Optimizer:
             op.attrs["op_role"] = OpRole.Optimize
         return []
 
+    def _append_regularization(self, params_grads):
+        out = []
+        for p, g in params_grads:
+            reg = getattr(p, "regularizer", None) or self.regularization
+            if reg is not None:
+                g = reg._append(p, g)
+            out.append((p, g))
+        return out
+
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
         params_grads = self.backward(loss, startup_program, parameter_list,
                                      no_grad_set)
         self.apply_gradients(params_grads)
         return [], params_grads
+
+
+class SGDOptimizer(Optimizer):
+    def __init__(self, learning_rate=0.001, **kw):
+        super().__init__(learning_rate, **kw)
+        self.type = "sgd"
+
+    def _append_optimize_op(self, block, pg):
+        p, g = pg
+        return block.append_op(
+            "sgd",
+            inputs={"Param": [p], "Grad": [g],
+                    "LearningRate": [self._lr_var]},
+            outputs={"ParamOut": [p]},
+            attrs={"op_role": OpRole.Optimize})
+
+
+class MomentumOptimizer(Optimizer):
+    def __init__(self, learning_rate=0.001, momentum=0.9, use_nesterov=False,
+                 **kw):
+        super().__init__(learning_rate, **kw)
+        self.type = "momentum"
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, pg):
+        p, g = pg
+        v = self._get_accumulator("velocity", p)
+        return block.append_op(
+            "momentum",
+            inputs={"Param": [p], "Grad": [g], "Velocity": [v],
+                    "LearningRate": [self._lr_var]},
+            outputs={"ParamOut": [p], "VelocityOut": [v]},
+            attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov,
+                   "op_role": OpRole.Optimize})
 
 
 class AdamOptimizer(Optimizer):
@@ -136,7 +194,8 @@ class AdamOptimizer(Optimizer):
                      "Moment1Out": [self._get_accumulator("moment1", p)],
                      "Moment2Out": [self._get_accumulator("moment2", p)]},
             attrs={"beta1": self._beta1, "beta2": self._beta2,
-                   "epsilon": self._epsilon, "op_role": OpRole.Optimize})
+                   "epsilon": self._epsilon, "op_role": OpRole.Optimize,
+                   **self._extra_attrs()})
 
     def _finalize_optimize_ops(self, block):
         ops = []
@@ -151,5 +210,24 @@ class AdamOptimizer(Optimizer):
                        "__adam_pow_advance__": pow_var.name}))
         return ops
 
+    def _extra_attrs(self):
+        return {}
 
+
+class AdamW(AdamOptimizer):
+    """Adam with decoupled weight decay: the `adamw` rule subtracts
+    lr * coeff * param after the Adam step."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, weight_decay=0.01, **kw):
+        super().__init__(learning_rate, beta1, beta2, epsilon, **kw)
+        self.type = "adamw"
+        self._coeff = weight_decay
+
+    def _extra_attrs(self):
+        return {"coeff": self._coeff, "with_decay": True}
+
+
+SGD = SGDOptimizer
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer

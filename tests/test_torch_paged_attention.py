@@ -195,7 +195,8 @@ def test_kernel_build_needs_nvcc(tmp_path, monkeypatch):
     import shutil
     from paddle_tpu_torch.ops.kernels import _build
     assert [s.name for s in _build.sources()] == ["flash_attention.cu",
-                                                  "paged_attention.cu"]
+                                                  "paged_attention.cu",
+                                                  "zero_update.cu"]
     assert "arch=compute_90a,code=sm_90a" in " ".join(_build.NVCC_FLAGS)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.delenv("CUDA_HOME", raising=False)

@@ -352,8 +352,10 @@ def test_fleet_honours_amp_and_rejects_the_rest():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        port_optimizer.Adam(learning_rate=1e-3, grad_clip=object())
+    lr_var = port_program.Program().global_block().create_var(
+        name="learning_rate", shape=[1], dtype="float32", persistable=True)
+    with pytest.raises(NotImplementedError, match="LR variables"):
+        port_optimizer.Adam(learning_rate=lr_var)
     cfg = port_bert.BertConfig.tiny()
     cfg.moe_experts = 2
     with pytest.raises(NotImplementedError):
