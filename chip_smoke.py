@@ -15,10 +15,12 @@ result line):
    path's shapes (batch 16, 12 heads, S 512, head_dim 64) in four arms
    (f32 + key-padding mask + dropout 0.1, the training path's; bf16 + mask
    + dropout 0.1; bf16 causal + dropout 0.1; f32 unmasked) and off it (f32,
-   S 200, head_dim 128, per-(b, h) mask, causal, dropout 0.1), each held
+   S 200, head_dim 128, per-(b, h) mask, causal, dropout 0.1; f32, batch
+   4, S 512, head_dim 128, key-padding mask, dropout 0.1), each held
    element by element against its plain PyTorch version on the card and
    timed beside it and beside the PyTorch library call (SDPA) where one
-   computes the same;
+   computes the same; B2's delta buffer against its plain version; the
+   count of tensor-core (HMMA) instructions in each kernel's SASS;
 4. GPT-2 small (GPTConfig(), weights from numpy seed 0) served through the
    port's DecodeEngine:
    * f32 (TF32 off): greedy tokens == the port's dense generate;
@@ -82,7 +84,7 @@ ROWS = {
     "zero_adam": (_ZERO[0], f"{_ZERO[1]}:108"),
 }
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bandwidth, the
-# f32 CUDA-core rate (the flash kernels compute with scalar FMAs), the TF32
+# f32 CUDA-core rate (B1 computes with scalar FMAs), the TF32
 # tensor-core rate and the bf16 tensor-core rate (the MFU denominator, as
 # bench.py counts it). f32 operands on the tensor cores at f32 accuracy take
 # three TF32 products (3xTF32): a third of the TF32 rate.
@@ -148,6 +150,27 @@ def ptxas_report(text):
         if m and entry is not None:
             entry["registers"] = int(m.group(1))
     return report
+
+
+def sass_mma_counts(lib):
+    """{mangled function name: number of HMMA instructions} in the SASS of
+    the built library `lib` (cuobjdump -sass), or None where the toolkit has
+    no cuobjdump."""
+    from paddle_tpu_torch.ops.kernels import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    if not os.path.isfile(tool):
+        return None
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None and re.search(r"\bHMMA\b", line):
+            counts[fn] += 1
+    return counts
 
 
 def flash_ptxas(report, name, dtype, hd=64):
@@ -403,7 +426,21 @@ def flash_bounds(B, nh, S, hd, elem, mask_bytes, rate):
     return out
 
 
-def check_flash_kernels(torch, fa, ptxas):
+def flash_sass(sass, name):
+    """{dtype_hd: HMMA count} of flash kernel `name` from
+    `sass_mma_counts`, or "not measured" without cuobjdump."""
+    if sass is None:
+        return "not measured (no cuobjdump)"
+    out = {}
+    for d, t in (("float32", "f"), ("bfloat16", "13__nv_bfloat16")):
+        for hd in (64, 128):
+            key = f"{name}_kernelI{t}Li{hd}E"
+            out[f"{d}_hd{hd}"] = next(
+                (c for k, c in sass.items() if key in k), None)
+    return out
+
+
+def check_flash_kernels(torch, fa, ptxas, sass=None):
     """B1-B3 against their plain version at the training main path's shapes
     in four arms, and off it at a ragged S with head_dim 128; timed on the
     training path's arm (f32, key-padding mask, dropout 0.1) and, beside
@@ -421,11 +458,15 @@ def check_flash_kernels(torch, fa, ptxas):
     ragged_mask = torch.where(
         torch.rand((2, 3, 200, 200), generator=g, device="cuda") < 0.2,
         -1e9, 0.0)
+    # head_dim 128 with full tiles: the 8-warp backward at S 512
+    wide = [torch.randn((4, nh, S, 128), generator=g, device="cuda")
+            for _ in range(4)]
     arms = [(base, "float32", mask, False, 0.1),
             (base, "bfloat16", mask, False, 0.1),
             (base, "bfloat16", None, True, 0.1),
             (base, "float32", None, False, 0.0),
-            (ragged, "float32", ragged_mask, True, 0.1)]
+            (ragged, "float32", ragged_mask, True, 0.1),
+            (wide, "float32", padding_mask(torch, 4, S, seed=1), False, 0.1)]
     errs = {n: 0.0 for n in fa.KERNEL_NAMES}
     checks = {n: [] for n in fa.KERNEL_NAMES}
     for tensors, dtype, m, causal, rate in arms:
@@ -465,7 +506,7 @@ def check_flash_kernels(torch, fa, ptxas):
             if tensors is base and dtype == "float32" and m is not None:
                 errs[name] = err         # the training path's arm
         del got, want, q, k, v, do, pairs, ps
-    del ragged, ragged_mask
+    del ragged, ragged_mask, wide, arms
     torch.cuda.empty_cache()
 
     rows, extra = {}, {}
@@ -478,18 +519,37 @@ def check_flash_kernels(torch, fa, ptxas):
         for rate in (0.1, 0.0):
             args = (q, k, v, m3, mode, seed, scale, False, rate)
             o, lse = fa.launch_fwd(*args)
-            bargs = (q, k, v, o, lse, do, m3, mode, seed, scale, False, rate)
+            qargs = (q, k, v, o, lse, do, m3, mode, seed, scale, False, rate)
+            _, delta = fa.launch_bwd_dq(*qargs)
+            # B2's delta buffer: f32 sums of hd products in another order
+            derr = (delta - fa.bwd_delta_plain(o, do)).abs().max().item()
+            log(f"flash delta {dtype} dropout {rate}: max |B2 - plain| "
+                f"{derr:.3e} (tolerance 1e-5)")
+            if not derr <= 1e-5:
+                fail(f"flash_bwd_dq {dtype}: delta disagrees with its plain "
+                     f"version by {derr}")
+            kargs = (q, k, v, delta, lse, do, m3, mode, seed, scale, False,
+                     rate)
             times[rate] = {
                 "flash_fwd": cuda_ms(torch, lambda: fa.launch_fwd(*args)),
                 "flash_bwd_dq": cuda_ms(
-                    torch, lambda: fa.launch_bwd_dq(*bargs)),
+                    torch, lambda: fa.launch_bwd_dq(*qargs)),
                 "flash_bwd_dkdv": cuda_ms(
-                    torch, lambda: fa.launch_bwd_dkdv(*bargs))}
+                    torch, lambda: fa.launch_bwd_dkdv(*kargs))}
+            times[rate]["b2_plus_b3"] = (times[rate]["flash_bwd_dq"]
+                                         + times[rate]["flash_bwd_dkdv"])
         extra[dtype] = times
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lm = mask.to(dt)
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        os_ = sdpa(qq, kk, vv, attn_mask=lm, scale=scale)
+        lib_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
+            os_, (qq, kk, vv), do, retain_graph=True))
+        extra[dtype]["sdpa_bwd"] = lib_bwd
+        del os_
         if dtype != "float32":
             continue
         kw = dict(scale=scale, dropout=0.1, seed=seed, mask=mask)
-        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
         with torch.no_grad():
             plain_fwd = cuda_ms(torch, lambda: fa.flash_attention_plain(
                 q, k, v, **kw), iters=10, warmup=2)
@@ -499,33 +559,37 @@ def check_flash_kernels(torch, fa, ptxas):
         plain_dkdv = cuda_ms(torch, lambda: torch.autograd.grad(
             op, (kk, vv), do, retain_graph=True), iters=10, warmup=2)
         del op
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        lm = mask.to(dt)
         with torch.no_grad():
             lib_fwd = cuda_ms(torch, lambda: sdpa(q, k, v, attn_mask=lm,
                                                   scale=scale))
-        os_ = sdpa(qq, kk, vv, attn_mask=lm, scale=scale)
-        lib_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
-            os_, (qq, kk, vv), do, retain_graph=True))
-        del os_
         bounds = flash_bounds(B, nh, S, hd, 4, 4 * B * S, F32_FLOPS_PER_S)
         tc_bounds = flash_bounds(B, nh, S, hd, 4, 4 * B * S,
                                  TF32_FLOPS_PER_S / 3)
         plain = {"flash_fwd": plain_fwd, "flash_bwd_dq": plain_dq,
                  "flash_bwd_dkdv": plain_dkdv}
         for name in fa.KERNEL_NAMES:
+            # bound_ms at the rate of the unit the kernel multiplies on: B1
+            # the f32 CUDA cores, B2/B3 the tensor cores in 3xTF32
+            bound = bounds[name] if name == "flash_fwd" else tc_bounds[name]
             rows[name] = kernel_row(
                 name, max_abs_err=errs[name], ms=times[0.1][name],
-                plain_ms=plain[name], bound_ms=bounds[name][0],
-                bound_by=bounds[name][1],
+                plain_ms=plain[name], bound_ms=bound[0], bound_by=bound[1],
                 library_ms=lib_fwd if name == "flash_fwd" else lib_bwd,
+                bound_f32_cuda_core_ms=bounds[name][0],
                 bound_3xtf32_ms=tc_bounds[name][0],
                 dtype="float32", ms_dropout0=times[0.0][name],
-                ptxas={d: flash_ptxas(ptxas, name, d)
-                       for d in ("float32", "bfloat16")},
+                ptxas={f"{d}_hd{h}": flash_ptxas(ptxas, name, d, h)
+                       for d in ("float32", "bfloat16") for h in (64, 128)},
+                sass_hmma=flash_sass(sass, name),
                 checks=checks[name])
-        rows["flash_bwd_dq"]["library_covers"] = "B2+B3 (SDPA backward)"
-        rows["flash_bwd_dkdv"]["library_covers"] = "B2+B3 (SDPA backward)"
+        for name in ("flash_bwd_dq", "flash_bwd_dkdv"):
+            rows[name].update(
+                library_covers="B2+B3 (SDPA backward)",
+                b2_plus_b3_ms={str(r): times[r]["b2_plus_b3"]
+                               for r in (0.1, 0.0)},
+                b2_plus_b3_over_sdpa_bwd={
+                    str(r): times[r]["b2_plus_b3"] / lib_bwd
+                    for r in (0.1, 0.0)})
         del qq, kk, vv
         torch.cuda.empty_cache()
     bf_bounds = flash_bounds(B, nh, S, hd, 2, 4 * B * S, BF16_FLOPS_PER_S)
@@ -533,12 +597,24 @@ def check_flash_kernels(torch, fa, ptxas):
         row = rows[name]
         row["bf16_ms"] = extra["bfloat16"][0.1][name]
         row["bf16_bound_ms"] = bf_bounds[name][0]
+        if name != "flash_fwd":
+            row["bf16_b2_plus_b3_ms"] = extra["bfloat16"][0.1]["b2_plus_b3"]
+            row["bf16_sdpa_bwd_ms"] = extra["bfloat16"]["sdpa_bwd"]
         log(f"kernel {name}: f32 {row['ms']:.4f} ms (dropout 0: "
             f"{row['ms_dropout0']:.4f}), bf16 {row['bf16_ms']:.4f} ms; plain "
-            f"{row['plain_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']}, f32 CUDA cores), 3xTF32 tensor-core "
-            f"bound {row['bound_3xtf32_ms']:.4f} ms; SDPA "
-            f"{row['library_ms']}; ptxas {row['ptxas']}")
+            f"{row['plain_ms']:.4f} ms; bound at the f32 CUDA-core rate "
+            f"{row['bound_f32_cuda_core_ms']:.4f} ms, at the 3xTF32 "
+            f"tensor-core rate {row['bound_3xtf32_ms']:.4f} ms; SDPA "
+            f"{row['library_ms']}; ptxas {row['ptxas']}; SASS HMMA "
+            f"{row['sass_hmma']}")
+    for r in ("0.1", "0.0"):
+        log(f"flash B2+B3 f32 dropout {r}: "
+            f"{rows['flash_bwd_dq']['b2_plus_b3_ms'][r]:.4f} ms, "
+            f"{rows['flash_bwd_dq']['b2_plus_b3_over_sdpa_bwd'][r]:.3f}x "
+            f"SDPA's backward ({rows['flash_bwd_dq']['library_ms']:.4f} ms)")
+    log(f"flash B2+B3 bf16 dropout 0.1: "
+        f"{rows['flash_bwd_dq']['bf16_b2_plus_b3_ms']:.4f} ms; SDPA bf16 "
+        f"backward {rows['flash_bwd_dq']['bf16_sdpa_bwd_ms']:.4f} ms")
     return rows
 
 
@@ -1059,6 +1135,14 @@ def main():
         for entry, numbers in ptxas_report(text).items():
             log(f"ptxas {lib} {entry}: {numbers}")
             ptxas[entry] = numbers
+    sass = {}
+    for lib in libs.values():
+        counts = sass_mma_counts(lib)
+        if counts is None:
+            sass = None
+            break
+        sass.update(counts)
+    log(f"SASS HMMA counts: {sass}")
 
     # ---- kernels vs plain --------------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1067,8 +1151,14 @@ def main():
         f"{torch.backends.cuda.matmul.allow_tf32} cudnn.allow_tf32="
         f"{torch.backends.cudnn.allow_tf32}")
     rows = check_kernels(torch, kernel_mod, paged_ops)
-    rows.update(check_flash_kernels(torch, fa, ptxas))
+    rows.update(check_flash_kernels(torch, fa, ptxas, sass))
     rows.update(check_zero_kernels(torch, zk, ptxas))
+    for name, row in rows.items():
+        if "sass_hmma" not in row:
+            fn = "paged_decode_kernel" if name.startswith("paged") \
+                else f"{name}_kernel"
+            row["sass_hmma"] = "not measured (no cuobjdump)" if sass is None \
+                else {k: c for k, c in sass.items() if fn in k}
 
     # ---- GPT-2 small served through the port --------------------------------
     cfg = GPTConfig()

@@ -7,8 +7,9 @@ interface:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/lib<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source and the flags, so an edited
-source is rebuilt and a stale library is never loaded. The build directory
+The library name carries a hash of the source, of every header under
+csrc/ (`*.cuh`) and of the flags, so an edited source or header is rebuilt
+and a stale library is never loaded. The build directory
 (paddle_tpu_torch/build/) is listed in .gitignore. Nothing here runs at
 import: `load` builds on its first call.
 """
@@ -53,8 +54,15 @@ def sources() -> List[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
+def headers() -> List[Path]:
+    return sorted(CSRC_DIR.glob("*.cuh"))
+
+
 def _target(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
+    for hdr in headers():             # any source may include any header
+        h.update(hdr.name.encode())
+        h.update(hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 

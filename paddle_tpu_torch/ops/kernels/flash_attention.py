@@ -9,7 +9,9 @@ source, with its design and bound, is paddle_tpu_torch/csrc/flash_attention.cu.
 * On CUDA tensors `flash_attention` launches B1 (forward) on the current
   stream, and its autograd backward launches B2 then B3, or it raises:
   float32/bfloat16 operands, head_dim 64 or 128, any sequence length.
-  There is no fallback to a dense path.
+  There is no fallback to a dense path. B2 also writes delta = rowsum(dO *
+  O) as a [B*nh, S] f32 buffer that B3 reads in place of O
+  (`bwd_delta_plain` is its plain version).
 * On CPU tensors it runs `flash_attention_plain`: dense f32 scores, the
   same counter-hash dropout, autograd through plain ops. The plain version
   is also what the kernels are held against on the card.
@@ -173,7 +175,7 @@ def _library():
         tail = [i, i, u, u, f, p]       # causal, dropout, thresh, seed,
         #                                 keep_prob, stream
         lib.flash_fwd.argtypes = [p] * 6 + [i] * 7 + [f] + tail
-        lib.flash_bwd_dq.argtypes = [p] * 8 + [i] * 7 + [f] + tail
+        lib.flash_bwd_dq.argtypes = [p] * 9 + [i] * 7 + [f] + tail
         lib.flash_bwd_dkdv.argtypes = [p] * 9 + [i] * 7 + [f] + tail
         for fn in (lib.flash_fwd, lib.flash_bwd_dq, lib.flash_bwd_dkdv):
             fn.restype = i
@@ -185,6 +187,20 @@ def _library():
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def _aligned16(t):
+    """`t`, or a copy of it where its data does not start on 16 bytes: the
+    backward kernels copy operand rows into shared memory 16 bytes at a
+    time (a contiguous view into a larger buffer may start anywhere)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def bwd_delta_plain(o, do):
+    """delta = rowsum(f32(dO) * f32(O)) as [B*nh, S] f32: what B2 hands to
+    B3 (the reference's `delta`, flash_attention.py:301)."""
+    b, nh, s, _ = o.shape
+    return (do.float() * o.float()).sum(-1).reshape(b * nh, s)
 
 
 def _unwrap(t):
@@ -238,25 +254,30 @@ def launch_fwd(q, k, v, mask, mode, seed, scale, causal, dropout):
 
 def launch_bwd_dq(q, k, v, o, lse, do, mask, mode, seed, scale, causal,
                   dropout):
-    """B2 alone: dQ (the autograd backward runs it, then B3)."""
+    """B2 alone: (dQ, delta [B*nh, S] f32); the autograd backward runs it,
+    then B3 on its delta."""
+    q, k, v, do = (_aligned16(t) for t in (q, k, v, do))
+    b, nh, s, _ = q.shape
     dq = torch.empty_like(q)
+    delta = torch.empty((b * nh, s), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         rc = _library().flash_bwd_dq(
             _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(do), _ptr(lse),
-            _ptr(mask), _ptr(dq),
+            _ptr(mask), _ptr(dq), _ptr(delta),
             *_cfg_args(q, mask, mode, scale, causal, dropout, seed))
     _raise_if(rc, "flash_bwd_dq")
     launches["flash_bwd_dq"] += 1
-    return dq
+    return dq, delta
 
 
-def launch_bwd_dkdv(q, k, v, o, lse, do, mask, mode, seed, scale, causal,
-                    dropout):
-    """B3 alone: dK and dV."""
+def launch_bwd_dkdv(q, k, v, delta, lse, do, mask, mode, seed, scale,
+                    causal, dropout):
+    """B3 alone: dK and dV, from B2's delta (O is not read)."""
+    q, k, v, do = (_aligned16(t) for t in (q, k, v, do))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         rc = _library().flash_bwd_dkdv(
-            _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(do), _ptr(lse),
+            _ptr(q), _ptr(k), _ptr(v), _ptr(delta), _ptr(do), _ptr(lse),
             _ptr(mask), _ptr(dk), _ptr(dv),
             *_cfg_args(q, mask, mode, scale, causal, dropout, seed))
     _raise_if(rc, "flash_bwd_dkdv")
@@ -287,8 +308,8 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do, _dlse):
         q, k, v, o, lse, mask = (_unwrap(t) for t in ctx.saved_tensors)
         do = _unwrap(do).contiguous()
-        dq = launch_bwd_dq(q, k, v, o, lse, do, mask, *ctx.cfg)
-        dk, dv = launch_bwd_dkdv(q, k, v, o, lse, do, mask, *ctx.cfg)
+        dq, delta = launch_bwd_dq(q, k, v, o, lse, do, mask, *ctx.cfg)
+        dk, dv = launch_bwd_dkdv(q, k, v, delta, lse, do, mask, *ctx.cfg)
         return dq, dk, dv, None, None, None, None, None, None
 
 

@@ -181,7 +181,10 @@ def _fake_launchers(monkeypatch):
     """Stand-ins for the three CUDA launches, computed on the CPU with the
     plain version. Each takes the device pointer of every tensor it gets,
     as the real launches do, so a wrapped tensor without storage fails
-    here as it would on the card."""
+    here as it would on the card. B2's stand-in returns (dQ, delta) as the
+    kernel does; B3's receives that delta where it once took O. Returns
+    the list of (O, dO, delta) that B3's stand-in was handed."""
+    handed = []
     def ptrs(*ts):
         for t in ts:
             if t is not None:
@@ -211,15 +214,21 @@ def _fake_launchers(monkeypatch):
 
     def dq(*a):
         port_fa.launches["flash_bwd_dq"] += 1
-        return grads(*a)[0]
+        o, do = a[3], a[5]
+        delta = port_fa.bwd_delta_plain(o, do)
+        handed.append([o, do, delta])
+        return grads(*a)[0], delta
 
     def dkdv(*a):
         port_fa.launches["flash_bwd_dkdv"] += 1
+        delta = a[3]
+        assert handed and handed[-1][2] is delta    # B2's buffer, as is
         return grads(*a)[1:]
 
     monkeypatch.setattr(port_fa, "launch_fwd", fwd)
     monkeypatch.setattr(port_fa, "launch_bwd_dq", dq)
     monkeypatch.setattr(port_fa, "launch_bwd_dkdv", dkdv)
+    return handed
 
 
 def test_autograd_function_under_func_vjp(monkeypatch):
@@ -250,6 +259,129 @@ def test_autograd_function_under_func_vjp(monkeypatch):
     want = (out,) + pull(do)
     for a, b_ in zip(got, want):
         assert torch.equal(a, b_)
+
+
+def test_delta_handed_from_b2_to_b3(monkeypatch):
+    """The delta B2 hands to B3 is [B*nh, S] f32 and equals the reference's
+    sum(dO * O) (flash_attention.py:301) over the same O and dO, through the
+    CUDA path's Function as the backward runs it (tolerance: f32 1e-6
+    absolute, sums of 64 products in another order)."""
+    handed = _fake_launchers(monkeypatch)
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs())
+    m3, mode = port_fa.normalize_mask(torch.from_numpy(_mask("b", 1)), B,
+                                      NH, S)
+    out, pull = torch.func.vjp(
+        lambda q, k, v: port_fa.FlashAttention.apply(
+            q, k, v, m3, mode, 9, SCALE, False, 0.1)[0], q, k, v)
+    pull(do)
+    assert len(handed) == 1
+    o, got_do, delta = handed[0]
+    assert delta.shape == (B * NH, S) and delta.dtype == torch.float32
+    o_np, do_np = o.numpy(), got_do.numpy()
+    want = jnp.sum(jnp.asarray(do_np).astype(jnp.float32)
+                   * jnp.asarray(o_np).astype(jnp.float32), axis=-1)
+    np.testing.assert_allclose(delta.numpy(),
+                               np.asarray(want).reshape(B * NH, S),
+                               atol=1e-6, rtol=0)
+
+
+def test_aligned16_copies_only_misaligned_views():
+    """The backward kernels copy rows 16 bytes at a time: an operand that
+    does not start on 16 bytes (a view into a larger buffer) is copied,
+    one that does is passed as it is."""
+    buf = torch.zeros(4 * 64 + 1)
+    ok = buf[:256].view(4, 64)
+    assert port_fa._aligned16(ok) is ok
+    off = buf[1:].view(4, 64)
+    assert off.data_ptr() % 16 != 0
+    got = port_fa._aligned16(off)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, off)
+
+
+def _tf32_rna(x):
+    """cvt.rna.tf32.f32 in torch: round to 10 mantissa bits, ties away
+    from zero (add half an ulp of TF32 to the magnitude bits, cut 13)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_rz(x):
+    """x rounded toward zero to TF32: the low 13 bits cut."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm_tf32(a, b, passes, small_round=_tf32_rna):
+    """a @ b as the kernels' mma.sync runs it: passes 1 = plain TF32
+    operands; passes 3 = 3xTF32, each operand split into big = rna(x) and
+    small = small_round(x - big), small*big + big*small + big*big in f32."""
+    ab, bb = _tf32_rna(a), _tf32_rna(b)
+    if passes == 1:
+        return ab @ bb
+    sa, sb = small_round(a - ab), small_round(b - bb)
+    return sa @ bb + ab @ sb + ab @ bb
+
+
+def _bwd_with_products(q, k, v, do, mask, rate, seed, mm):
+    """B2 and B3's arithmetic (delta, P, dropout-upscaled dP, dS, the five
+    backward products) with every product through `mm`; lse and O from an
+    exact f32 forward."""
+    sc = q @ k.transpose(-1, -2) * SCALE + mask
+    lse = torch.logsumexp(sc, -1, keepdim=True)
+    keep = port_fa._dense_keep(seed, B, NH, S, rate, "cpu")
+    probs = torch.where(keep, torch.exp(sc - lse) / (1 - rate), 0.0)
+    o = probs @ v
+    delta = (do * o).sum(-1, keepdim=True)
+    s2 = mm(q, k.transpose(-1, -2)) * SCALE + mask
+    p = torch.exp(s2 - lse)
+    p_drop = torch.where(keep, p / (1 - rate), 0.0)
+    dp = torch.where(keep, mm(do, v.transpose(-1, -2)) / (1 - rate), 0.0)
+    ds = p * (dp - delta) * SCALE
+    return (mm(ds, k), mm(ds.transpose(-1, -2), q),
+            mm(p_drop.transpose(-1, -2), do))
+
+
+@pytest.mark.parametrize("small_round", [_tf32_rna, _tf32_rz],
+                         ids=["small_rna", "small_toward_zero"])
+def test_3xtf32_products_hold_f32_gradient_tolerance(record_property,
+                                                     small_round):
+    """The f32 backward kernels multiply in 3xTF32 on the tensor cores.
+    Emulated here at the test shapes (key-padding mask, dropout 0.1), with
+    `small` rounded toward zero (as the kernels hand it to the tensor core)
+    or to nearest (ties away), their dQ/dK/dV
+    stay within the f32 gradient tolerance (5e-4 absolute) of the plain
+    version's autograd. Plain 1xTF32 is recorded beside it (not asserted):
+    it shows why the split is needed."""
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs())
+    mask = torch.from_numpy(_mask("b", 1))
+    plain = _port_run(*_inputs(), "f32", fn=port_fa.flash_attention_plain,
+                      mask=_mask("b", 1), dropout=0.1, seed=5)[1:]
+    worst = {}
+    for passes in (3, 1):
+        got = _bwd_with_products(
+            q, k, v, do, mask, 0.1, 5,
+            lambda a, b: _mm_tf32(a, b, passes, small_round))
+        worst[passes] = max((g - torch.from_numpy(w)).abs().max().item()
+                            for g, w in zip(got, plain))
+    record_property("max_abs_err_3xtf32", worst[3])
+    record_property("max_abs_err_1xtf32", worst[1])
+    assert worst[3] <= 5e-4, worst
+    exact = _bwd_with_products(q, k, v, do, mask, 0.1, 5, torch.matmul)
+    assert max((g - torch.from_numpy(w)).abs().max().item()
+               for g, w in zip(exact, plain)) <= 5e-4
+
+
+def test_tf32_rounding_is_round_half_away():
+    x = torch.tensor([1.0, 1.0 + 2 ** -11, -(1.0 + 2 ** -11),
+                      1.0 + 2 ** -11 - 2 ** -23, 3.0e-3, -7.5], )
+    got = _tf32_rna(x)
+    want = torch.tensor([1.0, 1.0 + 2 ** -10, -(1.0 + 2 ** -10), 1.0,
+                         float(np.float32(3.0e-3)), -7.5])
+    assert torch.equal(got[:3], want[:3]) and got[3] == 1.0
+    assert abs(got[4].item() - 3.0e-3) <= 3.0e-3 * 2 ** -11
+    assert got[5] == -7.5
+    big = _tf32_rna(x)
+    assert torch.equal(big.view(torch.int32) & 0x1FFF,
+                       torch.zeros(6, dtype=torch.int32))
 
 
 def _nested_func_grad(f, q, do):
