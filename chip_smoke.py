@@ -442,9 +442,10 @@ def flash_sass(sass, name):
 
 def check_flash_kernels(torch, fa, ptxas, sass=None):
     """B1-B3 against their plain version at the training main path's shapes
-    in four arms, and off it at a ragged S with head_dim 128; timed on the
-    training path's arm (f32, key-padding mask, dropout 0.1) and, beside
-    SDPA, at dropout 0."""
+    in four arms, and off it with head_dim 128 at a ragged S and at S 512;
+    B2's delta buffer against its plain version; timed on the training
+    path's arm (f32, key-padding mask, dropout 0.1) and at dropout 0, beside
+    SDPA's forward and backward (f32 and bf16)."""
     B, nh, S, hd = 16, 12, 512, 64
     scale, seed = 1.0 / np.sqrt(hd), 1234
     mask = padding_mask(torch, B, S, seed=0)

@@ -38,3 +38,17 @@ def test_headers_are_not_sources(tmp_path, monkeypatch):
 
 def test_port_headers_listed():
     assert "mma_tile.cuh" in [h.name for h in _build.headers()]
+
+
+def test_flash_variants_apply_to_the_sources():
+    """Every timed variant of the flash backward kernels still matches the
+    sources it edits (each substitution exactly once), and base is the
+    sources as they are."""
+    from paddle_tpu_torch.ops.kernels import flash_variants as fv
+    base = fv.variant_sources("base")
+    assert base[fv.CU] == (_build.CSRC_DIR / fv.CU).read_text()
+    for name in fv.VARIANTS:
+        texts = fv.variant_sources(name)
+        assert set(texts) == {fv.CU, fv.H}
+        if name != "base":
+            assert texts != base, name
