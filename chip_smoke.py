@@ -19,8 +19,10 @@ result line):
    4, S 512, head_dim 128, key-padding mask, dropout 0.1), each held
    element by element against its plain PyTorch version on the card and
    timed beside it and beside the PyTorch library call (SDPA) where one
-   computes the same; B2's delta buffer against its plain version; the
-   count of tensor-core (HMMA) instructions in each kernel's SASS;
+   computes the same; B1's lse against logsumexp of the plain scores and
+   B2's delta buffer against its plain version; the count of tensor-core
+   (HMMA) instructions in each kernel's SASS (none in an instance of B1
+   fails);
 4. GPT-2 small (GPTConfig(), weights from numpy seed 0) served through the
    port's DecodeEngine:
    * f32 (TF32 off): greedy tokens == the port's dense generate;
@@ -29,9 +31,11 @@ result line):
    * bf16 with int8 KV pools: 2 requests complete;
 5. the fused flat-bucket optimizer kernels B6-B8 (sgd, momentum with
    nesterov + l2_decay and plain, adam, adamw) at the main path's bucket
-   sizes (23,440,896 and 7,120,704 elements) and a tail (1,000,003), held
-   BIT FOR BIT against their plain version on the card, timed beside it,
-   beside the bytes bound and beside PyTorch's fused optimizer calls;
+   sizes (23,440,896 and 7,120,704 elements) and a tail (1,000,003), and
+   B8 on a bucket one element past 16 bytes and on one whose arrays start
+   at different offsets, held BIT FOR BIT against their plain version on
+   the card, timed beside it, beside the bytes bound and beside PyTorch's
+   fused optimizer calls; B8 also timed alone, without its wrapper;
 6. BERT pretraining through Program / Executor.run:
    * card vs CPU: BERT-base widths at 2 layers, S 512, batch 2, f32, TF32
      off, dropout 0, padding mask; one step from the same startup arrays;
@@ -84,10 +88,10 @@ ROWS = {
     "zero_adam": (_ZERO[0], f"{_ZERO[1]}:108"),
 }
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bandwidth, the
-# f32 CUDA-core rate (B1 computes with scalar FMAs), the TF32
-# tensor-core rate and the bf16 tensor-core rate (the MFU denominator, as
-# bench.py counts it). f32 operands on the tensor cores at f32 accuracy take
-# three TF32 products (3xTF32): a third of the TF32 rate.
+# f32 CUDA-core rate (kept beside the flash kernels' tensor-core bounds),
+# the TF32 tensor-core rate and the bf16 tensor-core rate (the MFU
+# denominator, as bench.py counts it). f32 operands on the tensor cores at
+# f32 accuracy take three TF32 products (3xTF32): a third of the TF32 rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 494.7e12
@@ -443,9 +447,14 @@ def flash_sass(sass, name):
 def check_flash_kernels(torch, fa, ptxas, sass=None):
     """B1-B3 against their plain version at the training main path's shapes
     in four arms, and off it with head_dim 128 at a ragged S and at S 512;
-    B2's delta buffer against its plain version; timed on the training
-    path's arm (f32, key-padding mask, dropout 0.1) and at dropout 0, beside
-    SDPA's forward and backward (f32 and bf16)."""
+    B1's lse against logsumexp of the plain scores and B2's delta buffer
+    against its plain version; timed on the training path's arm (f32,
+    key-padding mask, dropout 0.1) and at dropout 0, beside SDPA's forward
+    and backward (f32 and bf16). Fails if an instance of B1 has no
+    tensor-core instruction in its SASS."""
+    fwd_hmma = flash_sass(sass, "flash_fwd")
+    if sass is not None and not all(fwd_hmma.values()):
+        fail(f"flash_fwd: an instance has no HMMA in its SASS: {fwd_hmma}")
     B, nh, S, hd = 16, 12, 512, 64
     scale, seed = 1.0 / np.sqrt(hd), 1234
     mask = padding_mask(torch, B, S, seed=0)
@@ -511,6 +520,12 @@ def check_flash_kernels(torch, fa, ptxas, sass=None):
     torch.cuda.empty_cache()
 
     rows, extra = {}, {}
+    # logsumexp of the plain f32 scores, the lse B1 must hand to B2/B3
+    with torch.no_grad():
+        plain_lse = torch.logsumexp(
+            torch.matmul(base[0], base[1].transpose(-1, -2)) * scale + mask,
+            -1).reshape(B * nh, S)
+    lse_err = {}
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
         q, k, v, do = (t.to(dt) for t in base)
@@ -520,6 +535,14 @@ def check_flash_kernels(torch, fa, ptxas, sass=None):
         for rate in (0.1, 0.0):
             args = (q, k, v, m3, mode, seed, scale, False, rate)
             o, lse = fa.launch_fwd(*args)
+            if dtype == "float32":
+                lse_err[str(rate)] = (lse - plain_lse).abs().max().item()
+                log(f"flash lse f32 dropout {rate}: max |B1 - logsumexp of "
+                    f"the plain scores| {lse_err[str(rate)]:.3e} (tolerance "
+                    f"1e-5)")
+                if not lse_err[str(rate)] <= 1e-5:
+                    fail(f"flash_fwd: lse disagrees with logsumexp of the "
+                         f"plain scores by {lse_err[str(rate)]}")
             qargs = (q, k, v, o, lse, do, m3, mode, seed, scale, False, rate)
             _, delta = fa.launch_bwd_dq(*qargs)
             # B2's delta buffer: f32 sums of hd products in another order
@@ -542,6 +565,10 @@ def check_flash_kernels(torch, fa, ptxas, sass=None):
         extra[dtype] = times
         sdpa = torch.nn.functional.scaled_dot_product_attention
         lm = mask.to(dt)
+        with torch.no_grad():
+            lib_fwd = cuda_ms(torch, lambda: sdpa(q, k, v, attn_mask=lm,
+                                                  scale=scale))
+        extra[dtype]["sdpa_fwd"] = lib_fwd
         qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
         os_ = sdpa(qq, kk, vv, attn_mask=lm, scale=scale)
         lib_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
@@ -560,18 +587,15 @@ def check_flash_kernels(torch, fa, ptxas, sass=None):
         plain_dkdv = cuda_ms(torch, lambda: torch.autograd.grad(
             op, (kk, vv), do, retain_graph=True), iters=10, warmup=2)
         del op
-        with torch.no_grad():
-            lib_fwd = cuda_ms(torch, lambda: sdpa(q, k, v, attn_mask=lm,
-                                                  scale=scale))
         bounds = flash_bounds(B, nh, S, hd, 4, 4 * B * S, F32_FLOPS_PER_S)
         tc_bounds = flash_bounds(B, nh, S, hd, 4, 4 * B * S,
                                  TF32_FLOPS_PER_S / 3)
         plain = {"flash_fwd": plain_fwd, "flash_bwd_dq": plain_dq,
                  "flash_bwd_dkdv": plain_dkdv}
         for name in fa.KERNEL_NAMES:
-            # bound_ms at the rate of the unit the kernel multiplies on: B1
-            # the f32 CUDA cores, B2/B3 the tensor cores in 3xTF32
-            bound = bounds[name] if name == "flash_fwd" else tc_bounds[name]
+            # bound_ms at the rate of the unit the kernels multiply on: the
+            # tensor cores in 3xTF32; the f32 CUDA-core bound beside it
+            bound = tc_bounds[name]
             rows[name] = kernel_row(
                 name, max_abs_err=errs[name], ms=times[0.1][name],
                 plain_ms=plain[name], bound_ms=bound[0], bound_by=bound[1],
@@ -583,6 +607,10 @@ def check_flash_kernels(torch, fa, ptxas, sass=None):
                        for d in ("float32", "bfloat16") for h in (64, 128)},
                 sass_hmma=flash_sass(sass, name),
                 checks=checks[name])
+        rows["flash_fwd"].update(
+            lse_max_abs_err=lse_err,
+            fwd_over_sdpa_fwd={str(r): times[r]["flash_fwd"] / lib_fwd
+                               for r in (0.1, 0.0)})
         for name in ("flash_bwd_dq", "flash_bwd_dkdv"):
             rows[name].update(
                 library_covers="B2+B3 (SDPA backward)",
@@ -597,8 +625,14 @@ def check_flash_kernels(torch, fa, ptxas, sass=None):
     for name in fa.KERNEL_NAMES:
         row = rows[name]
         row["bf16_ms"] = extra["bfloat16"][0.1][name]
+        row["bf16_ms_dropout0"] = extra["bfloat16"][0.0][name]
         row["bf16_bound_ms"] = bf_bounds[name][0]
-        if name != "flash_fwd":
+        if name == "flash_fwd":
+            sd = extra["bfloat16"]["sdpa_fwd"]
+            row["bf16_sdpa_fwd_ms"] = sd
+            row["bf16_fwd_over_sdpa_fwd"] = {
+                str(r): extra["bfloat16"][r][name] / sd for r in (0.1, 0.0)}
+        else:
             row["bf16_b2_plus_b3_ms"] = extra["bfloat16"][0.1]["b2_plus_b3"]
             row["bf16_sdpa_bwd_ms"] = extra["bfloat16"]["sdpa_bwd"]
         log(f"kernel {name}: f32 {row['ms']:.4f} ms (dropout 0: "
@@ -613,6 +647,13 @@ def check_flash_kernels(torch, fa, ptxas, sass=None):
             f"{rows['flash_bwd_dq']['b2_plus_b3_ms'][r]:.4f} ms, "
             f"{rows['flash_bwd_dq']['b2_plus_b3_over_sdpa_bwd'][r]:.3f}x "
             f"SDPA's backward ({rows['flash_bwd_dq']['library_ms']:.4f} ms)")
+    fwd = rows["flash_fwd"]
+    log(f"flash B1 f32: {fwd['ms']:.4f} ms at dropout 0.1, "
+        f"{fwd['ms_dropout0']:.4f} at 0; SDPA forward {fwd['library_ms']:.4f}"
+        f" ms: {fwd['fwd_over_sdpa_fwd']['0.1']:.3f}x / "
+        f"{fwd['fwd_over_sdpa_fwd']['0.0']:.3f}x; bf16 {fwd['bf16_ms']:.4f} / "
+        f"{fwd['bf16_ms_dropout0']:.4f} ms, SDPA bf16 forward "
+        f"{fwd['bf16_sdpa_fwd_ms']:.4f} ms")
     log(f"flash B2+B3 bf16 dropout 0.1: "
         f"{rows['flash_bwd_dq']['bf16_b2_plus_b3_ms']:.4f} ms; SDPA bf16 "
         f"backward {rows['flash_bwd_dq']['bf16_sdpa_bwd_ms']:.4f} ms")
@@ -671,77 +712,136 @@ def zero_library_call(torch, op_type, label, ins):
                       maximize=False, is_first_step=False)
 
 
+def b8_launch_alone(torch, zk, ins, attrs, op_type):
+    """A call of B8's C entry point alone on `ins`' tensors, its arguments
+    prepared beforehand (what `zero_update.launch` passes), and not
+    counted: the kernel's time without the wrapper's."""
+    lib = zk._library()
+    ptr = {s: v[0].data_ptr() for s, v in ins.items()}
+    b1, b2 = attrs.get("beta1", 0.9), attrs.get("beta2", 0.999)
+    decay = op_type == "adamw"
+    args = (ptr["LearningRate"], ptr["Beta1Pow"], ptr["Beta2Pow"],
+            ptr["Param"], ptr["Grad"], ptr["Moment1"], ptr["Moment2"],
+            ins["Param"][0].numel(), b1, 1 - b1, b2, 1 - b2,
+            attrs.get("epsilon", 1e-8),
+            attrs.get("coeff", 0.01) if decay else 0.0, int(decay),
+            torch.cuda.current_stream().cuda_stream)
+    return lambda: lib.zero_adam(*args)
+
+
+# B8 on buckets that do not start on 16 bytes (slot offsets in elements of
+# Param, Grad, Moment1, Moment2): one shared offset takes the scalar head and
+# the vector body; offsets that differ take the scalar loop
+ZERO_OFFSET_ARMS = (("adam_offset1", (1, 1, 1, 1)),
+                    ("adam_mismatched_offsets", (1, 0, 2, 3)))
+
+
 def check_zero_kernels(torch, zk, ptxas):
     """B6-B8 against their plain version on the card, bit for bit on every
-    output, at the stage-1 path's bucket sizes and a tail; inputs N(0, 1),
-    m2 = |N(0, 1)|. Timed (CUDA events, 5 warm-up, 50 launches) beside the
-    plain version, the bytes bound and torch's fused optimizer call."""
+    output, at the stage-1 path's bucket sizes and a tail, and B8 on two
+    buckets that do not start on 16 bytes; inputs N(0, 1), m2 = |N(0, 1)|.
+    Timed (CUDA events, 5 warm-up, 50 launches) beside the plain version,
+    the bytes bound and torch's fused optimizer call; B8 also alone, without
+    its wrapper."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
-    for kernel, op_type, label, attrs in ZERO_ARMS:
+    scalars = {"LearningRate": [1e-3], "Beta1Pow": [0.9 ** 3],
+               "Beta2Pow": [0.999 ** 3]}
+    arms = [(kernel, op_type, label, attrs, n, None)
+            for kernel, op_type, label, attrs in ZERO_ARMS
+            for n in ZERO_SIZES]
+    arms += [("zero_adam", "adam", label, ZERO_ARMS[3][3], ZERO_SIZES[0],
+              offs) for label, offs in ZERO_OFFSET_ARMS]
+    for kernel, op_type, label, attrs, n, offs in arms:
         state = zk._STATE_SLOTS[op_type]
-        for n in ZERO_SIZES:
-            base = {s: torch.randn(n, generator=gen, device="cuda")
-                    for s in ("Param", "Grad") + state}
-            if "Moment2" in base:
-                base["Moment2"].abs_()
-            scalars = {"LearningRate": [1e-3], "Beta1Pow": [0.9 ** 3],
-                       "Beta2Pow": [0.999 ** 3]}
+        base = {s: torch.randn(n, generator=gen, device="cuda")
+                for s in ("Param", "Grad") + state}
+        if "Moment2" in base:
+            base["Moment2"].abs_()
 
-            def copy():
-                ins = {s: [t.clone()] for s, t in base.items()}
-                for s, v in scalars.items():
-                    ins[s] = [torch.tensor(v, device="cuda")]
-                return ins
+        def copy():
+            ins = {}
+            for i, (s, t) in enumerate(base.items()):
+                o = offs[i] if offs else 0
+                ins[s] = [torch.empty(n + o, device="cuda")[o:]]
+                ins[s][0].copy_(t)
+            for s, v in scalars.items():
+                ins[s] = [torch.tensor(v, device="cuda")]
+            return ins
 
-            kin, pin = copy(), copy()
-            del base
-            got = zk.fused_flat_update(op_type, kin, attrs)
-            want = zk.fused_flat_update_plain(op_type, pin, attrs)
-            torch.cuda.synchronize()
-            check = {"arm": label, "n": n, "bitwise": True, "max_ulp": 0,
-                     "max_abs_err": 0.0}
-            for slot, (g,) in got.items():
-                w = want[slot][0]
-                if not torch.isfinite(g).all():
-                    fail(f"{label} n={n}: non-finite kernel {slot}")
-                if not torch.equal(g, w):
-                    check["bitwise"] = False
-                    check["max_ulp"] = max(check["max_ulp"],
-                                           max_ulp_distance(torch, g, w))
-                    check["max_abs_err"] = max(
-                        check["max_abs_err"], (g - w).abs().max().item())
-            log(f"kernel {kernel} {label} n={n}: kernel == plain bit for "
-                f"bit: {check['bitwise']} (max {check['max_ulp']} ulp, "
-                f"max abs {check['max_abs_err']:.3e})")
-            if not check["bitwise"]:
-                fail(f"{kernel} {label} n={n}: kernel differs from its plain "
-                     f"version by up to {check['max_ulp']} ulp")
-            del want, pin
-            times = {
-                "ms": cuda_ms(torch, lambda: zk.fused_flat_update(
-                    op_type, kin, attrs)),
-                "plain_ms": cuda_ms(torch, lambda: zk.fused_flat_update_plain(
-                    op_type, kin, attrs)),
-                "bound_ms": n * ZERO_BYTES_PER_ELEMENT[kernel]
-                / HBM_BYTES_PER_S * 1e3}
-            lib = zero_library_call(torch, op_type, label,
-                                    {s: v for s, v in kin.items()})
-            times["library_ms"] = None if lib is None \
-                else cuda_ms(torch, lib)
-            log(f"kernel {kernel} {label} n={n}: {times['ms']:.4f} ms, plain "
-                f"{times['plain_ms']:.4f} ms, bytes bound "
-                f"{times['bound_ms']:.4f} ms, torch fused "
-                f"{times['library_ms']}")
-            results.setdefault(kernel, {}).setdefault(label, {})[n] = \
-                dict(check, **times)
-            del kin, got
+        kin, pin = copy(), copy()
+        del base
+        got = zk.fused_flat_update(op_type, kin, attrs)
+        want = zk.fused_flat_update_plain(op_type, pin, attrs)
+        torch.cuda.synchronize()
+        check = {"arm": label, "n": n, "bitwise": True, "max_ulp": 0,
+                 "max_abs_err": 0.0}
+        for slot, (g,) in got.items():
+            w = want[slot][0]
+            if not torch.isfinite(g).all():
+                fail(f"{label} n={n}: non-finite kernel {slot}")
+            if not torch.equal(g, w):
+                check["bitwise"] = False
+                check["max_ulp"] = max(check["max_ulp"],
+                                       max_ulp_distance(torch, g, w))
+                check["max_abs_err"] = max(
+                    check["max_abs_err"], (g - w).abs().max().item())
+        log(f"kernel {kernel} {label} n={n}: kernel == plain bit for "
+            f"bit: {check['bitwise']} (max {check['max_ulp']} ulp, "
+            f"max abs {check['max_abs_err']:.3e})")
+        if not check["bitwise"]:
+            fail(f"{kernel} {label} n={n}: kernel differs from its plain "
+                 f"version by up to {check['max_ulp']} ulp")
+        del want, pin
+        times = {
+            "ms": cuda_ms(torch, lambda: zk.fused_flat_update(
+                op_type, kin, attrs)),
+            "plain_ms": cuda_ms(torch, lambda: zk.fused_flat_update_plain(
+                op_type, kin, attrs)),
+            "bound_ms": n * ZERO_BYTES_PER_ELEMENT[kernel]
+            / HBM_BYTES_PER_S * 1e3}
+        if kernel == "zero_adam":
+            # the row's time is the launch alone; the wrapper's beside it
+            times["wrapper_ms"] = times["ms"]
+            times["ms"] = cuda_ms(torch, b8_launch_alone(
+                torch, zk, kin, attrs, op_type))
+            times["gb_per_s"] = n * ZERO_BYTES_PER_ELEMENT[kernel] \
+                / times["ms"] / 1e6
+            times["share_of_bytes_bound"] = times["bound_ms"] / times["ms"]
+        lib = None if offs else zero_library_call(
+            torch, op_type, label, {s: v for s, v in kin.items()})
+        times["library_ms"] = None if lib is None \
+            else cuda_ms(torch, lib)
+        log(f"kernel {kernel} {label} n={n}: {times['ms']:.4f} ms"
+            + (f" alone ({times['gb_per_s']:.1f} GB/s, "
+               f"{times['share_of_bytes_bound']:.3f} of the bytes bound;"
+               f" through the wrapper {times['wrapper_ms']:.4f} ms)"
+               if kernel == "zero_adam" else "")
+            + f", plain {times['plain_ms']:.4f} ms, bytes bound "
+            f"{times['bound_ms']:.4f} ms, torch fused "
+            f"{times['library_ms']}")
+        results.setdefault(kernel, {}).setdefault(label, {})[n] = \
+            dict(check, **times)
+        del kin, got
         torch.cuda.empty_cache()
     rows = {}
     main_n = ZERO_SIZES[0]
     for kernel, arms in results.items():
         label = next(iter(arms))          # the kernel's first arm
         at = arms[label][main_n]
+        extra = {}
+        if kernel == "zero_adam":
+            per_sm = zk._library().zero_adam_blocks_per_sm()
+            if per_sm <= 0:
+                fail(f"zero_adam: occupancy query failed ({per_sm})")
+            extra = dict(wrapper_ms=at["wrapper_ms"],
+                         gb_per_s=at["gb_per_s"],
+                         share_of_bytes_bound=at["share_of_bytes_bound"],
+                         resident_blocks_per_sm=per_sm,
+                         grid_blocks=per_sm * torch.cuda.get_device_properties(
+                             0).multi_processor_count)
+            log(f"kernel zero_adam: {per_sm} resident blocks of 256 threads "
+                f"per SM, grid {extra['grid_blocks']} blocks")
         rows[kernel] = kernel_row(
             kernel, max_abs_err=max(c["max_abs_err"] for a in arms.values()
                                     for c in a.values()),
@@ -754,7 +854,7 @@ def check_zero_kernels(torch, zk, ptxas):
             ptxas=next((v for k, v in ptxas.items()
                         if f"{kernel}_kernel" in k), None),
             arms={a: {str(n): c for n, c in by_n.items()}
-                  for a, by_n in arms.items()})
+                  for a, by_n in arms.items()}, **extra)
     return rows
 
 

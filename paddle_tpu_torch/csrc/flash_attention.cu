@@ -25,13 +25,11 @@
 // head b*nh+h depends only on (seed, head, q, k), so all three kernels
 // regenerate the forward's mask although they tile differently.
 //
-// Forward (B1): 64 x 64 tiles staged in shared memory as f32, each of 256
-// threads owning a 4 x 4 score micro-tile, scalar FMAs on the CUDA cores.
-//
 // Backward (B2, B3): at BERT shapes (S 512, hd 64) B2 does 6 and B3 8 x
 // B*nh*S^2*hd operations on ~25-45 MB of operands, so operations bound
-// them: at the 3xTF32 rate (a third of 494.7 TFLOP/s) for f32 operands and
-// at the bf16 tensor-core rate (989.4) for bf16. Their design:
+// them, as 4 x B*nh*S^2*hd bound the forward (B1): at the 3xTF32 rate (a
+// third of 494.7 TFLOP/s) for f32 operands and at the bf16 tensor-core rate
+// (989.4) for bf16. All three kernels share one design:
 //   * Tensor cores through warp-level mma.sync (mma_tile.cuh): bf16 as
 //     m16n8k16 with ldmatrix (.trans where a product contracts over the
 //     tile's stored row axis); f32 as m16n8k8 TF32 in 3xTF32 (big = x
@@ -40,22 +38,30 @@
 //     card-vs-CPU gate and the 5e-4 gradient tolerance need.
 //   * mma.sync and not wgmma: wgmma takes tf32 operands only K-major in
 //     shared memory (the transpose flags exist for 16-bit types only), and
-//     three of the products contract over the stored row axis (dQ = dS K,
-//     dV = P^T dO, dK = dS^T Q), so each would need a transposed, split copy
-//     in shared memory. mma.sync fragments load at any index for free.
-//   * Four warps per 64-row tile, 16 rows each. B2 keeps S and dP of its
-//     rows in registers and feeds dS to dQ += dS K from there; B3 computes
-//     S^T = K Q^T and dP^T = V dO^T so P^T and dS^T are register A operands
-//     of dV and dK. hd 128 doubles the warps, each group of four owning half
-//     of the head dim of the output products (both compute the scores).
-//   * The streamed tiles (K/V in B2, Q/dO with lse/delta in B3) arrive by
-//     16-byte cp.async, rows past S zero-filled, through a two-stage ring;
-//     rows are padded by 16 bytes, so fragment loads are free of bank
-//     conflicts. A key-padding mask row is read once per key tile.
+//     three of the products contract over the stored row axis (O = P V,
+//     dQ = dS K, dV = P^T dO, dK = dS^T Q), so each would need a transposed,
+//     split copy in shared memory. mma.sync fragments load at any index for
+//     free.
+//   * Four warps per 64-row tile, 16 rows each. B1 and B2 keep the scores
+//     of their rows in registers and feed P (dS) to O += P V (dQ += dS K)
+//     from there; B3 computes S^T = K Q^T and dP^T = V dO^T so P^T and dS^T
+//     are register A operands of dV and dK. hd 128 doubles the warps, each
+//     group of four owning half of the head dim of the output products
+//     (both compute the scores).
+//   * The streamed tiles (K/V in B1 and B2, Q/dO with lse/delta in B3)
+//     arrive by 16-byte cp.async, rows past S zero-filled, through a
+//     two-stage ring; rows are padded by 16 bytes, so fragment loads are
+//     free of bank conflicts. A key-padding mask row is read once per key
+//     tile.
 //   * No atomics: every output element is written by one block, in a fixed
 //     order, so the kernels are deterministic.
+// B1 in particular: the online softmax runs in registers in log2 units
+// (scores scaled by scale * log2 e, exp2f); a row's max is taken over the
+// four threads of its quad (two shuffles), its sum kept per thread and
+// reduced once at the end; dropout is a multiply by 1/keep_prob; at f32 and
+// hd 64 the resident Q tile is split into TF32 halves once per block.
 // Left for later work: wgmma for the bf16 path, warp specialisation with
-// TMA, and B1 on the same building blocks.
+// TMA.
 //
 // Unlike the TPU kernels, any S is taken (a tail tile is masked), and
 // lse is stored [B*nh, S] rather than broadcast over 128 lanes.
@@ -69,10 +75,8 @@
 
 namespace {
 
-constexpr int BQ = 64;   // query rows per tile
-constexpr int BK = 64;   // key rows per tile
-constexpr int NT = 256;  // threads per block, viewed as 16 x 16
-constexpr int LDS = BK + 1;  // padded row of a score tile
+constexpr int BQ = 64;   // query rows of a resident tile (B1, B2)
+constexpr int BK = 64;   // key rows of a resident tile (B3)
 
 struct Params {
     const void* q;
@@ -102,15 +106,6 @@ template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
     return __bfloat162float(x);
 }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-    return __float2bfloat16_rn(x);
-}
-// the reference's casts to an operand dtype before a product
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-    return to_f<T>(from_f<T>(x));
-}
 
 __device__ __forceinline__ bool keep_bit(const Params& p, uint32_t head,
                                          uint32_t qpos, uint32_t kpos) {
@@ -132,186 +127,32 @@ __device__ __forceinline__ const float* mask_base(const Params& p, int bh) {
     return p.mask + (size_t)mb * p.mask_rows * p.S;
 }
 
-// scaled, masked score of (qpos, kpos); -inf outside the key range and
-// above the causal diagonal (the reference's -inf guards)
-__device__ __forceinline__ float masked_score(const Params& p, const float* mrow,
-                                              float dot, int qpos, int kpos) {
-    if (kpos >= p.S) return -INFINITY;
-    float s = dot * p.scale;
-    if (mrow != nullptr && qpos < p.S)
-        s += mrow[(size_t)(p.mask_rows == 1 ? 0 : qpos) * p.S + kpos];
-    if (p.causal && kpos > qpos) return -INFINITY;
-    return s;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-    for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-    return x;
-}
 __device__ __forceinline__ float warp_sum(float x) {
     for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
     return x;
 }
 
-// rows [r0, r0 + BQ) of a [S, HD] matrix into a padded f32 tile
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0, int S) {
-    constexpr int LD = HD + 1;
-    for (int i = threadIdx.x; i < BQ * HD; i += NT) {
-        int r = i / HD, d = i % HD;
-        dst[r * LD + d] = (r0 + r < S) ? to_f<T>(src[(size_t)(r0 + r) * HD + d]) : 0.f;
-    }
-}
-
-// 4 x 4 micro-tile of A B^T: rows ty + 16 i of A, rows tx + 16 j of B
-template <int HD>
-__device__ __forceinline__ void dot_tile(float acc[4][4], const float* A, const float* Bm,
-                                         int ty, int tx) {
-    constexpr int LD = HD + 1;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-        float a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * LD + d];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = Bm[(tx + 16 * j) * LD + d];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-}
-
-// ---------------------------------------------------------------- forward --
-template <typename T, int HD>
-__global__ void __launch_bounds__(NT) flash_fwd_kernel(Params p) {
-    constexpr int LD = HD + 1, NC = HD / 16;
-    extern __shared__ float smem[];
-    float* sQ = smem;
-    float* sK = sQ + BQ * LD;
-    float* sV = sK + BK * LD;
-    float* sS = sV + BK * LD;
-    float* sM = sS + BQ * LDS;
-    float* sL = sM + BQ;
-    float* sA = sL + BQ;
-
-    const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
-    const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-    const int warp = tid / 32, lane = tid % 32;
-    const size_t base = (size_t)bh * p.S * HD;
-    const T* Q = static_cast<const T*>(p.q) + base;
-    const T* K = static_cast<const T*>(p.k) + base;
-    const T* V = static_cast<const T*>(p.v) + base;
-    const float* mrow = p.mask_mode ? mask_base(p, bh) : nullptr;
-
-    load_tile<T, HD>(sQ, Q, q0, p.S);
-    for (int r = tid; r < BQ; r += NT) { sM[r] = -INFINITY; sL[r] = 0.f; }
-    float acc[4][NC];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
-
-    int n_kt = (p.S + BK - 1) / BK;
-    if (p.causal) n_kt = min(n_kt, (min(q0 + BQ, p.S) + BK - 1) / BK);
-    for (int kt = 0; kt < n_kt; ++kt) {
-        const int k0 = kt * BK;
-        __syncthreads();                       // previous tile fully used
-        load_tile<T, HD>(sK, K, k0, p.S);
-        load_tile<T, HD>(sV, V, k0, p.S);
-        __syncthreads();
-        float s[4][4] = {};
-        dot_tile<HD>(s, sQ, sK, ty, tx);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                int r = ty + 16 * i, c = tx + 16 * j;
-                sS[r * LDS + c] = masked_score(p, mrow, s[i][j], q0 + r, k0 + c);
-            }
-        __syncthreads();
-        // online softmax: each warp owns 8 rows, each lane 2 columns
-        for (int rr = 0; rr < BQ / 8; ++rr) {
-            const int r = warp * (BQ / 8) + rr;
-            float v0 = sS[r * LDS + lane], v1 = sS[r * LDS + lane + 32];
-            float m_prev = sM[r];
-            float m_new = fmaxf(m_prev, warp_max(fmaxf(v0, v1)));
-            float m_safe = isfinite(m_new) ? m_new : 0.f;
-            float p0 = isfinite(v0) ? expf(v0 - m_safe) : 0.f;
-            float p1 = isfinite(v1) ? expf(v1 - m_safe) : 0.f;
-            float rowsum = warp_sum(p0 + p1);
-            float alpha = isfinite(m_prev) ? expf(m_prev - m_safe) : 0.f;
-            if (p.dropout) {
-                uint32_t qpos = q0 + r;
-                p0 = keep_bit(p, bh, qpos, k0 + lane) ? p0 / p.keep_prob : 0.f;
-                p1 = keep_bit(p, bh, qpos, k0 + lane + 32) ? p1 / p.keep_prob : 0.f;
-            }
-            sS[r * LDS + lane] = round_to<T>(p0);
-            sS[r * LDS + lane + 32] = round_to<T>(p1);
-            if (lane == 0) {
-                sM[r] = m_new;
-                sL[r] = alpha * sL[r] + rowsum;
-                sA[r] = alpha;
-            }
-        }
-        __syncthreads();
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            float a = sA[ty + 16 * i];
-#pragma unroll
-            for (int j = 0; j < NC; ++j) acc[i][j] *= a;
-        }
-#pragma unroll 4
-        for (int kk = 0; kk < BK; ++kk) {
-            float pr[4], vv[NC];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) pr[i] = sS[(ty + 16 * i) * LDS + kk];
-#pragma unroll
-            for (int j = 0; j < NC; ++j) vv[j] = sV[kk * LD + tx + 16 * j];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < NC; ++j) acc[i][j] = fmaf(pr[i], vv[j], acc[i][j]);
-        }
-    }
-    __syncthreads();
-    T* O = static_cast<T*>(p.out) + base;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int qpos = q0 + ty + 16 * i;
-        if (qpos >= p.S) continue;
-        const float l = fmaxf(sL[ty + 16 * i], 1e-30f);
-#pragma unroll
-        for (int j = 0; j < NC; ++j)
-            O[(size_t)qpos * HD + tx + 16 * j] = from_f<T>(acc[i][j] / l);
-    }
-    if (tid < BQ && q0 + tid < p.S) {
-        const float m = sM[tid];
-        p.lse[(size_t)bh * p.S + q0 + tid] =
-            isfinite(m) ? m + logf(fmaxf(sL[tid], 1e-30f)) : -INFINITY;
-    }
-}
-
-// ------------------------------------------------------ backward (B2, B3) --
-// Both backward kernels multiply on the tensor cores (mma_tile.cuh): four
-// warps per 64-row resident tile, each owning 16 rows, times HD / 64 warp
-// groups that split the head dim of the output products (hd 128: 8 warps;
-// both groups compute the scores). The other operands stream through a
-// two-stage cp.async ring of BN-row tiles, so tile t+1 lands while tile t is
-// multiplied. BN is 32 and not 64: the ring then takes the shared memory of
-// one 64-row stage, and at hd 64 three blocks fit on an SM where two did
-// (measured: B2 ~20% faster at f32), with half the score registers.
+// ------------------------------------------------- tensor-core kernels --
+// All three kernels multiply on the tensor cores (mma_tile.cuh): four warps
+// per 64-row resident tile, each owning 16 rows, times HD / 64 warp groups
+// that split the head dim of the output products (hd 128: 8 warps; both
+// groups compute the scores). The other operands stream through a two-stage
+// cp.async ring of BN-row tiles (BNF in the forward), so tile t+1 lands
+// while tile t is multiplied. BN is 32 and not 64 in the backward: the ring
+// then takes the shared memory of one 64-row stage, and at hd 64 three
+// blocks fit on an SM where two did (measured: B2 ~20% faster at f32), with
+// half the score registers.
 constexpr int BN = 32;         // streamed rows per tile
 constexpr int NJ = BN / 8;     // 8-column accumulator tiles of a score block
-template <int HD> __host__ __device__ constexpr int bwd_threads() { return 128 * (HD / 64); }
+template <int HD> __host__ __device__ constexpr int tile_threads() { return 128 * (HD / 64); }
 // shared row stride in elements: HD + 16 bytes
-template <typename T, int HD> __host__ __device__ constexpr int bwd_ld() {
+template <typename T, int HD> __host__ __device__ constexpr int tile_ld() {
     return HD + 16 / (int)sizeof(T);
 }
-// two resident 64-row tiles, a ring of two stages of two BN-row tiles, and
-// four 64-float rows
+// backward: two resident 64-row tiles, a ring of two stages of two BN-row
+// tiles, and four 64-float rows
 template <typename T, int HD> constexpr size_t bwd_smem() {
-    return sizeof(T) * (2 * BQ + 4 * BN) * bwd_ld<T, HD>() + 4 * sizeof(float) * BQ;
+    return sizeof(T) * (2 * BQ + 4 * BN) * tile_ld<T, HD>() + 4 * sizeof(float) * BQ;
 }
 
 template <typename T> __device__ __forceinline__ void store2(T* dst, float a, float b);
@@ -339,6 +180,159 @@ __device__ __forceinline__ float bwd_score(const Params& p, const float* mrow, f
     return s;
 }
 
+// -------------------------------------------------------- forward (B1) --
+// One block per 64-row q tile, looping over BNF-key tiles of K and V. A
+// warp's 16 q rows x BNF keys of scores stay in registers: scaled into log2
+// units, the row max over the quad, P = exp2(s - max), the partial row sums
+// per thread, dropout as a multiply, and P feeds O += P V from there. At f32
+// and hd 64 the resident Q tile is split into its TF32 halves once, after it
+// lands (kSplitQOnce; shared memory: the big half in place, the small half
+// in a second tile); at hd 128 that second tile would leave one block per SM,
+// so Q is split per fragment there, as B2 splits it.
+constexpr int BNF = 32;        // streamed K/V rows per forward tile
+constexpr bool kSplitQOnce = true;
+template <typename T, int HD> __host__ __device__ constexpr bool fwd_split_q() {
+    return kSplitQOnce && sizeof(T) == 4 && HD == 64;
+}
+// the Q tile (and its small half), a ring of two stages of K and V BNF-row
+// tiles, and two key-padding rows
+template <typename T, int HD> constexpr size_t fwd_smem() {
+    return sizeof(T) * ((fwd_split_q<T, HD>() ? 2 : 1) * BQ + 4 * BNF) * tile_ld<T, HD>()
+           + 2 * sizeof(float) * BNF;
+}
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(128 * (HD / 64)) flash_fwd_kernel(Params p) {
+    using namespace mma_tile;
+    constexpr int NTB = tile_threads<HD>(), LD = tile_ld<T, HD>();
+    constexpr int TILE = BQ * LD, STILE = BNF * LD, NJF = BNF / 8;
+    constexpr bool SPLIT = fwd_split_q<T, HD>();
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    T* sQ = reinterpret_cast<T*>(smem_raw);     // SPLIT: Q's big half, then its small half
+    T* sRing = sQ + (SPLIT ? 2 : 1) * TILE;    // stage s: K at sRing + 2 s STILE, V after it
+    float* sMk = reinterpret_cast<float*>(sRing + 4 * STILE);  // [2][BNF] key-padding rows
+
+    const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4, wr = warp % 4, wc = warp / 4;
+    const size_t base = (size_t)bh * p.S * HD;
+    const T* K = static_cast<const T*>(p.k) + base;
+    const T* V = static_cast<const T*>(p.v) + base;
+    const float* mrow = p.mask_mode ? mask_base(p, bh) : nullptr;
+    const bool mask1 = mrow != nullptr && p.mask_rows == 1;
+    const float inv_keep = 1.f / p.keep_prob;
+    const float sl2 = p.scale * kLog2e;        // scores in log2 units
+
+    int n_kt = (p.S + BNF - 1) / BNF;
+    if (p.causal) n_kt = min(n_kt, (min(q0 + BQ, p.S) + BNF - 1) / BNF);
+    auto issue = [&](int stage, int kt) {
+        const int k0 = kt * BNF;
+        T* dst = sRing + 2 * stage * STILE;
+        load_tile_async<T, HD, BNF, NTB>(dst, K, k0, p.S);
+        load_tile_async<T, HD, BNF, NTB>(dst + STILE, V, k0, p.S);
+        if (mask1 && tid < BNF)
+            cp_async4(sMk + stage * BNF + tid, mrow + min(k0 + tid, p.S - 1), k0 + tid < p.S);
+    };
+    load_tile_async<T, HD, BQ, NTB>(sQ, static_cast<const T*>(p.q) + base, q0, p.S);
+    issue(0, 0);
+    cp_async_commit();
+
+    const int r_lo = 16 * wr + g;   // this thread's rows: r_lo and r_lo + 8
+    float m[2] = {-INFINITY, -INFINITY};   // row max so far, log2 units
+    float l[2] = {0.f, 0.f};               // this thread's share of the row sum
+    float acc[8][4] = {};
+    for (int kt = 0; kt < n_kt; ++kt) {
+        const int st = kt & 1, k0 = kt * BNF;
+        if (kt + 1 < n_kt) issue(st ^ 1, kt + 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+        __syncthreads();
+        if constexpr (SPLIT) {
+            if (kt == 0) {
+                split_tile<HD, LD, BQ, NTB>(reinterpret_cast<float*>(sQ),
+                                            reinterpret_cast<uint32_t*>(sQ + TILE));
+                __syncthreads();
+            }
+        }
+        const T* sK = sRing + 2 * st * STILE;
+        const T* sV = sK + STILE;
+        float s[NJF][4] = {};
+        if constexpr (SPLIT)
+            mma_abt_split<HD, LD, NJF>(s, reinterpret_cast<const uint32_t*>(sQ) + 16 * wr * LD,
+                                       reinterpret_cast<const uint32_t*>(sQ + TILE) + 16 * wr * LD,
+                                       reinterpret_cast<const float*>(sK), lane);
+        else
+            mma_abt<T, HD, LD, NJF>(s, sQ + 16 * wr * LD, sK, lane);
+        // the masked score in log2 units; -inf past S and above the diagonal
+        float mx[2] = {m[0], m[1]};
+#pragma unroll
+        for (int j = 0; j < NJF; ++j)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const int h = i / 2, c = 8 * j + 2 * t + (i % 2);
+                const int qpos = q0 + r_lo + 8 * h, kpos = k0 + c;
+                float mk = 0.f;
+                if (mask1) mk = sMk[st * BNF + c];
+                else if (mrow != nullptr && qpos < p.S && kpos < p.S)
+                    mk = mrow[(size_t)qpos * p.S + kpos];
+                float sc = fmaf(s[j][i], sl2, mk * kLog2e);
+                if (kpos >= p.S || (p.causal && kpos > qpos)) sc = -INFINITY;
+                s[j][i] = sc;
+                mx[h] = fmaxf(mx[h], sc);
+            }
+        float ms[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+            mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+            // the reference's guards: m_safe, alpha = 0 while the row is all -inf
+            ms[h] = isfinite(mx[h]) ? mx[h] : 0.f;
+            const float alpha = isfinite(m[h]) ? exp2f(m[h] - ms[h]) : 0.f;
+            m[h] = mx[h];
+            l[h] *= alpha;
+#pragma unroll
+            for (int n = 0; n < 8; ++n) {
+                acc[n][2 * h] *= alpha;
+                acc[n][2 * h + 1] *= alpha;
+            }
+        }
+        // P = exp2(s - m_safe), 0 where s = -inf; the sum before dropout
+#pragma unroll
+        for (int j = 0; j < NJF; ++j)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const int h = i / 2;
+                float pr = exp2f(s[j][i] - ms[h]);
+                l[h] += pr;
+                if (p.dropout) {
+                    const int qpos = q0 + r_lo + 8 * h, kpos = k0 + 8 * j + 2 * t + (i % 2);
+                    pr = keep_bit(p, bh, qpos, kpos) ? pr * inv_keep : 0.f;
+                }
+                s[j][i] = pr;
+            }
+        // O += P V; the product rounds P to V's dtype
+        mma_pb<T, LD, NJF>(acc, [&](int j, int i) { return s[j][i]; }, sV + 64 * wc, lane);
+        __syncthreads();            // the stage is refilled next iteration
+    }
+    T* O = static_cast<T*>(p.out) + base;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+        const int qpos = q0 + r_lo + 8 * h;
+        if (qpos >= p.S) continue;
+        const float den = fmaxf(l[h], 1e-30f);
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+            store2<T>(O + (size_t)qpos * HD + 64 * wc + 8 * n + 2 * t, acc[n][2 * h] / den,
+                      acc[n][2 * h + 1] / den);
+        if (t == 0 && wc == 0)
+            p.lse[(size_t)bh * p.S + qpos] =
+                isfinite(m[h]) ? m[h] * kLn2 + logf(den) : -INFINITY;
+    }
+}
+
 // -------------------------------------------------------------- dq pass --
 // One block per 64-row q tile, looping over BN-key tiles. A warp's 16 q rows
 // x BN keys of S and dP stay in registers; dS feeds dQ += dS K from there.
@@ -346,7 +340,7 @@ __device__ __forceinline__ float bwd_score(const Params& p, const float* mrow, f
 template <typename T, int HD>
 __global__ void __launch_bounds__(128 * (HD / 64)) flash_bwd_dq_kernel(Params p) {
     using namespace mma_tile;
-    constexpr int NTB = bwd_threads<HD>(), LD = bwd_ld<T, HD>();
+    constexpr int NTB = tile_threads<HD>(), LD = tile_ld<T, HD>();
     constexpr int TILE = BQ * LD, STILE = BN * LD;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     T* sQ = reinterpret_cast<T*>(smem_raw);
@@ -457,7 +451,7 @@ __global__ void __launch_bounds__(128 * (HD / 64)) flash_bwd_dq_kernel(Params p)
 template <typename T, int HD>
 __global__ void __launch_bounds__(128 * (HD / 64)) flash_bwd_dkdv_kernel(Params p) {
     using namespace mma_tile;
-    constexpr int NTB = bwd_threads<HD>(), LD = bwd_ld<T, HD>();
+    constexpr int NTB = tile_threads<HD>(), LD = tile_ld<T, HD>();
     constexpr int TILE = BK * LD, STILE = BN * LD;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     T* sK = reinterpret_cast<T*>(smem_raw);
@@ -566,9 +560,6 @@ __global__ void __launch_bounds__(128 * (HD / 64)) flash_bwd_dkdv_kernel(Params 
     }
 }
 
-constexpr size_t fwd_smem(int hd) {
-    return sizeof(float) * ((size_t)(BQ + 2 * BK) * (hd + 1) + BQ * LDS + 3 * BQ);
-}
 template <typename Kern>
 int launch(Kern kern, size_t smem, dim3 grid, int threads, const Params& p,
            cudaStream_t st) {
@@ -583,13 +574,15 @@ int launch(Kern kern, size_t smem, dim3 grid, int threads, const Params& p,
 template <typename T, int HD>
 int run(int which, const Params& p, cudaStream_t st) {
     dim3 grid((p.S + BQ - 1) / BQ, p.B * p.nh);
-    if (which == 0) return launch(flash_fwd_kernel<T, HD>, fwd_smem(HD), grid, NT, p, st);
+    if (which == 0)
+        return launch(flash_fwd_kernel<T, HD>, fwd_smem<T, HD>(), grid, tile_threads<HD>(),
+                      p, st);
     if (which == 1)
         return launch(flash_bwd_dq_kernel<T, HD>, bwd_smem<T, HD>(), grid,
-                      bwd_threads<HD>(), p, st);
+                      tile_threads<HD>(), p, st);
     grid.x = (p.S + BK - 1) / BK;
     return launch(flash_bwd_dkdv_kernel<T, HD>, bwd_smem<T, HD>(), grid,
-                  bwd_threads<HD>(), p, st);
+                  tile_threads<HD>(), p, st);
 }
 
 int dispatch(int which, int dtype, int hd, const Params& p, void* stream) {

@@ -191,8 +191,8 @@ def _ptr(t):
 
 def _aligned16(t):
     """`t`, or a copy of it where its data does not start on 16 bytes: the
-    backward kernels copy operand rows into shared memory 16 bytes at a
-    time (a contiguous view into a larger buffer may start anywhere)."""
+    kernels copy operand rows into shared memory 16 bytes at a time (a
+    contiguous view into a larger buffer may start anywhere)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -240,6 +240,7 @@ def _raise_if(rc, name):
 def launch_fwd(q, k, v, mask, mode, seed, scale, causal, dropout):
     """B1 alone: (O, lse [B*nh, S] f32). Operands contiguous on one card,
     `mask` normalised (`normalize_mask`) and contiguous, or None."""
+    q, k, v = (_aligned16(t) for t in (q, k, v))
     b, nh, s, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b * nh, s), dtype=torch.float32, device=q.device)

@@ -1,17 +1,21 @@
-"""Variants of the flash backward kernels B2/B3, timed against each other on
-one card: the measurements behind PERF.md's account of where their time
-goes.
+"""Variants of the flash kernels B1-B3 and of the fused Adam update B8,
+timed against each other on one card: the measurements behind PERF.md's
+account of where their time goes.
 
     python3 -m paddle_tpu_torch.ops.kernels.flash_variants [name ...]
 
 Each variant is the sources under csrc/ with text substitutions applied
 (each must match exactly once). All variants build at once, one nvcc each,
 with `_build`'s flags, into build/variants/. Then each is swapped in under
-`flash_attention`'s launchers and B2 and B3 are timed with CUDA events at
-the training main path's shapes (batch 16, 12 heads, S 512, head_dim 64,
-key-padding mask), f32 and bf16, dropout 0.1 and 0, the variants in order
-and then in reverse, and averaged. Each prints its ptxas registers and its
-max |variant - plain| on the f32 and bf16 arms at dropout 0.1.
+its wrapper and timed with CUDA events at the training main path's shapes,
+the variants in order and then in reverse, and averaged:
+
+* flash (`VARIANTS`): B1, B2 and B3 at batch 16, 12 heads, S 512,
+  head_dim 64, key-padding mask, f32 and bf16, dropout 0.1 and 0; each
+  prints its ptxas registers and its max |variant - plain| on O and on the
+  gradients, f32 and bf16, at dropout 0.1.
+* B8 (`ZERO_VARIANTS`): adam over one flat bucket of 23,440,896 f32
+  elements, checked bit for bit against the plain rule.
 
 Some variants are wrong on purpose (no_exp, no_hash, tf32_1x): they show
 what one part of the kernel costs, not a kernel to ship.
@@ -29,8 +33,9 @@ import torch
 
 from . import _build
 from . import flash_attention as fa
+from . import zero_update as zk
 
-CU, H = "flash_attention.cu", "mma_tile.cuh"
+CU, H, ZU = "flash_attention.cu", "mma_tile.cuh", "zero_update.cu"
 # name -> [(file, old text, new text)]
 VARIANTS = {
     "base": [],
@@ -49,29 +54,56 @@ VARIANTS = {
     "div": [(CU, "dpv * inv_keep : 0.f;\n                s[j][i] = pr",
              "dpv / p.keep_prob : 0.f;\n                s[j][i] = pr"),
             (CU, "? s[j][i] * inv_keep : 0.f;", "? s[j][i] / p.keep_prob : 0.f;"),
-            (CU, "& 1u ? dpv * inv_keep : 0.f;", "& 1u ? dpv / p.keep_prob : 0.f;")],
-    # 64-row streamed tiles: the ring takes twice the shared memory
+            (CU, "& 1u ? dpv * inv_keep : 0.f;", "& 1u ? dpv / p.keep_prob : 0.f;"),
+            (CU, "? pr * inv_keep : 0.f;", "? pr / p.keep_prob : 0.f;")],
+    # 64-row streamed tiles in B2/B3: the ring takes twice the shared memory
     "bn64": [(CU, "constexpr int BN = 32;", "constexpr int BN = 64;")],
+    # 64-row K/V tiles in B1's ring
+    "fwd_bn64": [(CU, "constexpr int BNF = 32;", "constexpr int BNF = 64;")],
+    # B1 splits Q per fragment and key tile, as B2 does, not once per block
+    "q_split_per_tile": [(CU, "constexpr bool kSplitQOnce = true;",
+                          "constexpr bool kSplitQOnce = false;")],
     # wrong on purpose: one TF32 product instead of three
     "tf32_1x": [(H, "    mma_tf32(c, as, bb[0], bb[1]);\n"
                     "    mma_tf32(c, ab, bs[0], bs[1]);\n", "")],
     # wrong on purpose: no exponential
     "no_exp": [(CU, "exp2f((sc - lse[h]) * kLog2e)", "((sc - lse[h]) * kLog2e)"),
                (CU, "exp2f((sc - (isfinite(l) ? l : 0.f)) * kLog2e)",
-                "((sc - (isfinite(l) ? l : 0.f)) * kLog2e)")],
+                "((sc - (isfinite(l) ? l : 0.f)) * kLog2e)"),
+               (CU, "exp2f(s[j][i] - ms[h])", "(s[j][i] - ms[h])")],
     # wrong on purpose: every element kept, no hash
     "no_hash": [(CU, "    return x >= p.thresh;", "    return qpos != 0xFFFFFFFFu;")],
+}
+ZERO_VARIANTS = {
+    "zero_base": [],
+    # streaming cache hints on B8's 16-byte loads and stores
+    "zero_ldcs": [(ZU, "  return reinterpret_cast<const float4*>(a)[v];",
+                   "  return __ldcs(reinterpret_cast<const float4*>(a) + v);"),
+                  (ZU, "  reinterpret_cast<float4*>(a)[v] = x;",
+                   "  __stcs(reinterpret_cast<float4*>(a) + v, x);")],
+    # at most 32 registers, so 8 blocks of 256 threads reside on an SM
+    "zero_8_blocks": [(ZU, "__launch_bounds__(kThreads)\n    zero_adam_kernel(",
+                       "__launch_bounds__(kThreads, 8)\n    zero_adam_kernel(")],
+    # one float4 of each array in flight per thread, not two
+    "zero_one_vector": [(ZU, "v += 2 * nt) {\n    const int64_t w = v + nt;\n"
+                             "    const bool two = w < nv;",
+                         "v += nt) {\n    const int64_t w = v + nt;\n"
+                         "    const bool two = false;")],
 }
 SHAPE = (16, 12, 512, 64)
 SEED = 1234
 
 
+def _files(name):
+    """The csrc/ files variant `name` compiles: its .cu first."""
+    return (ZU,) if name in ZERO_VARIANTS else (CU, H)
+
+
 def variant_sources(name):
     """{file name: text} of the csrc/ sources with variant `name`
     applied; raises if a substitution does not match exactly once."""
-    texts = {p.name: p.read_text() for p in
-             _build.CSRC_DIR.iterdir() if p.name in (CU, H)}
-    for fname, old, new in VARIANTS[name]:
+    texts = {f: (_build.CSRC_DIR / f).read_text() for f in _files(name)}
+    for fname, old, new in {**VARIANTS, **ZERO_VARIANTS}[name]:
         n = texts[fname].count(old)
         if n != 1:
             raise ValueError(f"variant {name}: {fname} holds {n} copies of "
@@ -92,7 +124,7 @@ def build(names):
             (d / fname).write_text(text)
         lib = d / "lib.so"
         cmd = [_build.nvcc()] + _build.NVCC_FLAGS + [
-            "-Xptxas", "-v", "-o", str(lib), str(d / CU)]
+            "-Xptxas", "-v", "-o", str(lib), str(d / _files(name)[0])]
         procs[name] = (lib, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     out = {}
@@ -102,11 +134,12 @@ def build(names):
             raise RuntimeError(f"variant {name} failed to build:\n{log}")
         regs, entry = {}, None
         for line in log.splitlines():
-            m = re.search(r"entry function '\S*?(flash_bwd_\w+?)_kernelI"
-                          r"(f|13__nv_bfloat16)Li(\d+)E", line)
+            m = re.search(r"entry function '\S*?(flash_\w+?|zero_adam)_kernel"
+                          r"(?:I(f|13__nv_bfloat16)Li(\d+)E)?", line)
             if m:
-                entry = f"{m.group(1)}_{'f32' if m.group(2) == 'f' else 'bf16'}" \
-                        f"_hd{m.group(3)}"
+                entry = m.group(1) if m.group(2) is None else \
+                    f"{m.group(1)}_{'f32' if m.group(2) == 'f' else 'bf16'}" \
+                    f"_hd{m.group(3)}"
             m = re.search(r"Used (\d+) registers", line)
             if m and entry:
                 regs[entry], entry = int(m.group(1)), None
@@ -116,7 +149,7 @@ def build(names):
 
 def _use(lib):
     _build.load = lambda _name: lib
-    fa._lib = None
+    fa._lib = zk._lib = None
 
 
 def _ms(fn, iters=30, warmup=3):
@@ -131,16 +164,14 @@ def _ms(fn, iters=30, warmup=3):
     return a.elapsed_time(b) / iters
 
 
-def main(names):
-    if not torch.cuda.is_available():
-        raise SystemExit("flash_variants: no CUDA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print(subprocess.run(
+def _card():
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader", "--id=0"], capture_output=True, text=True,
-        check=True).stdout.strip(), flush=True)
-    libs = build(names)
-    load = _build.load
+        check=True).stdout.strip()
+
+
+def flash_main(names, libs):
     b, nh, s, hd = SHAPE
     g = torch.Generator(device="cuda").manual_seed(0)
     base = [torch.randn(SHAPE, generator=g, device="cuda") for _ in range(4)]
@@ -152,52 +183,110 @@ def main(names):
 
     def args(dt, rate):
         q, k, v, do = (t.to(dt) for t in base)
-        o, lse = fa.launch_fwd(q, k, v, m3, mode, SEED, scale, False, rate)
+        fa_ = (q, k, v, m3, mode, SEED, scale, False, rate)
+        o, lse = fa.launch_fwd(*fa_)
         qa = (q, k, v, o, lse, do, m3, mode, SEED, scale, False, rate)
         delta = fa.launch_bwd_dq(*qa)[1]
-        return qa, (q, k, v, delta, lse, do, m3, mode, SEED, scale, False,
-                    rate)
+        return fa_, qa, (q, k, v, delta, lse, do, m3, mode, SEED, scale,
+                         False, rate)
 
     plain = {}
     for dt in (torch.float32, torch.bfloat16):
         q, k, v, do = (t.to(dt).requires_grad_() for t in base)
         o = fa.flash_attention_plain(q, k, v, scale=scale, dropout=0.1,
                                      seed=SEED, mask=mask)
-        plain[dt] = torch.autograd.grad(o, (q, k, v), do.detach())
+        plain[dt] = (o.detach(),) + torch.autograd.grad(o, (q, k, v),
+                                                        do.detach())
     times = {n: [] for n in names}
     errs = {}
-    try:
-        for name in names + names[::-1]:
-            _use(libs[name][0])
-            row = {}
-            for dt in (torch.float32, torch.bfloat16):
-                for rate in (0.1, 0.0):
-                    qa, ka = args(dt, rate)
-                    if rate:
-                        got = (fa.launch_bwd_dq(*qa)[0],) + \
-                            fa.launch_bwd_dkdv(*ka)
-                        errs[name, dt] = max(
-                            (x.float() - y.float()).abs().max().item()
-                            for x, y in zip(got, plain[dt]))
-                    key = f"{'f32' if dt == torch.float32 else 'bf16'} {rate}"
-                    row[f"B2 {key}"] = _ms(lambda: fa.launch_bwd_dq(*qa))
-                    row[f"B3 {key}"] = _ms(lambda: fa.launch_bwd_dkdv(*ka))
-            times[name].append(row)
-    finally:
-        _build.load = load
-        fa._lib = None
+    for name in names + names[::-1]:
+        _use(libs[name][0])
+        row = {}
+        for dt in (torch.float32, torch.bfloat16):
+            for rate in (0.1, 0.0):
+                fa_, qa, ka = args(dt, rate)
+                if rate:
+                    got = (fa.launch_fwd(*fa_)[0], fa.launch_bwd_dq(*qa)[0]) \
+                        + fa.launch_bwd_dkdv(*ka)
+                    d = [(x.float() - y.float()).abs().max().item()
+                         for x, y in zip(got, plain[dt])]
+                    errs[name, dt] = (d[0], max(d[1:]))
+                key = f"{'f32' if dt == torch.float32 else 'bf16'} {rate}"
+                row[f"B1 {key}"] = _ms(lambda: fa.launch_fwd(*fa_))
+                row[f"B2 {key}"] = _ms(lambda: fa.launch_bwd_dq(*qa))
+                row[f"B3 {key}"] = _ms(lambda: fa.launch_bwd_dkdv(*ka))
+        times[name].append(row)
     for name in names:
         avg = {k: float(np.mean([r[k] for r in times[name]]))
                for k in times[name][0]}
-        sums = {k: avg[f"B2 {k}"] + avg[f"B3 {k}"]
-                for k in ("f32 0.1", "f32 0.0", "bf16 0.1", "bf16 0.0")}
-        print(f"variant {name}: B2+B3 ms " + ", ".join(
-            f"{k} {v:.4f}" for k, v in sums.items()) + "; " + ", ".join(
-            f"{k} {v:.4f}" for k, v in avg.items()), flush=True)
-        print(f"  max |variant - plain| f32 {errs[name, torch.float32]:.3e}, "
-              f"bf16 {errs[name, torch.bfloat16]:.3e}; registers "
+        keys = ("f32 0.1", "f32 0.0", "bf16 0.1", "bf16 0.0")
+        print(f"variant {name}: B1 ms " + ", ".join(
+            f"{k} {avg[f'B1 {k}']:.4f}" for k in keys) + "; B2+B3 ms "
+            + ", ".join(f"{k} {avg[f'B2 {k}'] + avg[f'B3 {k}']:.4f}"
+                        for k in keys) + "; " + ", ".join(
+            f"{k} {v:.4f}" for k, v in avg.items() if not k.startswith("B1")),
+            flush=True)
+        (of, gf), (ob, gb) = errs[name, torch.float32], \
+            errs[name, torch.bfloat16]
+        print(f"  max |variant - plain| O f32 {of:.3e}, bf16 {ob:.3e}; "
+              f"gradients f32 {gf:.3e}, bf16 {gb:.3e}; registers "
               f"{libs[name][1]}", flush=True)
 
 
+def zero_main(names, libs):
+    n = 23_440_896
+    g = torch.Generator(device="cuda").manual_seed(0)
+    base = {s: torch.randn(n, generator=g, device="cuda")
+            for s in ("Param", "Grad", "Moment1", "Moment2")}
+    base["Moment2"].abs_()
+    scalars = {"LearningRate": 1e-3, "Beta1Pow": 0.9 ** 3,
+               "Beta2Pow": 0.999 ** 3}
+    attrs = {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}
+
+    def ins():
+        out = {s: [t.clone()] for s, t in base.items()}
+        out.update({s: [torch.tensor([v], device="cuda")]
+                    for s, v in scalars.items()})
+        return out
+
+    want = zk.fused_flat_update_plain("adam", ins(), attrs)
+    times = {nm: [] for nm in names}
+    bitwise = {}
+    for name in names + names[::-1]:
+        _use(libs[name][0])
+        got = zk.fused_flat_update("adam", ins(), attrs)
+        bitwise[name] = all(torch.equal(got[s][0], want[s][0]) for s in got)
+        kin = ins()
+        times[name].append(_ms(lambda: zk.fused_flat_update("adam", kin,
+                                                            attrs), iters=50))
+    for name in names:
+        ms = float(np.mean(times[name]))
+        print(f"variant {name}: B8 adam n={n} {ms:.4f} ms "
+              f"({28 * n / ms / 1e6:.1f} GB/s); bit for bit "
+              f"{bitwise[name]}; registers {libs[name][1]}", flush=True)
+
+
+def main(names):
+    if not torch.cuda.is_available():
+        raise SystemExit("flash_variants: no CUDA card")
+    unknown = [n for n in names if n not in VARIANTS and n not in ZERO_VARIANTS]
+    if unknown:
+        raise SystemExit(f"flash_variants: unknown variants {unknown}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(_card(), flush=True)
+    libs = build(names)
+    load = _build.load
+    try:
+        flash = [n for n in names if n in VARIANTS]
+        zero = [n for n in names if n in ZERO_VARIANTS]
+        if flash:
+            flash_main(flash, libs)
+        if zero:
+            zero_main(zero, libs)
+    finally:
+        _build.load = load
+        fa._lib = zk._lib = None
+
+
 if __name__ == "__main__":
-    main(sys.argv[1:] or list(VARIANTS))
+    main(sys.argv[1:] or list(VARIANTS) + list(ZERO_VARIANTS))

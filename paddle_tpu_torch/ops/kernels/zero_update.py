@@ -67,9 +67,11 @@ def _library():
                       ctypes.c_longlong)
         lib.zero_sgd.argtypes = [p, p, p, n, p]
         lib.zero_momentum.argtypes = [p, p, p, p, n, f, f, i, i, p]
-        lib.zero_adam.argtypes = [p] * 6 + [n] + [f] * 6 + [i, p]
+        lib.zero_adam.argtypes = [p] * 7 + [n] + [f] * 6 + [i, p]
         for fn in (lib.zero_sgd, lib.zero_momentum, lib.zero_adam):
             fn.restype = i
+        lib.zero_adam_blocks_per_sm.argtypes = []
+        lib.zero_adam_blocks_per_sm.restype = i
         lib.zero_update_error_string.argtypes = [i]
         lib.zero_update_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -148,15 +150,16 @@ def launch(lib, op_type: str, ins, attrs, stream: int):
             int(bool(attrs.get("use_nesterov", False))), stream)
         outs = {"ParamOut": [p], "VelocityOut": [v]}
     else:
-        from ..optimizer_ops import adam_lr_t
+        # the kernel forms lr_t from LearningRate, Beta1Pow and Beta2Pow as
+        # the rule's `adam_lr_t` does: one launch is the whole update
         m1, m2 = state
         b1 = attrs.get("beta1", 0.9)
         b2 = attrs.get("beta2", 0.999)
         decay = op_type == "adamw" and bool(attrs.get("with_decay", True))
-        lr_t = adam_lr_t(lr, *pows)
         rc = lib.zero_adam(
-            lr_t.data_ptr(), lr.data_ptr(), p.data_ptr(), g.data_ptr(),
-            m1.data_ptr(), m2.data_ptr(), n, b1, 1 - b1, b2, 1 - b2,
+            lr.data_ptr(), pows[0].data_ptr(), pows[1].data_ptr(),
+            p.data_ptr(), g.data_ptr(), m1.data_ptr(), m2.data_ptr(), n,
+            b1, 1 - b1, b2, 1 - b2,
             attrs.get("epsilon", 1e-8),
             attrs.get("coeff", 0.01) if decay else 0.0, int(decay), stream)
         outs = {"ParamOut": [p], "Moment1Out": [m1], "Moment2Out": [m2]}

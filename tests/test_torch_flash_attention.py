@@ -13,6 +13,9 @@ with atol 3e-2 for O and 6e-2 for grads (outputs round to bf16, and the
 two versions round the probabilities at different points). The dropout
 keep-mask is compared bit for bit.
 """
+import contextlib
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -417,3 +420,172 @@ def test_autograd_function_is_first_order_only(monkeypatch, nested):
     with pytest.raises((NotImplementedError, RuntimeError),
                        match="first-order only|differentiate twice"):
         nested(f, q, do)
+
+
+# ---------------------------------------------------------------------------
+# B1's arithmetic, emulated
+# ---------------------------------------------------------------------------
+
+_LOG2E, _LN2 = float(np.float32(1.4426950408889634)), \
+    float(np.float32(0.6931471805599453))
+
+
+def _fwd_emulated(q, k, v, mask, causal, rate, seed, bn=32, mm=None):
+    """B1's arithmetic in torch (f32, [B, nh, S, hd]): an online softmax over
+    bn-key tiles in log2 units (scores scaled by scale * log2 e, exp2), the
+    reference's finite guards, the row sum before dropout, dropout as a
+    multiply by 1/keep_prob, unnormalised P rounded to V's dtype, both
+    products through `mm` (default: 3xTF32, small toward zero, as the
+    kernel hands it to the tensor core). Returns (O, lse [B*nh, S])."""
+    mm = mm or (lambda a, b: _mm_tf32(a, b, 3, _tf32_rz))
+    b, nh, s, hd = q.shape
+    sl2 = float(np.float32(SCALE) * np.float32(_LOG2E))
+    m = torch.full((b, nh, s, 1), float("-inf"))
+    l = torch.zeros((b, nh, s, 1))
+    acc = torch.zeros((b, nh, s, hd))
+    pos = torch.arange(s)
+    keep = port_fa._dense_keep(seed or 0, b, nh, s, rate, "cpu") \
+        if rate else None
+    inv_keep = float(np.float32(1) / np.float32(1 - rate))
+    for k0 in range(0, s, bn):
+        cols = slice(k0, min(k0 + bn, s))
+        sc = mm(q.float(), k[:, :, cols].float().transpose(-1, -2)) * sl2
+        if mask is not None:
+            sc = sc + mask[..., cols] * _LOG2E
+        if causal:
+            sc = sc.masked_fill(pos[cols].view(1, -1) > pos.view(-1, 1),
+                                float("-inf"))
+        mx = torch.maximum(m, sc.amax(-1, keepdim=True))
+        ms = torch.where(torch.isfinite(mx), mx, torch.zeros(()))
+        alpha = torch.where(torch.isfinite(m), torch.exp2(m - ms),
+                            torch.zeros(()))
+        pr = torch.exp2(sc - ms)
+        l = alpha * l + pr.sum(-1, keepdim=True)
+        if rate:
+            pr = torch.where(keep[..., cols], pr * inv_keep, torch.zeros(()))
+        pr = pr.to(v.dtype).float()
+        acc = acc * alpha + mm(pr, v[:, :, cols].float())
+        m = mx
+    den = l.clamp_min(1e-30)
+    lse = torch.where(torch.isfinite(m), m * _LN2 + torch.log(den),
+                      torch.full((), float("-inf")))
+    return (acc / den).to(q.dtype), lse.reshape(b * nh, s)
+
+
+def _fwd_case(s, mask_kind, seed=0):
+    """numpy q, k, v [B, NH, s, HD] and an additive mask: none, key padding
+    [B, 1, 1, s] (lengths in [s/2, s]) or a row per query [B, NH, s, s]."""
+    rng = np.random.RandomState(seed)
+    q, k, v = (rng.randn(B, NH, s, HD).astype(np.float32) for _ in range(3))
+    if mask_kind == "none":
+        return q, k, v, None
+    if mask_kind == "key_padding":
+        lens = rng.randint(s // 2, s + 1, size=(B, 1))
+        keep = (np.arange(s)[None, :] < lens).astype(np.float32)
+        return q, k, v, (keep * 1e9 - 1e9).reshape(B, 1, 1, s)
+    m = np.where(rng.rand(B, NH, s, s) < 0.2, -1e9, 0.0).astype(np.float32)
+    return q, k, v, m
+
+
+FWD_ARMS = [(s, mask, causal, rate)
+            for s in (256, 200)
+            for mask in ("none", "key_padding", "per_query")
+            for causal in (False, True)
+            for rate in (0.0, 0.1)]
+
+
+@pytest.mark.parametrize(
+    "s,mask_kind,causal,rate", FWD_ARMS,
+    ids=[f"S{s}-{m}-{'causal' if c else 'full'}-p{r}"
+         for s, m, c, r in FWD_ARMS])
+def test_b1_arithmetic_matches_plain_and_reference(s, mask_kind, causal,
+                                                   rate):
+    """B1's arithmetic (emulated in torch) against `flash_attention_plain`
+    and, where S is a multiple of 128, against the reference's Pallas
+    forward in interpret mode: O within 2e-5 absolute (f32, the reference
+    suite's own), lse within 1e-5 of the reference's lse and of logsumexp
+    of the plain scores. S 200 leaves a tail tile of 8 keys (32-key tiles)
+    and of 8 query rows (64-row tiles)."""
+    q, k, v, mask = _fwd_case(s, mask_kind)
+    seed = 77 if rate else None
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    tm = None if mask is None else torch.from_numpy(mask)
+    got_o, got_lse = _fwd_emulated(tq, tk, tv, tm, causal, rate, seed)
+    plain = port_fa.flash_attention_plain(tq, tk, tv, scale=SCALE,
+                                          causal=causal, dropout=rate,
+                                          seed=seed, mask=tm)
+    np.testing.assert_allclose(got_o.numpy(), plain.numpy(), atol=2e-5,
+                               rtol=0)
+    sc = tq @ tk.transpose(-1, -2) * SCALE
+    if tm is not None:
+        sc = sc + tm
+    if causal:
+        pos = torch.arange(s)
+        sc = sc.masked_fill(pos.view(1, s) > pos.view(s, 1), float("-inf"))
+    want_lse = torch.logsumexp(sc, -1).reshape(B * NH, s)
+    np.testing.assert_allclose(got_lse.numpy(), want_lse.numpy(), atol=1e-5,
+                               rtol=0)
+    if s % 128:
+        return
+    jm, mode = (None, None) if mask is None else \
+        jax_fa._normalize_mask(jnp.asarray(mask), B, NH, s)
+    ref_o, ref_lse = jax_fa._flash_fwd(
+        *(jnp.asarray(a) for a in (q, k, v)),
+        jnp.asarray(seed or 0, jnp.int32).reshape((1,)), jm, SCALE, causal,
+        rate, 128, 128, mode)
+    np.testing.assert_allclose(got_o.numpy(), np.asarray(ref_o), atol=2e-5,
+                               rtol=0)
+    np.testing.assert_allclose(got_lse.numpy(),
+                               np.asarray(ref_lse)[..., 0], atol=1e-5,
+                               rtol=0)
+
+
+def test_b1_arithmetic_bf16_within_the_bf16_tolerance():
+    """The same arithmetic on bf16 operands (exact f32 products of bf16
+    values, P rounded to bf16 unnormalised) against the plain version: O
+    within the file's bf16 tolerance (3e-2 absolute)."""
+    q, k, v, mask = _fwd_case(256, "key_padding")
+    tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    tm = torch.from_numpy(mask)
+    got, _ = _fwd_emulated(tq, tk, tv, tm, False, 0.1, 3, mm=torch.matmul)
+    want = port_fa.flash_attention_plain(tq, tk, tv, scale=SCALE,
+                                         dropout=0.1, seed=3, mask=tm)
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               atol=3e-2, rtol=0)
+
+
+def test_launch_fwd_hands_the_library_16_byte_aligned_operands(monkeypatch):
+    """B1 copies Q, K and V rows into shared memory 16 bytes at a time:
+    `launch_fwd` hands the library a 16-byte-aligned copy of an operand
+    that is a view off 16 bytes, with the view's values, and an aligned
+    operand as it is. Driven on the CPU through a stand-in library."""
+    handed = []
+    q, k, v = (torch.from_numpy(a) for a in _fwd_case(64, "none")[:3])
+    n = q.numel()
+
+    class Lib:
+        def flash_fwd(self, q, k, v, mask, o, lse, *cfg):
+            # the values behind the Q pointer, read during the call
+            seen = np.ctypeslib.as_array(
+                (ctypes.c_float * n).from_address(q)).copy()
+            handed.append((q, k, v, mask, o, lse, cfg, seen))
+            return 0
+
+    monkeypatch.setattr(port_fa, "_library", lambda: Lib())
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda _d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda _d=None: type("St", (), {"cuda_stream": 5}))
+    buf = torch.zeros(n + 1)
+    buf[1:] = q.flatten()
+    q_off = buf[1:].view(q.shape)
+    assert q_off.data_ptr() % 16 != 0
+    port_fa.reset_launches()
+    port_fa.launch_fwd(q_off, k, v, None, None, 0, SCALE, False, 0.0)
+    (pq, pk, pv, pmask, po, plse, cfg, seen), = handed
+    assert all(ptr % 16 == 0 for ptr in (pq, pk, pv))
+    assert pq != q_off.data_ptr() and pk == k.data_ptr() \
+        and pv == v.data_ptr()
+    assert np.array_equal(seen, q.numpy().ravel())
+    assert pmask is None and cfg[-1] == 5
+    assert port_fa.launches["flash_fwd"] == 1

@@ -41,7 +41,7 @@ def test_port_headers_listed():
 
 
 def test_flash_variants_apply_to_the_sources():
-    """Every timed variant of the flash backward kernels still matches the
+    """Every timed variant of the flash kernels still matches the
     sources it edits (each substitution exactly once), and base is the
     sources as they are."""
     from paddle_tpu_torch.ops.kernels import flash_variants as fv
@@ -51,4 +51,18 @@ def test_flash_variants_apply_to_the_sources():
         texts = fv.variant_sources(name)
         assert set(texts) == {fv.CU, fv.H}
         if name != "base":
+            assert texts != base, name
+
+
+def test_zero_variants_apply_to_the_source():
+    """Every timed variant of the fused Adam update B8 still matches
+    csrc/zero_update.cu (each substitution exactly once), and zero_base is
+    the source as it is."""
+    from paddle_tpu_torch.ops.kernels import flash_variants as fv
+    base = fv.variant_sources("zero_base")
+    assert base == {fv.ZU: (_build.CSRC_DIR / fv.ZU).read_text()}
+    for name in fv.ZERO_VARIANTS:
+        texts = fv.variant_sources(name)
+        assert set(texts) == {fv.ZU}
+        if name != "zero_base":
             assert texts != base, name

@@ -17,8 +17,11 @@ the CPU.
 * The CUDA branch (`launch`), driven on CPU tensors with a stand-in
   library that takes every pointer, size and scalar the real one gets and
   redoes the kernel's arithmetic in numpy float32, one rounded operation
-  at a time in the order of csrc/zero_update.cu: bit-identical to the
-  plain rule (which is what the card check asserts of the real kernel).
+  at a time in the order of csrc/zero_update.cu (B8 forms lr_t from the
+  LearningRate, Beta1Pow and Beta2Pow pointers itself): bit-identical to
+  the plain rule (which is what the card check asserts of the real
+  kernel), also at n % 4 != 0 and on buckets that are views one element
+  into a larger buffer; one library call per bucket and no `adam_lr_t`.
 """
 import ctypes
 
@@ -148,20 +151,22 @@ class _StandInLibrary:
         va[:] = vo
         return self.rc
 
-    def zero_adam(self, lr_t, lr, p, g, m1, m2, n, b1, omb1, b2, omb2, eps,
-                  coeff, decay, stream):
-        self.calls.append(("zero_adam", (lr_t, lr, p, g, m1, m2, n, b1, omb1,
-                                         b2, omb2, eps, coeff, decay,
+    def zero_adam(self, lr, b1p, b2p, p, g, m1, m2, n, b1, omb1, b2, omb2,
+                  eps, coeff, decay, stream):
+        self.calls.append(("zero_adam", (lr, b1p, b2p, p, g, m1, m2, n, b1,
+                                         omb1, b2, omb2, eps, coeff, decay,
                                          stream)))
         f = np.float32
-        lrt0 = _array(lr_t, 1)[0]
+        lr0, b1p0, b2p0 = (_array(x, 1)[0] for x in (lr, b1p, b2p))
+        # lr_t = (lr * sqrt(1 - b2p)) / (1 - b1p), one f32 rounding each
+        lrt0 = f(f(lr0 * np.sqrt(f(f(1) - b2p0))) / f(f(1) - b1p0))
         pa, ga = _array(p, n), _array(g, n)
         m1a, m2a = _array(m1, n), _array(m2, n)
         m1o = f(b1) * m1a + f(omb1) * ga
         m2o = f(b2) * m2a + f(omb2) * (ga * ga)
         po = pa - (lrt0 * m1o) / (np.sqrt(m2o) + f(eps))
         if decay:
-            po = po - (_array(lr, 1)[0] * f(coeff)) * pa
+            po = po - (lr0 * f(coeff)) * pa
         pa[:], m1a[:], m2a[:] = po, m1o, m2o
         return self.rc
 
@@ -190,15 +195,75 @@ def test_cuda_branch_with_stand_in_library(arm):
                             ptr("Velocity"), n, 0.9, 1e-4 if l2 else 0.0,
                             int(l2), int(l2))
     else:
-        assert args[1:7] == (ptr("LearningRate"), ptr("Param"), ptr("Grad"),
-                             ptr("Moment1"), ptr("Moment2"), n)
-        assert args[7:14] == (0.9, 1 - 0.9, 0.999, 1 - 0.999, 1e-8,
+        assert args[:8] == (ptr("LearningRate"), ptr("Beta1Pow"),
+                            ptr("Beta2Pow"), ptr("Param"), ptr("Grad"),
+                            ptr("Moment1"), ptr("Moment2"), n)
+        assert args[8:15] == (0.9, 1 - 0.9, 0.999, 1 - 0.999, 1e-8,
                               0.01 if op_type == "adamw" else 0.0,
                               int(op_type == "adamw"))
     want = zk.fused_flat_update_plain(op_type, _torch_ins(ins), attrs)
     for slot, (out,) in got.items():
         assert out is tins[_IN_SLOT[slot]][0]
         assert torch.equal(out, want[slot][0]), slot     # bit for bit
+
+
+def _offset_ins(ins, offset):
+    """`_torch_ins`, each bucket tensor a view `offset` elements into a
+    larger buffer (what the card gets from a bucket that does not start on
+    16 bytes)."""
+    out = _torch_ins(ins)
+    for slot in ("Param", "Grad", "Velocity", "Moment1", "Moment2"):
+        if slot in out:
+            t = out[slot][0]
+            buf = torch.zeros(t.numel() + offset)
+            buf[offset:] = t
+            out[slot] = [buf[offset:]]
+    return out
+
+
+@pytest.mark.parametrize("n,offset", [(1001, 0), (1003, 1), (1000, 3)],
+                         ids=["n_mod4_1", "offset1_n_mod4_3", "offset3"])
+@pytest.mark.parametrize("arm", ARMS)
+def test_cuda_branch_with_stand_in_library_ragged(arm, n, offset):
+    """The launch path at n % 4 != 0 and on offset views: the library gets
+    each view's own pointer and element count, and the result is bit for
+    bit the plain rule's."""
+    op_type, ins, attrs = _case(arm, (n,), seed=7)
+    lib = _StandInLibrary()
+    tins = _offset_ins(ins, offset)
+    assert tins["Param"][0].data_ptr() % 16 == (4 * offset) % 16
+    got = zk.launch(lib, op_type, tins, attrs, stream=0)
+    (_, args), = lib.calls
+    assert tins["Param"][0].data_ptr() in args and n in args
+    want = zk.fused_flat_update_plain(op_type, _torch_ins(ins), attrs)
+    for slot, (out,) in got.items():
+        assert out is tins[_IN_SLOT[slot]][0]
+        assert torch.equal(out, want[slot][0]), slot
+
+
+@pytest.mark.parametrize("arm", ["adam", "adamw"])
+def test_cuda_branch_one_launch_per_bucket_without_adam_lr_t(monkeypatch,
+                                                             arm):
+    """Adam's CUDA branch is one library call per bucket: lr_t is formed in
+    the kernel, so `adam_lr_t` (the [1]-tensor ops the plain rule runs) is
+    never called there."""
+    from paddle_tpu_torch.ops import optimizer_ops
+    buckets = [_case(arm, (n,), seed=n) for n in (256, 1000, 77)]
+    want = [zk.fused_flat_update_plain(op, _torch_ins(ins), attrs)
+            for op, ins, attrs in buckets]
+
+    def no_lr_t(*a):
+        raise AssertionError("adam_lr_t called on the CUDA branch")
+
+    monkeypatch.setattr(optimizer_ops, "adam_lr_t", no_lr_t)
+    lib = _StandInLibrary()
+    zk.reset_launches()
+    for (op_type, ins, attrs), w in zip(buckets, want):
+        got = zk.launch(lib, op_type, _torch_ins(ins), attrs, stream=0)
+        for slot, (out,) in got.items():
+            assert torch.equal(out, w[slot][0]), slot
+    assert [name for name, _ in lib.calls] == ["zero_adam"] * 3
+    assert zk.launches["zero_adam"] == 3
 
 
 def test_cuda_branch_raises_on_a_failed_launch():
