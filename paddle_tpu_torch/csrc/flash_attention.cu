@@ -58,8 +58,7 @@
 // B1 in particular: the online softmax runs in registers in log2 units
 // (scores scaled by scale * log2 e, exp2f); a row's max is taken over the
 // four threads of its quad (two shuffles), its sum kept per thread and
-// reduced once at the end; dropout is a multiply by 1/keep_prob; at f32 and
-// hd 64 the resident Q tile is split into TF32 halves once per block.
+// reduced once at the end; dropout is a multiply by 1/keep_prob.
 // Left for later work: wgmma for the bf16 path, warp specialisation with
 // TMA.
 //
@@ -168,7 +167,8 @@ template <> __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16*
 // reduces its range in software (within 2 ulp of expf on the scores here)
 constexpr float kLog2e = 1.4426950408889634f;
 
-// masked_score for the backward kernels: a key-padding row (mask_rows 1)
+// the scaled, masked score of (qpos, kpos) in the backward kernels, -inf
+// past S and above the causal diagonal: a key-padding row (mask_rows 1)
 // arrives as `mk`, read once per tile; a per-query mask is read per element
 __device__ __forceinline__ float bwd_score(const Params& p, const float* mrow, float mk,
                                            float dot, int qpos, int kpos) {
@@ -185,20 +185,15 @@ __device__ __forceinline__ float bwd_score(const Params& p, const float* mrow, f
 // warp's 16 q rows x BNF keys of scores stay in registers: scaled into log2
 // units, the row max over the quad, P = exp2(s - max), the partial row sums
 // per thread, dropout as a multiply, and P feeds O += P V from there. At f32
-// and hd 64 the resident Q tile is split into its TF32 halves once, after it
-// lands (kSplitQOnce; shared memory: the big half in place, the small half
-// in a second tile); at hd 128 that second tile would leave one block per SM,
-// so Q is split per fragment there, as B2 splits it.
+// Q is split into TF32 halves per fragment and key tile, as in B2: split once
+// per block into a second shared tile, it cost a block per SM at hd 64 (4 ->
+// 3) and gained nothing (measured on an H100). BNF is 32: 64-key tiles made
+// the f32 kernel ~11% slower (measured).
 constexpr int BNF = 32;        // streamed K/V rows per forward tile
-constexpr bool kSplitQOnce = true;
-template <typename T, int HD> __host__ __device__ constexpr bool fwd_split_q() {
-    return kSplitQOnce && sizeof(T) == 4 && HD == 64;
-}
-// the Q tile (and its small half), a ring of two stages of K and V BNF-row
-// tiles, and two key-padding rows
+// the Q tile, a ring of two stages of K and V BNF-row tiles, and two
+// key-padding rows
 template <typename T, int HD> constexpr size_t fwd_smem() {
-    return sizeof(T) * ((fwd_split_q<T, HD>() ? 2 : 1) * BQ + 4 * BNF) * tile_ld<T, HD>()
-           + 2 * sizeof(float) * BNF;
+    return sizeof(T) * (BQ + 4 * BNF) * tile_ld<T, HD>() + 2 * sizeof(float) * BNF;
 }
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -207,10 +202,9 @@ __global__ void __launch_bounds__(128 * (HD / 64)) flash_fwd_kernel(Params p) {
     using namespace mma_tile;
     constexpr int NTB = tile_threads<HD>(), LD = tile_ld<T, HD>();
     constexpr int TILE = BQ * LD, STILE = BNF * LD, NJF = BNF / 8;
-    constexpr bool SPLIT = fwd_split_q<T, HD>();
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    T* sQ = reinterpret_cast<T*>(smem_raw);     // SPLIT: Q's big half, then its small half
-    T* sRing = sQ + (SPLIT ? 2 : 1) * TILE;    // stage s: K at sRing + 2 s STILE, V after it
+    T* sQ = reinterpret_cast<T*>(smem_raw);
+    T* sRing = sQ + TILE;           // stage s: K at sRing + 2 s STILE, V after it
     float* sMk = reinterpret_cast<float*>(sRing + 4 * STILE);  // [2][BNF] key-padding rows
 
     const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
@@ -248,22 +242,10 @@ __global__ void __launch_bounds__(128 * (HD / 64)) flash_fwd_kernel(Params p) {
         cp_async_commit();
         cp_async_wait<1>();
         __syncthreads();
-        if constexpr (SPLIT) {
-            if (kt == 0) {
-                split_tile<HD, LD, BQ, NTB>(reinterpret_cast<float*>(sQ),
-                                            reinterpret_cast<uint32_t*>(sQ + TILE));
-                __syncthreads();
-            }
-        }
         const T* sK = sRing + 2 * st * STILE;
         const T* sV = sK + STILE;
         float s[NJF][4] = {};
-        if constexpr (SPLIT)
-            mma_abt_split<HD, LD, NJF>(s, reinterpret_cast<const uint32_t*>(sQ) + 16 * wr * LD,
-                                       reinterpret_cast<const uint32_t*>(sQ + TILE) + 16 * wr * LD,
-                                       reinterpret_cast<const float*>(sK), lane);
-        else
-            mma_abt<T, HD, LD, NJF>(s, sQ + 16 * wr * LD, sK, lane);
+        mma_abt<T, HD, LD, NJF>(s, sQ + 16 * wr * LD, sK, lane);
         // the masked score in log2 units; -inf past S and above the diagonal
         float mx[2] = {m[0], m[1]};
 #pragma unroll

@@ -106,22 +106,6 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& sma
     small = __float_as_uint(x - __uint_as_float(big));
 }
 
-// A staged f32 tile [ROWS, HD] (row stride LD) split once for the tensor
-// cores: each element is replaced in place by its TF32 big half, and its
-// small half goes to `small` at the same index. The NT threads of the block
-// share the work; the caller synchronises before the halves are read.
-template <int HD, int LD, int ROWS, int NT>
-__device__ __forceinline__ void split_tile(float* tile, uint32_t* small) {
-#pragma unroll 4
-    for (int i = threadIdx.x; i < ROWS * HD; i += NT) {
-        const int o = (i / HD) * LD + i % HD;
-        uint32_t b, s;
-        split_tf32(tile[o], b, s);
-        tile[o] = __uint_as_float(b);
-        small[o] = s;
-    }
-}
-
 // ------------------------------------------------------------- products --
 __device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], uint32_t b0,
                                          uint32_t b1) {
@@ -188,28 +172,6 @@ __device__ __forceinline__ void mma_abt(float (&acc)[NJ][4], const T* sa, const 
                 mma_bf16(acc[j], a, b[0], b[1]);
                 mma_bf16(acc[j + 1], a, b[2], b[3]);
             }
-        }
-    }
-}
-
-// mma_abt for f32 with A already split (split_tile): its big and small
-// halves at `sab` and `sas` (row stride LD), so only B is split here.
-template <int HD, int LD, int NJ>
-__device__ __forceinline__ void mma_abt_split(float (&acc)[NJ][4], const uint32_t* sab,
-                                              const uint32_t* sas, const float* sb, int lane) {
-    const int g = lane / 4, t = lane % 4;
-#pragma unroll 2
-    for (int kk = 0; kk < HD; kk += 8) {
-        const int o = g * LD + kk + t;
-        const uint32_t ab[4] = {sab[o], sab[o + 8 * LD], sab[o + 4], sab[o + 8 * LD + 4]};
-        const uint32_t as[4] = {sas[o], sas[o + 8 * LD], sas[o + 4], sas[o + 8 * LD + 4]};
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-            const float* b = sb + (8 * j + g) * LD + kk + t;
-            uint32_t bb[2], bs[2];
-            split_tf32(b[0], bb[0], bs[0]);
-            split_tf32(b[4], bb[1], bs[1]);
-            mma_3xtf32(acc[j], ab, as, bb, bs);
         }
     }
 }

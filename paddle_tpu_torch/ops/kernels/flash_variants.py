@@ -60,9 +60,6 @@ VARIANTS = {
     "bn64": [(CU, "constexpr int BN = 32;", "constexpr int BN = 64;")],
     # 64-row K/V tiles in B1's ring
     "fwd_bn64": [(CU, "constexpr int BNF = 32;", "constexpr int BNF = 64;")],
-    # B1 splits Q per fragment and key tile, as B2 does, not once per block
-    "q_split_per_tile": [(CU, "constexpr bool kSplitQOnce = true;",
-                          "constexpr bool kSplitQOnce = false;")],
     # wrong on purpose: one TF32 product instead of three
     "tf32_1x": [(H, "    mma_tf32(c, as, bb[0], bb[1]);\n"
                     "    mma_tf32(c, ab, bs[0], bs[1]);\n", "")],
