@@ -9,9 +9,13 @@ result line):
 1. the card's name and power limit (nvidia-smi);
 2. the build: every CUDA source under paddle_tpu_torch/csrc, one nvcc each,
    all started together;
-3. the paged-attention kernels B4/B5 at the serving main path's shapes
-   (batch 8, 12 heads, head_dim 64, block 16, max_len 1024, ragged
-   positions), and the flash-attention kernels B1-B3 at the training main
+3. the paged-attention kernels B4/B5 at the serving main path's widths
+   (batch 8, 12 heads, head_dim 64, block 16, max_len 1024, 12 pool
+   layers; ragged positions and the edges of a chunk and of the table,
+   a bounded walk and one slot alone bit-equal to the full batch), timed
+   with the layer cycling over the 12 layers: alone in a CUDA graph,
+   through the wrapper, the plain version and SDPA on a dense cache; and
+   the flash-attention kernels B1-B3 at the training main
    path's shapes (batch 16, 12 heads, S 512, head_dim 64) in four arms
    (f32 + key-padding mask + dropout 0.1, the training path's; bf16 + mask
    + dropout 0.1; bf16 causal + dropout 0.1; f32 unmasked) and off it (f32,
@@ -57,6 +61,7 @@ Output: a `{"kernels": [...]}` line, a `{"serving": ...}` line, a
 `{"training": ...}` line, and last `{"ok": true, "device": {...}}`.
 """
 import contextlib
+import itertools
 import json
 import os
 import re
@@ -98,8 +103,16 @@ TF32_FLOPS_PER_S = 494.7e12
 BF16_FLOPS_PER_S = 989.4e12
 # paged kernel vs plain version on the card: f32 sums in another order; bf16
 # outputs round to bf16 (one ulp of an O(1) context is <= 2**-7), and the
-# bf16 probabilities may round to neighbouring values; int8 outputs are f32
+# kernel weighs V by unrounded f32 probabilities where the plain version
+# rounds them to bf16; int8 outputs are f32
 TOLERANCE = {"f32": 1e-5, "bf16": 1.6e-2, "int8": 1e-4}
+# mangled-name prefixes of the paged kernels each pool kind runs: pass 1
+# <KV, Q, HD> and the merge <Out, HD>
+PAGED_MANGLED = {
+    "f32": ("paged_decode_kernelIffLi", "paged_decode_kernel_mergeIfLi"),
+    "bf16": ("paged_decode_kernelI13__nv_bfloat16S",
+             "paged_decode_kernel_mergeI13__nv_bfloat16Li"),
+    "int8": ("paged_decode_kernelIa", "paged_decode_kernel_mergeIfLi")}
 # flash kernels vs plain version, element by element over O and over dQ,
 # dK and dV (inputs ~N(0, 1)): |kernel - plain| <= atol + rtol * |plain|.
 # f32 sums in another order: absolute, the reference suite's own 2e-5 for
@@ -246,81 +259,140 @@ def cuda_ms(torch, fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
-def check_kernels(torch, kernel_mod, paged_ops):
-    """Each kernel against its plain version at the main path's shapes."""
-    dev = torch.device("cuda")
+def paged_ptxas(report, kind):
+    """ptxas numbers of the paged decode kernels a pool `kind` runs: pass 1
+    at each query type and head dim, and the merge of its output type."""
+    prefixes = PAGED_MANGLED[kind]
+    out = {}
+    for k, v in report.items():
+        m = re.search(r"(paged_decode_kernel\w*?I\w+?)EEv", k)
+        if m and m.group(1).startswith(prefixes):
+            out[m.group(1)] = v
+    return out
+
+
+def check_kernels(torch, kernel_mod, paged_ops, ptxas):
+    """B4/B5 against their plain version at the serving main path's widths
+    (batch 8, 12 heads, head_dim 64, block 16, max_len 1024, 12 pool
+    layers): at the ragged positions that are timed and at the edges of a
+    chunk and of the table (0, P-1, P, P+1, 2P-1, 2P, max_len-1 and a
+    frozen row at max_len), a bounded walk bit-equal to the full walk and
+    one slot alone bit-equal to the same slot in the batch. Timed with the
+    layer cycling over all 12 layers from one launch to the next, so K/V
+    come from device memory: the launch alone (the C entry on prepared
+    arguments, a CUDA graph of the 12-layer cycle), through the wrapper,
+    the plain version, and SDPA on a pre-gathered dense cache with the same
+    mask (a reference point: not the same function)."""
+    from paddle_tpu_torch.ops.kernels import flash_variants as fv
     B, nh, hd, bs, max_len, L = 8, 12, 64, 16, 1024, 12
     mb = max_len // bs
-    nb = 1 + B * mb
-    layer = 5
-    pos = torch.tensor([0, 15, 16, 200, 511, 777, 1000, 1023],
-                       dtype=torch.int32, device=dev)
-    g = torch.Generator(device=dev).manual_seed(0)
-    pt = (torch.randperm(nb - 1, generator=g, device=dev)[:B * mb] + 1) \
-        .to(torch.int32).reshape(B, mb).contiguous()
-    n_valid = (pos.long() + 1).clamp(max=mb * bs)
-    n_walk = pos.long() // bs + 1
+    lib = kernel_mod._library()
+    P = lib.paged_decode_chunk()
+    edge = torch.tensor([0, P - 1, P, P + 1, 2 * P - 1, 2 * P, max_len - 1,
+                         max_len], dtype=torch.int32, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
     for kind in ("f32", "bf16", "int8"):
-        shape = (L, nb, nh, bs, hd)
-        kf = torch.randn(shape, generator=g, device=dev)
-        vf = torch.randn(shape, generator=g, device=dev)
-        q = torch.randn((B, nh, 1, hd), generator=g, device=dev)
-        kw = dict(block_size=bs, layer=layer)
-        if kind == "int8":
-            kp, vp = (paged_ops.quantize_kv(t * 2.0, 8.0) for t in (kf, vf))
-            q = q.to(torch.bfloat16)
-            kw["kv_scale"] = 8.0
-        else:
-            dt = torch.float32 if kind == "f32" else torch.bfloat16
-            kp, vp, q = kf.to(dt), vf.to(dt), q.to(dt)
-        del kf, vf
-        args = (q, kp, vp, pt, pos)
-        got = kernel_mod.fused_paged_attention(*args, **kw)
-        want = kernel_mod.paged_attention_plain(*args, **kw)
-        # a walk bounded at the furthest frontier reads the same
-        hint = int(n_walk.max())
-        bounded = kernel_mod.fused_paged_attention(*args, max_blocks=hint,
-                                                   **kw)
-        torch.cuda.synchronize()
-        if not torch.equal(got, bounded):
-            fail(f"{kind}: max_blocks={hint} changed the kernel's result")
-        if not torch.isfinite(got.float()).all():
-            fail(f"{kind}: kernel output is not finite")
-        err = (got.float() - want.float()).abs().max().item()
-        if kind == "int8":    # the int8 arm also takes an f32 query
-            q32 = (q.float(),) + args[1:]
-            err = max(err, (kernel_mod.fused_paged_attention(*q32, **kw)
-                            - kernel_mod.paged_attention_plain(*q32, **kw))
-                      .abs().max().item())
-        log(f"kernel {kind}: max |kernel - plain| = {err:.3e} "
-            f"(tolerance {TOLERANCE[kind]:.1e})")
-        if err > TOLERANCE[kind]:
-            fail(f"{kind}: kernel disagrees with its plain version: "
-                 f"max abs err {err} > {TOLERANCE[kind]}")
+        q, kp, vp, pt, pos, kw = fv.paged_case(kind, g)
+        checks, err = [], 0.0
+        queries = (q, q.float()) if kind == "int8" else (q,)
+        for label, ps in (("ragged", pos), ("edge", edge)):
+            for qq in queries:
+                args = (qq, kp, vp, pt, ps)
+                got = kernel_mod.fused_paged_attention(*args, layer=5, **kw)
+                want = kernel_mod.paged_attention_plain(*args, layer=5, **kw)
+                hint = int((ps.long() // bs + 1).clamp(max=mb).max())
+                bounded = kernel_mod.fused_paged_attention(
+                    *args, layer=5, max_blocks=hint, **kw)
+                alone = kernel_mod.fused_paged_attention(
+                    qq[3:4].contiguous(), kp, vp, pt[3:4].contiguous(),
+                    ps[3:4].contiguous(), layer=5, **kw)
+                torch.cuda.synchronize()
+                what = f"{kind} {label} q {str(qq.dtype)[6:]}"
+                if not torch.isfinite(got.float()).all():
+                    fail(f"{what}: kernel output is not finite")
+                if not torch.equal(got, bounded):
+                    fail(f"{what}: max_blocks={hint} changed the result")
+                if not torch.equal(got[3:4], alone):
+                    fail(f"{what}: slot 3 alone differs from slot 3 in the "
+                         f"batch")
+                e = (got.float() - want.float()).abs().max().item()
+                checks.append(dict(arm=what, pos=ps.tolist(),
+                                   max_abs_err=e))
+                log(f"kernel {what}: max |kernel - plain| = {e:.3e} "
+                    f"(tolerance {TOLERANCE[kind]:.1e}); max_blocks={hint} "
+                    f"and slot 3 alone bit-equal")
+                if e > TOLERANCE[kind]:
+                    fail(f"{what}: kernel disagrees with its plain version: "
+                         f"max abs err {e} > {TOLERANCE[kind]}")
+                err = max(err, e)
+        # the layer cycle: launch i reads layer i % 12
+        cycle, keep = fv.paged_cycle(lib, q, kp, vp, pt, pos, **kw)
+        alone_ms = fv.graph_ms(cycle)
+        del keep
+        layers = itertools.count()
         ms = cuda_ms(torch, lambda: kernel_mod.fused_paged_attention(
-            *args, **kw))
+            q, kp, vp, pt, pos, layer=next(layers) % L, **kw))
         plain_ms = cuda_ms(torch, lambda: kernel_mod.paged_attention_plain(
-            *args, **kw))
-        # least work: K and V of every live position read once, q read and
-        # the context written once, the walked page-table entries and pos
+            q, kp, vp, pt, pos, layer=next(layers) % L, **kw))
+        # SDPA on a pre-gathered dense cache, in the query's dtype (int8
+        # pools dequantized), every slot to max_len, positions past pos
+        # masked
+        dt = q.dtype
+        c = kernel_mod.kv_dequant_scale(kw["kv_scale"]) if kind == "int8" \
+            else 1.0
+        dense = [tuple((paged_ops.paged_gather(pool, pt, layer).to(dt) * c)
+                       for pool in (kp, vp)) for layer in range(L)]
+        mask = torch.zeros((B, 1, 1, max_len), dtype=dt, device="cuda")
+        mask.masked_fill_(torch.arange(max_len, device="cuda")[None, None,
+                                                               None, :]
+                          > pos.long()[:, None, None, None], float("-inf"))
+        with torch.no_grad():
+            dense_ms = cuda_ms(torch, lambda: sdpa(
+                q, *dense[next(layers) % L], attn_mask=mask))
+        del dense
+        # least work of one launch: K and V of every live position of its
+        # layer read once (each of the 12 layers' in turn), q read and the
+        # context written once, the walked page-table entries and pos
+        n_valid = (pos.long() + 1).clamp(max=max_len)
         live = int(n_valid.sum())
         kv_bytes = 2 * live * nh * hd * kp.element_size()
-        io_bytes = (q.numel() * q.element_size()
-                    + got.numel() * got.element_size()
-                    + 4 * int(n_walk.sum()) + 4 * B)
+        out_elem = 4 if kind == "int8" else q.element_size()
+        io_bytes = (q.numel() * q.element_size() + B * nh * hd * out_elem
+                    + 4 * int((pos.long() // bs + 1).sum()) + 4 * B)
         flops = live * nh * (4 * hd + 5)    # two dots + softmax
         t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
         t_ops = flops / F32_FLOPS_PER_S * 1e3
+        bound = max(t_bytes, t_ops)
         name = kernel_mod.KERNEL_NAMES[kp.dtype]
+        n_chunks = -(-mb * bs // P)
         rows[name] = row = kernel_row(
-            name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=max(t_bytes, t_ops),
+            name, max_abs_err=err, ms=alone_ms, plain_ms=plain_ms,
+            bound_ms=bound,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=None)
-        log(f"kernel {kind}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
-        del kp, vp, args, got, want, bounded
+            library_ms=None, wrapper_ms=ms,
+            share_of_bytes_bound=t_bytes / alone_ms,
+            gb_per_s=(kv_bytes + io_bytes) / alone_ms / 1e6,
+            dense_sdpa_ms=dense_ms,
+            dense_sdpa_note="SDPA on a pre-gathered dense [8, 12, 1024, 64] "
+                            "cache with the same mask: not the same function"
+                            " (no page-table walk; reads every slot to "
+                            "max_len)",
+            timing="ms: launch alone, a CUDA graph of one launch per pool "
+                   "layer (12), replayed 20 times; wrapper_ms, plain_ms and"
+                   " dense_sdpa_ms: CUDA events over 50 calls, the layer "
+                   "cycling",
+            chunk_positions=P, grid=[B * nh, n_chunks],
+            live_chunk_blocks=nh * int(((n_valid + P - 1) // P).sum()),
+            ptxas=paged_ptxas(ptxas, kind), checks=checks)
+        log(f"kernel {kind}: {alone_ms:.5f} ms alone ({row['gb_per_s']:.1f} "
+            f"GB/s, {row['share_of_bytes_bound']:.3f} of the bytes bound "
+            f"{t_bytes:.5f} ms), through the wrapper {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, dense SDPA {dense_ms:.4f} ms (not the same "
+            f"function); grid {row['grid']}, {row['live_chunk_blocks']} live"
+            f" blocks of {P} positions; ptxas {row['ptxas']}")
+        del q, kp, vp, pt, pos
         torch.cuda.empty_cache()
     return rows
 
@@ -1251,7 +1323,7 @@ def main():
     log(f"TF32 off: matmul.allow_tf32="
         f"{torch.backends.cuda.matmul.allow_tf32} cudnn.allow_tf32="
         f"{torch.backends.cudnn.allow_tf32}")
-    rows = check_kernels(torch, kernel_mod, paged_ops)
+    rows = check_kernels(torch, kernel_mod, paged_ops, ptxas)
     rows.update(check_flash_kernels(torch, fa, ptxas, sass))
     rows.update(check_zero_kernels(torch, zk, ptxas))
     for name, row in rows.items():
@@ -1323,9 +1395,18 @@ def main():
                       sequential=True)
     if [c.tokens for c in seq] != [c.tokens for c in comps]:
         fail("bf16: continuous batching tokens != sequential tokens")
+    kernel_mod.reset_launches()
     profile = device_profile(
-        torch, lambda: serve(torch, serving, bf16_kw, bf16_requests())[1])
+        torch, lambda: serve(torch, serving, bf16_kw, bf16_requests())[1],
+        kernels=("paged_decode_kernel", "paged_decode_kernel_merge"))
+    profile["paged_decode_bf16_launches"] = \
+        kernel_mod.launches["paged_decode_bf16"]
     log(f"bf16 engine under torch.profiler: {profile}")
+    log(f"bf16 engine: B4 (both passes) "
+        f"{profile.get('paged_decode_kernel_device_ms')} ms of device time "
+        f"(merge {profile.get('paged_decode_kernel_merge_device_ms')} ms) "
+        f"over {profile['paged_decode_bf16_launches']} wrapper calls; "
+        f"device busy {profile.get('device_busy_s')} s")
     serving_row = {
         "config": "GPT-2 small (GPTConfig()), bf16 weights and KV, "
                   "block 16, window 8, 8 slots, random weights seed 0",

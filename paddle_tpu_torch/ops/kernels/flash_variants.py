@@ -1,14 +1,14 @@
-"""Variants of the flash kernels B1-B3 and of the fused Adam update B8,
-timed against each other on one card: the measurements behind PERF.md's
-account of where their time goes.
+"""Variants of the flash kernels B1-B3, of the fused Adam update B8 and of
+the paged decode kernels B4/B5, timed against each other on one card: the
+measurements behind PERF.md's account of where their time goes.
 
     python3 -m paddle_tpu_torch.ops.kernels.flash_variants [name ...]
 
 Each variant is the sources under csrc/ with text substitutions applied
 (each must match exactly once). All variants build at once, one nvcc each,
 with `_build`'s flags, into build/variants/. Then each is swapped in under
-its wrapper and timed with CUDA events at the training main path's shapes,
-the variants in order and then in reverse, and averaged:
+its wrapper and timed with CUDA events at the main path's shapes, the
+variants in order and then in reverse, and averaged:
 
 * flash (`VARIANTS`): B1, B2 and B3 at batch 16, 12 heads, S 512,
   head_dim 64, key-padding mask, f32 and bf16, dropout 0.1 and 0; each
@@ -16,9 +16,17 @@ the variants in order and then in reverse, and averaged:
   gradients, f32 and bf16, at dropout 0.1.
 * B8 (`ZERO_VARIANTS`): adam over one flat bucket of 23,440,896 f32
   elements, checked bit for bit against the plain rule.
+* B4/B5 (`PAGED_VARIANTS`): the paged decode kernel at the serving kernel
+  phase's shapes (batch 8, 12 heads, head_dim 64, block 16, max_len 1024,
+  ragged positions) with f32, bf16 and int8 pools (bf16 query), and at the
+  bf16 serving run's (max_len 256), the layer cycling over all 12 pool
+  layers so K/V come from device memory; each call timed alone (the C
+  entry on prepared arguments) in a CUDA graph of the 12-layer cycle
+  (`graph_ms`), with its max |variant - plain|.
 
-Some variants are wrong on purpose (no_exp, no_hash, tf32_1x): they show
-what one part of the kernel costs, not a kernel to ship.
+Some variants are wrong on purpose (no_exp, no_hash, tf32_1x,
+paged_no_merge): they show what one part of the kernel costs, not a kernel
+to ship.
 """
 from __future__ import annotations
 
@@ -33,9 +41,11 @@ import torch
 
 from . import _build
 from . import flash_attention as fa
+from . import paged_attention as pk
 from . import zero_update as zk
 
 CU, H, ZU = "flash_attention.cu", "mma_tile.cuh", "zero_update.cu"
+PA = "paged_attention.cu"
 # name -> [(file, old text, new text)]
 VARIANTS = {
     "base": [],
@@ -87,20 +97,44 @@ ZERO_VARIANTS = {
                          "v += nt) {\n    const int64_t w = v + nt;\n"
                          "    const bool two = false;")],
 }
+# B4/B5: the chunk length P and the rows each thread has in flight (kRows =
+# P / (warps x rows per warp step): 16 for f32, 8 for bf16, 4 for int8 at
+# P 128 and 4 warps per 64 head dims)
+PAGED_VARIANTS = {
+    "paged_base": [],
+    "paged_p32": [(PA, "constexpr int kChunk = 128;",
+                   "constexpr int kChunk = 32;")],
+    "paged_p64": [(PA, "constexpr int kChunk = 128;",
+                   "constexpr int kChunk = 64;")],
+    # twice the rows in flight per thread (half the warps)
+    "paged_2warps": [(PA, "constexpr int kWarps64 = 4;",
+                      "constexpr int kWarps64 = 2;")],
+    # half the rows in flight per thread (twice the warps)
+    "paged_8warps": [(PA, "constexpr int kWarps64 = 4;",
+                      "constexpr int kWarps64 = 8;")],
+    # wrong on purpose: pass 1 alone, no merge launch
+    "paged_no_merge": [(PA, "  paged_decode_kernel_merge<Out, HD><<<batch * nh, HD, 0, stream>>>(\n"
+                            "      static_cast<const float*>(part), static_cast<const int*>(pos),\n"
+                            "      static_cast<Out*>(out), nh, bs, walk_blocks, n_chunks, ctx_scale);\n",
+                        "")],
+}
+ALL_VARIANTS = {**VARIANTS, **ZERO_VARIANTS, **PAGED_VARIANTS}
 SHAPE = (16, 12, 512, 64)
 SEED = 1234
 
 
 def _files(name):
     """The csrc/ files variant `name` compiles: its .cu first."""
-    return (ZU,) if name in ZERO_VARIANTS else (CU, H)
+    if name in ZERO_VARIANTS:
+        return (ZU,)
+    return (PA,) if name in PAGED_VARIANTS else (CU, H)
 
 
 def variant_sources(name):
     """{file name: text} of the csrc/ sources with variant `name`
     applied; raises if a substitution does not match exactly once."""
     texts = {f: (_build.CSRC_DIR / f).read_text() for f in _files(name)}
-    for fname, old, new in {**VARIANTS, **ZERO_VARIANTS}[name]:
+    for fname, old, new in ALL_VARIANTS[name]:
         n = texts[fname].count(old)
         if n != 1:
             raise ValueError(f"variant {name}: {fname} holds {n} copies of "
@@ -133,10 +167,14 @@ def build(names):
         for line in log.splitlines():
             m = re.search(r"entry function '\S*?(flash_\w+?|zero_adam)_kernel"
                           r"(?:I(f|13__nv_bfloat16)Li(\d+)E)?", line)
+            p = re.search(r"entry function '\S*?(paged_decode_kernel\w*?I"
+                          r"\w+?)EEv", line)
             if m:
                 entry = m.group(1) if m.group(2) is None else \
                     f"{m.group(1)}_{'f32' if m.group(2) == 'f' else 'bf16'}" \
                     f"_hd{m.group(3)}"
+            elif p:
+                entry = p.group(1)
             m = re.search(r"Used (\d+) registers", line)
             if m and entry:
                 regs[entry], entry = int(m.group(1)), None
@@ -146,7 +184,77 @@ def build(names):
 
 def _use(lib):
     _build.load = lambda _name: lib
-    fa._lib = zk._lib = None
+    fa._lib = zk._lib = pk._lib = None
+
+
+def graph_ms(fns, replays=20):
+    """Device ms per call of the zero-argument launches `fns`, captured in
+    order into one CUDA graph and replayed `replays` times after one
+    warm-up replay (CUDA events): the kernels' time without the host's."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in fns:
+            fn()
+    graph.replay()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(replays):
+        graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / (replays * len(fns))
+
+
+def paged_cycle(lib, q, k_pool, v_pool, page_table, pos, **kw):
+    """One launch alone of the paged decode kernel per pool layer, on
+    arguments prepared beforehand (uncounted), each reading the stream when
+    it runs; and the buffers they write, which the caller keeps."""
+    launches, keep = [], []
+    for layer in range(k_pool.shape[0]):
+        args, out, part = pk.launch_args(lib, q, k_pool, v_pool, page_table,
+                                         pos, layer=layer, **kw)
+        keep += [out, part]
+        launches.append(lambda a=args: pk.call(
+            lib, a, torch.cuda.current_stream().cuda_stream))
+    return launches, keep
+
+
+# positions of the kernel phase (max_len 1024) and of the bf16 serving run
+# (max_len 256: prompts of 17-200 tokens after 31 decode steps)
+PAGED_POS = {1024: (0, 15, 16, 200, 511, 777, 1000, 1023),
+             256: (48, 74, 100, 126, 152, 178, 204, 231)}
+
+
+def paged_case(kind, gen, max_len=1024):
+    """The serving kernel phase's inputs for pools of `kind` (f32, bf16,
+    int8), or the serving run's at max_len 256: (q, k_pool, v_pool,
+    page_table, pos, kwargs)."""
+    B, nh, hd, bs, L = 8, 12, 64, 16, 12
+    mb = max_len // bs
+    nb = 1 + B * mb
+    pos = torch.tensor(PAGED_POS[max_len], dtype=torch.int32, device="cuda")
+    pt = (torch.randperm(nb - 1, generator=gen, device="cuda")[:B * mb] + 1) \
+        .to(torch.int32).reshape(B, mb).contiguous()
+    shape = (L, nb, nh, bs, hd)
+    kf = torch.randn(shape, generator=gen, device="cuda")
+    vf = torch.randn(shape, generator=gen, device="cuda")
+    q = torch.randn((B, nh, 1, hd), generator=gen, device="cuda")
+    kw = dict(block_size=bs)
+    if kind == "int8":
+        from ..paged_ops import quantize_kv
+        kp, vp = (quantize_kv(t * 2.0, 8.0) for t in (kf, vf))
+        q = q.to(torch.bfloat16)
+        kw["kv_scale"] = 8.0
+    else:
+        dt = torch.float32 if kind == "f32" else torch.bfloat16
+        kp, vp, q = kf.to(dt), vf.to(dt), q.to(dt)
+    return q, kp, vp, pt, pos, kw
 
 
 def _ms(fn, iters=30, warmup=3):
@@ -263,10 +371,38 @@ def zero_main(names, libs):
               f"{bitwise[name]}; registers {libs[name][1]}", flush=True)
 
 
+def paged_main(names, libs):
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for kind, max_len in (("f32", 1024), ("bf16", 1024), ("int8", 1024),
+                          ("bf16", 256)):
+        q, kp, vp, pt, pos, kw = paged_case(kind, g, max_len)
+        want = pk.paged_attention_plain(q, kp, vp, pt, pos, layer=5, **kw)
+        times = {n: [] for n in names}
+        errs = {}
+        for name in names + names[::-1]:
+            _use(libs[name][0])
+            lib = pk._library()
+            args, out, _part = pk.launch_args(lib, q, kp, vp, pt, pos,
+                                              layer=5, **kw)
+            pk.call(lib, args, torch.cuda.current_stream().cuda_stream)
+            torch.cuda.synchronize()
+            errs[name] = (out.float() - want.float()).abs().max().item()
+            cycle, _keep = paged_cycle(lib, q, kp, vp, pt, pos, **kw)
+            times[name].append(graph_ms(cycle))
+        for name in names:
+            print(f"variant {name}: paged {kind} max_len {max_len} "
+                  f"{np.mean(times[name]):.5f} "
+                  f"ms alone (12-layer cycle in a CUDA graph); max |variant"
+                  f" - plain| {errs[name]:.3e}; registers {libs[name][1]}",
+                  flush=True)
+        del q, kp, vp, want
+        torch.cuda.empty_cache()
+
+
 def main(names):
     if not torch.cuda.is_available():
         raise SystemExit("flash_variants: no CUDA card")
-    unknown = [n for n in names if n not in VARIANTS and n not in ZERO_VARIANTS]
+    unknown = [n for n in names if n not in ALL_VARIANTS]
     if unknown:
         raise SystemExit(f"flash_variants: unknown variants {unknown}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -276,14 +412,17 @@ def main(names):
     try:
         flash = [n for n in names if n in VARIANTS]
         zero = [n for n in names if n in ZERO_VARIANTS]
+        paged = [n for n in names if n in PAGED_VARIANTS]
         if flash:
             flash_main(flash, libs)
         if zero:
             zero_main(zero, libs)
+        if paged:
+            paged_main(paged, libs)
     finally:
         _build.load = load
-        fa._lib = zk._lib = None
+        fa._lib = zk._lib = pk._lib = None
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or list(VARIANTS) + list(ZERO_VARIANTS))
+    main(sys.argv[1:] or list(ALL_VARIANTS))

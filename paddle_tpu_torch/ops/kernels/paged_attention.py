@@ -4,16 +4,20 @@ version and its launch counter.
 Counterpart of paddle_tpu/ops/pallas/paged_attention.py
 (`fused_paged_attention` :188, kernels `_paged_decode_kernel` :98 and
 `_paged_decode_kernel_int8` :145). The kernel source, with its design and
-bound, is paddle_tpu_torch/csrc/paged_attention.cu.
+bound, is paddle_tpu_torch/csrc/paged_attention.cu: a split over positions
+(flash-decoding) in chunks of `paged_decode_chunk()` positions, each
+writing a partial (o, m, l) to a scratch buffer, then a merge in chunk
+order.
 
-* On CUDA tensors `fused_paged_attention` launches the kernel on the
+* On CUDA tensors `fused_paged_attention` launches both passes on the
   current stream (the serving loop runs on its own thread, so the stream
-  is read at each call) or raises. There is no fallback.
+  is read at each call) or raises. There is no fallback: head dims other
+  than 64 and 128, and pools not on 16 bytes, are refused.
 * On CPU tensors it runs `paged_attention_plain`, the gather + dense
   attend that ops/paged_ops.paged_attend computes. The plain version is
   also the yardstick the kernel is held against on the card.
-* `launches` counts kernel launches per kernel name; it moves only where
-  a kernel is launched.
+* `launches` counts wrapper calls that launched the kernel, per kernel
+  name; it moves only where a kernel is launched.
 """
 from __future__ import annotations
 
@@ -29,7 +33,8 @@ KERNEL_NAMES = {torch.float32: "paged_decode_f32",
                 torch.bfloat16: "paged_decode_bf16",
                 torch.int8: "paged_decode_int8"}
 launches = {name: 0 for name in KERNEL_NAMES.values()}
-_MAX_SHARED_BYTES = 232448        # 227 KB of shared memory per block, sm_90
+# the head dims the kernel is built for (csrc/paged_attention.cu launch_hd)
+HEAD_DIMS = (64, 128)
 
 _lib = None
 
@@ -63,12 +68,12 @@ def _library():
         from . import _build
         lib = _build.load("paged_attention")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.paged_decode.argtypes = [p] * 6 + [i] * 10 + [f, f, p]
+        lib.paged_decode.argtypes = [p] * 7 + [i] * 10 + [f, f, p]
         lib.paged_decode.restype = i
         lib.paged_decode_error_string.argtypes = [i]
         lib.paged_decode_error_string.restype = ctypes.c_char_p
-        lib.paged_decode_shared_bytes.argtypes = [i, i, i]
-        lib.paged_decode_shared_bytes.restype = ctypes.c_size_t
+        lib.paged_decode_chunk.argtypes = []
+        lib.paged_decode_chunk.restype = i
         _lib = lib
     return _lib
 
@@ -99,28 +104,15 @@ def _check(q, k_pool, v_pool, page_table, pos, block_size, layer,
         raise ValueError("int8 pools need kv_scale (and only int8 do)")
 
 
-def fused_paged_attention(q, k_pool, v_pool, page_table, pos, *,
-                          block_size: int, layer: int = 0, scale=None,
-                          max_blocks=None, kv_scale=None):
-    """Fused single-token paged attention.
-
-    q [B, nh, 1, hd]; k_pool/v_pool [L, NB, nh, bs, hd] (f32 / bf16, or
-    int8 with `kv_scale`); page_table [B, MB] int32; pos [B] int32.
-    Returns the context [B, nh, 1, hd] in the pool dtype (f32 for int8
-    pools). `max_blocks` bounds the page-table walk; the kernel also stops
-    at each slot's write frontier pos // bs."""
-    _check(q, k_pool, v_pool, page_table, pos, block_size, layer, kv_scale)
-    tensors = (q, k_pool, v_pool, page_table, pos)
-    if all(t.device.type == "cpu" for t in tensors):
-        return paged_attention_plain(
-            q, k_pool, v_pool, page_table, pos, block_size=block_size,
-            layer=layer, scale=scale, max_blocks=max_blocks,
-            kv_scale=kv_scale)
-    dev = q.device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError(f"fused_paged_attention: all tensors must be on "
-                         f"one CUDA device (or all on the CPU), got "
-                         f"{[str(t.device) for t in tensors]}")
+def launch_args(lib, q, k_pool, v_pool, page_table, pos, *,
+                block_size: int, layer: int = 0, scale=None,
+                max_blocks=None, kv_scale=None):
+    """The kernel's arguments for one call, all but the stream, after the
+    checks the kernel needs; and the tensors they point into that the
+    caller keeps: the context `out` [B, nh, 1, hd] and the scratch `part`
+    [B·nh, n_chunks, hd + 2] f32, n_chunks = ceil(walk·bs / P) for the
+    library's chunk of P positions. Allocates with torch.empty on the
+    tensors' device. The shape checks are `_check`'s."""
     kv_dtype = k_pool.dtype
     if kv_dtype not in KERNEL_NAMES or v_pool.dtype != kv_dtype:
         raise TypeError(f"pools must both be float32, bfloat16 or int8, "
@@ -134,13 +126,22 @@ def fused_paged_attention(q, k_pool, v_pool, page_table, pos, *,
     if page_table.dtype != torch.int32 or pos.dtype != torch.int32:
         raise TypeError(f"page_table and pos must be int32, got "
                         f"{page_table.dtype} / {pos.dtype}")
+    tensors = (q, k_pool, v_pool, page_table, pos)
     for name, t in zip(("q", "k_pool", "v_pool", "page_table", "pos"),
                        tensors):
         if not t.is_contiguous():
             raise ValueError(f"fused_paged_attention: {name} must be "
                              f"contiguous")
     b, nh, _, hd = q.shape
-    L, nb, _, bs, _ = k_pool.shape
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"the paged decode kernel is built for head dims "
+                         f"{HEAD_DIMS}, got {hd}")
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"fused_paged_attention: {name} does not start "
+                             f"on 16 bytes (the kernel reads rows with "
+                             f"16-byte loads)")
+    _, nb, _, bs, _ = k_pool.shape
     mb = page_table.shape[1]
     walk = mb if max_blocks is None else max(1, min(mb, int(max_blocks)))
     if scale is None:
@@ -150,24 +151,63 @@ def fused_paged_attention(q, k_pool, v_pool, page_table, pos, *,
     else:
         c = kv_dequant_scale(kv_scale)
         score_scale, ctx_scale = float(scale) * c, c
-    lib = _library()
-    smem = lib.paged_decode_shared_bytes(mb, bs, hd)
-    if smem > _MAX_SHARED_BYTES:
-        raise ValueError(f"page table of {mb} blocks x {bs} positions needs "
-                         f"{smem} B of shared memory per block, over the "
-                         f"{_MAX_SHARED_BYTES} B an sm_90 block may use")
+    n_chunks = -(-walk * bs // lib.paged_decode_chunk())
+    dev = q.device
+    part = torch.empty((b * nh, n_chunks, hd + 2), dtype=torch.float32,
+                       device=dev)
     out_dtype = torch.float32 if kv_dtype == torch.int8 else kv_dtype
     out = torch.empty((b, nh, 1, hd), dtype=out_dtype, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.paged_decode(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            _KIND[kv_dtype], _KIND[q.dtype], b, nh, hd, nb, bs, mb,
-            int(layer), walk, score_scale, ctx_scale, stream)
+    args = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            page_table.data_ptr(), pos.data_ptr(), part.data_ptr(),
+            out.data_ptr(), _KIND[kv_dtype], _KIND[q.dtype], b, nh, hd, nb,
+            bs, mb, int(layer), walk, score_scale, ctx_scale)
+    return args, out, part
+
+
+def call(lib, args, stream):
+    """One launch of both passes on `stream` with `launch_args`' args;
+    raises if the library reports an error. Counts nothing."""
+    rc = lib.paged_decode(*args, stream)
     if rc != 0:
         raise RuntimeError(
             f"paged_decode launch failed: "
             f"{lib.paged_decode_error_string(rc).decode()} (cudaError {rc})")
-    launches[KERNEL_NAMES[kv_dtype]] += 1
+
+
+def launch(lib, q, k_pool, v_pool, page_table, pos, *, stream,
+           **kw):
+    """The kernel's branch of `fused_paged_attention` with library `lib`
+    on `stream`: allocate, launch, count. Returns the context."""
+    args, out, _part = launch_args(lib, q, k_pool, v_pool, page_table, pos,
+                                   **kw)
+    call(lib, args, stream)
+    launches[KERNEL_NAMES[k_pool.dtype]] += 1
     return out
+
+
+def fused_paged_attention(q, k_pool, v_pool, page_table, pos, *,
+                          block_size: int, layer: int = 0, scale=None,
+                          max_blocks=None, kv_scale=None):
+    """Fused single-token paged attention.
+
+    q [B, nh, 1, hd]; k_pool/v_pool [L, NB, nh, bs, hd] (f32 / bf16, or
+    int8 with `kv_scale`); page_table [B, MB] int32; pos [B] int32.
+    Returns the context [B, nh, 1, hd] in the pool dtype (f32 for int8
+    pools). `max_blocks` bounds the page-table walk; the kernel also stops
+    at each slot's write frontier pos // bs."""
+    _check(q, k_pool, v_pool, page_table, pos, block_size, layer, kv_scale)
+    kw = dict(block_size=block_size, layer=layer, scale=scale,
+              max_blocks=max_blocks, kv_scale=kv_scale)
+    tensors = (q, k_pool, v_pool, page_table, pos)
+    if all(t.device.type == "cpu" for t in tensors):
+        return paged_attention_plain(q, k_pool, v_pool, page_table, pos,
+                                     **kw)
+    dev = q.device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"fused_paged_attention: all tensors must be on "
+                         f"one CUDA device (or all on the CPU), got "
+                         f"{[str(t.device) for t in tensors]}")
+    with torch.cuda.device(dev):
+        return launch(_library(), q, k_pool, v_pool, page_table, pos,
+                      stream=torch.cuda.current_stream(dev).cuda_stream,
+                      **kw)

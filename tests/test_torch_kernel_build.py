@@ -66,3 +66,19 @@ def test_zero_variants_apply_to_the_source():
         assert set(texts) == {fv.ZU}
         if name != "zero_base":
             assert texts != base, name
+
+
+def test_paged_variants_apply_to_the_source():
+    """Every timed variant of the paged decode kernels B4/B5 (chunk length,
+    rows in flight) still matches csrc/paged_attention.cu (each
+    substitution exactly once), and paged_base is the source as it is."""
+    from paddle_tpu_torch.ops.kernels import flash_variants as fv
+    base = fv.variant_sources("paged_base")
+    assert base == {fv.PA: (_build.CSRC_DIR / fv.PA).read_text()}
+    for name in fv.PAGED_VARIANTS:
+        texts = fv.variant_sources(name)
+        assert set(texts) == {fv.PA}
+        if name != "paged_base":
+            assert texts != base, name
+    assert set(fv.ALL_VARIANTS) == (set(fv.VARIANTS) | set(fv.ZERO_VARIANTS)
+                                    | set(fv.PAGED_VARIANTS))

@@ -12,6 +12,9 @@ orders); bf16 compared in f32 with atol 1e-2 (one bf16 ulp of an O(1)
 context is 2**-8..2**-7); int8 arm rtol 2e-5; int8 payloads bitwise (both
 sides round half to even).
 """
+import ctypes
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +26,7 @@ from paddle_tpu.ops.pallas.paged_attention import (
     fused_paged_attention as jax_fused)
 
 from paddle_tpu_torch.ops import paged_ops as port_ops
+from paddle_tpu_torch.ops.kernels import _build
 from paddle_tpu_torch.ops.kernels import paged_attention as port_kernel
 
 
@@ -228,3 +232,281 @@ def test_wrapper_rejects_bad_inputs():
                     args["pos"]),
                 block_size=args["bs"], layer=args["layer"],
                 kv_scale=args["kv_scale"])
+
+
+# ---------------------------------------------------------------------------
+# The kernel's split over positions, emulated through its launch path
+# ---------------------------------------------------------------------------
+#
+# `_SplitLibrary` stands in for the built library on CPU tensors: it takes
+# the launch's pointers and redoes csrc/paged_attention.cu's two passes in
+# torch, at the kernel's chunk P (read from the source) and in its order.
+# Pass 1 runs the grid (B·nh, ceil(walk·bs / P)): a block past its slot's
+# frontier returns; a live one writes its chunk's (o_c, m_c, l_c) to the
+# scratch buffer the wrapper allocated. Pass 2 merges the live chunks in
+# chunk order: m = max m_c, l = sum l_c e^(m_c - m), out = sum o_c
+# e^(m_c - m) / l * ctx_scale, cast to the pool dtype. The f32 weight
+# multiplies V unrounded, as in the kernel (the plain version rounds the
+# normalised probability to bf16 first).
+#
+# Tolerances against the JAX kernel (interpret mode) and the oracles: f32
+# atol 1e-6 / rtol 1e-5 and int8 atol 1e-6 / rtol 2e-5 (sums in another
+# order); bf16 compared in f32 with atol 1e-2 (one bf16 ulp of an O(1)
+# context is 2**-8..2**-7, plus the unrounded weights).
+
+# a launch pointer's element type by the library's kind code (0 f32, 1 bf16,
+# 2 int8) or "i32" for the page table and positions
+_POINTER_TYPES = {0: (ctypes.c_float, torch.float32),
+                  1: (ctypes.c_int16, torch.bfloat16),
+                  2: (ctypes.c_int8, torch.int8),
+                  "i32": (ctypes.c_int32, torch.int32)}
+
+
+def _kernel_chunk():
+    """P: the kernel's positions per chunk, as the CUDA source sets it."""
+    src = (_build.CSRC_DIR / "paged_attention.cu").read_text()
+    return int(re.search(r"constexpr int kChunk = (\d+);", src).group(1))
+
+
+def _at(ptr, kind, n):
+    """The memory behind a launch pointer as a torch tensor (shared)."""
+    ct, dt = _POINTER_TYPES[kind]
+    t = torch.from_numpy(np.ctypeslib.as_array((ct * n).from_address(ptr)))
+    return t.view(dt) if dt == torch.bfloat16 else t
+
+
+class _SplitLibrary:
+    def __init__(self, chunk, rc=0):
+        self.chunk, self.rc, self.calls = chunk, rc, []
+
+    def paged_decode_chunk(self):
+        return self.chunk
+
+    def paged_decode_error_string(self, rc):
+        return b"an illegal memory access was encountered"
+
+    def paged_decode(self, q, kp, vp, pt, pos, part, out, kv_kind, q_kind,
+                     batch, nh, hd, nb, bs, mb, layer, walk, score_scale,
+                     ctx_scale, stream):
+        P = self.chunk
+        n_chunks = -(-walk * bs // P)
+        self.calls.append(dict(batch=batch, walk=walk, n_chunks=n_chunks,
+                               layer=layer, stream=stream))
+        if self.rc:
+            return self.rc
+        f32 = torch.float32
+        Q = _at(q, q_kind, batch * nh * hd).view(batch * nh, hd).to(f32)
+        pool = (layer + 1) * nb * nh * bs * hd
+        K = _at(kp, kv_kind, pool).view(layer + 1, nb, nh, bs, hd)[layer]
+        V = _at(vp, kv_kind, pool).view(layer + 1, nb, nh, bs, hd)[layer]
+        PT = _at(pt, "i32", batch * mb).view(batch, mb)
+        POS = _at(pos, "i32", batch)
+        PART = _at(part, 0, batch * nh * n_chunks * (hd + 2)).view(
+            batch * nh, n_chunks, hd + 2)
+        out_kind = 0 if kv_kind == 2 else kv_kind
+        OUT = _at(out, out_kind, batch * nh * hd).view(batch * nh, hd)
+        sscale, cscale = torch.tensor(score_scale), torch.tensor(ctx_scale)
+        live = []
+        for bh in range(batch * nh):
+            b, h = divmod(bh, nh)
+            p = int(POS[b])
+            n_walk = min(walk, p // bs + 1)
+            live.append(min(p + 1, n_walk * bs))
+        # pass 1: one block per (slot-head, chunk)
+        for bh in range(batch * nh):
+            b, h = divmod(bh, nh)
+            for c in range(n_chunks):
+                t0 = c * P
+                if t0 >= live[bh]:
+                    continue
+                t = torch.arange(t0, min(t0 + P, live[bh]))
+                blk = PT[b, t // bs].long()
+                k = K[blk, h, t % bs].to(f32)
+                v = V[blk, h, t % bs].to(f32)
+                s = (k @ Q[bh]) * sscale
+                m = s.max()
+                e = torch.exp(s - m)
+                PART[bh, c, :hd] = e @ v
+                PART[bh, c, hd] = m
+                PART[bh, c, hd + 1] = e.sum()
+        # pass 2: the live chunks merged in chunk order
+        for bh in range(batch * nh):
+            n_live = -(-live[bh] // P)
+            m = PART[bh, :n_live, hd].max()
+            l, o = torch.zeros((), dtype=f32), torch.zeros(hd, dtype=f32)
+            for c in range(n_live):
+                w = torch.exp(PART[bh, c, hd] - m)
+                l = l + PART[bh, c, hd + 1] * w
+                o = o + PART[bh, c, :hd] * w
+            OUT[bh] = (o / l * cscale).to(OUT.dtype)
+        return 0
+
+
+def _split(q, kp, vp, pt, pos, bs, lib=None, **kw):
+    """The CUDA branch of the wrapper on CPU tensors, through `lib` (by
+    default a `_SplitLibrary` at the kernel's P)."""
+    lib = lib or _SplitLibrary(_kernel_chunk())
+    return port_kernel.launch(lib, q, kp, vp, pt, pos, stream=7,
+                              block_size=bs, **kw)
+
+
+def _edge_case(rng, dtype=np.float32, nh=2, hd=64, bs=16):
+    """Slots at positions 0, P-1, P, max_len-1 and max_len (a frozen row one
+    past its last block), max_len = 2P + bs."""
+    P = _kernel_chunk()
+    mb = 2 * P // bs + 1
+    max_len = mb * bs
+    pos = np.array([0, P - 1, P, max_len - 1, max_len], np.int32)
+    q, kp, vp, pt, _ = _decode_case(rng, bs, b=len(pos), nh=nh, hd=hd,
+                                    mb=mb, dtype=dtype)
+    return q, kp, vp, pt, pos
+
+
+def test_split_emulation_f32_matches_jax_kernel_and_oracles():
+    rng = np.random.RandomState(11)
+    q, kp, vp, pt, pos = _edge_case(rng)
+    got = _split(*_t(q, kp, vp, pt, pos), 16, layer=1)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    for tag, want in (
+            ("jax kernel", jax_fused(q, kp, vp, pt, pos, block_size=16,
+                                     layer=1)),
+            ("jax oracle", jax_ops.paged_attend(q, kp, vp, pt, pos, 16,
+                                                layer=1)),
+            ("port plain", port_ops.paged_attend(*_t(q, kp, vp, pt, pos), 16,
+                                                 layer=1))):
+        _close_f32(got.numpy(), np.asarray(want), tag)
+
+
+def test_split_emulation_bf16_matches_jax_kernel_and_oracles():
+    rng = np.random.RandomState(12)
+    q, kp, vp, pt, pos = _edge_case(rng)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, kp, vp))
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, kp, vp))
+    got = _split(tq, tk, tv, *_t(pt, pos), 16)
+    assert got.dtype == torch.bfloat16
+    for tag, want in (
+            ("jax kernel", jax_fused(jq, jk, jv, pt, pos, block_size=16)),
+            ("jax oracle", jax_ops.paged_attend(jq, jk, jv, pt, pos, 16)),
+            ("port plain", port_ops.paged_attend(tq, tk, tv, *_t(pt, pos),
+                                                 16))):
+        want = np.asarray(want.astype(jnp.float32)) if tag != "port plain" \
+            else want.float().numpy()
+        np.testing.assert_allclose(got.float().numpy(), want, atol=1e-2,
+                                   rtol=0, err_msg=tag)
+
+
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+def test_split_emulation_int8_matches_jax_kernel_and_oracles(q_dtype):
+    rng = np.random.RandomState(13)
+    scale = 8.0
+    q, kp, vp, pt, pos = _edge_case(rng)
+    ki = np.asarray(jax_ops.quantize_kv(kp, scale))
+    vi = np.asarray(jax_ops.quantize_kv(vp, scale))
+    tq = torch.from_numpy(q).to(getattr(torch, q_dtype))
+    got = _split(tq, *_t(ki, vi, pt, pos), 16, kv_scale=scale)
+    assert got.dtype == torch.float32
+    jq = jnp.asarray(tq.float().numpy()).astype(getattr(jnp, q_dtype))
+    for tag, want in (
+            ("jax kernel", jax_fused(jq, ki, vi, pt, pos, block_size=16,
+                                     kv_scale=scale)),
+            ("jax oracle", jax_ops.paged_attend(jq, ki, vi, pt, pos, 16,
+                                                kv_scale=scale)),
+            ("port plain", port_ops.paged_attend(tq, *_t(ki, vi, pt, pos),
+                                                 16, kv_scale=scale))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                                   atol=1e-6, err_msg=tag)
+
+
+def test_split_emulation_aliased_and_scratch_page_tables():
+    """Slots whose tables alias one block (a parked slot) or another slot's
+    whole row, then every slot parked on the scratch block."""
+    rng = np.random.RandomState(14)
+    q, kp, vp, pt, pos = _edge_case(rng)
+    pt[1, :] = pt[0, 0]
+    pt[2, :] = pt[4, :]
+    got = _split(*_t(q, kp, vp, pt, pos), 16)
+    _close_f32(got.numpy(), jax_fused(q, kp, vp, pt, pos, block_size=16),
+               "kernel")
+    _close_f32(got.numpy(), jax_ops.paged_attend(q, kp, vp, pt, pos, 16),
+               "oracle")
+    pt[:] = port_ops.SCRATCH_BLOCK
+    _close_f32(_split(*_t(q, kp, vp, pt, pos), 16).numpy(),
+               jax_ops.paged_attend(q, kp, vp, pt, pos, 16), "scratch")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_every_sufficient_hint_gives_the_same_bits(dtype):
+    """Chunk boundaries depend on the position only: every max_blocks hint
+    that covers the frontier gives the full walk's bits, while the scratch
+    buffer follows the hint."""
+    rng = np.random.RandomState(15)
+    q, kp, vp, pt, pos = _edge_case(rng)
+    pos = np.minimum(pos, 2 * _kernel_chunk() + 3).astype(np.int32)
+    tq, tk, tv = (torch.from_numpy(a).to(getattr(torch, dtype))
+                  for a in (q, kp, vp))
+    mb = pt.shape[1]
+    need = int(pos.max()) // 16 + 1
+    lib = _SplitLibrary(_kernel_chunk())
+    full = _split(tq, tk, tv, *_t(pt, pos), 16, lib=lib)
+    for hint in range(need, mb + 1):
+        got = _split(tq, tk, tv, *_t(pt, pos), 16, lib=lib, max_blocks=hint)
+        assert torch.equal(got, full), hint
+    assert [c["walk"] for c in lib.calls] == [mb] + list(range(need, mb + 1))
+    assert [c["n_chunks"] for c in lib.calls] == [
+        -(-w * 16 // lib.chunk) for w in [mb] + list(range(need, mb + 1))]
+
+
+def test_split_slot_alone_equals_slot_in_a_batch_of_8():
+    rng = np.random.RandomState(16)
+    P, bs = _kernel_chunk(), 16
+    mb = 2 * P // bs + 1
+    pos = np.array([0, P - 1, P, 3, mb * bs - 1, mb * bs, P + 5, 2 * P],
+                   np.int32)
+    q, kp, vp, pt, _ = _decode_case(rng, bs, b=8, nh=2, hd=64, mb=mb)
+    args = _t(q, kp, vp, pt, pos)
+    batch = _split(*args, bs)
+    for i in range(8):
+        tq, tk, tv, tpt, tpos = args
+        alone = _split(tq[i:i + 1].contiguous(), tk, tv,
+                       tpt[i:i + 1].contiguous(), tpos[i:i + 1], bs)
+        assert torch.equal(alone[0], batch[i]), i
+
+
+def test_launch_path_counts_and_passes_the_stream():
+    rng = np.random.RandomState(17)
+    q, kp, vp, pt, pos = _edge_case(rng)
+    lib = _SplitLibrary(_kernel_chunk())
+    port_kernel.reset_launches()
+    _split(*_t(q, kp, vp, pt, pos), 16, lib=lib, layer=1)
+    (call,) = lib.calls
+    assert call["stream"] == 7 and call["layer"] == 1
+    assert port_kernel.launches == {"paged_decode_f32": 1,
+                                    "paged_decode_bf16": 0,
+                                    "paged_decode_int8": 0}
+    with pytest.raises(RuntimeError, match="paged_decode launch failed: an "
+                       "illegal memory access.*cudaError 700"):
+        _split(*_t(q, kp, vp, pt, pos), 16, lib=_SplitLibrary(64, rc=700))
+    assert port_kernel.launches["paged_decode_f32"] == 1
+
+
+def test_launch_path_refuses_what_the_kernel_does_not_take():
+    """The CUDA branch raises, and launches nothing, on a head dim other
+    than 64 or 128, on pools that do not start on 16 bytes, and on dtypes
+    the kernel has no instance for."""
+    rng = np.random.RandomState(18)
+    lib = _SplitLibrary(_kernel_chunk())
+    q, kp, vp, pt, pos = _decode_case(rng, 8, hd=16)
+    with pytest.raises(ValueError, match="head dims"):
+        _split(*_t(q, kp, vp, pt, pos), 8, lib=lib)
+    q, kp, vp, pt, pos = _decode_case(rng, 8, hd=64)
+    buf = torch.zeros(kp.size + 1)
+    off = buf[1:].view(kp.shape)
+    off.copy_(torch.from_numpy(kp))
+    with pytest.raises(ValueError, match="16 bytes"):
+        _split(torch.from_numpy(q), off, *_t(vp, pt, pos), 8, lib=lib)
+    with pytest.raises(TypeError, match="query dtype"):
+        _split(torch.from_numpy(q).bfloat16(), *_t(kp, vp, pt, pos), 8,
+               lib=lib)
+    with pytest.raises(TypeError, match="int32"):
+        _split(*_t(q, kp, vp, pt.astype(np.int64), pos), 8, lib=lib)
+    assert lib.calls == []
