@@ -28,10 +28,22 @@ result line):
    (HMMA) instructions in each kernel's SASS (none in an instance of B1
    fails);
 4. GPT-2 small (GPTConfig(), weights from numpy seed 0) served through the
-   port's DecodeEngine:
+   port's DecodeEngine, every CUDA engine replaying its captured window
+   (no eager call; B4 launches counted per replay):
    * f32 (TF32 off): greedy tokens == the port's dense generate;
    * bf16: 8 concurrent requests (prompts 17-200 tokens, 32 new, greedy and
-     one seeded top-k), tokens/s and TTFT; continuous == sequential;
+     one seeded top-k) on the captured window and on the eager window
+     body: equal tokens; tokens/s, TTFT p50/p99, TPOT p50 and, under
+     torch.profiler, the device busy share and launches of both;
+     continuous == sequential; at max_len 1024, one graph per walk-bound
+     rung against one full-width graph (equal tokens, tokens/s of both);
+   * bf16 prefix cache: 8 requests sharing a 96-token system prompt with
+     8-72-token tails, 32 new tokens each, after a warm-up that publishes
+     the system prompt: cache-on == cache-off tokens, 8 hits, TTFT of both;
+   * bf16 speculative decoding with the int8 draft of the same
+     checkpoint, gamma 4, on the 8 requests: spec-on == spec-off tokens,
+     acceptance, tokens/s, B4 launched in the draft and verify graphs;
+   * int8 weights (from the f32 checkpoint, bf16 compute): 8 requests;
    * bf16 with int8 KV pools: 2 requests complete;
 5. the fused flat-bucket optimizer kernels B6-B8 (sgd, momentum with
    nesterov + l2_decay and plain, adam, adamw) at the main path's bucket
@@ -39,7 +51,10 @@ result line):
    B8 on a bucket one element past 16 bytes and on one whose arrays start
    at different offsets, held BIT FOR BIT against their plain version on
    the card, timed beside it, beside the bytes bound and beside PyTorch's
-   fused optimizer calls; B8 also timed alone, without its wrapper;
+   fused optimizer calls; B8 also timed alone, without its wrapper, and
+   B6/B7 alone at 23,440,896 and 1,000,003 elements beside
+   torch._fused_sgd_ (the small size over copies used in turn, past the
+   L2);
 6. BERT pretraining through Program / Executor.run:
    * card vs CPU: BERT-base widths at 2 layers, S 512, batch 2, f32, TF32
      off, dropout 0, padding mask; one step from the same startup arrays;
@@ -136,6 +151,8 @@ ZERO_BYTES_PER_ELEMENT = {"zero_sgd": 12, "zero_momentum": 20,
                           "zero_adam": 28}
 # the BERT-base stage-1 program at the default 32 MB buckets
 ZERO_MAIN_PATH_BUCKETS = 14
+# the sizes B6/B7 are also timed at on the launch alone
+B6_B7_ALONE_SIZES = (23_440_896, 1_000_003)
 
 
 def log(msg):
@@ -397,21 +414,82 @@ def check_kernels(torch, kernel_mod, paged_ops, ptxas):
     return rows
 
 
-def serve(torch, serving, engine_kw, requests, sequential=False):
-    eng = serving.DecodeEngine(**engine_kw)
-    try:
-        run = eng.generate_sequential if sequential else eng.generate
-        t0 = time.perf_counter()
-        comps = run(requests, timeout=600)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        stats = eng.stats()
-    finally:
-        eng.stop()
+def serve_on(torch, eng, requests, sequential=False):
+    """Run `requests` through a built engine: (completions, wall seconds).
+    Fails on a request that did not complete."""
+    run = eng.generate_sequential if sequential else eng.generate
+    t0 = time.perf_counter()
+    comps = run(requests, timeout=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     bad = [c for c in comps if not c.ok]
     if bad:
         fail(f"requests failed: {[(c.uid, c.state, c.error) for c in bad]}")
+    return comps, wall
+
+
+def serve(torch, serving, engine_kw, requests, sequential=False):
+    eng = serving.DecodeEngine(**engine_kw)
+    try:
+        comps, wall = serve_on(torch, eng, requests, sequential)
+        stats = eng.stats()
+    finally:
+        eng.stop()
     return comps, wall, stats
+
+
+def serving_arm(torch, eng, make_requests, metrics, kernel_mod,
+                warm=None, profile=True, stats=None):
+    """One engine: a warm-up run (`warm()`'s requests, default the measured
+    ones; it captures the engine's graphs), a timed run of
+    `make_requests()` with the metrics and launch counts set to 0 just
+    before it, then, if `profile`, one more run under torch.profiler.
+    `stats()` (default eng.stats) is read around the timed run; its
+    integer counts' growth there is the row's "delta". Returns (tokens per
+    request, the numbers)."""
+    stats = stats or eng.stats
+    serve_on(torch, eng, (warm or make_requests)())
+    before = stats()
+    metrics.reset()
+    kernel_mod.reset_launches()
+    comps, wall = serve_on(torch, eng, make_requests())
+    launches = dict(kernel_mod.launches)
+    snap = metrics.snapshot()
+    st = stats()
+    n_tok = sum(len(c.tokens) for c in comps)
+    if any(not 0 <= t < eng.model_config.vocab_size
+           for c in comps for t in c.tokens):
+        fail("token ids outside the vocabulary")
+    row = {"generated_tokens": n_tok, "wall_s": wall,
+           "tokens_per_s": n_tok / wall,
+           "ttft_ms_p50": snap["serving.ttft_ms"]["p50"],
+           "ttft_ms_p99": snap["serving.ttft_ms"]["p99"],
+           "tpot_ms_p50": snap.get("serving.tpot_ms", {}).get("p50"),
+           "window_ms_p50": snap["serving.window_ms"]["p50"],
+           "graphs": st["graphs"], "eager_calls": st["eager_calls"],
+           "b4_launches": launches,
+           "delta": {k: v - before[k] for k, v in st.items()
+                     if type(v) is int}}
+    if profile:
+        row["profile"] = device_profile(
+            torch, lambda: serve_on(torch, eng, make_requests())[1],
+            kernels=("paged_decode_kernel", "paged_decode_kernel_merge"))
+    log(f"serving arm: {n_tok} tokens in {wall:.3f} s = "
+        f"{row['tokens_per_s']:.1f} tok/s, TTFT p50 "
+        f"{row['ttft_ms_p50']:.2f} ms, {row['delta']['graph_replays']} "
+        f"replays of "
+        f"{row['graphs']} graphs, {row['eager_calls']} eager calls, "
+        f"B4 {launches}; profile {row.get('profile')}")
+    return [c.tokens for c in comps], row
+
+
+def captured_only(st, what):
+    """Fail unless the engine whose stats are `st` served through graph
+    replays alone."""
+    if st["eager_calls"] or not st["graph_replays"]:
+        fail(f"{what}: {st['eager_calls']} eager calls, "
+             f"{st['graph_replays']} graph replays (a CUDA engine must "
+             f"replay its captured window only)")
 
 
 def device_profile(torch, run, top=8, ranges=(), kernels=()):
@@ -784,21 +862,69 @@ def zero_library_call(torch, op_type, label, ins):
                       maximize=False, is_first_step=False)
 
 
-def b8_launch_alone(torch, zk, ins, attrs, op_type):
-    """A call of B8's C entry point alone on `ins`' tensors, its arguments
+def launch_alone(torch, zk, ins, attrs, op_type):
+    """A call of an update kernel's C entry point alone (B6 `zero_sgd`, B7
+    `zero_momentum`, B8 `zero_adam`) on `ins`' tensors, its arguments
     prepared beforehand (what `zero_update.launch` passes), and not
     counted: the kernel's time without the wrapper's."""
     lib = zk._library()
     ptr = {s: v[0].data_ptr() for s, v in ins.items()}
+    n = ins["Param"][0].numel()
+    stream = torch.cuda.current_stream().cuda_stream
+    if op_type == "sgd":
+        args = (ptr["LearningRate"], ptr["Param"], ptr["Grad"], n, stream)
+        return lambda: lib.zero_sgd(*args)
+    if op_type == "momentum":
+        rd = attrs.get("regularization_coeff", 0.0)
+        use_l2 = attrs.get("regularization_method", "") == "l2_decay" \
+            and bool(rd)
+        args = (ptr["LearningRate"], ptr["Param"], ptr["Grad"],
+                ptr["Velocity"], n, attrs.get("mu", 0.9),
+                rd if use_l2 else 0.0, int(use_l2),
+                int(bool(attrs.get("use_nesterov", False))), stream)
+        return lambda: lib.zero_momentum(*args)
     b1, b2 = attrs.get("beta1", 0.9), attrs.get("beta2", 0.999)
     decay = op_type == "adamw"
     args = (ptr["LearningRate"], ptr["Beta1Pow"], ptr["Beta2Pow"],
             ptr["Param"], ptr["Grad"], ptr["Moment1"], ptr["Moment2"],
-            ins["Param"][0].numel(), b1, 1 - b1, b2, 1 - b2,
-            attrs.get("epsilon", 1e-8),
-            attrs.get("coeff", 0.01) if decay else 0.0, int(decay),
-            torch.cuda.current_stream().cuda_stream)
+            n, b1, 1 - b1, b2, 1 - b2, attrs.get("epsilon", 1e-8),
+            attrs.get("coeff", 0.01) if decay else 0.0, int(decay), stream)
     return lambda: lib.zero_adam(*args)
+
+
+# the L2 cache of an H100 (50 MB): a bucket whose bytes fit in it is timed
+# over enough copies, used in turn, that the copies do not
+L2_BYTES = 50e6
+
+
+def b6_b7_alone(torch, zk, kernel, op_type, label, attrs, n, gen):
+    """B6 / B7 on the launch alone (`launch_alone`) beside
+    torch._fused_sgd_ on the same tensors, each over `copies` sets of
+    buffers used in turn, as many as put twice the L2's bytes between two
+    uses of one set (one set where a set alone exceeds it). Returns
+    (alone_ms, library_ms, copies)."""
+    per_set = n * ZERO_BYTES_PER_ELEMENT[kernel]
+    copies = max(1, int(-(-2 * L2_BYTES // per_set)))
+    sets = []
+    for _ in range(copies):
+        ins = {s: [torch.randn(n, generator=gen, device="cuda")]
+               for s in ("Param", "Grad") + zk._STATE_SLOTS[op_type]}
+        ins["LearningRate"] = [torch.tensor([1e-3], device="cuda")]
+        sets.append(ins)
+
+    def in_turn(calls):
+        it = itertools.cycle(calls)
+        return lambda: next(it)()
+
+    alone = cuda_ms(torch, in_turn([launch_alone(torch, zk, ins, attrs,
+                                                 op_type) for ins in sets]))
+    lib_calls = [zero_library_call(torch, op_type, label, ins)
+                 for ins in sets]
+    library = None if lib_calls[0] is None \
+        else cuda_ms(torch, in_turn(lib_calls))
+    del sets, lib_calls
+    torch.cuda.empty_cache()
+    return alone, library, copies
 
 
 # B8 on buckets that do not start on 16 bytes (slot offsets in elements of
@@ -875,7 +1001,7 @@ def check_zero_kernels(torch, zk, ptxas):
         if kernel == "zero_adam":
             # the row's time is the launch alone; the wrapper's beside it
             times["wrapper_ms"] = times["ms"]
-            times["ms"] = cuda_ms(torch, b8_launch_alone(
+            times["ms"] = cuda_ms(torch, launch_alone(
                 torch, zk, kin, attrs, op_type))
             times["gb_per_s"] = n * ZERO_BYTES_PER_ELEMENT[kernel] \
                 / times["ms"] / 1e6
@@ -884,6 +1010,15 @@ def check_zero_kernels(torch, zk, ptxas):
             torch, op_type, label, {s: v for s, v in kin.items()})
         times["library_ms"] = None if lib is None \
             else cuda_ms(torch, lib)
+        if kernel != "zero_adam" and n in B6_B7_ALONE_SIZES \
+                and label in ("sgd", "momentum_nesterov_l2"):
+            (times["alone_ms"], times["alone_library_ms"],
+             times["alone_copies"]) = b6_b7_alone(
+                 torch, zk, kernel, op_type, label, attrs, n, gen)
+            log(f"kernel {kernel} {label} n={n}: launch alone "
+                f"{times['alone_ms']:.4f} ms, torch fused "
+                f"{times['alone_library_ms']} ms (same tensors, "
+                f"{times['alone_copies']} sets in turn)")
         log(f"kernel {kernel} {label} n={n}: {times['ms']:.4f} ms"
             + (f" alone ({times['gb_per_s']:.1f} GB/s, "
                f"{times['share_of_bytes_bound']:.3f} of the bytes bound;"
@@ -914,6 +1049,11 @@ def check_zero_kernels(torch, zk, ptxas):
                              0).multi_processor_count)
             log(f"kernel zero_adam: {per_sm} resident blocks of 256 threads "
                 f"per SM, grid {extra['grid_blocks']} blocks")
+        if kernel != "zero_adam":
+            extra = {k: {str(n): c[k] for n, c in arms[label].items()
+                         if k in c}
+                     for k in ("alone_ms", "alone_library_ms",
+                               "alone_copies")}
         rows[kernel] = kernel_row(
             kernel, max_abs_err=max(c["max_abs_err"] for a in arms.values()
                                     for c in a.values()),
@@ -1272,6 +1412,217 @@ def zero_arms(torch, zk):
     return records, launches
 
 
+def serve_gpt2(torch, serving, gpt_decode, kernel_mod, metrics, rows,
+               card):
+    """GPT-2 small (GPTConfig(), weights from numpy seed 0) through the
+    port's DecodeEngine; every CUDA engine replays captured windows. Sets
+    the B4/B5 rows' launches and returns the {"serving"} line."""
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    cfg = GPTConfig()
+    t0 = time.perf_counter()
+    arrays = gpt2_small_arrays(cfg, seed=0)
+    log(f"GPT-2 small weights (numpy seed 0) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(1)
+    R = serving.Request
+    out = {"config": "GPT-2 small (GPTConfig()), random weights seed 0, "
+                     "block 16, 8 slots unless said",
+           "card": card}
+
+    # (b) f32, TF32 off: greedy tokens == dense generate
+    p32 = gpt_decode.params_from_numpy(cfg, arrays, device="cuda")
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (9, 17, 33, 50)]
+    f32_kw = dict(params=p32, model_config=cfg, device="cuda", max_slots=4,
+                  block_size=16, num_blocks=64, max_len=128, window=8)
+    eng = serving.DecodeEngine(**f32_kw)
+    try:
+        kernel_mod.reset_launches()
+        comps, _ = serve_on(torch, eng,
+                            [R(prompt=p, max_new_tokens=16) for p in prompts])
+        rows["paged_decode_f32"]["launches"] = \
+            kernel_mod.launches["paged_decode_f32"]
+        captured_only(eng.stats(), "f32 engine")
+    finally:
+        eng.stop()
+    for p, c in zip(prompts, comps):
+        dense = gpt_decode.generate(p32, cfg, p[None], 16, device="cuda")
+        if dense[0, len(p):].tolist() != c.tokens:
+            fail(f"f32 paged tokens {c.tokens} != dense generate "
+                 f"{dense[0, len(p):].tolist()} (prompt of {len(p)})")
+    log(f"f32 engine (captured window): greedy tokens == dense generate for "
+        f"{len(prompts)} prompts; paged_decode_f32 launches "
+        f"{rows['paged_decode_f32']['launches']}")
+    del p32
+
+    # (a) bf16, 8 concurrent requests: the captured window, then the eager
+    # body on the same requests
+    p16 = gpt_decode.params_from_numpy(cfg, arrays, dtype="bfloat16",
+                                       device="cuda")
+    lens = np.linspace(17, 200, 8).astype(int)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+
+    def bf16_requests():
+        reqs = [R(prompt=p, max_new_tokens=32) for p in prompts]
+        reqs[3] = R(prompt=prompts[3], max_new_tokens=32, temperature=0.8,
+                    top_k=40, seed=1234)
+        return reqs
+
+    bf16_kw = dict(params=p16, model_config=cfg, device="cuda",
+                   dtype="bfloat16", max_slots=8, block_size=16,
+                   num_blocks=160, max_len=256, window=8)
+    arm = dict(metrics=metrics, kernel_mod=kernel_mod)
+    eng = serving.DecodeEngine(**bf16_kw)
+    try:
+        tokens, out["captured"] = serving_arm(torch, eng, bf16_requests,
+                                              **arm)
+        rows["paged_decode_bf16"]["launches"] = \
+            out["captured"]["b4_launches"]["paged_decode_bf16"]
+        captured_only(eng.stats(), "bf16 engine")
+        seq, _ = serve_on(torch, eng, bf16_requests(), sequential=True)
+    finally:
+        eng.stop()
+    if [c.tokens for c in seq] != tokens:
+        fail("bf16: continuous batching tokens != sequential tokens")
+    eager = serving.DecodeEngine(**bf16_kw)
+    eager._call = eager._eager_call        # the window body, no graph
+    try:
+        eager_tokens, out["eager"] = serving_arm(torch, eager,
+                                                 bf16_requests, **arm)
+    finally:
+        eager.stop()
+    if eager_tokens != tokens:
+        fail("bf16: captured window tokens != eager window tokens")
+    out.update(requests=8, prompt_tokens=[int(n) for n in lens],
+               new_tokens_each=32)
+    log(f"bf16 engine: captured == eager tokens, continuous == sequential; "
+        f"captured {out['captured']['tokens_per_s']:.1f} tok/s, eager "
+        f"{out['eager']['tokens_per_s']:.1f} tok/s")
+
+    # one graph per ladder rung or one at the full table width, at
+    # max_len 1024 (64 page-table columns: the ladder engages)
+    out["ladder"] = {}
+    ladder_tokens = []
+    for ladder in (True, False):
+        eng = serving.DecodeEngine(**dict(bf16_kw, max_len=1024,
+                                          num_blocks=8 * 64 + 1))
+        eng._ladder_graphs = ladder
+        try:
+            toks, row = serving_arm(torch, eng, bf16_requests, profile=False,
+                                    **arm)
+        finally:
+            eng.stop()
+        ladder_tokens.append(toks)
+        out["ladder"]["per_rung" if ladder else "full_width"] = row
+    if ladder_tokens[0] != ladder_tokens[1]:
+        fail("max_len 1024: per-rung graphs' tokens != full-width graph's")
+
+    # (c) prefix cache: a 96-token system prompt, distinct 8-72-token
+    # tails, 32 new tokens each; the warm-up publishes the system prompt
+    # under other tails
+    sysp = rng.integers(0, cfg.vocab_size, 96)
+    tail_lens = np.linspace(8, 72, 8).astype(int)
+    tails = [rng.integers(0, cfg.vocab_size, n) for n in tail_lens]
+    warm_tails = [rng.integers(0, cfg.vocab_size, n) for n in tail_lens]
+
+    def prefix_requests(ts=tails):
+        return [R(prompt=np.concatenate([sysp, t]), max_new_tokens=32)
+                for t in ts]
+
+    out["prefix_cache"] = {"system_prompt": 96,
+                           "tails": [int(n) for n in tail_lens]}
+    got = {}
+    for on in (False, True):
+        eng = serving.DecodeEngine(**dict(bf16_kw, prefix_cache=on))
+        try:
+            got[on], row = serving_arm(
+                torch, eng, prefix_requests, profile=False,
+                warm=lambda: prefix_requests(warm_tails), **arm)
+            captured_only(eng.stats(), f"prefix cache {on}")
+        finally:
+            eng.stop()
+        out["prefix_cache"]["on" if on else "off"] = row
+    if got[True] != got[False]:
+        fail("prefix cache: cache-on tokens != cache-off tokens")
+    hits = out["prefix_cache"]["on"]["delta"]["prefix_cache_hits"]
+    if hits != 8:
+        fail(f"prefix cache: {hits} hits of 8 in the measured run")
+    log(f"prefix cache: cache-on == cache-off tokens; hits {hits}, "
+        f"prefill tokens saved "
+        f"{out['prefix_cache']['on']['delta']['prefill_tokens_saved']}; "
+        f"TTFT p50 "
+        f"{out['prefix_cache']['on']['ttft_ms_p50']:.2f} on / "
+        f"{out['prefix_cache']['off']['ttft_ms_p50']:.2f} ms off")
+
+    # (d) speculative decoding, int8 draft of the same checkpoint, gamma 4,
+    # on (a)'s requests: spec-off is (a)'s captured arm
+    eng = serving.DecodeEngine(**dict(bf16_kw, spec=serving.SpecConfig(
+        tokens=4, draft_dtype="int8")))
+    try:
+        spec_tokens, row = serving_arm(
+            torch, eng, bf16_requests, stats=lambda: dict(
+                eng.stats(), draft_kernel_launches_window=eng.spec.draft
+                .stats()["kernel_launches_window"]), **arm)
+        captured_only(eng.stats(), "spec target")
+        captured_only(eng.spec.draft.stats(), "spec draft")
+        armed = eng.spec.armed
+    finally:
+        eng.stop()
+    if spec_tokens != tokens:
+        fail("spec: spec-on tokens != spec-off tokens")
+    d = row["delta"]
+    if not armed or d["spec_degraded"] or not d["spec_rounds"]:
+        fail(f"spec: the draft degraded or no round ran ({d})")
+    row["spec_accept_rate"] = d["spec_accepted"] / max(d["spec_proposed"],
+                                                       1)
+    if not (d["kernel_launches_verify"]
+            and d["draft_kernel_launches_window"]):
+        fail(f"spec: B4 never launched in the verify "
+             f"({d['kernel_launches_verify']}) or draft "
+             f"({d['draft_kernel_launches_window']}) graphs")
+    out["spec"] = row
+    log(f"spec: spec-on == spec-off tokens; acceptance "
+        f"{row['spec_accept_rate']:.3f} over {d['spec_rounds']} rounds; "
+        f"{row['tokens_per_s']:.1f} tok/s (spec-off "
+        f"{out['captured']['tokens_per_s']:.1f}); B4 launches verify "
+        f"{d['kernel_launches_verify']}, draft "
+        f"{d['draft_kernel_launches_window']}")
+
+    # (e) int8 weights (quantized from the f32 checkpoint), bf16 compute
+    kernel_mod.reset_launches()
+    comps, _, st = serve(torch, serving, dict(bf16_kw, params=arrays,
+                                              dtype="int8"),
+                         bf16_requests())
+    captured_only(st, "int8-weight engine")
+    if [len(c.tokens) for c in comps] != [32] * 8:
+        fail(f"int8-weight engine: {[len(c.tokens) for c in comps]} "
+             f"tokens")
+    out["int8_weights"] = {
+        "requests": 8, "b4_launches": dict(kernel_mod.launches),
+        "tokens_equal_bf16": sum(a == b for a, b in zip(
+            [c.tokens for c in comps], tokens))}
+    if not kernel_mod.launches["paged_decode_bf16"]:
+        fail("int8-weight engine: B4 never launched")
+    log(f"int8-weight engine: 8 requests complete; {out['int8_weights']}")
+    del arrays
+
+    # bf16 with int8 KV pools: 2 requests
+    kernel_mod.reset_launches()
+    comps, _, _ = serve(torch, serving,
+                        dict(bf16_kw, kv_dtype="int8", kv_scale=8.0,
+                             max_slots=2),
+                        [R(prompt=prompts[1], max_new_tokens=16),
+                         R(prompt=prompts[6], max_new_tokens=16)])
+    rows["paged_decode_int8"]["launches"] = \
+        kernel_mod.launches["paged_decode_int8"]
+    if [len(c.tokens) for c in comps] != [16, 16]:
+        fail(f"int8-KV engine: {[len(c.tokens) for c in comps]} tokens")
+    log(f"int8-KV engine: 2 requests complete; paged_decode_int8 launches "
+        f"{rows['paged_decode_int8']['launches']}")
+    del p16
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1286,7 +1637,6 @@ def main():
              f"{paddle_tpu_torch.__file__}")
     from paddle_tpu_torch import serving
     from paddle_tpu_torch.models import gpt_decode
-    from paddle_tpu_torch.models.gpt import GPTConfig
     from paddle_tpu_torch.observability import metrics
     from paddle_tpu_torch.ops import paged_ops, registry
     from paddle_tpu_torch.ops.kernels import _build
@@ -1334,111 +1684,10 @@ def main():
                 else {k: c for k, c in sass.items() if fn in k}
 
     # ---- GPT-2 small served through the port --------------------------------
-    cfg = GPTConfig()
-    t0 = time.perf_counter()
-    arrays = gpt2_small_arrays(cfg, seed=0)
-    log(f"GPT-2 small weights (numpy seed 0) in "
-        f"{time.perf_counter() - t0:.1f} s")
-    rng = np.random.default_rng(1)
-    R = serving.Request
-
-    def record_launches(name):
-        rows[name]["launches"] = kernel_mod.launches[name]
-        return rows[name]["launches"]
-
-    # f32, TF32 off: greedy tokens == dense generate
-    p32 = gpt_decode.params_from_numpy(cfg, arrays, device="cuda")
-    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (9, 17, 33, 50)]
-    f32_kw = dict(params=p32, model_config=cfg, device="cuda", max_slots=4,
-                  block_size=16, num_blocks=64, max_len=128, window=8)
-    kernel_mod.reset_launches()
-    comps, _, _ = serve(torch, serving, f32_kw,
-                        [R(prompt=p, max_new_tokens=16) for p in prompts])
-    n_f32 = record_launches("paged_decode_f32")
-    for p, c in zip(prompts, comps):
-        dense = gpt_decode.generate(p32, cfg, p[None], 16, device="cuda")
-        if dense[0, len(p):].tolist() != c.tokens:
-            fail(f"f32 paged tokens {c.tokens} != dense generate "
-                 f"{dense[0, len(p):].tolist()} (prompt of {len(p)})")
-    log(f"f32 engine: greedy tokens == dense generate for {len(prompts)} "
-        f"prompts; paged_decode_f32 launches {n_f32}")
-    del p32
-
-    # bf16: 8 concurrent requests
-    p16 = gpt_decode.params_from_numpy(cfg, arrays, dtype="bfloat16",
-                                       device="cuda")
-    del arrays
-    lens = np.linspace(17, 200, 8).astype(int)
-    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
-
-    def bf16_requests():
-        reqs = [R(prompt=p, max_new_tokens=32) for p in prompts]
-        reqs[3] = R(prompt=prompts[3], max_new_tokens=32, temperature=0.8,
-                    top_k=40, seed=1234)
-        return reqs
-
-    bf16_kw = dict(params=p16, model_config=cfg, device="cuda",
-                   dtype="bfloat16", max_slots=8, block_size=16,
-                   num_blocks=160, max_len=256, window=8)
-    serve(torch, serving, bf16_kw, bf16_requests())     # warm-up
-    metrics.reset()
-    kernel_mod.reset_launches()
-    comps, wall, stats = serve(torch, serving, bf16_kw, bf16_requests())
-    n_bf16 = record_launches("paged_decode_bf16")
-    snap = metrics.snapshot()
-    n_tok = sum(len(c.tokens) for c in comps)
-    if n_tok != 8 * 32 or any(not 0 <= t < cfg.vocab_size
-                              for c in comps for t in c.tokens):
-        fail(f"bf16 engine emitted {n_tok} tokens (want 256) or ids "
-             f"outside the vocabulary")
-    seq, _, _ = serve(torch, serving, bf16_kw, bf16_requests(),
-                      sequential=True)
-    if [c.tokens for c in seq] != [c.tokens for c in comps]:
-        fail("bf16: continuous batching tokens != sequential tokens")
-    kernel_mod.reset_launches()
-    profile = device_profile(
-        torch, lambda: serve(torch, serving, bf16_kw, bf16_requests())[1],
-        kernels=("paged_decode_kernel", "paged_decode_kernel_merge"))
-    profile["paged_decode_bf16_launches"] = \
-        kernel_mod.launches["paged_decode_bf16"]
-    log(f"bf16 engine under torch.profiler: {profile}")
-    log(f"bf16 engine: B4 (both passes) "
-        f"{profile.get('paged_decode_kernel_device_ms')} ms of device time "
-        f"(merge {profile.get('paged_decode_kernel_merge_device_ms')} ms) "
-        f"over {profile['paged_decode_bf16_launches']} wrapper calls; "
-        f"device busy {profile.get('device_busy_s')} s")
-    serving_row = {
-        "config": "GPT-2 small (GPTConfig()), bf16 weights and KV, "
-                  "block 16, window 8, 8 slots, random weights seed 0",
-        "requests": 8, "prompt_tokens": [int(n) for n in lens],
-        "new_tokens_each": 32, "generated_tokens": n_tok,
-        "wall_s": wall, "tokens_per_s": n_tok / wall,
-        "ttft_ms_p50": snap["serving.ttft_ms"]["p50"],
-        "ttft_ms_p99": snap["serving.ttft_ms"]["p99"],
-        "tpot_ms_p50": snap["serving.tpot_ms"]["p50"],
-        "window_ms_p50": snap["serving.window_ms"]["p50"],
-        "windows": stats["windows"],
-        "paged_decode_bf16_launches": n_bf16,
-        "profile": profile, "card": card}
-    log(f"bf16 engine: {n_tok} tokens in {wall:.3f} s = "
-        f"{n_tok / wall:.1f} tok/s, TTFT p50 "
-        f"{serving_row['ttft_ms_p50']:.2f} ms; continuous == sequential; "
-        f"paged_decode_bf16 launches {n_bf16}")
-
-    # bf16 with int8 KV pools: 2 requests
-    int8_kw = dict(bf16_kw, kv_dtype="int8", kv_scale=8.0, max_slots=2)
-    kernel_mod.reset_launches()
-    comps, _, _ = serve(torch, serving, int8_kw,
-                        [R(prompt=prompts[1], max_new_tokens=16),
-                         R(prompt=prompts[6], max_new_tokens=16)])
-    n_int8 = record_launches("paged_decode_int8")
-    if [len(c.tokens) for c in comps] != [16, 16]:
-        fail(f"int8-KV engine: {[len(c.tokens) for c in comps]} tokens")
-    log(f"int8-KV engine: 2 requests complete; paged_decode_int8 launches "
-        f"{n_int8}")
+    serving_row = serve_gpt2(torch, serving, gpt_decode, kernel_mod, metrics,
+                             rows, card)
 
     # ---- BERT pretraining through Program / Executor ----------------------
-    del p16, bf16_kw, int8_kw
     torch.cuda.empty_cache()
     parity = card_vs_cpu(torch, fa)
     training, launches0, launches1 = train_bert(torch, fa, zk, registry,

@@ -25,6 +25,10 @@ _DEFS: Dict[str, tuple] = {
     "FLAGS_serving_max_queue": (256, "submit-queue bound per decode engine "
                                 "(admission control): a submit past it is "
                                 "shed with reason queue_full"),
+    "FLAGS_serving_spec_tokens": (4, "speculative decoding draft depth "
+                                  "gamma (serving/spec.py SpecConfig."
+                                  "tokens = 0): proposals per slot per "
+                                  "round"),
     "FLAGS_step_deadline_ms": (0.0, "serving window watchdog; not ported "
                                "yet: DecodeEngine refuses a nonzero value"),
     "FLAGS_zero_stage": (0, "ZeRO sharding stage applied at fleet minimize "

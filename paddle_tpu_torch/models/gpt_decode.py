@@ -16,11 +16,12 @@ the paged serving window (serving/engine.py) all run through; its `merge`
 hook keeps the reference's contract, including the attend override the
 paged kernel path uses.
 
-Sampling: each draw is a pure function of (seed, generated index). The
-noise comes from a `torch.Generator` seeded with both, so a request's
-tokens do not depend on which slot, window or batch carries it. JAX's
-`fold_in` stream cannot be reproduced here, so seeded sampling matches
-the reference in distribution only.
+Sampling (`sample_rows`): each draw is a pure function of (seed,
+generated index). The Gumbel noise is a counter hash of (seed, index,
+vocab column) computed from device tensors, so a request's tokens do not
+depend on which slot, window or batch carries it, and the draw can be
+captured in a CUDA graph. JAX's `fold_in` stream cannot be reproduced
+here, so seeded sampling matches the reference in distribution only.
 """
 from __future__ import annotations
 
@@ -110,9 +111,32 @@ def _attend(q, k, v, mask, scale):
     return torch.matmul(probs, v)
 
 
+def _block_qkv(x, p, i, cfg):
+    """The first half of a decoder block: pre-LN and the qkv projection,
+    split into heads. -> (q, k, v), each [B, nh, S, hd]."""
+    nh, h = cfg.num_heads, cfg.hidden_size
+    a = _ln(x, p[f"dec{i}_ln1_scale"], p[f"dec{i}_ln1_bias"])
+    qkv = a @ p[f"dec{i}_attn_qkv_w"] + p[f"dec{i}_attn_qkv_b"]
+    q, k, v = torch.split(qkv, h, dim=-1)
+    return _split_heads(q, nh), _split_heads(k, nh), _split_heads(v, nh)
+
+
+def _block_out(x, ctx, p, i):
+    """The second half: the attention context [B, nh, S, hd] through the
+    output projection and the residual, then the pre-LN FFN."""
+    proj = _merge_heads(ctx.to(x.dtype)) @ p[f"dec{i}_attn_proj_w"] \
+        + p[f"dec{i}_attn_proj_b"]
+    x = x + proj
+    f = _ln(x, p[f"dec{i}_ln2_scale"], p[f"dec{i}_ln2_bias"])
+    ffn = F.gelu(f @ p[f"dec{i}_ffn_in_w"] + p[f"dec{i}_ffn_in_b"])
+    ffn = ffn @ p[f"dec{i}_ffn_out_w"] + p[f"dec{i}_ffn_out_b"]
+    return x + ffn
+
+
 def _block(x, p, i, cfg, mask, merge=None):
     """One pre-LN decoder block, the single body prefill and cached decode
-    run through.
+    run through (`_block_qkv`, attention, `_block_out`; the serving
+    verify pass calls the two halves itself).
 
     merge(k_new, v_new) -> (k, v) maps this call's freshly projected
     keys/values to the pair attention runs against: prefill passes None;
@@ -122,14 +146,8 @@ def _block(x, p, i, cfg, mask, merge=None):
     (`mask` is then the override's responsibility). Returns
     (x_out, (k, v)) with the attended pair (the fresh pair under an
     override)."""
-    nh, h = cfg.num_heads, cfg.hidden_size
-    hd = h // nh
-    a = _ln(x, p[f"dec{i}_ln1_scale"], p[f"dec{i}_ln1_bias"])
-    qkv = a @ p[f"dec{i}_attn_qkv_w"] + p[f"dec{i}_attn_qkv_b"]
-    q, k_new, v_new = torch.split(qkv, h, dim=-1)
-    q = _split_heads(q, nh)
-    k_new = _split_heads(k_new, nh)
-    v_new = _split_heads(v_new, nh)
+    hd = cfg.hidden_size // cfg.num_heads
+    q, k_new, v_new = _block_qkv(x, p, i, cfg)
     merged = (k_new, v_new) if merge is None else merge(k_new, v_new)
     if callable(merged):
         k, v = k_new, v_new
@@ -137,13 +155,7 @@ def _block(x, p, i, cfg, mask, merge=None):
     else:
         k, v = merged
         ctx = _attend(q, k, v, mask, 1.0 / math.sqrt(hd))
-    proj = _merge_heads(ctx.to(x.dtype)) @ p[f"dec{i}_attn_proj_w"] \
-        + p[f"dec{i}_attn_proj_b"]
-    x = x + proj
-    f = _ln(x, p[f"dec{i}_ln2_scale"], p[f"dec{i}_ln2_bias"])
-    ffn = F.gelu(f @ p[f"dec{i}_ffn_in_w"] + p[f"dec{i}_ffn_in_b"])
-    ffn = ffn @ p[f"dec{i}_ffn_out_w"] + p[f"dec{i}_ffn_out_b"]
-    return x + ffn, (k, v)
+    return _block_out(x, ctx, p, i), (k, v)
 
 
 def _embed(p, tokens, pos_start: int):
@@ -157,41 +169,72 @@ def _logits(x, p):
     return torch.matmul(x.float(), p["wte"].float().t())
 
 
-def _mix64(x: int) -> int:
-    """splitmix64's finalizer: every output bit depends on every input
-    bit (the CPU generator seeds from the low 32 bits only)."""
-    m = 0xFFFFFFFFFFFFFFFF
-    x = (x + 0x9E3779B97F4A7C15) & m
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & m
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & m
-    return x ^ (x >> 31)
+_M32 = 0xFFFFFFFF
 
 
-def _gumbel(seed: int, index: int, shape, device) -> torch.Tensor:
-    """Gumbel noise that is a pure function of (seed, index): one
-    generator per draw, seeded with a hash of both."""
-    g = torch.Generator(device=device)
-    g.manual_seed(_mix64(((int(seed) & 0xFFFFFFFF) << 32)
-                         | (int(index) & 0xFFFFFFFF)))
-    u = torch.rand(shape, generator=g, device=device, dtype=torch.float32)
-    u = u.clamp_(min=torch.finfo(torch.float32).tiny)
+def _hash32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer hash (two xorshift-multiply rounds, multiplier
+    0x45d9f3b) on int64 tensors holding values in [0, 2**32). Products stay
+    below 2**59, so no int64 arithmetic overflows on any device."""
+    x = x & _M32
+    x = ((x ^ (x >> 16)) * 0x45D9F3B) & _M32
+    x = ((x ^ (x >> 16)) * 0x45D9F3B) & _M32
+    return x ^ (x >> 16)
+
+
+def fold_seed(seed: int) -> int:
+    """A request seed (any Python int) folded to the 32 bits the sampler
+    hashes."""
+    s = int(seed) & 0xFFFFFFFFFFFFFFFF
+    return (s ^ (s >> 32)) & _M32
+
+
+def gumbel_noise(seeds: torch.Tensor, index: torch.Tensor,
+                 vocab: int) -> torch.Tensor:
+    """Gumbel noise [B, vocab] f32 from a counter hash of (seed, generated
+    index, vocab column): row b is a pure function of (seeds[b],
+    index[b]). seeds: [B] int64 (`fold_seed`-ed); index: [B] int64. Only
+    device tensor ops, so the draw can sit inside a captured CUDA graph."""
+    key = _hash32(seeds ^ _hash32(index + 0x9E3779B9))
+    col = torch.arange(vocab, device=seeds.device, dtype=torch.int64)
+    h = _hash32(key[:, None] ^ _hash32(col * 0x2545F491)[None, :])
+    # 24 random bits -> u in (0, 1), never 0 or 1
+    u = ((h >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
     return -torch.log(-torch.log(u))
+
+
+def sample_rows(logits, temps, top_ks, seeds, index):
+    """One vectorised sampling rule per row: greedy where temps == 0, else
+    temperature, a per-row top-k (the k-th value of one descending sort;
+    0 = no cut, k > vocab = all) and Gumbel-max with the (seed, index)
+    noise. logits [B, V]; temps [B] f32, top_ks / seeds / index [B] int64,
+    all on the logits' device. Returns [B] int64."""
+    b, v = logits.shape
+    greedy = torch.argmax(logits, dim=-1)
+    scaled = logits.float() / torch.clamp(temps, min=1e-6)[:, None]
+    srt = torch.sort(scaled, dim=-1, descending=True).values
+    k = torch.clamp(top_ks, 1, v) - 1
+    kth = torch.gather(srt, 1, k[:, None])
+    filtered = scaled.masked_fill(scaled < kth, float("-inf"))
+    use = torch.where((top_ks > 0)[:, None], filtered, scaled)
+    sampled = torch.argmax(use + gumbel_noise(seeds, index, v), dim=-1)
+    return torch.where(temps > 0.0, sampled, greedy)
 
 
 def _sample(logits, temperature: float, top_k: int, seed: int = 0,
             index: int = 0):
-    """Greedy when temperature == 0, else temperature softmax, optionally
-    truncated to the top_k logits, drawn by the Gumbel-max rule with the
-    (seed, index) noise. logits [B, V] -> [B] int64."""
-    if temperature == 0.0:
-        return torch.argmax(logits, dim=-1)
-    scaled = logits.float() / temperature
-    if top_k:
-        k = min(int(top_k), scaled.shape[-1])  # top_k > vocab means "all"
-        kth = torch.topk(scaled, k, dim=-1).values[..., -1:]
-        scaled = scaled.masked_fill(scaled < kth, float("-inf"))
-    noise = _gumbel(seed, index, scaled.shape, scaled.device)
-    return torch.argmax(scaled + noise, dim=-1)
+    """`sample_rows` with one (temperature, top_k, seed, index) for every
+    row. logits [B, V] -> [B] int64."""
+    b = logits.shape[0]
+    dev = logits.device
+
+    def full(value, dtype):
+        return torch.full((b,), value, dtype=dtype, device=dev)
+
+    return sample_rows(logits, full(float(temperature), torch.float32),
+                       full(int(top_k), torch.int64),
+                       full(fold_seed(seed), torch.int64),
+                       full(int(index), torch.int64))
 
 
 def prefill(params, cfg: GPTConfig, prompt, prompt_len: int, max_len: int):

@@ -17,7 +17,11 @@ order.
   attend that ops/paged_ops.paged_attend computes. The plain version is
   also the yardstick the kernel is held against on the card.
 * `launches` counts wrapper calls that launched the kernel, per kernel
-  name; it moves only where a kernel is launched.
+  name; it moves only where a kernel is launched. A CUDA graph that
+  captured wrapper calls launches the kernels again at each replay
+  without calling the wrapper: its owner takes the count made during the
+  capture back out (`launches_since`) and adds it at every replay
+  (`count_replay`).
 """
 from __future__ import annotations
 
@@ -42,6 +46,22 @@ _lib = None
 def reset_launches():
     for name in launches:
         launches[name] = 0
+
+
+def launches_since(before) -> dict:
+    """The launches counted since the snapshot `before` (a copy of
+    `launches`), taken back out of `launches`: a capture records kernels
+    without running them."""
+    delta = {name: launches[name] - before[name] for name in launches}
+    launches.update(before)
+    return delta
+
+
+def count_replay(delta):
+    """Count the launches of one replay of a graph whose capture recorded
+    `delta` (from `launches_since`)."""
+    for name, n in delta.items():
+        launches[name] += n
 
 
 def kv_dequant_scale(kv_scale) -> float:

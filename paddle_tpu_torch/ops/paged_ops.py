@@ -129,3 +129,43 @@ def fused_attend(q, k_pool, v_pool, page_table, pos, block_size: int,
         q.contiguous(), k_pool, v_pool, page_table, pos,
         block_size=block_size, layer=layer, scale=scale,
         max_blocks=max_blocks, kv_scale=kv_scale)
+
+
+# ---------------------------------------------------------------------------
+# span variants (the speculative-decoding verify program)
+# ---------------------------------------------------------------------------
+# Verification scores a short run of candidate positions [pos, pos+span)
+# per slot (serving/spec.py). Both span ops are unrolled loops of the
+# single-position ops above: each position keeps the decode window's
+# exact op shapes ([B, nh, 1, hd] query, mask <= pos+s), so row s of a
+# verify pass computes what a window step computes at position pos+s, and
+# positions written beyond s carry exactly-zero softmax weight.
+
+def paged_update_span(k_pool, v_pool, k_new, v_new, page_table, pos,
+                      block_size: int, layer: int, active=None,
+                      valid=None, kv_scale=None):
+    """Write `span` consecutive positions' k/v per slot, in place: k_new /
+    v_new are [B, nh, span, hd], written at pos..pos+span-1. `valid`
+    ([B, span] bool, optional) sends a position's write to the scratch
+    block where it is False, on top of the row-level `active` mask."""
+    for s in range(k_new.shape[2]):
+        act = active
+        if valid is not None:
+            act = valid[:, s] if act is None else (act & valid[:, s])
+        paged_update(k_pool, v_pool, k_new[:, :, s, :], v_new[:, :, s, :],
+                     page_table, pos + s, block_size, layer, active=act,
+                     kv_scale=kv_scale)
+
+
+def paged_attend_span(q, k_pool, v_pool, page_table, pos, block_size: int,
+                      layer: int = 0, scale=None, max_blocks=None,
+                      kv_scale=None):
+    """Span attention: q [B, nh, span, hd], row s masked to positions
+    <= pos+s. One `fused_attend` per position (B4 on CUDA tensors, its
+    plain version on CPU tensors), so each row is the window's attend at
+    that position. Returns [B, nh, span, hd]."""
+    return torch.cat(
+        [fused_attend(q[:, :, s:s + 1, :], k_pool, v_pool, page_table,
+                      pos + s, block_size, layer=layer, scale=scale,
+                      max_blocks=max_blocks, kv_scale=kv_scale)
+         for s in range(q.shape[2])], dim=2)

@@ -91,7 +91,7 @@ _REGISTRY: Dict[str, OpDef] = {}
 # modules of the package that register lowerings on import
 _LOWERING_MODULES = ("ops.tensor_ops", "ops.math_ops", "ops.nn_ops",
                      "ops.fused_ce", "ops.attention", "ops.optimizer_ops",
-                     "parallel.zero")
+                     "ops.int8_ops", "parallel.zero")
 _loaded = False
 
 

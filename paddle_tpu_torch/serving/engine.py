@@ -7,24 +7,48 @@ windows (and only between windows) the service thread retires finished
 slots and admits queued requests, so batch composition churns freely while
 every window runs the same shapes.
 
-Each admitted request is prefilled once (a dense causal forward over its
-prompt padded to a block-aligned bucket), its prompt k/v is scattered into
-the blocks its slot was funded with, and the slot joins the next window.
+Each admitted request is prefilled once and its prompt k/v is written into
+the blocks its slot was funded with; the slot joins the next window.
 Every window step runs the SAME transformer block body as
 models/gpt_decode (`_block`) with a merge hook that writes the new position
 into the pools in place and attends through `ops.paged_ops.fused_attend`:
 the hand-written CUDA kernel on the card, its plain PyTorch version on CPU
 tensors. There is no switch between the two: the tensors' device decides.
 
+One captured window. The reference compiles its W-step window into one
+`lax.scan` dispatch; the port's counterpart is a CUDA graph. On a CUDA
+engine each window copies its inputs (tokens, pos, gen, live, eos,
+max_new, temps, top_ks, seeds, the page table) into static buffers and
+replays a graph of the whole window, captured once per page-table walk
+bound (`_max_blocks_hint`'s ladder rung) on the service thread, on a side
+stream after one warm-up call with every row inactive (writes land on the
+scratch block). The pools are written in place at fixed addresses and
+sampling is a device-side counter hash (`gpt_decode.sample_rows`), so
+nothing in the window touches the host: its one sync is the `.cpu()` of
+its tokens. A failed capture raises; a CUDA engine never decodes eagerly.
+A CPU engine runs the same window body eagerly (`_eager_call`).
+
+Prefill runs in chunks of `prefill_chunk` rows against a k/v buffer of one
+fixed width per engine, so every prefill GEMM and attention has the same
+shape whatever the prompt length: a row's bits then depend only on its
+own inputs, which is what lets the radix prefix cache (`prefix_cache=
+True`) skip the chunks a cached prefix covers and still give the tokens a
+cold prefill gives, on any BLAS.
+
+Speculative decoding (`spec=`, serving/spec.py) replaces windows with
+rounds: the draft arm's own captured window proposes, and a captured
+verify pass scores gamma+1 positions per slot as window-shaped [B, 1, H]
+products (`_verify_eager`), so spec-on tokens equal spec-off tokens.
+
 Sampling is per slot and a pure function of (request seed, generated
 index), so a request's tokens do not depend on which slot or window
 carries it: continuous batching gives the tokens one-at-a-time decoding
 gives (`generate_sequential`).
 
-Not ported yet (EngineConfig refuses them with NotImplementedError): the
-radix prefix cache, speculative decoding, int8 weights and the
-FLAGS_step_deadline_ms window watchdog. Replica failover, drain and kill
-(serving/resilience.py of the reference) are not ported either.
+Not ported yet: the FLAGS_step_deadline_ms window watchdog (EngineConfig
+refuses a nonzero value), the trace flows, flight-recorder steps and fault
+sites, and replica failover, drain, kill and resurrection
+(serving/resilience.py of the reference).
 """
 from __future__ import annotations
 
@@ -42,15 +66,23 @@ from ..device import DeviceLike, resolve_device
 from ..flags import flag
 from ..framework.errors import UnimplementedError
 from ..models.gpt import GPTConfig
-from ..models.gpt_decode import _block, _embed, _ln, _logits, _sample
+from ..models.gpt_decode import (_block, _block_out, _block_qkv, _ln,
+                                 _logits, fold_seed, sample_rows)
 from ..observability import metrics as _metrics
-from ..ops.paged_ops import fused_attend, paged_update, quantize_kv
-from .cache import CacheConfig, PagedKVCache
+from ..ops.kernels import paged_attention as _kernel
+from ..ops.paged_ops import (fused_attend, paged_attend_span, paged_update,
+                             paged_update_span, quantize_kv)
+from .cache import CacheConfig, PagedKVCache, RadixPrefixCache
 from .request import Completion, Request, RequestHandle, RequestState
 from .resilience import Health, shed_handle
-from .weights import prepare_params
+from .weights import dequant_params, prepare_params
 
 _engine_ids = itertools.count(1)
+
+# most rows of one prefill chunk: one GEMM shape for every prefill of an
+# engine, small enough that a cached prefix spares whole chunks, large
+# enough to keep the launches per prefill few
+_PREFILL_CHUNK = 64
 
 
 @dataclasses.dataclass
@@ -63,28 +95,27 @@ class EngineConfig:
     num_blocks: int = 64
     max_len: int = 128          # per-request prompt + generation budget
     window: int = 0
-    dtype: str = "float32"      # "float32" | "bfloat16" ("int8": not yet)
+    dtype: str = "float32"      # "float32" | "bfloat16" | "int8" (weights)
     max_queue: int = 0          # submit-queue bound (admission control)
     kv_dtype: str = ""          # "" = compute dtype; "int8" = quantized
                                 # KV pools (abs-max grid, static kv_scale)
     kv_scale: float = 8.0       # int8-KV abs-max clip range
-    prefix_cache: bool = False  # radix prefix cache: not ported yet
-    spec: Optional[object] = None   # speculative decoding: not ported yet
+    # radix prefix cache: retired requests publish their prompt block
+    # chains; admission maps the longest cached prefix read-only and
+    # prefills only the chunks it does not cover. Cache-on tokens ==
+    # cache-off tokens; refused with int8 KV pools (a cached prefix would
+    # be re-read through dequant)
+    prefix_cache: bool = False
+    # speculative decoding (serving/spec.py): None/False = off; True = the
+    # default SpecConfig (int8 draft arm of the same checkpoint, gamma =
+    # FLAGS_serving_spec_tokens); a SpecConfig pins the draft
+    spec: Optional[object] = None
 
     def resolve(self) -> "EngineConfig":
         c = dataclasses.replace(self)
-        if c.prefix_cache:
-            raise UnimplementedError("prefix_cache is not ported yet")
-        if c.spec not in (None, False):
-            raise UnimplementedError("speculative decoding (spec) is not "
-                                     "ported yet")
-        if c.dtype == "int8":
-            raise UnimplementedError("int8 serving weights are not ported "
-                                     "yet")
         if float(flag("FLAGS_step_deadline_ms") or 0.0) > 0:
             raise UnimplementedError("FLAGS_step_deadline_ms (the window "
                                      "watchdog) is not ported yet")
-        c.spec = None
         if not c.block_size:
             c.block_size = int(flag("FLAGS_serving_block_size"))
         if not c.window:
@@ -93,9 +124,23 @@ class EngineConfig:
             c.max_queue = int(flag("FLAGS_serving_max_queue"))
         if c.max_len % c.block_size:
             c.max_len += c.block_size - c.max_len % c.block_size
+        if c.dtype not in ("float32", "bfloat16", "int8"):
+            raise ValueError(f"serving dtype {c.dtype!r} not in "
+                             "(float32, bfloat16, int8)")
         if c.kv_dtype not in ("", "int8"):
             raise ValueError(f"kv_dtype must be '' or 'int8', "
                              f"got {c.kv_dtype!r}")
+        if c.prefix_cache and c.kv_dtype == "int8":
+            raise ValueError(
+                "prefix_cache requires float KV pools: int8 pools "
+                "quantize on write, so a shared prefix would be re-read "
+                "through dequant and break the cache-on == cache-off "
+                "contract")
+        if c.spec is False:
+            c.spec = None
+        if c.spec is not None:
+            from .spec import SpecConfig
+            c.spec = (SpecConfig() if c.spec is True else c.spec).resolve()
         return c
 
 
@@ -114,6 +159,40 @@ class _Slot:
         self.temp = temp
         self.top_k = top_k
         self.seed = seed
+
+
+class _Captured:
+    """A CUDA graph of one call of `body` over static input buffers.
+
+    The capture runs on the calling thread, on a side stream, after one
+    warm-up call with the inputs set to `idle` (every row inactive, so the
+    warm-up's pool writes land on the scratch block). The B4 launches the
+    capture recorded are counted again at every replay."""
+
+    def __init__(self, body, inputs: Dict[str, torch.Tensor],
+                 idle: Dict[str, np.ndarray], pool):
+        self.inputs = inputs
+        dev = next(iter(inputs.values())).device
+        for k, t in inputs.items():
+            t.copy_(torch.from_numpy(idle[k]))
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            body(inputs)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = dict(_kernel.launches)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=pool, stream=side,
+                              capture_error_mode="thread_local"):
+            self.out = body(inputs)
+        self.launches = _kernel.launches_since(before)
+
+    def replay(self, host: Dict[str, np.ndarray]):
+        for k, a in host.items():
+            self.inputs[k].copy_(torch.from_numpy(a))
+        self.graph.replay()
+        _kernel.count_replay(self.launches)
+        return self.out
 
 
 class DecodeEngine:
@@ -140,10 +219,12 @@ class DecodeEngine:
         # per-request prompt+generation ceiling: every live position must
         # have a real wpe row
         self.request_budget = min(cfg.max_len, model_config.max_position)
-        self.params = prepare_params(params, cfg.dtype, self.device)
+        self.params, self.scales, self.compute_dtype = prepare_params(
+            params, cfg.dtype, self.device)
         self.cache = self._build_cache()
-        # prompt buckets: block-aligned, doubling up to the cap (the
-        # largest block multiple inside max_len and max_position)
+        # prompt buckets (the block budget): block-aligned, doubling up to
+        # the cap (the largest block multiple inside max_len and
+        # max_position)
         bs = cfg.block_size
         cap = min(cfg.max_len, (model_config.max_position // bs) * bs)
         self.buckets = []
@@ -152,6 +233,12 @@ class DecodeEngine:
             self.buckets.append(b)
             b *= 2
         self.buckets.append(cap)
+        # prefill geometry, the same for every prompt: chunks of a quarter
+        # of the cap (a block multiple, at most _PREFILL_CHUNK rows)
+        # attending a k/v buffer of prefill_width columns
+        self.prefill_chunk = max(bs, min(_PREFILL_CHUNK, cap // 4) // bs * bs)
+        self.prefill_width = -(-cap // self.prefill_chunk) \
+            * self.prefill_chunk
 
         self._id = next(_engine_ids)
         self._queue: "List[tuple]" = []
@@ -164,6 +251,26 @@ class DecodeEngine:
         self._completed = 0
         self._window_ms_ewma: Optional[float] = None
         self.health = Health.LIVE
+        # captured windows / verify passes, by (kind, walk bound); one
+        # graph memory pool and one set of static inputs per engine
+        self._graphs: Dict[tuple, _Captured] = {}
+        self._static: Dict[str, torch.Tensor] = {}
+        self._pool = None
+        self._replays = 0
+        self._eager_calls = 0
+        # kernel launches made by replays, by call kind
+        self._graph_launches = {"window": 0, "verify": 0}
+        # one graph per ladder rung (True) or one at the full table width
+        self._ladder_graphs = True
+        self.prefix_cache = (RadixPrefixCache(cfg.block_size)
+                             if cfg.prefix_cache else None)
+        self._prefix_hits = 0
+        self._prefix_misses = 0
+        self._prefill_tokens_saved = 0
+        self.spec = None
+        if cfg.spec is not None:
+            from .spec import SpecDecoder
+            self.spec = SpecDecoder(self, cfg.spec, raw_params=params)
 
     def _kv_scale(self) -> Optional[float]:
         """Static int8-KV dequant scale, None for float pools."""
@@ -178,12 +285,13 @@ class DecodeEngine:
         """The furthest page-table column any slot can touch over the next
         `horizon` positions, rounded up to a power of two (capped at the
         table width), and the full width on tables of at most
-        _LADDER_MIN_BLOCKS columns, as in the reference. The plain read
-        path gathers only these columns; the kernel also stops at each
-        slot's own frontier, so on the card the hint only caps the walk."""
+        _LADDER_MIN_BLOCKS columns, as in the reference. Each rung is one
+        captured graph; the plain read path gathers only these columns;
+        the kernel also stops at each slot's own frontier, so on the card
+        the hint only caps the walk."""
         cfg = self.config
         mb = cfg.max_len // cfg.block_size
-        if mb <= self._LADDER_MIN_BLOCKS:
+        if mb <= self._LADDER_MIN_BLOCKS or not self._ladder_graphs:
             return mb
         mx = max((s.pos for s in self._slots.values()), default=None)
         if mx is None:
@@ -200,7 +308,8 @@ class DecodeEngine:
     def _build_cache(self) -> PagedKVCache:
         mc, cfg = self.model_config, self.config
         nh = mc.num_heads
-        pool_dtype = "int8" if cfg.kv_dtype == "int8" else cfg.dtype
+        pool_dtype = "int8" if cfg.kv_dtype == "int8" \
+            else str(self.compute_dtype).replace("torch.", "")
         return PagedKVCache(CacheConfig(
             num_layers=mc.num_layers, num_heads=nh,
             head_dim=mc.hidden_size // nh,
@@ -211,39 +320,33 @@ class DecodeEngine:
     # ------------------------------------------------------------------
     # device work
     # ------------------------------------------------------------------
-    @staticmethod
-    def _sample_rows(logits, temps, top_ks, seeds, gen_idx):
-        """Per-slot sampling, greedy when temp == 0. logits [B, V] on the
-        device; temps/top_ks/seeds/gen_idx are host arrays. Top-k and
-        temperature follow models/gpt_decode._sample, whose noise is a
-        pure function of (request seed, generated index) — the property
-        that makes continuous batching reproducible."""
-        out = torch.argmax(logits, dim=-1)
-        for i in np.flatnonzero(temps > 0.0):
-            out[i] = _sample(logits[i:i + 1], max(float(temps[i]), 1e-6),
-                             int(top_ks[i]), int(seeds[i]),
-                             int(gen_idx[i]))[0]
-        return out
+    def _model_params(self):
+        """The dense parameters: int8 payloads dequantized here, inside the
+        window or prefill that uses them, so the payload is what stays
+        resident."""
+        if self.scales is None:
+            return self.params
+        return dequant_params(self.params, self.scales, self.compute_dtype)
 
-    def _window_fn(self, page_table, tokens, pos, gen, live, eos_vec,
-                   max_new, host, max_blocks):
-        """W decode steps over the slot array. Frozen rows (retired/empty
-        slots, eos/length-finished mid-window) keep computing — fixed
-        shapes — but their writes are redirected to the scratch block and
-        their emissions flagged inactive. `host` carries the sampling
-        arrays (temps, top_ks, seeds, gen); a row that is active at step s
-        has generated gen + s tokens, so its draw index is known on the
-        host. Returns (tokens [W, B], active [W, B]) on the device."""
+    def _window_eager(self, st: Dict[str, torch.Tensor], max_blocks: int):
+        """W decode steps over the slot array, the body a window graph
+        captures. Frozen rows (retired/empty slots, eos/length-finished
+        mid-window) keep computing — fixed shapes — but their writes are
+        redirected to the scratch block and their emissions flagged
+        inactive. A row active at step s draws with index gen + s.
+        Returns (tokens [W, B], active [W, B])."""
         cfg = self.model_config
-        p = self.params
+        p = self._model_params()
         bs = self.config.block_size
         kv_scale = self._kv_scale()
         k_pool, v_pool = self.cache.k_pool, self.cache.v_pool
-        temps, top_ks, seeds, gen_host = host
+        page_table = st["page_table"]
+        tokens, pos, gen = st["tokens"], st["pos"], st["gen"]
+        eos_vec, max_new = st["eos"], st["max_new"]
         last_pos = cfg.max_position - 1
-        done = ~live
+        done = ~st["live"]
         toks, acts = [], []
-        for step in range(self.config.window):
+        for _ in range(self.config.window):
             act = ~done
             # a finished row's pos may sit one past the position table;
             # its embedding is computed and discarded
@@ -259,9 +362,8 @@ class DecodeEngine:
                         max_blocks=max_blocks, kv_scale=kv_scale)
                 x, _ = _block(x, p, i, cfg, None, merge)
             x = _ln(x, p["final_ln_scale"], p["final_ln_bias"])
-            logits = _logits(x, p)[:, 0]
-            nxt = self._sample_rows(logits, temps, top_ks, seeds,
-                                    gen_host + step)
+            nxt = sample_rows(_logits(x, p)[:, 0], st["temps"],
+                              st["top_ks"], st["seeds"], gen.long())
             hit_eos = (eos_vec >= 0) & (nxt == eos_vec)
             gen = gen + act.int()
             done = done | (act & (hit_eos | (gen >= max_new)))
@@ -271,45 +373,168 @@ class DecodeEngine:
             acts.append(act)
         return torch.stack(toks), torch.stack(acts)
 
-    def _prefill_fn(self, prompt, prompt_len: int, temp: float, top_k: int,
-                    seed: int):
-        """Dense causal forward over one padded prompt bucket -> per-layer
-        prompt k/v [L, nh, bucket, hd] (pad positions zeroed) and the first
-        sampled token (a 0-d device tensor). Same block body as the
-        window."""
+    def _verify_eager(self, st: Dict[str, torch.Tensor], max_blocks: int):
+        """The speculative verify pass, the body a verify graph captures:
+        scores span = gamma+1 candidate positions per slot — pos..pos+span-1
+        hold the slot's current token and the draft's proposals (`cand`
+        [B, span]). Layer by layer, each position's products run as the
+        window's [B, 1, H] products (`_block_qkv` / `_block_out`), the
+        span's k/v are written (`paged_update_span`, invalid positions to
+        scratch) and each row attends at its own position
+        (`paged_attend_span`, B4 per row), so row s carries the bits a
+        window step at pos+s computes. Row s samples at index gen + s with
+        the window's rule. Returns (vtok [B, span], n_acc [B]): the
+        target's token at every position and the length of the longest
+        prefix of proposals equal to it."""
         cfg = self.model_config
-        p = self.params
-        bucket = prompt.shape[0]
-        dev = self.device
-        x = _embed(p, prompt[None], 0)                    # [1, bucket, H]
-        idx = torch.arange(bucket, device=dev)
-        causal = torch.zeros((bucket, bucket), dtype=torch.float32,
-                             device=dev)
-        causal = causal.masked_fill(idx[:, None] < idx[None, :],
-                                    float("-inf"))
-        keep = (idx < prompt_len)[None, None, :, None]
-        ks, vs = [], []
-        for i in range(cfg.num_layers):
-            x, (k, v) = _block(x, p, i, cfg, causal)
-            ks.append(torch.where(keep, k, 0))
-            vs.append(torch.where(keep, v, 0))
-        k_seq = torch.stack(ks)[:, 0]
-        v_seq = torch.stack(vs)[:, 0]
-        x = _ln(x, p["final_ln_scale"], p["final_ln_bias"])
-        logits = _logits(x[:, prompt_len - 1:prompt_len], p)[:, 0]  # [1, V]
-        first = self._sample_rows(
-            logits, np.array([temp], np.float32), np.array([top_k]),
-            np.array([seed]), np.zeros((1,), np.int64))
-        return k_seq, v_seq, first[0]
-
-    def _write_fn(self, k_seq, v_seq, blocks: List[int]):
-        """Scatter one prefilled prompt's k/v [L, nh, nb*bs, hd] into its
-        assigned blocks, in place (int8 pools quantize on write)."""
-        L, nh, width, hd = k_seq.shape
+        p = self._model_params()
         bs = self.config.block_size
-        nb = width // bs
-        kb = k_seq.reshape(L, nh, nb, bs, hd).permute(0, 2, 1, 3, 4)
-        vb = v_seq.reshape(L, nh, nb, bs, hd).permute(0, 2, 1, 3, 4)
+        kv_scale = self._kv_scale()
+        k_pool, v_pool = self.cache.k_pool, self.cache.v_pool
+        page_table, cand, pos = st["page_table"], st["cand"], st["pos"]
+        valid, gen = st["valid"], st["gen"].long()
+        span = cand.shape[1]
+        last_pos = cfg.max_position - 1
+        xs = [p["wte"][cand[:, s:s + 1]]
+              + p["wpe"][(pos + s).clamp(max=last_pos).long()][:, None]
+              for s in range(span)]
+        for i in range(cfg.num_layers):
+            q, k, v = (torch.cat(t, dim=2) for t in zip(
+                *(_block_qkv(x, p, i, cfg) for x in xs)))
+            paged_update_span(k_pool, v_pool, k, v, page_table, pos, bs, i,
+                              active=st["live"], valid=valid,
+                              kv_scale=kv_scale)
+            ctx = paged_attend_span(q, k_pool, v_pool, page_table, pos, bs,
+                                    layer=i, max_blocks=max_blocks,
+                                    kv_scale=kv_scale)
+            xs = [_block_out(x, ctx[:, :, s:s + 1].contiguous(), p, i)
+                  for s, x in enumerate(xs)]
+        vtok = torch.stack(
+            [sample_rows(_logits(_ln(x, p["final_ln_scale"],
+                                     p["final_ln_bias"]), p)[:, 0],
+                         st["temps"], st["top_ks"], st["seeds"], gen + s)
+             for s, x in enumerate(xs)], dim=1)
+        agree = (cand[:, 1:] == vtok[:, :-1]) & valid[:, 1:]
+        n_acc = torch.cumprod(agree.int(), dim=1).sum(dim=1)
+        return vtok, n_acc
+
+    def _eager_call(self, key, body, host: Dict[str, np.ndarray]):
+        """Run `body` on the host arrays as device tensors, no graph: the
+        CPU engine's path (and chip_smoke.py's eager arm)."""
+        self._eager_calls += 1
+        return body({k: torch.as_tensor(a, device=self.device)
+                     for k, a in host.items()})
+
+    def _call(self, key, body, host: Dict[str, np.ndarray]):
+        """One window or verify call. CPU engines run `body` eagerly; a
+        CUDA engine replays the graph captured for `key`, capturing it on
+        first use. A capture that fails raises."""
+        if self.device.type != "cuda":
+            return self._eager_call(key, body, host)
+        g = self._graphs.get(key)
+        if g is None:
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            for k, a in host.items():
+                t = self._static.get(k)
+                if t is None or tuple(t.shape) != a.shape:
+                    self._static[k] = torch.empty(
+                        a.shape, dtype=torch.from_numpy(a).dtype,
+                        device=self.device)
+            idle = _idle_inputs(host)
+            g = self._graphs[key] = _Captured(
+                body, {k: self._static[k] for k in host}, idle, self._pool)
+            _metrics.inc("serving.graph_captures")
+        self._replays += 1
+        self._graph_launches[key[0]] += sum(g.launches.values())
+        return g.replay(host)
+
+    def _chunk_forward(self, p, chunk_tokens, lo: int, kbuf, vbuf,
+                       keep_from: int):
+        """One prefill chunk: positions lo..lo+C-1 through every layer,
+        attending the per-layer k/v buffers [1, nh, W, hd] (fixed width W)
+        causally. The chunk's k/v land in the buffers at columns >=
+        `keep_from`; columns below it hold a cached prefix. Returns the
+        chunk's last hidden states [1, C, H]."""
+        cfg = self.model_config
+        dev = self.device
+        c = chunk_tokens.shape[0]
+        width = kbuf[0].shape[2]
+        rows = torch.arange(lo, lo + c, device=dev)
+        x = p["wte"][chunk_tokens[None]] \
+            + p["wpe"][rows.clamp(max=cfg.max_position - 1)][None]
+        cols = torch.arange(width, device=dev)
+        mask = torch.zeros((c, width), dtype=torch.float32, device=dev)
+        mask = mask.masked_fill(cols[None, :] > rows[:, None], float("-inf"))
+        off = max(keep_from - lo, 0)
+        for i in range(cfg.num_layers):
+            def merge(k1, v1, _i=i):
+                kbuf[_i][:, :, lo + off:lo + c] = k1[:, :, off:]
+                vbuf[_i][:, :, lo + off:lo + c] = v1[:, :, off:]
+                return kbuf[_i], vbuf[_i]
+            x, _ = _block(x, p, i, cfg, mask, merge)
+        return x
+
+    def _prefill_fn(self, tokens: np.ndarray, plen: int, temp: float,
+                    top_k: int, seed: int, prefix_kv=None, matched=0):
+        """Prefill one prompt in chunks of `prefill_chunk` rows against k/v
+        buffers of `prefill_width` columns. A cold prefill runs every chunk
+        of the prompt; a prefix-cache hit (`prefix_kv` = the cached k/v
+        [L, nh, matched, hd] gathered from the pool) fills the buffers'
+        first `matched` columns with it and runs only the chunks from the
+        one holding position `matched`. Every chunk has the same shapes
+        and a chunk's rows the same inputs in both cases, so both give the
+        same bits. Returns (k, v [L, nh, W, hd], first token as a 0-d
+        device tensor)."""
+        cfg = self.model_config
+        p = self._model_params()
+        dev = self.device
+        C, W = self.prefill_chunk, self.prefill_width
+        nh = cfg.num_heads
+        hd = cfg.hidden_size // nh
+        padded = np.zeros((-(-plen // C) * C,), np.int64)
+        padded[:plen] = tokens[:plen]
+        tok = torch.as_tensor(padded, device=dev)
+        shape = (1, nh, W, hd)
+        kbuf = [torch.zeros(shape, dtype=self.compute_dtype, device=dev)
+                for _ in range(cfg.num_layers)]
+        vbuf = [torch.zeros(shape, dtype=self.compute_dtype, device=dev)
+                for _ in range(cfg.num_layers)]
+        if matched:
+            for i in range(cfg.num_layers):
+                kbuf[i][0, :, :matched] = prefix_kv[0][i]
+                vbuf[i][0, :, :matched] = prefix_kv[1][i]
+        last = (plen - 1) // C
+        for c in range(matched // C, last + 1):
+            x = self._chunk_forward(p, tok[c * C:(c + 1) * C], c * C,
+                                    kbuf, vbuf, matched)
+        x = _ln(x, p["final_ln_scale"], p["final_ln_bias"])
+        row = plen - 1 - last * C
+        # slice the last real position BEFORE the [H, V] head matmul
+        logits = _logits(x[:, row:row + 1], p)[:, 0]          # [1, V]
+        first = sample_rows(
+            logits, torch.tensor([float(temp)], device=dev),
+            torch.tensor([int(top_k)], device=dev),
+            torch.tensor([fold_seed(seed)], device=dev),
+            torch.zeros((1,), dtype=torch.int64, device=dev))
+        return torch.cat(kbuf), torch.cat(vbuf), first[0]
+
+    def _write_fn(self, k_seq, v_seq, blocks: List[int], lo: int,
+                  plen: int):
+        """Write prompt positions lo..plen-1 of k_seq/v_seq [L, nh, W, hd]
+        into `blocks`, the slot's blocks from the one holding position lo
+        (a block multiple), in place. Rows past plen in the last block are
+        zeroed; int8 pools quantize on write."""
+        L, nh, _, hd = k_seq.shape
+        bs = self.config.block_size
+        nb = len(blocks)
+        hi = lo + nb * bs
+        keep = (torch.arange(lo, hi, device=self.device)
+                < plen)[None, None, :, None]
+        kb = torch.where(keep, k_seq[:, :, lo:hi], 0) \
+            .reshape(L, nh, nb, bs, hd).permute(0, 2, 1, 3, 4)
+        vb = torch.where(keep, v_seq[:, :, lo:hi], 0) \
+            .reshape(L, nh, nb, bs, hd).permute(0, 2, 1, 3, 4)
         kv = self._kv_scale()
         if kv is not None:
             kb, vb = quantize_kv(kb, kv), quantize_kv(vb, kv)
@@ -335,7 +560,7 @@ class DecodeEngine:
         _metrics.inc("serving.requests")
         if self._dead:
             return shed_handle(handle, "engine_dead",
-                              f"engine dead: {self._dead}")
+                               f"engine dead: {self._dead}")
         reason = self._reject_reason(request)
         if reason is not None:
             _metrics.inc("serving.rejected")
@@ -377,7 +602,7 @@ class DecodeEngine:
             # the engine died between the liveness check and the append:
             # the fail snapshot missed this entry
             return shed_handle(handle, "engine_dead",
-                              f"engine died during submit: {self._dead}")
+                               f"engine died during submit: {self._dead}")
         return handle
 
     def _unqueue(self, entry) -> bool:
@@ -482,6 +707,12 @@ class DecodeEngine:
             # stop() abandons in-flight work: their callers must get a
             # terminal FAILED completion, never block forever
             self._fail_all("engine stopped")
+        if self.prefix_cache is not None:
+            # drop the cache-owned chain references so the shared-block
+            # gauge returns to zero before the allocator retires
+            self.prefix_cache.clear(self.cache.allocator)
+        if self.spec is not None:
+            self.spec.close()
         self.cache.close()   # retire this pool from the process gauges
 
     def __enter__(self):
@@ -503,7 +734,13 @@ class DecodeEngine:
                 try:
                     self._admit()
                     if self._slots:
-                        self._run_window()
+                        # speculative rounds replace plain windows while
+                        # the draft is armed; a dead draft degrades to
+                        # plain decode (spec-on tokens == spec-off tokens)
+                        if self.spec is not None and self.spec.armed:
+                            self.spec.run_round()
+                        else:
+                            self._run_window()
                 except Exception as e:  # noqa: BLE001 — fail requests, die
                     # the thread's boundary: every waiter gets a terminal
                     # completion carrying the traceback
@@ -524,6 +761,8 @@ class DecodeEngine:
             _metrics.set_gauge("serving.queue_depth", 0)
         for idx in slots:
             self.cache.release(idx)
+        if self.spec is not None:
+            self.spec.release_all()
         victims = [handle for _, handle in pending]
         victims += [slot.handle for slot in slots.values()]
         for handle in victims:
@@ -535,6 +774,59 @@ class DecodeEngine:
             if b >= plen:
                 return b
         return self.buckets[-1]
+
+    def _assign_evicting(self, slot_idx: int,
+                         n_blocks: int) -> Optional[List[int]]:
+        """cache.assign with one eviction retry: idle refcount-1 prefix
+        chains are reclaimable pool space, so admission pressure evicts
+        them LRU-first before parking the FCFS head."""
+        blocks = self.cache.assign(slot_idx, n_blocks)
+        if blocks is None and self.prefix_cache is not None:
+            need = n_blocks - self.cache.allocator.free_blocks
+            if self.prefix_cache.evict(self.cache.allocator, need) > 0:
+                blocks = self.cache.assign(slot_idx, n_blocks)
+        return blocks
+
+    def _fund(self, slot_idx: int, req: Request, plen: int):
+        """Fund the head request's blocks, all-or-nothing. Returns
+        (blocks, matched_prefix_tokens, cow_src_block | None), or None if
+        the pool cannot fund it (the request stays queued, FCFS).
+
+        Cold path: the full `_block_budget` (the formula submit's
+        unfundable shed uses). Prefix path: look up the longest cached
+        prefix, pin the whole chain, map its full blocks read-only into
+        the slot row and fund only the rest of the chain. A partially
+        filled tail block stays OUT of the row (the suffix prefill copies
+        its rows into the slot's first private block) and stays pinned
+        until the prefill lands. Either path may evict LRU refcount-1
+        chains; the pin keeps the retry from recycling the chain just
+        matched."""
+        bs = self.config.block_size
+        n_cold = self._block_budget(plen, req.max_new_tokens)
+        if self.prefix_cache is None:
+            blocks = self.cache.assign(slot_idx, n_cold)
+            return None if blocks is None else (blocks, 0, None)
+        alloc = self.cache.allocator
+        chain, matched = self.prefix_cache.lookup(req.prompt)
+        if not matched:
+            blocks = self._assign_evicting(slot_idx, n_cold)
+            return None if blocks is None else (blocks, 0, None)
+        alloc.share(chain)                       # pin across eviction
+        nf = matched // bs
+        shared = chain[:nf]
+        cow_src = chain[-1] if matched % bs else None
+        n_private = -(-(plen + req.max_new_tokens) // bs) - nf
+        private = self.cache.assign_with_prefix(slot_idx, shared,
+                                                n_private)
+        if private is None:
+            self.prefix_cache.evict(alloc, n_private - alloc.free_blocks)
+            private = self.cache.assign_with_prefix(slot_idx, shared,
+                                                    n_private)
+        if private is None:
+            alloc.free(chain)                    # unpin, stay queued
+            return None
+        alloc.free(shared)   # the row holds its own refs; cow_src pinned
+        return self.cache.blocks_of(slot_idx), matched, cow_src
 
     def _admit(self):
         while True:
@@ -548,14 +840,13 @@ class DecodeEngine:
             if not free:
                 return
             plen = int(req.prompt.shape[0])
-            bucket = self._bucket_for(plen)
             slot_idx = free[0]
-            blocks = self.cache.assign(
-                slot_idx, self._block_budget(plen, req.max_new_tokens))
-            if blocks is None:
+            funding = self._fund(slot_idx, req, plen)
+            if funding is None:
                 # FCFS: wait for a retirement to free blocks rather than
                 # starving big requests behind small ones
                 return
+            blocks, matched, cow_src = funding
             with self._cv:
                 # re-verify the head: a concurrent stop() may have claimed
                 # the entry while the lock was released
@@ -566,13 +857,24 @@ class DecodeEngine:
                                        len(self._queue))
             if head_claimed:
                 self.cache.release(slot_idx)
+                if cow_src is not None:
+                    self.cache.allocator.free([cow_src])   # drop the pin
                 return
+            if self.prefix_cache is not None:
+                if matched:
+                    self._prefix_hits += 1
+                    self._prefill_tokens_saved += matched
+                    _metrics.inc("serving.prefix_cache.hits")
+                    _metrics.inc("serving.prefill_tokens_saved", matched)
+                else:
+                    self._prefix_misses += 1
+                    _metrics.inc("serving.prefix_cache.misses")
             _metrics.observe(
                 "serving.queue_wait_ms",
                 (time.perf_counter() - handle.t_submit) * 1000.0)
             try:
                 self._prefill_into(slot_idx, blocks, req, handle, plen,
-                                   bucket)
+                                   matched, cow_src)
             except Exception as e:  # noqa: BLE001 — isolate to the request
                 # a per-request admission failure fails THAT request, not
                 # the engine and everything in flight
@@ -584,10 +886,21 @@ class DecodeEngine:
                 handle._finish(RequestState.FAILED, "prefill failed",
                                error=f"{e!r}\n{traceback.format_exc()}")
 
-    def _prefill_into(self, slot_idx, blocks, req, handle, plen, bucket):
+    def _prefill_into(self, slot_idx, blocks, req, handle, plen,
+                      matched=0, cow_src=None):
         handle._set_state(RequestState.PREFILL)
         _metrics.inc("serving.prefills")
-        first = self._cold_prefill(req, plen, bucket, blocks)
+        try:
+            if matched:
+                first = self._suffix_prefill(slot_idx, req, plen, matched,
+                                             cow_src)
+            else:
+                first = self._cold_prefill(req, plen, blocks)
+        finally:
+            if cow_src is not None:
+                # drop the CoW-source pin (_fund): the private copy is
+                # written; the radix cache keeps its own reference
+                self.cache.allocator.free([cow_src])
         # TTFT is measured at HOST materialization of the first token
         tok = int(first)
         handle._append_tokens([tok])
@@ -597,6 +910,7 @@ class DecodeEngine:
             _metrics.observe("serving.ttft_ms", handle.ttft_ms())
         eos = -1 if req.eos_token is None else int(req.eos_token)
         if req.max_new_tokens == 1 or tok == eos:
+            self._publish_prefix(slot_idx, req)
             self.cache.release(slot_idx)
             self._retire(handle, "eos" if tok == eos else "length")
             return
@@ -606,17 +920,62 @@ class DecodeEngine:
                 max_new=req.max_new_tokens, temp=float(req.temperature),
                 top_k=int(req.top_k), seed=int(req.seed))
         _metrics.set_gauge("serving.active_slots", len(self._slots))
+        if self.spec is not None:
+            # mapped/reserve split (cache.py): keep only the blocks that
+            # hold prompt positions in the row; the rest of the budget
+            # waits in the reserve so a rejected round can truncate back
+            self.cache.reserve_tail(slot_idx,
+                                    -(-plen // self.config.block_size))
+            self.spec.on_admit(slot_idx, req, plen, tok)
 
-    def _cold_prefill(self, req, plen, bucket, blocks):
-        """Dense prefill over the whole padded prompt bucket + block
-        scatter."""
-        padded = np.zeros((bucket,), np.int64)
-        padded[:plen] = req.prompt
+    def _cold_prefill(self, req, plen, blocks):
+        """Prefill every chunk of the prompt and write its positions into
+        the slot's first blocks."""
         k_seq, v_seq, first = self._prefill_fn(
-            torch.as_tensor(padded, device=self.device), plen,
-            float(req.temperature), int(req.top_k), int(req.seed))
-        self._write_fn(k_seq, v_seq, blocks[:bucket // self.config.block_size])
+            req.prompt, plen, float(req.temperature), int(req.top_k),
+            int(req.seed))
+        self._write_fn(k_seq, v_seq,
+                       blocks[:-(-plen // self.config.block_size)], 0, plen)
         return first
+
+    def _suffix_prefill(self, slot_idx, req, plen, matched, cow_src):
+        """Prefill only the chunks a prefix-cache hit does not cover. The
+        cached chain (the shared full blocks in the slot's row, then the
+        pinned partial tail `cow_src`) is gathered from the pool into the
+        k/v buffers' first `matched` columns (position-indexed: column j
+        is position j). The write starts at the tail block: its rows below
+        `matched` are copied out of the gather into the slot's private
+        block (copy-on-write), so a shared block is never written."""
+        bs = self.config.block_size
+        row = self.cache.blocks_of(slot_idx)
+        nf = matched // bs
+        chain = row[:nf] + ([int(cow_src)] if matched % bs else [])
+        idx = torch.as_tensor(chain, dtype=torch.long, device=self.device)
+        L, nh = self.model_config.num_layers, self.model_config.num_heads
+        hd = self.cache.config.head_dim
+
+        def gather(pool):
+            g = pool[:, idx].permute(0, 2, 1, 3, 4)   # [L, nh, n, bs, hd]
+            return g.reshape(L, nh, len(chain) * bs, hd)[:, :, :matched]
+
+        k_seq, v_seq, first = self._prefill_fn(
+            req.prompt, plen, float(req.temperature), int(req.top_k),
+            int(req.seed), prefix_kv=(gather(self.cache.k_pool),
+                                      gather(self.cache.v_pool)),
+            matched=matched)
+        self._write_fn(k_seq, v_seq, row[nf:-(-plen // bs)], nf * bs, plen)
+        return first
+
+    def _publish_prefix(self, slot_idx: int, req: Request):
+        """Publish a retiring slot's prompt chain into the radix cache. The
+        cache takes its own block references (insert -> share), so the
+        chain survives the release that follows."""
+        if self.prefix_cache is None:
+            return
+        blocks = self.cache.blocks_of(slot_idx)
+        if blocks:
+            self.prefix_cache.insert(req.prompt, blocks,
+                                     self.cache.allocator)
 
     def _retire(self, handle, reason: str):
         handle._finish(RequestState.DONE, reason)
@@ -627,49 +986,65 @@ class DecodeEngine:
             _metrics.observe("serving.tpot_ms", tpot)
 
     # ---- decode window ---------------------------------------------------
-    def _window_args(self):
-        """The window's inputs: device tensors for the per-step state and
-        host arrays for the per-row sampling."""
+    def _slot_arrays(self, slots=None) -> Dict[str, np.ndarray]:
+        """The per-slot inputs of a window or verify call, as host arrays
+        (dtypes are the static buffers'), from `slots` (default: this
+        engine's) and this engine's page table."""
         B = self.config.max_slots
-        tokens = np.zeros((B,), np.int64)
-        pos = np.zeros((B,), np.int32)
-        gen = np.zeros((B,), np.int32)
-        live = np.zeros((B,), bool)
-        temps = np.zeros((B,), np.float32)
-        top_ks = np.zeros((B,), np.int64)
-        seeds = np.zeros((B,), np.int64)
-        eos = np.full((B,), -1, np.int64)
-        max_new = np.full((B,), 1, np.int32)
-        for i, s in self._slots.items():
-            tokens[i], pos[i], gen[i] = s.token, s.pos, s.gen
-            live[i], temps[i], top_ks[i] = True, s.temp, s.top_k
-            seeds[i], eos[i], max_new[i] = s.seed, s.eos, s.max_new
-        dev = self.device
-        pt = self.cache.page_table_rows(B)
-        on_dev = tuple(torch.as_tensor(a, device=dev) for a in
-                       (pt, tokens, pos, gen, live, eos, max_new))
-        return on_dev + ((temps, top_ks, seeds, gen.astype(np.int64)),)
+        a = {"page_table": self.cache.page_table_rows(B),
+             "tokens": np.zeros((B,), np.int64),
+             "pos": np.zeros((B,), np.int32),
+             "gen": np.zeros((B,), np.int32),
+             "live": np.zeros((B,), bool),
+             "eos": np.full((B,), -1, np.int64),
+             "max_new": np.full((B,), 1, np.int32),
+             "temps": np.zeros((B,), np.float32),
+             "top_ks": np.zeros((B,), np.int64),
+             "seeds": np.zeros((B,), np.int64)}
+        for i, s in (self._slots if slots is None else slots).items():
+            a["tokens"][i], a["pos"][i], a["gen"][i] = s.token, s.pos, s.gen
+            a["live"][i], a["temps"][i] = True, s.temp
+            a["top_ks"][i], a["seeds"][i] = s.top_k, fold_seed(s.seed)
+            a["eos"][i], a["max_new"][i] = s.eos, s.max_new
+        return a
+
+    def _window_tokens(self, host: Dict[str, np.ndarray], max_blocks: int):
+        """One window over `host`'s inputs -> (tokens, active) [W, B] host
+        arrays: the window's one host sync."""
+        toks, acts = self._call(
+            ("window", max_blocks),
+            lambda st: self._window_eager(st, max_blocks), host)
+        return toks.cpu().numpy(), acts.cpu().numpy()
 
     def _run_window(self):
         self._windows += 1
         _metrics.inc("serving.windows")
-        args = self._window_args()
+        if self.spec is not None:
+            # degraded spec engine: the mapped row may lag the reserve
+            # split, so map every position this window can write
+            bs = self.config.block_size
+            for idx, s in list(self._slots.items()):
+                last = s.pos + min(self.config.window, s.max_new - s.gen) - 1
+                self.cache.extend_mapped(idx, last // bs + 1)
+        host = self._slot_arrays()
         t0 = time.perf_counter()
-        toks, acts = self._window_fn(*args, self._window_max_blocks())
-        # the window's one host sync: its tokens and activity flags
-        toks, acts = toks.cpu().numpy(), acts.cpu().numpy()
+        toks, acts = self._window_tokens(host, self._window_max_blocks())
+        self._observe_window(t0)
+        self._apply_window(toks, acts)
+
+    def _observe_window(self, t0: float):
         window_ms = (time.perf_counter() - t0) * 1000.0
         _metrics.observe("serving.window_ms", window_ms)
         # EWMA of window wall time: the queue-wait estimator's clock
         self._window_ms_ewma = (
             window_ms if self._window_ms_ewma is None
             else 0.8 * self._window_ms_ewma + 0.2 * window_ms)
-        self._apply_window(toks, acts)
 
-    def _apply_slot_tokens(self, idx: int, slot: _Slot, tokens) -> int:
+    def _apply_slot_tokens(self, idx: int, slot: _Slot, tokens) -> tuple:
         """Host-side walk of one slot's emitted tokens (eos/length
-        truncation). Appends to the handle, retires the slot when it
-        finishes. Returns the number of tokens emitted."""
+        truncation), shared by the plain window and the speculative verify
+        round. Appends to the handle, retires the slot when it finishes.
+        Returns (n_emitted, finish_reason | None)."""
         emitted = []
         finished = None
         for tok in tokens:
@@ -687,11 +1062,14 @@ class DecodeEngine:
         if emitted:
             slot.handle._append_tokens(emitted)
         if finished is not None:
+            self._publish_prefix(idx, slot.handle.request)
             self.cache.release(idx)
             with self._cv:    # load()/stats() iterate cross-thread
                 self._slots.pop(idx, None)
+            if self.spec is not None:
+                self.spec.on_release(idx)
             self._retire(slot.handle, finished)
-        return len(emitted)
+        return len(emitted), finished
 
     def _apply_window(self, toks: np.ndarray, acts: np.ndarray):
         n_tokens = 0
@@ -704,15 +1082,37 @@ class DecodeEngine:
                 if not acts[t, idx]:
                     break
                 run.append(int(toks[t, idx]))
-            n_tokens += self._apply_slot_tokens(idx, slot, run)
+            n_tokens += self._apply_slot_tokens(idx, slot, run)[0]
         _metrics.inc("serving.tokens_out", n_tokens)
         _metrics.set_gauge("serving.active_slots", len(self._slots))
+
+    # ---- speculative verify round (serving/spec.py drives this) ---------
+    def _run_verify(self, cand: np.ndarray, valid: np.ndarray):
+        """One verify pass over `cand` [B, span] (valid [B, span]): the
+        captured `_verify_eager` on a CUDA engine. Returns (vtok [B, span],
+        n_acc [B]) as host arrays; SpecDecoder.run_round applies them."""
+        span = int(cand.shape[1])
+        self._windows += 1
+        _metrics.inc("serving.windows")
+        host = self._slot_arrays()
+        for k in ("tokens", "eos", "max_new"):
+            del host[k]
+        host["cand"] = cand.astype(np.int64)
+        host["valid"] = valid.astype(bool)
+        max_blocks = self._max_blocks_hint(span)
+        t0 = time.perf_counter()
+        vtok, n_acc = self._call(
+            ("verify", span, max_blocks),
+            lambda st: self._verify_eager(st, max_blocks), host)
+        vtok, n_acc = vtok.cpu().numpy(), n_acc.cpu().numpy()
+        self._observe_window(t0)
+        return vtok, n_acc
 
     # ------------------------------------------------------------------
     # introspection
     # ------------------------------------------------------------------
     def stats(self) -> dict:
-        return {
+        row = {
             "windows": self._windows,
             "completed": self._completed,
             "active_slots": len(self._slots),
@@ -721,4 +1121,32 @@ class DecodeEngine:
             "dead": self._dead,
             "health": self.health,
             "load": self.load(),
+            "graphs": len(self._graphs),
+            "graph_replays": self._replays,
+            "eager_calls": self._eager_calls,
+            "kernel_launches_window": self._graph_launches["window"],
+            "kernel_launches_verify": self._graph_launches["verify"],
         }
+        if self.prefix_cache is not None:
+            looked = self._prefix_hits + self._prefix_misses
+            row.update({
+                "prefix_cache_nodes": len(self.prefix_cache),
+                "prefix_cache_hits": self._prefix_hits,
+                "prefix_cache_misses": self._prefix_misses,
+                "prefix_cache_hit_rate": (
+                    self._prefix_hits / looked if looked else 0.0),
+                "prefill_tokens_saved": self._prefill_tokens_saved,
+                "shared_blocks": self.cache.allocator.shared_blocks,
+            })
+        if self.spec is not None:
+            row.update(self.spec.stats())
+        return row
+
+
+def _idle_inputs(host: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """A capture's warm-up inputs: every row inactive, every page-table
+    entry the scratch block, so the warm-up writes nothing a slot reads."""
+    idle = {k: np.zeros_like(a) for k, a in host.items()}
+    if "eos" in idle:
+        idle["eos"][:] = -1
+    return idle

@@ -9,9 +9,12 @@ from .request import RequestHandle, RequestState
 
 class Health:
     """Engine health. A standalone engine is LIVE until it fails, then
-    DEAD (the frontend's SUSPECT / RESURRECTING states are not ported)."""
+    DEAD. A speculative draft arm (serving/spec.py) also passes through
+    RESURRECTING when `resurrect_draft` rebuilds it (the frontend's
+    SUSPECT state is not ported)."""
     LIVE = "live"
     DEAD = "dead"
+    RESURRECTING = "resurrecting"
 
 
 def shed_handle(handle: RequestHandle, reason: str,

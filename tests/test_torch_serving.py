@@ -11,6 +11,9 @@ contracts.
   Seeded sampling is checked only inside the port: its draws are a pure
   function of (request seed, generated index), but not JAX's fold_in
   stream.
+* int8 weights: quantize_params bit for bit and dequant_params within 0
+  of the reference's; the int8 engines' greedy tokens equal.
+* The chunked prefill against the reference's dense prefill (1e-5).
 * The port imports neither jax nor paddle_tpu (an ast walk).
 """
 import ast
@@ -209,12 +212,163 @@ def test_block_allocator_all_or_nothing_and_double_free():
     cache.close()
 
 
+@pytest.mark.parametrize("option", ["FLAGS_step_deadline_ms"])
+def test_unported_options_raise(option):
+    """What the port still refuses: the window watchdog flag (the prefix
+    cache, speculation and int8 weights are ported)."""
+    from paddle_tpu_torch import flags
+    flags.set_flags({option: 50.0})
+    try:
+        with pytest.raises(NotImplementedError):
+            port_serving.EngineConfig(prefix_cache=True, spec=True,
+                                      dtype="int8").resolve()
+    finally:
+        flags.set_flags({option: 0.0})
+
+
 @pytest.mark.parametrize("option", [
-    dict(prefix_cache=True), dict(spec=True), dict(dtype="int8")],
-    ids=["prefix_cache", "spec", "int8_weights"])
-def test_unported_options_raise(tiny, option):
-    with pytest.raises(NotImplementedError):
-        _port_engine(tiny, **option)
+    dict(prefix_cache=True), dict(spec=True),
+    dict(spec=port_serving.SpecConfig(tokens=2, draft_dtype="bfloat16")),
+    dict(dtype="int8")],
+    ids=["prefix_cache", "spec", "spec_config", "int8_weights"])
+def test_ported_options_serve(tiny, option):
+    """The options the reference serves with build an engine and serve
+    the greedy requests with the tokens of the plain engine (int8: the
+    requests complete)."""
+    got = _port_tokens(tiny, engine_kw=option)
+    assert all(len(t) == 6 for t in got)
+    if "dtype" not in option:
+        assert got == _port_tokens(tiny)
+
+
+def test_int8_quantize_matches_reference_bitwise(tiny):
+    """quantize_params: the int8 payloads and f32 scales of the reference,
+    bit for bit; dequant_params (the registered dequantize_abs_max
+    lowering) equal within 0, in f32 and in bf16."""
+    import jax.numpy as jnp
+    from paddle_tpu.serving import weights as ref_weights
+    _, params, _, _ = tiny
+    r_pay, r_sc = ref_weights.quantize_params(params)
+    arrays = {n: np.asarray(a) for n, a in params.items()}
+    p_pay, p_sc = port_serving.quantize_params(arrays)
+    assert sorted(p_sc) == sorted(r_sc)
+    assert "wte" in p_sc and "dec0_ln1_scale" not in p_sc
+    for n in r_pay:
+        np.testing.assert_array_equal(p_pay[n].numpy(), np.asarray(r_pay[n]))
+    for n in r_sc:
+        assert p_sc[n].dtype == torch.float32
+        np.testing.assert_array_equal(p_sc[n].numpy(), np.asarray(r_sc[n]))
+    for r_dt, p_dt in ((jnp.float32, torch.float32),
+                       (jnp.bfloat16, torch.bfloat16)):
+        want = ref_weights.dequant_params(r_pay, r_sc, compute_dtype=r_dt)
+        got = port_serving.dequant_params(p_pay, p_sc, compute_dtype=p_dt)
+        for n in r_sc:
+            np.testing.assert_array_equal(
+                got[n].float().numpy(),
+                np.asarray(want[n]).astype(np.float32))
+
+
+def test_int8_engine_greedy_tokens_match_jax_engine(tiny):
+    """The int8-weight engines of both packages on the same prompts: the
+    same greedy tokens (the port computes the biases in bf16 too, the
+    reference keeps them f32; the tiny model's argmax holds)."""
+    cfg, params, _, _ = tiny
+    want = _jax_tokens(cfg, params, dtype="int8")
+    got = _port_tokens(tiny, engine_kw=dict(dtype="int8"))
+    assert got == want
+    eng = _port_engine(tiny, dtype="int8")
+    try:
+        assert eng.params["wte"].dtype == torch.int8
+        assert eng.params["dec0_attn_qkv_b"].dtype == torch.bfloat16
+        assert eng.params["dec0_ln1_scale"].dtype == torch.float32
+        assert eng.compute_dtype == torch.bfloat16
+        assert eng.cache.k_pool.dtype == torch.bfloat16
+    finally:
+        eng.stop()
+
+
+def test_chunked_prefill_matches_dense_prefill(tiny):
+    """The engine's prefill in chunks (8 rows at max_len 32, 16 at 64)
+    against one fixed-width k/v buffer: the prompt's k/v agree with the
+    reference's dense prefill at f32 within 1e-5, and the first token is
+    the same whatever the chunk."""
+    from paddle_tpu.models import gpt_decode as ref_decode
+    import jax.numpy as jnp
+    cfg, params, _, _ = tiny
+    prompt = np.random.RandomState(3).randint(0, cfg.vocab_size, (19,))
+    rk, rv, _ = ref_decode.prefill(params, cfg, jnp.asarray(prompt[None]),
+                                   19, 19)
+    firsts = []
+    for max_len in (32, 64):
+        eng = _port_engine(tiny, max_len=max_len)
+        try:
+            assert eng.prefill_chunk == max_len // 4
+            k, v, first = eng._prefill_fn(prompt, 19, 0.0, 0, 0)
+        finally:
+            eng.stop()
+        assert k.shape[2] == eng.prefill_width >= 32
+        for i in range(cfg.num_layers):
+            np.testing.assert_allclose(k[i, :, :19].numpy(),
+                                       np.asarray(rk[i])[0], atol=1e-5)
+            np.testing.assert_allclose(v[i, :, :19].numpy(),
+                                       np.asarray(rv[i])[0], atol=1e-5)
+        firsts.append(int(first))
+    assert len(set(firsts)) == 1
+
+
+def test_sampler_is_a_pure_function_of_seed_and_index():
+    """The Gumbel noise of a row depends on (seed, index) only: the same in
+    any batch position and batch, other for another seed or index; top_k
+    1 and temperature 0 both give the argmax; top_k k draws only from the
+    k largest logits."""
+    seeds = torch.tensor([port_decode.fold_seed(s) for s in (5, 6, 5)])
+    index = torch.tensor([3, 3, 4])
+    noise = port_decode.gumbel_noise(seeds, index, 300)
+    alone = port_decode.gumbel_noise(seeds[1:2], index[1:2], 300)
+    assert torch.equal(noise[1], alone[0])
+    assert not torch.equal(noise[0], noise[1])
+    assert not torch.equal(noise[0], noise[2])
+    assert torch.equal(port_decode.gumbel_noise(seeds, index, 300), noise)
+    logits = torch.randn(3, 300, generator=torch.Generator().manual_seed(1))
+    top = torch.argmax(logits, dim=-1)
+    for temps, ks in (([0.0] * 3, [0, 5, 0]), ([0.9] * 3, [1, 1, 1])):
+        got = port_decode.sample_rows(logits, torch.tensor(temps),
+                                      torch.tensor(ks), seeds, index)
+        assert torch.equal(got, top)
+    top5 = set(torch.topk(logits[0], 5).indices.tolist())
+    for i in range(40):
+        tok = port_decode.sample_rows(
+            logits[:1], torch.tensor([1.0]), torch.tensor([5]),
+            torch.tensor([port_decode.fold_seed(i)]), torch.tensor([0]))
+        assert int(tok) in top5
+
+
+def test_slot_placement_does_not_change_seeded_tokens(tiny):
+    cfg = tiny[0]
+    reqs = _requests(cfg, port_serving.Request, temperature=0.8, top_k=20)
+    eng = _port_engine(tiny)
+    try:
+        fwd = [c.tokens for c in eng.generate(reqs, timeout=240)]
+        rev = [c.tokens for c in eng.generate(reqs[::-1], timeout=240)]
+    finally:
+        eng.stop()
+    assert fwd == rev[::-1]
+
+
+def test_replay_launch_counting():
+    """A capture's launches are taken back out of the counts and added
+    again per replay."""
+    port_kernel.reset_launches()
+    port_kernel.launches["paged_decode_bf16"] = 3
+    before = dict(port_kernel.launches)
+    port_kernel.launches["paged_decode_bf16"] += 24      # "captured"
+    delta = port_kernel.launches_since(before)
+    assert delta["paged_decode_bf16"] == 24
+    assert port_kernel.launches["paged_decode_bf16"] == 3
+    for _ in range(2):
+        port_kernel.count_replay(delta)
+    assert port_kernel.launches["paged_decode_bf16"] == 51
+    port_kernel.reset_launches()
 
 
 def test_step_deadline_flag_raises(tiny):
