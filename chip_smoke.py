@@ -35,8 +35,7 @@ result line):
      one seeded top-k) on the captured window and on the eager window
      body: equal tokens; tokens/s, TTFT p50/p99, TPOT p50 and, under
      torch.profiler, the device busy share and launches of both;
-     continuous == sequential; at max_len 1024, one graph per walk-bound
-     rung against one full-width graph (equal tokens, tokens/s of both);
+     continuous == sequential;
    * bf16 prefix cache: 8 requests sharing a 96-token system prompt with
      8-72-token tails, 32 new tokens each, after a warm-up that publishes
      the system prompt: cache-on == cache-off tokens, 8 hits, TTFT of both;
@@ -1497,24 +1496,6 @@ def serve_gpt2(torch, serving, gpt_decode, kernel_mod, metrics, rows,
     log(f"bf16 engine: captured == eager tokens, continuous == sequential; "
         f"captured {out['captured']['tokens_per_s']:.1f} tok/s, eager "
         f"{out['eager']['tokens_per_s']:.1f} tok/s")
-
-    # one graph per ladder rung or one at the full table width, at
-    # max_len 1024 (64 page-table columns: the ladder engages)
-    out["ladder"] = {}
-    ladder_tokens = []
-    for ladder in (True, False):
-        eng = serving.DecodeEngine(**dict(bf16_kw, max_len=1024,
-                                          num_blocks=8 * 64 + 1))
-        eng._ladder_graphs = ladder
-        try:
-            toks, row = serving_arm(torch, eng, bf16_requests, profile=False,
-                                    **arm)
-        finally:
-            eng.stop()
-        ladder_tokens.append(toks)
-        out["ladder"]["per_rung" if ladder else "full_width"] = row
-    if ladder_tokens[0] != ladder_tokens[1]:
-        fail("max_len 1024: per-rung graphs' tokens != full-width graph's")
 
     # (c) prefix cache: a 96-token system prompt, distinct 8-72-token
     # tails, 32 new tokens each; the warm-up publishes the system prompt

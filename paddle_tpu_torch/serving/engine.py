@@ -19,10 +19,11 @@ One captured window. The reference compiles its W-step window into one
 `lax.scan` dispatch; the port's counterpart is a CUDA graph. On a CUDA
 engine each window copies its inputs (tokens, pos, gen, live, eos,
 max_new, temps, top_ks, seeds, the page table) into static buffers and
-replays a graph of the whole window, captured once per page-table walk
-bound (`_max_blocks_hint`'s ladder rung) on the service thread, on a side
-stream after one warm-up call with every row inactive (writes land on the
-scratch block). The pools are written in place at fixed addresses and
+replays a graph of the whole window, captured once per engine at the full
+page-table width (B4 stops at each slot's frontier, so the width costs
+only empty blocks) on the service thread, on a side stream after one
+warm-up call with every row inactive (writes land on the scratch
+block). The pools are written in place at fixed addresses and
 sampling is a device-side counter hash (`gpt_decode.sample_rows`), so
 nothing in the window touches the host: its one sync is the `.cpu()` of
 its tokens. A failed capture raises; a CUDA engine never decodes eagerly.
@@ -165,16 +166,16 @@ class _Captured:
     """A CUDA graph of one call of `body` over static input buffers.
 
     The capture runs on the calling thread, on a side stream, after one
-    warm-up call with the inputs set to `idle` (every row inactive, so the
-    warm-up's pool writes land on the scratch block). The B4 launches the
-    capture recorded are counted again at every replay."""
+    warm-up call with every input zero: every row inactive and every
+    page-table entry the scratch block, so the warm-up writes nothing a
+    slot reads. The B4 launches the capture recorded are counted again at
+    every replay."""
 
-    def __init__(self, body, inputs: Dict[str, torch.Tensor],
-                 idle: Dict[str, np.ndarray], pool):
+    def __init__(self, body, inputs: Dict[str, torch.Tensor], pool):
         self.inputs = inputs
         dev = next(iter(inputs.values())).device
-        for k, t in inputs.items():
-            t.copy_(torch.from_numpy(idle[k]))
+        for t in inputs.values():
+            t.zero_()
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
@@ -251,17 +252,15 @@ class DecodeEngine:
         self._completed = 0
         self._window_ms_ewma: Optional[float] = None
         self.health = Health.LIVE
-        # captured windows / verify passes, by (kind, walk bound); one
-        # graph memory pool and one set of static inputs per engine
-        self._graphs: Dict[tuple, _Captured] = {}
+        # the captured window and verify pass; one graph memory pool and
+        # one set of static inputs per engine
+        self._graphs: Dict[str, _Captured] = {}
         self._static: Dict[str, torch.Tensor] = {}
         self._pool = None
         self._replays = 0
         self._eager_calls = 0
         # kernel launches made by replays, by call kind
         self._graph_launches = {"window": 0, "verify": 0}
-        # one graph per ladder rung (True) or one at the full table width
-        self._ladder_graphs = True
         self.prefix_cache = (RadixPrefixCache(cfg.block_size)
                              if cfg.prefix_cache else None)
         self._prefix_hits = 0
@@ -277,33 +276,6 @@ class DecodeEngine:
         if self.config.kv_dtype == "int8":
             return float(self.config.kv_scale)
         return None
-
-    # narrowest page table the bounded-walk hint ladder engages on
-    _LADDER_MIN_BLOCKS = 16
-
-    def _max_blocks_hint(self, horizon: int) -> int:
-        """The furthest page-table column any slot can touch over the next
-        `horizon` positions, rounded up to a power of two (capped at the
-        table width), and the full width on tables of at most
-        _LADDER_MIN_BLOCKS columns, as in the reference. Each rung is one
-        captured graph; the plain read path gathers only these columns;
-        the kernel also stops at each slot's own frontier, so on the card
-        the hint only caps the walk."""
-        cfg = self.config
-        mb = cfg.max_len // cfg.block_size
-        if mb <= self._LADDER_MIN_BLOCKS or not self._ladder_graphs:
-            return mb
-        mx = max((s.pos for s in self._slots.values()), default=None)
-        if mx is None:
-            return mb
-        need = (mx + horizon - 1) // cfg.block_size + 1
-        hint = 1
-        while hint < need:
-            hint *= 2
-        return min(mb, hint)
-
-    def _window_max_blocks(self) -> int:
-        return self._max_blocks_hint(self.config.window)
 
     def _build_cache(self) -> PagedKVCache:
         mc, cfg = self.model_config, self.config
@@ -328,7 +300,7 @@ class DecodeEngine:
             return self.params
         return dequant_params(self.params, self.scales, self.compute_dtype)
 
-    def _window_eager(self, st: Dict[str, torch.Tensor], max_blocks: int):
+    def _window_eager(self, st: Dict[str, torch.Tensor]):
         """W decode steps over the slot array, the body a window graph
         captures. Frozen rows (retired/empty slots, eos/length-finished
         mid-window) keep computing — fixed shapes — but their writes are
@@ -359,7 +331,7 @@ class DecodeEngine:
                                  active=_act, kv_scale=kv_scale)
                     return lambda q: fused_attend(
                         q, k_pool, v_pool, page_table, _pos, bs, layer=_i,
-                        max_blocks=max_blocks, kv_scale=kv_scale)
+                        kv_scale=kv_scale)
                 x, _ = _block(x, p, i, cfg, None, merge)
             x = _ln(x, p["final_ln_scale"], p["final_ln_bias"])
             nxt = sample_rows(_logits(x, p)[:, 0], st["temps"],
@@ -373,7 +345,7 @@ class DecodeEngine:
             acts.append(act)
         return torch.stack(toks), torch.stack(acts)
 
-    def _verify_eager(self, st: Dict[str, torch.Tensor], max_blocks: int):
+    def _verify_eager(self, st: Dict[str, torch.Tensor]):
         """The speculative verify pass, the body a verify graph captures:
         scores span = gamma+1 candidate positions per slot — pos..pos+span-1
         hold the slot's current token and the draft's proposals (`cand`
@@ -405,8 +377,7 @@ class DecodeEngine:
                               active=st["live"], valid=valid,
                               kv_scale=kv_scale)
             ctx = paged_attend_span(q, k_pool, v_pool, page_table, pos, bs,
-                                    layer=i, max_blocks=max_blocks,
-                                    kv_scale=kv_scale)
+                                    layer=i, kv_scale=kv_scale)
             xs = [_block_out(x, ctx[:, :, s:s + 1].contiguous(), p, i)
                   for s, x in enumerate(xs)]
         vtok = torch.stack(
@@ -418,17 +389,18 @@ class DecodeEngine:
         n_acc = torch.cumprod(agree.int(), dim=1).sum(dim=1)
         return vtok, n_acc
 
-    def _eager_call(self, key, body, host: Dict[str, np.ndarray]):
+    def _eager_call(self, key: str, body, host: Dict[str, np.ndarray]):
         """Run `body` on the host arrays as device tensors, no graph: the
         CPU engine's path (and chip_smoke.py's eager arm)."""
         self._eager_calls += 1
         return body({k: torch.as_tensor(a, device=self.device)
                      for k, a in host.items()})
 
-    def _call(self, key, body, host: Dict[str, np.ndarray]):
+    def _call(self, key: str, body, host: Dict[str, np.ndarray]):
         """One window or verify call. CPU engines run `body` eagerly; a
-        CUDA engine replays the graph captured for `key`, capturing it on
-        first use. A capture that fails raises."""
+        CUDA engine replays the graph captured for `key` ("window" /
+        "verify"), capturing it on first use. A capture that fails
+        raises."""
         if self.device.type != "cuda":
             return self._eager_call(key, body, host)
         g = self._graphs.get(key)
@@ -436,17 +408,15 @@ class DecodeEngine:
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
             for k, a in host.items():
-                t = self._static.get(k)
-                if t is None or tuple(t.shape) != a.shape:
+                if k not in self._static:     # shapes are fixed per engine
                     self._static[k] = torch.empty(
                         a.shape, dtype=torch.from_numpy(a).dtype,
                         device=self.device)
-            idle = _idle_inputs(host)
             g = self._graphs[key] = _Captured(
-                body, {k: self._static[k] for k in host}, idle, self._pool)
+                body, {k: self._static[k] for k in host}, self._pool)
             _metrics.inc("serving.graph_captures")
         self._replays += 1
-        self._graph_launches[key[0]] += sum(g.launches.values())
+        self._graph_launches[key] += sum(g.launches.values())
         return g.replay(host)
 
     def _chunk_forward(self, p, chunk_tokens, lo: int, kbuf, vbuf,
@@ -1008,12 +978,10 @@ class DecodeEngine:
             a["eos"][i], a["max_new"][i] = s.eos, s.max_new
         return a
 
-    def _window_tokens(self, host: Dict[str, np.ndarray], max_blocks: int):
+    def _window_tokens(self, host: Dict[str, np.ndarray]):
         """One window over `host`'s inputs -> (tokens, active) [W, B] host
         arrays: the window's one host sync."""
-        toks, acts = self._call(
-            ("window", max_blocks),
-            lambda st: self._window_eager(st, max_blocks), host)
+        toks, acts = self._call("window", self._window_eager, host)
         return toks.cpu().numpy(), acts.cpu().numpy()
 
     def _run_window(self):
@@ -1028,7 +996,7 @@ class DecodeEngine:
                 self.cache.extend_mapped(idx, last // bs + 1)
         host = self._slot_arrays()
         t0 = time.perf_counter()
-        toks, acts = self._window_tokens(host, self._window_max_blocks())
+        toks, acts = self._window_tokens(host)
         self._observe_window(t0)
         self._apply_window(toks, acts)
 
@@ -1091,7 +1059,6 @@ class DecodeEngine:
         """One verify pass over `cand` [B, span] (valid [B, span]): the
         captured `_verify_eager` on a CUDA engine. Returns (vtok [B, span],
         n_acc [B]) as host arrays; SpecDecoder.run_round applies them."""
-        span = int(cand.shape[1])
         self._windows += 1
         _metrics.inc("serving.windows")
         host = self._slot_arrays()
@@ -1099,11 +1066,8 @@ class DecodeEngine:
             del host[k]
         host["cand"] = cand.astype(np.int64)
         host["valid"] = valid.astype(bool)
-        max_blocks = self._max_blocks_hint(span)
         t0 = time.perf_counter()
-        vtok, n_acc = self._call(
-            ("verify", span, max_blocks),
-            lambda st: self._verify_eager(st, max_blocks), host)
+        vtok, n_acc = self._call("verify", self._verify_eager, host)
         vtok, n_acc = vtok.cpu().numpy(), n_acc.cpu().numpy()
         self._observe_window(t0)
         return vtok, n_acc
@@ -1142,11 +1106,3 @@ class DecodeEngine:
             row.update(self.spec.stats())
         return row
 
-
-def _idle_inputs(host: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-    """A capture's warm-up inputs: every row inactive, every page-table
-    entry the scratch block, so the warm-up writes nothing a slot reads."""
-    idle = {k: np.zeros_like(a) for k, a in host.items()}
-    if "eos" in idle:
-        idle["eos"][:] = -1
-    return idle

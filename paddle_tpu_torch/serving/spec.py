@@ -260,7 +260,7 @@ class SpecDecoder:
             covered.append(i)
         if not covered:
             return {}
-        toks, _ = d._window_tokens(host, d._window_max_blocks())
+        toks, _ = d._window_tokens(host)
         props: Dict[int, List[int]] = {}
         for i in covered:
             chain = [int(toks[s, i]) for s in range(gamma)]
