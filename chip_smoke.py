@@ -44,6 +44,19 @@ result line):
      acceptance, tokens/s, B4 launched in the draft and verify graphs;
    * int8 weights (from the f32 checkpoint, bf16 compute): 8 requests;
    * bf16 with int8 KV pools: 2 requests complete;
+   * the fault-tolerant tier: two bf16 replicas over one weight copy
+     (shared data_ptr gated) behind a ServingFrontend, each replaying its
+     own captured window: the 8 requests undisturbed; again with
+     `serving.window:error:at=3` killing a replica mid-stream (every
+     request completes with the single-engine tokens through failover,
+     and the dead replica comes back LIVE through the canary, bounded
+     wait); a batch across both replicas, each counting B4 launches from
+     replays and no eager call; the window watchdog at 2 ms, below one
+     window's replay (every request fails typed with no hang, the flight
+     dumps hold `sla_trip` steps, and after the flag is reset both
+     replicas resurrect and serve the single-engine tokens); a drain of
+     32 requests (the finished ones equal the single-engine tokens, the
+     unstarted ones come back);
 5. the fused flat-bucket optimizer kernels B6-B8 (sgd, momentum with
    nesterov + l2_decay and plain, adam, adamw) at the main path's bucket
    sizes (23,440,896 and 7,120,704 elements) and a tail (1,000,003), and
@@ -72,7 +85,8 @@ Each main-path run resets the kernel launch counts just before it and
 fails if a kernel of its path was never launched.
 
 Output: a `{"kernels": [...]}` line, a `{"serving": ...}` line, a
-`{"training": ...}` line, and last `{"ok": true, "device": {...}}`.
+`{"resilience": ...}` line, a `{"training": ...}` line, and last
+`{"ok": true, "device": {...}}`.
 """
 import contextlib
 import itertools
@@ -1483,7 +1497,7 @@ def serve_gpt2(torch, serving, gpt_decode, kernel_mod, metrics, rows,
     if [c.tokens for c in seq] != tokens:
         fail("bf16: continuous batching tokens != sequential tokens")
     eager = serving.DecodeEngine(**bf16_kw)
-    eager._call = eager._eager_call        # the window body, no graph
+    eager._graph = lambda key, body, host: None   # the body, no graph
     try:
         eager_tokens, out["eager"] = serving_arm(torch, eager,
                                                  bf16_requests, **arm)
@@ -1599,8 +1613,221 @@ def serve_gpt2(torch, serving, gpt_decode, kernel_mod, metrics, rows,
         fail(f"int8-KV engine: {[len(c.tokens) for c in comps]} tokens")
     log(f"int8-KV engine: 2 requests complete; paged_decode_int8 launches "
         f"{rows['paged_decode_int8']['launches']}")
+    resilience = serve_resilient(torch, serving, kernel_mod, metrics,
+                                 dict(bf16_kw, params=p16), bf16_requests,
+                                 tokens, out["captured"]["window_ms_p50"],
+                                 card)
     del p16
     torch.cuda.empty_cache()
+    return out, resilience
+
+
+def _wait(pred, timeout_s):
+    """Poll `pred` every 5 ms for at most `timeout_s`; its last value."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if pred():
+            return True
+        time.sleep(0.005)
+    return pred()
+
+
+def serve_resilient(torch, serving, kernel_mod, metrics, engine_kw,
+                    make_requests, oracle, window_ms, card):
+    """The fault-tolerant tier at GPT-2 small width (bf16): two replicas
+    over one weight copy behind a ServingFrontend, each replaying its own
+    captured window. Arms, each gated against the single-engine captured
+    run's tokens (`oracle`):
+
+    * undisturbed: the 8 requests, timed;
+    * kill: the same requests under `serving.window:error:at=3`; every
+      request completes with the oracle's tokens (failover replay), then
+      the dead replica comes back LIVE through the canary (bounded wait);
+      a second batch across both replicas, each serving by replays;
+    * watchdog: FLAGS_step_deadline_ms at 2 ms, below one window's replay:
+      every request fails typed (DeadlineExceeded) with no hang, the
+      flight dumps hold `sla_trip` steps; after the flag is reset both
+      replicas resurrect and a batch equals the oracle;
+    * drain: 32 requests, then drain(): the in-flight ones equal the
+      oracle, the unstarted ones come back.
+    Returns the {"resilience"} line."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.resilience import clear_plan, install_plan
+    R = serving.Request
+
+    def reqs(tag, n=8):
+        base = make_requests()
+        return [dataclasses.replace(base[i % 8], uid=f"{tag}-{i}")
+                for i in range(n)]
+
+    def want(uid):
+        return oracle[int(uid.rsplit("-", 1)[1]) % 8]
+
+    def batch(tag):
+        rs = reqs(tag)
+        t0 = time.perf_counter()
+        comps = fe.generate(rs, timeout=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        bad = [(c.uid, c.state, c.finish_reason) for c in comps
+               if not c.ok or c.tokens != want(c.uid)]
+        if bad:
+            fail(f"resilience {tag}: requests failed or differ from the "
+                 f"single-engine run: {bad}")
+        return sum(len(c.tokens) for c in comps) / wall
+
+    out = {"config": "GPT-2 small, bf16, 2 replicas of the serving "
+                     "phase's bf16 engine, 8 requests a batch",
+           "card": card}
+    engines = serving.replicated_engines(2, **engine_kw)
+    a, b = engines
+    unshared = [n for n, t in a.params.items()
+                if b.params[n].data_ptr() != t.data_ptr()]
+    if unshared or a.cache.k_pool.data_ptr() == b.cache.k_pool.data_ptr():
+        fail(f"replicas: weights not shared {unshared}, or one pool")
+    out["weights_shared"] = len(a.params)
+    dump_dir = tempfile.mkdtemp(prefix="flight-")
+    flags.set_flags({"FLAGS_flight_dump_dir": dump_dir})
+    fe = serving.ServingFrontend(engines)
+    try:
+        batch("warm")                   # both replicas capture
+        if not all(e.stats()["windows"] for e in engines):
+            fail("resilience: a replica served no window in the warm-up")
+        metrics.reset()
+        out["tokens_per_s_undisturbed"] = batch("undisturbed")
+        snap = metrics.snapshot()
+        out["undisturbed"] = {k: snap[f"serving.{k}"]["p50"]
+                              for k in ("window_ms", "ttft_ms", "tpot_ms")}
+
+        # ---- kill a replica mid-stream -----------------------------------
+        metrics.reset()
+        f0 = fe.failover_total
+        plan = install_plan("serving.window:error:at=3", seed=0)
+        out["tokens_per_s_with_kill"] = batch("kill")
+        clear_plan()
+        # the replica that ran the 3rd window died there; it alone has
+        # left LIVE since it was built
+        dead = [e for e in engines if len(e.health_history) > 1]
+        if sum(r.fired for r in plan.rules) != 1 or len(dead) != 1:
+            fail(f"kill arm: {sum(r.fired for r in plan.rules)} faults, "
+                 f"{len(dead)} replicas left LIVE")
+        victim = dead[0]
+        out["failovers"] = fe.failover_total - f0
+        if not out["failovers"]:
+            fail("kill arm: no request failed over")
+        if not _wait(lambda: victim.health == serving.Health.LIVE
+                     and victim._dead is None, 60):
+            fail(f"kill arm: the killed replica did not come back "
+                 f"({victim.health_history}, {victim._dead})")
+        snap = metrics.snapshot()
+        out.update(
+            victim=engines.index(victim),
+            victim_health=victim.health_history[-5:],
+            kill_to_live_ms=snap["serving.recover_ms"]["max"],
+            resurrect_ms=snap["serving.resurrect_ms"]["max"],
+            canary_ms=snap["serving.canary_ms"]["max"])
+        log(f"resilience kill arm: {out['failovers']} failovers, tokens "
+            f"== single engine; replica {out['victim']} "
+            f"{out['victim_health']} in {out['kill_to_live_ms']:.1f} ms "
+            f"(reset {out['resurrect_ms']:.2f} ms, canary "
+            f"{out['canary_ms']:.1f} ms)")
+
+        # ---- both replicas serve again, by replays -----------------------
+        before = [e.stats() for e in engines]
+        kernel_mod.reset_launches()
+        out["tokens_per_s_after_recovery"] = batch("recovered")
+        total = kernel_mod.launches["paged_decode_bf16"]
+        per = []
+        for e, st0 in zip(engines, before):
+            st = e.stats()
+            d = {k: st[k] - st0[k] for k in ("graph_replays", "eager_calls",
+                                             "kernel_launches_window")}
+            if d["eager_calls"] or not d["graph_replays"] \
+                    or not d["kernel_launches_window"]:
+                fail(f"after recovery replica {engines.index(e)}: {d}")
+            per.append(d["kernel_launches_window"])
+        if sum(per) != total:
+            fail(f"B4 launches: replicas count {per}, the counter {total}")
+        out["b4_launches_per_replica"] = per
+
+        # ---- the watchdog: a real trip with the replay in flight ----------
+        deadline_ms = 2.0
+        metrics.reset()
+        flags.set_flags({"FLAGS_serving_resurrect_budget": 1000,
+                         "FLAGS_step_deadline_ms": deadline_ms})
+        handles, typed = [], 0
+        for r in reqs("sla"):
+            try:
+                handles.append(fe.submit(r, bounded=False))
+            except serving.NoHealthyReplicaError:
+                typed += 1
+        comps = [h.result(timeout=60, raise_on_error=False)
+                 for h in handles]
+        typed += sum(1 for c in comps if c.state == "failed"
+                     and "DeadlineExceeded" in (c.error or ""))
+        flags.set_flags({"FLAGS_step_deadline_ms": 0.0})
+        if typed != 8:
+            fail(f"watchdog arm: {typed} of 8 requests failed typed: "
+                 f"{[(c.uid, c.state, c.finish_reason) for c in comps]}")
+        # each trip's dump: the sla_trip step, and the worker's stack at
+        # the trip (inside the replay or its .cpu(): the window in flight)
+        trip_steps = in_flight = 0
+        for name in os.listdir(dump_dir):
+            with open(os.path.join(dump_dir, name)) as f:
+                d = json.load(f)
+            trip_steps += sum(s["status"] == "sla_trip" for s in d["steps"])
+            stacks = d.get("extra", {}).get("thread_stacks", "")
+            worker = stacks.split("--- thread executor-step")[1:]
+            in_flight += any(".replay(" in w.split("--- thread")[0]
+                             or ".cpu()" in w.split("--- thread")[0]
+                             for w in worker)
+        out["watchdog"] = {"deadline_ms": deadline_ms,
+                           "window_ms_p50": window_ms,
+                           "requests_failed_typed": typed,
+                           "sla_trips": metrics.get("serving.sla_trips"),
+                           "flight_dumps": len(os.listdir(dump_dir)),
+                           "sla_trip_steps_in_dumps": trip_steps,
+                           "dumps_with_the_window_in_flight": in_flight}
+        if not trip_steps:
+            fail(f"watchdog arm: no sla_trip step in the flight dumps "
+                 f"{out['watchdog']}")
+        if not _wait(lambda: all(e.health == serving.Health.LIVE
+                                 and e._dead is None for e in engines), 60):
+            fail(f"watchdog arm: replicas did not come back "
+                 f"{[e.health_history[-4:] for e in engines]}")
+        flags.set_flags({"FLAGS_serving_resurrect_budget": 3})
+        out["watchdog"]["tokens_per_s_after"] = batch("after-sla")
+        log(f"resilience watchdog arm: {out['watchdog']}")
+
+        # ---- drain ----------------------------------------------------------
+        rs = reqs("drain", 32)
+        handles = [fe.submit(r, bounded=False) for r in rs]
+        # drain with the first admissions decoding and the rest queued
+        _wait(lambda: sum(h.state == "decode" for h in handles) >= 8, 30)
+        handed = fe.drain(timeout_s=120)
+        comps = [h.result(timeout=120, raise_on_error=False)
+                 for h in handles]
+        done = [c for c in comps if c.ok]
+        shed = [c for c in comps if c.finish_reason == "shed:draining"]
+        if (not done or not handed or len(done) + len(shed) != 32
+                or sorted(r.uid for r in handed)
+                != sorted(c.uid for c in shed)
+                or any(c.tokens != want(c.uid) for c in done)):
+            fail(f"drain arm: {len(done)} done, {len(shed)} shed, "
+                 f"{len(handed)} handed back of 32")
+        out["drain"] = {"submitted": 32, "completed": len(done),
+                        "handed_back": len(handed)}
+        log(f"resilience drain arm: {out['drain']}")
+    finally:
+        clear_plan()
+        flags.set_flags({"FLAGS_step_deadline_ms": 0.0,
+                         "FLAGS_serving_resurrect_budget": 3,
+                         "FLAGS_flight_dump_dir": ""})
+        fe.stop()
+        shutil.rmtree(dump_dir, ignore_errors=True)
     return out
 
 
@@ -1665,8 +1892,8 @@ def main():
                 else {k: c for k, c in sass.items() if fn in k}
 
     # ---- GPT-2 small served through the port --------------------------------
-    serving_row = serve_gpt2(torch, serving, gpt_decode, kernel_mod, metrics,
-                             rows, card)
+    serving_row, resilience_row = serve_gpt2(
+        torch, serving, gpt_decode, kernel_mod, metrics, rows, card)
 
     # ---- BERT pretraining through Program / Executor ----------------------
     torch.cuda.empty_cache()
@@ -1697,6 +1924,7 @@ def main():
             fail(f"{row['name']} was never launched on its main path run")
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"serving": serving_row}), flush=True)
+    print(json.dumps({"resilience": resilience_row}), flush=True)
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

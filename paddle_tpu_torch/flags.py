@@ -1,4 +1,5 @@
-"""Global flags registry (the serving and ZeRO subset of paddle_tpu/flags.py).
+"""Global flags registry (the serving, observability, resilience and ZeRO
+subset of paddle_tpu/flags.py, with the reference's defaults).
 
 FLAGS_* environment variables seed the initial values at import, as in
 the reference registry; `set_flags` changes them at run time.
@@ -29,8 +30,60 @@ _DEFS: Dict[str, tuple] = {
                                   "gamma (serving/spec.py SpecConfig."
                                   "tokens = 0): proposals per slot per "
                                   "round"),
-    "FLAGS_step_deadline_ms": (0.0, "serving window watchdog; not ported "
-                               "yet: DecodeEngine refuses a nonzero value"),
+    "FLAGS_serving_failover_budget": (2, "re-dispatches one request may "
+                                      "take after engine deaths before it "
+                                      "fails with RequestFailedError "
+                                      "(serving/resilience.py; each "
+                                      "re-dispatch replays the "
+                                      "deterministic decode on a healthy "
+                                      "replica)"),
+    "FLAGS_serving_health_interval_ms": (200.0, "ServingFrontend health-"
+                                         "loop tick: suspect engines are "
+                                         "confirmed dead and dead engines "
+                                         "resurrected (reset + canary "
+                                         "gate) at this cadence"),
+    "FLAGS_serving_resurrect_budget": (3, "canary-gated resurrection "
+                                       "attempts per engine death "
+                                       "(RetryPolicy max_attempts); "
+                                       "exhaustion parks the engine dead "
+                                       "(serving.resurrect_gave_up)"),
+    "FLAGS_serving_drain_timeout_ms": (30000.0, "graceful-drain bound: how "
+                                       "long drain() waits for in-flight "
+                                       "slots to decode to completion "
+                                       "before stopping the engine"),
+    "FLAGS_step_deadline_ms": (0.0, "serving window watchdog: bound each "
+                               "window's (and verify pass's) static-input "
+                               "copy, graph replay and .cpu() by this "
+                               "wall-clock deadline; a trip raises the "
+                               "typed DeadlineExceededError with a thread-"
+                               "stack dump and a flight-recorder dump "
+                               "(framework/executor.py _deadline_call). "
+                               "0 disables the watchdog"),
+    # --- observability (observability/) -----------------------------------
+    "FLAGS_trace_events": (True, "record host RecordEvent spans, flow "
+                           "events and instants into the bounded trace "
+                           "ring (observability/trace.py); 0 makes span "
+                           "recording a no-op"),
+    "FLAGS_trace_buffer_events": (65536, "trace ring capacity in events; "
+                                  "the oldest drop past it, counted in the "
+                                  "trace.dropped_events metric"),
+    "FLAGS_flight_recorder": (True, "keep the last FLAGS_flight_steps "
+                              "steps' wall windows and metric deltas and "
+                              "dump them (with the trace ring) on "
+                              "watchdog trips (observability/flight.py)"),
+    "FLAGS_flight_steps": (16, "flight-recorder step-ring depth"),
+    "FLAGS_flight_dump_dir": ("", "where flight dumps land; empty = "
+                              "<tmpdir>/paddle_tpu_torch_flight"),
+    # --- resilience (resilience/) ------------------------------------------
+    "FLAGS_fault_plan": ("", "fault-injection plan spec, e.g. "
+                             "'serving.window:error:at=2'"),
+    "FLAGS_fault_seed": (0, "seed for probabilistic (p=) fault rules and "
+                            "retry jitter"),
+    "FLAGS_retry_max_attempts": (4, "RetryPolicy default attempt budget"),
+    "FLAGS_retry_base_delay_ms": (20.0, "RetryPolicy first-backoff delay"),
+    "FLAGS_retry_max_delay_ms": (2000.0, "RetryPolicy backoff ceiling"),
+    "FLAGS_rpc_deadline_ms": (10000.0, "RetryPolicy default wall-clock "
+                                       "deadline"),
     "FLAGS_zero_stage": (0, "ZeRO sharding stage applied at fleet minimize "
                             "time (parallel/zero.py): 1 moves each gradient "
                             "bucket's optimizer state into flat vars updated "

@@ -1,5 +1,6 @@
 """Typed errors (the subset of paddle_tpu/framework/errors.py the serving
-and training slices raise).
+and training slices raise, and the serving tier's timeouts and
+unavailability).
 
 Each code is a distinct exception class carrying `.code`, and each also
 subclasses the idiomatic Python builtin, so callers can catch either the
@@ -15,7 +16,9 @@ class ErrorCode(enum.IntEnum):
     LEGACY = 0
     INVALID_ARGUMENT = 1
     NOT_FOUND = 2
+    EXECUTION_TIMEOUT = 8
     UNIMPLEMENTED = 9
+    UNAVAILABLE = 10
 
 
 class EnforceNotMet(Exception):
@@ -49,8 +52,19 @@ def _typed(name, code_, base):
 InvalidArgumentError = _typed("InvalidArgumentError",
                               ErrorCode.INVALID_ARGUMENT, ValueError)
 NotFoundError = _typed("NotFoundError", ErrorCode.NOT_FOUND, KeyError)
+ExecutionTimeoutError = _typed("ExecutionTimeoutError",
+                               ErrorCode.EXECUTION_TIMEOUT, TimeoutError)
 UnimplementedError = _typed("UnimplementedError", ErrorCode.UNIMPLEMENTED,
                             NotImplementedError)
+UnavailableError = _typed("UnavailableError", ErrorCode.UNAVAILABLE,
+                          RuntimeError)
+
+
+class DeadlineExceededError(ExecutionTimeoutError):
+    """A retry budget (resilience.RetryPolicy) or an explicit deadline (the
+    FLAGS_step_deadline_ms watchdog) was exhausted. Distinct from its
+    ExecutionTimeoutError base so retry loops can tell "this op timed out
+    once" from "the whole budget is spent"."""
 
 
 def _factory(cls):
@@ -64,3 +78,9 @@ def _factory(cls):
 InvalidArgument = _factory(InvalidArgumentError)
 NotFound = _factory(NotFoundError)
 Unimplemented = _factory(UnimplementedError)
+Unavailable = _factory(UnavailableError)
+
+
+def DeadlineExceeded(fmt, *args, op=None, var=None):
+    """Build (not raise) a DeadlineExceededError, factory-style."""
+    return DeadlineExceededError(fmt % args if args else fmt, op=op, var=var)

@@ -24,13 +24,21 @@ feeds, the scope's persistable tensors and earlier ops' outputs.
 * Fetches come back as numpy arrays (bfloat16 as float32) unless
   `return_numpy=False`, which returns the device tensors.
 
+The step watchdog `_deadline_call` (FLAGS_step_deadline_ms) bounds the
+serving engine's window replays (serving/engine.py); `Executor.run` does
+not use it yet.
+
 Not ported (ROADMAP): `run_steps`, `stage`, prefetch, the microbatch
 runner, the shard_map manual-dp branch, `FetchHandle` lazy fetches.
 """
 from __future__ import annotations
 
+import contextlib
+import sys
+import threading
 import time
-from typing import Dict, Optional
+import traceback
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -39,6 +47,8 @@ from . import errors
 from .program import Program, Variable, default_main_program
 from .scope import Scope, global_scope, to_numpy
 from ..device import resolve_device
+from ..monitor import stat_add
+from ..observability import flight as _flight
 from ..observability import metrics as _metrics
 from ..ops import registry
 
@@ -238,3 +248,110 @@ def _run_block(block, plan, env, scope, ctx, amp_dtype):
                     scope.set(n, v)
                 else:
                     env[n] = v
+
+
+def _dump_thread_stacks() -> str:
+    """Stacks of every live thread: the watchdog's post-mortem payload
+    (which thread is wedged, and where)."""
+    names = {t.ident: t.name for t in threading.enumerate()}
+    out = []
+    for tid, frame in sys._current_frames().items():
+        out.append(f"--- thread {names.get(tid, '?')} ({tid}) ---\n"
+                   + "".join(traceback.format_stack(frame)))
+    return "".join(out)
+
+
+class DeadlineWorker:
+    """The worker thread of one `_deadline_call`. `done` is set when `fn`
+    has returned or raised; on a CUDA device, `cuda_done` is an event
+    recorded on the worker's stream after `fn` (its `.cpu()` included), so
+    it completes when every kernel `fn` queued there has run. A tripped
+    call leaves its worker running: its owner must not reuse what the
+    worker touches until `quiet` says so."""
+
+    def __init__(self, device: Optional[torch.device], stream):
+        self.device = device
+        self.stream = stream
+        self.done = threading.Event()
+        self.cuda_done = None
+        self.value = None
+        self.error: Optional[BaseException] = None
+
+    def run(self, fn: Callable):
+        try:
+            with torch.no_grad(), _on_stream(self.device, self.stream):
+                try:
+                    self.value = fn()
+                finally:
+                    if self.stream is not None:
+                        ev = torch.cuda.Event()
+                        ev.record(self.stream)
+                        self.cuda_done = ev
+        except BaseException as e:     # re-raised on the caller's thread
+            self.error = e
+        finally:
+            self.done.set()
+
+    def quiet(self, timeout_s: float) -> bool:
+        """Whether the worker has returned and its device work completed,
+        waiting at most `timeout_s`."""
+        deadline = time.monotonic() + timeout_s
+        if not self.done.wait(timeout_s):
+            return False
+        while self.cuda_done is not None and not self.cuda_done.query():
+            if time.monotonic() >= deadline:
+                return False
+            time.sleep(0.001)
+        return True
+
+
+@contextlib.contextmanager
+def _on_stream(device, stream):
+    """`torch.cuda.device(device)` and `torch.cuda.stream(stream)` on a
+    CUDA device; nothing otherwise."""
+    if device is None or device.type != "cuda":
+        yield
+        return
+    with torch.cuda.device(device), torch.cuda.stream(stream):
+        yield
+
+
+def _deadline_call(fn: Callable, deadline_ms: float, what: str,
+                   device: Optional[torch.device] = None, stream=None,
+                   on_trip: Optional[Callable[[DeadlineWorker], None]]
+                   = None):
+    """Step watchdog (FLAGS_step_deadline_ms; counterpart of
+    paddle_tpu/framework/executor.py `_deadline_call`): run `fn` on a
+    worker thread, under torch.no_grad(), on `device` and on `stream` (the
+    caller's own, so the work does not depend on the worker thread's
+    current stream), and join it with the deadline.
+
+    On a trip: count `executor.step_deadline_trips`, call `on_trip(worker)`
+    (the owner records the abandoned worker and closes its flight step),
+    flight-dump with the thread stacks, and raise the typed
+    DeadlineExceededError (its `.worker` is the abandoned worker). The
+    worker cannot be cancelled: it runs on (daemon), still inside `fn`,
+    and whatever `fn` touches (static buffers, pools) stays in use until
+    `worker.quiet()`."""
+    worker = DeadlineWorker(device, stream)
+    t = threading.Thread(target=worker.run, args=(fn,), daemon=True,
+                         name="executor-step")
+    t.start()
+    if not worker.done.wait(deadline_ms / 1000.0):
+        stat_add("executor.step_deadline_trips")
+        stacks = _dump_thread_stacks()
+        if on_trip is not None:
+            on_trip(worker)
+        dump_path = _flight.dump(
+            "step_deadline",
+            extra={"what": what, "deadline_ms": deadline_ms,
+                   "thread_stacks": stacks})
+        err = errors.DeadlineExceeded(
+            "%s exceeded FLAGS_step_deadline_ms=%s; flight-recorder dump: "
+            "%s; thread stacks:\n%s", what, deadline_ms,
+            dump_path or "<disabled>", stacks)
+        err.worker = worker
+        raise err
+    if worker.error is not None:
+        raise worker.error
+    return worker.value

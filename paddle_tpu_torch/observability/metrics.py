@@ -1,9 +1,13 @@
 """Typed metrics registry: counters, gauges, histograms under dotted names
-(the recording and snapshot half of paddle_tpu/observability/metrics.py).
+(counterpart of paddle_tpu/observability/metrics.py).
 
 The serving engine records `serving.ttft_ms`, `serving.tpot_ms` and
-`serving.window_ms` (histograms) and `serving.tokens_out` (counter) here.
-Hot-path cost: one lock plus one dict/float op per record.
+`serving.window_ms` (histograms) and `serving.tokens_out` (counter) here;
+the serving tier adds `serving.failovers`, `serving.sla_trips`,
+`serving.recover_ms` and `serving.canary_ms`. `get` reads one value,
+`delta` what moved between two snapshots (the flight recorder's per-step
+attribution). monitor.py is a view over this registry. Hot-path cost: one lock plus one dict/float op
+per record.
 """
 from __future__ import annotations
 
@@ -94,6 +98,17 @@ def observe(name: str, value: float):
         h.observe(float(value))
 
 
+def get(name: str) -> float:
+    """Scalar value (counter total / gauge last value); a histogram name
+    returns its observation count; an unknown name returns 0."""
+    with _lock:
+        s = _scalars.get(name)
+        if s is not None:
+            return s.value
+        h = _hists.get(name)
+        return float(h.count) if h is not None else 0
+
+
 def reset(name: Optional[str] = None):
     with _lock:
         if name is None:
@@ -119,3 +134,29 @@ def snapshot(percentiles: bool = True) -> Dict[str, dict]:
                 row["p50"], row["p99"] = h.percentiles(0.50, 0.99)
             out[n] = row
         return out
+
+
+def delta(prev: Dict[str, dict],
+          cur: Optional[Dict[str, dict]] = None) -> Dict[str, dict]:
+    """What moved between two snapshots: counters and histograms diff
+    their monotonic fields, gauges report their current value; metrics
+    that did not move are left out."""
+    cur = snapshot(percentiles=False) if cur is None else cur
+    out: Dict[str, dict] = {}
+    for name, c in cur.items():
+        p = prev.get(name)
+        if c["type"] == HISTOGRAM:
+            pc = p["count"] if p and p.get("type") == HISTOGRAM else 0
+            ps = p["sum"] if p and p.get("type") == HISTOGRAM else 0.0
+            if c["count"] != pc:
+                out[name] = {"type": HISTOGRAM, "count": c["count"] - pc,
+                             "sum": c["sum"] - ps}
+        elif c["type"] == GAUGE:
+            if p is None or p.get("value") != c["value"]:
+                out[name] = {"type": GAUGE, "value": c["value"]}
+        else:
+            pv = p["value"] if p and "value" in p else 0.0
+            if c["value"] != pv:
+                out[name] = {"type": COUNTER, "value": c["value"] - pv}
+    return out
+

@@ -19,14 +19,20 @@ order.
 * `launches` counts wrapper calls that launched the kernel, per kernel
   name; it moves only where a kernel is launched. A CUDA graph that
   captured wrapper calls launches the kernels again at each replay
-  without calling the wrapper: its owner takes the count made during the
-  capture back out (`launches_since`) and adds it at every replay
-  (`count_replay`).
+  without calling the wrapper: its owner captures inside
+  `capture_launches()`, which records the launches made on the capturing
+  thread into a dict of its own instead of counting them, and adds that
+  dict at every replay (`count_replay`). Several engines capture and
+  replay from their own threads at once: a capture never touches
+  `launches`, and every update of it holds one lock, so no thread's
+  counts are lost or taken by another.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -37,6 +43,8 @@ KERNEL_NAMES = {torch.float32: "paged_decode_f32",
                 torch.bfloat16: "paged_decode_bf16",
                 torch.int8: "paged_decode_int8"}
 launches = {name: 0 for name in KERNEL_NAMES.values()}
+_count_lock = threading.Lock()
+_recorder = threading.local()      # .counts: the capture under way here
 # the head dims the kernel is built for (csrc/paged_attention.cu launch_hd)
 HEAD_DIMS = (64, 128)
 
@@ -44,24 +52,41 @@ _lib = None
 
 
 def reset_launches():
-    for name in launches:
-        launches[name] = 0
+    with _count_lock:
+        for name in launches:
+            launches[name] = 0
 
 
-def launches_since(before) -> dict:
-    """The launches counted since the snapshot `before` (a copy of
-    `launches`), taken back out of `launches`: a capture records kernels
-    without running them."""
-    delta = {name: launches[name] - before[name] for name in launches}
-    launches.update(before)
-    return delta
+@contextlib.contextmanager
+def capture_launches():
+    """Within the block, the launches made on THIS thread are recorded
+    into the dict it yields ({kernel name: n}) instead of counted: a graph
+    capture records kernels without running them. Other threads go on
+    counting into `launches`."""
+    rec = dict.fromkeys(launches, 0)
+    outer = getattr(_recorder, "counts", None)
+    _recorder.counts = rec
+    try:
+        yield rec
+    finally:
+        _recorder.counts = outer
+
+
+def _count(name: str):
+    rec = getattr(_recorder, "counts", None)
+    if rec is not None:
+        rec[name] += 1
+        return
+    with _count_lock:
+        launches[name] += 1
 
 
 def count_replay(delta):
     """Count the launches of one replay of a graph whose capture recorded
-    `delta` (from `launches_since`)."""
-    for name, n in delta.items():
-        launches[name] += n
+    `delta` (from `capture_launches`)."""
+    with _count_lock:
+        for name, n in delta.items():
+            launches[name] += n
 
 
 def kv_dequant_scale(kv_scale) -> float:
@@ -201,7 +226,7 @@ def launch(lib, q, k_pool, v_pool, page_table, pos, *, stream,
     args, out, _part = launch_args(lib, q, k_pool, v_pool, page_table, pos,
                                    **kw)
     call(lib, args, stream)
-    launches[KERNEL_NAMES[k_pool.dtype]] += 1
+    _count(KERNEL_NAMES[k_pool.dtype])
     return out
 
 

@@ -20,6 +20,8 @@ Lowering signature, as in the reference:
 """
 from __future__ import annotations
 
+import threading
+
 from typing import Callable, Dict, List, Optional
 
 import torch
@@ -93,17 +95,30 @@ _LOWERING_MODULES = ("ops.tensor_ops", "ops.math_ops", "ops.nn_ops",
                      "ops.fused_ce", "ops.attention", "ops.optimizer_ops",
                      "ops.int8_ops", "parallel.zero")
 _loaded = False
+_loading = False
+_load_lock = threading.RLock()
 
 
 def _load_lowerings():
-    """Import the lowering modules once (they register on import)."""
-    global _loaded
-    if not _loaded:
-        _loaded = True
-        import importlib
-        root = __package__.rpartition(".")[0]
-        for m in _LOWERING_MODULES:
-            importlib.import_module(f"{root}.{m}")
+    """Import the lowering modules once (they register on import). Other
+    threads wait until the first load has finished (serving replicas reach
+    it from their service threads at once); a re-entry from the loading
+    thread itself returns at once."""
+    global _loaded, _loading
+    if _loaded:
+        return
+    with _load_lock:
+        if _loaded or _loading:
+            return
+        _loading = True
+        try:
+            import importlib
+            root = __package__.rpartition(".")[0]
+            for m in _LOWERING_MODULES:
+                importlib.import_module(f"{root}.{m}")
+            _loaded = True
+        finally:
+            _loading = False
 
 
 def register(name: str, *, infer=None, is_random=False, nondiff_slots=(),

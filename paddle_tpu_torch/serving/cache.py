@@ -431,5 +431,16 @@ class PagedKVCache:
         blocks += self._slot_reserve.pop(slot, [])
         self.allocator.free(blocks)
 
+    def reset(self):
+        """Zero both pools in place (a captured graph holds their
+        addresses) and start a fresh allocator: every slot's blocks and
+        reserve are dropped. The engine's resurrection."""
+        self.k_pool.zero_()
+        self.v_pool.zero_()
+        self.allocator.close()
+        self.allocator = BlockAllocator(self.config.num_blocks)
+        self._slot_blocks.clear()
+        self._slot_reserve.clear()
+
     def close(self):
         self.allocator.close()

@@ -44,12 +44,27 @@ products (`_verify_eager`), so spec-on tokens equal spec-off tokens.
 Sampling is per slot and a pure function of (request seed, generated
 index), so a request's tokens do not depend on which slot or window
 carries it: continuous batching gives the tokens one-at-a-time decoding
-gives (`generate_sequential`).
+gives (`generate_sequential`), and a request re-dispatched to another
+replica after an engine death replays its tokens bit for bit.
 
-Not ported yet: the FLAGS_step_deadline_ms window watchdog (EngineConfig
-refuses a nonzero value), the trace flows, flight-recorder steps and fault
-sites, and replica failover, drain, kill and resurrection
-(serving/resilience.py of the reference).
+Resilience (serving/resilience.py drives it):
+
+* every request is one trace flow (submit -> retire) and every window a
+  span with a dispatch -> materialization flow and a flight-recorder step
+  on this engine's lane (observability/);
+* fault sites `serving.admit`, `serving.prefill` and `serving.window`
+  (resilience/faults.py), all on the host and before any replay;
+* `FLAGS_step_deadline_ms` bounds each window's and verify pass's
+  static-input copy, replay and `.cpu()` (framework/executor.py
+  `_deadline_call`, on this engine's stream); a trip raises the typed
+  DeadlineExceededError, flight-dumps and kills the engine;
+* `kill`, `drain` and `resurrect`; a dying engine hands its in-flight
+  requests to the frontend's failover sink when one is installed and
+  fails them typed otherwise.
+
+A CUDA engine runs all its work (prefill, capture, replays, resets) on a
+stream of its own, so replicas overlap on the card and a watchdog's
+worker thread replays on the same stream as the service thread.
 """
 from __future__ import annotations
 
@@ -58,27 +73,37 @@ import itertools
 import threading
 import time
 import traceback
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
 from ..flags import flag
-from ..framework.errors import UnimplementedError
+from ..framework import errors as _errors
+from ..framework.executor import _deadline_call, _on_stream
 from ..models.gpt import GPTConfig
 from ..models.gpt_decode import (_block, _block_out, _block_qkv, _ln,
                                  _logits, fold_seed, sample_rows)
+from ..observability import flight as _flight
 from ..observability import metrics as _metrics
+from ..observability import trace as _trace
 from ..ops.kernels import paged_attention as _kernel
 from ..ops.paged_ops import (fused_attend, paged_attend_span, paged_update,
                              paged_update_span, quantize_kv)
+from ..resilience.faults import FaultInjected, fault_point
 from .cache import CacheConfig, PagedKVCache, RadixPrefixCache
 from .request import Completion, Request, RequestHandle, RequestState
 from .resilience import Health, shed_handle
 from .weights import dequant_params, prepare_params
 
 _engine_ids = itertools.count(1)
+# one CUDA graph capture at a time in the process: torch.cuda.graph
+# synchronises the device and empties the allocator's cache at entry,
+# which must not land inside another engine's capture
+_capture_lock = threading.Lock()
+# how long `resurrect` waits for the dead engine's threads and device work
+_QUIET_TIMEOUT_S = 2.0
 
 # most rows of one prefill chunk: one GEMM shape for every prefill of an
 # engine, small enough that a cached prefix spares whole chunks, large
@@ -111,12 +136,15 @@ class EngineConfig:
     # default SpecConfig (int8 draft arm of the same checkpoint, gamma =
     # FLAGS_serving_spec_tokens); a SpecConfig pins the draft
     spec: Optional[object] = None
+    # set by resolve(): the budget the caller asked for, before rounding
+    # (the max_position guard compares this, so re-resolving a rounded
+    # config, as a replica clone does, never trips on the rounding)
+    requested_max_len: Optional[int] = None
 
     def resolve(self) -> "EngineConfig":
         c = dataclasses.replace(self)
-        if float(flag("FLAGS_step_deadline_ms") or 0.0) > 0:
-            raise UnimplementedError("FLAGS_step_deadline_ms (the window "
-                                     "watchdog) is not ported yet")
+        if c.requested_max_len is None:
+            c.requested_max_len = c.max_len
         if not c.block_size:
             c.block_size = int(flag("FLAGS_serving_block_size"))
         if not c.window:
@@ -168,8 +196,10 @@ class _Captured:
     The capture runs on the calling thread, on a side stream, after one
     warm-up call with every input zero: every row inactive and every
     page-table entry the scratch block, so the warm-up writes nothing a
-    slot reads. The B4 launches the capture recorded are counted again at
-    every replay."""
+    slot reads. One capture runs at a time in the process
+    (`_capture_lock`). The B4 launches the capture recorded (on this
+    thread only, `capture_launches`) are counted again at every
+    replay."""
 
     def __init__(self, body, inputs: Dict[str, torch.Tensor], pool):
         self.inputs = inputs
@@ -177,16 +207,17 @@ class _Captured:
         for t in inputs.values():
             t.zero_()
         side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            body(inputs)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        before = dict(_kernel.launches)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, pool=pool, stream=side,
-                              capture_error_mode="thread_local"):
-            self.out = body(inputs)
-        self.launches = _kernel.launches_since(before)
+        with _capture_lock:
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                body(inputs)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with _kernel.capture_launches() as rec, \
+                    torch.cuda.graph(self.graph, pool=pool, stream=side,
+                                     capture_error_mode="thread_local"):
+                self.out = body(inputs)
+        self.launches = rec
 
     def replay(self, host: Dict[str, np.ndarray]):
         for k, a in host.items():
@@ -199,11 +230,19 @@ class _Captured:
 class DecodeEngine:
     """One decode worker: a slot array, a paged cache on `device` (default
     cuda), and the service thread interleaving admission with decode
-    windows."""
+    windows.
 
-    def __init__(self, params: Dict, model_config: GPTConfig,
+    `_prepared` / `_draft_prepared` are the replica path
+    (frontend._clone_engine): the engine adopts another engine's prepared
+    weight tensors, and its draft's, instead of preparing its own, so
+    replicas hold one weight copy and add only their pools, graphs and
+    static buffers."""
+
+    def __init__(self, params: Optional[Dict], model_config: GPTConfig,
                  config: Optional[EngineConfig] = None,
-                 device: DeviceLike = None, **overrides):
+                 device: DeviceLike = None,
+                 _prepared: Optional[tuple] = None,
+                 _draft_prepared: Optional[tuple] = None, **overrides):
         self.device = resolve_device(device)
         self.model_config = model_config
         if config is not None and overrides:
@@ -211,17 +250,25 @@ class DecodeEngine:
         raw = config or EngineConfig(**overrides)
         # guard on the REQUESTED budget; resolve() then rounds max_len up
         # to a block multiple, which only widens the (masked) cache view
-        if raw.max_len > model_config.max_position:
+        requested = (raw.requested_max_len
+                     if raw.requested_max_len is not None else raw.max_len)
+        if requested > model_config.max_position:
             raise ValueError(
-                f"max_len {raw.max_len} exceeds model max_position "
+                f"max_len {requested} exceeds model max_position "
                 f"{model_config.max_position}")
         cfg = raw.resolve()
         self.config = cfg
         # per-request prompt+generation ceiling: every live position must
         # have a real wpe row
         self.request_budget = min(cfg.max_len, model_config.max_position)
-        self.params, self.scales, self.compute_dtype = prepare_params(
-            params, cfg.dtype, self.device)
+        if _prepared is not None:
+            self.params, self.scales, self.compute_dtype = _prepared
+        else:
+            self.params, self.scales, self.compute_dtype = prepare_params(
+                params, cfg.dtype, self.device)
+        # the stream all of this engine's device work runs on
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
         self.cache = self._build_cache()
         # prompt buckets (the block budget): block-aligned, doubling up to
         # the cap (the largest block multiple inside max_len and
@@ -243,15 +290,26 @@ class DecodeEngine:
 
         self._id = next(_engine_ids)
         self._queue: "List[tuple]" = []
+        self._admitting: Optional[tuple] = None   # popped, not yet slotted
         self._slots: Dict[int, _Slot] = {}
         self._cv = threading.Condition()
         self._thread: Optional[threading.Thread] = None
         self._stop = False
         self._dead: Optional[str] = None
+        self._kill: Optional[str] = None
+        self._draining = False
         self._windows = 0
         self._completed = 0
         self._window_ms_ewma: Optional[float] = None
+        # health + failover (serving/resilience.py): a ServingFrontend
+        # installs its failover sink here; a standalone engine keeps the
+        # fail-hard semantics (sink None)
         self.health = Health.LIVE
+        self.health_history: List[str] = [Health.LIVE]
+        self._failover: Optional[Callable] = None
+        self._died_at: Optional[float] = None     # perf_counter of death
+        # the watchdog worker a trip abandoned, still replaying maybe
+        self._abandoned = None
         # the captured window and verify pass; one graph memory pool and
         # one set of static inputs per engine
         self._graphs: Dict[str, _Captured] = {}
@@ -269,13 +327,22 @@ class DecodeEngine:
         self.spec = None
         if cfg.spec is not None:
             from .spec import SpecDecoder
-            self.spec = SpecDecoder(self, cfg.spec, raw_params=params)
+            self.spec = SpecDecoder(self, cfg.spec, raw_params=params,
+                                    _draft_prepared=_draft_prepared)
 
     def _kv_scale(self) -> Optional[float]:
         """Static int8-KV dequant scale, None for float pools."""
         if self.config.kv_dtype == "int8":
             return float(self.config.kv_scale)
         return None
+
+    def _set_health(self, state: str):
+        if state != self.health:
+            self.health = state
+            self.health_history.append(state)
+            del self.health_history[:-64]   # bounded
+            _trace.instant("serving.health",
+                           args={"engine": self._id, "state": state})
 
     def _build_cache(self) -> PagedKVCache:
         mc, cfg = self.model_config, self.config
@@ -396,13 +463,13 @@ class DecodeEngine:
         return body({k: torch.as_tensor(a, device=self.device)
                      for k, a in host.items()})
 
-    def _call(self, key: str, body, host: Dict[str, np.ndarray]):
-        """One window or verify call. CPU engines run `body` eagerly; a
-        CUDA engine replays the graph captured for `key` ("window" /
-        "verify"), capturing it on first use. A capture that fails
-        raises."""
+    def _graph(self, key: str, body, host: Dict[str, np.ndarray]
+               ) -> Optional[_Captured]:
+        """The graph captured for `key` ("window" / "verify") on a CUDA
+        engine, captured on first use; None on a CPU engine. A capture
+        that fails raises."""
         if self.device.type != "cuda":
-            return self._eager_call(key, body, host)
+            return None
         g = self._graphs.get(key)
         if g is None:
             if self._pool is None:
@@ -415,9 +482,68 @@ class DecodeEngine:
             g = self._graphs[key] = _Captured(
                 body, {k: self._static[k] for k in host}, self._pool)
             _metrics.inc("serving.graph_captures")
+        return g
+
+    def _call(self, key: str, body, host: Dict[str, np.ndarray]):
+        """One window or verify call. CPU engines run `body` eagerly; a
+        CUDA engine replays the graph captured for `key`, capturing it on
+        first use."""
+        g = self._graph(key, body, host)
+        if g is None:
+            return self._eager_call(key, body, host)
         self._replays += 1
         self._graph_launches[key] += sum(g.launches.values())
         return g.replay(host)
+
+    def _watched(self, key: str, body, host: Dict[str, np.ndarray],
+                 span: str, fetch: str):
+        """The envelope of one window or verify call: a flight-recorder
+        step on this engine's lane, a trace span with a dispatch ->
+        materialization flow, and, when FLAGS_step_deadline_ms > 0, the
+        watchdog around the static-input copy, the replay and the
+        `.cpu()`. A first call captures its graph here, outside the
+        watchdog. Returns the two outputs as host arrays."""
+        self._graph(key, body, host)
+        owner = 0x5E0 + self._id
+        step = self._windows
+        active = len(self._slots)
+        fid = _trace.new_flow()
+
+        def dispatch():
+            with _trace.RecordEvent(span, args={"window": step,
+                                                "active": active}):
+                _trace.flow_start("serving.window_fetch", fid)
+                first, second = self._call(key, body, host)
+                with _trace.RecordEvent("fetch.materialize",
+                                        args={"name": fetch}):
+                    first = first.cpu().numpy()
+                _trace.flow_end("fetch", fid, args={"name": fetch})
+                return first, second.cpu().numpy()
+
+        def tripped(worker):
+            self._abandoned = worker
+            _flight.end_step(step, status="sla_trip", owner=owner)
+
+        _flight.begin_step(step, owner=owner)
+        status = "ok"
+        deadline = float(flag("FLAGS_step_deadline_ms") or 0.0)
+        try:
+            if deadline > 0:
+                return _deadline_call(
+                    dispatch, deadline,
+                    f"serving {key} ({active} active slots)",
+                    device=self.device, stream=self._stream,
+                    on_trip=tripped)
+            return dispatch()
+        except _errors.DeadlineExceededError:
+            status = "sla_trip"
+            _metrics.inc("serving.sla_trips")
+            raise
+        except BaseException:
+            status = "error"
+            raise
+        finally:
+            _flight.end_step(step, status=status, owner=owner)
 
     def _chunk_forward(self, p, chunk_tokens, lo: int, kbuf, vbuf,
                        keep_from: int):
@@ -516,8 +642,10 @@ class DecodeEngine:
     # ------------------------------------------------------------------
     # submission API
     # ------------------------------------------------------------------
-    def submit(self, request: Request, bounded: bool = True
-               ) -> RequestHandle:
+    def submit(self, request: Request,
+               _handle: Optional[RequestHandle] = None,
+               _failover: bool = False, _probe: bool = False,
+               bounded: bool = True) -> Optional[RequestHandle]:
         """Admit or reject a request. Overload rejections finish the handle
         with `shed:<reason>` (result() raises ShedError) and count
         `serving.shed_total` + `serving.shed.<reason>`.
@@ -525,12 +653,39 @@ class DecodeEngine:
         `bounded=False` skips the OVERLOAD sheds (queue_full /
         deadline_unmeetable) while keeping validation and funding checks:
         batch-style callers (`generate`) submit a known, finite workload
-        all at once and rely on FCFS queueing."""
-        handle = RequestHandle(request)
+        all at once and rely on FCFS queueing.
+
+        `_failover=True` is the frontend's re-dispatch path: `_handle` is
+        work already admitted elsewhere, so admission control is skipped
+        and a dead, draining or stopped engine returns None (the handle
+        untouched; the caller tries the next replica). `_probe=True` (the
+        frontend's routing path) likewise returns None instead of a shed
+        handle on such an engine, so a routing retry that lands elsewhere
+        counts no shed."""
+        if _failover:
+            if self._dead is not None or self._draining or self._stop:
+                return None
+            with self._cv:
+                entry = (request, _handle)
+                self._queue.append(entry)
+                _metrics.set_gauge("serving.queue_depth", len(self._queue))
+                self._ensure_thread()
+                self._cv.notify_all()
+            if (self._dead is not None or self._draining or self._stop) \
+                    and self._unqueue(entry):
+                return None     # died/drained between check and append
+            return _handle
+        if _probe and (self._dead is not None or self._draining
+                       or self._stop):
+            return None
+        fid = _trace.new_flow()
+        handle = RequestHandle(request, flow_id=fid)
         _metrics.inc("serving.requests")
         if self._dead:
             return shed_handle(handle, "engine_dead",
                                f"engine dead: {self._dead}")
+        if self._draining:
+            return shed_handle(handle, "draining", "engine draining")
         reason = self._reject_reason(request)
         if reason is not None:
             _metrics.inc("serving.rejected")
@@ -548,9 +703,7 @@ class DecodeEngine:
                 f"only {usable} (num_blocks={self.config.num_blocks} "
                 "incl. scratch)")
         if bounded:
-            with self._cv:
-                depth = len(self._queue)
-            if depth >= self.config.max_queue:
+            if self.queue_full():
                 return shed_handle(
                     handle, "queue_full",
                     f"submit queue at its bound "
@@ -562,17 +715,28 @@ class DecodeEngine:
                         handle, "deadline_unmeetable",
                         f"estimated queue wait {est:.0f} ms exceeds "
                         f"request deadline {request.deadline_ms:.0f} ms")
+        try:
+            fault_point("serving.admit")
+        except FaultInjected as e:
+            return shed_handle(handle, "admit_fault", repr(e))
+        _trace.flow_start("serving.request", fid, args={"uid": request.uid})
         with self._cv:
             entry = (request, handle)
             self._queue.append(entry)
             _metrics.set_gauge("serving.queue_depth", len(self._queue))
             self._ensure_thread()
             self._cv.notify_all()
-        if self._dead is not None and self._unqueue(entry):
-            # the engine died between the liveness check and the append:
-            # the fail snapshot missed this entry
-            return shed_handle(handle, "engine_dead",
-                               f"engine died during submit: {self._dead}")
+        if (self._dead is not None or self._draining or self._stop) \
+                and self._unqueue(entry):
+            # the engine died/drained/stopped between the checks and the
+            # append: the fail/drain snapshot missed this entry
+            if _probe:
+                return None
+            reason = "engine_dead" if self._dead is not None \
+                else "draining"
+            return shed_handle(handle, reason,
+                               f"engine {reason.replace('_', ' ')} during "
+                               f"submit: {self._dead or 'draining'}")
         return handle
 
     def _unqueue(self, entry) -> bool:
@@ -625,6 +789,13 @@ class DecodeEngine:
                          for s in self._slots.values())
         return queued + active
 
+    def queue_full(self) -> bool:
+        """Whether a submit now would shed queue_full: the frontend's hint
+        to prefer a replica with queue room (load is token-weighted, the
+        queue bound counts entries)."""
+        with self._cv:
+            return len(self._queue) >= self.config.max_queue
+
     def queue_wait_estimate_ms(self) -> float:
         """Pending tokens over the window throughput, scaled by the
         measured window wall time (EWMA). 0.0 until the first window."""
@@ -653,6 +824,8 @@ class DecodeEngine:
     # service loop
     # ------------------------------------------------------------------
     def _ensure_thread(self):
+        if self._draining:
+            return      # a drain-racing submit must not revive the thread
         if self._thread is None or not self._thread.is_alive():
             self._stop = False
             self._thread = threading.Thread(
@@ -693,14 +866,25 @@ class DecodeEngine:
         return False
 
     def _service_loop(self):
-        with torch.no_grad():
+        with torch.no_grad(), _on_stream(self.device, self._stream):
             while True:
                 with self._cv:
-                    while (not self._stop and not self._slots
-                           and not self._queue):
+                    # go on when there are slots to decode, a queue to
+                    # admit (not while draining: a draining engine only
+                    # runs its in-flight slots down) or a kill to honour
+                    while (not self._stop and self._kill is None
+                           and not self._slots
+                           and (self._draining or not self._queue)):
                         self._cv.wait(0.05)
                     if self._stop:
                         break
+                if self._kill is not None:
+                    # a kill() lands here, between windows: the boundary a
+                    # real window fault dies at, so the emitted-token
+                    # counts the failover replay skips by are never taken
+                    # mid-window
+                    self._fail_all(self._kill)
+                    break
                 try:
                     self._admit()
                     if self._slots:
@@ -713,15 +897,36 @@ class DecodeEngine:
                             self._run_window()
                 except Exception as e:  # noqa: BLE001 — fail requests, die
                     # the thread's boundary: every waiter gets a terminal
-                    # completion carrying the traceback
+                    # completion (or a failover) carrying the traceback
                     self._fail_all(f"{e!r}\n{traceback.format_exc()}")
                     break
 
+    def kill(self, why: str):
+        """Kill the engine from any thread. With the service thread
+        running, death is deferred to its next window boundary, so it
+        never races the in-flight window's slot accounting; otherwise it
+        is immediate."""
+        with self._cv:
+            t = self._thread
+            if (t is not None and t.is_alive()
+                    and t is not threading.current_thread()):
+                self._kill = why
+                self._cv.notify_all()
+                return
+        self._fail_all(why)
+
     def _fail_all(self, why: str):
-        """The engine is dead: every queued and in-flight request fails
-        typed."""
+        """The engine is dead. With a frontend's failover sink installed,
+        the queued and in-flight requests (each handle carrying the tokens
+        streamed so far) are handed to it for re-dispatch; the
+        deterministic decode makes the replay bit for bit. Without one
+        (a standalone engine) every request fails typed."""
         self._dead = why
-        self.health = Health.DEAD
+        self._died_at = time.perf_counter()
+        # SUSPECT when a frontend watches (its health tick confirms DEAD);
+        # a standalone engine goes straight to DEAD: nobody resurrects it
+        self._set_health(Health.SUSPECT if self._failover is not None
+                         else Health.DEAD)
         _metrics.inc("serving.engine_failures")
         with self._cv:
             pending = list(self._queue)
@@ -733,10 +938,122 @@ class DecodeEngine:
             self.cache.release(idx)
         if self.spec is not None:
             self.spec.release_all()
-        victims = [handle for _, handle in pending]
-        victims += [slot.handle for slot in slots.values()]
-        for handle in victims:
+        victims = list(pending)
+        victims += [(slot.handle.request, slot.handle)
+                    for slot in slots.values()]
+        sink = self._failover
+        if sink is not None:
+            sink(self, victims, why)
+            return
+        for _, handle in victims:
             handle._finish(RequestState.FAILED, "engine failed", error=why)
+
+    # ---- drain + resurrection -------------------------------------------
+    def drain(self, timeout_s: Optional[float] = None) -> List[tuple]:
+        """Graceful drain: stop admitting, finish the in-flight slots, hand
+        back the never-served queue as [(Request, RequestHandle)].
+        Handed-back handles finish `shed:draining`; the Requests are the
+        caller's to re-route. A queued failover victim that already
+        streamed tokens is not handed back: it fails typed
+        (RequestFailedError), because "shed" promises the request was
+        never served. Stops the engine afterwards; `timeout_s` (default
+        FLAGS_serving_drain_timeout_ms) bounds the whole call, the
+        service-thread join included."""
+        if timeout_s is None:
+            timeout_s = float(flag("FLAGS_serving_drain_timeout_ms")) \
+                / 1000.0
+        with self._cv:
+            self._draining = True
+            self._cv.notify_all()
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            with self._cv:
+                # a request mid-admission (popped, not yet slotted) is
+                # in-flight work too
+                busy = bool(self._slots) or self._admitting is not None
+            t = self._thread
+            if (not busy or self._dead is not None
+                    or t is None or not t.is_alive()):
+                break
+            time.sleep(0.01)
+        with self._cv:
+            queued = list(self._queue)
+            self._queue.clear()
+            _metrics.set_gauge("serving.queue_depth", 0)
+        unstarted = []
+        for req, handle in queued:
+            if handle.tokens_so_far():
+                handle._finish(
+                    RequestState.FAILED, "drained mid-failover",
+                    error="engine drained while the request awaited its "
+                          "failover re-decode (tokens already streamed)")
+            else:
+                unstarted.append((req, handle))
+                shed_handle(handle, "draining", "engine drained")
+        self.stop(join_timeout_s=max(deadline - time.monotonic(), 0.2))
+        return unstarted
+
+    def _await_quiet(self, timeout_s: Optional[float] = None):
+        """Wait, bounded, until nothing of the dead engine still runs: its
+        service thread has exited and the window a watchdog trip abandoned
+        has returned and completed on the device (its static buffers and
+        pools are free to write). Raises Unavailable otherwise, which the
+        frontend's RetryPolicy retries."""
+        if timeout_s is None:
+            timeout_s = _QUIET_TIMEOUT_S
+        t = self._thread
+        if t is not None and t is not threading.current_thread():
+            t.join(timeout_s)
+            if t.is_alive():
+                raise _errors.Unavailable(
+                    "engine %d: its service thread has not exited",
+                    self._id)
+        w = self._abandoned
+        if w is not None:
+            if not w.quiet(timeout_s):
+                raise _errors.Unavailable(
+                    "engine %d: the call a watchdog trip abandoned is "
+                    "still running", self._id)
+            self._abandoned = None
+
+    def resurrect(self) -> "DecodeEngine":
+        """Reset the dead engine in place and clear its death; the caller
+        (ServingFrontend's health loop) gates its rejoin on a canary.
+
+        First waits, bounded, for the dead engine's service thread and
+        for a window abandoned by a watchdog trip (`_await_quiet`; raises
+        Unavailable if they are still running). Then, on the engine's
+        stream, zeroes the pools and the static input buffers in place
+        and starts a fresh allocator, page table and prefix cache. The
+        captured graphs are KEPT: they hold the pools' and buffers'
+        addresses, which do not move, so nothing is captured while other
+        replicas serve (the counterpart of the reference's window jit
+        surviving). The draft arm is reset the same way.
+
+        Resurrection covers host-side deaths only: an injected fault, a
+        watchdog trip, a Python exception. A sticky CUDA error (an illegal
+        address) poisons the whole context; no reset recovers from it."""
+        self._set_health(Health.RESURRECTING)
+        _metrics.inc("serving.resurrections")
+        self._await_quiet()
+        with self._cv:
+            self._queue.clear()
+            self._slots.clear()
+            self._admitting = None
+        with _on_stream(self.device, self._stream):
+            self.cache.reset()
+            for t in self._static.values():
+                t.zero_()
+            if self.prefix_cache is not None:
+                # cached chains pointed into the pool just zeroed
+                self.prefix_cache = RadixPrefixCache(self.config.block_size)
+            if self.spec is not None:
+                self.spec.reset()
+        self._dead = None
+        self._kill = None
+        self._draining = False
+        self._stop = False
+        return self
 
     # ---- admission -------------------------------------------------------
     def _bucket_for(self, plen: int) -> int:
@@ -801,7 +1118,7 @@ class DecodeEngine:
     def _admit(self):
         while True:
             with self._cv:
-                if not self._queue:
+                if not self._queue or self._draining:
                     return
                 entry = self._queue[0]
                 req, handle = entry
@@ -823,6 +1140,9 @@ class DecodeEngine:
                 head_claimed = not self._queue or self._queue[0] is not entry
                 if not head_claimed:
                     self._queue.pop(0)
+                    # visible to drain()'s busy check while the entry is
+                    # neither queued nor slotted (the whole prefill)
+                    self._admitting = entry
                     _metrics.set_gauge("serving.queue_depth",
                                        len(self._queue))
             if head_claimed:
@@ -839,26 +1159,41 @@ class DecodeEngine:
                 else:
                     self._prefix_misses += 1
                     _metrics.inc("serving.prefix_cache.misses")
-            _metrics.observe(
-                "serving.queue_wait_ms",
-                (time.perf_counter() - handle.t_submit) * 1000.0)
+            if handle.failovers == 0:    # re-dispatches would skew it
+                _metrics.observe(
+                    "serving.queue_wait_ms",
+                    (time.perf_counter() - handle.t_submit) * 1000.0)
             try:
                 self._prefill_into(slot_idx, blocks, req, handle, plen,
                                    matched, cow_src)
             except Exception as e:  # noqa: BLE001 — isolate to the request
                 # a per-request admission failure fails THAT request, not
-                # the engine and everything in flight
+                # the engine and everything in flight. With a failover
+                # sink the victim is re-dispatched instead, charged to its
+                # failover budget (a request that always fails its
+                # prefill must not ping-pong between replicas forever)
                 if self.cache.blocks_of(slot_idx):
                     self.cache.release(slot_idx)
                 with self._cv:
                     self._slots.pop(slot_idx, None)
                 _metrics.inc("serving.prefill_failures")
-                handle._finish(RequestState.FAILED, "prefill failed",
-                               error=f"{e!r}\n{traceback.format_exc()}")
+                sink = self._failover
+                if sink is not None:
+                    sink(self, [(req, handle)], f"prefill failed: {e!r}",
+                         charge_unserved=True)
+                else:
+                    handle._finish(RequestState.FAILED, "prefill failed",
+                                   error=f"{e!r}\n{traceback.format_exc()}")
+            finally:
+                with self._cv:
+                    self._admitting = None
 
     def _prefill_into(self, slot_idx, blocks, req, handle, plen,
                       matched=0, cow_src=None):
+        fault_point("serving.prefill")
         handle._set_state(RequestState.PREFILL)
+        _trace.instant("serving.admit",
+                       args={"uid": req.uid, "slot": slot_idx})
         _metrics.inc("serving.prefills")
         try:
             if matched:
@@ -872,12 +1207,15 @@ class DecodeEngine:
                 # written; the radix cache keeps its own reference
                 self.cache.allocator.free([cow_src])
         # TTFT is measured at HOST materialization of the first token
-        tok = int(first)
+        with _trace.RecordEvent("fetch.materialize",
+                                args={"name": "serving.first_token"}):
+            tok = int(first)
         handle._append_tokens([tok])
         handle._set_state(RequestState.DECODE)
-        if not handle._ttft_observed:
+        if not handle._ttft_observed:   # a failover replay is not a TTFT
             handle._ttft_observed = True
             _metrics.observe("serving.ttft_ms", handle.ttft_ms())
+        _trace.instant("serving.first_token", args={"uid": req.uid})
         eos = -1 if req.eos_token is None else int(req.eos_token)
         if req.max_new_tokens == 1 or tok == eos:
             self._publish_prefix(slot_idx, req)
@@ -901,11 +1239,15 @@ class DecodeEngine:
     def _cold_prefill(self, req, plen, blocks):
         """Prefill every chunk of the prompt and write its positions into
         the slot's first blocks."""
-        k_seq, v_seq, first = self._prefill_fn(
-            req.prompt, plen, float(req.temperature), int(req.top_k),
-            int(req.seed))
-        self._write_fn(k_seq, v_seq,
-                       blocks[:-(-plen // self.config.block_size)], 0, plen)
+        with _trace.RecordEvent("serving.prefill",
+                                args={"uid": req.uid,
+                                      "chunk": self.prefill_chunk}):
+            k_seq, v_seq, first = self._prefill_fn(
+                req.prompt, plen, float(req.temperature), int(req.top_k),
+                int(req.seed))
+            self._write_fn(k_seq, v_seq,
+                           blocks[:-(-plen // self.config.block_size)], 0,
+                           plen)
         return first
 
     def _suffix_prefill(self, slot_idx, req, plen, matched, cow_src):
@@ -928,12 +1270,15 @@ class DecodeEngine:
             g = pool[:, idx].permute(0, 2, 1, 3, 4)   # [L, nh, n, bs, hd]
             return g.reshape(L, nh, len(chain) * bs, hd)[:, :, :matched]
 
-        k_seq, v_seq, first = self._prefill_fn(
-            req.prompt, plen, float(req.temperature), int(req.top_k),
-            int(req.seed), prefix_kv=(gather(self.cache.k_pool),
-                                      gather(self.cache.v_pool)),
-            matched=matched)
-        self._write_fn(k_seq, v_seq, row[nf:-(-plen // bs)], nf * bs, plen)
+        with _trace.RecordEvent("serving.suffix_prefill",
+                                args={"uid": req.uid, "matched": matched}):
+            k_seq, v_seq, first = self._prefill_fn(
+                req.prompt, plen, float(req.temperature), int(req.top_k),
+                int(req.seed), prefix_kv=(gather(self.cache.k_pool),
+                                          gather(self.cache.v_pool)),
+                matched=matched)
+            self._write_fn(k_seq, v_seq, row[nf:-(-plen // bs)], nf * bs,
+                           plen)
         return first
 
     def _publish_prefix(self, slot_idx: int, req: Request):
@@ -954,6 +1299,10 @@ class DecodeEngine:
         tpot = handle.tpot_ms()
         if tpot is not None:
             _metrics.observe("serving.tpot_ms", tpot)
+        if handle.flow_id is not None:
+            _trace.flow_end("serving.request", handle.flow_id,
+                            args={"uid": handle.request.uid,
+                                  "reason": reason})
 
     # ---- decode window ---------------------------------------------------
     def _slot_arrays(self, slots=None) -> Dict[str, np.ndarray]:
@@ -980,11 +1329,16 @@ class DecodeEngine:
 
     def _window_tokens(self, host: Dict[str, np.ndarray]):
         """One window over `host`'s inputs -> (tokens, active) [W, B] host
-        arrays: the window's one host sync."""
+        arrays, with no envelope: the draft arm's proposal (serving/spec.py)
+        runs inside the target's round."""
         toks, acts = self._call("window", self._window_eager, host)
         return toks.cpu().numpy(), acts.cpu().numpy()
 
     def _run_window(self):
+        # the chaos-drill kill site: an injected error here escalates
+        # through the service loop to _fail_all, the path a real window
+        # fault takes, before the flight step opens
+        fault_point("serving.window")
         self._windows += 1
         _metrics.inc("serving.windows")
         if self.spec is not None:
@@ -996,7 +1350,8 @@ class DecodeEngine:
                 self.cache.extend_mapped(idx, last // bs + 1)
         host = self._slot_arrays()
         t0 = time.perf_counter()
-        toks, acts = self._window_tokens(host)
+        toks, acts = self._watched("window", self._window_eager, host,
+                                   "serving.window", "serving.window_tokens")
         self._observe_window(t0)
         self._apply_window(toks, acts)
 
@@ -1058,7 +1413,11 @@ class DecodeEngine:
     def _run_verify(self, cand: np.ndarray, valid: np.ndarray):
         """One verify pass over `cand` [B, span] (valid [B, span]): the
         captured `_verify_eager` on a CUDA engine. Returns (vtok [B, span],
-        n_acc [B]) as host arrays; SpecDecoder.run_round applies them."""
+        n_acc [B]) as host arrays; SpecDecoder.run_round applies them. The
+        envelope is the window's: the same fault site (a kill lands at the
+        same boundary whether speculation is armed or not), flight step,
+        watchdog and EWMA clock."""
+        fault_point("serving.window")
         self._windows += 1
         _metrics.inc("serving.windows")
         host = self._slot_arrays()
@@ -1067,8 +1426,9 @@ class DecodeEngine:
         host["cand"] = cand.astype(np.int64)
         host["valid"] = valid.astype(bool)
         t0 = time.perf_counter()
-        vtok, n_acc = self._call("verify", self._verify_eager, host)
-        vtok, n_acc = vtok.cpu().numpy(), n_acc.cpu().numpy()
+        vtok, n_acc = self._watched("verify", self._verify_eager, host,
+                                    "serving.spec_verify",
+                                    "serving.verify_tokens")
         self._observe_window(t0)
         return vtok, n_acc
 

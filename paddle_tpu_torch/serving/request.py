@@ -35,8 +35,8 @@ class ShedError(ServingError):
     could not serve it within its capacity/deadline contract and rejected
     it typed-and-early rather than queueing it to time out. `.reason` is
     the taxonomy key (queue_full | deadline_unmeetable | unfundable |
-    engine_dead); the same key lands in the `serving.shed.<reason>`
-    counter."""
+    draining | engine_dead | admit_fault); the same key lands in the
+    `serving.shed.<reason>` counter."""
 
     def __init__(self, msg, completion=None, reason: str = ""):
         super().__init__(msg, completion=completion)
@@ -44,9 +44,12 @@ class ShedError(ServingError):
 
 
 class RequestFailedError(ServingError):
-    """The request FAILED terminally — its engine died or was stopped
-    under it. Distinct from ShedError: shed requests were never served;
-    failed requests may have streamed tokens first."""
+    """The request FAILED terminally — its engine died and it either
+    exhausted the per-request failover budget
+    (FLAGS_serving_failover_budget re-dispatches) or no healthy replica
+    remained to take it (a standalone engine fails it at once). Distinct
+    from ShedError: shed requests were never served; failed requests may
+    have streamed tokens first."""
 
 
 class RequestState:

@@ -35,10 +35,14 @@ dropped), so the draft cache has no holes; after a rejection the
 target's correction overwrites the draft's stale positions before any
 read reaches them.
 
-A draft failure (a prefill or propose error, `kill_draft`) degrades the
-engine to plain decode at the next round boundary with zero failed
-requests. The frontend health loop that re-arms a dead draft and the
-fault sites are not ported; `resurrect_draft` + `rearm` are.
+A draft failure (a prefill or propose error, a `serving.spec.draft`
+fault-site injection, `kill_draft`) degrades the engine to plain decode at
+the next round boundary with zero failed requests. The ServingFrontend's
+health loop walks the draft through live -> suspect -> dead ->
+resurrecting like an engine and re-arms speculation only after the
+target's canary passes with speculation armed (a valid gate because
+spec-on tokens equal spec-off tokens). Replicas share one draft weight
+copy (`draft_prepared`).
 """
 from __future__ import annotations
 
@@ -50,7 +54,10 @@ import numpy as np
 from ..flags import flag
 from ..models.gpt import GPTConfig
 from ..models.gpt_decode import fold_seed
+from ..framework.executor import _on_stream
 from ..observability import metrics as _metrics
+from ..observability import trace as _trace
+from ..resilience.faults import fault_point
 from .resilience import Health
 
 
@@ -106,10 +113,12 @@ class SpecDecoder:
     `kill_draft`, which posts a flag honored at the next round."""
 
     def __init__(self, engine, config: SpecConfig,
-                 raw_params: Optional[Dict] = None):
+                 raw_params: Optional[Dict] = None,
+                 _draft_prepared: Optional[tuple] = None):
         self.engine = engine
         self.config = config
         self.health = Health.LIVE
+        self.health_history: List[str] = [Health.LIVE]
         self._kill: Optional[str] = None
         self._dead_reason: Optional[str] = None
         self._rounds = 0
@@ -123,17 +132,20 @@ class SpecDecoder:
                 f"draft vocab {mc.vocab_size} != target vocab "
                 f"{engine.model_config.vocab_size}: draft proposals are "
                 "candidate target tokens")
-        if config.draft_params is None and raw_params is None:
+        if (config.draft_params is None and raw_params is None
+                and _draft_prepared is None):
             raise ValueError("no draft weights: the default same-checkpoint "
-                             "draft needs the raw params")
-        self.draft = self._build_draft(mc, raw_params)
+                             "draft needs the raw params (or a prepared "
+                             "clone source)")
+        self.draft = self._build_draft(mc, raw_params, _draft_prepared)
         _metrics.set_gauge("serving.spec.armed", 1)
 
-    def _build_draft(self, mc: GPTConfig, raw_params):
+    def _build_draft(self, mc: GPTConfig, raw_params, _draft_prepared):
         """The draft arm: an unstarted DecodeEngine with the target's
         geometry (mirror slots map 1:1), window = gamma, no prefix cache,
         float KV pools, no spec of its own. run_round drives its prefill
-        and captured window directly."""
+        and captured window directly, on the target's service thread and
+        stream."""
         from .engine import DecodeEngine, EngineConfig
         t = self.engine.config
         dcfg = EngineConfig(
@@ -141,11 +153,20 @@ class SpecDecoder:
             num_blocks=t.num_blocks, max_len=t.max_len,
             window=self.config.tokens, dtype=self.config.draft_dtype,
             max_queue=t.max_queue, kv_dtype="", prefix_cache=False,
-            spec=None)
+            spec=None, requested_max_len=t.requested_max_len)
         params = (self.config.draft_params
                   if self.config.draft_params is not None else raw_params)
         return DecodeEngine(params, mc, config=dcfg,
-                            device=self.engine.device)
+                            device=self.engine.device,
+                            _prepared=_draft_prepared)
+
+    @property
+    def draft_prepared(self) -> tuple:
+        """The draft's prepared weight tensors, for frontend._clone_engine:
+        replicas adopt one draft weight copy as they adopt one target
+        copy."""
+        return (self.draft.params, self.draft.scales,
+                self.draft.compute_dtype)
 
     @property
     def armed(self) -> bool:
@@ -157,14 +178,29 @@ class SpecDecoder:
     # ------------------------------------------------------------------
     # health
     # ------------------------------------------------------------------
+    def _set_health(self, state: str):
+        if state != self.health:
+            self.health = state
+            self.health_history.append(state)
+            del self.health_history[:-64]
+            _trace.instant("serving.spec.health",
+                           args={"engine": self.engine._id,
+                                 "state": state})
+
     def _degrade(self, why: str):
-        """Draft failure -> plain decode (DEAD: no frontend re-arms it).
-        Mirror slots are dropped; `resurrect_draft` rebuilds the pool."""
+        """Draft failure -> plain decode. SUSPECT when a frontend watches
+        (its health tick confirms DEAD and later resurrects); straight to
+        DEAD standalone. Mirror slots are dropped (host bookkeeping only);
+        `resurrect_draft` resets the pool."""
         self._dead_reason = why
         self._degraded += 1
         _metrics.inc("serving.spec.degraded")
         _metrics.set_gauge("serving.spec.armed", 0)
-        self.health = Health.DEAD
+        _trace.instant("serving.spec.degraded",
+                       args={"engine": self.engine._id, "why": why})
+        self._set_health(Health.SUSPECT
+                         if self.engine._failover is not None
+                         else Health.DEAD)
         try:
             self.release_all()
         except Exception:   # noqa: BLE001 — a torn draft allocator must
@@ -177,23 +213,36 @@ class SpecDecoder:
         self._kill = why
 
     def resurrect_draft(self):
-        """Rebuild the draft arm's pool and clear the kill; `rearm` then
-        makes speculation live again."""
-        self.health = Health.RESURRECTING
+        """Reset the draft arm's pool in place and clear the kill; `rearm`
+        then makes speculation live again. As for the target engine
+        (DecodeEngine.resurrect), the pools and static buffers are zeroed
+        at their addresses on the target's stream, and the draft's
+        captured graph is kept: nothing is captured while the target
+        serves."""
+        self._set_health(Health.RESURRECTING)
         _metrics.inc("serving.spec.resurrections")
-        d = self.draft
+        d, eng = self.draft, self.engine
         d._slots.clear()
-        d.cache.close()
-        d.cache = d._build_cache()
-        d._graphs.clear()        # the graphs hold the old pools' addresses
+        with _on_stream(eng.device, eng._stream):
+            d.cache.reset()
+            for t in d._static.values():
+                t.zero_()
         self._kill = None
         self._dead_reason = None
 
     def rearm(self):
-        """LIVE again (after `resurrect_draft`). Slots admitted while the
-        draft was dead have no mirror and verify with no proposals."""
-        self.health = Health.LIVE
+        """LIVE again (after `resurrect_draft`; also the provisional arm
+        that lets the frontend's canary decode through speculation). Slots
+        admitted while the draft was dead have no mirror and verify with
+        no proposals."""
+        self._set_health(Health.LIVE)
         _metrics.set_gauge("serving.spec.armed", 1)
+
+    def reset(self):
+        """engine.resurrect(): reset the draft with the target and re-arm;
+        the frontend's canary then checks the whole spec-on path."""
+        self.resurrect_draft()
+        self.rearm()
 
     def close(self):
         self.draft.cache.close()
@@ -239,6 +288,7 @@ class SpecDecoder:
         the usable proposals per slot. A mirror lagging one position
         (pending set) spends its first sample on the lag-one check; a
         mismatch there yields no proposals this round."""
+        fault_point("serving.spec.draft")
         eng, d = self.engine, self.draft
         gamma = self.config.tokens
         host = d._slot_arrays(slots={})     # the draft's page table
@@ -260,7 +310,10 @@ class SpecDecoder:
             covered.append(i)
         if not covered:
             return {}
-        toks, _ = d._window_tokens(host)
+        with _trace.RecordEvent("serving.spec_draft",
+                                args={"engine": eng._id,
+                                      "active": len(covered)}):
+            toks, _ = d._window_tokens(host)
         props: Dict[int, List[int]] = {}
         for i in covered:
             chain = [int(toks[s, i]) for s in range(gamma)]
