@@ -44,16 +44,21 @@ result line):
      acceptance, tokens/s, B4 launched in the draft and verify graphs;
    * int8 weights (from the f32 checkpoint, bf16 compute): 8 requests;
    * bf16 with int8 KV pools: 2 requests complete;
-   * the fault-tolerant tier: two bf16 replicas over one weight copy
-     (shared data_ptr gated) behind a ServingFrontend, each replaying its
-     own captured window: the 8 requests undisturbed; again with
+   * the fault-tolerant tier: first, as a control, one bf16 replica
+     behind its own ServingFrontend on the 8 requests; then two bf16
+     replicas over one weight copy (shared data_ptr gated) behind a
+     ServingFrontend, each replaying its own captured window: the 8
+     requests undisturbed (both setups timed with their window replays
+     and service threads' CPU seconds, then profiled once for the card's
+     kernel time); again with
      `serving.window:error:at=3` killing a replica mid-stream (every
      request completes with the single-engine tokens through failover,
      and the dead replica comes back LIVE through the canary, bounded
      wait); a batch across both replicas, each counting B4 launches from
      replays and no eager call; the window watchdog at 2 ms, below one
      window's replay (every request fails typed with no hang, the flight
-     dumps hold `sla_trip` steps, and after the flag is reset both
+     dumps hold `sla_trip` steps, one trip or more with the window in
+     flight, and after the flag is reset both
      replicas resurrect and serve the single-engine tokens); a drain of
      32 requests (the finished ones equal the single-engine tokens, the
      unstarted ones come back);
@@ -1639,14 +1644,18 @@ def serve_resilient(torch, serving, kernel_mod, metrics, engine_kw,
     captured window. Arms, each gated against the single-engine captured
     run's tokens (`oracle`):
 
-    * undisturbed: the 8 requests, timed;
+    * control: one replica behind its own ServingFrontend, the 8
+      requests, timed and profiled as the undisturbed arm is;
+    * undisturbed: the 8 requests, timed; again with the window replays
+      and the service threads' CPU seconds; once more under the profiler;
     * kill: the same requests under `serving.window:error:at=3`; every
       request completes with the oracle's tokens (failover replay), then
       the dead replica comes back LIVE through the canary (bounded wait);
       a second batch across both replicas, each serving by replays;
     * watchdog: FLAGS_step_deadline_ms at 2 ms, below one window's replay:
       every request fails typed (DeadlineExceeded) with no hang, the
-      flight dumps hold `sla_trip` steps; after the flag is reset both
+      flight dumps hold `sla_trip` steps and at least one trip's worker
+      stack is inside the replay or its `.cpu()`; after the flag is reset both
       replicas resurrect and a batch equals the oracle;
     * drain: 32 requests, then drain(): the in-flight ones equal the
       oracle, the unstarted ones come back.
@@ -1666,10 +1675,10 @@ def serve_resilient(torch, serving, kernel_mod, metrics, engine_kw,
     def want(uid):
         return oracle[int(uid.rsplit("-", 1)[1]) % 8]
 
-    def batch(tag):
+    def batch(tag, front=None):
         rs = reqs(tag)
         t0 = time.perf_counter()
-        comps = fe.generate(rs, timeout=600)
+        comps = (front or fe).generate(rs, timeout=600)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         bad = [(c.uid, c.state, c.finish_reason) for c in comps
@@ -1679,9 +1688,50 @@ def serve_resilient(torch, serving, kernel_mod, metrics, engine_kw,
                  f"single-engine run: {bad}")
         return sum(len(c.tokens) for c in comps) / wall
 
+    def where_time_goes(front, tag):
+        """A timed batch on `front`: tokens/s, window replays, and each
+        service thread's CPU seconds (a blocked `.cpu()` may spin, so CPU
+        time bounds host work from above); then one more batch under
+        torch.profiler: the card's kernel time summed over every stream."""
+        engs = front.engines
+        before = [e.stats()["graph_replays"] for e in engs]
+        clocks = [time.pthread_getcpuclockid(e._thread.ident)
+                  for e in engs]
+        cpu0 = [time.clock_gettime(c) for c in clocks]
+        t0 = time.perf_counter()
+        row = {"tokens_per_s": batch(tag, front)}
+        row["wall_s"] = time.perf_counter() - t0
+        row["service_thread_cpu_s"] = [
+            time.clock_gettime(c) - c0 for c, c0 in zip(clocks, cpu0)]
+        row["window_replays"] = sum(e.stats()["graph_replays"] - b
+                                    for e, b in zip(engs, before))
+        t = {}
+
+        def run():
+            t0 = time.perf_counter()
+            t["tokens_per_s"] = batch(tag + "-profiled", front)
+            return time.perf_counter() - t0
+        prof = device_profile(torch, run, top=0)
+        row["profiled"] = {k: prof.get(k) for k in (
+            "wall_s", "device_busy_s", "device_busy_share",
+            "device_launches")}
+        row["profiled"]["tokens_per_s"] = t["tokens_per_s"]
+        return row
+
     out = {"config": "GPT-2 small, bf16, 2 replicas of the serving "
                      "phase's bf16 engine, 8 requests a batch",
            "card": card}
+    # the control: one replica behind its own ServingFrontend, the same
+    # requests, in the same run
+    fe = serving.ServingFrontend(serving.replicated_engines(1, **engine_kw))
+    try:
+        batch("control-warm")
+        out["one_replica"] = where_time_goes(fe, "control")
+    finally:
+        fe.stop()
+    del fe
+    log(f"resilience, one replica behind ServingFrontend: "
+        f"{out['one_replica']}")
     engines = serving.replicated_engines(2, **engine_kw)
     a, b = engines
     unshared = [n for n, t in a.params.items()
@@ -1701,6 +1751,8 @@ def serve_resilient(torch, serving, kernel_mod, metrics, engine_kw,
         snap = metrics.snapshot()
         out["undisturbed"] = {k: snap[f"serving.{k}"]["p50"]
                               for k in ("window_ms", "ttft_ms", "tpot_ms")}
+        out["two_replicas"] = where_time_goes(fe, "split")
+        log(f"resilience, two replicas: {out['two_replicas']}")
 
         # ---- kill a replica mid-stream -----------------------------------
         metrics.reset()
@@ -1791,9 +1843,9 @@ def serve_resilient(torch, serving, kernel_mod, metrics, engine_kw,
                            "flight_dumps": len(os.listdir(dump_dir)),
                            "sla_trip_steps_in_dumps": trip_steps,
                            "dumps_with_the_window_in_flight": in_flight}
-        if not trip_steps:
-            fail(f"watchdog arm: no sla_trip step in the flight dumps "
-                 f"{out['watchdog']}")
+        if not trip_steps or not in_flight:
+            fail(f"watchdog arm: no sla_trip step in the flight dumps, or "
+                 f"no trip caught the window in flight {out['watchdog']}")
         if not _wait(lambda: all(e.health == serving.Health.LIVE
                                  and e._dead is None for e in engines), 60):
             fail(f"watchdog arm: replicas did not come back "

@@ -79,11 +79,6 @@ _DEFS: Dict[str, tuple] = {
                              "'serving.window:error:at=2'"),
     "FLAGS_fault_seed": (0, "seed for probabilistic (p=) fault rules and "
                             "retry jitter"),
-    "FLAGS_retry_max_attempts": (4, "RetryPolicy default attempt budget"),
-    "FLAGS_retry_base_delay_ms": (20.0, "RetryPolicy first-backoff delay"),
-    "FLAGS_retry_max_delay_ms": (2000.0, "RetryPolicy backoff ceiling"),
-    "FLAGS_rpc_deadline_ms": (10000.0, "RetryPolicy default wall-clock "
-                                       "deadline"),
     "FLAGS_zero_stage": (0, "ZeRO sharding stage applied at fleet minimize "
                             "time (parallel/zero.py): 1 moves each gradient "
                             "bucket's optimizer state into flat vars updated "

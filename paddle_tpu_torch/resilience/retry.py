@@ -25,9 +25,12 @@ DEFAULT_RETRYABLE: Tuple[type, ...] = (OSError, ConnectionError,
                                        UnavailableError)
 
 
-def _flag_default(name: str, scale: float = 1.0):
-    from ..flags import flag
-    return flag(name) * scale
+# The reference's defaults (its FLAGS_retry_* and FLAGS_rpc_deadline_ms):
+# the port's one caller, ServingFrontend, passes its own.
+DEFAULT_MAX_ATTEMPTS = 4
+DEFAULT_BASE_DELAY_S = 0.02
+DEFAULT_MAX_DELAY_S = 2.0
+DEFAULT_DEADLINE_S = 10.0
 
 
 class RetryPolicy:
@@ -49,17 +52,18 @@ class RetryPolicy:
                  retry_on: Tuple[type, ...] = None,
                  seed: Optional[int] = None,
                  sleep: Callable[[float], None] = time.sleep):
-        # -1 sentinels -> flag defaults (None stays None = unbounded)
+        # -1 sentinels -> defaults (None stays None = unbounded)
         if max_attempts == -1:
-            max_attempts = int(_flag_default("FLAGS_retry_max_attempts"))
+            max_attempts = DEFAULT_MAX_ATTEMPTS
         if seed is None:   # the flag's help text promises it seeds jitter
-            seed = int(_flag_default("FLAGS_fault_seed"))
+            from ..flags import flag
+            seed = int(flag("FLAGS_fault_seed"))
         if base_delay_s is None:
-            base_delay_s = _flag_default("FLAGS_retry_base_delay_ms", 1e-3)
+            base_delay_s = DEFAULT_BASE_DELAY_S
         if max_delay_s is None:
-            max_delay_s = _flag_default("FLAGS_retry_max_delay_ms", 1e-3)
+            max_delay_s = DEFAULT_MAX_DELAY_S
         if deadline_s == -1.0:
-            deadline_s = _flag_default("FLAGS_rpc_deadline_ms", 1e-3)
+            deadline_s = DEFAULT_DEADLINE_S
         self.max_attempts = max_attempts
         self.base_delay_s = float(base_delay_s)
         self.max_delay_s = float(max_delay_s)

@@ -329,6 +329,10 @@ class DecodeEngine:
             from .spec import SpecDecoder
             self.spec = SpecDecoder(self, cfg.spec, raw_params=params,
                                     _draft_prepared=_draft_prepared)
+        if self._stream is not None:
+            # the weights (a clone's too) and the zeroed pools were made on
+            # the caller's stream; order the engine's stream after them
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
 
     def _kv_scale(self) -> Optional[float]:
         """Static int8-KV dequant scale, None for float pools."""

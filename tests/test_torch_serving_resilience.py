@@ -727,6 +727,7 @@ def test_lowering_registry_loads_once_across_threads(monkeypatch):
     modules waits for the load instead of finding the op missing."""
     import importlib
     from paddle_tpu_torch.ops import registry
+    registry._load_lowerings()   # the real modules, whatever ran first
     name = "dequantize_abs_max"
     saved = registry._REGISTRY[name]
     entered = threading.Event()
