@@ -103,13 +103,38 @@ result line):
      step ms p50, tokens/s, MFU, peak memory, replays and eager steps,
      launches per step, one window of each under torch.profiler; then the
      trained weights (params_from_scope) serve 2 greedy requests equal to
-     the dense generate.
+     the dense generate;
+8. GPT-2 small training that survives a restart: GPTConfig() at S 512,
+   batch 32, fleet AMP bf16, ZeRO stage 1, AdamW +
+   GradientClipByGlobalNorm(1.0), dropout 0.1, the LR
+   linear_lr_warmup(cosine_decay(...)) built in the program:
+   * the schedule under capture: run_steps(3) == 3 Executor.run calls bit
+     for bit (losses, the fetched LR, every persistable, the LR counter),
+     the LR within 1 f32 ulp of the host formula and rising then falling,
+     B8 one launch per bucket and step inside the graph; a host
+     LinearWarmup scheduler stepped between three run_steps(3) calls with
+     one capture in all; SGD and Momentum at stage 1 under the schedule (2
+     layers, batch 4): captured == eager, B6 / B7 in the graph;
+   * resume: 6 captured steps straight against 3, CheckpointManager.save,
+     the executor, scope and graph pool dropped, restore_latest into a
+     rebuilt program, fresh executor and scope, 3 more: bit for bit
+     (losses, every persistable, the run-seed counter), dropout on; the
+     checkpoint's bytes, save / validate / restore ms by span, each arm's
+     peak memory;
+   * rollback: snapshots every 2 steps, NaN written into a row of `wte`
+     before step 5, TrainingGuard rolls back and skips the batch: the
+     losses after it and the final fingerprint == a run that never saw it;
+   * the snapshot's cost: run_steps(10) windows of the schedule with
+     FLAGS_snapshot_steps 10 and 0 and of a constant LR, in ABBA order on
+     one executor: step ms p50 of each, the copy to pinned memory (device
+     ms), the worker's and the calling thread's ms, the skips.
 Each main-path run resets the kernel launch counts just before it and
 fails if a kernel of its path was never launched.
 
 Output: a `{"kernels": [...]}` line, a `{"serving": ...}` line, a
 `{"resilience": ...}` line, a `{"training": ...}` line, a
-`{"gpt_training": ...}` line, and last `{"ok": true, "device": {...}}`.
+`{"gpt_training": ...}` line, a `{"training_state": ...}` line, and last
+`{"ok": true, "device": {...}}`.
 The flash rows' `launches` are the GPT path's (the captured arm's 30
 timed steps); `launches_by_path` keeps the BERT path's beside them.
 """
@@ -1916,6 +1941,561 @@ def train_gpt(torch, fa, zk, registry, gpt_decode, serving, card):
     return out, arms["captured"]["launches"]
 
 
+# ---------------------------------------------------------------------------
+# GPT-2 small training that survives a restart
+# ---------------------------------------------------------------------------
+
+# the phase's LR: linear_lr_warmup(cosine_decay(PEAK, 1, EPOCHS), WARMUP,
+# START, PEAK): a step at START, then the cosine from its top, so the first
+# three steps see the LR rise and then fall
+LR_START, LR_PEAK, LR_WARMUP, LR_EPOCHS = 1e-5, 1e-4, 1, 8
+STATE_WINDOW = 10           # run_steps(k) of the snapshot-cost windows
+
+
+def build_gpt_state(cfg, stage=1, lr="schedule", opt="adamw"):
+    """(main, startup, loss, lr var) of GPT LM training as a long run
+    trains it: build_lm_program, fleet AMP bf16 at ZeRO `stage`, AdamW
+    (weight decay 0.01) with GradientClipByGlobalNorm(1.0), the LR a static
+    schedule built in the program (`lr="schedule"`), a host LRScheduler or
+    a float; `opt` "sgd" / "momentum" for the B6/B7 arm."""
+    from paddle_tpu_torch import clip, layers, optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework import Program, program_guard, unique_name
+    from paddle_tpu_torch.models import gpt
+    main, start = Program(), Program()
+    with program_guard(main, start), unique_name.guard():
+        _, loss = gpt.build_lm_program(cfg)
+        if lr == "schedule":
+            lr = layers.linear_lr_warmup(
+                layers.cosine_decay(LR_PEAK, 1, LR_EPOCHS), LR_WARMUP,
+                LR_START, LR_PEAK)
+        if opt == "sgd":
+            o = optimizer.SGD(learning_rate=lr)
+        elif opt == "momentum":
+            o = optimizer.Momentum(learning_rate=lr, momentum=0.9)
+        else:
+            o = optimizer.AdamW(
+                learning_rate=lr, weight_decay=0.01,
+                grad_clip=clip.GradientClipByGlobalNorm(1.0))
+        fleet.init(is_collective=True)
+        strategy = fleet.DistributedStrategy()
+        strategy.amp = True
+        strategy.sharding_stage = stage
+        fleet.distributed_optimizer(o, strategy).minimize(loss)
+    return main, start, loss, o.learning_rate_var
+
+
+def host_lr_f32(step):
+    """The schedule at counter `step` by the program's own f32 operations
+    in numpy (the card's cosf may differ from numpy's by an ulp)."""
+    f = np.float32
+    s = f(step)
+    if s < f(LR_WARMUP):
+        return f(f(LR_START) + f(f(s * f(LR_PEAK - LR_START))
+                                 / f(LR_WARMUP)))
+    epoch = np.floor(f(s / f(1.0)))
+    cosv = np.cos(f(epoch * f(np.pi / LR_EPOCHS)), dtype=np.float32)
+    return f(f(cosv + f(1.0)) * f(0.5 * LR_PEAK))
+
+
+def ulps(a, b):
+    a, b = np.float32(a), np.float32(b)
+    return abs(int(a.view(np.int32)) - int(b.view(np.int32)))
+
+
+def persistable_diffs(torch, main, sa, sb):
+    names = sorted(v.name for v in main.global_block().vars.values()
+                   if v.persistable and isinstance(sa.find(v.name),
+                                                   torch.Tensor))
+    diffs = {}
+    for n in names:
+        a, b = sa.find(n), sb.find(n)
+        if b is None or not torch.equal(a, b):
+            diffs[n] = "missing" if b is None else \
+                (a.float() - b.float()).abs().max().item()
+    return names, diffs
+
+
+def release(torch):
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def schedule_capture_gate(torch, fa, zk, cfg, steps=3):
+    """run_steps(steps) under the static schedule == `steps` Executor.run
+    calls, bit for bit (losses, the fetched LR, every persistable and the
+    LR counter); the fetched LR within 1 f32 ulp of the host formula; B8
+    one launch per bucket and step inside the graph, B1-B3 12 a step."""
+    from paddle_tpu_torch.framework import Executor, Scope
+    from paddle_tpu_torch.parallel.zero import zero_buckets
+    main, start, loss, lr_var = build_gpt_state(cfg)
+    sa = Scope()
+    Executor("cuda").run(start, scope=sa)
+    sb = scope_copy(torch, sa)
+    toks = gpt_tokens(cfg, GPT_BATCH, steps, seed=21)
+    eager = Executor("cuda")
+    e = [eager.run(main, feed={"tokens": toks[b]},
+                   fetch_list=[loss, lr_var], scope=sa) for b in range(steps)]
+    el = [float(x[0]) for x in e]
+    elr = [float(np.asarray(x[1]).ravel()[0]) for x in e]
+    cap = Executor("cuda")
+    fa.reset_launches()
+    zk.reset_launches()
+    t0 = time.perf_counter()
+    cl, clr = cap.run_steps(steps, main, feed={"tokens": toks},
+                            fetch_list=[loss, lr_var], scope=sb)
+    cap_s = time.perf_counter() - t0
+    launches = dict(fa.launches, **zk.launches)
+    cl = [float(x) for x in cl]
+    clr = [float(np.asarray(x).ravel()[0]) for x in clr]
+    names, diffs = persistable_diffs(torch, main, sa, sb)
+    counter = [n for n in names if n.startswith("@LR_DECAY_COUNTER@")]
+    host = [float(host_lr_f32(b)) for b in range(steps)]
+    lr_ulps = [ulps(a, b) for a, b in zip(clr, host)]
+    n_buckets = len(zero_buckets(main))
+    steps_run = steps + cap.stats["warmup_steps"]
+    log(f"schedule capture gate: eager {el}, captured {cl} ({cap_s:.1f} s "
+        f"incl. warm-up and capture); LR eager {elr} captured {clr} host "
+        f"{host} ({lr_ulps} ulps); {len(names)} persistables, {len(diffs)} "
+        f"differ {dict(list(diffs.items())[:5])}; stats {cap.stats}; "
+        f"launches {launches}")
+    if diffs or cl != el or clr != elr:
+        fail(f"schedule capture gate: captured != eager: losses {cl} vs "
+             f"{el}, LR {clr} vs {elr}, persistables differing {diffs}")
+    if not counter or sb.numpy(counter[0]).tolist() != [float(steps - 1)]:
+        fail(f"schedule capture gate: LR counter {counter}")
+    if max(lr_ulps) > 1:
+        fail(f"schedule capture gate: LR {clr} vs host {host}")
+    if not (clr[1] > clr[0] and clr[2] < clr[1]):
+        fail(f"schedule capture gate: the LR does not rise then fall: {clr}")
+    if cap.stats["eager_steps"] or cap.stats["captures"] != 1 \
+            or cap.stats["graph_replays"] != steps:
+        fail(f"schedule capture gate: executor stats {cap.stats}")
+    for name in fa.KERNEL_NAMES:
+        if launches[name] != steps_run * cfg.num_layers:
+            fail(f"schedule capture gate: {name} launched {launches[name]} "
+                 f"times in {steps_run} steps")
+    if not n_buckets or launches["zero_adam"] != steps_run * n_buckets:
+        fail(f"schedule capture gate: {launches['zero_adam']} B8 launches "
+             f"for {n_buckets} buckets in {steps_run} steps")
+    row = {"steps": steps, "losses_eager": el, "losses_captured": cl,
+           "lr_eager": elr, "lr_captured": clr, "lr_host_f32": host,
+           "lr_ulps": lr_ulps, "bit_identical": True,
+           "persistables_compared": len(names), "zero_buckets": n_buckets,
+           "b8_launches_per_step": launches["zero_adam"] / steps_run,
+           "executor_stats": dict(cap.stats),
+           "launches_incl_warmup": launches}
+    del main, start, sa, sb, eager, cap
+    release(torch)
+    return row
+
+
+def host_scheduler_gate(torch, cfg, calls=3, k=3):
+    """A host LinearWarmup(CosineAnnealingDecay) bound to AdamW, stepped
+    between `calls` run_steps(k) calls on one executor and scope: one
+    capture in all, each call's k steps at the scheduler's LR (f32)."""
+    from paddle_tpu_torch import lr as lr_mod
+    from paddle_tpu_torch.framework import Executor, Scope
+    sched = lr_mod.LinearWarmup(
+        lr_mod.CosineAnnealingDecay(LR_PEAK, T_max=LR_EPOCHS), LR_WARMUP,
+        LR_START, LR_PEAK)
+    main, start, loss, lr_var = build_gpt_state(cfg, lr=sched)
+    scope = Scope()
+    Executor("cuda").run(start, scope=scope)
+    exe = Executor("cuda")
+    toks = gpt_tokens(cfg, GPT_BATCH, k, seed=22)
+    lrs, losses, want = [], [], []
+    bound = None
+    for call in range(calls):
+        if call:
+            sched.step()
+        out, lr = exe.run_steps(k, main, feed={"tokens": toks},
+                                fetch_list=[loss, lr_var], scope=scope)
+        losses += [float(x) for x in out]
+        lrs.append([float(np.asarray(x).ravel()[0]) for x in lr])
+        want.append(float(np.float32(sched())))
+        if bound is None:
+            bound = scope.find(lr_var.name)
+    log(f"host scheduler gate: LR per call {lrs} (scheduler {want}); "
+        f"losses {losses}; stats {exe.stats}")
+    if exe.stats["captures"] != 1 or exe.stats["eager_steps"] \
+            or exe.stats["graph_replays"] != calls * k:
+        fail(f"host scheduler gate: executor stats {exe.stats}")
+    if lrs != [[w] * k for w in want] or len(set(want)) != calls:
+        fail(f"host scheduler gate: LR {lrs} vs scheduler {want}")
+    if scope.find(lr_var.name) is not bound:
+        fail("host scheduler gate: the LR tensor was rebound")
+    if not all(np.isfinite(losses)):
+        fail(f"host scheduler gate: losses {losses}")
+    row = {"calls": calls, "k": k, "lr_per_call": lrs,
+           "scheduler_lr": want, "captures": exe.stats["captures"],
+           "graph_replays": exe.stats["graph_replays"], "losses": losses}
+    del main, start, scope, exe
+    release(torch)
+    return row
+
+
+def schedule_sgd_momentum_gate(torch, zk, steps=3):
+    """SGD and Momentum at stage 1 under the static schedule (GPT-2 small
+    widths at 2 layers, S 512, batch 4, fleet AMP): captured == eager bit
+    for bit, B6 / B7 one launch per bucket and step inside the graph."""
+    from paddle_tpu_torch.framework import Executor, Scope
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel.zero import zero_buckets
+    cfg = gpt.GPTConfig(num_layers=2, seq_len=GPT_SEQ)
+    rows, launches_by_kernel = {}, {}
+    for opt, kernel in (("sgd", "zero_sgd"), ("momentum", "zero_momentum")):
+        main, start, loss, lr_var = build_gpt_state(cfg, opt=opt)
+        sa = Scope()
+        Executor("cuda").run(start, scope=sa)
+        sb = scope_copy(torch, sa)
+        toks = gpt_tokens(cfg, 4, steps, seed=23)
+        eager = Executor("cuda")
+        el = [float(eager.run(main, feed={"tokens": toks[b]},
+                              fetch_list=[loss], scope=sa)[0])
+              for b in range(steps)]
+        cap = Executor("cuda")
+        zk.reset_launches()
+        cl, = cap.run_steps(steps, main, feed={"tokens": toks},
+                            fetch_list=[loss], scope=sb)
+        cl = [float(x) for x in cl]
+        n = zk.launches[kernel]
+        names, diffs = persistable_diffs(torch, main, sa, sb)
+        n_buckets = len(zero_buckets(main))
+        steps_run = steps + cap.stats["warmup_steps"]
+        log(f"schedule {opt} stage 1: eager {el}, captured {cl}; "
+            f"{len(diffs)} of {len(names)} persistables differ; {kernel} "
+            f"launches {n} for {n_buckets} buckets")
+        if diffs or cl != el:
+            fail(f"schedule {opt} stage 1: captured != eager: {cl} vs {el}, "
+                 f"{diffs}")
+        if not n_buckets or n != steps_run * n_buckets:
+            fail(f"schedule {opt} stage 1: {kernel} launched {n} times for "
+                 f"{n_buckets} buckets in {steps_run} steps")
+        rows[opt] = {"losses": cl, "bit_identical": True,
+                     "zero_buckets": n_buckets, "launches_incl_warmup": n}
+        launches_by_kernel[kernel] = n
+        del main, start, sa, sb, eager, cap
+        release(torch)
+    return rows, launches_by_kernel
+
+
+def span_ms(trace, since_us):
+    """{span name: ms} of the `ckpt.*` spans recorded since `since_us`."""
+    out = {}
+    for e in trace.events(since_us):
+        if e.get("ph") == "X" and e["name"].startswith("ckpt."):
+            out[e["name"]] = out.get(e["name"], 0.0) + e["dur"] / 1e3
+    return out
+
+
+def resume_gate(torch, cfg, workdir, steps=3):
+    """Arm A: 2 x run_steps(steps) straight through. Arm B: run_steps(steps),
+    CheckpointManager.save, the executor, scope and graph pool dropped, a
+    rebuilt program restored into a fresh executor and scope
+    (restore_latest), run_steps(steps). Arm B's losses and final
+    persistables (and run-seed counter) == arm A's, bit for bit, dropout
+    on. Bytes, save / validate / restore times and each arm's peak memory
+    are kept."""
+    from paddle_tpu_torch.framework import Executor, Scope
+    from paddle_tpu_torch.observability import trace as _trace
+    from paddle_tpu_torch.resilience import (CheckpointManager,
+                                             validate_manifest)
+    toks = gpt_tokens(cfg, GPT_BATCH, 2 * steps, seed=31)
+    peak = {}
+    # ---- arm A
+    torch.cuda.reset_peak_memory_stats()
+    main, start, loss, _ = build_gpt_state(cfg)
+    sa = Scope()
+    Executor("cuda").run(start, scope=sa)
+    exe = Executor("cuda")
+    la = []
+    for w in range(2):
+        out, = exe.run_steps(steps, main,
+                             feed={"tokens": toks[w * steps:(w + 1) * steps]},
+                             fetch_list=[loss], scope=sa)
+        la += [float(x) for x in out]
+    peak["straight"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del exe
+    release(torch)
+    # ---- arm B, first half
+    torch.cuda.reset_peak_memory_stats()
+    sb = Scope()
+    Executor("cuda").run(start, scope=sb)
+    exe = Executor("cuda")
+    out, = exe.run_steps(steps, main, feed={"tokens": toks[:steps]},
+                         fetch_list=[loss], scope=sb)
+    lb = [float(x) for x in out]
+    torch.cuda.synchronize()
+    mgr = CheckpointManager(workdir, max_keep=1)
+    t_save = _trace.now_us()
+    t0 = time.perf_counter()
+    path = mgr.save(steps, program=main, scope=sb)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    save_spans = span_ms(_trace, t_save)
+    n_bytes = os.path.getsize(os.path.join(path, "params.npz"))
+    t0 = time.perf_counter()
+    ok = validate_manifest(path) is not None
+    validate_ms = (time.perf_counter() - t0) * 1e3
+    del exe, sb, main, start, loss
+    release(torch)
+    peak["first_half"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    # ---- arm B, resumed: a rebuilt program, a fresh executor and scope
+    torch.cuda.reset_peak_memory_stats()
+    main, start, loss, _ = build_gpt_state(cfg)
+    exe, sc = Executor("cuda"), Scope()
+    exe.run(start, scope=sc)
+    torch.cuda.synchronize()
+    t_restore = _trace.now_us()
+    t0 = time.perf_counter()
+    step = mgr.restore_latest(program=main, scope=sc, executor=exe)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    restore_spans = span_ms(_trace, t_restore)
+    out, = exe.run_steps(steps, main, feed={"tokens": toks[steps:]},
+                         fetch_list=[loss], scope=sc)
+    lb += [float(x) for x in out]
+    peak["resumed"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    names, diffs = persistable_diffs(torch, main, sa, sc)
+    ctr = (sa.find("__rng_state__"), sc.find("__rng_state__"))
+    log(f"resume gate: straight {la}, resumed {lb}; {len(diffs)} of "
+        f"{len(names)} persistables differ {dict(list(diffs.items())[:5])}; "
+        f"run-seed counters {ctr}; checkpoint {n_bytes} bytes, save "
+        f"{save_ms:.0f} ms {save_spans}, validate {validate_ms:.0f} ms, "
+        f"restore {restore_ms:.0f} ms {restore_spans}; peaks {peak} GiB; "
+        f"resumed stats {exe.stats}")
+    if not ok or step != steps:
+        fail(f"resume gate: manifest valid {ok}, restored step {step}")
+    if la != lb or diffs or ctr[0] != ctr[1]:
+        fail(f"resume gate: resumed != straight: losses {lb} vs {la}, "
+             f"persistables differing {diffs}, counters {ctr}")
+    # the resumed executor ran the startup program (one eager step) and
+    # then only replays
+    if exe.stats["captures"] != 1 or exe.stats["eager_steps"] != 1 \
+            or exe.stats["graph_replays"] != steps:
+        fail(f"resume gate: resumed executor stats {exe.stats}")
+    row = {"steps": 2 * steps, "losses_straight": la, "losses_resumed": lb,
+           "bit_identical": True, "persistables_compared": len(names),
+           "checkpoint_bytes": n_bytes, "save_ms": save_ms,
+           "save_spans_ms": save_spans, "validate_ms": validate_ms,
+           "restore_ms": restore_ms, "restore_spans_ms": restore_spans,
+           "save_gb_per_s": n_bytes / 1e9 / (save_ms / 1e3),
+           "restore_gb_per_s": n_bytes / 1e9 / (restore_ms / 1e3),
+           "peak_memory_gib": peak,
+           "save_covers": "CheckpointManager.save(program, scope): "
+                          "ckpt.collect (device to host, ZeRO buckets "
+                          "split), ckpt.save (npz write, fsync; "
+                          "ckpt.manifest: sha256), ckpt.publish (rename, "
+                          "prune)",
+           "restore_covers": "CheckpointManager.restore_latest: "
+                             "ckpt.validate (sha256), ckpt.read (npz), "
+                             "ckpt.apply (buckets packed on the host, "
+                             "copy_ into the scope's tensors)",
+           "validate_covers": "validate_manifest once more, alone"}
+    del main, start, sa, sc, exe
+    release(torch)
+    return row
+
+
+def rollback_gate(torch, cfg, workdir, poison=5, total=9):
+    """Snapshots every 2 steps (SnapshotManager: the copy on a side stream
+    into pinned memory); NaN written into one row of `wte` before step
+    `poison`; TrainingGuard rolls back and skips that batch. Steps are
+    run_steps(1) replays. The losses after the skip and the final
+    fingerprint == a run that never saw the batch, bit for bit; one capture
+    per run (the restore writes in place)."""
+    from paddle_tpu_torch.framework import Executor, Scope
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.resilience import (SnapshotManager, TrainingGuard,
+                                             fingerprint)
+    toks = gpt_tokens(cfg, GPT_BATCH, total, seed=41)
+    main, start, loss, _ = build_gpt_state(cfg)
+    runs = {}
+    for label in ("rollback", "never_saw_it"):
+        scope = Scope()
+        Executor("cuda").run(start, scope=scope)
+        exe = Executor("cuda")
+        mgr = SnapshotManager(interval=2, root=os.path.join(workdir, label),
+                              rank=0, world=1)
+        guard = TrainingGuard(mgr, program=main, scope=scope, budget=1)
+        metrics.reset("integrity.rollbacks")
+        losses = {}
+        sched = guard.steps(total, start=1) if label == "rollback" \
+            else (s for s in range(1, total) if s != poison)
+        t0 = time.perf_counter()
+        for s in sched:
+            if label == "rollback" and s == poison \
+                    and poison not in guard.skip:
+                with torch.no_grad():
+                    scope.find("wte")[7].fill_(float("nan"))
+            out, = exe.run_steps(1, main, feed={"tokens": toks[s][None]},
+                                 fetch_list=[loss], scope=scope)
+            lv = float(out[0])
+            if not guard.observe(s, lv):
+                losses[s] = lv
+                mgr.maybe_capture(main, scope, s)
+        mgr.wait()
+        wall_s = time.perf_counter() - t0
+        fp = fingerprint(main, scope)
+        runs[label] = dict(losses=losses, fingerprint=fp,
+                           rollbacks=guard.rollbacks, skip=sorted(guard.skip),
+                           captures=exe.stats["captures"], wall_s=wall_s,
+                           metric_rollbacks=metrics.get(
+                               "integrity.rollbacks"))
+        mgr.close()
+        del scope, exe, mgr, guard
+        release(torch)
+    a, b = runs["rollback"], runs["never_saw_it"]
+    after_a = {s: v for s, v in a["losses"].items() if s > poison}
+    after_b = {s: v for s, v in b["losses"].items() if s > poison}
+    log(f"rollback gate: rollback run {a}, oracle {b}")
+    if a["rollbacks"] != 1 or a["skip"] != [poison] \
+            or a["metric_rollbacks"] != 1:
+        fail(f"rollback gate: rollbacks {a['rollbacks']}, skip {a['skip']}")
+    if after_a != after_b or a["fingerprint"] != b["fingerprint"] \
+            or not after_a:
+        fail(f"rollback gate: rollback != skip: {after_a} vs {after_b}, "
+             f"fingerprints {a['fingerprint']} vs {b['fingerprint']}")
+    if a["captures"] != 1 or b["captures"] != 1:
+        fail(f"rollback gate: captures {a['captures']}, {b['captures']}")
+    del main, start
+    release(torch)
+    return {"poison_step": poison, "snapshot_every": 2,
+            "losses_after_skip": after_a, "losses_oracle": after_b,
+            "fingerprint": a["fingerprint"], "bit_identical": True,
+            "rollbacks": a["rollbacks"], "captures_per_run": 1,
+            "wall_s": {"rollback": a["wall_s"], "oracle": b["wall_s"]}}
+
+
+def snapshot_cost(torch, cfg, reps=2):
+    """One executor (one graph pool), two programs on two scopes: the
+    static schedule and a constant LR (1e-4), both AdamW + clip at stage 1,
+    one batch fed to every step. Windows of run_steps(STATE_WINDOW), each
+    timed to the end of its device work (a synchronize, which also waits
+    for its snapshot's copy), in the order const, sched, sched+snap,
+    sched+snap, sched, const, `reps` times: FLAGS_snapshot_steps
+    STATE_WINDOW on the "+snap" windows, 0 on the others. Step ms p50 per
+    arm, the snapshot's copy (device to pinned host) and worker times and
+    the skips."""
+    from paddle_tpu_torch.flags import set_flags
+    from paddle_tpu_torch.framework import Executor, Scope
+    from paddle_tpu_torch.observability import metrics
+    tokens = gpt_tokens(cfg, GPT_BATCH, 1, seed=0)[0]
+    progs, scopes = {}, {}
+    for name, lr in (("const", 1e-4), ("sched", "schedule")):
+        main, start, loss, _ = build_gpt_state(cfg, lr=lr)
+        scopes[name] = Scope()
+        Executor("cuda").run(start, scope=scopes[name])
+        progs[name] = (main, loss)
+    exe = Executor("cuda")
+    torch.cuda.reset_peak_memory_stats()
+
+    def window(name, snap):
+        main, loss = progs[name]
+        set_flags({"FLAGS_snapshot_steps": STATE_WINDOW if snap else 0})
+        t0 = time.perf_counter()
+        out, = exe.run_steps(STATE_WINDOW, main, feed={"tokens": tokens},
+                             fetch_list=[loss], scope=scopes[name])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / STATE_WINDOW
+        if exe.snapshots is not None:
+            exe.snapshots.wait()
+        return ms, [float(x) for x in out]
+
+    try:
+        # captures, then both pinned buffer sets allocated
+        window("const", False)
+        window("sched", False)
+        window("sched", True)
+        window("sched", True)
+        metrics.reset()
+        arms = {"const": [], "sched": [], "sched_snapshot": []}
+        losses = []
+        order = (("const", False), ("sched", False), ("sched", True),
+                 ("sched", True), ("sched", False), ("const", False))
+        for _ in range(reps):
+            for name, snap in order:
+                ms, out = window(name, snap)
+                arms[name + ("_snapshot" if snap else "")].append(ms)
+                losses += out
+        snap = metrics.snapshot()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        stats = dict(exe.stats)
+    finally:
+        set_flags({"FLAGS_snapshot_steps": 0})
+        exe.close()
+    p50 = {k: float(np.median(v)) for k, v in arms.items()}
+
+    def hist(name):
+        h = snap.get(name)
+        return None if h is None else {k: h[k] for k in
+                                       ("count", "p50", "max")}
+
+    row = {"window": STATE_WINDOW, "windows_per_arm": 2 * reps,
+           "step_ms": arms, "step_ms_p50": p50,
+           "schedule_vs_constant": p50["sched"] / p50["const"],
+           "snapshot_cost_ms_per_step": p50["sched_snapshot"]
+           - p50["sched"],
+           "snapshots": snap.get("resilience.snapshots", {}).get("value",
+                                                                 0.0),
+           "snapshot_skips": snap.get("resilience.snapshot_skips",
+                                      {}).get("value", 0.0),
+           "snapshot_copy_ms": hist("resilience.snapshot_copy_ms"),
+           "snapshot_worker_ms": hist("resilience.snapshot_ms"),
+           "snapshot_host_ms": hist("resilience.snapshot_host_ms"),
+           "peak_memory_gib": peak, "executor_stats": stats,
+           "timing": "windows of run_steps(10), each to a synchronize after "
+                     "it (its snapshot's copy included); p50 of the "
+                     "per-step means"}
+    log(f"snapshot cost: {row}")
+    if not all(np.isfinite(losses)):
+        fail("snapshot cost: non-finite loss")
+    if stats["captures"] != 2 or stats["eager_steps"]:
+        fail(f"snapshot cost: executor stats {stats}")
+    if row["snapshots"] != 2 * reps:
+        fail(f"snapshot cost: {row['snapshots']} snapshots in "
+             f"{2 * reps} snapshot windows")
+    del progs, scopes, exe
+    release(torch)
+    return row
+
+
+def train_gpt_resilient(torch, fa, zk, card):
+    """Phase 8: GPTConfig() at S 512, batch 32, fleet AMP bf16,
+    ZeRO stage 1, AdamW + GradientClipByGlobalNorm(1.0), dropout 0.1, the
+    LR linear_lr_warmup(cosine_decay(...)) built in the program."""
+    import shutil
+    cfg = gpt_config()
+    workdir = os.path.join(HERE, ".chip_scratch", f"state_{os.getpid()}")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    try:
+        t0 = time.perf_counter()
+        out = {"config": "GPTConfig() (GPT-2 small, dropout 0.1), seq 512, "
+                         "batch 32, fleet AMP bf16, ZeRO stage 1, AdamW "
+                         "(weight decay 0.01) + GradientClipByGlobalNorm(1.0),"
+                         " LR linear_lr_warmup(cosine_decay(1e-4, 1, 8), 1, "
+                         "1e-5, 1e-4) in the program, random weights",
+               "card": card}
+        out["schedule_capture"] = schedule_capture_gate(torch, fa, zk, cfg)
+        out["host_scheduler"] = host_scheduler_gate(torch, cfg)
+        small, small_launches = schedule_sgd_momentum_gate(torch, zk)
+        out["schedule_sgd_momentum_small"] = small
+        out["resume"] = resume_gate(torch, cfg,
+                                    os.path.join(workdir, "ckpt"))
+        out["rollback"] = rollback_gate(torch, cfg, workdir)
+        out["snapshot_cost"] = snapshot_cost(torch, cfg)
+        out["phase_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    launches = dict(small_launches,
+                    zero_adam=out["schedule_capture"]
+                    ["launches_incl_warmup"]["zero_adam"])
+    return out, launches
+
+
 def serve_gpt2(torch, serving, gpt_decode, kernel_mod, metrics, rows,
                card):
     """GPT-2 small (GPTConfig(), weights from numpy seed 0) through the
@@ -2478,6 +3058,18 @@ def main():
         "gpt_capture_gate_stage1_incl_warmup":
             gpt_row["capture_gates"][1]["launches_incl_warmup"]["zero_adam"]}
 
+    # ---- GPT-2 small training that survives a restart ----------------------
+    release(torch)
+    state_row, state_launches = train_gpt_resilient(torch, fa, zk, card)
+    rows["zero_adam"]["launches_by_path"][
+        "gpt_schedule_stage1_captured_3_steps_incl_warmup"] = \
+        state_launches["zero_adam"]
+    for name in ("zero_sgd", "zero_momentum"):
+        rows[name]["launches_by_path"] = {
+            "zero_arms": rows[name]["launches"],
+            "gpt_schedule_stage1_2_layers_incl_warmup":
+                state_launches[name]}
+
     for row in rows.values():
         if not row["launches"]:
             fail(f"{row['name']} was never launched on its main path run")
@@ -2486,6 +3078,7 @@ def main():
     print(json.dumps({"resilience": resilience_row}), flush=True)
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"gpt_training": gpt_row}), flush=True)
+    print(json.dumps({"training_state": state_row}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -93,6 +93,25 @@ _DEFS: Dict[str, tuple] = {
                              "'serving.window:error:at=2'"),
     "FLAGS_fault_seed": (0, "seed for probabilistic (p=) fault rules and "
                             "retry jitter"),
+    "FLAGS_snapshot_steps": (0, "in-memory snapshot cadence "
+                                "(resilience/snapshot.py): every N training "
+                                "steps of a program, a double-buffered copy "
+                                "of the portable training state from the "
+                                "device to pinned host memory, taken after "
+                                "the step or run_steps window (0 = off); "
+                                "SIGTERM flushes the newest one to "
+                                "FLAGS_snapshot_dir"),
+    "FLAGS_snapshot_dir": ("", "root for flushed snapshots and recovery "
+                               "stamps; empty resolves PADDLE_SNAPSHOT_DIR, "
+                               "then a per-process directory under the "
+                               "temp dir"),
+    "FLAGS_loss_spike_factor": (10.0, "TrainingGuard: a loss above this "
+                                "multiple of the trailing-window median (or "
+                                "any NaN/Inf) rolls back to the last good "
+                                "snapshot and skips the batch"),
+    "FLAGS_rollback_budget": (2, "poison-batch rollbacks TrainingGuard "
+                                 "performs before raising "
+                                 "RollbackExhausted"),
     "FLAGS_zero_stage": (0, "ZeRO sharding stage applied at fleet minimize "
                             "time (parallel/zero.py): 1 moves each gradient "
                             "bucket's optimizer state into flat vars updated "

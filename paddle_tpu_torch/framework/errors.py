@@ -1,6 +1,6 @@
 """Typed errors (the subset of paddle_tpu/framework/errors.py the serving
-and training slices raise, and the serving tier's timeouts and
-unavailability).
+and training slices raise, the serving tier's timeouts and
+unavailability, and the checkpoints' failed preconditions).
 
 Each code is a distinct exception class carrying `.code`, and each also
 subclasses the idiomatic Python builtin, so callers can catch either the
@@ -16,6 +16,7 @@ class ErrorCode(enum.IntEnum):
     LEGACY = 0
     INVALID_ARGUMENT = 1
     NOT_FOUND = 2
+    PRECONDITION_NOT_MET = 6
     EXECUTION_TIMEOUT = 8
     UNIMPLEMENTED = 9
     UNAVAILABLE = 10
@@ -54,6 +55,9 @@ InvalidArgumentError = _typed("InvalidArgumentError",
 NotFoundError = _typed("NotFoundError", ErrorCode.NOT_FOUND, KeyError)
 ExecutionTimeoutError = _typed("ExecutionTimeoutError",
                                ErrorCode.EXECUTION_TIMEOUT, TimeoutError)
+PreconditionNotMetError = _typed("PreconditionNotMetError",
+                                 ErrorCode.PRECONDITION_NOT_MET,
+                                 RuntimeError)
 UnimplementedError = _typed("UnimplementedError", ErrorCode.UNIMPLEMENTED,
                             NotImplementedError)
 UnavailableError = _typed("UnavailableError", ErrorCode.UNAVAILABLE,
@@ -77,6 +81,7 @@ def _factory(cls):
 # the reference's factory spellings: build (not raise) the typed error
 InvalidArgument = _factory(InvalidArgumentError)
 NotFound = _factory(NotFoundError)
+PreconditionNotMet = _factory(PreconditionNotMetError)
 Unimplemented = _factory(UnimplementedError)
 Unavailable = _factory(UnavailableError)
 

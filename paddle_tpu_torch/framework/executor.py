@@ -53,6 +53,17 @@ copy from pageable memory (a constant is a `torch.full`, not a
 persistable outputs either updated in place or returned for the executor
 to `copy_` (a rebinding inside a capture raises).
 
+Before each run / run_steps the executor attaches the scope to the
+program's host LR schedulers (lr.py: each `step()` then writes the new LR
+into that scope's tensor in place) and adopts per-parameter ZeRO state a
+restore left in the scope into the flat buckets, in place
+(`_prepare`; parallel/zero.py `adopt_unsharded_state`, the reference's
+`_ensure_zero_state`). After it, with
+`FLAGS_snapshot_steps` > 0, `_maybe_snapshot` hands the state to the
+executor's SnapshotManager (resilience/snapshot.py): the copy from the
+device is queued after the step or window, outside any captured graph,
+and the host does not wait for it.
+
 `stage(feed, ...)` copies the next call's feeds to the device ahead of
 time (pinned host memory, a copy stream) as snapshots; the matching
 `run` / `run_steps` (same program, k and feed objects) consumes them.
@@ -418,6 +429,48 @@ class Executor:
         self._step_counter = 0
         self.stats = {"eager_steps": 0, "warmup_steps": 0, "captures": 0,
                       "graph_replays": 0}
+        # the SnapshotManager (FLAGS_snapshot_steps > 0), and each
+        # program's step count, which tags its snapshots
+        self._snapshot_mgr = None
+        self._snapshot_prog_steps: Dict[int, int] = {}
+
+    def _prepare(self, program, scope):
+        """Per call, before the step: the host LR schedulers write into
+        this scope from now on, and a restore's per-parameter ZeRO state
+        is packed into the flat buckets."""
+        from ..parallel.zero import adopt_unsharded_state
+        for sched in getattr(program, "_lr_schedulers", ()):
+            sched._attach_scope(scope)
+        adopt_unsharded_state(program, scope, self.device)
+
+    def _maybe_snapshot(self, program, scope, k: int = 1):
+        """After a step or a run_steps(k) window: count the program's
+        steps and, on the FLAGS_snapshot_steps cadence, start a snapshot
+        (installing the SIGTERM flush on first use)."""
+        from ..flags import flag
+        interval = int(flag("FLAGS_snapshot_steps") or 0)
+        if interval <= 0:
+            return
+        if self._snapshot_mgr is None:
+            from ..resilience.snapshot import SnapshotManager
+            self._snapshot_mgr = SnapshotManager(interval=interval)
+            self._snapshot_mgr.install_sigterm_flush()
+        self._snapshot_mgr.interval = interval
+        prev = self._snapshot_prog_steps.get(program._uid, 0)
+        self._snapshot_prog_steps[program._uid] = prev + k
+        self._snapshot_mgr.maybe_capture(program, scope, prev + k,
+                                         prev_step=prev)
+
+    @property
+    def snapshots(self):
+        """The SnapshotManager (None until the first snapshotted step)."""
+        return self._snapshot_mgr
+
+    def close(self):
+        """Stop the snapshot worker and uninstall its SIGTERM flush."""
+        if self._snapshot_mgr is not None:
+            self._snapshot_mgr.close()
+            self._snapshot_mgr = None
 
     def _plan(self, program: Program, use_cache: bool = True
               ) -> Dict[int, int]:
@@ -567,6 +620,7 @@ class Executor:
         sync = self._resolve_sync(sync)
         block = program.global_block()
         fetch_names = self._fetch_names(block, fetch_list)
+        self._prepare(program, scope)
         env = self._take_staged(program, feed, None)
         env = dict(env) if env is not None else {
             name: _coerce_feed_value(block, name, value, self.device)
@@ -583,8 +637,10 @@ class Executor:
         self.stats["eager_steps"] += 1
         _metrics.observe("executor.step_host_ms",
                          (time.perf_counter() - t0) * 1000.0)
-        return _package_fetches(fetches, fetch_names, return_numpy, sync,
-                                step=self._step_counter)
+        out = _package_fetches(fetches, fetch_names, return_numpy, sync,
+                               step=self._step_counter)
+        self._maybe_snapshot(program, scope)
+        return out
 
     def run_steps(self, k: int, program: Optional[Program] = None,
                   feed: Optional[dict] = None,
@@ -615,6 +671,7 @@ class Executor:
         sync = self._resolve_sync(sync)
         block = program.global_block()
         fetch_names = self._fetch_names(block, fetch_list)
+        self._prepare(program, scope)
         feeds = self._take_staged(program, feed, k)
         if feeds is None:
             feeds = {n: _to(t, self.device) for n, t in
@@ -640,8 +697,11 @@ class Executor:
                            for i in range(len(fetch_names))]
         _metrics.observe("executor.step_host_ms",
                          (time.perf_counter() - t0) * 1000.0)
-        return _package_fetches(stacked, fetch_names, return_numpy, sync,
-                                step=self._step_counter)
+        out = _package_fetches(stacked, fetch_names, return_numpy, sync,
+                               step=self._step_counter)
+        # after a sync fetch, so the fetch does not wait for the copy
+        self._maybe_snapshot(program, scope, k)
+        return out
 
     def _run_captured(self, program, feeds, seeds, scope, fetch_names):
         k = len(seeds)

@@ -9,10 +9,14 @@ Executor (framework/executor.py) runs a block op by op on one device.
 `Program.clone(for_test=True)` copies a program for evaluation: `is_test`
 set on every op that has the attr, backward and optimizer ops pruned.
 
+The Variable operator sugar (`a + b`, `a / 2.0`, `a < b`) builds the
+same elementwise and compare ops as the reference's, a Python number
+becoming a [1] `fill_constant`: the static LR schedules are written with
+it (layers/learning_rate_scheduler.py).
+
 Not ported: sub-blocks (control flow), `sub_ops` in `clone` (the fused
-layer-scan ops that carry them are not ported), the Variable operator
-sugar (`a + b` building ops), `device_guard` (pipeline stages) and the
-dygraph switches.
+layer-scan ops that carry them are not ported), `device_guard` (pipeline
+stages) and the dygraph switches.
 """
 from __future__ import annotations
 
@@ -73,6 +77,51 @@ class Variable:
         return (f"Var(name={self.name}, shape={self.shape}, "
                 f"dtype={dtype_name(self.dtype)}, "
                 f"persistable={self.persistable})")
+
+    # ------ operator sugar (the reference's fluid math_op_patch) ----------
+    def _binary(self, other, layer_fn, reverse=False):
+        from .. import layers
+        fn = getattr(layers, layer_fn)
+        if not isinstance(other, Variable):
+            other = self.block.program._const_like(self.block, other,
+                                                   self.dtype)
+        return fn(other, self) if reverse else fn(self, other)
+
+    def __add__(self, o):
+        return self._binary(o, "elementwise_add")
+
+    def __radd__(self, o):
+        return self._binary(o, "elementwise_add", reverse=True)
+
+    def __sub__(self, o):
+        return self._binary(o, "elementwise_sub")
+
+    def __rsub__(self, o):
+        return self._binary(o, "elementwise_sub", reverse=True)
+
+    def __mul__(self, o):
+        return self._binary(o, "elementwise_mul")
+
+    def __rmul__(self, o):
+        return self._binary(o, "elementwise_mul", reverse=True)
+
+    def __truediv__(self, o):
+        return self._binary(o, "elementwise_div")
+
+    def __gt__(self, o):
+        return self._binary(o, "greater_than")
+
+    def __ge__(self, o):
+        return self._binary(o, "greater_equal")
+
+    def __lt__(self, o):
+        return self._binary(o, "less_than")
+
+    def __le__(self, o):
+        return self._binary(o, "less_equal")
+
+    def __neg__(self):
+        return self._binary(-1.0, "elementwise_mul")
 
 
 class Parameter(Variable):
@@ -237,8 +286,18 @@ class Program:
     def all_parameters(self) -> List[Parameter]:
         return self.global_block().all_parameters()
 
+    def list_vars(self):
+        for b in self.blocks:
+            yield from b.vars.values()
+
     def bump_version(self):
         self._version += 1
+
+    def _const_like(self, block, value, dtype):
+        """A [1] constant of `dtype` for the operator sugar."""
+        from .. import layers
+        return layers.fill_constant(shape=[1], dtype=dtype,
+                                    value=float(value))
 
     def clone(self, for_test: bool = False) -> "Program":
         """Copy of the blocks, vars and ops (reference program.py:334).

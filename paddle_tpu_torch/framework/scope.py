@@ -27,6 +27,12 @@ class Scope:
             s = s.parent
         return None
 
+    def has(self, name: str) -> bool:
+        return self.find(name) is not None
+
+    def erase(self, name: str) -> None:
+        self._vars.pop(name, None)
+
     def find_local(self, name: str):
         """The value held by this scope itself (not a parent), or None."""
         return self._vars.get(name)
@@ -63,6 +69,56 @@ def load_numpy(scope: Scope, arrays: Mapping[str, np.ndarray],
     for name, arr in arrays.items():
         scope.set(name, torch.from_numpy(np.array(arr, copy=True)).to(dev))
     return scope
+
+
+def _host_tensor(arr) -> torch.Tensor:
+    a = np.asarray(arr)
+    if not (a.flags.c_contiguous and a.flags.writeable):
+        a = np.array(a, copy=True)
+    return torch.from_numpy(a)
+
+
+def _fits(cur: torch.Tensor, src: torch.Tensor) -> bool:
+    """Whether `src` (a host array as loaded) may be copied into `cur`:
+    same shape, and the same dtype up to the port's own host forms (bf16
+    and f16 come back from the device as f32, int32 ids as int64)."""
+    if tuple(cur.shape) != tuple(src.shape):
+        return False
+    return (cur.dtype == src.dtype
+            or (src.dtype == torch.float32
+                and cur.dtype in (torch.bfloat16, torch.float16))
+            or (src.dtype == torch.int64 and cur.dtype == torch.int32))
+
+
+def load_arrays(scope: Scope, arrays: Mapping[str, np.ndarray],
+                device: DeviceLike = None) -> int:
+    """Write host arrays into the scope the way a training step writes its
+    persistables (executor `_write_persistable`): into the scope's own
+    tensor, in place, when it has the array's shape and dtype, so its
+    address never changes and a captured step bound to it stays valid;
+    otherwise a new tensor is bound (on the old tensor's device, else on
+    `device`) and the next `run_steps` re-captures. Returns the number of
+    such rebinds of an existing tensor (also counted in
+    `io.load_rebinds`)."""
+    from ..observability import metrics
+    rebinds = 0
+    dev = None
+    for name, arr in arrays.items():
+        src = _host_tensor(arr)
+        cur = scope.find_local(name)
+        if isinstance(cur, torch.Tensor) and _fits(cur, src):
+            with torch.no_grad():
+                cur.copy_(src)
+            continue
+        if isinstance(cur, torch.Tensor):
+            rebinds += 1
+            metrics.inc("io.load_rebinds")
+            target = cur.device
+        else:
+            dev = dev or resolve_device(device)
+            target = dev
+        scope.set(name, src.to(target))
+    return rebinds
 
 
 _global_scope = Scope()

@@ -1,7 +1,10 @@
 """LayerHelper: shared machinery for the `layers` functions (counterpart of
 paddle_tpu/layer_helper.py): creates parameters (with their init ops in
 the startup program) and temporaries, and appends ops to the current main
-program. The dygraph route is not ported."""
+program. A `ParamAttr(regularizer=)` rides on the parameter and takes the
+place of the optimizer's own regularization for it
+(optimizer.py `_append_regularization`). The dygraph route is not
+ported."""
 from __future__ import annotations
 
 from . import initializer as init_mod
@@ -14,9 +17,6 @@ class ParamAttr:
     def __init__(self, name=None, initializer=None, learning_rate=1.0,
                  regularizer=None, trainable=True, do_model_average=False,
                  need_clip=True):
-        if regularizer is not None:
-            raise NotImplementedError(
-                "ParamAttr(regularizer=...) is not ported yet (ROADMAP)")
         self.name = name
         self.initializer = initializer
         self.learning_rate = learning_rate

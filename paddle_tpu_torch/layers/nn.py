@@ -11,10 +11,12 @@ from ..layer_helper import LayerHelper
 
 __all__ = [
     "data", "fc", "layer_norm", "dropout", "embedding", "elementwise_add",
-    "elementwise_mul", "elementwise_div", "elementwise_max", "sqrt",
-    "square", "sign", "reduce_sum", "clip", "clip_by_norm", "sums",
-    "mean", "scale", "reshape", "transpose", "split", "unsqueeze", "slice",
-    "fused_attention", "matmul", "gather",
+    "elementwise_sub", "elementwise_mul", "elementwise_div",
+    "elementwise_max", "elementwise_min", "elementwise_pow", "sqrt",
+    "square", "sign", "exp", "floor", "ceil", "cos", "pow", "equal",
+    "less_than", "less_equal", "greater_than", "greater_equal", "where", "expand", "cast", "reduce_sum", "clip",
+    "clip_by_norm", "sums", "mean", "scale", "reshape", "transpose",
+    "split", "unsqueeze", "slice", "fused_attention", "matmul", "gather",
 ]
 
 
@@ -119,6 +121,18 @@ def _unary_layer(op_type):
 sqrt = _unary_layer("sqrt")
 square = _unary_layer("square")
 sign = _unary_layer("sign")
+exp = _unary_layer("exp")
+floor = _unary_layer("floor")
+ceil = _unary_layer("ceil")
+cos = _unary_layer("cos")
+
+
+def pow(x, factor=1.0, name=None):
+    helper = LayerHelper("pow")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("pow", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"factor": factor})
+    return out
 
 
 def _binary_layer(op_type):
@@ -133,9 +147,56 @@ def _binary_layer(op_type):
 
 
 elementwise_add = _binary_layer("elementwise_add")
+elementwise_sub = _binary_layer("elementwise_sub")
 elementwise_mul = _binary_layer("elementwise_mul")
 elementwise_div = _binary_layer("elementwise_div")
 elementwise_max = _binary_layer("elementwise_max")
+elementwise_min = _binary_layer("elementwise_min")
+elementwise_pow = _binary_layer("elementwise_pow")
+
+
+def _compare_layer(op_type):
+    def f(x, y, cond=None, name=None):
+        helper = LayerHelper(op_type)
+        out = cond or helper.create_variable_for_type_inference("bool")
+        helper.append_op(op_type, inputs={"X": [x], "Y": [y]},
+                         outputs={"Out": [out]})
+        return out
+    f.__name__ = op_type
+    return f
+
+
+equal = _compare_layer("equal")
+less_than = _compare_layer("less_than")
+less_equal = _compare_layer("less_equal")
+greater_than = _compare_layer("greater_than")
+greater_equal = _compare_layer("greater_equal")
+
+
+def where(condition, x, y, name=None):
+    helper = LayerHelper("where")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("where",
+                     inputs={"Condition": [condition], "X": [x], "Y": [y]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def expand(x, expand_times, name=None):
+    helper = LayerHelper("expand")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("expand", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"expand_times": list(expand_times)})
+    return out
+
+
+def cast(x, dtype):
+    helper = LayerHelper("cast")
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("cast", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"out_dtype": dtype_name(convert_dtype(dtype)),
+                            "in_dtype": dtype_name(x.dtype)})
+    return out
 
 
 def reduce_sum(input, dim=None, keep_dim=False, name=None):

@@ -1,7 +1,8 @@
 """Stat registry (counterpart of paddle_tpu/monitor.py): a view over
 observability/metrics.py. `stat_add` records a counter in the registry
 the tracer and the flight recorder snapshot and diff; `stat_get` reads
-it back.
+it back. The resilience legs count `resilience.ckpt_fallbacks` here
+(resilience/checkpoint.py).
 """
 from __future__ import annotations
 

@@ -4,7 +4,13 @@
 The serving engine records `serving.ttft_ms`, `serving.tpot_ms` and
 `serving.window_ms` (histograms) and `serving.tokens_out` (counter) here;
 the serving tier adds `serving.failovers`, `serving.sla_trips`,
-`serving.recover_ms` and `serving.canary_ms`. `get` reads one value,
+`serving.recover_ms` and `serving.canary_ms`. The training side's
+resilience legs record `resilience.snapshots`, `resilience.snapshot_skips`,
+`resilience.snapshot_flushes` and `resilience.recover_{local,disk}`
+(counters), `resilience.snapshot_ms`, `resilience.snapshot_host_ms` and
+`resilience.snapshot_copy_ms` (histograms), `resilience.ckpt_fallbacks`,
+`integrity.rollbacks` and `io.load_rebinds` (counters). `get` reads one
+value,
 `delta` what moved between two snapshots (the flight recorder's per-step
 attribution). monitor.py is a view over this registry. Hot-path cost: one lock plus one dict/float op
 per record.

@@ -4,8 +4,12 @@ paddle_tpu/observability/trace.py).
 
 The serving tier draws every request as one flow (submit -> retire) and
 every window as a span with a dispatch -> materialization flow; retries,
-sheds, failovers and health changes are instants. Device time is
-torch.profiler's; this ring holds the host timeline around it.
+sheds, failovers and health changes are instants. On the training side
+a checkpoint save is the spans `ckpt.collect`, `ckpt.save` (with
+`ckpt.manifest` inside) and `ckpt.publish`, a restore `ckpt.validate`,
+`ckpt.read` and `ckpt.apply` (category "resilience";
+resilience/checkpoint.py), and a snapshot and a rollback are instants. Device time is torch.profiler's; this ring
+holds the host timeline around it.
 
 Storage is a bounded RING (FLAGS_trace_buffer_events; the oldest events
 drop, counted in the `trace.dropped_events` metric), so recording stays

@@ -1,8 +1,11 @@
 """Math / elementwise / reduce / matmul lowerings (counterpart of
 paddle_tpu/ops/math_ops.py): the ones the BERT pretrain and GPT LM
-programs use, and the ones gradient clipping and weight-decay
-regularisation append (clip.py, regularizer.py). Large matrix products go to `torch.matmul`, as
-the reference leaves them to XLA."""
+programs use, the ones gradient clipping and weight-decay regularisation
+append (clip.py, regularizer.py), and the ones the static LR schedules
+emit (layers/learning_rate_scheduler.py). Large matrix products go to
+`torch.matmul`, as the reference leaves them to XLA. Every op here makes
+its constants with `torch.full` on the device, so a schedule runs inside a
+captured step."""
 from __future__ import annotations
 
 import math
@@ -10,6 +13,7 @@ import math
 import torch
 
 from .registry import register
+from ..framework.dtype import device_dtype
 
 
 def _bcast_y(x, y, axis):
@@ -33,9 +37,12 @@ def _elementwise(name, fn):
 
 
 _elementwise("elementwise_add", torch.add)
+_elementwise("elementwise_sub", torch.sub)
 _elementwise("elementwise_mul", torch.mul)
 _elementwise("elementwise_div", torch.div)
 _elementwise("elementwise_max", torch.maximum)
+_elementwise("elementwise_min", torch.minimum)
+_elementwise("elementwise_pow", torch.pow)
 
 
 def _unary(name, fn):
@@ -48,6 +55,35 @@ def _unary(name, fn):
 _unary("sqrt", torch.sqrt)
 _unary("square", torch.square)
 _unary("sign", torch.sign)
+_unary("exp", torch.exp)
+_unary("floor", torch.floor)
+_unary("ceil", torch.ceil)
+_unary("cos", torch.cos)
+
+
+@register("pow")
+def _pow(ctx, ins, attrs):
+    return {"Out": [torch.pow(ins["X"][0], attrs.get("factor", 1.0))]}
+
+
+@register("cast", nondiff_slots=("X",))
+def _cast(ctx, ins, attrs):
+    return {"Out": [ins["X"][0].to(
+        device_dtype(attrs.get("out_dtype", "float32")))]}
+
+
+def _compare(name, fn):
+    @register(name, nondiff_slots=("X", "Y"))
+    def _lower(ctx, ins, attrs, _fn=fn):
+        return {"Out": [_fn(ins["X"][0], ins["Y"][0])]}
+    return _lower
+
+
+_compare("equal", torch.eq)
+_compare("less_than", torch.lt)
+_compare("less_equal", torch.le)
+_compare("greater_than", torch.gt)
+_compare("greater_equal", torch.ge)
 
 
 @register("reduce_sum")
@@ -60,7 +96,10 @@ def _reduce_sum(ctx, ins, attrs):
     else:
         dims = dim if isinstance(dim, (list, tuple)) else [dim]
         axes = tuple(d % x.dim() for d in dims)
-    return {"Out": [torch.sum(x, dim=axes, keepdim=keep_dim)]}
+    # an integer sum keeps its dtype, as jnp.sum does (torch widens to
+    # int64)
+    dt = None if x.is_floating_point() else x.dtype
+    return {"Out": [torch.sum(x, dim=axes, keepdim=keep_dim, dtype=dt)]}
 
 
 @register("clip")

@@ -1,5 +1,7 @@
 """Optimizer update lowerings (counterpart of paddle_tpu/ops/optimizer_ops.py
-:21-138): the dense `sgd`, `momentum`, `adam` and `adamw` rules.
+:21-275): the dense `sgd`, `momentum`, `adam` and `adamw` rules (the ones
+the fused flat-bucket kernels B6-B8 cover), and `lars_momentum`, `adamax`,
+`adagrad`, `adadelta`, `rmsprop`, `lamb`, `ftrl` and `decayed_adagrad`.
 
 Each rule is written one torch op per jnp op of the reference, in the
 reference's order, with Python-float constants (`b1 * m1 + (1 - b1) * gf`
@@ -24,8 +26,24 @@ import torch
 
 from .registry import register
 
-_OPT = dict(nondiff_slots=("Param", "Grad", "LearningRate", "Moment1",
-                           "Moment2", "Beta1Pow", "Beta2Pow", "Velocity"))
+_OPT = dict(nondiff_slots=("Param", "Grad", "LearningRate", "Moment",
+                           "Moment1", "Moment2", "Beta1Pow", "Beta2Pow",
+                           "Velocity", "MeanSquare", "MeanGrad", "InfNorm",
+                           "AvgSquaredGrad", "AvgSquaredUpdate",
+                           "SquaredAccumulator", "LinearAccumulator"))
+
+
+def _update(ins, outs):
+    """Copy each computed value into its input tensor (in place) and
+    return the op's outputs naming those tensors. `outs` maps an output
+    slot to (input slot, value)."""
+    res = {}
+    with torch.no_grad():
+        for out_slot, (in_slot, val) in outs.items():
+            t = ins[in_slot][0]
+            t.copy_(val.to(t.dtype))
+            res[out_slot] = [t]
+    return res
 
 
 def _check_dense(op_type, g):
@@ -103,3 +121,161 @@ def _adamw(ctx, ins, attrs):
     coeff = attrs.get("coeff", 0.01) if attrs.get("with_decay", True) \
         else None
     return _adam_update("adamw", ins, attrs, decay_coeff=coeff)
+
+
+@register("lars_momentum", **_OPT)
+def _lars_momentum(ctx, ins, attrs):
+    """Layer-wise trust-ratio scaled LR (reference :66)."""
+    p, g = ins["Param"][0], ins["Grad"][0]
+    v, lr = ins["Velocity"][0], ins["LearningRate"][0]
+    _check_dense("lars_momentum", g)
+    mu = attrs.get("mu", 0.9)
+    coeff = attrs.get("lars_coeff", 0.001)
+    decay = attrs.get("lars_weight_decay", 0.0005)
+    eps = attrs.get("epsilon", 0.0)
+    with torch.no_grad():
+        p_norm = torch.sqrt(torch.sum(torch.square(p)))
+        g_norm = torch.sqrt(torch.sum(torch.square(g)))
+        local_lr = lr * coeff * p_norm / (g_norm + decay * p_norm + eps)
+        v_out = mu * v + local_lr * (g + decay * p)
+        p_out = p - v_out
+    return _update(ins, {"ParamOut": ("Param", p_out),
+                         "VelocityOut": ("Velocity", v_out)})
+
+
+@register("adamax", **_OPT)
+def _adamax(ctx, ins, attrs):
+    p, g, lr = ins["Param"][0], ins["Grad"][0], ins["LearningRate"][0]
+    m, u = ins["Moment"][0], ins["InfNorm"][0]
+    b1p = ins["Beta1Pow"][0]
+    _check_dense("adamax", g)
+    b1 = attrs.get("beta1", 0.9)
+    b2 = attrs.get("beta2", 0.999)
+    eps = attrs.get("epsilon", 1e-8)
+    with torch.no_grad():
+        m_out = b1 * m + (1 - b1) * g
+        u_out = torch.maximum(b2 * u, torch.abs(g))
+        p_out = p - (lr / (1 - b1p)) * m_out / (u_out + eps)
+    return _update(ins, {"ParamOut": ("Param", p_out),
+                         "MomentOut": ("Moment", m_out),
+                         "InfNormOut": ("InfNorm", u_out)})
+
+
+@register("adagrad", **_OPT)
+def _adagrad(ctx, ins, attrs):
+    p, g, lr = ins["Param"][0], ins["Grad"][0], ins["LearningRate"][0]
+    m = ins["Moment"][0]
+    _check_dense("adagrad", g)
+    eps = attrs.get("epsilon", 1e-6)
+    with torch.no_grad():
+        m_out = m + torch.square(g)
+        p_out = p - lr * g / (torch.sqrt(m_out) + eps)
+    return _update(ins, {"ParamOut": ("Param", p_out),
+                         "MomentOut": ("Moment", m_out)})
+
+
+@register("adadelta", **_OPT)
+def _adadelta(ctx, ins, attrs):
+    p, g = ins["Param"][0], ins["Grad"][0]
+    avg_sq_g = ins["AvgSquaredGrad"][0]
+    avg_sq_u = ins["AvgSquaredUpdate"][0]
+    _check_dense("adadelta", g)
+    rho = attrs.get("rho", 0.95)
+    eps = attrs.get("epsilon", 1e-6)
+    with torch.no_grad():
+        g2 = rho * avg_sq_g + (1 - rho) * torch.square(g)
+        upd = torch.sqrt(avg_sq_u + eps) / torch.sqrt(g2 + eps) * g
+        u2 = rho * avg_sq_u + (1 - rho) * torch.square(upd)
+        p_out = p - upd
+    return _update(ins, {"ParamOut": ("Param", p_out),
+                         "AvgSquaredGradOut": ("AvgSquaredGrad", g2),
+                         "AvgSquaredUpdateOut": ("AvgSquaredUpdate", u2)})
+
+
+@register("rmsprop", **_OPT)
+def _rmsprop(ctx, ins, attrs):
+    p, g, lr = ins["Param"][0], ins["Grad"][0], ins["LearningRate"][0]
+    ms, mom = ins["MeanSquare"][0], ins["Moment"][0]
+    _check_dense("rmsprop", g)
+    rho = attrs.get("decay", 0.95)
+    eps = attrs.get("epsilon", 1e-6)
+    mu = attrs.get("momentum", 0.0)
+    with torch.no_grad():
+        ms_out = rho * ms + (1 - rho) * torch.square(g)
+        if attrs.get("centered", False):
+            mg = ins["MeanGrad"][0]
+            mg_out = rho * mg + (1 - rho) * g
+            denom = torch.sqrt(ms_out - torch.square(mg_out) + eps)
+        else:
+            mg_out = torch.zeros_like(g)
+            denom = torch.sqrt(ms_out + eps)
+        mom_out = mu * mom + lr * g / denom
+        p_out = p - mom_out
+    outs = {"ParamOut": ("Param", p_out),
+            "MeanSquareOut": ("MeanSquare", ms_out),
+            "MomentOut": ("Moment", mom_out)}
+    if ins.get("MeanGrad"):
+        outs["MeanGradOut"] = ("MeanGrad", mg_out)
+    return _update(ins, outs)
+
+
+@register("lamb", **_OPT)
+def _lamb(ctx, ins, attrs):
+    """Adam update scaled by the trust ratio ||p|| / ||r|| (reference
+    :219). The shared beta pows advance in their own `scale` ops."""
+    p, g, lr = ins["Param"][0], ins["Grad"][0], ins["LearningRate"][0]
+    m1, m2 = ins["Moment1"][0], ins["Moment2"][0]
+    b1p, b2p = ins["Beta1Pow"][0], ins["Beta2Pow"][0]
+    _check_dense("lamb", g)
+    b1 = attrs.get("beta1", 0.9)
+    b2 = attrs.get("beta2", 0.999)
+    eps = attrs.get("epsilon", 1e-6)
+    wd = attrs.get("weight_decay", 0.01)
+    with torch.no_grad():
+        m1_out = b1 * m1 + (1 - b1) * g
+        m2_out = b2 * m2 + (1 - b2) * torch.square(g)
+        m1_hat = m1_out / (1 - b1p)
+        m2_hat = m2_out / (1 - b2p)
+        r = m1_hat / (torch.sqrt(m2_hat) + eps) + wd * p
+        p_norm = torch.sqrt(torch.sum(torch.square(p)))
+        r_norm = torch.sqrt(torch.sum(torch.square(r)))
+        trust = torch.where((p_norm > 0) & (r_norm > 0), p_norm / r_norm,
+                            torch.ones_like(p_norm))
+        p_out = p - lr * trust * r
+    return _update(ins, {"ParamOut": ("Param", p_out),
+                         "Moment1Out": ("Moment1", m1_out),
+                         "Moment2Out": ("Moment2", m2_out)})
+
+
+@register("ftrl", **_OPT)
+def _ftrl(ctx, ins, attrs):
+    p, g, lr = ins["Param"][0], ins["Grad"][0], ins["LearningRate"][0]
+    sq, lin = ins["SquaredAccumulator"][0], ins["LinearAccumulator"][0]
+    _check_dense("ftrl", g)
+    l1 = attrs.get("l1", 0.0)
+    l2 = attrs.get("l2", 0.0)
+    power = attrs.get("lr_power", -0.5)
+    with torch.no_grad():
+        new_sq = sq + torch.square(g)
+        sigma = (new_sq ** (-power) - sq ** (-power)) / lr
+        new_lin = lin + g - sigma * p
+        pre = torch.clamp(new_lin, -l1, l1) - new_lin
+        denom = new_sq ** (-power) / lr + 2 * l2
+        p_out = pre / denom
+    return _update(ins, {"ParamOut": ("Param", p_out),
+                         "SquaredAccumOut": ("SquaredAccumulator", new_sq),
+                         "LinearAccumOut": ("LinearAccumulator", new_lin)})
+
+
+@register("decayed_adagrad", **_OPT)
+def _decayed_adagrad(ctx, ins, attrs):
+    p, g, lr = ins["Param"][0], ins["Grad"][0], ins["LearningRate"][0]
+    m = ins["Moment"][0]
+    _check_dense("decayed_adagrad", g)
+    decay = attrs.get("decay", 0.95)
+    eps = attrs.get("epsilon", 1e-6)
+    with torch.no_grad():
+        m_out = decay * m + (1 - decay) * torch.square(g)
+        p_out = p - lr * g / (torch.sqrt(m_out) + eps)
+    return _update(ins, {"ParamOut": ("Param", p_out),
+                         "MomentOut": ("Moment", m_out)})

@@ -1,6 +1,6 @@
 """Tensor creation / manipulation lowerings (counterpart of
 paddle_tpu/ops/tensor_ops.py): the ones the BERT pretrain, GPT LM and
-startup programs use."""
+startup programs use, and the ones the static LR schedules emit."""
 from __future__ import annotations
 
 import torch
@@ -109,3 +109,42 @@ def _gather(ctx, ins, attrs):
     out = torch.index_select(x, axis, idx.reshape(-1).long())
     return {"Out": [out.reshape(x.shape[:axis] + idx.shape
                                 + x.shape[axis + 1:])]}
+
+
+@register("assign")
+def _assign(ctx, ins, attrs):
+    return {"Out": [ins["X"][0]]}
+
+
+@register("assign_value")
+def _assign_value(ctx, ins, attrs):
+    """A constant array from the op's attrs, built from one `torch.full`
+    per value: no host-to-device copy, so it may run inside a captured
+    step. float64 means float32, as under the reference's 32-bit
+    policy."""
+    dtype = convert_dtype(attrs.get("dtype", "float32"))
+    if dtype == torch.float64:
+        dtype = torch.float32
+    values = attrs.get("values", attrs.get("fp32_values", []))
+    out = torch.stack([torch.full((), v, dtype=dtype, device=ctx.device)
+                       for v in values])
+    return {"Out": [out.reshape(tuple(attrs["shape"]))]}
+
+
+@register("increment")
+def _increment(ctx, ins, attrs):
+    x = ins["X"][0]
+    step = torch.full((), attrs.get("step", 1.0), dtype=x.dtype,
+                      device=x.device)
+    return {"Out": [x + step]}
+
+
+@register("where", nondiff_slots=("Condition",))
+def _where(ctx, ins, attrs):
+    return {"Out": [torch.where(ins["Condition"][0], ins["X"][0],
+                                ins["Y"][0])]}
+
+
+@register("expand")
+def _expand(ctx, ins, attrs):
+    return {"Out": [torch.tile(ins["X"][0], tuple(attrs["expand_times"]))]}

@@ -1,19 +1,35 @@
 """Optimizers: emit backward + update ops into the program (counterpart of
-paddle_tpu/optimizer.py: `Optimizer.minimize` :160, `SGDOptimizer` :202,
-`MomentumOptimizer` :217, `AdamOptimizer` :270, `AdamW` :353).
+paddle_tpu/optimizer.py: `Optimizer` :40 with its LR plumbing :61-95,
+`SGDOptimizer` :202, `MomentumOptimizer` :217, `LarsMomentumOptimizer`
+:241, `AdamOptimizer` :270, `AdamW` :353, `AdagradOptimizer` :364,
+`AdamaxOptimizer` :385, `RMSPropOptimizer` :415, `LambOptimizer` :447,
+`ExponentialMovingAverage` :460, `AdadeltaOptimizer` :520,
+`DecayedAdagradOptimizer` :547, `FtrlOptimizer` :569).
 
 `minimize` = append_backward, then `apply_gradients`: the grad clip's ops
 (clip.py), each parameter's weight-decay term (regularizer.py, from the
-parameter's own regularizer or the optimizer's `regularization` /
-`weight_decay`), and one update op per parameter. Adam keeps the
+parameter's own regularizer, `ParamAttr(regularizer=)`, or the
+optimizer's `regularization` / `weight_decay`), and one update op per
+parameter (ops/optimizer_ops.py). Adam, AdamW and Lamb keep the
 reference's ONE shared beta-pow pair, advanced once per step by a `scale`
 op after every update has read it (`_finalize_optimize_ops`).
-Not ported yet (ROADMAP): LR schedulers and LR variables, and the
-optimizers other than SGD, Momentum, Adam and AdamW.
+
+The learning rate (`_create_lr_var`) is a float (a persistable [1]
+variable), an `lr.LRScheduler` (the same variable, bound to the scheduler,
+which writes each new LR into it in place), a `Variable` (a static
+schedule's output, layers/learning_rate_scheduler.py) or a callable that
+builds one. `set_lr` writes in place too, so none of them invalidates a
+captured step.
+
+Not ported (ROADMAP items 16 and 18): DGC, Dpsgd, Lookahead, ModelAverage
+and the Pipeline, Recompute and GradientMerge wrappers.
 """
 from __future__ import annotations
 
 from typing import Dict
+
+import numpy as np
+import torch
 
 from . import layers
 from .framework import unique_name
@@ -23,17 +39,33 @@ from .framework.program import OpRole, Variable, default_main_program
 from .layer_helper import LayerHelper
 
 __all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum",
-           "MomentumOptimizer", "Adam", "AdamOptimizer", "AdamW"]
+           "MomentumOptimizer", "Adam", "AdamOptimizer", "AdamW",
+           "Adagrad", "AdagradOptimizer", "Adamax", "AdamaxOptimizer",
+           "RMSProp", "RMSPropOptimizer", "Lamb", "LambOptimizer",
+           "LarsMomentum", "LarsMomentumOptimizer", "Adadelta",
+           "AdadeltaOptimizer", "DecayedAdagrad", "DecayedAdagradOptimizer",
+           "Ftrl", "FtrlOptimizer", "ExponentialMovingAverage"]
+
+
+def _write_in_place(scope, name, value):
+    """`value` into the scope's tensor `name`, on its device, keeping its
+    address. Returns False (and binds nothing) when the scope holds no
+    tensor under that name."""
+    t = scope.find(name)
+    if not isinstance(t, torch.Tensor):
+        return False
+    with torch.no_grad():
+        if isinstance(value, (int, float)):
+            t.fill_(value)
+        else:
+            t.copy_(torch.as_tensor(np.asarray(value)).reshape(t.shape))
+    return True
 
 
 class Optimizer:
     def __init__(self, learning_rate=0.001, parameter_list=None,
                  regularization=None, grad_clip=None, name=None,
                  parameters=None, weight_decay=None):
-        if not isinstance(learning_rate, (int, float)):
-            raise NotImplementedError(
-                "only a constant float learning rate is ported; LR "
-                "schedulers and LR variables are not yet (ROADMAP)")
         if regularization is None and weight_decay:
             from .regularizer import L2Decay
             regularization = (weight_decay if not isinstance(
@@ -49,12 +81,77 @@ class Optimizer:
         self.helper = LayerHelper(type(self).__name__)
         self.type = "sgd"
 
+    # -- learning rate ------------------------------------------------------
     def _create_lr_var(self):
-        if self._lr_var is None:
+        if self._lr_var is not None:
+            return self._lr_var
+        from .lr import LRScheduler
+        lr = self._learning_rate
+        if isinstance(lr, Variable):
+            self._lr_var = lr
+        elif isinstance(lr, LRScheduler):
+            name = unique_name.generate("learning_rate")
             self._lr_var = layers.create_global_var(
-                [1], float(self._learning_rate), "float32", persistable=True,
+                [1], float(lr()), "float32", persistable=True, name=name)
+            lr._bind_static_var(name)
+            # the executor attaches every scope it runs this program in
+            prog = self._lr_var.block.program
+            prog._lr_schedulers = list(getattr(prog, "_lr_schedulers", ()))
+            if lr not in prog._lr_schedulers:
+                prog._lr_schedulers.append(lr)
+        elif callable(lr):
+            self._lr_var = lr()
+        else:
+            self._lr_var = layers.create_global_var(
+                [1], float(lr), "float32", persistable=True,
                 name=unique_name.generate("learning_rate"))
         return self._lr_var
+
+    @property
+    def learning_rate_var(self):
+        return self._create_lr_var()
+
+    def set_lr(self, value, scope=None):
+        """Write `value` into the LR variable of `scope` (the global scope
+        by default), in place."""
+        from .framework.scope import global_scope
+        self._create_lr_var()
+        _write_in_place(scope or global_scope(), self._lr_var.name,
+                        float(value))
+
+    def state_dict(self, scope=None):
+        """The accumulators' values (host arrays) held in `scope`, and the
+        LR scheduler's state under "LR_Scheduler"."""
+        from .framework.scope import global_scope, to_numpy
+        from .lr import LRScheduler
+        scope = scope or global_scope()
+        sd = {}
+        for accs in self._accumulators.values():
+            for v in accs.values():
+                val = scope.find(v.name)
+                if val is not None:
+                    sd[v.name] = to_numpy(val)
+        if isinstance(self._learning_rate, LRScheduler):
+            sd["LR_Scheduler"] = self._learning_rate.state_dict()
+        return sd
+
+    def set_state_dict(self, sd, scope=None):
+        """Inverse of `state_dict`: each accumulator is written into the
+        scope's tensor in place (a missing tensor raises), and the
+        scheduler's state restored, which rewrites the LR variable."""
+        from .framework import errors
+        from .framework.scope import global_scope
+        from .lr import LRScheduler
+        scope = scope or global_scope()
+        for key, val in sd.items():
+            if key == "LR_Scheduler":
+                if isinstance(self._learning_rate, LRScheduler):
+                    self._learning_rate.set_state_dict(val)
+                continue
+            if not _write_in_place(scope, key, val):
+                raise errors.NotFound(
+                    "optimizer state %r has no tensor in the scope: run the "
+                    "startup program first", key, var=key)
 
     def _add_accumulator(self, name, param, fill_value=0.0, shape=None,
                          dtype=None):
@@ -156,6 +253,36 @@ class MomentumOptimizer(Optimizer):
                    "op_role": OpRole.Optimize})
 
 
+class LarsMomentumOptimizer(Optimizer):
+    """Layer-wise trust-ratio momentum. Per-parameter ops also under ZeRO
+    (the rule reads whole-parameter norms)."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, lars_coeff=0.001,
+                 lars_weight_decay=0.0005, epsilon=0.0, **kw):
+        super().__init__(learning_rate, **kw)
+        self.type = "lars_momentum"
+        self._momentum = momentum
+        self._lars_coeff = lars_coeff
+        self._lars_weight_decay = lars_weight_decay
+        self._epsilon = epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, pg):
+        p, g = pg
+        v = self._get_accumulator("velocity", p)
+        return block.append_op(
+            "lars_momentum",
+            inputs={"Param": [p], "Grad": [g], "Velocity": [v],
+                    "LearningRate": [self._lr_var]},
+            outputs={"ParamOut": [p], "VelocityOut": [v]},
+            attrs={"mu": self._momentum, "lars_coeff": self._lars_coeff,
+                   "lars_weight_decay": self._lars_weight_decay,
+                   "epsilon": self._epsilon, "op_role": OpRole.Optimize})
+
+
 class AdamOptimizer(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, lazy_mode=False, **kw):
@@ -228,6 +355,239 @@ class AdamW(AdamOptimizer):
         return {"coeff": self._coeff, "with_decay": True}
 
 
+class AdagradOptimizer(Optimizer):
+    def __init__(self, learning_rate=0.001, epsilon=1e-6, **kw):
+        super().__init__(learning_rate, **kw)
+        self.type = "adagrad"
+        self._epsilon = epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment", p)
+
+    def _append_optimize_op(self, block, pg):
+        p, g = pg
+        m = self._get_accumulator("moment", p)
+        return block.append_op(
+            "adagrad",
+            inputs={"Param": [p], "Grad": [g], "Moment": [m],
+                    "LearningRate": [self._lr_var]},
+            outputs={"ParamOut": [p], "MomentOut": [m]},
+            attrs={"epsilon": self._epsilon, "op_role": OpRole.Optimize})
+
+
+class AdamaxOptimizer(Optimizer):
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kw):
+        super().__init__(learning_rate, **kw)
+        self.type = "adamax"
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment", p)
+            self._add_accumulator("inf_norm", p)
+            self._add_accumulator("beta1_pow_acc", p, fill_value=self._beta1,
+                                  shape=[1])
+
+    def _append_optimize_op(self, block, pg):
+        p, g = pg
+        return block.append_op(
+            "adamax",
+            inputs={"Param": [p], "Grad": [g],
+                    "LearningRate": [self._lr_var],
+                    "Moment": [self._get_accumulator("moment", p)],
+                    "InfNorm": [self._get_accumulator("inf_norm", p)],
+                    "Beta1Pow": [self._get_accumulator("beta1_pow_acc", p)]},
+            outputs={"ParamOut": [p],
+                     "MomentOut": [self._get_accumulator("moment", p)],
+                     "InfNormOut": [self._get_accumulator("inf_norm", p)]},
+            attrs={"beta1": self._beta1, "beta2": self._beta2,
+                   "epsilon": self._epsilon, "op_role": OpRole.Optimize})
+
+
+class RMSPropOptimizer(Optimizer):
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 centered=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self.type = "rmsprop"
+        self._rho, self._epsilon = rho, epsilon
+        self._momentum, self._centered = momentum, centered
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("mean_square", p)
+            self._add_accumulator("mean_grad", p)
+            self._add_accumulator("momentum", p)
+
+    def _append_optimize_op(self, block, pg):
+        p, g = pg
+        acc = self._get_accumulator
+        return block.append_op(
+            "rmsprop",
+            inputs={"Param": [p], "Grad": [g],
+                    "LearningRate": [self._lr_var],
+                    "MeanSquare": [acc("mean_square", p)],
+                    "MeanGrad": [acc("mean_grad", p)],
+                    "Moment": [acc("momentum", p)]},
+            outputs={"ParamOut": [p],
+                     "MeanSquareOut": [acc("mean_square", p)],
+                     "MeanGradOut": [acc("mean_grad", p)],
+                     "MomentOut": [acc("momentum", p)]},
+            attrs={"decay": self._rho, "epsilon": self._epsilon,
+                   "momentum": self._momentum, "centered": self._centered,
+                   "op_role": OpRole.Optimize})
+
+
+class LambOptimizer(AdamOptimizer):
+    """Adam scaled by the layer-wise trust ratio. Per-parameter ops also
+    under ZeRO (the rule reads whole-parameter norms)."""
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
+                 beta1=0.9, beta2=0.999, epsilon=1e-6, **kw):
+        super().__init__(learning_rate, beta1, beta2, epsilon, **kw)
+        self.type = "lamb"
+        self._weight_decay = lamb_weight_decay
+
+    def _extra_attrs(self):
+        return {"weight_decay": self._weight_decay}
+
+
+class ExponentialMovingAverage:
+    """Shadow EMA parameters: `update()` appends, per trainable parameter,
+    shadow = decay * shadow + (1 - decay) * param (two `scale` ops and a
+    `sum`) to the main program, so the EMA advances inside the training
+    step. The shadows start at 0, as in the reference.
+
+    `apply()` puts the shadow values into the parameters and `restore()`
+    puts the trained values back. Both copy into the scope's tensors in
+    place (the reference swaps the arrays), so a captured step stays
+    valid across them."""
+
+    def __init__(self, decay=0.999, thres_steps=None, name=None):
+        self._decay = decay
+        self._name = name or "ema"
+        self._shadows = {}
+        self._backups = {}
+
+    def update(self):
+        program = default_main_program()
+        block = program.global_block()
+        for p in program.all_parameters():
+            if not p.trainable:
+                continue
+            shadow = self._shadows.get(p.name)
+            if shadow is None:
+                shadow = layers.create_global_var(
+                    list(p.shape), 0.0, dtype_name(p.dtype), persistable=True,
+                    name=unique_name.generate(f"{p.name}_{self._name}"))
+                self._shadows[p.name] = shadow
+            scaled = layers.scale(shadow, scale=self._decay)
+            contrib = layers.scale(p, scale=1.0 - self._decay)
+            layers.sums([scaled, contrib], out=shadow)
+            for op in block.ops[-3:]:
+                op.attrs["op_role"] = OpRole.Optimize
+
+    def apply(self, executor=None, need_restore=True, scope=None):
+        from .framework.scope import global_scope
+        scope = scope or global_scope()
+        with torch.no_grad():
+            for pname, shadow in self._shadows.items():
+                p = scope.find(pname)
+                self._backups[pname] = p.clone()
+                p.copy_(scope.find(shadow.name))
+
+    def restore(self, executor=None, scope=None):
+        from .framework.scope import global_scope
+        scope = scope or global_scope()
+        with torch.no_grad():
+            for pname, val in self._backups.items():
+                scope.find(pname).copy_(val)
+        self._backups.clear()
+
+
+class AdadeltaOptimizer(Optimizer):
+    def __init__(self, learning_rate=1.0, epsilon=1e-6, rho=0.95, **kw):
+        super().__init__(learning_rate, **kw)
+        self.type = "adadelta"
+        self._rho, self._epsilon = rho, epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("avg_squared_grad", p)
+            self._add_accumulator("avg_squared_update", p)
+
+    def _append_optimize_op(self, block, pg):
+        p, g = pg
+        asg = self._get_accumulator("avg_squared_grad", p)
+        asu = self._get_accumulator("avg_squared_update", p)
+        return block.append_op(
+            "adadelta",
+            inputs={"Param": [p], "Grad": [g], "AvgSquaredGrad": [asg],
+                    "AvgSquaredUpdate": [asu]},
+            outputs={"ParamOut": [p], "AvgSquaredGradOut": [asg],
+                     "AvgSquaredUpdateOut": [asu]},
+            attrs={"rho": self._rho, "epsilon": self._epsilon,
+                   "op_role": OpRole.Optimize})
+
+
+class DecayedAdagradOptimizer(Optimizer):
+    def __init__(self, learning_rate, decay=0.95, epsilon=1e-6, **kw):
+        super().__init__(learning_rate, **kw)
+        self.type = "decayed_adagrad"
+        self._decay, self._epsilon = decay, epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment", p)
+
+    def _append_optimize_op(self, block, pg):
+        p, g = pg
+        m = self._get_accumulator("moment", p)
+        return block.append_op(
+            "decayed_adagrad",
+            inputs={"Param": [p], "Grad": [g], "Moment": [m],
+                    "LearningRate": [self._lr_var]},
+            outputs={"ParamOut": [p], "MomentOut": [m]},
+            attrs={"decay": self._decay, "epsilon": self._epsilon,
+                   "op_role": OpRole.Optimize})
+
+
+class FtrlOptimizer(Optimizer):
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, lr_power=-0.5, **kw):
+        super().__init__(learning_rate, **kw)
+        self.type = "ftrl"
+        self._l1, self._l2, self._lr_power = l1, l2, lr_power
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("squared", p)
+            self._add_accumulator("linear", p)
+
+    def _append_optimize_op(self, block, pg):
+        p, g = pg
+        acc = self._get_accumulator
+        return block.append_op(
+            "ftrl",
+            inputs={"Param": [p], "Grad": [g],
+                    "SquaredAccumulator": [acc("squared", p)],
+                    "LinearAccumulator": [acc("linear", p)],
+                    "LearningRate": [self._lr_var]},
+            outputs={"ParamOut": [p],
+                     "SquaredAccumOut": [acc("squared", p)],
+                     "LinearAccumOut": [acc("linear", p)]},
+            attrs={"l1": self._l1, "l2": self._l2, "lr_power": self._lr_power,
+                   "op_role": OpRole.Optimize})
+
+
 SGD = SGDOptimizer
 Momentum = MomentumOptimizer
 Adam = AdamOptimizer
+Adagrad = AdagradOptimizer
+Adamax = AdamaxOptimizer
+RMSProp = RMSPropOptimizer
+Lamb = LambOptimizer
+LarsMomentum = LarsMomentumOptimizer
+Adadelta = AdadeltaOptimizer
+Ftrl = FtrlOptimizer
+DecayedAdagrad = DecayedAdagradOptimizer

@@ -27,20 +27,33 @@ paddle_tpu/parallel/zero.py).
    state, and at stage 3 the flat parameters, are updated in place; at
    stages 1-2 the updated pieces are copied back into the scope's
    parameter tensors.
+3. **The checkpoint round trip** (reference `unbucket_state_for_save`
+   :1090, `adopt_unsharded_state` :1030): checkpoints are always written
+   unsharded, each flat bucket split back into its per-parameter entries
+   under the names a stage-0 program uses (stage-2 flat gradients are
+   per-step scratch and are dropped), so a stage-k checkpoint loads into a
+   stage-0 program and into the reference, and back. A stage-k program
+   packs per-parameter entries into its flat buckets: on the host when a
+   loader knows the program (`pack_unsharded_arrays`), or from the scope
+   at the start of the next run (`adopt_unsharded_state`, called by the
+   executor's `_prepare` as the reference's `_ensure_zero_state` calls
+   it). Either way the packed bucket is `copy_`'d into
+   the scope's existing flat tensor, so a captured step bound to it stays
+   valid.
 
 Not ported (ROADMAP Queue 1): data parallelism over `torch.distributed`
 (the `psum_scatter` / `all_gather` / `pmean` branches and the manual-dp
 runner `plan_manual_dp` / `build_manual_jit`); the stacked `@LAYERS`
 stage-3 path (`_plan_stacked_stage3`, `_zero_update_stacked`: layer scan
-is not ported, so such a program raises); the checkpoint round trip
-(`adopt_unsharded_state`, `unbucket_state_for_save`); and the
-`checked_pass` verifier (analysis/ is not ported).
+is not ported, so such a program raises); and the `checked_pass`
+verifier (analysis/ is not ported).
 """
 from __future__ import annotations
 
 import math
 from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..framework.dtype import convert_dtype, dtype_name
@@ -533,3 +546,104 @@ def _insert_zero_gathers(block, zero_meta) -> None:
             attrs={"sizes": b["sizes"], "shapes": b["shapes"],
                    "dtypes": dtypes, "padded": b["padded"],
                    "op_role": OpRole.Forward})
+
+
+# ---------------------------------------------------------------------------
+# the checkpoint round trip
+# ---------------------------------------------------------------------------
+
+def zero_buckets(program) -> List[dict]:
+    return (getattr(program, "_grad_buckets", None) or {}).get(
+        "zero_buckets") or []
+
+
+def _flat_groups(program, b) -> List[tuple]:
+    """(flat var, per-entry names in bucket order) for each flat array of
+    bucket `b` that stands for per-parameter checkpoint entries: the state
+    kinds whose per-parameter vars the pass removed, and at stage 3 the
+    parameters themselves."""
+    gb = program.global_block()
+    groups = []
+    for kind, fname in b["flat"].items():
+        legacy = [b["per_param_state"][p][kind] for p in b["params"]]
+        if not any(gb.has_var(n) for n in legacy):
+            groups.append((fname, legacy))
+    if b.get("flat_param"):
+        groups.append((b["flat_param"], list(b["params"])))
+    return groups
+
+
+def unbucket_state_for_save(program, arrays: dict) -> dict:
+    """Host arrays of a checkpoint -> the unsharded format: each flat
+    bucket entry replaced by its per-parameter views, the stage-2 flat
+    gradients dropped."""
+    buckets = zero_buckets(program)
+    if not buckets:
+        return arrays
+    out = dict(arrays)
+    for b in buckets:
+        for fname, legacy in _flat_groups(program, b):
+            flat = out.pop(fname, None)
+            if flat is None:
+                continue
+            flat, off = np.asarray(flat).reshape(-1), 0
+            for n, size, shape in zip(legacy, b["sizes"], b["shapes"]):
+                out[n] = flat[off:off + size].reshape(tuple(shape))
+                off += size
+        if b.get("flat_grad"):
+            out.pop(b["flat_grad"], None)
+    return out
+
+
+def _packable(values, b) -> bool:
+    return all(tuple(np.shape(v)) == tuple(shape)
+               for v, shape in zip(values, b["shapes"]))
+
+
+def pack_unsharded_arrays(program, arrays: dict) -> dict:
+    """Inverse of `unbucket_state_for_save` on host arrays: where every
+    per-parameter entry of a flat group is present with the bucket's
+    shapes, they are replaced by the packed [padded] flat array. A partial
+    set is left as it is (ambiguous, as in the reference)."""
+    buckets = zero_buckets(program)
+    if not buckets:
+        return arrays
+    out = dict(arrays)
+    for b in buckets:
+        for fname, legacy in _flat_groups(program, b):
+            if not all(n in out for n in legacy):
+                continue
+            vals = [np.asarray(out[n]) for n in legacy]
+            if not _packable(vals, b):
+                continue
+            flat = np.zeros(int(b["padded"]),
+                            dtype=np.dtype(vals[0].dtype))
+            off = 0
+            for v in vals:
+                flat[off:off + v.size] = v.reshape(-1)
+                off += v.size
+            for n in legacy:
+                del out[n]
+            out[fname] = flat
+    return out
+
+
+def adopt_unsharded_state(program, scope, device=None) -> None:
+    """Scope side of the round trip (the executor's `_prepare`):
+    when every per-parameter entry of a flat group is in the scope (an
+    unsharded checkpoint or snapshot was restored there without the
+    program), pack them into the flat var, in place when the scope holds
+    it, and erase the per-parameter entries. Loaded values win over the
+    flat values; only the program's own recorded names are touched."""
+    from ..framework.scope import load_arrays, to_numpy
+    for b in zero_buckets(program):
+        for fname, legacy in _flat_groups(program, b):
+            if not all(scope.has(n) for n in legacy):
+                continue
+            host = {n: to_numpy(scope.find(n)) for n in legacy}
+            packed = pack_unsharded_arrays(program, host)
+            if fname not in packed:
+                continue
+            load_arrays(scope, {fname: packed[fname]}, device=device)
+            for n in legacy:
+                scope.erase(n)

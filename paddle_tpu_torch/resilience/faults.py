@@ -29,6 +29,10 @@ before any device work, never inside a CUDA graph capture:
                          replica-kill site)
     serving.spec.draft   before each draft proposal; an error degrades
                          the engine to plain decode
+    ckpt.write           after a checkpoint's data is written and before
+                         it is published (io.py `_atomic_savez`,
+                         CheckpointManager.save); an error leaves the
+                         previous checkpoint the newest complete one
 """
 from __future__ import annotations
 

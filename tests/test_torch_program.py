@@ -352,10 +352,9 @@ def test_fleet_honours_amp_and_rejects_the_rest():
 
 
 def test_unported_options_raise():
-    lr_var = port_program.Program().global_block().create_var(
-        name="learning_rate", shape=[1], dtype="float32", persistable=True)
-    with pytest.raises(NotImplementedError, match="LR variables"):
-        port_optimizer.Adam(learning_rate=lr_var)
+    from paddle_tpu_torch.distributed import fleet as port_fleet
+    with pytest.raises(NotImplementedError, match="recompute"):
+        port_fleet.DistributedStrategy().recompute = True
     cfg = port_bert.BertConfig.tiny()
     cfg.moe_experts = 2
     with pytest.raises(NotImplementedError):

@@ -383,7 +383,10 @@ def test_port_imports_neither_jax_nor_reference():
                 "resilience/faults.py", "resilience/retry.py",
                 "resilience/__init__.py", "monitor.py",
                 "framework/fetch.py", "framework/executor.py",
-                "models/gpt.py", "ops/kernels/counts.py"):
+                "models/gpt.py", "ops/kernels/counts.py", "lr.py",
+                "io.py", "layers/learning_rate_scheduler.py",
+                "resilience/checkpoint.py", "resilience/snapshot.py",
+                "resilience/integrity.py"):
         assert f"paddle_tpu_torch/{new}" in walked, new
     for path in files:
         for mod in _imports(path):
