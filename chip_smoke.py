@@ -1757,7 +1757,7 @@ def gpt_capture_gate(torch, fa, zk, cfg, stage, steps=3):
            "executor_stats": dict(cap.stats),
            "launches_incl_warmup": launches}
     del main, start, sa, sb, eager, cap
-    torch.cuda.empty_cache()
+    release(torch)
     return row
 
 
@@ -3040,7 +3040,7 @@ def main():
         rows[name]["launches"] = n
 
     # ---- GPT-2 small LM training: run_steps on one captured step ---------
-    torch.cuda.empty_cache()
+    release(torch)
     gpt_row = {"card_vs_cpu": gpt_card_vs_cpu(torch, fa)}
     gpt_row["capture_gates"] = [
         gpt_capture_gate(torch, fa, zk, gpt_config(), stage)

@@ -92,7 +92,7 @@ import torch
 from . import errors
 from .program import Program, Variable, default_main_program
 from .scope import Scope, global_scope, to_numpy
-from ..device import resolve_device
+from ..device import collector_paused, resolve_device
 from ..monitor import stat_add
 from ..observability import flight as _flight
 from ..observability import metrics as _metrics
@@ -332,16 +332,19 @@ class _CapturedStep:
     stream on the first step's inputs (cuBLAS handles and workspaces,
     kernel libraries and first-time persistables come up there), then
     puts every persistable it wrote back as it was, then captures the
-    step with `capture_error_mode="thread_local"`. `replay` runs k steps:
+    step with `capture_error_mode="thread_local"` and the cyclic garbage
+    collector paused (device.py `collector_paused`). `replay` runs k steps:
     per step, feed slices and seed into the static buffers, one replay,
     the fetches copied out of the graph's own buffers into the caller's
     stacked [k, ...] tensors. The executor's captured steps share one
     memory pool; the static buffers are allocated outside it."""
 
-    def __init__(self, exe, program, feed_specs, fetch_names, scope):
-        self.exe, self.program, self.scope = exe, program, scope
+    def __init__(self, device, program, feed_specs, fetch_names, scope):
+        # no reference to the executor: a dropped executor frees its
+        # graphs and their pool at once, not at the next collection
+        self.program, self.scope = program, scope
         self.fetch_names = list(fetch_names)
-        dev = exe.device
+        dev = device
         self.static = {n: torch.empty(shape, dtype=dt, device=dev)
                        for n, (shape, dt) in feed_specs.items()}
         self.seed = torch.zeros((), dtype=torch.int64, device=dev)
@@ -357,9 +360,9 @@ class _CapturedStep:
         return set(names) == set(self.bound) and all(
             self.scope.find(n) is t for n, t in self.bound.items())
 
-    def capture(self, feeds0: Dict[str, torch.Tensor], seed0: int):
+    def capture(self, exe, feeds0: Dict[str, torch.Tensor], seed0: int):
         from ..ops.kernels import counts
-        exe, scope = self.exe, self.scope
+        scope = self.scope
         block = self.program.global_block()
         for n, buf in self.static.items():
             buf.copy_(feeds0[n])
@@ -384,13 +387,27 @@ class _CapturedStep:
         if exe._pool is None:
             exe._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        with counts.capture(side) as rec, \
-                torch.cuda.graph(graph, pool=exe._pool, stream=side,
-                                 capture_error_mode="thread_local"):
-            self.outs = exe._step(
-                self.program, dict(self.static), scope,
-                registry.LowerCtx(run_seed=self.seed, device=exe.device),
-                self.fetch_names, strict=True)
+        failed = None
+        try:
+            with collector_paused(), counts.capture(side) as rec, \
+                    torch.cuda.graph(graph, pool=exe._pool, stream=side,
+                                     capture_error_mode="thread_local"):
+                try:
+                    self.outs = exe._step(
+                        self.program, dict(self.static), scope,
+                        registry.LowerCtx(run_seed=self.seed,
+                                          device=exe.device),
+                        self.fetch_names, strict=True)
+                except BaseException as e:
+                    failed = e
+                    raise
+        except BaseException as e:
+            if failed is None or e is failed:
+                raise
+            # ending the failed capture raised too: the step's own error
+            # is the cause, and it is the one raised last
+            failed.add_note(f"ending the capture raised: {e!r}")
+            raise failed from None
         self.graph, self.recorded = graph, rec
         self.bound = {n: scope.find(n)
                       for n in _state_names(block, scope)}
@@ -713,11 +730,12 @@ class Executor:
         if step is not None and not step.valid():
             step = None
         if step is None:
-            step = _CapturedStep(self, program,
+            step = _CapturedStep(self.device, program,
                                  {n: (shape, dt) for n, shape, dt in specs},
                                  fetch_names, scope)
             with _trace.RecordEvent("capture", args={"k": k}):
-                step.capture({n: t[0] for n, t in feeds.items()}, seeds[0])
+                step.capture(self, {n: t[0] for n, t in feeds.items()},
+                             seeds[0])
             self._captured[key] = step
             self.stats["captures"] += 1
             self.stats["warmup_steps"] += 1

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from . import _build
+from ...device import collector_paused
 from . import flash_attention as fa
 from . import paged_attention as pk
 from . import zero_update as zk
@@ -202,7 +203,7 @@ def graph_ms(fns, replays=20):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with collector_paused(), torch.cuda.graph(graph):
         for fn in fns:
             fn()
     graph.replay()

@@ -78,7 +78,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, collector_paused, resolve_device
 from ..flags import flag
 from ..framework import errors as _errors
 from ..framework.executor import _deadline_call, _on_stream
@@ -197,7 +197,8 @@ class _Captured:
     warm-up call with every input zero: every row inactive and every
     page-table entry the scratch block, so the warm-up writes nothing a
     slot reads. One capture runs at a time in the process
-    (`_capture_lock`). The B4 launches the capture recorded (on this
+    (`_capture_lock`), with the cyclic collector paused
+    (`collector_paused`). The B4 launches the capture recorded (on this
     thread only, `capture_launches`) are counted again at every
     replay."""
 
@@ -213,7 +214,7 @@ class _Captured:
                 body(inputs)
             torch.cuda.current_stream(dev).wait_stream(side)
             self.graph = torch.cuda.CUDAGraph()
-            with _kernel.capture_launches() as rec, \
+            with collector_paused(), _kernel.capture_launches() as rec, \
                     torch.cuda.graph(self.graph, pool=pool, stream=side,
                                      capture_error_mode="thread_local"):
                 self.out = body(inputs)

@@ -24,12 +24,22 @@ tests/test_async_dispatch.py.
   fed the same int (bit for bit, values and gradients).
 * Persistables are written in place: a step leaves every scope tensor at
   its address, and a rebinding inside a capture raises.
+* Captures and the garbage collector: `collector_paused` collects once,
+  then keeps the cyclic collector off (nesting, across threads, and
+  leaving a collector that was off, off); a captured step holds no
+  reference to its executor, so a dropped executor is freed at once.
 * On a CUDA card (marker `cuda`, skipped here; run it there with
   `python -m pytest -m cuda tests/test_torch_run_steps.py`): the captured
   run_steps(3) equals 3 eager runs bit for bit, dropout on, with no eager
   step, also across two captured signatures, staged feeds and lazy
-  fetches.
+  fetches; a dead executor's graph, left in a reference cycle, is freed
+  before the next capture and never inside it (freeing a CUDA graph
+  inside a capture invalidates that capture).
 """
+import gc
+import threading
+import weakref
+
 import numpy as np
 import pytest
 import torch
@@ -42,6 +52,7 @@ from paddle_tpu.framework.scope import Scope as RefScope
 from paddle_tpu.models import gpt as ref_gpt
 
 from paddle_tpu_torch import monitor
+from paddle_tpu_torch.device import collector_paused
 from paddle_tpu_torch import optimizer as port_optimizer
 from paddle_tpu_torch.flags import flag
 from paddle_tpu_torch.framework import Executor, Scope, errors, load_numpy
@@ -371,6 +382,66 @@ def test_persistables_written_in_place():
                                          strict=True)
 
 
+class _Cycle:
+    def __init__(self):
+        self.me = self
+
+
+def test_collector_paused_collects_then_pauses_and_nests():
+    assert gc.isenabled()
+    dead = _Cycle()
+    ref = weakref.ref(dead)
+    del dead
+    entered, left = threading.Event(), threading.Event()
+    seen = {}
+
+    def other_thread():
+        with collector_paused():
+            entered.set()
+            left.wait(10)
+        seen["after_other"] = gc.isenabled()
+
+    with collector_paused():
+        # the dead cycle went in the collection at the start
+        assert ref() is None
+        assert not gc.isenabled()
+        t = threading.Thread(target=other_thread)
+        t.start()
+        assert entered.wait(10)
+        with collector_paused():
+            assert not gc.isenabled()
+        assert not gc.isenabled()
+    # the other thread still holds it off
+    assert not gc.isenabled()
+    left.set()
+    t.join(10)
+    assert seen["after_other"] and gc.isenabled()
+
+
+def test_collector_paused_keeps_a_disabled_collector_off():
+    gc.disable()
+    try:
+        with collector_paused():
+            assert not gc.isenabled()
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
+
+
+def test_dropped_executor_frees_its_captured_steps_without_a_collection():
+    main, _, _, _ = _port_program("bert", dropout=0.0)
+    exe, scope = Executor("cpu"), Scope()
+    exe._captured["key"] = port_executor._CapturedStep(
+        exe.device, main, {"x": ((2,), torch.float32)}, [], scope)
+    ref = weakref.ref(exe)
+    gc.disable()
+    try:
+        del exe
+        assert ref() is None
+    finally:
+        gc.enable()
+
+
 @pytest.fixture
 def cuda_card():
     if not torch.cuda.is_available():
@@ -430,3 +501,43 @@ def test_captured_run_steps_equals_eager_runs_on_the_card(cuda_card):
     assert cap.stats["captures"] == 2 and cap.stats["eager_steps"] == 0
     for n in _persistables(main):
         assert torch.equal(a.find(n), b.find(n)), n
+
+
+@pytest.mark.cuda
+def test_dead_executor_graph_is_freed_outside_the_next_capture(cuda_card):
+    """A captured executor dropped inside a reference cycle, then a capture
+    in a second executor with the collector set to run at every
+    allocation: the dead graph is freed by the collection before the
+    capture (never inside it, which would invalidate the capture), and the
+    second executor captures once and equals eager runs."""
+    cfg = port_gpt.GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                             num_heads=2, intermediate_size=256,
+                             max_position=64, seq_len=64)
+    main, start, cfg, loss = _port_program("gpt", dropout=0.1, cfg=cfg)
+    arrays = _start_arrays(start, "cuda")
+    feeds = _feeds("gpt", cfg)
+    first = Executor("cuda")
+    first.run_steps(K, main, feed=feeds, fetch_list=[loss],
+                    scope=load_numpy(Scope(), arrays, "cuda"))
+    assert first.stats["captures"] == 1
+    freed_while_capturing = []
+    holder = _Cycle()
+    holder.exe = first
+    weakref.finalize(holder, lambda: freed_while_capturing.append(
+        torch.cuda.is_current_stream_capturing()))
+    del first, holder
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        cap = Executor("cuda")
+        b = load_numpy(Scope(), arrays, "cuda")
+        stacked, = cap.run_steps(K, main, feed=feeds, fetch_list=[loss],
+                                 scope=b)
+    finally:
+        gc.set_threshold(*thresholds)
+    assert freed_while_capturing == [False]
+    assert cap.stats["captures"] == 1 and cap.stats["eager_steps"] == 0
+    eager, a = Executor("cuda"), load_numpy(Scope(), arrays, "cuda")
+    runs = [eager.run(main, feed={"tokens": feeds["tokens"][j]},
+                      fetch_list=[loss], scope=a)[0] for j in range(K)]
+    np.testing.assert_array_equal(stacked, np.stack(runs))
