@@ -12,7 +12,9 @@ result line):
 3. the paged-attention kernels B4/B5 at the serving main path's widths
    (batch 8, 12 heads, head_dim 64, block 16, max_len 1024, 12 pool
    layers; ragged positions and the edges of a chunk and of the table,
-   a bounded walk and one slot alone bit-equal to the full batch), timed
+   a bounded walk and one slot alone bit-equal to the full batch; f32,
+   bf16 and int8 pools, and a bf16 pool read with an f32 query, the
+   int8-weight arm's <bf16 KV, f32 Q> instance), timed
    with the layer cycling over the 12 layers: alone in a CUDA graph,
    through the wrapper, the plain version and SDPA on a dense cache; and
    the flash-attention kernels B1-B3 at the training main
@@ -45,7 +47,10 @@ result line):
    * bf16 speculative decoding with the int8 draft of the same
      checkpoint, gamma 4, on the 8 requests: spec-on == spec-off tokens,
      acceptance, tokens/s, B4 launched in the draft and verify graphs;
-   * int8 weights (from the f32 checkpoint, bf16 compute): 8 requests;
+   * int8 weights (from the f32 checkpoint; the matrices dequantized to
+     bf16, the biases f32, so the activations are f32): 8 requests, every
+     B4 call a bf16 pool with an f32 query (the <bf16 KV, f32 Q> row's
+     launches);
    * bf16 with int8 KV pools: 2 requests complete;
    * the fault-tolerant tier: first, as a control, one bf16 replica
      behind its own ServingFrontend on the 8 requests; then two bf16
@@ -101,9 +106,12 @@ result line):
    * stage 0 timed: 10 eager Executor.run steps, then run_steps(10) windows
      replaying the captured step (the cache emptied between the arms):
      step ms p50, tokens/s, MFU, peak memory, replays and eager steps,
-     launches per step, one window of each under torch.profiler; then the
-     trained weights (params_from_scope) serve 2 greedy requests equal to
-     the dense generate;
+     launches per step, one window of each under torch.profiler (the top
+     kernels and the GEMMs' device time); the fused LM head alone
+     (forward and backward at the step's shapes, bf16 operands as AMP
+     hands them) under the profiler: its kernels and its GEMMs' time;
+     then the trained weights (params_from_scope) serve 2 greedy requests
+     equal to the dense generate;
 8. GPT-2 small training that survives a restart: GPTConfig() at S 512,
    batch 32, fleet AMP bf16, ZeRO stage 1, AdamW +
    GradientClipByGlobalNorm(1.0), dropout 0.1, the LR
@@ -127,14 +135,36 @@ result line):
    * the snapshot's cost: run_steps(10) windows of the schedule with
      FLAGS_snapshot_steps 10 and 0 and of a constant LR, in ABBA order on
      one executor: step ms p50 of each, the copy to pinned memory (device
-     ms), the worker's and the calling thread's ms, the skips.
+     ms), the worker's and the calling thread's ms, the skips;
+9. GPT-2 small trained from data, phase 8's program on one executor and
+   scope (one capture for every arm): a token file of 16,777,216 int32
+   tokens and 4 MultiSlot text files of 1,280 of its 512-token windows,
+   written from numpy seed 11; the one-batch arm (run_steps(10) windows of
+   one batch) before and after arms L (a memory-mapped Dataset through
+   DataLoader(batch 32, a seeded RandomSampler, 4 forkserver workers)
+   into train_from_dataset(steps_per_loop=10)) and M (InMemoryDataset, 4
+   threads, load_into_memory and local_shuffle on the native plane, into
+   the same), 40 batches an epoch, in the order L, M, M, L: step ms of
+   each window to the next, executor.h2d_ms a step, one window of L under
+   torch.profiler; gates: the first L and the first M equal, bit for bit
+   (losses and every persistable), run_steps(10) fed the same batches
+   stacked on the host from the same state; one capture, no eager step
+   and 12 B1-B3 launches a step over all windows; the loader rebuilt at
+   the same seed, past the 20 batches of two windows, yields batch 20;
+   a dataloader.worker kill is respawned once at
+   FLAGS_dataloader_max_respawns 1 with the same batches and fails naming
+   exit code 43 at 0; prefetch(exe) into 3 Executor.run steps takes
+   every staged feed by identity, coerces none at the run and leaves
+   nothing staged; tests/test_torch_capture_lock.py's two-thread check
+   (a training capture and a serving capture at once, a dead executor
+   cycle pending).
 Each main-path run resets the kernel launch counts just before it and
 fails if a kernel of its path was never launched.
 
 Output: a `{"kernels": [...]}` line, a `{"serving": ...}` line, a
 `{"resilience": ...}` line, a `{"training": ...}` line, a
-`{"gpt_training": ...}` line, a `{"training_state": ...}` line, and last
-`{"ok": true, "device": {...}}`.
+`{"gpt_training": ...}` line, a `{"training_state": ...}` line, a
+`{"data_path": ...}` line, and last `{"ok": true, "device": {...}}`.
 The flash rows' `launches` are the GPT path's (the captured arm's 30
 timed steps); `launches_by_path` keeps the BERT path's beside them.
 """
@@ -162,6 +192,7 @@ _ZERO = ("paddle_tpu_torch/csrc/zero_update.cu",
 ROWS = {
     "paged_decode_f32": (_PAGED[0], f"{_PAGED[1]}:98"),
     "paged_decode_bf16": (_PAGED[0], f"{_PAGED[1]}:98"),
+    "paged_decode_bf16_f32q": (_PAGED[0], f"{_PAGED[1]}:98"),
     "paged_decode_int8": (_PAGED[0], f"{_PAGED[1]}:145"),
     "flash_fwd": (_FLASH[0], f"{_FLASH[1]}:145"),
     "flash_bwd_dq": (_FLASH[0], f"{_FLASH[1]}:282"),
@@ -183,14 +214,16 @@ BF16_FLOPS_PER_S = 989.4e12
 # outputs round to bf16 (one ulp of an O(1) context is <= 2**-7), and the
 # kernel weighs V by unrounded f32 probabilities where the plain version
 # rounds them to bf16; int8 outputs are f32
-TOLERANCE = {"f32": 1e-5, "bf16": 1.6e-2, "int8": 1e-4}
+TOLERANCE = {"f32": 1e-5, "bf16": 1.6e-2, "int8": 1e-4, "bf16_f32q": 1.6e-2}
 # mangled-name prefixes of the paged kernels each pool kind runs: pass 1
 # <KV, Q, HD> and the merge <Out, HD>
 PAGED_MANGLED = {
     "f32": ("paged_decode_kernelIffLi", "paged_decode_kernel_mergeIfLi"),
     "bf16": ("paged_decode_kernelI13__nv_bfloat16S",
              "paged_decode_kernel_mergeI13__nv_bfloat16Li"),
-    "int8": ("paged_decode_kernelIa", "paged_decode_kernel_mergeIfLi")}
+    "int8": ("paged_decode_kernelIa", "paged_decode_kernel_mergeIfLi"),
+    "bf16_f32q": ("paged_decode_kernelI13__nv_bfloat16fLi",
+                  "paged_decode_kernel_mergeI13__nv_bfloat16Li")}
 # flash kernels vs plain version, element by element over O and over dQ,
 # dK and dV (inputs ~N(0, 1)): |kernel - plain| <= atol + rtol * |plain|.
 # f32 sums in another order: absolute, the reference suite's own 2e-5 for
@@ -376,8 +409,12 @@ def check_kernels(torch, kernel_mod, paged_ops, ptxas):
     g = torch.Generator(device="cuda").manual_seed(0)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
-    for kind in ("f32", "bf16", "int8"):
-        q, kp, vp, pt, pos, kw = fv.paged_case(kind, g)
+    for kind in ("f32", "bf16", "int8", "bf16_f32q"):
+        q, kp, vp, pt, pos, kw = fv.paged_case(
+            "bf16" if kind == "bf16_f32q" else kind, g)
+        if kind == "bf16_f32q":
+            # the int8-weight serving arm: f32 activations, bf16 pool
+            q = q.float()
         checks, err = [], 0.0
         queries = (q, q.float()) if kind == "int8" else (q,)
         for label, ps in (("ragged", pos), ("edge", edge)):
@@ -441,14 +478,15 @@ def check_kernels(torch, kernel_mod, paged_ops, ptxas):
         n_valid = (pos.long() + 1).clamp(max=max_len)
         live = int(n_valid.sum())
         kv_bytes = 2 * live * nh * hd * kp.element_size()
-        out_elem = 4 if kind == "int8" else q.element_size()
+        out_elem = 4 if kind == "int8" else kp.element_size()
         io_bytes = (q.numel() * q.element_size() + B * nh * hd * out_elem
                     + 4 * int((pos.long() // bs + 1).sum()) + 4 * B)
         flops = live * nh * (4 * hd + 5)    # two dots + softmax
         t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
         t_ops = flops / F32_FLOPS_PER_S * 1e3
         bound = max(t_bytes, t_ops)
-        name = kernel_mod.KERNEL_NAMES[kp.dtype]
+        name = "paged_decode_bf16_f32q" if kind == "bf16_f32q" \
+            else kernel_mod.KERNEL_NAMES[kp.dtype]
         n_chunks = -(-mb * bs // P)
         rows[name] = row = kernel_row(
             name, max_abs_err=err, ms=alone_ms, plain_ms=plain_ms,
@@ -567,11 +605,17 @@ def device_profile(torch, run, top=8, ranges=(), kernels=()):
     last of them on the device timeline, and the device time of the
     kernels whose names contain each of `kernels`. The profiler's own cost lengthens the wall
     time, so the busy share is a lower bound."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall = run()
+    return profile_summary(prof, wall, top, ranges, kernels)
+
+
+def profile_summary(prof, wall, top=8, ranges=(), kernels=()):
+    """`device_profile`'s numbers from a finished torch.profiler run
+    `prof` that lasted `wall` seconds."""
+    from torch.autograd import DeviceType
     events = prof.key_averages()
     # a profiler range also leaves a span on the device timeline: not a
     # kernel, kept apart
@@ -1853,7 +1897,8 @@ def train_gpt(torch, fa, zk, registry, gpt_decode, serving, card):
         arms["captured"] = dict(
             step_ms=ms, losses=losses, launches=launches, stats=stats,
             peak=peak, capture_s=capture_s, reserved=reserved,
-            profile=device_profile(torch, captured_window, top=10))
+            profile=device_profile(torch, captured_window, top=12,
+                                   kernels=("gemm", "nvjet")))
         del exe
     finally:
         attn.lower = lower
@@ -1913,6 +1958,7 @@ def train_gpt(torch, fa, zk, registry, gpt_decode, serving, card):
              f" replays, {out['captured']['eager_step_calls']} eager steps")
     if out["eager"]["graph_replays"]:
         fail("gpt training eager arm replayed a graph")
+    out["head"] = head_profile(torch, cfg)
     # ---- the trained weights serve
     params = gpt_decode.params_from_scope(cfg, scope, device="cuda")
     rng = np.random.default_rng(5)
@@ -1939,6 +1985,44 @@ def train_gpt(torch, fa, zk, registry, gpt_decode, serving, card):
     del params, scope, main, start
     torch.cuda.empty_cache()
     return out, arms["captured"]["launches"]
+
+
+def head_profile(torch, cfg):
+    """The fused LM head (ops/fused_ce.py `ChunkedLMCE`) alone at the GPT
+    main path's shapes as fleet AMP hands them to it (x [32, 512, 768] and
+    the tied wte [50257, 768] in bf16, the bias in f32): forward and
+    backward under torch.profiler, its kernels by name and the device
+    time of its GEMMs (cuBLAS names them *gemm* or nvjet*). The logits
+    GEMM and its recompute take the bf16 operands with f32 output; dx and
+    dw are f32 GEMMs."""
+    from paddle_tpu_torch.ops.fused_ce import DEFAULT_CHUNK, ChunkedLMCE
+    g = torch.Generator(device="cuda").manual_seed(0)
+    h, v = cfg.hidden_size, cfg.vocab_size
+    x = torch.randn((GPT_BATCH, GPT_SEQ, h), generator=g, device="cuda") \
+        .bfloat16().requires_grad_()
+    w = (torch.randn((v, h), generator=g, device="cuda") * 0.02) \
+        .bfloat16().requires_grad_()
+    b = torch.zeros((v,), device="cuda", requires_grad=True)
+    labels = torch.randint(0, v, (GPT_BATCH, GPT_SEQ), generator=g,
+                           device="cuda")
+
+    def step():
+        t0 = time.perf_counter()
+        loss, _ = ChunkedLMCE.apply(x, w, b, labels, DEFAULT_CHUNK, -100)
+        loss.sum().backward()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    step()
+    ms = float(np.median([step() for _ in range(3)])) * 1e3
+    prof = device_profile(torch, step, top=12, kernels=("gemm", "nvjet"))
+    out = {"shapes": f"x [{GPT_BATCH}, {GPT_SEQ}, {h}] bf16, w [{v}, {h}] "
+                     f"bf16, bias f32, chunk {DEFAULT_CHUNK}",
+           "fwd_bwd_ms_p50": ms, "profile": prof,
+           "logits_gemm_flop_per_step": 2 * 2 * GPT_BATCH * GPT_SEQ * h * v}
+    log(f"fused LM head alone (fwd + bwd): {ms:.2f} ms; {prof}")
+    del x, w, b
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2496,6 +2580,443 @@ def train_gpt_resilient(torch, fa, zk, card):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# GPT-2 small trained from data
+# ---------------------------------------------------------------------------
+
+DATA_TOKENS = 1 << 24      # the token file: 16,777,216 int32 tokens, 64 MiB
+DATA_BATCHES = 40          # an arm's epoch: 4 windows of run_steps(10)
+DATA_WORKERS = 4           # DataLoader workers; InMemoryDataset threads
+DATA_SEED = 11
+
+
+class TokenWindows:
+    """A map-style dataset over a token file of int32 tokens: sample i is
+    the window of `seq` tokens at offset i * seq, as an int64 row. It holds
+    only the path: DataLoader workers (forkserver processes) unpickle it by
+    reference, from this script's top level, and map the file
+    themselves."""
+
+    def __init__(self, path, seq):
+        self.path, self.seq = path, seq
+        self._tokens = None
+
+    def __getstate__(self):
+        return {"path": self.path, "seq": self.seq}
+
+    def __setstate__(self, state):
+        self.__init__(state["path"], state["seq"])
+
+    def __len__(self):
+        return os.path.getsize(self.path) // 4 // self.seq
+
+    def __getitem__(self, i):
+        if self._tokens is None:
+            self._tokens = np.memmap(self.path, dtype=np.int32, mode="r")
+        row = self._tokens[i * self.seq:(i + 1) * self.seq]
+        return (row.astype(np.int64),)
+
+
+def write_data(cfg, workdir):
+    """The token file (numpy seed DATA_SEED) and DATA_WORKERS MultiSlot
+    text files holding DATA_BATCHES batches of its windows (one `tokens`
+    slot of GPT_SEQ ids a line), drawn without replacement."""
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(DATA_SEED)
+    tokens = rng.randint(0, cfg.vocab_size, DATA_TOKENS, dtype=np.int32)
+    path = os.path.join(workdir, "tokens.bin")
+    tokens.tofile(path)
+    windows = tokens.reshape(-1, GPT_SEQ)
+    pick = rng.choice(len(windows), DATA_BATCHES * GPT_BATCH, replace=False)
+    files = []
+    for f, part in enumerate(np.array_split(pick, DATA_WORKERS)):
+        p = os.path.join(workdir, f"part-{f:02d}")
+        with open(p, "w") as fh:
+            for w in part:
+                fh.write(f"{GPT_SEQ} " + " ".join(map(str, windows[w]))
+                         + "\n")
+        files.append(p)
+    return path, files, time.perf_counter() - t0
+
+
+def data_loader(dataset, tokens_var, seed, n_batches, workers=DATA_WORKERS):
+    """DataLoader(batch 32, a seeded RandomSampler of n_batches batches
+    over the whole file, `workers` processes) yielding feed dicts."""
+    from paddle_tpu_torch import io
+    sampler = io.RandomSampler(dataset, num_samples=n_batches * GPT_BATCH,
+                               generator=seed)
+    return io.DataLoader(
+        dataset, feed_list=[tokens_var], return_list=False,
+        batch_sampler=io.BatchSampler(sampler=sampler,
+                                      batch_size=GPT_BATCH),
+        num_workers=workers)
+
+
+class WindowRecorder:
+    """Stands in for `exe.run_steps` during a train_from_dataset arm: each
+    window is run, synchronised and its end time, host feed and device
+    losses kept. With `profile_window` w, torch.profiler runs from the end
+    of window w - 1 to the end of window w (the wait for the batch
+    included)."""
+
+    def __init__(self, torch, exe, profile_window=None):
+        self.torch, self.exe, self.orig = torch, exe, exe.run_steps
+        self.ends, self.feeds, self.losses, self.calls = [], [], [], []
+        self.profile_window, self.profile, self._prof = \
+            profile_window, None, None
+        exe.run_steps = self
+
+    def __call__(self, k, program=None, feed=None, **kw):
+        t0 = time.perf_counter()
+        out = self.orig(k, program, feed=feed, **kw)
+        self.calls.append(time.perf_counter() - t0)
+        self.torch.cuda.synchronize()
+        self.ends.append(time.perf_counter())
+        self.feeds.append(feed)
+        self.losses.append(out[0])
+        w = len(self.ends)
+        if self._prof is not None:
+            self._prof.__exit__(None, None, None)
+            self.profile = profile_summary(self._prof,
+                                           self.ends[-1] - self.ends[-2],
+                                           top=6)
+            self._prof = None
+        elif self.profile_window is not None and w == self.profile_window - 1:
+            from torch.profiler import ProfilerActivity, profile
+            self._prof = profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA])
+            self._prof.__enter__()
+        return out
+
+    def remove(self):
+        del self.exe.run_steps
+
+    def step_ms(self, k):
+        """Per-step ms of each window after the first: the wall from the
+        end of one window to the end of the next, over k."""
+        return [(b - a) * 1e3 / k for a, b in zip(self.ends, self.ends[1:])]
+
+
+def state_restore(torch, scope, saved):
+    """Put a `scope_copy` back into `scope` in place (the captured step
+    stays bound), the run-seed counter included."""
+    for n in saved.local_names():
+        v = saved.find(n)
+        if isinstance(v, torch.Tensor):
+            scope.find(n).copy_(v)
+        else:
+            scope.set(n, v)
+
+
+def two_thread_captures():
+    """tests/test_torch_capture_lock.py's card check, run here: with a dead
+    executor cycle pending and the collector at every allocation, one
+    thread captures a training step while another starts a serving engine
+    that captures its window; both succeed, equal to their references,
+    and nothing is collected inside a capture."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "capture_lock_check",
+        os.path.join(HERE, "tests", "test_torch_capture_lock.py"))
+    check = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(check)
+    try:
+        out = check.run_two_thread_captures()
+    except AssertionError as e:
+        fail(f"two-thread capture check: {e!r}")
+    log(f"two threads (training capture + serving capture): {out}")
+    return out
+
+
+def train_gpt_from_data(torch, fa, card):
+    """Phase 9: GPT-2 small trained from data, the phase-8 program (stage
+    1, AdamW + clip, the static schedule) on one executor and scope, one
+    capture for every arm."""
+    import shutil
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.dataset import DatasetFactory
+    from paddle_tpu_torch.flags import set_flags
+    from paddle_tpu_torch.framework import Executor, Scope
+    from paddle_tpu_torch.framework import executor as executor_mod
+    from paddle_tpu_torch.resilience.faults import clear_plan, install_plan
+    cfg = gpt_config()
+    workdir = os.path.join(HERE, ".chip_scratch", f"data_{os.getpid()}")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    t_phase = time.perf_counter()
+    try:
+        token_path, files, write_s = write_data(cfg, workdir)
+        log(f"data: {DATA_TOKENS} tokens ({os.path.getsize(token_path)} "
+            f"bytes) and {len(files)} MultiSlot files "
+            f"({sum(os.path.getsize(f) for f in files)} bytes) written in "
+            f"{write_s:.1f} s")
+        main, start, loss, _ = build_gpt_state(cfg)
+        tokens_var = main.global_block().var("tokens")
+        scope = Scope()
+        Executor("cuda").run(start, scope=scope)
+        exe = Executor("cuda")
+        windows = TokenWindows(token_path, GPT_SEQ)
+        one = {"tokens": gpt_tokens(cfg, GPT_BATCH, 1, seed=0)[0]}
+
+        def one_batch(n):
+            ms = []
+            for _ in range(n):
+                t0 = time.perf_counter()
+                exe.run_steps(GPT_WINDOW, main, feed=one, fetch_list=[loss],
+                              scope=scope, return_numpy=False)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3 / GPT_WINDOW)
+            return ms
+
+        t0 = time.perf_counter()
+        one_batch(1)                                  # the capture
+        capture_s = time.perf_counter() - t0
+        ms_one = one_batch(3)
+        # one window's staging with the card idle and no other thread:
+        # coercion, the pinned copy and the copy to the card
+        stacked = {"tokens": np.stack([one["tokens"]] * GPT_WINDOW)}
+        idle = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            exe.stage(stacked, program=main, k=GPT_WINDOW, tag=stacked)
+            torch.cuda.synchronize()
+            idle.append((time.perf_counter() - t0) * 1e3 / GPT_WINDOW)
+            exe._purge_staged(stacked)
+        fa.reset_launches()
+        replays0 = exe.stats["graph_replays"]
+        eager0 = exe.stats["eager_steps"]
+
+        def arm(kind, epoch_source, profile_window=None, gate=False):
+            """One train_from_dataset epoch of `epoch_source()`, recorded;
+            with `gate`, the state is put back and the recorded windows
+            run again through run_steps fed the same batches stacked on
+            the host: the losses must be equal bit for bit."""
+            saved = scope_copy(torch, scope) if gate else None
+            h2d0 = monitor.stat_get("executor.h2d_ms")
+            rec = WindowRecorder(torch, exe, profile_window)
+            t0 = time.perf_counter()
+            try:
+                last = exe.train_from_dataset(
+                    main, epoch_source(), scope=scope, fetch_list=[loss],
+                    steps_per_loop=GPT_WINDOW)
+            finally:
+                rec.remove()
+            wall = time.perf_counter() - t0
+            n_steps = GPT_WINDOW * len(rec.ends)
+            row = {"kind": kind, "windows": len(rec.ends),
+                   "step_ms": rec.step_ms(GPT_WINDOW),
+                   "first_window_s": rec.ends[0] - t0, "epoch_s": wall,
+                   "run_steps_call_s": rec.calls,
+                   "h2d_ms_per_step": (monitor.stat_get("executor.h2d_ms")
+                                       - h2d0) / n_steps,
+                   "last_loss": float(last[0])}
+            losses = torch.cat(rec.losses)
+            if not torch.isfinite(losses).all():
+                fail(f"data arm {kind}: non-finite loss")
+            if len(rec.ends) != DATA_BATCHES // GPT_WINDOW:
+                fail(f"data arm {kind}: {len(rec.ends)} windows of "
+                     f"{GPT_WINDOW}, want {DATA_BATCHES // GPT_WINDOW}")
+            if rec.profile is not None:
+                row["profile_one_window"] = rec.profile
+            if gate:
+                after = scope_copy(torch, scope)
+                state_restore(torch, scope, saved)
+                again = torch.cat([exe.run_steps(
+                    GPT_WINDOW, main, feed={"tokens": f["tokens"].copy()},
+                    fetch_list=[loss], scope=scope, return_numpy=False)[0]
+                    for f in rec.feeds])
+                if not torch.equal(again, losses):
+                    fail(f"data arm {kind}: losses != run_steps fed the "
+                         f"same batches stacked on the host (max diff "
+                         f"{(again - losses).abs().max().item()})")
+                names, diffs = persistable_diffs(torch, main, after, scope)
+                if diffs:
+                    fail(f"data arm {kind}: persistables differ from the "
+                         f"host-stacked run's: {diffs}")
+                del after, saved
+                row["equal_to_host_stacked_run_steps"] = True
+                row["persistables_compared"] = len(names)
+            log(f"data arm {kind}: step ms {row['step_ms']}, first window "
+                f"{row['first_window_s']:.2f} s, h2d "
+                f"{row['h2d_ms_per_step']:.4f} ms/step, last loss "
+                f"{row['last_loss']:.4f}")
+            return row, rec
+
+        loader = data_loader(windows, tokens_var, DATA_SEED, DATA_BATCHES)
+        ds = DatasetFactory().create_dataset("InMemoryDataset")
+        ds.set_batch_size(GPT_BATCH)
+        ds.set_thread(DATA_WORKERS)
+        ds.set_use_var([tokens_var])
+        ds.set_filelist(files)
+        t0 = time.perf_counter()
+        native = ds.plane.native         # g++ builds the plane here
+        build_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        ds.load_into_memory()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        if not native:
+            fail("arm M: the data plane is the Python one, not the native")
+        if ds.get_memory_data_size() != DATA_BATCHES * GPT_BATCH:
+            fail(f"arm M: {ds.get_memory_data_size()} samples in memory")
+
+        def shuffled():
+            t0 = time.perf_counter()
+            ds.local_shuffle()
+            shuffle_ms.append((time.perf_counter() - t0) * 1e3)
+            return ds
+
+        shuffle_ms = []
+        # ABBA: L, M, M, L; the first of each gated
+        l1, rec_l1 = arm("L", lambda: loader, gate=True)
+        m1, _ = arm("M", shuffled, gate=True)
+        m2, _ = arm("M", shuffled)
+        l2, _ = arm("L", lambda: loader, profile_window=3)
+        ms_one += one_batch(3)
+        replays = exe.stats["graph_replays"] - replays0
+        per_step = {n: fa.launches[n] / max(replays, 1)
+                    for n in fa.KERNEL_NAMES}
+        eager_in_windows = exe.stats["eager_steps"] - eager0
+        if exe.stats["captures"] != 1 or eager_in_windows:
+            fail(f"data arms: {exe.stats['captures']} captures, "
+                 f"{eager_in_windows} eager steps (want 1 and 0)")
+        if any(v != cfg.num_layers for v in per_step.values()):
+            fail(f"data arms: B1-B3 launches a step {per_step}, want "
+                 f"{cfg.num_layers}")
+
+        # resume: the loader rebuilt at the same seed (epoch 0), advanced
+        # past the 20 batches a checkpoint after two windows covers
+        resumed = [b["tokens"] for b in data_loader(
+            windows, tokens_var, DATA_SEED, DATA_BATCHES)]
+        want = rec_l1.feeds[2]["tokens"][0]
+        if not np.array_equal(resumed[2 * GPT_WINDOW], want):
+            fail("resume: the rebuilt loader's batch 20 != arm L's")
+
+        # a worker killed at its 3rd batch (one worker, 4 batches)
+        def kill_run(budget):
+            set_flags({"FLAGS_dataloader_max_respawns": budget})
+            install_plan("dataloader.worker:delay=0.25:at=3;"
+                         "dataloader.worker:kill:at=3")
+            try:
+                with warnings.catch_warnings(record=True):
+                    warnings.simplefilter("always")
+                    return [b["tokens"] for b in data_loader(
+                        windows, tokens_var, DATA_SEED + 1, 4, workers=1)]
+            finally:
+                clear_plan()
+                set_flags({"FLAGS_dataloader_max_respawns": 0})
+
+        clean = [b["tokens"] for b in data_loader(
+            windows, tokens_var, DATA_SEED + 1, 4, workers=0)]
+        r0 = monitor.stat_get("resilience.worker_respawns")
+        killed = kill_run(1)
+        respawns = monitor.stat_get("resilience.worker_respawns") - r0
+        same = sorted(b.tobytes() for b in killed) \
+            == sorted(b.tobytes() for b in clean)
+        if respawns != 1 or not same:
+            fail(f"worker kill: {respawns} respawns, same batches {same}")
+        try:
+            kill_run(0)
+            fail("worker kill at the default budget 0 did not fail")
+        except RuntimeError as e:
+            fail_fast = str(e)
+        if "exitcode 43" not in fail_fast:
+            fail(f"worker kill at budget 0: {fail_fast!r} does not name "
+                 f"exit code 43")
+
+        # arm P: prefetch into Executor.run (eager steps), 3 batches
+        coerced, taken = [], []
+        real_coerce = executor_mod._coerce_feed_value
+        real_take = exe._take_staged
+
+        def take(*a):
+            out = real_take(*a)
+            taken.append(out is not None)
+            return out
+
+        executor_mod._coerce_feed_value = \
+            lambda *a: coerced.append(a[1]) or real_coerce(*a)
+        exe._take_staged = take
+        h2d0 = monitor.stat_get("executor.h2d_ms")
+        try:
+            it = data_loader(windows, tokens_var, DATA_SEED + 2, 3,
+                             workers=2).prefetch(exe, depth=2, program=main)
+            p_losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                      scope=scope)[0]) for feed in it]
+            it.close()
+        finally:
+            executor_mod._coerce_feed_value = real_coerce
+            del exe._take_staged
+        prefetch = {"steps": len(p_losses), "staged_feeds_taken": sum(taken),
+                    "feeds_coerced_at_the_run": len(coerced),
+                    "left_staged": len(exe._staged),
+                    "h2d_ms_per_step": (monitor.stat_get("executor.h2d_ms")
+                                        - h2d0) / max(len(p_losses), 1),
+                    "losses": p_losses}
+        if (len(p_losses), sum(taken), len(coerced), len(exe._staged)) \
+                != (3, 3, 0, 0) or not all(np.isfinite(p_losses)):
+            fail(f"arm P: {prefetch}")
+        log(f"arm P (prefetch into run): {prefetch}")
+        stats = dict(exe.stats)
+        del exe, scope, main, start
+        release(torch)
+
+        two_threads = two_thread_captures()
+        release(torch)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    p50 = {"one_batch": float(np.median(ms_one)),
+           "L": float(np.median(l1["step_ms"] + l2["step_ms"])),
+           "M": float(np.median(m1["step_ms"] + m2["step_ms"]))}
+    out = {
+        "config": "the training_state phase's program (GPTConfig(), S 512, "
+                  "batch 32, fleet AMP bf16, ZeRO stage 1, AdamW + clip "
+                  "1.0, the static LR schedule, dropout 0.1) on one "
+                  "executor and scope; arm L: a memory-mapped token file "
+                  "through DataLoader(4 workers, seeded RandomSampler) into"
+                  " train_from_dataset(steps_per_loop=10); arm M: an "
+                  "InMemoryDataset (4 threads, native plane) over MultiSlot"
+                  " files of the same file's windows; 40 batches an epoch",
+        "card": card,
+        "token_file": {"tokens": DATA_TOKENS,
+                       "bytes": DATA_TOKENS * 4, "window": GPT_SEQ},
+        "multislot": {"files": DATA_WORKERS,
+                      "samples": DATA_BATCHES * GPT_BATCH,
+                      "native_plane": True, "build_ms": build_ms,
+                      "load_ms": load_ms,
+                      "shuffle_ms": shuffle_ms},
+        "abba": ["L", "M", "M", "L"],
+        "step_ms_p50": p50,
+        "vs_one_batch": {k: p50[k] / p50["one_batch"] for k in ("L", "M")},
+        "one_batch_step_ms": ms_one, "one_batch_capture_s": capture_s,
+        "arms": [l1, m1, m2, l2],
+        "stage_idle_ms_per_step": idle,
+        "h2d_ms_per_step": {"L": (l1["h2d_ms_per_step"]
+                                  + l2["h2d_ms_per_step"]) / 2,
+                            "M": (m1["h2d_ms_per_step"]
+                                  + m2["h2d_ms_per_step"]) / 2},
+        "device_busy_share_one_window_L": l2.get(
+            "profile_one_window", {}).get("device_busy_share",
+                                          "not measured"),
+        "captures": stats["captures"],
+        "eager_steps_in_windows": eager_in_windows,
+        "flash_launches_per_step": per_step,
+        "resume_next_batch_equal": True,
+        "worker_respawns": respawns, "worker_kill_same_batches": same,
+        "default_budget_error": fail_fast,
+        "prefetch": prefetch, "two_thread_capture": two_threads,
+        "phase_s": time.perf_counter() - t_phase,
+        "timing": "each window of run_steps(10) synchronised at its end; "
+                  "a step is the wall from one window's end to the next's "
+                  "over 10 (the wait for the next window's batches "
+                  "included); 3 windows an epoch after its first"}
+    log(f"data path: step p50 {p50}, vs one batch {out['vs_one_batch']}, "
+        f"h2d {out['h2d_ms_per_step']} ms/step, busy share "
+        f"{out['device_busy_share_one_window_L']}, load {load_ms:.1f} ms, "
+        f"shuffle {shuffle_ms} ms, respawns {respawns}")
+    return out
+
+
 def serve_gpt2(torch, serving, gpt_decode, kernel_mod, metrics, rows,
                card):
     """GPT-2 small (GPTConfig(), weights from numpy seed 0) through the
@@ -2653,17 +3174,37 @@ def serve_gpt2(torch, serving, gpt_decode, kernel_mod, metrics, rows,
         f"{d['kernel_launches_verify']}, draft "
         f"{d['draft_kernel_launches_window']}")
 
-    # (e) int8 weights (quantized from the f32 checkpoint), bf16 compute
+    # (e) int8 weights (quantized from the f32 checkpoint): the matrices
+    # dequantized to bf16, the biases f32, so the activations are f32 and
+    # B4 reads the bf16 pool with f32 queries (the <bf16 KV, f32 Q>
+    # instance); the (pool, query) dtypes of every wrapper call recorded
     kernel_mod.reset_launches()
-    comps, _, st = serve(torch, serving, dict(bf16_kw, params=arrays,
-                                              dtype="int8"),
-                         bf16_requests())
+    pairs = set()
+    wrapper = kernel_mod.fused_paged_attention
+
+    def recording(q, k_pool, *a, **kw):
+        pairs.add((str(k_pool.dtype)[6:], str(q.dtype)[6:]))
+        return wrapper(q, k_pool, *a, **kw)
+
+    kernel_mod.fused_paged_attention = recording
+    try:
+        comps, _, st = serve(torch, serving, dict(bf16_kw, params=arrays,
+                                                  dtype="int8"),
+                             bf16_requests())
+    finally:
+        kernel_mod.fused_paged_attention = wrapper
     captured_only(st, "int8-weight engine")
+    if pairs != {("bfloat16", "float32")}:
+        fail(f"int8-weight engine: B4 called with (pool, query) dtypes "
+             f"{sorted(pairs)}, want only (bfloat16, float32)")
+    rows["paged_decode_bf16_f32q"]["launches"] = \
+        kernel_mod.launches["paged_decode_bf16"]
     if [len(c.tokens) for c in comps] != [32] * 8:
         fail(f"int8-weight engine: {[len(c.tokens) for c in comps]} "
              f"tokens")
     out["int8_weights"] = {
         "requests": 8, "b4_launches": dict(kernel_mod.launches),
+        "b4_pool_query_dtypes": sorted(pairs),
         "tokens_equal_bf16": sum(a == b for a, b in zip(
             [c.tokens for c in comps], tokens))}
     if not kernel_mod.launches["paged_decode_bf16"]:
@@ -3070,6 +3611,10 @@ def main():
             "gpt_schedule_stage1_2_layers_incl_warmup":
                 state_launches[name]}
 
+    # ---- GPT-2 small trained from data ---------------------------------------
+    release(torch)
+    data_row = train_gpt_from_data(torch, fa, card)
+
     for row in rows.values():
         if not row["launches"]:
             fail(f"{row['name']} was never launched on its main path run")
@@ -3079,6 +3624,7 @@ def main():
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"gpt_training": gpt_row}), flush=True)
     print(json.dumps({"training_state": state_row}), flush=True)
+    print(json.dumps({"data_path": data_row}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -326,7 +326,9 @@ extern "C" {
 int paged_decode_chunk(void) { return kChunk; }
 
 // kv_kind / q_kind: 0 = f32, 1 = bf16, 2 = int8. Float pools take a query
-// of their own dtype; int8 pools take an f32 or bf16 query. hd is 64 or 128.
+// of their own dtype, and bf16 pools also an f32 query (the int8-weight
+// serving arm, whose activations are f32); int8 pools take an f32 or bf16
+// query. The context is in the pool's dtype (f32 for int8). hd is 64 or 128.
 // part: [batch·nh, ceil(walk_blocks·bs / kChunk), hd + 2] f32 scratch.
 // Launches both passes on `stream`; returns the first cudaError_t (0 on
 // success).
@@ -344,6 +346,10 @@ int paged_decode(const void* q, const void* k_pool, const void* v_pool,
                                    ctx_scale, st);
   if (kv_kind == kBF16 && q_kind == kBF16)
     return launch_hd<__nv_bfloat16, __nv_bfloat16>(
+        hd, q, k_pool, v_pool, page_table, pos, part, out, batch, nh,
+        num_blocks, bs, mb, layer, walk_blocks, score_scale, ctx_scale, st);
+  if (kv_kind == kBF16 && q_kind == kF32)
+    return launch_hd<__nv_bfloat16, float>(
         hd, q, k_pool, v_pool, page_table, pos, part, out, batch, nh,
         num_blocks, bs, mb, layer, walk_blocks, score_scale, ctx_scale, st);
   if (kv_kind == kI8 && q_kind == kF32)

@@ -5,7 +5,8 @@ The port is written for the card: an entry point given no device runs on
 `device="cpu"`). There is no silent fallback: asking for CUDA on a host
 without it raises.
 
-`collector_paused()` brackets every CUDA graph capture of the port.
+`capture_lock` serialises the process's CUDA graph captures, and
+`collector_paused()` brackets every capture of the port.
 """
 from __future__ import annotations
 
@@ -29,32 +30,39 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
-_gc_lock = threading.Lock()
+# One CUDA graph capture at a time in the process, from any thread: a
+# capture's warm-up and `torch.cuda.graph` (which synchronises the device
+# and empties the allocator's cache at entry) must not land inside another
+# thread's capture. Reentrant: `collector_paused` takes it too.
+capture_lock = threading.RLock()
 _gc_holds = 0
 _gc_was_enabled = False
 
 
 @contextlib.contextmanager
 def collector_paused():
-    """One full collection, then Python's cyclic collector off for the
-    block (every CUDA graph capture runs inside one). A dead reference
-    cycle that owns device state (an executor and its captured graph and
-    memory pool, a replaced engine) is freed before the capture begins:
-    freed inside it, its CUDA graph's destruction is an operation the
-    capturing thread may not make, and the capture is invalidated. Holds
-    nest, across threads; the collector's state before the first hold
-    comes back after the last."""
+    """Python's cyclic collector off for the block, after one full
+    collection if no other hold is active (every CUDA graph capture runs
+    inside one, under `capture_lock`). A dead reference cycle that owns
+    device state (an executor and its captured graph and memory pool, a
+    replaced engine) is freed before the capture begins: freed inside it,
+    its CUDA graph's destruction is an operation the capturing thread may
+    not make, and the capture is invalidated. So the collection runs only
+    while no hold is active anywhere (a capture holds `capture_lock` for
+    its whole length, so a hold that collects waits for it). Holds nest,
+    across threads; the collector's state before the first hold comes back
+    after the last."""
     global _gc_holds, _gc_was_enabled
-    gc.collect()
-    with _gc_lock:
+    with capture_lock:
         if _gc_holds == 0:
+            gc.collect()
             _gc_was_enabled = gc.isenabled()
             gc.disable()
         _gc_holds += 1
     try:
         yield
     finally:
-        with _gc_lock:
+        with capture_lock:
             _gc_holds -= 1
             if _gc_holds == 0 and _gc_was_enabled:
                 gc.enable()

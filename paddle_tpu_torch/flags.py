@@ -1,5 +1,6 @@
-"""Global flags registry (the executor, serving, observability, resilience
-and ZeRO subset of paddle_tpu/flags.py, with the reference's defaults).
+"""Global flags registry (the executor, serving, observability, resilience,
+data loading and ZeRO subset of paddle_tpu/flags.py, with the reference's
+defaults).
 
 FLAGS_* environment variables seed the initial values at import, as in
 the reference registry; `set_flags` changes them at run time.
@@ -112,6 +113,10 @@ _DEFS: Dict[str, tuple] = {
     "FLAGS_rollback_budget": (2, "poison-batch rollbacks TrainingGuard "
                                  "performs before raising "
                                  "RollbackExhausted"),
+    "FLAGS_dataloader_max_respawns": (0, "respawn budget for abnormally-"
+                                         "dead DataLoader workers "
+                                         "(0 = fail fast, naming the "
+                                         "worker and its exit code)"),
     "FLAGS_zero_stage": (0, "ZeRO sharding stage applied at fleet minimize "
                             "time (parallel/zero.py): 1 moves each gradient "
                             "bucket's optimizer state into flat vars updated "

@@ -72,14 +72,25 @@ The step watchdog `_deadline_call` (FLAGS_step_deadline_ms) bounds the
 serving engine's window replays (serving/engine.py); `Executor.run` does
 not use it yet.
 
-Not ported (ROADMAP): the prefetching DataLoader (item 18), the
-microbatch runner (`_run_block_microbatched`, with pipeline, item 16),
-the shard_map manual-dp branch and the PS / LocalSGD paths.
+`train_from_dataset(program, dataset, ...)` drains one epoch of a
+dataset (fluid.dataset's DatasetFactory datasets, a DataLoader yielding
+feed dicts, any iterable of feed dicts) into the step: a producer thread
+iterates it, stacks `steps_per_loop` batches of one shape into a window
+and stages the window (`stage`, under the call's own tag) into a bounded
+queue, while this thread runs each window as one `run_steps` (on CUDA,
+replays of the captured step) and odd-shaped batches and the tail as
+`run()` calls. A producer error is raised here; a failed step stops and
+joins the producer and purges its staged windows.
+
+Not ported (ROADMAP): the microbatch runner (`_run_block_microbatched`,
+with pipeline, item 16), the shard_map manual-dp branch and the PS /
+LocalSGD paths.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
+import queue
 import sys
 import threading
 import time
@@ -92,7 +103,7 @@ import torch
 from . import errors
 from .program import Program, Variable, default_main_program
 from .scope import Scope, global_scope, to_numpy
-from ..device import collector_paused, resolve_device
+from ..device import capture_lock, collector_paused, resolve_device
 from ..monitor import stat_add
 from ..observability import flight as _flight
 from ..observability import metrics as _metrics
@@ -333,7 +344,8 @@ class _CapturedStep:
     kernel libraries and first-time persistables come up there), then
     puts every persistable it wrote back as it was, then captures the
     step with `capture_error_mode="thread_local"` and the cyclic garbage
-    collector paused (device.py `collector_paused`). `replay` runs k steps:
+    collector paused (device.py `collector_paused`), all under the
+    process's `capture_lock`. `replay` runs k steps:
     per step, feed slices and seed into the static buffers, one replay,
     the fetches copied out of the graph's own buffers into the caller's
     stacked [k, ...] tensors. The executor's captured steps share one
@@ -361,6 +373,13 @@ class _CapturedStep:
             self.scope.find(n) is t for n, t in self.bound.items())
 
     def capture(self, exe, feeds0: Dict[str, torch.Tensor], seed0: int):
+        """Warm up, then capture, under the process's capture lock: no
+        other thread's capture (serving's or another executor's) and no
+        collection can land inside this one."""
+        with capture_lock:
+            self._capture(exe, feeds0, seed0)
+
+    def _capture(self, exe, feeds0: Dict[str, torch.Tensor], seed0: int):
         from ..ops.kernels import counts
         scope = self.scope
         block = self.program.global_block()
@@ -603,6 +622,17 @@ class Executor:
         ready.record(cs)
         return dev, ready
 
+    def _purge_staged(self, tag):
+        """Drop every staged window carrying `tag` (an abandoned prefetch
+        iterator's or a finished train_from_dataset's pending device
+        copies must not pin device memory)."""
+        with self._staged_lock:
+            kept = [e for e in self._staged if e.tag is not tag]
+            if len(kept) != len(self._staged):
+                self._staged = collections.deque(kept)
+                _metrics.set_gauge("executor.dispatch_queue_depth",
+                                   len(self._staged))
+
     def _take_staged(self, program, feed, k):
         """Pop the staged window matching this call and wait (on the
         device) for its copies; None when there is none."""
@@ -720,6 +750,139 @@ class Executor:
         self._maybe_snapshot(program, scope, k)
         return out
 
+    # ---- datasets -------------------------------------------------------
+    def train_from_dataset(self, program: Optional[Program] = None,
+                           dataset=None, scope: Optional[Scope] = None,
+                           thread: int = 0, debug: bool = False,
+                           fetch_list: Optional[list] = None,
+                           fetch_info=None, print_period: int = 100,
+                           steps_per_loop: int = 1):
+        """Train on one epoch of `dataset` (an iterable of feed dicts: a
+        fluid.dataset dataset, a DataLoader built with `feed_list=` and
+        `return_list=False`, a generator). Returns the last step's fetches
+        as numpy arrays (None for an empty epoch).
+
+        A producer thread iterates the dataset (MultiSlot parsing, worker
+        batches) into a bounded queue and stages each window's feeds on
+        the device ahead of its step. `steps_per_loop` = k groups k
+        batches of one shape into one `run_steps(k)` (on CUDA, k replays
+        of the captured step: one capture per program and shape); a batch
+        of another shape closes the group early, and such partial groups
+        and the epoch's tail run as single `run()` steps. The losses are
+        those of the same batches through `run_steps` / `run`, bit for
+        bit. `debug` prints the fetches every `print_period` steps."""
+        if dataset is None:
+            raise errors.InvalidArgument(
+                "train_from_dataset needs a dataset")
+        program = program or default_main_program()
+        for attr, what, item in (
+                ("_ps_hooks", "parameter-server", "19.2"),
+                ("_microbatch_k", "pipeline", "16"),
+                ("_localsgd_k", "LocalSGD", "15.1")):
+            if getattr(program, attr, None):
+                raise errors.Unimplemented(
+                    "train_from_dataset with %s programs is not ported yet "
+                    "(ROADMAP item %s)", what, item)
+        from ..dataloader.dataloader import _bounded_put, _drain_queue
+        fetch_list = fetch_list or []
+        group_k = max(1, int(steps_per_loop))
+        maxsize = 4
+        q: "queue.Queue" = queue.Queue(maxsize=maxsize)
+        end, err = object(), []
+        stop = threading.Event()
+        # this call's staged windows: up to the queue's, one in the
+        # producer's hands and one taken by this thread and not yet run
+        tag, depth = object(), maxsize + 2
+
+        def put(item) -> bool:
+            return _bounded_put(stop, q, item)
+
+        def emit(buf) -> bool:
+            if len(buf) == group_k > 1:
+                host = {n: np.stack([np.asarray(f[n]) for f in buf])
+                        for n in buf[0]}
+                self.stage(host, program=program, k=group_k, depth=depth,
+                           tag=tag)
+                return put((group_k, host))
+            for f in buf:
+                self.stage(f, program=program, depth=depth, tag=tag)
+                if not put((None, f)):
+                    return False
+            return True
+
+        def produce():
+            try:
+                buf = []
+                for feed in dataset:
+                    if stop.is_set():
+                        return
+                    if buf and _feed_shapes(buf[0]) != _feed_shapes(feed):
+                        if not emit(buf):
+                            return
+                        buf = []
+                    buf.append(feed)
+                    if len(buf) == group_k:
+                        if not emit(buf):
+                            return
+                        buf = []
+                emit(buf)
+            except BaseException as e:     # raised on the calling thread
+                err.append(e)
+            finally:
+                put(end)
+
+        producer = threading.Thread(target=produce, daemon=True,
+                                    name="dataplane-prefetch")
+        producer.start()
+        fetched, step = None, 0
+        try:
+            while True:
+                item = q.get()
+                if item is end:
+                    break
+                k, feed = item
+                if k is None:
+                    fetched = self.run(program, feed=feed,
+                                       fetch_list=fetch_list, scope=scope,
+                                       return_numpy=False)
+                    n = 1
+                else:
+                    stacked = self.run_steps(k, program, feed=feed,
+                                             fetch_list=fetch_list,
+                                             scope=scope, return_numpy=False)
+                    fetched, n = [v[-1] for v in stacked], k
+                if debug and fetch_list and (
+                        step == 0 or step // print_period
+                        != (step + n) // print_period):
+                    names = fetch_info or [getattr(v, "name", str(v))
+                                           for v in fetch_list]
+                    print(f"step {step + n - 1}: " + ", ".join(
+                        f"{nm}={to_numpy(v).ravel()[:4]}"
+                        for nm, v in zip(names, fetched)))
+                step += n
+        finally:
+            # a failed step must not leave the producer blocked on the
+            # queue holding the dataset open
+            _drain_queue(stop, q)
+            producer.join(timeout=10)
+            self._purge_staged(tag)
+        if err:
+            raise err[0]
+        if fetched is None:
+            return None
+        return [to_numpy(f) for f in fetched]
+
+    def infer_from_dataset(self, program: Optional[Program] = None,
+                           dataset=None, scope: Optional[Scope] = None,
+                           thread: int = 0, debug: bool = False,
+                           fetch_list: Optional[list] = None,
+                           fetch_info=None, print_period: int = 100):
+        """train_from_dataset one step at a time (the program decides
+        whether anything trains)."""
+        return self.train_from_dataset(program, dataset, scope, thread,
+                                       debug, fetch_list, fetch_info,
+                                       print_period)
+
     def _run_captured(self, program, feeds, seeds, scope, fetch_names):
         k = len(seeds)
         specs = tuple(sorted((n, tuple(t.shape[1:]), t.dtype)
@@ -746,6 +909,10 @@ class Executor:
         self.stats["graph_replays"] += k
         _metrics.inc("executor.graph_replays", k)
         return out
+
+
+def _feed_shapes(feed) -> Dict[str, tuple]:
+    return {n: tuple(np.shape(v)) for n, v in feed.items()}
 
 
 def _run_block(block, plan, env, scope, ctx, amp_dtype, strict=False):

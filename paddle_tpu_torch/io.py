@@ -240,3 +240,10 @@ def load_inference_model(dirname, executor=None, model_filename=None,
     meta = payload["meta"]
     fetch_vars = [program.global_block().var(n) for n in meta["fetch"]]
     return program, meta["feed"], fetch_vars
+
+
+# the data loading surface (paddle.io.* in 2.0; fluid.io.DataLoader in 1.x)
+from .dataloader import (DataLoader, Dataset, IterableDataset,  # noqa: E402
+                         TensorDataset, Subset, random_split, Sampler,
+                         SequenceSampler, RandomSampler, BatchSampler,
+                         DistributedBatchSampler, DataFeeder)

@@ -142,25 +142,38 @@ def _attend(q, k, v, mask, scale):
     return torch.matmul(probs, v)
 
 
+def _mm(a, w):
+    """a @ w with jnp's type promotion, as the reference's `@` computes
+    it: an f32 activation against bf16 weights (the int8 arm, whose f32
+    biases make its activations f32) is an f32 product of the exact bf16
+    values."""
+    if a.dtype != w.dtype:
+        dt = torch.promote_types(a.dtype, w.dtype)
+        a, w = a.to(dt), w.to(dt)
+    return a @ w
+
+
 def _block_qkv(x, p, i, cfg):
     """The first half of a decoder block: pre-LN and the qkv projection,
     split into heads. -> (q, k, v), each [B, nh, S, hd]."""
     nh, h = cfg.num_heads, cfg.hidden_size
     a = _ln(x, p[f"dec{i}_ln1_scale"], p[f"dec{i}_ln1_bias"])
-    qkv = a @ p[f"dec{i}_attn_qkv_w"] + p[f"dec{i}_attn_qkv_b"]
+    qkv = _mm(a, p[f"dec{i}_attn_qkv_w"]) + p[f"dec{i}_attn_qkv_b"]
     q, k, v = torch.split(qkv, h, dim=-1)
     return _split_heads(q, nh), _split_heads(k, nh), _split_heads(v, nh)
 
 
 def _block_out(x, ctx, p, i):
     """The second half: the attention context [B, nh, S, hd] through the
-    output projection and the residual, then the pre-LN FFN."""
-    proj = _merge_heads(ctx.to(x.dtype)) @ p[f"dec{i}_attn_proj_w"] \
+    output projection and the residual, then the pre-LN FFN. Every sum and
+    product promotes as in the reference (an f32 int8-pool context makes
+    the residual stream f32 from there on)."""
+    proj = _mm(_merge_heads(ctx), p[f"dec{i}_attn_proj_w"]) \
         + p[f"dec{i}_attn_proj_b"]
     x = x + proj
     f = _ln(x, p[f"dec{i}_ln2_scale"], p[f"dec{i}_ln2_bias"])
-    ffn = F.gelu(f @ p[f"dec{i}_ffn_in_w"] + p[f"dec{i}_ffn_in_b"])
-    ffn = ffn @ p[f"dec{i}_ffn_out_w"] + p[f"dec{i}_ffn_out_b"]
+    ffn = F.gelu(_mm(f, p[f"dec{i}_ffn_in_w"]) + p[f"dec{i}_ffn_in_b"])
+    ffn = _mm(ffn, p[f"dec{i}_ffn_out_w"]) + p[f"dec{i}_ffn_out_b"]
     return x + ffn
 
 

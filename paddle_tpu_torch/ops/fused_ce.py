@@ -5,12 +5,17 @@ Per-token CE of the logits `x @ w^T (+ bias)` against `labels`, without
 materialising the [B, S, V] logits: a Python loop over vocab chunks keeps
 an online logsumexp (flash attention's trick applied to the classifier),
 and the backward recomputes each chunk's logits instead of saving them.
-Each chunk's logits are computed in f32 from the operands (bf16 operands
-under AMP are exact in f32), as the reference's einsums accumulate in f32
-with `preferred_element_type`. The [B*S, H] x [H, C] products are plain
-`torch.matmul`, as the reference leaves them to XLA; there is no TPU
-kernel here. A ragged final chunk simply has fewer columns, where the
-reference pads it with -inf logits: the sums are the same.
+
+The logits GEMM (forward and backward recompute) takes x and w in the
+dtype they arrive in and accumulates and returns f32, as the reference's
+einsum with `preferred_element_type=f32` does (`_logits_mm`): under AMP
+that is a bf16 x bf16 cuBLAS GEMM with f32 output (`torch.mm(...,
+out_dtype=torch.float32)`); f32 operands, and every CPU call, take f32
+copies (bf16 products are exact in f32, so both give the same products).
+The dx and dw GEMMs are f32, as in the reference. These are plain library
+products, as the reference leaves them to XLA; there is no TPU kernel
+here. A ragged final chunk simply has fewer columns, where the reference
+pads it with -inf logits: the sums are the same.
 
 Label contract, as in the reference: `ignore_index` tokens contribute zero
 loss and zero grads; any other label outside [0, V) gives NaN for that
@@ -31,35 +36,46 @@ def _token_grade(labels, v, ignore_index):
     return ignored, valid
 
 
-def _chunk_logits(xf, w, b, c0, chunk):
-    """f32 logits of vocab rows [c0, c0 + chunk): [B, S, C]."""
-    return torch.matmul(xf, w[c0:c0 + chunk].float().t()) \
-        + b[c0:c0 + chunk].float()
+def _logits_mm(a, w_c):
+    """f32 logits a [N, H] @ w_c [C, H]^T, from the operands in the dtype
+    they arrive in. Two bf16 (or f16) operands off the CPU (on CUDA, a
+    cuBLAS GEMM): one GEMM with f32 accumulation and output. Otherwise f32
+    copies: f32 operands stay f32, and the CPU keeps f32 math."""
+    if a.device.type != "cpu" and a.dtype == w_c.dtype \
+            and a.dtype in (torch.bfloat16, torch.float16):
+        return torch.mm(a, w_c.t(), out_dtype=torch.float32)
+    return torch.mm(a.float(), w_c.float().t())
+
+
+def _chunk_logits(x2, w, b, c0, chunk):
+    """f32 logits of vocab rows [c0, c0 + chunk) for x2 [N, H]: [N, C]."""
+    return _logits_mm(x2, w[c0:c0 + chunk]) + b[c0:c0 + chunk].float()
 
 
 def _fwd_scan(x, w, b, labels, chunk, ignore_index):
+    """(loss [B, S, 1], lse [N]) with N = B·S tokens."""
     v = w.shape[0]
-    xf = x.float()
-    m = torch.full(labels.shape, float("-inf"), device=x.device)
-    ssum = torch.zeros(labels.shape, device=x.device)
-    lab = torch.zeros(labels.shape, device=x.device)
+    x2, lab2 = x.reshape(-1, x.shape[-1]), labels.reshape(-1)
+    m = torch.full(lab2.shape, float("-inf"), device=x.device)
+    ssum = torch.zeros(lab2.shape, device=x.device)
+    lab = torch.zeros(lab2.shape, device=x.device)
     for c0 in range(0, v, chunk):
-        l_c = _chunk_logits(xf, w, b, c0, chunk)
+        l_c = _chunk_logits(x2, w, b, c0, chunk)
         m_new = torch.maximum(m, l_c.amax(-1))
         ssum = ssum * torch.exp(m - m_new) \
             + torch.exp(l_c - m_new.unsqueeze(-1)).sum(-1)
         m = m_new
         width = l_c.shape[-1]
-        in_chunk = (labels >= c0) & (labels < c0 + width)
-        off = (labels - c0).clamp(0, width - 1)
+        in_chunk = (lab2 >= c0) & (lab2 < c0 + width)
+        off = (lab2 - c0).clamp(0, width - 1)
         picked = torch.take_along_dim(l_c, off.unsqueeze(-1), dim=-1)[..., 0]
         lab = torch.where(in_chunk, picked, lab)
     lse = m + torch.log(ssum)
-    ignored, valid = _token_grade(labels, v, ignore_index)
+    ignored, valid = _token_grade(lab2, v, ignore_index)
     nan = torch.full((), float("nan"), device=x.device)
     loss = torch.where(valid, lse - lab, nan)
     loss = torch.where(ignored, torch.zeros((), device=x.device), loss)
-    return loss.unsqueeze(-1), lse
+    return loss.reshape(labels.shape).unsqueeze(-1), lse
 
 
 class ChunkedLMCE(torch.autograd.Function):
@@ -82,29 +98,31 @@ class ChunkedLMCE(torch.autograd.Function):
     def backward(ctx, g, _g_lse):
         x, w, b, labels, lse = ctx.saved_tensors
         v, chunk = w.shape[0], ctx.chunk
-        gf = g[..., 0].float()
-        ignored, valid = _token_grade(labels, v, ctx.ignore_index)
+        x2, lab2 = x.reshape(-1, x.shape[-1]), labels.reshape(-1)
+        gf = g.reshape(-1).float()
+        ignored, valid = _token_grade(lab2, v, ctx.ignore_index)
         gf = torch.where(valid, gf, torch.full((), float("nan"),
                                                device=x.device))
         gf = torch.where(ignored, torch.zeros((), device=x.device), gf)
-        xf = x.float()
+        xf = x2.float()
         dx = torch.zeros(xf.shape, device=x.device)
         dw = torch.empty(w.shape, dtype=torch.float32, device=x.device)
         db = torch.empty(b.shape, dtype=torch.float32, device=x.device)
         for c0 in range(0, v, chunk):
-            l_c = _chunk_logits(xf, w, b, c0, chunk)
+            l_c = _chunk_logits(x2, w, b, c0, chunk)
             width = l_c.shape[-1]
             dl = torch.exp(l_c - lse.unsqueeze(-1)) * gf.unsqueeze(-1)
-            in_chunk = (labels >= c0) & (labels < c0 + width)
-            off = (labels - c0).clamp(0, width - 1)
+            in_chunk = (lab2 >= c0) & (lab2 < c0 + width)
+            off = (lab2 - c0).clamp(0, width - 1)
             dl.scatter_add_(-1, off.unsqueeze(-1),
                             torch.where(in_chunk, -gf, torch.zeros_like(gf))
                             .unsqueeze(-1))
-            dx = dx + torch.matmul(dl, w[c0:c0 + width].float())
-            dw[c0:c0 + width] = torch.einsum("bsc,bsh->ch", dl, xf)
-            db[c0:c0 + width] = dl.sum((0, 1))
-        return (dx.to(x.dtype), dw.to(w.dtype), db.to(b.dtype), None, None,
-                None)
+            # dx and dw in f32, as the reference's (`_ce_bwd`)
+            dx = dx + torch.mm(dl, w[c0:c0 + width].float())
+            dw[c0:c0 + width] = torch.mm(dl.t(), xf)
+            db[c0:c0 + width] = dl.sum(0)
+        return (dx.reshape(x.shape).to(x.dtype), dw.to(w.dtype),
+                db.to(b.dtype), None, None, None)
 
 
 @register("fused_lm_head_ce", nondiff_slots=("Label",))

@@ -43,6 +43,13 @@ KERNEL_NAMES = {torch.float32: "paged_decode_f32",
                 torch.bfloat16: "paged_decode_bf16",
                 torch.int8: "paged_decode_int8"}
 launches = {name: 0 for name in KERNEL_NAMES.values()}
+# the query dtypes each pool dtype's kernel is built for: a float pool takes
+# its own dtype, and a bf16 pool also an f32 query (the int8-weight serving
+# arm computes in f32 against a bf16 pool, as the reference does); the
+# context comes back in the pool dtype (f32 for int8 pools)
+QUERY_DTYPES = {torch.float32: (torch.float32,),
+                torch.bfloat16: (torch.bfloat16, torch.float32),
+                torch.int8: (torch.float32, torch.bfloat16)}
 _count_lock = threading.Lock()
 _recorder = threading.local()      # .counts: the capture under way here
 # the head dims the kernel is built for (csrc/paged_attention.cu launch_hd)
@@ -162,12 +169,10 @@ def launch_args(lib, q, k_pool, v_pool, page_table, pos, *,
     if kv_dtype not in KERNEL_NAMES or v_pool.dtype != kv_dtype:
         raise TypeError(f"pools must both be float32, bfloat16 or int8, "
                         f"got {k_pool.dtype} / {v_pool.dtype}")
-    if kv_dtype == torch.int8:
-        if q.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"int8 pools take an f32/bf16 query, got "
-                            f"{q.dtype}")
-    elif q.dtype != kv_dtype:
-        raise TypeError(f"query dtype {q.dtype} != pool dtype {kv_dtype}")
+    if q.dtype not in QUERY_DTYPES[kv_dtype]:
+        raise TypeError(f"query dtype {q.dtype} does not go with "
+                        f"{kv_dtype} pools (they take "
+                        f"{[str(d) for d in QUERY_DTYPES[kv_dtype]]})")
     if page_table.dtype != torch.int32 or pos.dtype != torch.int32:
         raise TypeError(f"page_table and pos must be int32, got "
                         f"{page_table.dtype} / {pos.dtype}")
@@ -235,10 +240,11 @@ def fused_paged_attention(q, k_pool, v_pool, page_table, pos, *,
                           max_blocks=None, kv_scale=None):
     """Fused single-token paged attention.
 
-    q [B, nh, 1, hd]; k_pool/v_pool [L, NB, nh, bs, hd] (f32 / bf16, or
-    int8 with `kv_scale`); page_table [B, MB] int32; pos [B] int32.
-    Returns the context [B, nh, 1, hd] in the pool dtype (f32 for int8
-    pools). `max_blocks` bounds the page-table walk; the kernel also stops
+    q [B, nh, 1, hd] (a dtype of `QUERY_DTYPES[pool dtype]`);
+    k_pool/v_pool [L, NB, nh, bs, hd] (f32 / bf16, or int8 with
+    `kv_scale`); page_table [B, MB] int32; pos [B] int32. Returns the
+    context [B, nh, 1, hd] in the pool dtype (f32 for int8 pools).
+    `max_blocks` bounds the page-table walk; the kernel also stops
     at each slot's write frontier pos // bs."""
     _check(q, k_pool, v_pool, page_table, pos, block_size, layer, kv_scale)
     kw = dict(block_size=block_size, layer=layer, scale=scale,

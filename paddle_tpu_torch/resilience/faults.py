@@ -33,6 +33,13 @@ before any device work, never inside a CUDA graph capture:
                          it is published (io.py `_atomic_savez`,
                          CheckpointManager.save); an error leaves the
                          previous checkpoint the newest complete one
+    dataloader.worker    per batch, inside a DataLoader worker process
+                         (dataloader/dataloader.py `_worker_loop`; the
+                         plan reaches the worker as its (spec, seed)): an
+                         error fails the epoch naming the worker, a kill
+                         exits it with KILL_EXIT_CODE (a respawn under
+                         FLAGS_dataloader_max_respawns, else the epoch
+                         fails naming the exit code)
 """
 from __future__ import annotations
 

@@ -78,7 +78,8 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..device import DeviceLike, collector_paused, resolve_device
+from ..device import (DeviceLike, capture_lock, collector_paused,
+                      resolve_device)
 from ..flags import flag
 from ..framework import errors as _errors
 from ..framework.executor import _deadline_call, _on_stream
@@ -98,10 +99,6 @@ from .resilience import Health, shed_handle
 from .weights import dequant_params, prepare_params
 
 _engine_ids = itertools.count(1)
-# one CUDA graph capture at a time in the process: torch.cuda.graph
-# synchronises the device and empties the allocator's cache at entry,
-# which must not land inside another engine's capture
-_capture_lock = threading.Lock()
 # how long `resurrect` waits for the dead engine's threads and device work
 _QUIET_TIMEOUT_S = 2.0
 
@@ -196,11 +193,11 @@ class _Captured:
     The capture runs on the calling thread, on a side stream, after one
     warm-up call with every input zero: every row inactive and every
     page-table entry the scratch block, so the warm-up writes nothing a
-    slot reads. One capture runs at a time in the process
-    (`_capture_lock`), with the cyclic collector paused
-    (`collector_paused`). The B4 launches the capture recorded (on this
-    thread only, `capture_launches`) are counted again at every
-    replay."""
+    slot reads. One capture runs at a time in the process, an
+    Executor's included (`device.capture_lock`), with the cyclic
+    collector paused (`collector_paused`). The B4 launches the capture
+    recorded (on this thread only, `capture_launches`) are counted again
+    at every replay."""
 
     def __init__(self, body, inputs: Dict[str, torch.Tensor], pool):
         self.inputs = inputs
@@ -208,7 +205,7 @@ class _Captured:
         for t in inputs.values():
             t.zero_()
         side = torch.cuda.Stream(dev)
-        with _capture_lock:
+        with capture_lock:
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
                 body(inputs)
@@ -597,9 +594,13 @@ class DecodeEngine:
         padded[:plen] = tokens[:plen]
         tok = torch.as_tensor(padded, device=dev)
         shape = (1, nh, W, hd)
-        kbuf = [torch.zeros(shape, dtype=self.compute_dtype, device=dev)
+        # the activations' dtype: f32 in the int8-weight arm (its f32
+        # biases promote them), as the reference's dense prefill keeps k/v
+        act = torch.float32 if self.config.dtype == "int8" \
+            else self.compute_dtype
+        kbuf = [torch.zeros(shape, dtype=act, device=dev)
                 for _ in range(cfg.num_layers)]
-        vbuf = [torch.zeros(shape, dtype=self.compute_dtype, device=dev)
+        vbuf = [torch.zeros(shape, dtype=act, device=dev)
                 for _ in range(cfg.num_layers)]
         if matched:
             for i in range(cfg.num_layers):

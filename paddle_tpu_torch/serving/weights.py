@@ -10,11 +10,12 @@ format sets the bytes each step moves:
   ndim >= 2 that is not layernorm (wte, wpe and every qkv/proj/ffn
   matrix): an int8 payload plus one f32 scale per tensor, dequantized
   inside each window and prefill through the registered
-  `dequantize_abs_max` lowering (ops/int8_ops.py) and computed in bf16
-  (the biases too: unlike the reference, which keeps them f32 and so
-  promotes its activations to f32, the port runs the int8 arm as the
-  bf16 arm does, since B4 takes queries in the pool's dtype).
-  The payload is what stays resident: a quarter of the f32 bytes.
+  `dequantize_abs_max` lowering (ops/int8_ops.py) to bf16. The tensors
+  left unquantized (the biases, layernorm) stay f32, as in the
+  reference, so the bias adds promote the activations to f32: the
+  products take the bf16 weights' exact values in f32, and B4 reads the
+  bf16 KV pool with an f32 query. The payload is what stays resident: a
+  quarter of the f32 bytes.
 """
 from __future__ import annotations
 
@@ -84,8 +85,9 @@ def prepare_params(params: Mapping[str, object], dtype: str,
                               torch.dtype]:
     """-> (payloads, scales, compute_dtype), every tensor on `device`.
     "float32" / "bfloat16": float params other than layernorm cast to
-    `dtype`, scales None. "int8": `quantize_params`' payloads and scales,
-    computed in bf16."""
+    `dtype`, scales None. "int8": `quantize_params`' payloads and scales
+    (compute dtype bf16, the dequantized matrices' type; the unquantized
+    biases stay f32)."""
     if dtype in ("float32", "bfloat16"):
         compute = as_dtype(dtype)
         out: Dict[str, torch.Tensor] = {}
@@ -99,11 +101,5 @@ def prepare_params(params: Mapping[str, object], dtype: str,
         raise ValueError(f"serving dtype {dtype!r} not in "
                          "(float32, bfloat16, int8)")
     payloads, scales = quantize_params(params)
-    # the float tensors left unquantized (biases; layernorm stays f32)
-    # compute in bf16 with the dequantized matrices
-    payloads = {n: t.to(torch.bfloat16)
-                if n not in scales and "_ln" not in n
-                and t.is_floating_point() else t
-                for n, t in payloads.items()}
     return ({n: t.to(device) for n, t in payloads.items()},
             {n: t.to(device) for n, t in scales.items()}, torch.bfloat16)
