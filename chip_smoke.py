@@ -161,6 +161,11 @@ result line):
 Each main-path run resets the kernel launch counts just before it and
 fails if a kernel of its path was never launched.
 
+Teardown: the script adopts its orphaned descendants (a subreaper) and,
+before the result lines and again on a failure, stops every process it
+started, the DataLoader's forkserver and multiprocessing's resource
+tracker included, and waits for each to end.
+
 Output: a `{"kernels": [...]}` line, a `{"serving": ...}` line, a
 `{"resilience": ...}` line, a `{"training": ...}` line, a
 `{"gpt_training": ...}` line, a `{"training_state": ...}` line, a
@@ -316,6 +321,113 @@ def flash_ptxas(report, name, dtype, hd=64):
 
 def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+PR_SET_CHILD_SUBREAPER = 36
+
+
+def adopt_orphans():
+    """Make this process the reaper of its orphaned descendants (Linux
+    prctl PR_SET_CHILD_SUBREAPER): a process whose parent ends first, a
+    DataLoader worker outliving the forkserver say, becomes this process's
+    child, where stop_children() finds it."""
+    import ctypes
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) != 0:
+        log(f"prctl(PR_SET_CHILD_SUBREAPER) failed, errno "
+            f"{ctypes.get_errno()}: an orphan would escape stop_children")
+
+
+def child_pids():
+    """{pid: command line} of this process's children, zombies included
+    (read from /proc)."""
+    me, out = os.getpid(), {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as fh:
+                ppid = int(fh.read().rsplit(")", 1)[1].split()[1])
+            if ppid == me:
+                with open(f"/proc/{d}/cmdline", "rb") as fh:
+                    out[int(d)] = fh.read().replace(b"\0", b" ").decode(
+                        errors="replace").strip()[:120]
+        except (OSError, IndexError, ValueError):
+            continue                     # it ended while we looked
+    return out
+
+
+def reap(pid, timeout_s):
+    """Wait up to `timeout_s` for child `pid` to end; True once it has
+    been reaped (or is no child of ours)."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        try:
+            if os.waitpid(pid, os.WNOHANG)[0]:
+                return True
+        except ChildProcessError:
+            return True
+        if time.monotonic() >= deadline:
+            return False
+        time.sleep(0.01)
+
+
+def stop_children():
+    """Stop every process this run started and wait for each to end, so
+    that none outlives the script. In order: multiprocessing's children
+    (DataLoader workers) and its exit work, then the forkserver, which
+    ends when its "alive" pipe closes, then the resource tracker, which
+    ends when the last holder of its pipe (this process, the forkserver,
+    the workers) has closed it. Left alone, both end only after this process has, a
+    fraction of a second later. Then any other child (an orphan adopted
+    through adopt_orphans included) gets SIGTERM and, if it is still
+    there after 5 s, SIGKILL. Returns {what: pid or command line} of what
+    had to be stopped; fails if a child is left."""
+    import multiprocessing as mp
+    import signal
+    from multiprocessing import forkserver, resource_tracker, util
+    stopped = {}
+    for p in mp.active_children():
+        stopped.setdefault("workers", []).append(p.pid)
+        p.terminate()
+        p.join(5)
+    # multiprocessing's own exit work, done now (once; the interpreter's
+    # exit then skips it): queue threads joined, semaphores unlinked while
+    # the resource tracker still runs to take their names off its list
+    util._exit_function()
+    for name, obj, pid_attr, fd_attr in (
+            ("forkserver", forkserver._forkserver, "_forkserver_pid",
+             "_forkserver_alive_fd"),
+            ("resource_tracker", resource_tracker._resource_tracker, "_pid",
+             "_fd")):
+        pid, fd = getattr(obj, pid_attr, None), getattr(obj, fd_attr, None)
+        if pid is None or fd is None:
+            continue
+        os.close(fd)
+        setattr(obj, fd_attr, None)
+        setattr(obj, pid_attr, None)
+        stopped[name] = pid
+        if not reap(pid, 10):
+            os.kill(pid, signal.SIGKILL)
+            reap(pid, 5)
+    for sig in (signal.SIGTERM, signal.SIGTERM, signal.SIGKILL,
+                signal.SIGKILL):
+        live = {pid: cmd for pid, cmd in child_pids().items()
+                if not reap(pid, 0)}
+        if not live:
+            break
+        stopped.setdefault("swept", []).extend(live.values())
+        for pid in live:
+            try:
+                os.kill(pid, sig)
+            except ProcessLookupError:
+                pass
+        for pid in live:
+            reap(pid, 5)
+    left = child_pids()
+    if left:
+        fail(f"processes left running: {left}")
+    return stopped
 
 
 def card_line():
@@ -3618,6 +3730,7 @@ def main():
     for row in rows.values():
         if not row["launches"]:
             fail(f"{row['name']} was never launched on its main path run")
+    log(f"stopped the run's processes: {stop_children()}")
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"serving": serving_row}), flush=True)
     print(json.dumps({"resilience": resilience_row}), flush=True)
@@ -3632,4 +3745,10 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    adopt_orphans()
+    try:
+        rc = main()
+    finally:
+        # a failed phase's processes too; on success main has stopped them
+        stop_children()
+    sys.exit(rc)
