@@ -157,7 +157,27 @@ result line):
    every staged feed by identity, coerces none at the run and leaves
    nothing staged; tests/test_torch_capture_lock.py's two-thread check
    (a training capture and a serving capture at once, a dead executor
-   cycle pending).
+   cycle pending);
+10. data parallelism across processes: the port's launcher (`python -m
+   paddle_tpu_torch.distributed.launch --nproc_per_node 2 chip_smoke.py
+   --dp-worker`) starts two ranks that share cuda:0 under gloo, as asked
+   for explicitly (PADDLE_DIST_BACKEND=gloo, PADDLE_DIST_DEVICE=cuda:0).
+   Each trains GPT-2 small at S 512 on its 16 rows of a global batch of
+   32 (fleet AMP bf16, AdamW + global-norm clip, dropout 0), 3 eager steps
+   at each of ZeRO stages 0-3 from the startup program's weights. Gates:
+   stage k == stage 0 bit for bit (losses and every parameter); rank 0 ==
+   rank 1 by the DivergenceSentinel (after startup and after each stage);
+   B1-B3 12 launches a step and B8 one a bucket and step at the shard
+   width on each rank; each step's collectives equal the plan; stage 1
+   holds half of stage 0's optimizer state a rank, give or take the
+   padding; the gang ends and leaves no process. Then: two ranks asking
+   for NCCL on one card both raise the port's typed error (no hang); one
+   process at batch 32 from the same weights (the loss of each step
+   within 1e-4 relative of dp 2's); on an NCCL group of one, a
+   reduce-scatter, an all-gather and an all-reduce through the port's
+   collectives captured in a CUDA graph, three replays equal to the eager
+   calls; B8 (adamw) bit for bit against its plain version at the shard
+   width of GPT-2 small's largest bucket at dp 2, timed.
 Each main-path run resets the kernel launch counts just before it and
 fails if a kernel of its path was never launched.
 
@@ -169,7 +189,8 @@ tracker included, and waits for each to end.
 Output: a `{"kernels": [...]}` line, a `{"serving": ...}` line, a
 `{"resilience": ...}` line, a `{"training": ...}` line, a
 `{"gpt_training": ...}` line, a `{"training_state": ...}` line, a
-`{"data_path": ...}` line, and last `{"ok": true, "device": {...}}`.
+`{"data_path": ...}` line, a `{"data_parallel": ...}` line, and last
+`{"ok": true, "device": {...}}`.
 The flash rows' `launches` are the GPT path's (the captured arm's 30
 timed steps); `launches_by_path` keeps the BERT path's beside them.
 """
@@ -3602,6 +3623,457 @@ def serve_resilient(torch, serving, kernel_mod, metrics, engine_kw,
     return out
 
 
+# ---------------------------------------------------------------------------
+# 10. data parallelism across processes: GPT-2 small at dp 2
+# ---------------------------------------------------------------------------
+
+DP_STAGES = (0, 1, 2, 3)
+DP_STEPS = 3
+DP_GLOBAL_BATCH = 32        # 16 a rank at dp 2
+DP_WORLD = 2
+DP_SEED = 21
+DP_LR = 1e-4
+# dp 2 against one process at batch 32, from the same weights: the loss of
+# each step within the card-vs-CPU tolerance of phases 6-7
+DP_LOSS_RTOL = 1e-4
+# a ZeRO bucket pads to a multiple of 64 elements: at most 63 more f32
+# elements of each of AdamW's two moments
+PAD_SLACK_BYTES = 64 * 2 * 4
+
+
+def dp_config():
+    """GPT-2 small at S 512 with dropout 0 (the stage gates compare bits)."""
+    cfg = gpt_config()
+    cfg.hidden_dropout = cfg.attention_dropout = 0.0
+    return cfg
+
+
+def dp_state_bytes(torch, main, scope):
+    """Bytes of optimizer state a rank holds: the flat ZeRO state and every
+    per-parameter accumulator."""
+    from paddle_tpu_torch.parallel import zero
+    names = set()
+    for b in zero.zero_buckets(main):
+        names |= set(b["flat"].values())
+    for op in main.global_block().ops:
+        for in_slot, _ in zero._UPDATE_STATE_SLOTS.get(op.type, {}).values():
+            names |= set(op.inputs.get(in_slot, ()))
+    return int(sum(scope.find(n).numel() * scope.find(n).element_size()
+                   for n in names if isinstance(scope.find(n), torch.Tensor)))
+
+
+def dp_expected_calls(main):
+    """The collectives a rank makes per step by the program's plan: one
+    all-reduce per sync bucket and one for the loss's replica mean; per
+    ZeRO bucket one reduce-scatter unless it is pre-synced, and one
+    all-gather (of the parameters at stages 1-2, before the bucket's first
+    use at stage 3)."""
+    meta = main._grad_buckets
+    zb = meta["zero_buckets"]
+    want = {"all_reduce.calls": len(meta["sync_buckets"]) + 1}
+    rs = sum(1 for b in zb if not b["pre_synced"])
+    if rs:
+        want["reduce_scatter.calls"] = rs
+    if zb:
+        want["all_gather.calls"] = len(zb)
+    return want
+
+
+def dp_worker():
+    """One rank of the dp-2 gang (`chip_smoke.py --dp-worker`, started by
+    the port's launcher): GPT-2 small, global batch 32 (this rank's 16
+    rows), fleet AMP, AdamW + global-norm clip, DP_STEPS eager steps at
+    each ZeRO stage from the startup program's weights; writes its
+    numbers to $CHIP_SMOKE_DP_OUT/rank<r>.json and fails on any gate it
+    can hold alone."""
+    import torch
+    sys.path.insert(0, HERE)
+    from paddle_tpu_torch.distributed import collective as coll
+    from paddle_tpu_torch.distributed import fleet, gloo, parallel
+    from paddle_tpu_torch.framework import Executor, Scope
+    from paddle_tpu_torch.io import _portable_arrays
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import zero_update as zk
+    from paddle_tpu_torch.parallel import zero
+    from paddle_tpu_torch.resilience import DivergenceSentinel, fingerprint
+
+    fleet.init(is_collective=True)
+    rank, world = parallel.get_rank(), parallel.get_world_size()
+    dev = parallel.rank_device()
+    log(f"dp rank {rank}/{world}: {parallel.backend()} on {dev}")
+    if world != DP_WORLD or parallel.backend() != "gloo" \
+            or dev != torch.device("cuda", 0):
+        fail(f"dp rank {rank}: expected gloo on cuda:0 at dp {DP_WORLD}")
+    host = gloo.from_env()
+    sentinel = DivergenceSentinel(host, interval=1, heal=False)
+    cfg = dp_config()
+    tokens = gpt_tokens(cfg, DP_GLOBAL_BATCH, DP_STEPS, DP_SEED)
+    widths = []
+    spied = zk.launch
+
+    def spy(lib, op_type, ins, attrs, stream):
+        widths.append(int(ins["Param"][0].numel()))
+        return spied(lib, op_type, ins, attrs, stream)
+
+    zk.launch = spy
+    out = {"rank": rank, "stages": {}}
+    base = None
+    for stage in DP_STAGES:
+        main, start, loss, _ = build_gpt_state(cfg, stage=stage, lr=DP_LR)
+        scope, exe = Scope(), Executor("cuda")
+        exe.run(start, scope=scope)
+        if stage == 0:
+            # the ranks start equal: same program, same seed, same card
+            sentinel.check(main, scope, 0)
+            out["startup_digest"] = fingerprint(main, scope)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zk.reset_launches()
+        fa.reset_launches()
+        widths.clear()
+        metrics.reset()
+        coll.reset_counters()
+        losses, step_ms, calls, nbytes, host_ms = [], [], [], [], []
+        for s in range(DP_STEPS):
+            before = dict(coll.counters)
+            hms = dict(coll.host_ms)
+            t0 = time.perf_counter()
+            got, = exe.run(main, feed={"tokens": coll.split_batch(tokens[s])},
+                           fetch_list=[loss], scope=scope)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(got))
+            delta = {k: v - before.get(k, 0)
+                     for k, v in coll.counters.items()
+                     if v - before.get(k, 0)}
+            calls.append({k: v for k, v in delta.items()
+                          if k.endswith(".calls")})
+            nbytes.append({k: v for k, v in delta.items()
+                           if k.endswith(".bytes")})
+            host_ms.append({k: v - hms.get(k, 0.0)
+                            for k, v in coll.host_ms.items()})
+        peak = torch.cuda.max_memory_allocated()
+        b8 = zk.launches["zero_adam"]
+        flash = dict(fa.launches)
+        if any(flash[k] != cfg.num_layers * DP_STEPS
+               for k in fa.KERNEL_NAMES):
+            fail(f"dp rank {rank} stage {stage}: flash launches {flash}, "
+                 f"expected {cfg.num_layers} a step")
+        buckets = zero.zero_buckets(main)
+        want_calls = dp_expected_calls(main)
+        for s, c in enumerate(calls):
+            if c != want_calls:
+                fail(f"dp rank {rank} stage {stage} step {s}: collectives "
+                     f"{c}, the plan says {want_calls}")
+        shard = [b["padded"] // world for b in buckets]
+        if b8 != len(buckets) * DP_STEPS or \
+                sorted(widths) != sorted(shard * DP_STEPS):
+            fail(f"dp rank {rank} stage {stage}: {b8} B8 launches at "
+                 f"widths {sorted(set(widths))} for {len(buckets)} buckets "
+                 f"of shards {sorted(set(shard))} x {DP_STEPS} steps")
+        sentinel.check(main, scope, DP_STEPS)
+        state = _portable_arrays(main, scope)
+        params = {p.name: state[p.name] for p in main.all_parameters()}
+        row = {"losses": losses, "step_ms": step_ms,
+               "step_ms_p50": float(np.median(step_ms)),
+               "calls_per_step": calls[-1],
+               "collective_host_ms_per_step": {
+                   k: float(np.mean([h.get(k, 0.0) for h in host_ms]))
+                   for k in host_ms[-1]},
+               "bytes_per_step": nbytes[-1],
+               "emulated": {k: v for k, v in metrics.snapshot(
+                   percentiles=False).items()
+                   if k.startswith("executor.collective_emulated")},
+               "b8_launches": b8, "b8_widths": sorted(set(widths)),
+               "flash_launches": flash,
+               "buckets": len(buckets),
+               "pre_synced": sum(b["pre_synced"] for b in buckets),
+               "state_bytes": dp_state_bytes(torch, main, scope),
+               "state_bytes_plan": zero.optimizer_state_bytes(
+                   main, world)["state_bytes_per_device"],
+               "peak_memory_bytes": int(peak),
+               "digest": sentinel.last_digests.get(rank)}
+        if stage == 0:
+            base = (losses, params)
+        else:
+            diff = sorted(n for n in params
+                          if not np.array_equal(params[n], base[1][n]))
+            row["params_equal_stage0"] = not diff
+            row["losses_equal_stage0"] = losses == base[0]
+            if diff or losses != base[0]:
+                fail(f"dp rank {rank}: stage {stage} differs from stage 0 "
+                     f"(losses {losses} vs {base[0]}; parameters {diff[:5]})")
+        log(f"dp rank {rank} stage {stage}: losses {losses}, step ms "
+            f"{[round(m, 1) for m in step_ms]}, calls {calls[-1]}, "
+            f"B8 {b8} at {sorted(set(widths))}, state "
+            f"{row['state_bytes']} B, peak {peak / 2**30:.2f} GiB")
+        out["stages"][str(stage)] = row
+        del main, start, loss, scope, exe, state, params
+        release(torch)
+    zk.launch = spied
+    host.close()
+    with open(os.path.join(os.environ["CHIP_SMOKE_DP_OUT"],
+                           f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    parallel.destroy()
+    return 0
+
+
+def dp_nccl_refusal():
+    """One rank of a gang asking for NCCL with both ranks on cuda:0
+    (`chip_smoke.py --dp-nccl-refusal`): the port must raise its typed
+    error before NCCL is touched."""
+    sys.path.insert(0, HERE)
+    from paddle_tpu_torch.distributed import parallel
+    from paddle_tpu_torch.framework import errors
+    try:
+        parallel.init_parallel_env(backend="nccl", device="cuda:0",
+                                   timeout_s=60)
+    except errors.PreconditionNotMetError as e:
+        print(f"chip_smoke: dp rank {os.environ['PADDLE_TRAINER_ID']} "
+              f"refused: {e}", flush=True)
+        return 0
+    return 4
+
+
+def launch_gang(args, env, timeout_s, log_name):
+    """The port's launcher as a child (`python -m
+    paddle_tpu_torch.distributed.launch --nproc_per_node 2 ...`); returns
+    (rc, output). The output is also kept under chiprun_out/. Fails if a
+    process the gang started is left when the launcher has ended (this
+    script is a subreaper: an orphaned rank would be its child)."""
+    from paddle_tpu_torch.distributed.spawn import free_ports
+    before = set(child_pids())
+    port = free_ports(1)[0]
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node", str(DP_WORLD), "--port", str(port),
+           "--rendezvous_deadline_ms", "120000", "--grace_period_s", "10",
+           os.path.join(HERE, "chip_smoke.py")] + args
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True,
+                           text=True, timeout=timeout_s)
+    except subprocess.TimeoutExpired as e:
+        fail(f"the launched gang {args} did not end within {timeout_s} s: "
+             f"{(e.stdout or '')[-2000:]}")
+    text = r.stdout + r.stderr
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", log_name), "w") as f:
+        f.write(text)
+    log(f"launched gang {args}: rc {r.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    left = {pid: cmd for pid, cmd in child_pids().items()
+            if pid not in before}
+    if left:
+        fail(f"processes left after the gang {args}: {left}")
+    return r.returncode, text
+
+
+def nccl_capture_gate(torch):
+    """On an NCCL group of one (cuda:0), through the port's collective
+    functions: a reduce-scatter, an all-gather and an all-reduce captured
+    in a CUDA graph; three replays on new inputs equal the eager calls,
+    bit for bit, and each replay counts each collective once."""
+    from paddle_tpu_torch.distributed import collective as coll
+    from paddle_tpu_torch.distributed import parallel
+    from paddle_tpu_torch.ops.kernels import counts
+    saved = {k: os.environ.get(k) for k in ("PADDLE_TRAINER_ID",
+                                            "PADDLE_TRAINERS_NUM")}
+    os.environ.update(PADDLE_TRAINER_ID="0", PADDLE_TRAINERS_NUM="1")
+    try:
+        parallel.init_parallel_env(backend="nccl", device="cuda:0")
+        n = 1 << 20
+        xs = torch.empty(n, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(5)
+
+        def body():
+            ar = coll.all_reduce(xs.clone())
+            rs = coll.reduce_scatter_flat(xs)
+            ag = coll.all_gather_flat(xs[: n // 2])
+            return ar, rs, ag
+
+        xs.normal_(generator=gen)
+        body()                              # the communicator comes up
+        torch.cuda.synchronize()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        graph = torch.cuda.CUDAGraph()
+        with counts.capture(side) as rec, \
+                torch.cuda.graph(graph, stream=side,
+                                 capture_error_mode="thread_local"):
+            outs = body()
+        coll.reset_counters()
+        replays = []
+        for _ in range(3):
+            xs.normal_(generator=gen)
+            graph.replay()
+            counts.count_replay(rec)
+            torch.cuda.synchronize()
+            got = [o.clone() for o in outs]
+            want = body()
+            torch.cuda.synchronize()
+            replays.append(all(torch.equal(g, w) for g, w in zip(got, want)))
+        per_replay = {k: v for k, v in coll.counters.items()
+                      if k.endswith(".calls")}
+        if not all(replays):
+            fail(f"nccl capture gate: replays {replays} differ from eager")
+        want = {"all_reduce.calls": 6, "reduce_scatter.calls": 6,
+                "all_gather.calls": 6}
+        if per_replay != want:
+            fail(f"nccl capture gate: counts {per_replay} after 3 replays "
+                 f"and 3 eager calls, expected {want}")
+        log(f"nccl capture gate: RS / AG / AR captured on an NCCL group of "
+            f"one, 3 replays == eager: {replays}")
+        return {"backend": parallel.backend(), "replays_equal": replays,
+                "calls": per_replay, "n": n}
+    finally:
+        parallel.destroy()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def check_b8_shard(torch, zk, width):
+    """B8 (adamw, as the dp path runs it) against its plain version bit
+    for bit at `width` elements (the shard of GPT-2 small's largest bucket
+    at dp 2), timed beside the plain version, the bytes bound and
+    torch's _fused_adamw_."""
+    attrs = ZERO_ARMS[4][3]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def fresh():
+        ins = {s: [torch.randn(width, generator=gen, device="cuda")]
+               for s in ("Param", "Grad", "Moment1", "Moment2")}
+        ins["Moment2"][0].abs_()
+        ins.update({"LearningRate": [torch.tensor([1e-3], device="cuda")],
+                    "Beta1Pow": [torch.tensor([0.9 ** 3], device="cuda")],
+                    "Beta2Pow": [torch.tensor([0.999 ** 3], device="cuda")]})
+        return ins
+
+    kin = fresh()
+    pin = {s: [v[0].clone()] for s, v in kin.items()}
+    got = zk.fused_flat_update("adamw", kin, attrs)
+    want = zk.fused_flat_update_plain("adamw", pin, attrs)
+    torch.cuda.synchronize()
+    bad = [s for s in got if not torch.equal(got[s][0], want[s][0])]
+    if bad:
+        fail(f"zero_adam at the dp-2 shard width {width}: {bad} differ from "
+             f"the plain version")
+    lib = zero_library_call(torch, "adamw", "adamw", kin)
+    row = {"n": width, "bitwise": True, "max_abs_err": 0.0,
+           "ms": cuda_ms(torch, launch_alone(torch, zk, kin, attrs,
+                                             "adamw")),
+           "wrapper_ms": cuda_ms(torch, lambda: zk.fused_flat_update(
+               "adamw", kin, attrs)),
+           "plain_ms": cuda_ms(torch, lambda: zk.fused_flat_update_plain(
+               "adamw", kin, attrs)),
+           "bound_ms": width * ZERO_BYTES_PER_ELEMENT["zero_adam"]
+           / HBM_BYTES_PER_S * 1e3,
+           "library_ms": None if lib is None else cuda_ms(torch, lib)}
+    log(f"kernel zero_adam adamw at the dp-2 shard width {width}: bit for "
+        f"bit; {row['ms']:.4f} ms alone, {row['wrapper_ms']:.4f} through "
+        f"the wrapper, plain {row['plain_ms']:.4f}, bytes bound "
+        f"{row['bound_ms']:.4f}, torch fused {row['library_ms']}")
+    return row
+
+
+def train_gpt_dp(torch, zk, card):
+    """Phase 10: the dp-2 gang through the port's launcher (both ranks on
+    cuda:0 under gloo, as asked for explicitly), its gates, the typed NCCL
+    refusal, the one-process arm at batch 32 from the same weights, the
+    NCCL capture gate and B8 at the shard width."""
+    import tempfile
+    from paddle_tpu_torch.framework import Executor, Scope
+    from paddle_tpu_torch.parallel import zero
+    cfg = dp_config()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    env = dict(os.environ, PADDLE_DIST_BACKEND="gloo",
+               PADDLE_DIST_DEVICE="cuda:0", CHIP_SMOKE_DP_OUT=out_dir)
+    rc, text = launch_gang(["--dp-worker"], env, 600, "dp_gang.log")
+    if rc != 0:
+        fail(f"the dp-2 gang failed (rc {rc}): {text[-3000:]}")
+    ranks = []
+    for r in range(DP_WORLD):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    if ranks[0]["startup_digest"] != ranks[1]["startup_digest"]:
+        fail("dp ranks start from different weights")
+    for s in map(str, DP_STAGES):
+        a, b = ranks[0]["stages"][s], ranks[1]["stages"][s]
+        if a["losses"] != b["losses"] or a["digest"] != b["digest"]:
+            fail(f"dp stage {s}: rank 0 and rank 1 differ")
+    st0, st1 = (ranks[0]["stages"][s]["state_bytes"] for s in ("0", "1"))
+    nb = ranks[0]["stages"]["1"]["buckets"]
+    if abs(2 * st1 - st0) > nb * PAD_SLACK_BYTES:
+        fail(f"dp stage 1 holds {st1} B of optimizer state a rank, stage 0 "
+             f"{st0}: not half, give or take the padding")
+
+    # NCCL asked for with two ranks on one card: the typed error, no hang
+    env_nccl = dict(os.environ, PADDLE_DIST_BACKEND="nccl",
+                    PADDLE_DIST_DEVICE="cuda:0")
+    rc, text = launch_gang(["--dp-nccl-refusal"], env_nccl, 180,
+                           "dp_nccl_refusal.log")
+    refused = text.count("refused: ")
+    if rc != 0 or refused != DP_WORLD:
+        fail(f"two NCCL ranks on one card: rc {rc}, {refused} typed "
+             f"refusals: {text[-2000:]}")
+    nccl_line = next(line for line in text.splitlines()
+                     if "refused: " in line)
+
+    # one process at batch 32 from the same weights (the startup program's)
+    main, start, loss, _ = build_gpt_state(cfg, stage=0, lr=DP_LR)
+    scope, exe = Scope(), Executor("cuda")
+    exe.run(start, scope=scope)
+    tokens = gpt_tokens(cfg, DP_GLOBAL_BATCH, DP_STEPS, DP_SEED)
+    torch.cuda.reset_peak_memory_stats()
+    one, one_ms = [], []
+    for s in range(DP_STEPS):
+        t0 = time.perf_counter()
+        got, = exe.run(main, feed={"tokens": tokens[s]}, fetch_list=[loss],
+                       scope=scope)
+        torch.cuda.synchronize()
+        one_ms.append((time.perf_counter() - t0) * 1e3)
+        one.append(float(got))
+    one_peak = torch.cuda.max_memory_allocated()
+    largest = max(b["padded"] for b in zero.zero_buckets(
+        build_gpt_state(cfg, stage=1, lr=DP_LR)[0]))
+    del main, start, loss, scope, exe
+    release(torch)
+    dp_losses = ranks[0]["stages"]["0"]["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(dp_losses, one))
+    log(f"dp 2 vs one process at batch 32: losses {dp_losses} vs {one}, "
+        f"max rel {rel:.3e} (limit {DP_LOSS_RTOL})")
+    if not rel <= DP_LOSS_RTOL:
+        fail(f"dp 2 trains otherwise than one process: max rel {rel:.3e}")
+    capture = nccl_capture_gate(torch)
+    shard = check_b8_shard(torch, zk, largest // DP_WORLD)
+    launches = sum(ranks[0]["stages"][s]["b8_launches"]
+                   for s in map(str, DP_STAGES))
+    return {
+        "card": card,
+        "config": "GPTConfig() at S 512, dropout 0, global batch 32 (16 a "
+                  "rank), fleet AMP bf16, AdamW(1e-4, weight decay 0.01) + "
+                  "GradientClipByGlobalNorm(1.0), eager Executor.run, "
+                  f"{DP_STEPS} steps a stage, weights from the startup "
+                  "program (seed 0)",
+        "launch": "python -m paddle_tpu_torch.distributed.launch "
+                  "--nproc_per_node 2 chip_smoke.py --dp-worker, "
+                  "PADDLE_DIST_BACKEND=gloo PADDLE_DIST_DEVICE=cuda:0",
+        "ranks": ranks,
+        "one_process": {"losses": one, "step_ms": one_ms,
+                        "step_ms_p50": float(np.median(one_ms)),
+                        "peak_memory_bytes": int(one_peak)},
+        "loss_max_rel_vs_one_process": rel,
+        "nccl_two_ranks_one_card": nccl_line,
+        "nccl_capture_gate": capture,
+        "b8_shard": shard,
+        "b8_launches_rank0": launches,
+    }
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3727,6 +4199,17 @@ def main():
     release(torch)
     data_row = train_gpt_from_data(torch, fa, card)
 
+    # ---- data parallelism across processes: GPT-2 small at dp 2 -----------
+    release(torch)
+    dp_row = train_gpt_dp(torch, zk, card)
+    rows["zero_adam"]["shard_dp2"] = dp_row.pop("b8_shard")
+    rows["zero_adam"]["launches_by_path"][
+        "gpt_dp2_rank0_4_stages_3_steps"] = dp_row["b8_launches_rank0"]
+    for name in fa.KERNEL_NAMES:
+        rows[name]["launches_by_path"]["gpt_dp2_rank0_4_stages_3_steps"] = \
+            sum(dp_row["ranks"][0]["stages"][s]["flash_launches"][name]
+                for s in map(str, DP_STAGES))
+
     for row in rows.values():
         if not row["launches"]:
             fail(f"{row['name']} was never launched on its main path run")
@@ -3738,6 +4221,7 @@ def main():
     print(json.dumps({"gpt_training": gpt_row}), flush=True)
     print(json.dumps({"training_state": state_row}), flush=True)
     print(json.dumps({"data_path": data_row}), flush=True)
+    print(json.dumps({"data_parallel": dp_row}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -3745,6 +4229,10 @@ def main():
 
 
 if __name__ == "__main__":
+    if "--dp-worker" in sys.argv:
+        sys.exit(dp_worker())
+    if "--dp-nccl-refusal" in sys.argv:
+        sys.exit(dp_nccl_refusal())
     adopt_orphans()
     try:
         rc = main()

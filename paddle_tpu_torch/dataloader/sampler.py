@@ -82,8 +82,8 @@ class BatchSampler(Sampler):
 
 def _rank_world():
     """This process's data-parallel rank and world size from the launch
-    environment (PADDLE_TRAINER_ID / PADDLE_TRAINERS_NUM): the port runs
-    one process per job until multi-process fleet (ROADMAP item 15.1)."""
+    environment (PADDLE_TRAINER_ID / PADDLE_TRAINERS_NUM), which
+    distributed/launch.py sets for every rank it starts."""
     return (int(os.environ.get("PADDLE_TRAINER_ID", "0") or 0),
             int(os.environ.get("PADDLE_TRAINERS_NUM", "1") or 1))
 

@@ -12,8 +12,11 @@ InMemoryDataset loads every file into host memory once
 (`load_into_memory`, in file order), shuffles it with a seed that
 advances at each `local_shuffle` (1, 2, ...), and serves every epoch from
 memory. `global_shuffle` shuffles this process's file shard with a seed
-mixed with its rank: across processes (fleet) it waits for multi-process
-data parallelism (ROADMAP item 15.1).
+mixed with its rank (`seed * 9973 + rank`, the reference's rule): under
+fleet the rank is `fleet.worker_index()`, so every launched rank draws
+its own permutation of its own shard (`set_filelist` splits the files by
+rank). Like the reference, it does not exchange samples across
+processes.
 """
 from __future__ import annotations
 
@@ -141,12 +144,8 @@ class InMemoryDataset(DatasetBase):
         self.plane.local_shuffle(self._shuffle_seed)
 
     def global_shuffle(self, fleet=None, thread_num=12):
-        if fleet is not None:
-            from .framework import errors
-            raise errors.Unimplemented(
-                "global_shuffle across processes (fleet) waits for "
-                "multi-process data parallelism (ROADMAP item 15.1)")
-        rank, _ = _rank_world()
+        rank = fleet.worker_index() if hasattr(fleet, "worker_index") \
+            else _rank_world()[0]
         self._shuffle_seed += 1
         self.plane.local_shuffle(self._shuffle_seed * 9973 + rank)
 

@@ -1,5 +1,5 @@
 """Global flags registry (the executor, serving, observability, resilience,
-data loading and ZeRO subset of paddle_tpu/flags.py, with the reference's
+data loading, process and ZeRO subset of paddle_tpu/flags.py, with the reference's
 defaults).
 
 FLAGS_* environment variables seed the initial values at import, as in
@@ -117,6 +117,31 @@ _DEFS: Dict[str, tuple] = {
                                          "dead DataLoader workers "
                                          "(0 = fail fast, naming the "
                                          "worker and its exit code)"),
+    # --- processes (distributed/) ------------------------------------------
+    "FLAGS_gloo_timeout_ms": (60000.0, "gloo rendezvous and collective "
+                              "timeout: the process group's timeout "
+                              "(distributed/parallel.py) and each round of "
+                              "the host Gloo store (distributed/gloo.py); a "
+                              "dead peer raises instead of hanging"),
+    "FLAGS_rendezvous_deadline_ms": (60000.0, "gang-launch rendezvous "
+                                     "deadline (distributed/launch.py): "
+                                     "every worker must check in (create "
+                                     "its heartbeat file) within this "
+                                     "budget or the supervisor kills the "
+                                     "whole gang and raises "
+                                     "DeadlineExceededError"),
+    "FLAGS_launch_heartbeat_interval_ms": (1000.0, "how often each "
+                                           "launched worker's heartbeat "
+                                           "thread touches its liveness "
+                                           "file; the supervisor treats a "
+                                           "file stale past the launcher's "
+                                           "--heartbeat_timeout_ms as a "
+                                           "hung worker"),
+    "FLAGS_fingerprint_steps": (0, "cross-replica divergence sentinel "
+                                   "cadence (resilience/integrity.py): "
+                                   "fingerprint the training state and "
+                                   "all-gather/compare the digests across "
+                                   "ranks every N steps (0 = disabled)"),
     "FLAGS_zero_stage": (0, "ZeRO sharding stage applied at fleet minimize "
                             "time (parallel/zero.py): 1 moves each gradient "
                             "bucket's optimizer state into flat vars updated "

@@ -82,9 +82,37 @@ replays of the captured step) and odd-shaped batches and the tail as
 `run()` calls. A producer error is raised here; a failed step stops and
 joins the producer and purges its staged windows.
 
+Data parallelism across processes (the counterpart of the reference's
+manual-dp path, `plan_manual_dp` / `build_manual_jit`,
+paddle_tpu/parallel/zero.py:1232,1356, hooked from the reference's
+executor.py:125-139). A program that fleet minimized at dp > 1 (one
+process per rank, distributed/parallel.py) runs each step under
+`zero._manual_ctx`, where the bucket ops average the gradients and shard
+the ZeRO state over the ranks (parallel/zero.py). Each rank feeds its own
+local batch; parameters and state stay replicated (or, for the flat ZeRO
+state, sharded: `_prepare` slices the startup's values to this rank's
+shard); every rank draws the same run seed. Fetches follow the
+reference's plan: a floating scalar comes back as the replica mean (an
+all-reduce, then `/ dp`, as `pmean`), a non-persistable fetch whose
+leading dimension is the local batch as the ranks' rows concatenated in
+rank order (an all-gather), anything else as this rank's value. A
+program the reference's planner declines raises here, naming the cause,
+and counts it under `executor.zero_manual_fallbacks.<cause>`: a
+cross-batch op (the port's copy of the reference's list, zero.py
+`CROSS_BATCH_OPS`), SelectedRows gradients, a microbatch program. Across
+processes there is no GSPMD path to fall back on, and a local batch
+statistic would be wrong. A program with optimizer ops but no gradient
+buckets raises at dp > 1 too: it would train on local gradients.
+
+`run_steps` / `train_from_dataset` at dp > 1 capture the collectives in
+the step where the backend allows it (NCCL). Gloo's calls cannot be
+captured, so under gloo every step runs the eager body, on the card as
+on the CPU: counted in `stats["eager_steps"]` and in
+`executor.uncaptured_collective_steps`.
+
 Not ported (ROADMAP): the microbatch runner (`_run_block_microbatched`,
-with pipeline, item 16), the shard_map manual-dp branch and the PS /
-LocalSGD paths.
+with pipeline, item 16), the PS path (item 19.2) and LocalSGD (item
+15.1).
 """
 from __future__ import annotations
 
@@ -101,7 +129,7 @@ import numpy as np
 import torch
 
 from . import errors
-from .program import Program, Variable, default_main_program
+from .program import OpRole, Program, Variable, default_main_program
 from .scope import Scope, global_scope, to_numpy
 from ..device import capture_lock, collector_paused, resolve_device
 from ..monitor import stat_add
@@ -469,15 +497,81 @@ class Executor:
         # program's step count, which tags its snapshots
         self._snapshot_mgr = None
         self._snapshot_prog_steps: Dict[int, int] = {}
+        self._dp_plans: Dict[tuple, int] = {}
 
     def _prepare(self, program, scope):
         """Per call, before the step: the host LR schedulers write into
-        this scope from now on, and a restore's per-parameter ZeRO state
-        is packed into the flat buckets."""
-        from ..parallel.zero import adopt_unsharded_state
+        this scope from now on, a restore's per-parameter ZeRO state is
+        packed into the flat buckets, and at dp > 1 the flat state is cut
+        to this rank's shard."""
+        from ..parallel.zero import adopt_unsharded_state, shard_flat_state
         for sched in getattr(program, "_lr_schedulers", ()):
             sched._attach_scope(scope)
         adopt_unsharded_state(program, scope, self.device)
+        shard_flat_state(program, scope)
+
+    def _dp_width(self, program) -> int:
+        """The dp a step of `program` runs at (1: a plain step); raises
+        for the programs the reference's manual-dp planner declines
+        (module docstring). Checked once per program version."""
+        from ..distributed.parallel import get_world_size
+        from ..parallel import zero
+        world = get_world_size()
+        if world <= 1:
+            return 1
+        key = (program._uid, program._version)
+        dp = self._dp_plans.get(key)
+        if dp is not None:
+            return dp
+        block = program.global_block()
+        trains = any(op.attrs.get("op_role", 0) == OpRole.Optimize
+                     for op in block.ops)
+        if not trains:
+            dp = 1
+        elif not getattr(program, "_grad_buckets", None) \
+                or int(getattr(program, "_dp", 1) or 1) != world:
+            raise errors.PreconditionNotMet(
+                "a training program in a group of %d ranks that fleet did "
+                "not minimize for them: call fleet.init() first and "
+                "minimize through fleet.distributed_optimizer with "
+                "fuse_grad_size_in_mb > 0, or every rank trains on its "
+                "local gradients", world)
+        else:
+            if getattr(program, "_microbatch_k", 0):
+                zero.count_fallback("pipeline")
+                raise errors.Unimplemented(
+                    "a microbatch (pipeline) program at dp %d: the pipeline "
+                    "runner is ROADMAP item 16", world)
+            for b in program.blocks:
+                for op in b.ops:
+                    if op.type in zero.CROSS_BATCH_OPS:
+                        cause = zero.cross_batch_cause(op.type)
+                        zero.count_fallback(cause)
+                        raise errors.Unimplemented(
+                            "op %s couples examples across the batch "
+                            "(cause %s): at dp %d each rank would compute it "
+                            "over its local batch, and the port has no "
+                            "global-batch path to fall back on", op.type,
+                            cause, world, op=op.type)
+                for v in b.vars.values():
+                    if getattr(v, "_is_selected_rows", False):
+                        zero.count_fallback("selected_rows")
+                        raise errors.Unimplemented(
+                            "SelectedRows gradient %r at dp %d (ROADMAP item "
+                            "12)", v.name, world, var=v.name)
+            if any(int(b["padded"]) % world
+                   for b in zero.zero_buckets(program)):
+                zero.count_fallback("indivisible_padding")
+            dp = world
+        self._dp_plans[key] = dp
+        return dp
+
+    def _uncaptured(self, dp: int) -> bool:
+        """A dp > 1 step whose collectives cannot be captured (gloo)."""
+        if dp <= 1:
+            return False
+        from ..distributed.parallel import backend
+        return backend() != "nccl"
 
     def _maybe_snapshot(self, program, scope, k: int = 1):
         """After a step or a run_steps(k) window: count the program's
@@ -553,6 +647,10 @@ class Executor:
                      == "bfloat16" else torch.float16) \
             if getattr(program, "_amp", False) else None
         block = program.global_block()
+        from ..parallel.zero import current_manual_dp
+        manual = current_manual_dp()
+        local_batch = next((int(v.shape[0]) for v in env.values()
+                            if v.dim() >= 1), None) if manual else None
         _run_block(block, self._plan(program, use_cache), env, scope, ctx,
                    amp_dtype, strict)
         fetches = []
@@ -562,6 +660,9 @@ class Executor:
                 raise errors.NotFound("fetch target %r was not computed", n,
                                       var=n)
             fetches.append(val.clone() if n not in env else val)
+        if manual:
+            fetches = _dp_fetches(block, fetch_names, fetches, local_batch,
+                                  manual[1])
         return fetches
 
     # ---- staging: the host-side dispatch queue ----------------------------
@@ -677,8 +778,10 @@ class Executor:
             device=self.device)
         self._step_counter += 1
         t0 = time.perf_counter()
+        dp = self._dp_width(program)
         with _trace.RecordEvent("executor_run",
-                                args={"step": self._step_counter}):
+                                args={"step": self._step_counter}), \
+                _dp_context(dp):
             fetches = self._step(program, env, scope, ctx, fetch_names,
                                  use_cache=use_program_cache)
         self.stats["eager_steps"] += 1
@@ -726,9 +829,11 @@ class Executor:
         seeds = _next_run_seeds(scope, program.random_seed, k)
         self._step_counter += 1
         t0 = time.perf_counter()
+        dp = self._dp_width(program)
         with _trace.RecordEvent(f"executor_run_steps#{k}",
-                                args={"step": self._step_counter, "k": k}):
-            if self.device.type == "cuda":
+                                args={"step": self._step_counter, "k": k}), \
+                _dp_context(dp):
+            if self.device.type == "cuda" and not self._uncaptured(dp):
                 stacked = self._run_captured(program, feeds, seeds, scope,
                                              fetch_names)
             else:
@@ -740,6 +845,8 @@ class Executor:
                     per_step.append(self._step(program, env, scope, ctx,
                                                fetch_names))
                     self.stats["eager_steps"] += 1
+                    if dp > 1:
+                        _metrics.inc("executor.uncaptured_collective_steps")
                 stacked = [torch.stack([s[i] for s in per_step])
                            for i in range(len(fetch_names))]
         _metrics.observe("executor.step_host_ms",
@@ -913,6 +1020,33 @@ class Executor:
 
 def _feed_shapes(feed) -> Dict[str, tuple]:
     return {n: tuple(np.shape(v)) for n, v in feed.items()}
+
+
+def _dp_context(dp: int):
+    """The data-parallel step context at dp > 1, else nothing."""
+    if dp <= 1:
+        return contextlib.nullcontext()
+    from ..parallel.zero import _manual_ctx
+    return _manual_ctx(dp)
+
+
+def _dp_fetches(block, names, fetches, local_batch, dp):
+    """The reference's fetch plan under manual dp (zero.py:1336-1353): a
+    floating scalar is the replica mean, a non-persistable fetch whose
+    leading dimension is the local batch the ranks' rows in rank order,
+    anything else this rank's (replicated) value."""
+    from ..distributed.collective import all_gather, all_reduce
+    out = []
+    for n, v in zip(names, fetches):
+        var = block.find_var_recursive(n)
+        persistable = var is not None and var.persistable
+        if v.dim() == 0:
+            if v.is_floating_point():
+                v = all_reduce(v.clone()) / dp
+        elif v.shape[0] == local_batch and not persistable:
+            v = torch.cat(all_gather(None, v), dim=0)
+        out.append(v)
+    return out
 
 
 def _run_block(block, plan, env, scope, ctx, amp_dtype, strict=False):

@@ -22,6 +22,15 @@ the next `run_steps` re-captures (counted in the executor's
 program packs per-parameter entries into the program's ZeRO flat buckets
 on the host first.
 
+At dp > 1 (fleet over several processes, parallel/zero.py) a rank holds
+only its shard of each flat ZeRO array. `_portable_arrays` is then a
+collective: it all-gathers the shards, so every rank holds the
+unsharded payload; `save_persistables` and CheckpointManager.save write it
+from rank 0 only and every rank waits at a barrier. The file is the
+reference's unsharded format, whatever the dp it was written at. A load
+packs the per-parameter entries and takes this rank's shard, so a
+checkpoint written at dp 4 resumes at dp 2 (the elastic resize).
+
 The RNG entry. The port's run seed is a host counter kept in the scope
 under `__rng_state__` (framework/executor.py `_next_run_seeds`); the
 reference keeps a jax PRNG key under the same scope name and splits it on
@@ -66,10 +75,26 @@ def _portable_arrays(program: Program, scope) -> dict:
     """The checkpoint payload of `program`: its persistable scope values
     as host arrays, the ZeRO flat buckets split into per-parameter
     entries. The same key set as the reference's `_portable_arrays`."""
-    from .parallel.zero import unbucket_state_for_save
+    from .parallel.zero import gather_flat_shards, unbucket_state_for_save
     arrays = {n: to_numpy(scope.find(n))
               for n in _persistable_names(program, scope)}
-    return unbucket_state_for_save(program, arrays)
+    return unbucket_state_for_save(
+        program, gather_flat_shards(program, scope, arrays))
+
+
+def _writer() -> bool:
+    """True on the rank that writes a checkpoint (rank 0; every rank of a
+    one-process job)."""
+    from .distributed.parallel import get_rank
+    return get_rank() == 0
+
+
+def _barrier() -> None:
+    """Every rank waits for the writer (no-op in a one-process job)."""
+    from .distributed.parallel import get_world_size
+    if get_world_size() > 1:
+        from .distributed.collective import barrier
+        barrier()
 
 
 def checkpoint_arrays(program: Program, scope) -> dict:
@@ -91,8 +116,8 @@ def restore_arrays(scope, arrays, program: Optional[Program] = None,
     arrays.pop(RNG_SCOPE_KEY, None)
     ctr = arrays.pop(RNG_FILE_KEY, None)
     if program is not None:
-        from .parallel.zero import pack_unsharded_arrays
-        arrays = pack_unsharded_arrays(program, arrays)
+        from .parallel.zero import pack_unsharded_arrays, take_shards
+        arrays = take_shards(program, pack_unsharded_arrays(program, arrays))
     rebinds = load_arrays(scope, arrays, device=device)
     if ctr is not None:
         scope.set(RNG_SCOPE_KEY, int(np.asarray(ctr)))
@@ -124,12 +149,15 @@ def save_persistables(executor=None, dirname=None, main_program=None,
                       filename=None, scope=None):
     program = main_program or default_main_program()
     scope = scope or global_scope()
-    os.makedirs(dirname, exist_ok=True)
     path = os.path.join(dirname, filename or "persistables.npz")
-    _atomic_savez(path, checkpoint_arrays(program, scope))
-    from .resilience.checkpoint import write_manifest
-    write_manifest(dirname, -1, [os.path.basename(path)],
-                   manifest_name=os.path.basename(_manifest_path(path)))
+    arrays = checkpoint_arrays(program, scope)
+    if _writer():
+        os.makedirs(dirname, exist_ok=True)
+        _atomic_savez(path, arrays)
+        from .resilience.checkpoint import write_manifest
+        write_manifest(dirname, -1, [os.path.basename(path)],
+                       manifest_name=os.path.basename(_manifest_path(path)))
+    _barrier()
     return path
 
 

@@ -3,7 +3,8 @@ from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["fused_lm_head_ce", "softmax_with_cross_entropy"]
+__all__ = ["fused_lm_head_ce", "softmax_with_cross_entropy",
+           "square_error_cost"]
 
 
 def fused_lm_head_ce(x, w, label, chunk=None, bias=None, w_layout="vh",
@@ -37,3 +38,13 @@ def softmax_with_cross_entropy(logits, label, soft_label=False, axis=-1,
     if return_softmax:
         return loss, softmax
     return loss
+
+
+def square_error_cost(input, label):
+    """(input - label) ** 2, elementwise."""
+    helper = LayerHelper("square_error_cost")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("square_error_cost",
+                     inputs={"X": [input], "Y": [label]},
+                     outputs={"Out": [out]})
+    return out

@@ -1,6 +1,7 @@
 """Math / elementwise / reduce / matmul lowerings (counterpart of
 paddle_tpu/ops/math_ops.py): the ones the BERT pretrain and GPT LM
-programs use, the ones gradient clipping and weight-decay regularisation
+programs use, the fc activations `tanh` and `relu`, the ones gradient
+clipping and weight-decay regularisation
 append (clip.py, regularizer.py), and the ones the static LR schedules
 emit (layers/learning_rate_scheduler.py). Large matrix products go to
 `torch.matmul`, as the reference leaves them to XLA. Every op here makes
@@ -59,6 +60,8 @@ _unary("exp", torch.exp)
 _unary("floor", torch.floor)
 _unary("ceil", torch.ceil)
 _unary("cos", torch.cos)
+_unary("tanh", torch.tanh)
+_unary("relu", torch.relu)
 
 
 @register("pow")

@@ -1,5 +1,5 @@
 """Neural-net lowerings (counterpart of paddle_tpu/ops/nn_ops.py): the ones
-the BERT pretrain program uses."""
+the BERT pretrain program and the fc regression model use."""
 from __future__ import annotations
 
 import torch
@@ -26,6 +26,12 @@ def _softmax_with_cross_entropy(ctx, ins, attrs):
         loss = torch.where(keep.unsqueeze(-1), -picked,
                            torch.zeros_like(picked))
     return {"Softmax": [torch.exp(logp)], "Loss": [loss]}
+
+
+@register("square_error_cost", nondiff_slots=())
+def _square_error_cost(ctx, ins, attrs):
+    x, y = ins["X"][0], ins["Y"][0]
+    return {"Out": [torch.square(x - y)]}
 
 
 @register("layer_norm")

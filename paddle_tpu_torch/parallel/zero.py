@@ -1,5 +1,5 @@
-"""Gradient bucketing and ZeRO stages 0-3 on one process (counterpart of
-paddle_tpu/parallel/zero.py).
+"""Gradient bucketing and ZeRO stages 0-3, on one process and across
+processes (counterpart of paddle_tpu/parallel/zero.py).
 
 1. **Program pass** (`apply_grad_bucketing`, run by
    `fleet.DistributedOptimizer.minimize` whenever `fuse_grad_size_in_mb`
@@ -17,36 +17,50 @@ paddle_tpu/parallel/zero.py).
      bucket's first forward use by `__zero_gather__`.
    A bucket whose gradients are clipped or regularised before the update
    is `pre_synced`: its raw gradients keep a `__bucket_sync__`.
-2. **Lowerings**: on one process there is no data-parallel group
-   (`current_manual_dp()` is None), so `__bucket_sync__` is the identity
-   and `__zero_update__` takes the reference's full-width branch
-   (`zero.py:346-355`): concatenate the bucket, run the update over the
-   flat bucket through `_apply_update_rule`, the one funnel, which
-   launches the fused kernels B6-B8 on the card
-   (ops/kernels/zero_update.py), and split the parameters back. The flat
-   state, and at stage 3 the flat parameters, are updated in place; at
-   stages 1-2 the updated pieces are copied back into the scope's
-   parameter tensors.
+2. **Lowerings.** Inside a data-parallel step (`current_manual_dp()` is
+   ("dp", dp): the executor's manual-dp plan, framework/executor.py) they
+   compute what the reference's manual path computes, over the port's
+   collectives (distributed/collective.py), one process per rank:
+   * `__bucket_sync__`: concatenate, all-reduce (sum), then `* 1/dp`, in
+     that order (reference :197-212), split back;
+   * `__zero_update__` at stages 1-2, when dp divides the padding:
+     reduce-scatter the flat gradient and scale it (a `pre_synced` bucket
+     slices its synced gradient instead), then ONE update of this rank's
+     `[padded/dp]` shard through `_apply_update_rule` (on the card, one
+     B6-B8 launch at the shard's width) against the rank's flat state
+     shard, then all-gather the parameters and copy them back; stage 2
+     keeps the gradient shard resident; stage 3 updates the rank's
+     parameter shard and gathers nothing;
+   * `__zero_gather__` (stage 3) all-gathers the bucket's shard before
+     its first forward use;
+   * a dp that does not divide the padding runs the update at full width,
+     the gradient all-reduced and scaled first (:347-355), and is counted
+     (`indivisible_padding`).
+   The flat state of a rank is its shard (`shard_names`,
+   `shard_flat_state`: the executor slices the startup's `[padded]`
+   values), so state bytes per rank fall by dp (`optimizer_state_bytes`).
+   On one process there is no data-parallel group: `__bucket_sync__` is
+   the identity and `__zero_update__` runs the full-width branch.
 3. **The checkpoint round trip** (reference `unbucket_state_for_save`
    :1090, `adopt_unsharded_state` :1030): checkpoints are always written
    unsharded, each flat bucket split back into its per-parameter entries
    under the names a stage-0 program uses (stage-2 flat gradients are
    per-step scratch and are dropped), so a stage-k checkpoint loads into a
-   stage-0 program and into the reference, and back. A stage-k program
-   packs per-parameter entries into its flat buckets: on the host when a
-   loader knows the program (`pack_unsharded_arrays`), or from the scope
-   at the start of the next run (`adopt_unsharded_state`, called by the
-   executor's `_prepare` as the reference's `_ensure_zero_state` calls
-   it). Either way the packed bucket is `copy_`'d into
-   the scope's existing flat tensor, so a captured step bound to it stays
-   valid.
+   stage-0 program and into the reference, and back, at any dp. At dp > 1
+   the save all-gathers the shards first (`gather_flat_shards`, io.py);
+   a load packs the per-parameter entries and takes this rank's shard
+   (`take_shards`). A stage-k program packs per-parameter entries into its
+   flat buckets: on the host when a loader knows the program
+   (`pack_unsharded_arrays`), or from the scope at the start of the next
+   run (`adopt_unsharded_state`, called by the executor's `_prepare` as
+   the reference's `_ensure_zero_state` calls it). Either way the packed
+   bucket is `copy_`'d into the scope's existing flat tensor, so a captured
+   step bound to it stays valid. This is the elastic resize: train at dp
+   4, resume at dp 2.
 
-Not ported (ROADMAP Queue 1): data parallelism over `torch.distributed`
-(the `psum_scatter` / `all_gather` / `pmean` branches and the manual-dp
-runner `plan_manual_dp` / `build_manual_jit`); the stacked `@LAYERS`
-stage-3 path (`_plan_stacked_stage3`, `_zero_update_stacked`: layer scan
-is not ported, so such a program raises); and the `checked_pass`
-verifier (analysis/ is not ported).
+Not ported: the stacked `@LAYERS` stage-3 path (`_plan_stacked_stage3`,
+`_zero_update_stacked`: layer scan is ROADMAP item 16, so such a program
+raises); and the `checked_pass` verifier (analysis/, item 20).
 """
 from __future__ import annotations
 
@@ -92,10 +106,45 @@ def count_fallback(cause: str) -> None:
     metrics.inc(f"executor.zero_manual_fallbacks.{cause}")
 
 
+def cross_batch_cause(op_type: str) -> str:
+    """The fallback cause a cross-batch op counts under (the port's copy of
+    paddle_tpu/analysis/op_specs.py `cross_batch_cause`)."""
+    return "batch_norm" if op_type in _BATCH_STATS_OPS else "cross_batch"
+
+
+# Ops whose semantics couple examples ACROSS the batch beyond a trailing
+# mean-reduced loss (the port's copy of the reference's `cross_batch` op
+# specs, paddle_tpu/analysis/op_specs.py:293-384): a rank's local batch
+# would compute local statistics, so a dp > 1 program holding one raises.
+_BATCH_STATS_OPS = frozenset({"batch_norm", "data_norm", "inplace_abn"})
+CROSS_BATCH_OPS = _BATCH_STATS_OPS | frozenset({"switch_moe", "auc"})
+
+_manual_dp: List[tuple] = []   # stack of (axis_name, dp)
+
+
+class _manual_ctx:
+    """The executor runs a data-parallel step inside this context."""
+
+    def __init__(self, dp: int, axis: str = "dp"):
+        self._entry = (axis, int(dp))
+
+    def __enter__(self):
+        _manual_dp.append(self._entry)
+        return self
+
+    def __exit__(self, *exc):
+        _manual_dp.pop()
+        return False
+
+
 def current_manual_dp() -> Optional[tuple]:
-    """(axis_name, dp) inside a data-parallel step. The port runs one
-    process without a process group, so always None."""
-    return None
+    """(axis_name, dp) inside a data-parallel step, else None."""
+    return _manual_dp[-1] if _manual_dp else None
+
+
+def _rank() -> int:
+    from ..distributed.parallel import get_rank
+    return get_rank()
 
 
 def _apply_update_rule(ctx, op_type: str, inner_ins, update_attrs):
@@ -129,9 +178,26 @@ def _flat_concat(vals, dt, padded):
 @register("__bucket_sync__", infer=_infer_noop,
           nondiff_slots=("X",), stateful_outputs=("Out",))
 def _lower_bucket_sync(ctx, ins, attrs):
-    """One grouped gradient sync per bucket: the identity on one process
-    (the gradients are already the whole batch's)."""
-    return {"Out": list(ins["X"])}
+    """One grouped gradient sync per bucket: concatenate, all-reduce,
+    `* 1/dp`, split back (the reference's GradAllReduce: sum, then the
+    1/nranks scale). The identity on one process (the gradients are
+    already the whole batch's)."""
+    grads = ins["X"]
+    manual = current_manual_dp()
+    if manual is None:
+        return {"Out": list(grads)}
+    from ..distributed.collective import all_reduce
+    dp = manual[1]
+    dt = convert_dtype(attrs["dtype"])
+    with torch.no_grad():
+        flat = torch.cat([g.reshape(-1).to(dt) for g in grads])
+        flat = all_reduce(flat) * (1.0 / dp)
+        outs, off = [], 0
+        for g, size, shape in zip(grads, attrs["sizes"], attrs["shapes"]):
+            outs.append(flat[off:off + size].reshape(tuple(shape))
+                        .to(g.dtype))
+            off += size
+    return {"Out": outs}
 
 
 @register("__zero_pack__", infer=_infer_noop, nondiff_slots=("X",),
@@ -142,7 +208,7 @@ def _lower_zero_pack(ctx, ins, attrs):
     if attrs.get("layout") == "stacked":
         raise NotImplementedError(
             "__zero_pack__ of a stacked @LAYERS bucket: layer scan is not "
-            "ported (ROADMAP)")
+            "ported (ROADMAP item 16)")
     return {"Out": [_flat_concat(ins["X"], convert_dtype(attrs["dtype"]),
                                  int(attrs["padded"]))]}
 
@@ -155,6 +221,11 @@ def _lower_zero_gather(ctx, ins, attrs):
     in-place update of the flat storage never changes a value an earlier
     op of the step saved."""
     flat = ins["FlatParam"][0]
+    if current_manual_dp() is not None \
+            and flat.shape[0] != int(attrs["padded"]):
+        from ..distributed.collective import all_gather_flat
+        with torch.no_grad():
+            flat = all_gather_flat(flat)
     outs, off = [], 0
     for size, shape, dt in zip(attrs["sizes"], attrs["shapes"],
                                attrs["dtypes"]):
@@ -170,30 +241,51 @@ def _lower_zero_gather(ctx, ins, attrs):
           stateful_outputs=("ParamOut", "FlatStateOut", "FlatParamOut",
                             "FlatGradOut"))
 def _lower_zero_update(ctx, ins, attrs):
-    """Staged ZeRO bucket update at full bucket width (one process): the
-    update rule over the flat bucket against the flat optimizer state,
-    in place. Stages 1-2 concatenate the parameters, update the flat copy
-    and copy the pieces back into the scope's parameter tensors; stage 3
-    updates the flat parameter storage itself. Stage >= 2 also emits the
-    flat gradient as resident state (`FlatGradOut`)."""
+    """Staged ZeRO bucket update, in place. Inside a data-parallel step
+    whose dp divides the padding: reduce-scatter the bucket's gradients
+    (or slice pre-synced ones), update this rank's `[padded/dp]` shard
+    against its flat state shard, then all-gather the parameters (stages
+    1-2) or keep the parameter shard (stage 3). Otherwise the update runs
+    at full width, the local gradients all-reduced first inside a
+    data-parallel step. Stages 1-2 copy the updated parameters back into
+    the scope's parameter tensors; stage >= 2 also emits the (averaged)
+    gradient shard as resident state (`FlatGradOut`)."""
     if attrs.get("layout") == "stacked":
         raise NotImplementedError(
             "__zero_update__ of a stacked @LAYERS bucket: layer scan is not "
-            "ported (ROADMAP)")
+            "ported (ROADMAP item 16)")
+    from ..distributed import collective as coll
     op_type = attrs["update_op"]
     stage = int(attrs.get("stage", 1))
     sizes = list(attrs["sizes"])
     padded = int(attrs["padded"])
     kinds = list(attrs["state_kinds"])
     dt = convert_dtype(attrs["dtype"])
+    manual = current_manual_dp()
     with torch.no_grad():
         flat_g = _flat_concat(ins["Grad"], dt, padded)
         if stage >= 3:
             flat_p = ins["FlatParam"][0]
+            shard_mode = manual is not None and flat_p.shape[0] != padded
         else:
             params = ins["Param"]
             flat_p = _flat_concat(params, dt, padded)
-        inner_ins = {"Param": [flat_p], "Grad": [flat_g],
+            shard_mode = (manual is not None and manual[1] > 1
+                          and padded % manual[1] == 0)
+        if shard_mode:
+            dp = manual[1]
+            shard = padded // dp
+            lo = _rank() * shard
+            if attrs.get("pre_synced"):
+                g_shard = flat_g[lo:lo + shard]
+            else:
+                g_shard = coll.reduce_scatter_flat(flat_g) * (1.0 / dp)
+            p_shard = flat_p if stage >= 3 else flat_p[lo:lo + shard]
+        else:
+            if manual is not None and not attrs.get("pre_synced"):
+                flat_g = coll.all_reduce(flat_g) * (1.0 / manual[1])
+            g_shard, p_shard = flat_g, flat_p
+        inner_ins = {"Param": [p_shard], "Grad": [g_shard],
                      "LearningRate": ins["LearningRate"]}
         for extra in _UPDATE_EXTRA_SLOTS[op_type]:
             inner_ins[extra] = ins[extra]
@@ -207,6 +299,8 @@ def _lower_zero_update(ctx, ins, attrs):
         if stage >= 3:
             outs["FlatParamOut"] = [p_new]
         else:
+            if p_new.shape[0] != padded:
+                p_new = coll.all_gather_flat(p_new)
             off = 0
             for size, p in zip(sizes, params):
                 p.copy_(p_new[off:off + size].reshape(p.shape))
@@ -214,7 +308,7 @@ def _lower_zero_update(ctx, ins, attrs):
             outs["ParamOut"] = list(params)
     outs["FlatStateOut"] = [res[slot_map[kind][1]][0] for kind in kinds]
     if stage >= 2:
-        outs["FlatGradOut"] = [flat_g]
+        outs["FlatGradOut"] = [g_shard]
     return outs
 
 
@@ -311,7 +405,8 @@ def apply_grad_bucketing(program: Program, startup_program: Program,
     if stage >= 3 and getattr(program, "_layer_stacks", None):
         raise NotImplementedError(
             "ZeRO stage 3 over stacked @LAYERS parameters (the reference's "
-            "_plan_stacked_stage3): layer scan is not ported (ROADMAP)")
+            "_plan_stacked_stage3): layer scan is not ported (ROADMAP item "
+            "16)")
 
     zero_meta: List[dict] = []
     if stage >= 1:
@@ -633,8 +728,9 @@ def adopt_unsharded_state(program, scope, device=None) -> None:
     when every per-parameter entry of a flat group is in the scope (an
     unsharded checkpoint or snapshot was restored there without the
     program), pack them into the flat var, in place when the scope holds
-    it, and erase the per-parameter entries. Loaded values win over the
-    flat values; only the program's own recorded names are touched."""
+    it, and erase the per-parameter entries; at dp > 1 this rank's shard
+    of it. Loaded values win over the flat values; only the program's own
+    recorded names are touched."""
     from ..framework.scope import load_arrays, to_numpy
     for b in zero_buckets(program):
         for fname, legacy in _flat_groups(program, b):
@@ -644,6 +740,135 @@ def adopt_unsharded_state(program, scope, device=None) -> None:
             packed = pack_unsharded_arrays(program, host)
             if fname not in packed:
                 continue
-            load_arrays(scope, {fname: packed[fname]}, device=device)
+            load_arrays(scope, take_shards(program, {fname: packed[fname]}),
+                        device=device)
             for n in legacy:
                 scope.erase(n)
+
+
+# ---------------------------------------------------------------------------
+# data parallelism: the rank's shards of the flat storage
+# ---------------------------------------------------------------------------
+
+def _dp_width(program) -> int:
+    """The dp width the program runs at: the default group's size when the
+    program was minimized for more than one rank (fleet records it)."""
+    if int(getattr(program, "_dp", 1) or 1) <= 1:
+        return 1
+    from ..distributed.parallel import get_world_size
+    return get_world_size()
+
+
+def shard_names(program) -> Dict[str, int]:
+    """{flat var: padded} of every flat array a rank holds as its
+    `[padded/dp]` shard: the state kinds, stage-2 gradient buffers and
+    stage-3 parameter storage of each bucket whose padding dp divides."""
+    dp = _dp_width(program)
+    out: Dict[str, int] = {}
+    if dp <= 1:
+        return out
+    for b in zero_buckets(program):
+        padded = int(b["padded"])
+        if padded % dp:
+            continue
+        for n in list(b["flat"].values()) + [b.get("flat_grad"),
+                                             b.get("flat_param")]:
+            if n:
+                out[n] = padded
+    return out
+
+
+def take_shards(program, arrays: dict) -> dict:
+    """Host arrays -> the same with every full `[padded]` flat array of
+    `shard_names` cut to this rank's shard (what a load writes)."""
+    names = shard_names(program)
+    if not names:
+        return arrays
+    dp, rank = _dp_width(program), _rank()
+    out = dict(arrays)
+    for n, padded in names.items():
+        v = out.get(n)
+        if v is not None and np.size(v) == padded:
+            k = padded // dp
+            out[n] = np.asarray(v).reshape(-1)[rank * k:(rank + 1) * k]
+    return out
+
+
+def shard_flat_state(program, scope) -> None:
+    """At dp > 1, replace each full `[padded]` flat tensor of
+    `shard_names` in the scope (the startup program's values, or a rebound
+    load) with this rank's `[padded/dp]` slice."""
+    names = shard_names(program)
+    if not names:
+        return
+    dp, rank = _dp_width(program), _rank()
+    for n, padded in names.items():
+        v = scope.find(n)
+        if isinstance(v, torch.Tensor) and v.numel() == padded:
+            k = padded // dp
+            scope.set(n, v.reshape(-1)[rank * k:(rank + 1) * k].clone())
+
+
+def gather_flat_shards(program, scope, arrays: dict) -> dict:
+    """Host arrays of the scope with each flat shard of `shard_names`
+    replaced by the full `[padded]` array gathered from every rank (a
+    collective: every rank calls it)."""
+    names = shard_names(program)
+    if not names:
+        return arrays
+    from ..distributed.collective import all_gather_flat
+    from ..framework.scope import to_numpy
+    out = dict(arrays)
+    for n, padded in sorted(names.items()):
+        v = scope.find(n)
+        if n in out and isinstance(v, torch.Tensor) and v.numel() != padded:
+            with torch.no_grad():
+                out[n] = to_numpy(all_gather_flat(v))
+    return out
+
+
+def optimizer_state_bytes(program, dp: int = 1) -> dict:
+    """Per-rank state accounting from program metadata (the reference's
+    :1120): flat bucket bytes divide by dp when the padding does;
+    per-parameter accumulators count at full width on every rank; stage
+    >= 2 adds the resident gradient-shard bytes and stage 3 the
+    parameter-shard bytes."""
+    buckets = zero_buckets(program)
+    meta = getattr(program, "_grad_buckets", None) or {}
+    flat_total = grad_total = param_total = 0
+    for b in buckets:
+        item = torch.empty(0, dtype=convert_dtype(b["dtype"])).element_size()
+        numel = b.get("flat_numel", b["padded"])
+        flat_total += numel * item * len(b["flat"])
+        if b.get("flat_grad"):
+            grad_total += numel * item
+        if b.get("flat_param"):
+            param_total += numel * item
+    block = program.global_block()
+    repl_total = 0
+    seen = set()
+    for op in block.ops:
+        if op.type not in _UPDATE_STATE_SLOTS \
+                or op.attrs.get("op_role", 0) != OpRole.Optimize:
+            continue
+        for kind, (in_slot, _out) in _UPDATE_STATE_SLOTS[op.type].items():
+            for n in op.inputs.get(in_slot, ()):
+                if n in seen:
+                    continue
+                seen.add(n)
+                v = block.find_var_recursive(n)
+                if v is not None:
+                    repl_total += _var_nbytes(v)
+    sharded = all(b["padded"] % max(dp, 1) == 0 for b in buckets)
+    div = dp if (dp > 1 and sharded) else 1
+    flat_per_dev = flat_total // div
+    return {"flat_state_bytes_total": int(flat_total),
+            "flat_state_bytes_per_device": int(flat_per_dev),
+            "flat_grad_bytes_total": int(grad_total),
+            "flat_grad_bytes_per_device": int(grad_total // div),
+            "flat_param_bytes_total": int(param_total),
+            "flat_param_bytes_per_device": int(param_total // div),
+            "replicated_state_bytes": int(repl_total),
+            "state_bytes_per_device": int(flat_per_dev + repl_total),
+            "dp": int(dp),
+            "zero_stage": int(meta.get("stage", 1)) if buckets else 0}

@@ -11,11 +11,13 @@
   snapshot    double-buffered in-memory snapshots (device -> pinned host
               off the main thread), SIGTERM flush, the local -> disk
               recovery ladder
-  integrity   state fingerprints and the NaN/loss-spike TrainingGuard
-              with bounded rollback to the last good snapshot
+  integrity   state fingerprints, the cross-replica DivergenceSentinel
+              with its quorum restore, and the NaN/loss-spike
+              TrainingGuard with bounded rollback to the last good
+              snapshot
 
-Not ported (ROADMAP item 19): peer replication of snapshots and the peer
-rung, the DivergenceSentinel, sparse tables in checkpoints.
+Not ported: peer replication of snapshots and the peer rung (ROADMAP item
+19.1), sparse tables in checkpoints (item 19.2).
 """
 from .faults import (FaultPlan, FaultRule, FaultInjected, fault_point,
                      install_plan, clear_plan, current_plan)
@@ -24,7 +26,8 @@ from .checkpoint import (CheckpointManager, validate_manifest,
                          write_manifest, sha256_file)
 from .snapshot import (Snapshot, SnapshotManager, recover,
                        read_recovery_stamps, snapshot_dir)
-from .integrity import RollbackExhausted, TrainingGuard, fingerprint
+from .integrity import (DivergenceSentinel, ReplicaDivergenceError,
+                        RollbackExhausted, TrainingGuard, fingerprint)
 
 __all__ = [
     "FaultPlan", "FaultRule", "FaultInjected", "fault_point",
@@ -35,4 +38,5 @@ __all__ = [
     "Snapshot", "SnapshotManager", "recover", "read_recovery_stamps",
     "snapshot_dir",
     "RollbackExhausted", "TrainingGuard", "fingerprint",
+    "DivergenceSentinel", "ReplicaDivergenceError",
 ]

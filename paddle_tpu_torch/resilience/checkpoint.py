@@ -26,7 +26,7 @@ write, fsync and, inside it, `ckpt.manifest`: the sha256 pass) and
 `ckpt.validate` (the manifests' sha256 passes), `ckpt.read` (the npz) and
 `ckpt.apply` (buckets packed on the host, copies into the scope).
 
-Not ported (ROADMAP item 19): the sparse parameter-server tables
+Not ported (ROADMAP item 19.2): the sparse parameter-server tables
 (`sparse_client`, `sparse_tables`), which raise.
 """
 from __future__ import annotations
@@ -53,7 +53,7 @@ def _no_sparse(sparse_client, sparse_tables):
         raise errors.Unimplemented(
             "CheckpointManager: sparse parameter-server tables "
             "(sparse_client / sparse_tables) are not ported (ROADMAP item "
-            "19, the ps side)")
+            "19.2, the parameter server)")
 
 
 def sha256_file(path: str, chunk: int = 1 << 20) -> str:
@@ -141,7 +141,10 @@ class CheckpointManager:
              meta: Optional[dict] = None) -> str:
         """Write checkpoint `step`: data file -> fault_point('ckpt.write')
         -> manifest -> atomic publish. A crash anywhere before the final
-        rename leaves only a .tmp directory, which restore ignores."""
+        rename leaves only a .tmp directory, which restore ignores. At dp
+        > 1 every rank calls it: the payload is gathered on every rank
+        (io.py), rank 0 writes it, and every rank returns after a
+        barrier."""
         _no_sparse(sparse_client, sparse_tables)
         if arrays is None:
             from ..framework.program import default_main_program
@@ -152,6 +155,10 @@ class CheckpointManager:
                 arrays = checkpoint_arrays(program or default_main_program(),
                                            scope or global_scope())
         final = self.path(step)
+        from ..io import _barrier, _writer
+        if not _writer():
+            _barrier()
+            return final
         tmp = final + f".tmp.{os.getpid()}"
         with _trace.RecordEvent("ckpt.save", cat="resilience",
                                 args={"step": int(step),
@@ -176,6 +183,7 @@ class CheckpointManager:
             if old is not None:
                 shutil.rmtree(old, ignore_errors=True)
             self._prune()
+        _barrier()
         return final
 
     def _prune(self):

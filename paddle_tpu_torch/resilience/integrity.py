@@ -1,30 +1,43 @@
-"""Training-state fingerprints and poison-batch rollback (counterpart of
-paddle_tpu/resilience/integrity.py, one process).
+"""Training-state fingerprints, the cross-replica divergence sentinel and
+poison-batch rollback (counterpart of paddle_tpu/resilience/integrity.py).
 
 Every step is a pure function of the state, the batch and the run seed
-(the port's run seed is a counter restored with the state, io.py), so a
-rollback is exact: restore the last good snapshot, replay the clean
-batches after it and skip the poisoned one, and the run is bit for bit
-the run that never saw that batch.
+(the port's run seed is a counter restored with the state, io.py), so
+replicas that start equal stay equal bit for bit, and a rollback is
+exact: restore the last good snapshot, replay the clean batches after it
+and skip the poisoned one, and the run is bit for bit the run that never
+saw that batch.
 
 * `fingerprint` — sha256 over every persistable's bytes, dtype and shape
   (and the run-seed counter) in name order; ZeRO flat buckets hash as the
-  flat storage.
+  whole flat storage. At dp > 1 a rank holds only its shard of each flat
+  bucket, and the shards differ from rank to rank, so the fingerprint
+  all-gathers them first (a collective: every rank calls it) and hashes
+  the gathered arrays, as the reference hashes its global arrays. Two
+  ranks agree iff their replicated state and the gathered buckets are
+  bit-identical.
+* `DivergenceSentinel` — every `FLAGS_fingerprint_steps` steps each rank
+  fingerprints its state and all-gathers the digests over the host Gloo
+  group (distributed/gloo.py). A mismatch counts
+  `integrity.fingerprint_mismatch`, writes a flight dump, and raises the
+  typed `ReplicaDivergenceError` naming the minority rank(s), or, given
+  a SnapshotManager, heals: the lowest rank of the quorum broadcasts its
+  newest snapshot and EVERY rank restores it (`integrity.quorum_restores`),
+  returning the step to replay from. Snapshots at dp > 1 hold the
+  gathered state (resilience/snapshot.py), so any rank's restores any
+  rank.
 * `TrainingGuard` — a NaN/Inf and loss-spike sentinel around the training
   loop. A poisoned step restores the last good snapshot and rewinds the
   `steps` schedule past it, skipping the batch; bounded by
   `FLAGS_rollback_budget` (`integrity.rollbacks`), after which it raises
   RollbackExhausted. The spike rule: a loss above
   `FLAGS_loss_spike_factor` times the trailing-window median.
-
-Not ported (ROADMAP item 19, needs gloo across processes): the
-cross-replica `DivergenceSentinel` and `ReplicaDivergenceError`.
 """
 from __future__ import annotations
 
 import hashlib
 from collections import deque
-from typing import Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -32,16 +45,18 @@ from ..framework.errors import EnforceNotMet, ErrorCode
 from ..framework.scope import to_numpy
 from ..observability import metrics as _metrics
 from ..observability import trace as _trace
-from .snapshot import SnapshotManager
+from .snapshot import Snapshot, SnapshotManager, _gathered_shards
 
 
 def fingerprint(program, scope) -> str:
     """sha256 of the training state: every persistable's name, dtype,
-    shape and bytes in name order, then the run-seed counter."""
+    shape and bytes in name order (ZeRO shards gathered at dp > 1), then
+    the run-seed counter."""
     from ..io import RNG_SCOPE_KEY, _persistable_names
+    full = _gathered_shards(program, scope)
     h = hashlib.sha256()
     for n in sorted(_persistable_names(program, scope)):
-        a = to_numpy(scope.find(n))
+        a = to_numpy(full.get(n, scope.find(n)))
         h.update(n.encode())
         h.update(str(a.dtype).encode())
         h.update(str(a.shape).encode())
@@ -50,6 +65,125 @@ def fingerprint(program, scope) -> str:
     if ctr is not None:
         h.update(f"{RNG_SCOPE_KEY}={int(ctr)}".encode())
     return h.hexdigest()
+
+
+class ReplicaDivergenceError(EnforceNotMet):
+    """A rank's replicated state diverged from the quorum's (silent data
+    corruption, a lost update, a desync). Carries the minority rank(s),
+    the step, the per-rank digests and the flight dump written at
+    detection."""
+
+    code = ErrorCode.PRECONDITION_NOT_MET
+
+    def __init__(self, minority_ranks: List[int], step: int,
+                 digests: Dict[int, str], dump_path: Optional[str] = None):
+        self.minority_ranks = list(minority_ranks)
+        self.step = int(step)
+        self.digests = dict(digests)
+        self.dump_path = dump_path
+        super().__init__(
+            "replica state diverged at step %d: minority rank(s) %s "
+            "disagree with the quorum fingerprint (per-rank digests %s)%s"
+            % (step, self.minority_ranks,
+               {r: d[:12] for r, d in sorted(self.digests.items())},
+               f"; flight dump: {dump_path}" if dump_path else ""))
+
+
+def _split_quorum(digests: Dict[int, str]) -> Tuple[str, List[int]]:
+    """(quorum digest, minority ranks). The quorum is the largest group
+    of equal digests; a tie goes to the group holding the lowest rank, so
+    every rank reaches the same verdict."""
+    groups: Dict[str, List[int]] = {}
+    for rank in sorted(digests):
+        groups.setdefault(digests[rank], []).append(rank)
+    quorum = max(groups.values(), key=lambda rs: (len(rs), -min(rs)))
+    minority = sorted(r for rs in groups.values() if rs is not quorum
+                      for r in rs)
+    return digests[quorum[0]], minority
+
+
+class DivergenceSentinel:
+    """Periodic cross-replica fingerprint comparison over a host Gloo
+    group:
+
+        sentinel = DivergenceSentinel(gloo, interval=16)
+        for step in ...:
+            exe.run(...)
+            healed = sentinel.check(program, scope, step, snapshots=mgr)
+            if healed is not None:
+                step = healed        # replay from the snapshot's step
+
+    `check` is a collective on the cadence: every rank calls it with the
+    same steps. Without a SnapshotManager (or with heal=False) a mismatch
+    raises ReplicaDivergenceError on every rank."""
+
+    def __init__(self, gloo, interval: Optional[int] = None,
+                 heal: bool = True):
+        from ..flags import flag
+        self.gloo = gloo
+        self.interval = (int(flag("FLAGS_fingerprint_steps"))
+                         if interval is None else int(interval))
+        self.heal = heal
+        self.last_minority: List[int] = []
+        self.last_digests: Dict[int, str] = {}
+
+    def check(self, program, scope, step: int,
+              snapshots: Optional[SnapshotManager] = None) -> Optional[int]:
+        """On the cadence: fingerprint, all-gather, compare. Returns None
+        when the replicas agree (or off the cadence), the snapshot step to
+        replay from after a quorum heal, or raises
+        ReplicaDivergenceError."""
+        if self.interval <= 0 or step % self.interval != 0:
+            return None
+        digest = fingerprint(program, scope)
+        rank = self.gloo.rank
+        digests = {int(r): d for r, d in
+                   self.gloo.all_gather((rank, digest))}
+        self.last_digests = digests
+        quorum_digest, minority = _split_quorum(digests)
+        if not minority:
+            return None
+        _metrics.inc("integrity.fingerprint_mismatch")
+        self.last_minority = minority
+        from ..observability import flight as _flight
+        dump = _flight.dump("replica_divergence",
+                            extra={"step": int(step), "rank": rank,
+                                   "minority_ranks": minority,
+                                   "digests": {str(r): d for r, d
+                                               in digests.items()}})
+        _trace.instant("replica_divergence",
+                       args={"step": int(step),
+                             "minority": ",".join(map(str, minority))},
+                       cat="resilience")
+        err = ReplicaDivergenceError(minority, step, digests,
+                                     dump_path=dump)
+        if not self.heal or snapshots is None:
+            raise err
+        return self._quorum_restore(program, scope, snapshots, digests,
+                                    quorum_digest, err)
+
+    def _quorum_restore(self, program, scope, snapshots: SnapshotManager,
+                        digests: Dict[int, str], quorum_digest: str,
+                        err: ReplicaDivergenceError) -> int:
+        """The lowest quorum rank broadcasts its newest snapshot and EVERY
+        rank restores it, so the group replays from one state. Raises the
+        original error when the quorum holds no snapshot."""
+        root = min(r for r, d in digests.items() if d == quorum_digest)
+        snapshots.wait()
+        snap = snapshots.latest()
+        mine = (None if snap is None
+                else (snap.step, {n: np.asarray(a)
+                                  for n, a in snap.arrays.items()}))
+        payload = self.gloo.broadcast(mine, root=root)
+        if payload is None:
+            raise err
+        step, arrays = int(payload[0]), payload[1]
+        Snapshot(step, arrays, rank=root).restore(scope, program=program)
+        _metrics.inc("integrity.quorum_restores")
+        _trace.instant("quorum_restore",
+                       args={"from_rank": root, "step": step,
+                             "rank": self.gloo.rank}, cat="resilience")
+        return step
 
 
 class RollbackExhausted(EnforceNotMet):

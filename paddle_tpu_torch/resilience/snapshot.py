@@ -24,7 +24,10 @@ training state, flushed to disk only when the process is about to die
 * **Payload** (`io.checkpoint_arrays`): the persistables in the portable
   unsharded form (ZeRO flat buckets split into per-parameter views) and
   the port's run-seed counter, so a restore replays the dropout masks of
-  the run it rewinds.
+  the run it rewinds. At dp > 1 the ZeRO shards are all-gathered on the
+  calling thread first (every rank on the same cadence), so every rank's
+  snapshot is the whole state and any rank's restores any rank
+  (`integrity.DivergenceSentinel`'s quorum restore).
 * **Flush** writes the newest snapshot through CheckpointManager
   (checksummed manifest, atomic publish; a torn flush keeps the previous
   one). **Recovery** (`recover`): the local snapshot rung, then a disk
@@ -43,7 +46,7 @@ to the swap, on the worker) / `snapshot_host_ms` (the calling thread's
 share) / `snapshot_copy_ms` (CUDA: the copy's device time) /
 `snapshot_skips` / `snapshot_flushes`.
 
-Not ported (ROADMAP item 19, needs gloo across processes): peer
+Not ported (ROADMAP item 19.1's rest): peer
 replication (`replicate`, `peer_payload`) and the peer rung of
 `recover`, which raise.
 """
@@ -68,8 +71,8 @@ from .checkpoint import CheckpointManager
 
 def _item19(what):
     return errors.Unimplemented(
-        "%s: peer replication of snapshots needs gloo across processes "
-        "and is not ported (ROADMAP item 19)", what)
+        "%s: peer replication of snapshots is not ported yet (ROADMAP "
+        "item 19.1)", what)
 
 
 def snapshot_dir() -> str:
@@ -85,6 +88,23 @@ def snapshot_dir() -> str:
 def _rank_world() -> Tuple[int, int]:
     return (int(os.environ.get("PADDLE_TRAINER_ID", "0") or 0),
             int(os.environ.get("PADDLE_TRAINERS_NUM", "1") or 1))
+
+
+def _gathered_shards(program, scope) -> Dict[str, torch.Tensor]:
+    """{flat var: the full array gathered from every rank} for the ZeRO
+    shards a rank holds at dp > 1 (parallel/zero.py `shard_names`)."""
+    from ..parallel.zero import shard_names
+    names = shard_names(program)
+    if not names:
+        return {}
+    from ..distributed.collective import all_gather_flat
+    out = {}
+    with torch.no_grad():
+        for n, padded in sorted(names.items()):
+            v = scope.find(n)
+            if isinstance(v, torch.Tensor) and v.numel() != padded:
+                out[n] = all_gather_flat(v)
+    return out
 
 
 def _grace_s() -> float:
@@ -190,6 +210,10 @@ class SnapshotManager:
                 prev_step is None
                 or step // self.interval == prev_step // self.interval):
             return False
+        # at dp > 1 every rank gathers its ZeRO shards on the cadence
+        # (a collective), before the skip below, which each rank decides
+        # on its own
+        full = _gathered_shards(program, scope)
         if not self._idle.is_set():
             _metrics.inc("resilience.snapshot_skips")
             return False
@@ -200,7 +224,7 @@ class SnapshotManager:
             self._buffers[slot] = None     # its buffers are rewritten now
         host, cuda = {}, {}
         for n in _persistable_names(program, scope):
-            v = scope.find(n)
+            v = full.get(n, scope.find(n))
             if isinstance(v, torch.Tensor) and v.device.type == "cuda":
                 cuda[n] = v
             elif isinstance(v, torch.Tensor):
@@ -381,7 +405,7 @@ def recover(scope, root: Optional[str] = None, rank: Optional[int] = None,
     into `scope` and returns ("local" | "disk", step), or (None, None) on
     a fresh start. `stamp` records the outcome in
     `<root>/recovery_rank<r>.json`. `peer=True` (the reference's first
-    rung) raises: it needs ROADMAP item 19."""
+    rung) raises: it is ROADMAP item 19.1."""
     if peer:
         raise _item19("recover(peer=True)")
     env_rank, _ = _rank_world()

@@ -205,8 +205,20 @@ def test_in_memory_dataset_matches_the_reference(tmp_path, shuffles):
     assert ds.get_memory_data_size() == ds.get_shuffle_data_size() == 30
     ds.release_memory()
     assert ds.get_memory_data_size() == 0
-    with pytest.raises(errors.UnimplementedError, match="15.1"):
-        ds.global_shuffle(fleet=object())
+    # under fleet, global_shuffle takes the reference's rank-mixed seed
+    # (rank 0 here; tests/test_torch_divergence.py runs launched ranks)
+    ds = _dataset(port_dataset, "InMemoryDataset", _port_vars(), paths,
+                  shuffles=shuffles)
+    ds.global_shuffle(fleet=_WorkerZero())
+    ref = _dataset(ref_dataset, "InMemoryDataset", _ref_vars(), paths,
+                   shuffles=shuffles)
+    ref.global_shuffle()
+    _assert_same(list(ds), list(ref))
+
+
+class _WorkerZero:
+    def worker_index(self):
+        return 0
 
 
 def test_queue_dataset_streams_like_the_reference(tmp_path):
