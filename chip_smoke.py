@@ -178,6 +178,37 @@ result line):
    collectives captured in a CUDA graph, three replays equal to the eager
    calls; B8 (adamw) bit for bit against its plain version at the shard
    width of GPT-2 small's largest bucket at dp 2, timed.
+11. pipeline training, GPT-2 small (GPTConfig() at S 512, fleet AMP bf16,
+   Adam(1e-4), weights from the startup program, tokens from numpy seed
+   0; dropout 0 where a gate compares across arithmetic orders):
+   * G: PipelineOptimizer(num_microbatches=4) at batch 32 (microbatches
+     of 8), 3 eager steps, beside the same program unsplit: losses within
+     1e-4 relative; step ms p50 and peak memory of both; B1-B3 12 x 4
+     launches a step;
+   * P: pipeline_stages 2 over build_mesh(pp=2, devices=["cuda:0",
+     "cuda:0"]), the same 4 microbatches: losses and every parameter
+     within 1e-5 relative of G (`wte`, two stages' contributions, 5e-4),
+     bit-equality recorded; 2 <= last_max_live_envs <= 3; B1-B3 12 x 4
+     a step; then placement on two distinct devices (`pipe_placement`:
+     a 2-stage model sharing a weight across stages, stage 0 on cuda:0
+     and stage 1 on the CPU, through fleet's `pipeline_parallel_degree`):
+     every parameter and Adam moment on its stage's device, and the
+     losses within 1e-4 relative of its GPipe run on cuda:0;
+   * R: fleet recompute at the 12 layer boundaries, batch 32, ZeRO stage
+     1: run_steps(10) captured == 10 Executor.run calls bit for bit at
+     dropout 0.1; at dropout 0, 3 steps beside the program without
+     recompute: losses within 1e-4 relative, the parameters' change from
+     the start within 5e-2 of the reference's change (the norm of the
+     difference over the norm of the change), and two planted faults (the
+     last update lost, half the batch) read above that limit; B1 twice a
+     layer and step, B2/B3 once, B8 once a bucket and step; step ms and
+     peak memory of both;
+   * M: fleet gradient merge, k_steps 4 with avg, batch 8: run_steps(8)
+     captured == 8 Executor.run calls bit for bit at dropout 0.1; at
+     dropout 0, 2 merged steps over the rows of 2 batch-32 steps beside
+     the plain ones, held as arm R is (planted faults: the second merged
+     update lost, a quarter of the rows); the beta pows move on merge
+     steps only; micro-step ms p50.
 Each main-path run resets the kernel launch counts just before it and
 fails if a kernel of its path was never launched.
 
@@ -189,8 +220,8 @@ tracker included, and waits for each to end.
 Output: a `{"kernels": [...]}` line, a `{"serving": ...}` line, a
 `{"resilience": ...}` line, a `{"training": ...}` line, a
 `{"gpt_training": ...}` line, a `{"training_state": ...}` line, a
-`{"data_path": ...}` line, a `{"data_parallel": ...}` line, and last
-`{"ok": true, "device": {...}}`.
+`{"data_path": ...}` line, a `{"data_parallel": ...}` line, a
+`{"pipeline": ...}` line, and last `{"ok": true, "device": {...}}`.
 The flash rows' `launches` are the GPT path's (the captured arm's 30
 timed steps); `launches_by_path` keeps the BERT path's beside them.
 """
@@ -4074,6 +4105,611 @@ def train_gpt_dp(torch, zk, card):
     }
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: pipeline training
+# ---------------------------------------------------------------------------
+
+PIPE_BATCH = 32            # the global batch of arms G, P and R
+PIPE_MICRO = 4             # GPipe / pp microbatches (8 rows each)
+PIPE_STEPS = 3             # eager steps of the cross-order gates
+PIPE_CAPTURED = 10         # run_steps(k) of arm R
+PIPE_GM_K, PIPE_GM_BATCH = 4, 8
+PIPE_TIMED = 4             # steps timed after an arm's gated steps
+PIPE_LR = 1e-4
+PIPE_RTOL = {"gpipe": 1e-4, "pp": 1e-5, "pp_wte": 5e-4, "recompute": 1e-4,
+             "merge": 1e-4, "placement": 1e-4}
+# Parameters across arithmetic orders under AMP (arms R and M), held as
+# their change from the start: the norm of the difference of the two
+# changes over the norm of the reference's change, within
+# PIPE_CHANGE_RTOL. Adam's first steps move an element by about lr on the
+# sign of its gradient, whatever the gradient's size, so an element whose
+# gradient is near zero can move the other way when the sums run in
+# another order. On an H100 that read 1.67e-2 (R) and 1.64e-2 (M), spread
+# over the large weights, while planted faults read 0.29 (one update of
+# three lost) to 1.07 (a quarter of the rows). Each run plants its own
+# faults, and their readings must land above the limit.
+PIPE_CHANGE_RTOL = 5e-2
+
+
+def pipe_config(dropout, pp=0):
+    """GPTConfig() at S 512 with `dropout` and `pp` device_guard stages."""
+    from paddle_tpu_torch.models import gpt
+    cfg = gpt.GPTConfig(hidden_dropout=dropout, attention_dropout=dropout,
+                        pipeline_stages=pp)
+    cfg.seq_len = GPT_SEQ
+    return cfg
+
+
+def build_pipe(cfg, micro=0, recompute=False, merge=0, stage=0):
+    """(main, startup, loss) of GPT LM training through fleet (AMP bf16,
+    Adam(1e-4)), with PipelineOptimizer(`micro`), fleet recompute at the
+    model's per-layer checkpoints, or fleet gradient merge (`merge` steps,
+    avg), at ZeRO `stage`."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework import Program, program_guard, unique_name
+    from paddle_tpu_torch.models import gpt
+    main, start = Program(), Program()
+    with program_guard(main, start), unique_name.guard():
+        _, loss = gpt.build_lm_program(cfg)
+        fleet.init(is_collective=True)
+        s = fleet.DistributedStrategy()
+        s.amp = True
+        s.sharding_stage = stage
+        if recompute:
+            s.recompute = True
+            s.recompute_configs = {"checkpoints": loss._layer_checkpoints}
+        if merge:
+            s.gradient_merge = True
+            s.gradient_merge_configs = {"k_steps": merge, "avg": True}
+        opt = optimizer.Adam(learning_rate=PIPE_LR)
+        if micro:
+            opt = optimizer.PipelineOptimizer(opt, num_microbatches=micro)
+        fleet.distributed_optimizer(opt, s).minimize(loss)
+    return main, start, loss
+
+
+def pipe_start(torch, start):
+    from paddle_tpu_torch.framework import Executor, Scope
+    scope = Scope()
+    Executor("cuda").run(start, scope=scope)
+    return scope
+
+
+def pipe_eager(torch, fa, zk, main, scope, loss, batches, on_step=None,
+               timed=0):
+    """Executor.run over `batches` (a [steps, B, S] array), `on_step()`
+    after each, then `timed` more steps over the batches again and, with
+    `timed`, one under torch.profiler: the losses of `batches`, each
+    step's ms (synchronised; step_ms_p50 over the timed steps when there
+    are any), the peak device memory, the kernel launches of the `batches`
+    steps and the profiled step's device busy share."""
+    from paddle_tpu_torch.framework import Executor
+    exe = Executor("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    zk.reset_launches()
+    losses, ms = [], []
+    for toks in batches:
+        t0 = time.perf_counter()
+        got, = exe.run(main, feed={"tokens": toks}, fetch_list=[loss],
+                       scope=scope)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(got))
+        if on_step is not None:
+            on_step()
+    launches = dict(fa.launches, **zk.launches)
+    peak = int(torch.cuda.max_memory_allocated())
+    timed_ms = time_steps(torch, exe, main, scope, loss, batches, timed)
+    row = {"losses": losses, "step_ms": ms, "timed_step_ms": timed_ms,
+           "step_ms_p50": float(np.median(timed_ms or ms)),
+           "peak_memory_bytes": peak, "launches": launches}
+    if timed:
+        row["profile"] = device_profile(
+            torch, lambda: time_steps(torch, exe, main, scope, loss,
+                                      batches, 1)[0] / 1e3, top=5)
+    return row, exe
+
+
+def busy(arm):
+    """An arm's profiled device busy share, for the log."""
+    share = arm.get("profile", {}).get("device_busy_share")
+    return "not measured" if share is None else f"{share:.1%}"
+
+
+def time_steps(torch, exe, main, scope, loss, batches, n):
+    """The ms of `n` more Executor.run steps over `batches` in turn."""
+    out = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        exe.run(main, feed={"tokens": batches[i % len(batches)]},
+                fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def rel_diff(torch, a, b):
+    """max |a - b| / max |b| over a tensor."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def param_diffs(torch, main, sa, sb):
+    """{parameter: max |a - b| / max |b|}, and the norm of all the
+    parameters' differences over the norm of all of b's."""
+    names = [p.name for p in main.all_parameters()]
+    per = {n: rel_diff(torch, sa.find(n), sb.find(n)) for n in names}
+    num = sum(float((sa.find(n).float() - sb.find(n).float()).square().sum())
+              for n in names)
+    den = sum(float(sb.find(n).float().square().sum()) for n in names)
+    return per, (num / den) ** 0.5
+
+
+def param_snapshot(torch, main, scope):
+    """{parameter: a host copy of its value in `scope`} (on the host, so
+    that it adds nothing to an arm's peak device memory)."""
+    return {p.name: scope.find(p.name).detach().to("cpu", copy=True)
+            for p in main.all_parameters()}
+
+
+def param_gate_readings(torch, main, a, b, start):
+    """Parameters `a` against the reference's `b`, both trained from
+    `start` (each a scope or a `param_snapshot`): `params_norm_rel`, the
+    norm of a - b over the norm of b; `change_rel`, the norm of
+    (a - start) - (b - start) over the norm of b - start (the gate,
+    PIPE_CHANGE_RTOL); `change_rel_top`, the three parameters with the
+    largest parts of it; `moved_the_other_way`, the elements whose change
+    has the other sign than the reference's, of `elements`."""
+    def get(src, n):
+        return (src[n].cuda() if isinstance(src, dict) else src.find(n)) \
+            .reshape(-1).double()
+    diff = ref = change = 0.0
+    parts, other, count = {}, 0, 0
+    for p in main.all_parameters():
+        n = p.name
+        va, vb, v0 = (get(x, n) for x in (a, b, start))
+        parts[n] = float((va - vb).square().sum())
+        diff += parts[n]
+        ref += float(vb.square().sum())
+        change += float((vb - v0).square().sum())
+        other += int(((va - v0) * (vb - v0) < 0).sum())
+        count += va.numel()
+    top = sorted(parts, key=parts.get, reverse=True)[:3]
+    return {"params_norm_rel": (diff / ref) ** 0.5,
+            "change_rel": (diff / change) ** 0.5,
+            "change_rel_top": {n: (parts[n] / change) ** 0.5 for n in top},
+            "moved_the_other_way": other, "elements": count}
+
+
+def expect_launches(got, want, what):
+    bad = {k: (got.get(k), n) for k, n in want.items() if got.get(k) != n}
+    if bad:
+        fail(f"{what}: launches (got, expected) {bad}")
+
+
+def pipe_gpipe_pp(torch, fa, zk):
+    """Arms G (GPipe, 4 microbatches, one device) and P (pp 2, both stages
+    on cuda:0) beside the unsplit batch, dropout 0, 3 eager steps each
+    from the startup program's weights."""
+    from paddle_tpu_torch.parallel import mesh, spmd
+    cfg = pipe_config(0.0)
+    toks = gpt_tokens(cfg, PIPE_BATCH, PIPE_STEPS, seed=0)
+    per_step = cfg.num_layers * PIPE_MICRO
+    out = {}
+    main, start, loss = build_pipe(cfg)
+    scope = pipe_start(torch, start)
+    out["unsplit"], _ = pipe_eager(torch, fa, zk, main, scope, loss, toks,
+                                   timed=PIPE_TIMED)
+    del main, start, scope
+    release(torch)
+
+    main, start, loss = build_pipe(cfg, micro=PIPE_MICRO)
+    g_scope = pipe_start(torch, start)
+    out["gpipe"], _ = pipe_eager(torch, fa, zk, main, g_scope, loss, toks,
+                                 timed=PIPE_TIMED)
+    expect_launches(out["gpipe"]["launches"],
+                    {n: PIPE_STEPS * per_step for n in fa.KERNEL_NAMES},
+                    "arm G")
+    rel = max(abs(a - b) / abs(b) for a, b in
+              zip(out["gpipe"]["losses"], out["unsplit"]["losses"]))
+    out["gpipe"]["loss_max_rel_vs_unsplit"] = rel
+    log(f"pipeline G: losses {out['gpipe']['losses']} vs unsplit "
+        f"{out['unsplit']['losses']}, max rel {rel:.3e} (limit "
+        f"{PIPE_RTOL['gpipe']}); peak {out['gpipe']['peak_memory_bytes']} "
+        f"vs {out['unsplit']['peak_memory_bytes']} B; step ms p50 "
+        f"{out['gpipe']['step_ms_p50']:.1f} vs "
+        f"{out['unsplit']['step_ms_p50']:.1f}; busy "
+        f"{busy(out['gpipe'])} vs {busy(out['unsplit'])}")
+    if not rel <= PIPE_RTOL["gpipe"]:
+        fail(f"arm G: the microbatched losses differ from the unsplit "
+             f"batch's by {rel:.3e}")
+    g_main = main
+    del start
+    release(torch)
+
+    pcfg = pipe_config(0.0, pp=2)
+    main, start, loss = build_pipe(pcfg, micro=PIPE_MICRO)
+    spmd.attach(main, spmd.DistConfig(
+        mesh=mesh.build_mesh(pp=2, devices=["cuda:0", "cuda:0"])))
+    p_scope = pipe_start(torch, start)
+    out["pp2"], exe = pipe_eager(torch, fa, zk, main, p_scope, loss, toks,
+                                 timed=PIPE_TIMED)
+    pb, = exe._pipelines.values()
+    expect_launches(out["pp2"]["launches"],
+                    {n: PIPE_STEPS * per_step for n in fa.KERNEL_NAMES},
+                    "arm P")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(out["pp2"]["losses"], out["gpipe"]["losses"]))
+    diffs, _ = param_diffs(torch, g_main, p_scope, g_scope)
+    wte = diffs.pop("wte")
+    worst = max(diffs, key=diffs.get)
+    bitwise = (out["pp2"]["losses"] == out["gpipe"]["losses"]
+               and all(torch.equal(p_scope.find(p.name),
+                                   g_scope.find(p.name))
+                       for p in g_main.all_parameters()))
+    moments = [n for n in pb.state_names if "_moment" in n]
+    out["pp2"].update({
+        "loss_max_rel_vs_gpipe": loss_rel, "wte_rel_vs_gpipe": wte,
+        "worst_param": worst, "worst_param_rel_vs_gpipe": diffs[worst],
+        "bit_identical_to_gpipe": bitwise,
+        "last_max_live_envs": pb.last_max_live_envs,
+        "num_stages": pb.num_stages,
+        "stage_of": {n: pb.var_stage[n] for n in
+                     ("wte", "wpe", "dec0_attn_qkv_w",
+                      f"dec{pcfg.num_layers - 1}_attn_qkv_w",
+                      "final_ln_scale")},
+        "state_checked": len(pb.state_names), "moments_checked": len(moments),
+        "devices": [str(d) for d in pb.devices]})
+    log(f"pipeline P: losses {out['pp2']['losses']}, loss rel {loss_rel:.3e}"
+        f", wte rel {wte:.3e}, worst {worst} {diffs[worst]:.3e}, bitwise "
+        f"{bitwise}, live envs {pb.last_max_live_envs}, stages "
+        f"{out['pp2']['stage_of']}, step ms p50 "
+        f"{out['pp2']['step_ms_p50']:.1f}, peak "
+        f"{out['pp2']['peak_memory_bytes']} B, busy {busy(out['pp2'])}")
+    if not (loss_rel <= PIPE_RTOL["pp"] and diffs[worst] <= PIPE_RTOL["pp"]
+            and wte <= PIPE_RTOL["pp_wte"]):
+        fail(f"arm P: pp 2 differs from arm G: losses {loss_rel:.3e}, "
+             f"{worst} {diffs[worst]:.3e}, wte {wte:.3e}")
+    if not 2 <= pb.last_max_live_envs <= 3:
+        fail(f"arm P: {pb.last_max_live_envs} live microbatch envs")
+    if not moments:
+        fail("arm P: no Adam moment among the pipeline's state")
+    del main, start, g_main, g_scope, p_scope, exe, pb
+    release(torch)
+    # both stages share cuda:0 above, so a tensor on the wrong stage's
+    # device cannot show there: placement is held on two distinct devices
+    out["pp2"]["placement"] = pipe_placement(torch)
+    return out
+
+
+def pipe_placement(torch):
+    """Arm P's placement check on two distinct devices, where a misplaced
+    tensor shows: a 2-stage model whose weight `w` is read by both stages
+    (stage 0 on cuda:0, stage 1 on the CPU), f32, Adam(1e-2), through
+    fleet: `fleet.init()`, then `distributed_optimizer` with
+    `pipeline_parallel_degree` 2, `pipeline_configs["stage_devices"]` and
+    2 microbatches of 8, 3 steps. Every parameter and Adam moment on its
+    stage's device, both devices holding some, and the losses within
+    PIPE_RTOL["placement"] of the same model's GPipe run on cuda:0."""
+    from paddle_tpu_torch import layers, optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework import (Executor, Program, device_guard,
+                                            program_guard, unique_name)
+    from paddle_tpu_torch.initializer import TruncatedNormal
+    from paddle_tpu_torch.layer_helper import ParamAttr
+    from paddle_tpu_torch.parallel import mesh, pipeline
+
+    def normal(name):
+        return ParamAttr(name=name, initializer=TruncatedNormal(0.0, 0.1))
+    rng = np.random.RandomState(0)
+    feeds = [{"x": rng.randn(16, 64).astype(np.float32),
+              "y": rng.randn(16, 64).astype(np.float32)}
+             for _ in range(PIPE_STEPS)]
+    runs = {}
+    for devices in (None, ["cuda:0", "cpu"]):
+        main, start = Program(), Program()
+        with program_guard(main, start), unique_name.guard():
+            x = layers.data(name="x", shape=[64], dtype="float32")
+            y = layers.data(name="y", shape=[64], dtype="float32")
+            w = layers.create_parameter([64, 64], "float32",
+                                        attr=normal("w"))
+            with device_guard("gpu:0"):
+                h = layers.fc(layers.matmul(x, w), size=64, act="tanh",
+                              param_attr=normal("w0"))
+            with device_guard("gpu:1"):
+                pred = layers.fc(layers.matmul(h, w, transpose_y=True),
+                                 size=64, param_attr=normal("w1"))
+            loss = layers.mean(layers.square_error_cost(pred, y))
+            fleet.init(is_collective=True)
+            s = fleet.DistributedStrategy()
+            s.pipeline = True
+            s.pipeline_configs = {"accumulate_steps": 2}
+            if devices:
+                s.pipeline_parallel_degree = 2
+                s.pipeline_configs["stage_devices"] = devices
+            fleet.distributed_optimizer(optimizer.Adam(learning_rate=1e-2),
+                                        s).minimize(loss)
+        mesh.set_mesh(None)
+        scope = pipe_start(torch, start)
+        exe = Executor("cuda")
+        losses = [float(exe.run(main, feed=f, fetch_list=[loss],
+                                scope=scope)[0]) for f in feeds]
+        runs[bool(devices)] = (losses, exe, scope)
+    (one, _, _), (losses, exe, scope) = runs[False], runs[True]
+    pb, = exe._pipelines.values()
+    homes = {n: str(scope.find(n).device) for n in pb.state_names}
+    misplaced = sorted(n for n in pb.state_names
+                       if [scope.find(n).device]
+                       != pipeline.stage_devices(pb, pb.var_stage[n]))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, one))
+    row = {"devices": [str(d) for d in pb.devices], "losses": losses,
+           "losses_gpipe_cuda0": one, "loss_max_rel": rel,
+           "state_homes": homes, "misplaced": misplaced,
+           "moments_checked": sum("_moment" in n for n in pb.state_names)}
+    log(f"pipeline P placement: stages on {row['devices']}, state homes "
+        f"{homes}, losses {losses} vs GPipe {one}, rel {rel:.3e}")
+    if misplaced or set(homes.values()) != {"cuda:0", "cpu"} \
+            or not row["moments_checked"]:
+        fail(f"arm P placement: state off its stage's device: {misplaced}, "
+             f"homes {homes}")
+    if not rel <= PIPE_RTOL["placement"]:
+        fail(f"arm P placement: losses {losses} vs GPipe {one}")
+    return row
+
+
+def pipe_captured_gate(torch, fa, zk, main, start, loss, toks, per_step,
+                       what):
+    """run_steps(len(toks)) captured == len(toks) Executor.run calls from
+    one startup state, bit for bit (losses and every persistable), with
+    `per_step` launches of each kernel a step (the warm-up step
+    included); then two more windows of replays, timed."""
+    from paddle_tpu_torch.framework import Executor
+    sa = pipe_start(torch, start)
+    sb = scope_copy(torch, sa)
+    eager = Executor("cuda")
+    el = [float(eager.run(main, feed={"tokens": t}, fetch_list=[loss],
+                          scope=sa)[0]) for t in toks]
+    cap = Executor("cuda")
+    fa.reset_launches()
+    zk.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cl, = cap.run_steps(len(toks), main, feed={"tokens": toks},
+                        fetch_list=[loss], scope=sb)
+    cap_s = time.perf_counter() - t0
+    launches = dict(fa.launches, **zk.launches)
+    peak = int(torch.cuda.max_memory_allocated())
+    steps_run = len(toks) + cap.stats["warmup_steps"]
+    expect_launches(launches, {n: steps_run * c for n, c in
+                               per_step.items()}, what)
+    names, diffs = persistable_diffs(torch, main, sa, sb)
+    cl = [float(x) for x in cl]
+    log(f"pipeline {what} capture gate: eager {el}, captured {cl} "
+        f"({cap_s:.1f} s incl. warm-up and capture); {len(names)} "
+        f"persistables, {len(diffs)} differ; stats {cap.stats}; launches "
+        f"{launches}")
+    if diffs or cl != el:
+        fail(f"{what}: captured run_steps != eager runs: {cl} vs {el}, "
+             f"{dict(list(diffs.items())[:5])}")
+    if cap.stats["eager_steps"] or cap.stats["graph_replays"] != len(toks):
+        fail(f"{what}: executor stats {cap.stats}")
+    # a window of replays, timed alone
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        cap.run_steps(len(toks), main, feed={"tokens": toks},
+                      fetch_list=[loss], scope=sb)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3 / len(toks))
+    row = {"steps": len(toks), "losses_eager": el, "losses_captured": cl,
+           "bit_identical": True, "persistables_compared": len(names),
+           "executor_stats": dict(cap.stats),
+           "launches_incl_warmup": launches,
+           "captured_step_ms": ms, "captured_peak_memory_bytes": peak}
+    del sa, sb, eager, cap
+    release(torch)
+    return row
+
+
+def pipe_recompute(torch, fa, zk):
+    """Arm R: fleet recompute at the 12 layer boundaries, batch 32, ZeRO
+    stage 1: the captured gate at dropout 0.1 (run_steps(10)), then 3
+    eager steps at dropout 0 beside the same program without recompute."""
+    cfg = pipe_config(0.1)
+    L = cfg.num_layers
+    main, start, loss = build_pipe(cfg, recompute=True, stage=1)
+    n_buckets = op_count(main, "__zero_update__")
+    per_step = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkdv": L,
+                "zero_adam": n_buckets}
+    toks = gpt_tokens(cfg, PIPE_BATCH, PIPE_CAPTURED, seed=0)
+    row = {"segments": op_count(main, "__segment__"),
+           "zero_update_ops": n_buckets,
+           "capture_gate": pipe_captured_gate(torch, fa, zk, main, start,
+                                              loss, toks, per_step,
+                                              "arm R")}
+    del main, start
+    cfg0 = pipe_config(0.0)
+    toks = gpt_tokens(cfg0, PIPE_BATCH, PIPE_STEPS, seed=0)
+    arms, snaps = {}, {}
+    for rc in (False, True):
+        main, start, loss = build_pipe(cfg0, recompute=rc, stage=1)
+        scope = pipe_start(torch, start)
+        if not rc:
+            p0 = param_snapshot(torch, main, scope)
+
+        seen = []
+
+        def snap(main=main, scope=scope):
+            seen.append(1)
+            if len(seen) == PIPE_STEPS - 1:
+                # planted fault: the last update lost
+                snaps["lost_update"] = param_snapshot(torch, main, scope)
+        arms[rc], exe = pipe_eager(torch, fa, zk, main, scope, loss, toks,
+                                   on_step=snap if rc else None)
+        arms[rc]["run"] = (exe, main, scope, loss)
+    # planted fault: each step on half of the batch's rows, twice
+    half = np.concatenate([toks[:, :PIPE_BATCH // 2]] * 2, axis=1)
+    fault_scope = pipe_start(torch, start)
+    pipe_eager(torch, fa, zk, main, fault_scope, loss, half)
+    snaps["half_batch"] = param_snapshot(torch, main, fault_scope)
+    del start, fault_scope
+    a, b = arms[True], arms[False]
+    loss_rel = max(abs(x - y) / abs(y) for x, y in
+                   zip(a["losses"], b["losses"]))
+    main_b, sa, sb = b["run"][1], a["run"][2], b["run"][2]
+    diffs, _ = param_diffs(torch, main_b, sa, sb)
+    where = max(diffs, key=diffs.get)
+    gate = param_gate_readings(torch, main_b, sa, sb, p0)
+    faults = {k: param_gate_readings(torch, main_b, v, sb, p0)["change_rel"]
+              for k, v in snaps.items()}
+    expect_launches(a["launches"], {n: c * PIPE_STEPS
+                                    for n, c in per_step.items()}, "arm R")
+    # timed steps, after the comparison (the two scopes train on)
+    for arm in (a, b):
+        run = arm.pop("run")
+        arm["timed_step_ms"] = time_steps(torch, *run, toks, PIPE_TIMED)
+        arm["step_ms_p50"] = float(np.median(arm["timed_step_ms"]))
+        arm["profile"] = device_profile(
+            torch, lambda: time_steps(torch, *run, toks, 1)[0] / 1e3, top=5)
+    del run
+    del main_b, sa, sb, snaps, p0
+    row.update({"recompute": a, "no_recompute": b,
+                "loss_max_rel": loss_rel,
+                "worst_param": where, "worst_param_max_rel": diffs[where],
+                **gate, "planted_faults_change_rel": faults})
+    log(f"pipeline R: losses {a['losses']} vs {b['losses']}, rel "
+        f"{loss_rel:.3e}; {param_line(gate, where, diffs, faults)}; step "
+        f"ms p50 "
+        f"{a['step_ms_p50']:.1f} vs {b['step_ms_p50']:.1f}; peak "
+        f"{a['peak_memory_bytes']} vs {b['peak_memory_bytes']} B; busy "
+        f"{busy(a)} vs {busy(b)}; launches {a['launches']}")
+    param_gates("arm R", loss_rel, gate, faults)
+    del arms, a, b
+    release(torch)
+    return row
+
+
+def param_line(gate, where, diffs, faults):
+    """The log's words for `param_gate_readings` and the planted faults."""
+    return (f"parameters norm-rel {gate['params_norm_rel']:.3e} (worst "
+            f"{where} max-rel {diffs[where]:.3e}), change-rel "
+            f"{gate['change_rel']:.3e} (limit {PIPE_CHANGE_RTOL}; top "
+            f"{gate['change_rel_top']}; {gate['moved_the_other_way']} of "
+            f"{gate['elements']} elements moved the other way), planted "
+            f"faults {faults}")
+
+
+def param_gates(what, loss_rel, gate, faults):
+    """Arms R and M: the losses within PIPE_RTOL of the reference's, the
+    parameters' change within PIPE_CHANGE_RTOL of the reference's, and
+    every planted fault's change reading above PIPE_CHANGE_RTOL."""
+    tol = PIPE_RTOL["recompute" if what == "arm R" else "merge"]
+    if not (loss_rel <= tol and gate["change_rel"] <= PIPE_CHANGE_RTOL):
+        fail(f"{what}: differs from its reference: losses {loss_rel:.3e} "
+             f"(limit {tol}), the parameters' change {gate['change_rel']:.3e}"
+             f" (limit {PIPE_CHANGE_RTOL})")
+    blind = {k: v for k, v in faults.items() if not v > PIPE_CHANGE_RTOL}
+    if blind:
+        fail(f"{what}: the change gate cannot see planted faults {blind}")
+
+
+def pipe_merge(torch, fa, zk):
+    """Arm M: fleet gradient merge, k_steps 4 with avg, batch 8: the
+    captured gate at dropout 0.1 (run_steps(8)), then at dropout 0 two
+    merged steps (8 micro-steps over the rows of 2 batch-32 steps) beside
+    2 plain steps at batch 32, the beta pows read after each micro-step."""
+    cfg = pipe_config(0.1)
+    L = cfg.num_layers
+    main, start, loss = build_pipe(cfg, merge=PIPE_GM_K)
+    toks = gpt_tokens(cfg, PIPE_GM_BATCH, 2 * PIPE_GM_K, seed=0)
+    per_step = {n: L for n in fa.KERNEL_NAMES}
+    per_step["zero_adam"] = 0
+    row = {"capture_gate": pipe_captured_gate(torch, fa, zk, main, start,
+                                              loss, toks, per_step,
+                                              "arm M")}
+    del main, start
+    cfg0 = pipe_config(0.0)
+    big = gpt_tokens(cfg0, PIPE_BATCH, 2, seed=0)
+    main, start, loss = build_pipe(cfg0)
+    plain = pipe_start(torch, start)
+    p0 = param_snapshot(torch, main, plain)
+    row["plain_batch32"], _ = pipe_eager(torch, fa, zk, main, plain, loss,
+                                         big)
+    del start
+    gm_main, start, gm_loss = build_pipe(cfg0, merge=PIPE_GM_K)
+    merged = pipe_start(torch, start)
+    pows = sorted(v.name for v in gm_main.global_block().vars.values()
+                  if v.persistable and "beta" in v.name and "pow" in v.name)
+    history, moved, snaps = [], [], {}
+    before = [merged.find(n).clone() for n in pows]
+
+    def read_pows():
+        nonlocal before
+        now = [merged.find(n).clone() for n in pows]
+        moved.append(any(not torch.equal(a, b) for a, b in zip(now, before)))
+        history.append([float(x) for x in now])
+        before = now
+        if len(moved) == PIPE_GM_K:
+            # planted fault: the second merged update lost
+            snaps["lost_update"] = param_snapshot(torch, gm_main, merged)
+    small = big.reshape(2 * PIPE_GM_K, PIPE_GM_BATCH, cfg0.seq_len)
+    per, _ = pipe_eager(torch, fa, zk, gm_main, merged, gm_loss, small,
+                        on_step=read_pows)
+    # planted fault: each merged step on its first micro-batch, 4 times
+    quarter = np.repeat(small[::PIPE_GM_K], PIPE_GM_K, axis=0)
+    fault_scope = pipe_start(torch, start)
+    pipe_eager(torch, fa, zk, gm_main, fault_scope, gm_loss, quarter)
+    snaps["quarter_batch"] = param_snapshot(torch, gm_main, fault_scope)
+    del fault_scope
+    want = [s % PIPE_GM_K == 0 for s in range(1, 2 * PIPE_GM_K + 1)]
+    diffs, _ = param_diffs(torch, main, merged, plain)
+    where = max(diffs, key=diffs.get)
+    gate = param_gate_readings(torch, main, merged, plain, p0)
+    faults = {k: param_gate_readings(torch, main, v, plain, p0)["change_rel"]
+              for k, v in snaps.items()}
+    # the merged losses are per micro-step; the plain step's loss is the
+    # mean over its 4 micro-batches' rows
+    merged_means = [float(np.mean(per["losses"][i:i + PIPE_GM_K]))
+                    for i in range(0, 2 * PIPE_GM_K, PIPE_GM_K)]
+    loss_rel = max(abs(x - y) / abs(y) for x, y in
+                   zip(merged_means, row["plain_batch32"]["losses"]))
+    row.update({"merged_batch8": per, "beta_pows": history,
+                "pows_moved": moved, "loss_max_rel_vs_plain": loss_rel,
+                "worst_param": where, "worst_param_max_rel": diffs[where],
+                **gate, "planted_faults_change_rel": faults})
+    log(f"pipeline M: pows moved {moved}; losses (micro-step means) "
+        f"{merged_means} vs {row['plain_batch32']['losses']}, rel "
+        f"{loss_rel:.3e}; {param_line(gate, where, diffs, faults)} vs 2 "
+        f"plain batch-32 steps; micro-step ms p50 "
+        f"{per['step_ms_p50']:.1f}")
+    if moved != want:
+        fail(f"arm M: the beta pows moved at {moved}, expected {want}")
+    param_gates("arm M", loss_rel, gate, faults)
+    del main, gm_main, start, plain, merged, snaps, p0
+    release(torch)
+    return row
+
+
+def train_gpt_pipeline(torch, fa, zk, card):
+    """Phase 11: arms G, P, R and M."""
+    t0 = time.perf_counter()
+    row = {"card": card,
+           "config": "GPTConfig() at S 512, fleet AMP bf16, Adam(1e-4), "
+                     "weights from the startup program, tokens from numpy "
+                     "seed 0; dropout 0 in the cross-order gates, 0.1 in "
+                     "the capture gates"}
+    row.update(pipe_gpipe_pp(torch, fa, zk))
+    row["recompute"] = pipe_recompute(torch, fa, zk)
+    row["gradient_merge"] = pipe_merge(torch, fa, zk)
+    row["phase_s"] = time.perf_counter() - t0
+    return row
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4210,6 +4846,19 @@ def main():
             sum(dp_row["ranks"][0]["stages"][s]["flash_launches"][name]
                 for s in map(str, DP_STAGES))
 
+    # ---- pipeline training: GPipe, pp 2, recompute, gradient merge -------
+    release(torch)
+    pipe_row = train_gpt_pipeline(torch, fa, zk, card)
+    arms = {"pipeline_G_gpipe_3_steps": pipe_row["gpipe"]["launches"],
+            "pipeline_P_pp2_3_steps": pipe_row["pp2"]["launches"],
+            "pipeline_R_recompute_stage1_3_steps":
+                pipe_row["recompute"]["recompute"]["launches"],
+            "pipeline_M_merge_8_micro_steps":
+                pipe_row["gradient_merge"]["merged_batch8"]["launches"]}
+    for path, counts in arms.items():
+        for name in fa.KERNEL_NAMES + ("zero_adam",):
+            rows[name]["launches_by_path"][path] = counts[name]
+
     for row in rows.values():
         if not row["launches"]:
             fail(f"{row['name']} was never launched on its main path run")
@@ -4222,6 +4871,7 @@ def main():
     print(json.dumps({"training_state": state_row}), flush=True)
     print(json.dumps({"data_path": data_row}), flush=True)
     print(json.dumps({"data_parallel": dp_row}), flush=True)
+    print(json.dumps({"pipeline": pipe_row}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

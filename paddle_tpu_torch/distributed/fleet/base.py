@@ -5,23 +5,38 @@ paddle_tpu/distributed/fleet/base.py).
 `init(is_collective=True)` reads the role from a role maker
 (`PaddleCloudRoleMaker`, the env contract; or `UserDefinedRoleMaker`)
 and, when the job has more than one worker, starts the process group
-(distributed/parallel.py `init_parallel_env`) and builds the `dp` mesh
-over it. `minimize` marks the program for AMP as the reference does
-(`base.py:374-379`), delegates to the inner optimizer, then applies
-gradient bucketing and the ZeRO stage (`base.py:460-516`,
-parallel/zero.py) whenever `fuse_grad_size_in_mb` > 0, and records the
-dp width in the program (`program._dp`). At dp > 1 the executor runs the
+(distributed/parallel.py `init_parallel_env`) and builds the mesh: `dp`
+over the group, and `pipeline_parallel_degree` pp stage devices in this
+process (parallel/mesh.py): `pipeline_configs["stage_devices"]`, a key of
+the port's, or `cuda:0` ... `cuda:P-1` without it. `distributed_optimizer`
+given a strategy rebuilds the mesh from it, as the reference does
+(`base.py:209-212`). `minimize` applies the strategy in the
+reference's order (`base.py:346-430`): AMP marks the program, recompute
+fuses the forward into `__segment__` ops at
+`recompute_configs["checkpoints"]`, gradient merge wraps the optimizer
+(`gradient_merge_configs` `k_steps`, `avg`), and pipeline wraps it in
+PipelineOptimizer (`pipeline_configs["accumulate_steps"]` microbatches);
+then it delegates to the optimizer, applies gradient bucketing and the
+ZeRO stage (`base.py:460-516`, parallel/zero.py) whenever
+`fuse_grad_size_in_mb` > 0, records the dp width in the program
+(`program._dp`) and, over a pp > 1 mesh, attaches the mesh
+(parallel/spmd.py) so the executor runs the stages as a pipeline.
+Pipeline and gradient-merge programs skip the bucket pass, as the
+reference's do; at ZeRO stage >= 1 that is counted under
+`executor.zero_manual_fallbacks.<cause>`. Recompute programs keep it. At dp > 1 the executor runs the
 program as the reference's manual-dp path computes it (gradients averaged
 per bucket, ZeRO state sharded over the ranks): a dp > 1 program with
 `fuse_grad_size_in_mb` 0 raises, since it would train on each rank's
 local gradients.
 
-Honoured: `amp`, `amp_configs`, `fuse_grad_size_in_mb`, `sharding`,
-`sharding_stage`, `sharding_configs` (`stage`, `fuse_grad_size_in_mb`) and
-`FLAGS_zero_stage`. Any other strategy field set away from its default
-raises: tensor, pipeline, sequence and expert parallelism, recompute,
-layer scan and gradient merge are ROADMAP item 16; LocalSGD is what is
-left of item 15.1; the parameter server and `a_sync` are item 19.2.
+Honoured: `amp`, `amp_configs`, `recompute`, `recompute_configs`,
+`gradient_merge`, `gradient_merge_configs`, `pipeline`,
+`pipeline_configs`, `pipeline_parallel_degree`, `fuse_grad_size_in_mb`,
+`sharding`, `sharding_stage`, `sharding_configs` (`stage`,
+`fuse_grad_size_in_mb`) and `FLAGS_zero_stage`. Any other strategy field
+set away from its default raises: tensor, sequence and expert
+parallelism and layer scan are ROADMAP item 16; LocalSGD is what is left
+of item 15.1; the parameter server and `a_sync` are item 19.2.
 """
 from __future__ import annotations
 
@@ -51,8 +66,11 @@ _DEFAULTS = {
     "build_strategy": {}, "a_sync": False, "a_sync_configs": {},
     "sparse_cache_rows": 0,
 }
-_HONOURED = {"amp", "amp_configs", "fuse_grad_size_in_mb", "sharding",
-             "sharding_stage", "sharding_configs"}
+_HONOURED = {"amp", "amp_configs", "recompute", "recompute_configs",
+             "gradient_merge", "gradient_merge_configs", "pipeline",
+             "pipeline_configs", "pipeline_parallel_degree",
+             "fuse_grad_size_in_mb", "sharding", "sharding_stage",
+             "sharding_configs"}
 # the ROADMAP item that owns each field the port does not take yet
 _OWNER = {"a_sync": "19.2", "a_sync_configs": "19.2",
           "sparse_cache_rows": "19.2", "localsgd": "15.1",
@@ -112,8 +130,8 @@ class UserDefinedRoleMaker(PaddleCloudRoleMaker):
 
 
 class DistributedStrategy:
-    """The reference's strategy fields, with their defaults. Only AMP,
-    bucketing and ZeRO fields act here; see the module docstring."""
+    """The reference's strategy fields, with their defaults. The fields
+    that act here are listed in the module docstring."""
 
     def __init__(self):
         for k, v in _DEFAULTS.items():
@@ -151,7 +169,6 @@ class _Fleet:
                 "a PSERVER role: the parameter server is not ported yet "
                 "(ROADMAP item 19.2)")
         self._strategy = strategy or DistributedStrategy()
-        from ...parallel import mesh as mesh_mod
         if self._role_maker.worker_num() > 1:
             from ..parallel import init_parallel_env
             init_parallel_env()
@@ -163,9 +180,15 @@ class _Fleet:
                     f"the role maker says worker {self.worker_index()} of "
                     f"{self.worker_num()}, the process group rank "
                     f"{get_rank()} of {get_world_size()}")
-        self._mesh = mesh_mod.build_mesh(dp=-1)
-        mesh_mod.set_mesh(self._mesh)
+        self._build_mesh(self._strategy)
         return self
+
+    def _build_mesh(self, s: DistributedStrategy):
+        from ...parallel import mesh as mesh_mod
+        self._mesh = mesh_mod.build_mesh(
+            dp=-1, pp=s.pipeline_parallel_degree,
+            devices=(s.pipeline_configs or {}).get("stage_devices"))
+        mesh_mod.set_mesh(self._mesh)
 
     # -- info ---------------------------------------------------------------
     def worker_index(self):
@@ -201,6 +224,7 @@ class _Fleet:
     def distributed_optimizer(self, optimizer, strategy=None):
         if strategy is not None:
             self._strategy = strategy
+            self._build_mesh(strategy)
         return DistributedOptimizer(optimizer,
                                     self._strategy or DistributedStrategy(),
                                     self)
@@ -220,14 +244,30 @@ class DistributedOptimizer:
                  no_grad_set=None):
         s = self.user_defined_strategy
         program = loss.block.program
+        opt = self.inner_opt
         if s.amp:
             program._amp = True
             program._amp_dtype = ("bfloat16"
                                   if s.amp_configs.get("use_pure_bf16", True)
                                   else "float16")
             program.bump_version()
-        result = self.inner_opt.minimize(loss, startup_program,
-                                         parameter_list, no_grad_set)
+        if s.recompute and s.recompute_configs.get("checkpoints"):
+            from ...parallel.transforms import apply_recompute
+            apply_recompute(program, [
+                c.name if hasattr(c, "name") else str(c)
+                for c in s.recompute_configs["checkpoints"]])
+        gm_k = int(s.gradient_merge_configs.get("k_steps", 1)) \
+            if s.gradient_merge else 1
+        if gm_k > 1:
+            from ...parallel.transforms import GradientMergeWrapper
+            opt = GradientMergeWrapper(
+                opt, gm_k, avg=s.gradient_merge_configs.get("avg", True))
+        if s.pipeline and s.pipeline_configs.get("accumulate_steps", 1) > 1:
+            from ...optimizer import PipelineOptimizer
+            opt = PipelineOptimizer(
+                opt, num_microbatches=s.pipeline_configs["accumulate_steps"])
+        result = opt.minimize(loss, startup_program, parameter_list,
+                              no_grad_set)
 
         from ...flags import flag
         zero_stage = int(s.sharding_stage or 0)
@@ -258,7 +298,15 @@ class DistributedOptimizer:
                 "averages gradients across ranks per bucket, so a dp > 1 "
                 "program needs the bucket pass; without it every rank "
                 "would train on its local gradients")
-        if bucket_mb > 0:
+        mesh = self._fleet._mesh if self._fleet is not None else None
+        pp = int(mesh.shape.get("pp", 1)) if mesh is not None else 1
+        # a device_guard-staged program: a bucket op across stages would
+        # break the pipeline runner's stage assignment
+        pipelined = (getattr(program, "_microbatch_k", 0) or pp > 1
+                     or s.pipeline_parallel_degree > 1
+                     or any("pipeline_stage" in op.attrs
+                            for op in program.global_block().ops))
+        if bucket_mb > 0 and gm_k <= 1 and not pipelined:
             from ...framework.program import default_startup_program
             from ...parallel.zero import apply_grad_bucketing
             apply_grad_bucketing(
@@ -267,7 +315,12 @@ class DistributedOptimizer:
                 stage=zero_stage)
         elif zero_stage >= 1:
             from ...parallel.zero import count_fallback
-            count_fallback("bucketing_disabled")
+            count_fallback("grad_merge" if gm_k > 1 else
+                           "pipeline" if pipelined else
+                           "bucketing_disabled")
+        if pp > 1:
+            from ...parallel.spmd import DistConfig, attach
+            attach(program, DistConfig(mesh=mesh))
         program._dp = dp
         program.bump_version()
         return result

@@ -35,8 +35,9 @@ Each rank's device and backend are explicit:
 * The group's timeout is FLAGS_gloo_timeout_ms: a rank that cannot reach
   its group raises within it.
 
-`tp`/`pp`/`sp`/`ep` > 1 raise in `parallel.mesh.build_mesh` (ROADMAP item
-16).
+`tp`/`sp`/`ep` > 1, and pp > 1 at dp > 1, raise in
+`parallel.mesh.build_mesh` (ROADMAP item 16); pp stages live inside one
+process.
 """
 from __future__ import annotations
 

@@ -110,9 +110,24 @@ captured, so under gloo every step runs the eager body, on the card as
 on the CPU: counted in `stats["eager_steps"]` and in
 `executor.uncaptured_collective_steps`.
 
-Not ported (ROADMAP): the microbatch runner (`_run_block_microbatched`,
-with pipeline, item 16), the PS path (item 19.2) and LocalSGD (item
-15.1).
+Pipeline training (parallel/pipeline.py `_PipelineBlock`). A program
+whose attached mesh (parallel/spmd.py) has pp > 1 runs its `device_guard`
+stages as a 1F1B pipeline, one stage a device (as the reference
+dispatches at :1223-1236). A program PipelineOptimizer marked with K > 1
+microbatches and no pp mesh runs through the same runner over the
+executor's device alone, as GPipe (the reference's
+`_run_block_microbatched`, executor.py:457-585): the LR-schedule ops
+once, the forward and backward ops over K slices of every feed (an
+indivisible batch raises `InvalidArgument`) with the optimizer's
+gradients summed, then the optimizer ops once on the sums / K; float
+fetches are the microbatch mean.
+`run_steps` refuses both, as the reference does; `train_from_dataset`
+runs them a `run()` a batch. A recompute segment (`__segment__` with
+`remat`, parallel/transforms.py) is not paired with its grad op, which
+re-runs it.
+
+Not ported (ROADMAP): the PS path (item 19.2), LocalSGD (item 15.1) and
+dp x pp (item 16).
 """
 from __future__ import annotations
 
@@ -146,9 +161,12 @@ def _attrs_key(attrs) -> str:
 def _grad_plan(block) -> Dict[int, int]:
     """{forward op index: index of the __vjp__ op differentiating it}.
     A grad op pairs with the latest unpaired forward op of the same type,
-    input names and attrs."""
+    input names and attrs. A recompute segment (`__segment__` with
+    `remat`) is never paired: its grad op re-runs it."""
     pending, plan = {}, {}
     for idx, op in enumerate(block.ops):
+        if op.type == "__segment__" and op.attrs.get("remat"):
+            continue
         if op.type == "__vjp__":
             a = op.attrs
             fwd_ins = {s: op.inputs.get(s, []) for s in a["fwd_input_slots"]}
@@ -168,9 +186,15 @@ def _grad_plan(block) -> Dict[int, int]:
 def _amp_cast(op, ins, low_dtype):
     """White-list ops run in the low dtype, black-list ops in f32; grad
     ops re-derive the policy from their forward type."""
-    from ..amp.auto_cast import black_list, keep_f32_slots, white_list
     op_type = op.attrs.get("fwd_type", op.type) if op.type == "__vjp__" \
         else op.type
+    return _amp_cast_ins(op_type, ins, low_dtype)
+
+
+def _amp_cast_ins(op_type, ins, low_dtype):
+    """The AMP casts of an op of type `op_type` (also applied to the inner
+    ops of a fused sub-graph op, parallel/transforms.py)."""
+    from ..amp.auto_cast import black_list, keep_f32_slots, white_list
     if op_type in white_list:
         target = low_dtype
     elif op_type in black_list:
@@ -498,6 +522,8 @@ class Executor:
         self._snapshot_mgr = None
         self._snapshot_prog_steps: Dict[int, int] = {}
         self._dp_plans: Dict[tuple, int] = {}
+        # the pipeline runners of programs over a pp > 1 mesh
+        self._pipelines: Dict[tuple, object] = {}
 
     def _prepare(self, program, scope):
         """Per call, before the step: the host LR schedulers write into
@@ -528,6 +554,11 @@ class Executor:
                      for op in block.ops)
         if not trains:
             dp = 1
+        elif getattr(program, "_microbatch_k", 0):
+            zero.count_fallback("pipeline")
+            raise errors.Unimplemented(
+                "a microbatch (pipeline) program at dp %d: pipelines with "
+                "data parallelism are ROADMAP item 16", world)
         elif not getattr(program, "_grad_buckets", None) \
                 or int(getattr(program, "_dp", 1) or 1) != world:
             raise errors.PreconditionNotMet(
@@ -537,11 +568,6 @@ class Executor:
                 "fuse_grad_size_in_mb > 0, or every rank trains on its "
                 "local gradients", world)
         else:
-            if getattr(program, "_microbatch_k", 0):
-                zero.count_fallback("pipeline")
-                raise errors.Unimplemented(
-                    "a microbatch (pipeline) program at dp %d: the pipeline "
-                    "runner is ROADMAP item 16", world)
             for b in program.blocks:
                 for op in b.ops:
                     if op.type in zero.CROSS_BATCH_OPS:
@@ -647,23 +673,44 @@ class Executor:
                      == "bfloat16" else torch.float16) \
             if getattr(program, "_amp", False) else None
         block = program.global_block()
+        plan = self._plan(program, use_cache)
+        pipe = self._pipeline(program, scope, fetch_names, plan)
+        if pipe is not None:
+            return pipe.step(env, scope, ctx, amp_dtype)
         from ..parallel.zero import current_manual_dp
         manual = current_manual_dp()
         local_batch = next((int(v.shape[0]) for v in env.values()
                             if v.dim() >= 1), None) if manual else None
-        _run_block(block, self._plan(program, use_cache), env, scope, ctx,
-                   amp_dtype, strict)
-        fetches = []
-        for n in fetch_names:
-            val = env[n] if n in env else scope.find(n)
-            if val is None:
-                raise errors.NotFound("fetch target %r was not computed", n,
-                                      var=n)
-            fetches.append(val.clone() if n not in env else val)
+        _run_block(block, plan, env, scope, ctx, amp_dtype, strict)
+        fetches = _fetch_values(env, scope, fetch_names)
         if manual:
             fetches = _dp_fetches(block, fetch_names, fetches, local_batch,
                                   manual[1])
         return fetches
+
+    def _pipeline(self, program, scope, fetch_names, plan):
+        """The program's pipeline runner (parallel/pipeline.py) over its
+        mesh's pp devices, or over this executor's device for a
+        microbatch program without a pp mesh; None for any other program.
+        One per program version and fetch list."""
+        if not _pipelined(program):
+            return None
+        key = (program._uid, program._version, tuple(fetch_names))
+        pipe = self._pipelines.get(key)
+        if pipe is None:
+            from ..parallel.pipeline import _PipelineBlock
+            if _pp(program) > 1:
+                devices = program._dist_config.resolve_mesh().devices
+            else:
+                dev = self.device
+                if dev.type == "cuda" and dev.index is None:
+                    dev = torch.device("cuda", torch.cuda.current_device())
+                devices = [dev]
+            pipe = _PipelineBlock(program, fetch_names,
+                                  _state_names(program.global_block(),
+                                               scope), plan, devices)
+            self._pipelines[key] = pipe
+        return pipe
 
     # ---- staging: the host-side dispatch queue ----------------------------
     def stage(self, feed, program: Optional[Program] = None,
@@ -811,11 +858,11 @@ class Executor:
                 "run_steps needs an integer k >= 1, got %r", k)
         k = int(k)
         if getattr(program, "_ps_hooks", None) or \
-                getattr(program, "_localsgd_k", 0) or \
-                getattr(program, "_microbatch_k", 0):
+                getattr(program, "_localsgd_k", 0) or _pipelined(program):
             raise errors.Unimplemented(
                 "run_steps with parameter-server, LocalSGD or pipeline "
-                "programs (the reference rejects them too)")
+                "programs (the reference rejects them too; run them step "
+                "by step)")
         feed = feed or {}
         scope = scope or global_scope()
         sync = self._resolve_sync(sync)
@@ -875,16 +922,17 @@ class Executor:
         batches of one shape into one `run_steps(k)` (on CUDA, k replays
         of the captured step: one capture per program and shape); a batch
         of another shape closes the group early, and such partial groups
-        and the epoch's tail run as single `run()` steps. The losses are
-        those of the same batches through `run_steps` / `run`, bit for
-        bit. `debug` prints the fetches every `print_period` steps."""
+        and the epoch's tail run as single `run()` steps; a pipeline
+        program (microbatches, or a pp > 1 mesh) runs every batch as a
+        `run()` step. The losses are those of the same batches through
+        `run_steps` / `run`, bit for bit. `debug` prints the fetches every
+        `print_period` steps."""
         if dataset is None:
             raise errors.InvalidArgument(
                 "train_from_dataset needs a dataset")
         program = program or default_main_program()
         for attr, what, item in (
                 ("_ps_hooks", "parameter-server", "19.2"),
-                ("_microbatch_k", "pipeline", "16"),
                 ("_localsgd_k", "LocalSGD", "15.1")):
             if getattr(program, attr, None):
                 raise errors.Unimplemented(
@@ -893,6 +941,9 @@ class Executor:
         from ..dataloader.dataloader import _bounded_put, _drain_queue
         fetch_list = fetch_list or []
         group_k = max(1, int(steps_per_loop))
+        if _pipelined(program):
+            group_k = 1       # a pipeline step runs by run(), as run_steps
+                              # refuses it (the reference's rule)
         maxsize = 4
         q: "queue.Queue" = queue.Queue(maxsize=maxsize)
         end, err = object(), []
@@ -1049,11 +1100,61 @@ def _dp_fetches(block, names, fetches, local_batch, dp):
     return out
 
 
-def _run_block(block, plan, env, scope, ctx, amp_dtype, strict=False):
+def _pp(program) -> int:
+    """The pp size of the program's attached mesh (1 without one)."""
+    dist = getattr(program, "_dist_config", None)
+    return 1 if dist is None else dist.pp
+
+
+def _pipelined(program) -> bool:
+    """A microbatch program, or one over a pp > 1 mesh."""
+    return bool(getattr(program, "_microbatch_k", 0)) or _pp(program) > 1
+
+
+def _fetch_values(env, scope, names):
+    """The fetches of a step: a value of the step's env as it is, a
+    persistable's as a copy (the next step updates it in place)."""
+    out = []
+    for n in names:
+        val = env[n] if n in env else scope.find(n)
+        if val is None:
+            raise errors.NotFound("fetch target %r was not computed", n,
+                                  var=n)
+        out.append(val.clone() if n not in env else val)
+    return out
+
+
+def _split_feeds(feeds, k):
+    """k microbatch slices of every feed along its batch dimension (a
+    feed without one goes to every microbatch); a batch that k does not
+    divide raises."""
+    micro = [dict() for _ in range(k)]
+    for name, t in feeds.items():
+        if not t.dim():
+            for m in micro:
+                m[name] = t
+            continue
+        b = int(t.shape[0])
+        if b % k:
+            raise errors.InvalidArgument(
+                "pipeline: feed %r batch %d is not divisible by "
+                "num_microbatches=%d", name, b, k, var=name)
+        for m, piece in zip(micro, t.split(b // k)):
+            m[name] = piece
+    return micro
+
+
+def _run_block(block, plan, env, scope, ctx, amp_dtype, strict=False,
+               ops=None, saved=None):
     """Apply each op's lowering in order over `env` (feeds and
     temporaries; persistable values live in the scope and are written
-    there in place: `_write_persistable`)."""
-    saved = {}     # __vjp__ op index -> (pullback, forward outputs)
+    there in place: `_write_persistable`). `ops` is a list of (index in
+    the block, op), all of the block's by default; `saved` holds the
+    pullbacks of forward ops whose grad op has not run yet (pass the same
+    dict to the call that runs the grad ops)."""
+    if saved is None:
+        saved = {}     # __vjp__ op index -> (pullback, forward outputs)
+    ctx.amp_dtype = amp_dtype
 
     def lookup(n, op):
         if n == "@EMPTY@":
@@ -1067,7 +1168,7 @@ def _run_block(block, plan, env, scope, ctx, amp_dtype, strict=False):
                     "startup program first", n, op.type, op=op.type, var=n)
         return v
 
-    for idx, op in enumerate(block.ops):
+    for idx, op in (enumerate(block.ops) if ops is None else ops):
         opdef = registry.get(op.type)
         if idx in saved:
             # paired grad op: only its cotangents are needed
@@ -1078,6 +1179,12 @@ def _run_block(block, plan, env, scope, ctx, amp_dtype, strict=False):
                    for s, names in op.inputs.items()}
         if amp_dtype is not None:
             ins = _amp_cast(op, ins, amp_dtype)
+        for out_slot, in_slot in opdef.inplace.items():
+            # an update rule whose output names another var (a gated
+            # update) must leave its input as it was
+            if out_slot in op.outputs and in_slot in ins \
+                    and op.outputs[out_slot] != op.inputs[in_slot]:
+                ins[in_slot] = [v.clone() for v in ins[in_slot]]
         if idx in plan:
             vop = block.ops[plan[idx]]
             diff = [tuple(e) for e in vop.attrs["diff_entries"]]

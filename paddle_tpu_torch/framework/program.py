@@ -14,9 +14,15 @@ same elementwise and compare ops as the reference's, a Python number
 becoming a [1] `fill_constant`: the static LR schedules are written with
 it (layers/learning_rate_scheduler.py).
 
-Not ported: sub-blocks (control flow), `sub_ops` in `clone` (the fused
-layer-scan ops that carry them are not ported), `device_guard` (pipeline
-stages) and the dygraph switches.
+`device_guard("gpu:<s>")` records `pipeline_stage` = s on every op
+appended under it (reference :460); the pipeline runner
+(parallel/pipeline.py) partitions a program by it, and a `__vjp__` op
+carries its forward op's stage in `fwd_attrs`. A fused sub-graph op
+(`__segment__`, parallel/transforms.py) carries its ops' descs in its
+`sub_ops` attr: `to_desc` / `from_desc` carry them as they are, and
+`clone(for_test)` sets `is_test` in them too.
+
+Not ported: sub-blocks (control flow) and the dygraph switches.
 """
 from __future__ import annotations
 
@@ -228,6 +234,9 @@ class Block:
                   attrs=None) -> Operator:
         op = Operator(self, type, _normalize_slots(inputs),
                       _normalize_slots(outputs), attrs)
+        stage = getattr(self.program, "_current_device_stage", None)
+        if stage is not None:
+            op.attrs.setdefault("pipeline_stage", stage)
         self.ops.append(op)
         from ..ops import registry
         registry.infer_op(self, op)  # build-time shape/dtype inference
@@ -302,8 +311,8 @@ class Program:
     def clone(self, for_test: bool = False) -> "Program":
         """Copy of the blocks, vars and ops (reference program.py:334).
         With `for_test`: `is_test` becomes True on every op that has the
-        attr (dropout, attention) and the backward and optimizer ops are
-        pruned. Like the reference, the copy keeps the random seed and
+        attr (dropout, attention), at every depth of a fused op's
+        `sub_ops`, and the backward and optimizer ops are pruned. Like the reference, the copy keeps the random seed and
         not the build-time annotations (AMP, ZeRO buckets)."""
         new = Program()
         new.random_seed = self.random_seed
@@ -319,6 +328,9 @@ class Program:
                                dict(op.attrs))
                 if for_test and "is_test" in nop.attrs:
                     nop.attrs["is_test"] = True
+                if for_test and "sub_ops" in nop.attrs:
+                    nop.attrs["sub_ops"] = _sub_ops_for_test(
+                        nop.attrs["sub_ops"])
                 nb.ops.append(nop)
             new.blocks.append(nb)
         if for_test:
@@ -369,6 +381,20 @@ class Program:
         return p
 
 
+def _sub_ops_for_test(sub_ops):
+    """clone(for_test): `is_test` set in fused sub-graph op descs, at
+    every nesting depth."""
+    out = []
+    for od in sub_ops:
+        attrs = dict(od["attrs"])
+        if "is_test" in attrs:
+            attrs["is_test"] = True
+        if "sub_ops" in attrs:
+            attrs["sub_ops"] = _sub_ops_for_test(attrs["sub_ops"])
+        out.append({**od, "attrs": attrs})
+    return out
+
+
 def grad_var_name(name: str) -> str:
     return name + "@GRAD"
 
@@ -398,6 +424,25 @@ def switch_startup_program(p: Program) -> Program:
     global _startup_program
     old, _startup_program = _startup_program, p
     return old
+
+
+@contextlib.contextmanager
+def device_guard(device=None):
+    """fluid.device_guard: ops appended under it record the pipeline stage
+    of "gpu:<s>" (s; a device without an index is stage 0) as their
+    `pipeline_stage` attr. It names a stage, not a device: the mesh's pp
+    axis places the stages (parallel/mesh.py)."""
+    program = default_main_program()
+    stage = None
+    if device is not None:
+        dev = str(device)
+        stage = int(dev.split(":")[1]) if ":" in dev else 0
+    old = getattr(program, "_current_device_stage", None)
+    program._current_device_stage = stage
+    try:
+        yield
+    finally:
+        program._current_device_stage = old
 
 
 @contextlib.contextmanager

@@ -12,7 +12,8 @@ from ..layer_helper import LayerHelper
 __all__ = [
     "data", "fc", "layer_norm", "dropout", "embedding", "elementwise_add",
     "elementwise_sub", "elementwise_mul", "elementwise_div",
-    "elementwise_max", "elementwise_min", "elementwise_pow", "sqrt",
+    "elementwise_max", "elementwise_min", "elementwise_pow",
+    "elementwise_mod", "sqrt", "tanh",
     "square", "sign", "exp", "floor", "ceil", "cos", "pow", "equal",
     "less_than", "less_equal", "greater_than", "greater_equal", "where", "expand", "cast", "reduce_sum", "clip",
     "clip_by_norm", "sums", "mean", "scale", "reshape", "transpose",
@@ -125,6 +126,7 @@ exp = _unary_layer("exp")
 floor = _unary_layer("floor")
 ceil = _unary_layer("ceil")
 cos = _unary_layer("cos")
+tanh = _unary_layer("tanh")
 
 
 def pow(x, factor=1.0, name=None):
@@ -153,6 +155,7 @@ elementwise_div = _binary_layer("elementwise_div")
 elementwise_max = _binary_layer("elementwise_max")
 elementwise_min = _binary_layer("elementwise_min")
 elementwise_pow = _binary_layer("elementwise_pow")
+elementwise_mod = _binary_layer("elementwise_mod")
 
 
 def _compare_layer(op_type):

@@ -1,7 +1,7 @@
 """Tensor creation layer functions (counterpart of
 paddle_tpu/layers/tensor.py): the subset the BERT program, the optimizer,
-gradient clipping and the static LR schedules use, and `increment` (the
-reference's layers/control_flow.py)."""
+gradient clipping, the static LR schedules and gradient merge use, and
+`increment` (the reference's layers/control_flow.py)."""
 from __future__ import annotations
 
 import numpy as np
@@ -11,7 +11,7 @@ from ..framework.dtype import dtype_name
 from ..layer_helper import LayerHelper, ParamAttr
 
 __all__ = ["assign", "create_global_var", "create_parameter",
-           "fill_constant", "increment"]
+           "fill_constant", "increment", "zeros_like"]
 
 
 def fill_constant(shape, dtype, value, force_cpu=False, out=None, name=None):
@@ -38,6 +38,14 @@ def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
     attr = attr or ParamAttr(name=name)
     return helper.create_parameter(attr, shape, dtype, is_bias,
                                    default_initializer)
+
+
+def zeros_like(x, out=None):
+    helper = LayerHelper("fill_zeros_like")
+    out = out or helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("fill_zeros_like", inputs={"X": [x]},
+                     outputs={"Out": [out]})
+    return out
 
 
 def assign(input, output=None):

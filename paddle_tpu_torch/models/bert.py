@@ -5,16 +5,22 @@ the reference's, op for op and name for name (tests/test_torch_program.py
 compares the descs). Attention is the `fused_attention` op: the flash
 kernels B1-B3 on the card.
 
-Not ported: MoE FFNs, pipeline stages and the tensor-parallel rules; a
-config that sets them raises.
+`pipeline_stages` > 1 builds the program under `device_guard` stages as
+the reference does: the embeddings on stage 0, the layers in contiguous
+chunks, the MLM head on the last stage.
+
+Not ported: MoE FFNs (a config with `moe_experts` raises, ROADMAP item
+12) and the tensor-parallel rules.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 
 from .. import initializer as I
 from .. import layers
+from ..framework.program import device_guard
 from ..layer_helper import ParamAttr
 
 
@@ -56,10 +62,31 @@ class BertConfig:
 
 
 def _check_ported(cfg: BertConfig):
-    if cfg.moe_experts or (cfg.pipeline_stages and cfg.pipeline_stages > 1):
+    if cfg.moe_experts:
         raise NotImplementedError(
-            "BertConfig moe_experts / pipeline_stages are not ported yet "
-            "(ROADMAP)")
+            "BertConfig.moe_experts (switch_moe FFNs) is not ported yet "
+            "(ROADMAP item 12)")
+
+
+def _stage_guard(cfg: BertConfig):
+    """device_guard factory: a no-op context when pipeline is off."""
+    if cfg.pipeline_stages and cfg.pipeline_stages > 1:
+        return lambda s: device_guard(f"gpu:{s}")
+    return lambda s: contextlib.nullcontext()
+
+
+def _layer_stage(cfg: BertConfig, i: int) -> int:
+    if not cfg.pipeline_stages or cfg.pipeline_stages <= 1:
+        return 0
+    if cfg.pipeline_stages > cfg.num_layers:
+        raise ValueError(
+            f"pipeline_stages={cfg.pipeline_stages} > num_layers="
+            f"{cfg.num_layers}: some pp stages would hold no ops")
+    return i * cfg.pipeline_stages // cfg.num_layers
+
+
+def _last_stage(cfg: BertConfig) -> int:
+    return max(1, cfg.pipeline_stages or 1) - 1
 
 
 def _attr(name):
@@ -138,10 +165,13 @@ def bert_encoder(input_ids, cfg: BertConfig, position_ids=None,
                  attn_mask=None):
     """Embeddings + N encoder layers -> sequence output [B, S, H]."""
     _check_ported(cfg)
-    x = _bert_embeddings(input_ids, cfg)
+    stage = _stage_guard(cfg)
+    with stage(0):
+        x = _bert_embeddings(input_ids, cfg)
     ckpts = []
     for i in range(cfg.num_layers):
-        x = encoder_layer(x, cfg, i, attn_mask)
+        with stage(_layer_stage(cfg, i)):
+            x = encoder_layer(x, cfg, i, attn_mask)
         ckpts.append(x.name)
     x._layer_checkpoints = ckpts
     return x
@@ -154,22 +184,23 @@ def bert_pretrain_loss(seq_out, mlm_labels, cfg: BertConfig):
     fused = cfg.fused_mlm_head
     if fused is None:
         fused = cfg.seq_len >= 512 and cfg.vocab_size >= 2 * DEFAULT_CHUNK
-    if fused:
-        w = layers.create_parameter([cfg.hidden_size, cfg.vocab_size],
-                                    "float32", attr=_attr("mlm_head_w"))
-        b = layers.create_parameter([cfg.vocab_size], "float32",
-                                    attr=ParamAttr(name="mlm_head_b"),
-                                    is_bias=True)
-        loss = layers.fused_lm_head_ce(seq_out, w, mlm_labels, bias=b,
-                                       w_layout="hv")
-        if cfg.fused_mlm_head is None:
-            loss.block.ops[-1].attrs["auto_selected"] = True
-    else:
-        logits = layers.fc(seq_out, cfg.vocab_size, num_flatten_dims=2,
-                           param_attr=_attr("mlm_head_w"),
-                           bias_attr=ParamAttr(name="mlm_head_b"))
-        loss = layers.softmax_with_cross_entropy(logits, mlm_labels)
-    return layers.mean(loss)
+    with _stage_guard(cfg)(_last_stage(cfg)):
+        if fused:
+            w = layers.create_parameter([cfg.hidden_size, cfg.vocab_size],
+                                        "float32", attr=_attr("mlm_head_w"))
+            b = layers.create_parameter([cfg.vocab_size], "float32",
+                                        attr=ParamAttr(name="mlm_head_b"),
+                                        is_bias=True)
+            loss = layers.fused_lm_head_ce(seq_out, w, mlm_labels, bias=b,
+                                           w_layout="hv")
+            if cfg.fused_mlm_head is None:
+                loss.block.ops[-1].attrs["auto_selected"] = True
+        else:
+            logits = layers.fc(seq_out, cfg.vocab_size, num_flatten_dims=2,
+                               param_attr=_attr("mlm_head_w"),
+                               bias_attr=ParamAttr(name="mlm_head_b"))
+            loss = layers.softmax_with_cross_entropy(logits, mlm_labels)
+        return layers.mean(loss)
 
 
 def build_pretrain_program(cfg: BertConfig, use_input_mask=False):

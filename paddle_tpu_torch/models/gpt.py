@@ -7,9 +7,15 @@ gather and the LM head. The program it builds is the reference's, op for
 op and name for name (tests/test_torch_gpt_lm.py compares the descs). The
 default config is GPT-2 small.
 
-Not ported: pipeline stages (`pipeline_stages > 1` raises; ROADMAP item
-16), the tensor-parallel rules (`tp_sharding_rules`, item 16) and
-sequence parallelism (`fused_attention` raises, ops/attention.py).
+`pipeline_stages` > 1 builds the program under `device_guard` stages as
+the reference does: the embeddings on stage 0, the blocks in contiguous
+chunks, the final LN and the tied head on the last stage (the pipeline
+runner, parallel/pipeline.py, sums the tied `wte`'s two stages'
+gradients).
+
+Not ported: the tensor-parallel rules (`tp_sharding_rules`, ROADMAP item
+16) and sequence parallelism (`fused_attention` raises,
+ops/attention.py).
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ from dataclasses import dataclass
 
 from .. import initializer as I
 from .. import layers
+from ..framework.program import device_guard
 from ..layer_helper import ParamAttr
 
 
@@ -35,7 +42,8 @@ class GPTConfig:
     seq_len: int = 128
     sequence_parallel: bool = False
     sp_mode: str = "ring"
-    # >1: device_guard stages for pipeline parallelism (not ported)
+    # >1: device_guard stages for pipeline parallelism over the pp mesh
+    # axis (embeddings stage 0, blocks in contiguous chunks, tied head last)
     pipeline_stages: int = 0
 
     @staticmethod
@@ -102,11 +110,9 @@ def decoder_layer(x, cfg: GPTConfig, idx: int):
 
 
 def _stage_guard(cfg: GPTConfig):
-    """Stage-guard factory: a no-op context when pipeline is off."""
+    """device_guard factory: a no-op context when pipeline is off."""
     if cfg.pipeline_stages and cfg.pipeline_stages > 1:
-        raise NotImplementedError(
-            "GPTConfig.pipeline_stages > 1 (device_guard pipeline stages) is "
-            "not ported yet: ROADMAP item 16")
+        return lambda s: device_guard(f"gpu:{s}")
     return lambda s: contextlib.nullcontext()
 
 

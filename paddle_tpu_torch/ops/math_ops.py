@@ -44,6 +44,8 @@ _elementwise("elementwise_div", torch.div)
 _elementwise("elementwise_max", torch.maximum)
 _elementwise("elementwise_min", torch.minimum)
 _elementwise("elementwise_pow", torch.pow)
+# floor modulo: the result takes the divisor's sign, as jnp.mod
+_elementwise("elementwise_mod", torch.remainder)
 
 
 def _unary(name, fn):

@@ -16,7 +16,11 @@ per-parameter lowerings and the kernels' plain versions.
 The update happens IN PLACE on the scope's tensors (Param and the
 optimizer state), the PyTorch analog of the reference's buffer donation:
 the results are `copy_`'d into the input tensors, and the op's outputs name
-those same tensors, so the Executor's write-back is a no-op for them. The
+those same tensors, so the Executor's write-back is a no-op for them.
+Each rule declares which input it updates for which output (`inplace`):
+where an output names another var (gradient merge's gated update,
+parallel/transforms.py), the executor hands the rule a copy of that
+input. The
 shared beta-pow pair advances in a separate `scale` op
 (optimizer.py `_finalize_optimize_ops`).
 """
@@ -30,7 +34,17 @@ _OPT = dict(nondiff_slots=("Param", "Grad", "LearningRate", "Moment",
                            "Moment1", "Moment2", "Beta1Pow", "Beta2Pow",
                            "Velocity", "MeanSquare", "MeanGrad", "InfNorm",
                            "AvgSquaredGrad", "AvgSquaredUpdate",
-                           "SquaredAccumulator", "LinearAccumulator"))
+                           "SquaredAccumulator", "LinearAccumulator"),
+            # output slot -> the input slot whose tensor the rule updates
+            inplace={"ParamOut": "Param", "VelocityOut": "Velocity",
+                     "MomentOut": "Moment", "Moment1Out": "Moment1",
+                     "Moment2Out": "Moment2", "InfNormOut": "InfNorm",
+                     "MeanSquareOut": "MeanSquare",
+                     "MeanGradOut": "MeanGrad",
+                     "AvgSquaredGradOut": "AvgSquaredGrad",
+                     "AvgSquaredUpdateOut": "AvgSquaredUpdate",
+                     "SquaredAccumOut": "SquaredAccumulator",
+                     "LinearAccumOut": "LinearAccumulator"})
 
 
 def _update(ins, outs):

@@ -63,20 +63,24 @@ def fmix32(x):
 
 class LowerCtx:
     """Per-run context handed to lowerings: the run seed, the device that
-    ops without inputs create their outputs on, and whether this is
-    build-time inference on meta tensors.
+    ops without inputs create their outputs on, whether this is
+    build-time inference on meta tensors, and the program's AMP low dtype
+    (`amp_dtype`, None without AMP; the executor sets it, and a fused
+    sub-graph op casts its inner ops' inputs by it).
 
     `run_seed` is an int, or an int64 [] tensor on `device` (the static
     seed buffer of a captured step). Keys derive from it on the device in
     either case, by the same ops, so an eager step and a replayed graph
     with the same seed value draw the same masks."""
 
-    __slots__ = ("run_seed", "device", "is_eval_shape", "_seed", "_run_key",
-                 "_keys")
+    __slots__ = ("run_seed", "device", "is_eval_shape", "amp_dtype",
+                 "_seed", "_run_key", "_keys")
 
-    def __init__(self, run_seed=0, device=None, is_eval_shape: bool = False):
+    def __init__(self, run_seed=0, device=None, is_eval_shape: bool = False,
+                 amp_dtype=None):
         self.device = torch.device("cpu" if device is None else device)
         self.is_eval_shape = is_eval_shape
+        self.amp_dtype = amp_dtype
         if isinstance(run_seed, torch.Tensor):
             self.run_seed, self._seed = None, run_seed
         else:
@@ -133,7 +137,7 @@ class LowerCtx:
 class OpDef:
     def __init__(self, name: str, lower: Callable,
                  infer: Optional[Callable] = None, is_random: bool = False,
-                 nondiff_slots=(), stateful_outputs=()):
+                 nondiff_slots=(), stateful_outputs=(), inplace=None):
         self.name = name
         self.lower = lower
         self.infer = infer
@@ -142,13 +146,16 @@ class OpDef:
         # output slots aliasing an input (optimizer ParamOut): excluded
         # from autodiff bookkeeping
         self.stateful_outputs = frozenset(stateful_outputs)
+        # output slot -> input slot the lowering updates in place
+        self.inplace = dict(inplace or {})
 
 
 _REGISTRY: Dict[str, OpDef] = {}
 # modules of the package that register lowerings on import
 _LOWERING_MODULES = ("ops.tensor_ops", "ops.math_ops", "ops.nn_ops",
                      "ops.fused_ce", "ops.attention", "ops.optimizer_ops",
-                     "ops.int8_ops", "parallel.zero")
+                     "ops.int8_ops", "parallel.zero",
+                     "parallel.transforms")
 _loaded = False
 _loading = False
 _load_lock = threading.RLock()
@@ -177,11 +184,12 @@ def _load_lowerings():
 
 
 def register(name: str, *, infer=None, is_random=False, nondiff_slots=(),
-             stateful_outputs=()):
+             stateful_outputs=(), inplace=None):
     def deco(fn):
         _REGISTRY[name] = OpDef(name, fn, infer=infer, is_random=is_random,
                                 nondiff_slots=nondiff_slots,
-                                stateful_outputs=stateful_outputs)
+                                stateful_outputs=stateful_outputs,
+                                inplace=inplace)
         return fn
     return deco
 

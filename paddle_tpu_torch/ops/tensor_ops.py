@@ -19,6 +19,11 @@ def _fill_constant(ctx, ins, attrs):
                                device=ctx.device)]}
 
 
+@register("fill_zeros_like")
+def _fill_zeros_like(ctx, ins, attrs):
+    return {"Out": [torch.zeros_like(ins["X"][0])]}
+
+
 @register("truncated_gaussian_random", is_random=True)
 def _truncated_gaussian_random(ctx, ins, attrs):
     """Normal(mean, std) cut at two standard deviations, drawn from a

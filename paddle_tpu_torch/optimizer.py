@@ -21,8 +21,13 @@ schedule's output, layers/learning_rate_scheduler.py) or a callable that
 builds one. `set_lr` writes in place too, so none of them invalidates a
 captured step.
 
-Not ported (ROADMAP items 16 and 18): DGC, Dpsgd, Lookahead, ModelAverage
-and the Pipeline, Recompute and GradientMerge wrappers.
+The wrappers (reference :746-790): `PipelineOptimizer` marks the program
+with its microbatch count, which the executor runs as GPipe on one device
+or, over a mesh with pp > 1, as the 1F1B pipeline
+(framework/executor.py, parallel/pipeline.py); `RecomputeOptimizer` and
+`GradientMergeOptimizer` are parallel/transforms.py's wrappers.
+
+Not ported (ROADMAP item 18): DGC, Dpsgd, Lookahead and ModelAverage.
 """
 from __future__ import annotations
 
@@ -44,7 +49,9 @@ __all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum",
            "RMSProp", "RMSPropOptimizer", "Lamb", "LambOptimizer",
            "LarsMomentum", "LarsMomentumOptimizer", "Adadelta",
            "AdadeltaOptimizer", "DecayedAdagrad", "DecayedAdagradOptimizer",
-           "Ftrl", "FtrlOptimizer", "ExponentialMovingAverage"]
+           "Ftrl", "FtrlOptimizer", "ExponentialMovingAverage",
+           "PipelineOptimizer", "RecomputeOptimizer",
+           "GradientMergeOptimizer"]
 
 
 def _write_in_place(scope, name, value):
@@ -578,6 +585,45 @@ class FtrlOptimizer(Optimizer):
                      "LinearAccumOut": [acc("linear", p)]},
             attrs={"l1": self._l1, "l2": self._l2, "lr_power": self._lr_power,
                    "op_role": OpRole.Optimize})
+
+
+class PipelineOptimizer:
+    """GPipe microbatching (reference optimizer.py:746): minimize marks the
+    program with the microbatch count. The executor then runs the LR
+    schedule ops once a step, the forward and backward ops over
+    `num_microbatches` slices of every feed with the gradients summed, and
+    the optimizer ops once on their mean; over a mesh with pp > 1 the
+    `device_guard` stages run as a 1F1B pipeline (parallel/pipeline.py)."""
+
+    def __init__(self, optimizer, num_microbatches=1, start_cpu_core_id=0):
+        self.inner_optimizer = optimizer
+        self.num_microbatches = int(num_microbatches)
+
+    def __getattr__(self, item):
+        return getattr(self.inner_optimizer, item)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        res = self.inner_optimizer.minimize(loss, startup_program,
+                                            parameter_list, no_grad_set)
+        program = loss.block.program
+        program._microbatch_k = self.num_microbatches
+        program.bump_version()
+        return res
+
+
+def RecomputeOptimizer(inner_optimizer, checkpoints=None):
+    """Activation checkpointing (reference optimizer.py:772):
+    parallel/transforms.py `apply_recompute` before the backward."""
+    from .parallel.transforms import RecomputeWrapper
+    return RecomputeWrapper(inner_optimizer, checkpoints or [])
+
+
+def GradientMergeOptimizer(inner_optimizer, k_steps=1, avg=True):
+    """Gradient accumulation over `k_steps` steps (reference
+    optimizer.py:779)."""
+    from .parallel.transforms import GradientMergeWrapper
+    return GradientMergeWrapper(inner_optimizer, k_steps, avg=avg)
 
 
 SGD = SGDOptimizer

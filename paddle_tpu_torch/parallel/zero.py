@@ -365,7 +365,11 @@ def apply_grad_bucketing(program: Program, startup_program: Program,
     moves into flat `[padded]` vars (startup-initialised) and its
     per-parameter update ops become one `__zero_update__`. stage=2: the
     bucket's gradient becomes resident flat state too. stage=3: parameter
-    storage moves into flat buckets with on-demand `__zero_gather__`."""
+    storage moves into flat buckets with on-demand `__zero_gather__`.
+    A program whose optimizer section gradient merge gated
+    (parallel/transforms.py) is left as it is."""
+    if getattr(program, "_grad_bucketing_unsafe", False):
+        return None
     block = program.global_block()
     dense_pgs = []
     for p, g in params_grads or []:

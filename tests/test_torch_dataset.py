@@ -22,8 +22,9 @@ tests/test_data_pipeline.py.
   == run_steps / run on the same batches, bit for bit, and nothing stays
   staged.
 * The producer: its error is raised on the calling thread; a failed step
-  stops and joins it; a fast producer with a slow consumer ends; PS,
-  pipeline and LocalSGD programs raise naming their ROADMAP items.
+  stops and joins it; a fast producer with a slow consumer ends; PS and
+  LocalSGD programs raise naming their ROADMAP items; a pipeline
+  (microbatch) program trains step by step, equal to run() bit for bit.
 """
 import threading
 import time
@@ -409,10 +410,45 @@ def test_fast_producer_with_a_slow_consumer_terminates():
     np.testing.assert_array_equal(done[0][0], want)
 
 
+def _microbatch_runs_step_by_step():
+    """A PipelineOptimizer program (2 microbatches, SGD) through
+    train_from_dataset at steps_per_loop 3 equals run() on the same 4
+    batches, bit for bit: a pipeline step is not grouped."""
+    main, start = port_program.Program(), port_program.Program()
+    with port_program.program_guard(main, start), port_unique_name.guard():
+        x = port_layers.data(name="px", shape=[2], dtype="float32")
+        h = port_layers.fc(x, 3, param_attr=ParamAttr(
+            name="w", initializer=TruncatedNormal(0.0, 0.5)))
+        out = port_layers.mean(h)
+        port_optimizer.PipelineOptimizer(
+            port_optimizer.SGD(learning_rate=0.1),
+            num_microbatches=2).minimize(out)
+    exe, sa, sb = Executor("cpu"), Scope(), Scope()
+    exe.run(start, scope=sa)
+    for n in sa.local_names():
+        v = sa.find(n)
+        sb.set(n, v.clone() if isinstance(v, torch.Tensor) else v)
+    feeds = [{"px": np.random.RandomState(i).rand(4, 2).astype(np.float32)}
+             for i in range(4)]
+    eager = exe.stats["eager_steps"]
+    got = exe.train_from_dataset(main, feeds, scope=sa, fetch_list=[out],
+                                 steps_per_loop=3)
+    assert exe.stats["eager_steps"] - eager == len(feeds)
+    for f in feeds:
+        want = exe.run(main, feed=f, fetch_list=[out], scope=sb)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert torch.equal(sa.find("w"), sb.find("w"))
+    assert exe.stats["graph_replays"] == 0
+
+
 @pytest.mark.parametrize("attr,item", [("_ps_hooks", "19.2"),
                                        ("_microbatch_k", "16"),
                                        ("_localsgd_k", "15.1")])
 def test_unported_program_kinds_raise_naming_their_item(attr, item):
+    if attr == "_microbatch_k":
+        # ported: a pipeline program trains from a dataset step by step
+        _microbatch_runs_step_by_step()
+        return
     main, out, exe, scope = _tiny_program()
     setattr(main, attr, [object()] if attr == "_ps_hooks" else 2)
     with pytest.raises(errors.UnimplementedError, match=f"item {item}"):

@@ -6,7 +6,9 @@ reference on the CPU.
 * The GPT LM program (GPTConfig.tiny(), Adam minimize) built in both
   packages has EQUAL descs, with the dense head, the fused head forced,
   and the fused head auto-selected at a vocabulary of two 8192 chunks;
-  likewise its startup program. `pipeline_stages > 1` raises.
+  likewise its startup program; at `pipeline_stages` 2 the staged
+  program's desc equals the reference's, and more stages than layers
+  raises.
 * `matmul` (every transpose pair, alpha 1 and 0.5, batched broadcast),
   `matmul_v2` and `gather` (axis 0 and 1, 1-D and 2-D indices), and their
   VJPs, against the reference lowerings on the same numpy inputs: f32
@@ -130,9 +132,24 @@ def test_gpt_lm_desc_equal(fused, vocab):
 
 
 def test_pipeline_stages_raise():
+    """pipeline_stages 2 builds the reference's staged program (embeddings
+    on stage 0, the final LN and the tied head on stage 1); more stages
+    than layers raises."""
+    cfgs = {pkg: _cfg(pkg) for pkg in ("ref", "port")}
+    for cfg in cfgs.values():
+        cfg.pipeline_stages = 2
+    rm, _, _, _ = build("ref", cfgs["ref"], opt=False)
+    pm, _, _, _ = build("port", cfgs["port"], opt=False)
+    assert pm.to_desc() == rm.to_desc()
+    stage = {op.outputs.get("Out", [""])[0]: op.attrs["pipeline_stage"]
+             for op in pm.global_block().ops}
+    assert min(stage.values()) == 0 and max(stage.values()) == 1
+    ops = pm.global_block().ops
+    assert ops[0].attrs["pipeline_stage"] == 0
+    assert ops[-1].type == "mean" and ops[-1].attrs["pipeline_stage"] == 1
     cfg = _cfg("port")
-    cfg.pipeline_stages = 2
-    with pytest.raises(NotImplementedError, match="item 16"):
+    cfg.pipeline_stages = cfg.num_layers + 1
+    with pytest.raises(ValueError, match="pipeline_stages"):
         build("port", cfg, opt=False)
 
 
