@@ -209,6 +209,44 @@ result line):
      the plain ones, held as arm R is (planted faults: the second merged
      update lost, a quarter of the rows); the beta pows move on merge
      steps only; micro-step ms p50.
+12. rolled layers, GPT-2 small (GPTConfig() at S 512, batch 32, fleet AMP
+   bf16, Adam(1e-4), weights from the startup program, tokens from numpy
+   seed 0), each arm through fleet's `layer_scan`:
+   * B8 on the largest stacked bucket, 2-D and contiguous: the whole
+     [12, 2,359,296] and a rank's [12, 1,179,648] shard at dp 2, bit for
+     bit against its plain version, timed beside it, its bytes bound and
+     torch's _fused_adam_;
+   * S: rolled beside unrolled at dropout 0.1, stage 0, 3 eager steps from
+     the same startup weights, each arm alone on the card: the losses and
+     every parameter (a stacked parameter's rows against the per-layer
+     ones) bit-equal; B1-B3 12 a step; then run_steps(10) captured == 10
+     Executor.run calls bit for bit; step ms p50, peak memory and the
+     profiled busy share of each, and the eager steps of S and S3 timed
+     in turns in one window;
+   * S3: the rolled program at ZeRO stage 3 beside S's rolled run, bit
+     for bit; its stacked buckets, B8 launches a step and
+     optimizer_state_bytes;
+   * SR: fleet recompute with layer scan at ZeRO stage 1 beside phase
+     11's arm R at dropout 0: losses within 1e-4 relative, the parameters'
+     change within 5e-2 of arm R's and a planted fault (the last update
+     lost) above it; B1 twice a layer and step; peak memory;
+   * S3D and DP in one dp-2 gang through the port's launcher (`python -m
+     paddle_tpu_torch.distributed.launch --nproc_per_node 2 chip_smoke.py
+     --scan-worker`, both ranks on cuda:0 under gloo), each rank 16 rows
+     of 32: S3D, rolled at stage 0 then stage 3 (f32: under AMP stage
+     0's bucket sync rounds a bf16 gradient's dp average to bf16, the
+     reduce-scatter of stages >= 1 does not), bit-equal, the collectives
+     of every step equal to the plan (an all-gather and a reduce-scatter
+     per stacked bucket and layer, one of each per flat bucket, the
+     loss's mean), B8 once a bucket and step at the shard widths, state
+     and parameter bytes a rank about half of stage 0's; DP,
+     pipeline_stages 2 over cuda:0 twice, 4 microbatches of the rank's 16
+     rows, dropout 0: one dp all-reduce a step, the ranks equal by the
+     DivergenceSentinel, then beside one process's GPipe at batch 32 from
+     the same weights (losses within 1e-4 relative, the parameters' change
+     within 5e-2), and the dp average skipped in a second run of the gang
+     (the planted fault) reading above that limit; the gang leaves no
+     process.
 Each main-path run resets the kernel launch counts just before it and
 fails if a kernel of its path was never launched.
 
@@ -221,7 +259,8 @@ Output: a `{"kernels": [...]}` line, a `{"serving": ...}` line, a
 `{"resilience": ...}` line, a `{"training": ...}` line, a
 `{"gpt_training": ...}` line, a `{"training_state": ...}` line, a
 `{"data_path": ...}` line, a `{"data_parallel": ...}` line, a
-`{"pipeline": ...}` line, and last `{"ok": true, "device": {...}}`.
+`{"pipeline": ...}` line, a `{"layer_scan": ...}` line, and last
+`{"ok": true, "device": {...}}`.
 The flash rows' `launches` are the GPT path's (the captured arm's 30
 timed steps); `launches_by_path` keeps the BERT path's beside them.
 """
@@ -4710,6 +4749,633 @@ def train_gpt_pipeline(torch, fa, zk, card):
     return row
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: rolled layers (layer scan), its stage-3 buckets, dp x pp
+# ---------------------------------------------------------------------------
+
+SCAN_STEPS = 3             # eager steps of the gates
+SCAN_CAPTURED = 10         # run_steps(k) of arm S
+SCAN_TIMED = 4             # steps timed after an arm's gated steps
+SCAN_MICRO = 4             # arm DP: microbatches of a rank's 16 rows
+SCAN_DROPOUT = 0.1         # arms S, S3, S3D (bitwise gates)
+# B8 on GPT-2 small's largest stacked bucket, the FFN-in weight (768 x 3072
+# a layer, a multiple of 64): the whole [12, 2,359,296] and a rank's
+# [12, 1,179,648] shard at dp 2
+SCAN_B8_SHAPES = ((12, 2_359_296), (12, 1_179_648))
+# arm DP: each rank's two pp stages share the card
+SCAN_PP_DEVICES = ("cuda:0", "cuda:0")
+
+
+def build_scan(cfg, stage=0, rolled=True, recompute=False, micro=0,
+               pp_devices=None, amp=True):
+    """(main, startup, loss) of GPT LM training through fleet (AMP bf16
+    unless `amp` is False, Adam(1e-4)) rolled by `layer_scan` (`rolled`),
+    with fleet recompute at the model's per-layer checkpoints, at ZeRO
+    `stage`; `micro` > 0 makes it a pipeline program of `micro`
+    microbatches, over pp stages on `pp_devices` when given (fleet's
+    `pipeline_parallel_degree`)."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework import Program, program_guard, unique_name
+    from paddle_tpu_torch.models import gpt
+    main, start = Program(), Program()
+    with program_guard(main, start), unique_name.guard():
+        _, loss = gpt.build_lm_program(cfg)
+        fleet.init(is_collective=True)
+        s = fleet.DistributedStrategy()
+        s.amp = amp
+        s.layer_scan = rolled
+        s.sharding_stage = stage
+        if recompute:
+            s.recompute = True
+            s.recompute_configs = {"checkpoints": loss._layer_checkpoints}
+        if micro:
+            s.pipeline = True
+            s.pipeline_configs = {"accumulate_steps": micro}
+            if pp_devices:
+                s.pipeline_parallel_degree = len(pp_devices)
+                s.pipeline_configs["stage_devices"] = list(pp_devices)
+        fleet.distributed_optimizer(optimizer.Adam(learning_rate=PIPE_LR),
+                                    s).minimize(loss)
+    return main, start, loss
+
+
+def params_by_name(torch, main, scope, full=None, host=False):
+    """{parameter of the unrolled program: its value in `scope`}: a
+    rolled program's stacked rows under their per-layer names, a stage-3
+    program's buckets unpacked (`full`: gathered shards by bucket name).
+    Views on the card, or host copies."""
+    from paddle_tpu_torch.parallel import zero
+    full = full or {}
+    vals = {}
+    for b in zero.zero_buckets(main):
+        if not b.get("flat_param"):
+            continue
+        flat = full.get(b["flat_param"], scope.find(b["flat_param"]))
+        if b["layout"] == "stacked":
+            vals[b["stack_var"]] = flat[:, :b["sizes"][0]].reshape(
+                (b["num_layers"],) + tuple(b["shapes"][0]))
+            continue
+        off = 0
+        for n, size, shape in zip(b["params"], b["sizes"], b["shapes"]):
+            vals[n] = flat[off:off + size].reshape(tuple(shape))
+            off += size
+    for p in main.all_parameters():
+        vals.setdefault(p.name, scope.find(p.name))
+    stacks = getattr(main, "_layer_stacks", None) or {}
+    out = {}
+    for n, v in vals.items():
+        if n in stacks:
+            out.update(zip(stacks[n], v.unbind(0)))
+        else:
+            out[n] = v
+    if host:
+        out = {n: v.detach().to("cpu", copy=True) for n, v in out.items()}
+    return out
+
+
+def params_differ(torch, a, b):
+    """Names whose tensors in the dicts `a` and `b` differ in any bit."""
+    if sorted(a) != sorted(b):
+        return sorted(set(a) ^ set(b))
+    return sorted(n for n in a if not torch.equal(a[n], b[n]))
+
+
+def scan_bucket_plan(main, dp):
+    """Arm S3D's collectives a step by the program's plan: per stacked
+    bucket one all-gather a layer (twice with a remat scan) and one
+    reduce-scatter a layer; per flat stage-3 bucket one all-gather and one
+    reduce-scatter unless pre-synced; one all-reduce per sync bucket and
+    one for the loss's replica mean."""
+    from paddle_tpu_torch.parallel import zero
+    zb = zero.zero_buckets(main)
+    stacked = [b for b in zb if b["layout"] == "stacked"]
+    flat = [b for b in zb if b["layout"] == "flat"]
+    scans = [op for op in main.global_block().ops
+             if op.type == "__layer_scan__"]
+    L = int(scans[0].attrs["num_layers"]) if scans else 0
+    remat = 2 if scans and scans[0].attrs.get("remat") else 1
+    want = {"all_reduce.calls": len(main._grad_buckets["sync_buckets"]) + 1}
+    gathers = len(stacked) * L * remat + len(flat)
+    scatters = len(stacked) * L + sum(not b["pre_synced"] for b in flat)
+    if gathers:
+        want["all_gather.calls"] = gathers
+    if scatters:
+        want["reduce_scatter.calls"] = scatters
+    return want
+
+
+def scan_worker():
+    """One rank of phase 12's dp-2 gang (`chip_smoke.py --scan-worker`,
+    started by the port's launcher, both ranks on cuda:0 under gloo): arm
+    S3D (GPT-2 small rolled at ZeRO stage 0, then 3, SCAN_STEPS steps each
+    on this rank's 16 rows of 32, dropout 0.1, f32), then arm DP (unrolled,
+    pipeline_stages 2 over cuda:0 twice, SCAN_MICRO microbatches of its 16
+    rows, dropout 0: SCAN_STEPS steps, then again from the startup with
+    the dp average skipped, the planted fault); writes
+    $CHIP_SMOKE_DP_OUT/scan_rank<r>.json, and rank 0 its parameters after
+    each DP run, and fails on any gate it can hold alone."""
+    import torch
+    sys.path.insert(0, HERE)
+    from paddle_tpu_torch.distributed import collective as coll
+    from paddle_tpu_torch.distributed import fleet, gloo, parallel
+    from paddle_tpu_torch.framework import Executor, Scope
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import zero_update as zk
+    from paddle_tpu_torch.parallel import pipeline, zero
+    from paddle_tpu_torch.resilience import DivergenceSentinel
+    from paddle_tpu_torch.resilience.integrity import ReplicaDivergenceError
+
+    fleet.init(is_collective=True)
+    rank, world = parallel.get_rank(), parallel.get_world_size()
+    dev = parallel.rank_device()
+    if world != DP_WORLD or parallel.backend() != "gloo" \
+            or dev != torch.device("cuda", 0):
+        fail(f"scan rank {rank}: expected gloo on cuda:0 at dp {DP_WORLD}")
+    host = gloo.from_env()
+    sentinel = DivergenceSentinel(host, interval=1, heal=False)
+    out_dir = os.environ["CHIP_SMOKE_DP_OUT"]
+    widths = []
+    spied = zk.launch
+
+    def spy(lib, op_type, ins, attrs, stream):
+        widths.append(int(ins["Param"][0].numel()))
+        return spied(lib, op_type, ins, attrs, stream)
+
+    zk.launch = spy
+
+    def steps(main, scope, loss, tokens, n_steps):
+        exe = Executor("cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zk.reset_launches()
+        fa.reset_launches()
+        widths.clear()
+        coll.reset_counters()
+        losses, step_ms, calls, host_ms = [], [], [], []
+        for s in range(n_steps):
+            before, hms = dict(coll.counters), dict(coll.host_ms)
+            t0 = time.perf_counter()
+            got, = exe.run(main, feed={"tokens": coll.split_batch(
+                tokens[s])}, fetch_list=[loss], scope=scope)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(got))
+            calls.append({k: v - before.get(k, 0)
+                          for k, v in coll.counters.items()
+                          if k.endswith(".calls") and v - before.get(k, 0)})
+            host_ms.append({k: v - hms.get(k, 0.0)
+                            for k, v in coll.host_ms.items()})
+        return exe, {
+            "losses": losses, "step_ms": step_ms,
+            "step_ms_p50": float(np.median(step_ms)),
+            "calls_per_step": calls[-1],
+            "collective_host_ms_per_step": {
+                k: float(np.mean([h.get(k, 0.0) for h in host_ms]))
+                for k in host_ms[-1]},
+            "b8_launches": zk.launches["zero_adam"],
+            "b8_widths": sorted(set(widths)),
+            "flash_launches": dict(fa.launches),
+            "peak_memory_bytes": int(torch.cuda.max_memory_allocated())}, \
+            calls
+
+    # ---- S3D: rolled stage 3 == rolled stage 0 at dp 2 ---------------------
+    cfg = pipe_config(SCAN_DROPOUT)
+    L = cfg.num_layers
+    tokens = gpt_tokens(cfg, PIPE_BATCH, SCAN_STEPS, seed=0)
+    out = {"rank": rank, "s3d": {}}
+    kept = {}
+    for stage in (0, 3):
+        # f32: under AMP a bf16 weight gradient's dp average is rounded back
+        # to bf16 by stage 0's bucket sync and kept in f32 by the
+        # reduce-scatter of stages >= 1, so only f32 holds stage 3 to stage
+        # 0 bit for bit at dp > 1
+        main, start, loss = build_scan(cfg, stage=stage, amp=False)
+        scope = Scope()
+        Executor("cuda").run(start, scope=scope)
+        _, row, calls = steps(main, scope, loss, tokens, SCAN_STEPS)
+        want = scan_bucket_plan(main, world)
+        for s, c in enumerate(calls):
+            if c != want:
+                fail(f"scan rank {rank} S3D stage {stage} step {s}: "
+                     f"collectives {c}, the plan says {want}")
+        if any(row["flash_launches"][k] != L * SCAN_STEPS
+               for k in fa.KERNEL_NAMES):
+            fail(f"scan rank {rank} S3D stage {stage}: flash launches "
+                 f"{row['flash_launches']}, expected {L} a step")
+        buckets = zero.zero_buckets(main)
+        stacked = [b for b in buckets if b["layout"] == "stacked"]
+        if stage == 3:
+            shard = [L * b["padded"] // world if b["layout"] == "stacked"
+                     else b["padded"] // world for b in buckets]
+            if row["b8_launches"] != len(buckets) * SCAN_STEPS \
+                    or row["b8_widths"] != sorted(set(shard)):
+                fail(f"scan rank {rank} S3D stage 3: {row['b8_launches']} "
+                     f"B8 launches at widths {row['b8_widths']}, expected "
+                     f"{len(buckets)} a step at {sorted(set(shard))}")
+            if not stacked:
+                fail("S3D: no stacked bucket at stage 3")
+        sentinel.check(main, scope, SCAN_STEPS)
+        row.update({
+            "plan": want, "stacked_buckets": len(stacked),
+            "buckets": len(buckets),
+            "state_bytes": dp_state_bytes(torch, main, scope),
+            "state_bytes_plan": zero.optimizer_state_bytes(
+                main, world)["state_bytes_per_device"],
+            "param_bytes": int(sum(
+                t.numel() * t.element_size()
+                for n in {b["flat_param"] for b in buckets
+                          if b.get("flat_param")}
+                | {p.name for p in main.all_parameters() if p.persistable}
+                if isinstance(t := scope.find(n), torch.Tensor))),
+            "digest": sentinel.last_digests.get(rank)})
+        kept[stage] = params_by_name(torch, main, scope, host=True,
+                                     full=zero.gathered_shards(main, scope))
+        out["s3d"][str(stage)] = row
+        log(f"scan rank {rank} S3D stage {stage}: losses {row['losses']}, "
+            f"step ms {[round(m, 1) for m in row['step_ms']]}, calls "
+            f"{row['calls_per_step']}, B8 {row['b8_launches']}, state "
+            f"{row['state_bytes']} B, params {row['param_bytes']} B")
+        del main, start, loss, scope
+    a, b = out["s3d"]["0"], out["s3d"]["3"]
+    diff = params_differ(torch, kept[3], kept[0])
+    if a["losses"] != b["losses"] or diff:
+        fail(f"scan rank {rank} S3D: stage 3 differs from stage 0 (losses "
+             f"{b['losses']} vs {a['losses']}; parameters {diff[:5]})")
+    out["s3d"]["bit_identical"] = True
+    out["s3d"]["parameters_compared"] = len(kept[0])
+    del kept
+    release(torch)
+
+    # ---- DP: dp 2 x pp 2, then the planted fault --------------------------
+    cfg0 = pipe_config(0.0, pp=2)
+    tokens = gpt_tokens(cfg0, PIPE_BATCH, SCAN_STEPS, seed=0)
+    out["dp"] = {}
+    real_average = pipeline._PipelineBlock._dp_average
+    for arm in ("sound", "fault"):
+        if arm == "fault":
+            pipeline._PipelineBlock._dp_average = \
+                lambda self, env, dp: None
+        main, start, loss = build_scan(cfg0, rolled=False, micro=SCAN_MICRO,
+                                       pp_devices=SCAN_PP_DEVICES)
+        scope = Scope()
+        Executor("cuda").run(start, scope=scope)
+        exe, row, calls = steps(main, scope, loss, tokens, SCAN_STEPS)
+        pb, = exe._pipelines.values()
+        row.update({"num_stages": pb.num_stages,
+                    "dp_collectives_per_step": pb.collectives_per_step,
+                    "last_max_live_envs": pb.last_max_live_envs})
+        try:
+            sentinel.check(main, scope, SCAN_STEPS)
+            row["ranks_agree"] = True
+        except ReplicaDivergenceError as e:
+            row["ranks_agree"] = False
+            row["divergence"] = str(e)[:300]
+        if rank == 0:
+            torch.save(params_by_name(torch, main, scope, host=True),
+                       os.path.join(out_dir, f"dp_{arm}_params.pt"))
+        out["dp"][arm] = row
+        log(f"scan rank {rank} DP {arm}: losses {row['losses']}, step ms "
+            f"{[round(m, 1) for m in row['step_ms']]}, calls "
+            f"{row['calls_per_step']}, ranks agree {row['ranks_agree']}")
+        del exe, pb, main, start, loss, scope
+        release(torch)
+    pipeline._PipelineBlock._dp_average = real_average
+    sound = out["dp"]["sound"]
+    if not sound["ranks_agree"] or sound["num_stages"] != 2 \
+            or sound["dp_collectives_per_step"] != 1 \
+            or sound["calls_per_step"] != {"all_reduce.calls": 2}:
+        fail(f"scan rank {rank} DP: {sound}")
+    if any(sound["flash_launches"][k] != L * SCAN_MICRO * SCAN_STEPS
+           for k in fa.KERNEL_NAMES):
+        fail(f"scan rank {rank} DP: flash launches "
+             f"{sound['flash_launches']}")
+    zk.launch = spied
+    host.close()
+    with open(os.path.join(out_dir, f"scan_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    parallel.destroy()
+    return 0
+
+
+def check_b8_stacked(torch, zk, shape):
+    """B8 (adam, as the rolled arms run it) on a 2-D contiguous `shape`
+    bucket against its plain version bit for bit, timed beside the plain
+    version, the bytes bound and torch's _fused_adam_ on the same
+    tensors."""
+    attrs = ZERO_ARMS[3][3]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def fresh():
+        ins = {s: [torch.randn(shape, generator=gen, device="cuda")]
+               for s in ("Param", "Grad", "Moment1", "Moment2")}
+        ins["Moment2"][0].abs_()
+        ins.update({"LearningRate": [torch.tensor([1e-3], device="cuda")],
+                    "Beta1Pow": [torch.tensor([0.9 ** 3], device="cuda")],
+                    "Beta2Pow": [torch.tensor([0.999 ** 3], device="cuda")]})
+        return ins
+
+    kin = fresh()
+    pin = {s: [v[0].clone()] for s, v in kin.items()}
+    n0 = zk.launches["zero_adam"]
+    got = zk.fused_flat_update("adam", kin, attrs)
+    want = zk.fused_flat_update_plain("adam", pin, attrs)
+    torch.cuda.synchronize()
+    if zk.launches["zero_adam"] != n0 + 1:
+        fail(f"zero_adam on {shape}: the wrapper did not launch B8")
+    bad = [s for s in got if not torch.equal(got[s][0], want[s][0])]
+    if bad:
+        fail(f"zero_adam on the stacked bucket {shape}: {bad} differ from "
+             f"the plain version")
+    n = shape[0] * shape[1]
+    lib = zero_library_call(torch, "adam", "adam", kin)
+    row = {"shape": list(shape), "n": n, "bitwise": True,
+           "max_abs_err": 0.0,
+           "ms": cuda_ms(torch, launch_alone(torch, zk, kin, attrs, "adam")),
+           "wrapper_ms": cuda_ms(torch, lambda: zk.fused_flat_update(
+               "adam", kin, attrs)),
+           "plain_ms": cuda_ms(torch, lambda: zk.fused_flat_update_plain(
+               "adam", kin, attrs)),
+           "bound_ms": n * ZERO_BYTES_PER_ELEMENT["zero_adam"]
+           / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes",
+           "library_ms": None if lib is None else cuda_ms(torch, lib)}
+    log(f"kernel zero_adam adam on the stacked {list(shape)}: bit for bit; "
+        f"{row['ms']:.4f} ms alone, {row['wrapper_ms']:.4f} through the "
+        f"wrapper, plain {row['plain_ms']:.4f}, bytes bound "
+        f"{row['bound_ms']:.4f}, torch fused {row['library_ms']}")
+    del kin, pin, got, want
+    torch.cuda.empty_cache()
+    return row
+
+
+def scan_arm_alone(torch, fa, zk, build, toks, on_step=None):
+    """One arm of phase 12 alone on the card: build() -> (main, startup,
+    loss), the startup program, SCAN_STEPS gated eager steps over `toks`
+    (`on_step(main, scope)` after each), host copies of the start and end
+    parameters (`params_by_name`), then SCAN_TIMED timed steps and one
+    profiled; the arm's scope is freed before it returns, so each arm's
+    peak memory is its own. Returns (row, start params, end params, (main,
+    startup, loss))."""
+    from paddle_tpu_torch.parallel import zero
+    main, start, loss = build()
+    scope = pipe_start(torch, start)
+    p0 = params_by_name(torch, main, scope, host=True)
+    row, exe = pipe_eager(torch, fa, zk, main, scope, loss, toks,
+                          on_step=None if on_step is None
+                          else lambda: on_step(main, scope))
+    p1 = params_by_name(torch, main, scope, host=True)
+    buckets = zero.zero_buckets(main)
+    row.update({
+        "ops": len(main.global_block().ops),
+        "stacked_buckets": sum(b["layout"] == "stacked" for b in buckets),
+        "zero_buckets": len(buckets),
+        "optimizer_state_bytes": zero.optimizer_state_bytes(main)})
+    row["timed_step_ms"] = time_steps(torch, exe, main, scope, loss, toks,
+                                      SCAN_TIMED)
+    row["step_ms_p50"] = float(np.median(row["timed_step_ms"]))
+    row["profile"] = device_profile(
+        torch, lambda: time_steps(torch, exe, main, scope, loss, toks,
+                                  1)[0] / 1e3, top=5)
+    del exe, scope
+    release(torch)
+    return row, p0, p1, (main, start, loss)
+
+
+def scan_arm_s(torch, fa, zk):
+    """Arms S and S3: GPT-2 small rolled (`layer_scan`) beside unrolled at
+    dropout 0.1, stage 0, 3 eager steps each from the startup program's
+    weights, bit for bit; the rolled program at stage 3 beside it, bit for
+    bit; each arm alone on the card, timed; then run_steps(10) captured ==
+    10 Executor.run calls."""
+    cfg = pipe_config(SCAN_DROPOUT)
+    L = cfg.num_layers
+    toks = gpt_tokens(cfg, PIPE_BATCH, SCAN_STEPS, seed=0)
+    per_step = {n: L for n in fa.KERNEL_NAMES}
+    arms, starts, ends, progs = {}, {}, {}, {}
+    for name, rolled, stage in (("unrolled", False, 0), ("rolled", True, 0),
+                                ("rolled_stage3", True, 3)):
+        arms[name], starts[name], ends[name], progs[name] = scan_arm_alone(
+            torch, fa, zk, lambda: build_scan(cfg, stage=stage,
+                                              rolled=rolled), toks)
+        want = dict(per_step, zero_adam=arms[name]["zero_buckets"])
+        expect_launches(arms[name]["launches"],
+                        {n: c * SCAN_STEPS for n, c in want.items()},
+                        f"arm S {name}")
+    base, rolled, s3 = arms["unrolled"], arms["rolled"], arms["rolled_stage3"]
+    diff0 = params_differ(torch, starts["rolled"], starts["unrolled"])
+    diff = params_differ(torch, ends["rolled"], ends["unrolled"])
+    log(f"layer scan S: losses rolled {rolled['losses']} vs unrolled "
+        f"{base['losses']}; {len(ends['rolled'])} parameters, {len(diff)} "
+        f"differ ({len(diff0)} at the start); ops {rolled['ops']} vs "
+        f"{base['ops']}")
+    if rolled["losses"] != base["losses"] or diff or diff0:
+        fail(f"arm S: rolled != unrolled (losses {rolled['losses']} vs "
+             f"{base['losses']}; parameters {diff[:5]}, at the start "
+             f"{diff0[:5]})")
+    diff3 = params_differ(torch, ends["rolled_stage3"], ends["rolled"])
+    log(f"layer scan S3: losses {s3['losses']}; {len(diff3)} parameters "
+        f"differ from rolled stage 0; {s3['stacked_buckets']} stacked of "
+        f"{s3['zero_buckets']} buckets; B8 {s3['launches']['zero_adam']} "
+        f"in {SCAN_STEPS} steps; state {s3['optimizer_state_bytes']}")
+    if s3["losses"] != rolled["losses"] or diff3:
+        fail(f"arm S3: rolled stage 3 != rolled stage 0 (losses "
+             f"{s3['losses']} vs {rolled['losses']}; parameters "
+             f"{diff3[:5]})")
+    del starts, ends
+    interleaved = scan_interleaved(torch, progs, toks)
+    main, start, loss = progs["rolled"]
+    del progs
+    ctoks = gpt_tokens(cfg, PIPE_BATCH, SCAN_CAPTURED, seed=1)
+    capture = pipe_captured_gate(torch, fa, zk, main, start, loss, ctoks,
+                                 dict(per_step, zero_adam=0), "arm S")
+    log(f"layer scan S: step ms p50 rolled {rolled['step_ms_p50']:.1f} vs "
+        f"unrolled {base['step_ms_p50']:.1f}, stage 3 "
+        f"{s3['step_ms_p50']:.1f}; in turns {interleaved['step_ms_p50']}; "
+        f"captured "
+        f"{capture['captured_step_ms']}; peak {rolled['peak_memory_bytes']}"
+        f" vs {base['peak_memory_bytes']} B (stage 3 "
+        f"{s3['peak_memory_bytes']}); busy {busy(rolled)} vs {busy(base)}")
+    del main, start, loss
+    release(torch)
+    return {"unrolled": base, "rolled": rolled, "bit_identical": True,
+            "capture_gate": capture, "stage3": s3,
+            "stage3_bit_identical": True, "in_turns": interleaved}
+
+
+def scan_interleaved(torch, progs, toks, rounds=2, per_turn=2):
+    """The eager step of arm S's three programs timed in turns within one
+    window (unrolled, rolled, stage 3, stage 3, rolled, unrolled, `rounds`
+    times, `per_turn` steps a turn), each from its own startup state, so
+    that host noise falls on all three alike. Returns each program's step
+    ms and their p50."""
+    from paddle_tpu_torch.framework import Executor
+    runs = {}
+    for name, (main, start, loss) in progs.items():
+        runs[name] = (Executor("cuda"), main, pipe_start(torch, start), loss)
+    order = list(runs) + list(reversed(list(runs)))
+    ms = {name: [] for name in runs}
+    for _ in range(rounds):
+        for name in order:
+            exe, main, scope, loss = runs[name]
+            ms[name] += time_steps(torch, exe, main, scope, loss, toks,
+                                   per_turn)
+    del runs
+    release(torch)
+    return {"order": order, "rounds": rounds, "steps_a_turn": per_turn,
+            "step_ms": ms,
+            "step_ms_p50": {n: float(np.median(v)) for n, v in ms.items()}}
+
+
+def scan_arm_sr(torch, fa, zk):
+    """Arm SR: fleet recompute with layer scan at ZeRO stage 1, beside PR
+    13's arm R (recompute at the 12 boundaries, unrolled) at dropout 0, 3
+    eager steps each from the startup program's weights, each alone on
+    the card: losses within 1e-4, the parameters' change within
+    PIPE_CHANGE_RTOL of arm R's, a planted fault (the last update lost)
+    above it; B1 twice a layer and step."""
+    cfg = pipe_config(0.0)
+    L = cfg.num_layers
+    toks = gpt_tokens(cfg, PIPE_BATCH, SCAN_STEPS, seed=0)
+    arm_r, p0, ref, (main_r, _, _) = scan_arm_alone(
+        torch, fa, zk, lambda: build_pipe(cfg, recompute=True, stage=1),
+        toks)
+    snaps, seen = {}, []
+
+    def snap(main, scope):
+        seen.append(1)
+        if len(seen) == SCAN_STEPS - 1:
+            snaps["lost_update"] = params_by_name(torch, main, scope,
+                                                  host=True)
+    arm_s, _, got, _ = scan_arm_alone(
+        torch, fa, zk, lambda: build_scan(cfg, stage=1, recompute=True),
+        toks, on_step=snap)
+    n_buckets = arm_s["zero_buckets"]
+    expect_launches(arm_s["launches"], {
+        "flash_fwd": 2 * L * SCAN_STEPS, "flash_bwd_dq": L * SCAN_STEPS,
+        "flash_bwd_dkdv": L * SCAN_STEPS,
+        "zero_adam": n_buckets * SCAN_STEPS}, "arm SR")
+    loss_rel = max(abs(x - y) / abs(y) for x, y in
+                   zip(arm_s["losses"], arm_r["losses"]))
+    gate = param_gate_readings(torch, main_r, got, ref, p0)
+    faults = {k: param_gate_readings(torch, main_r, v, ref, p0)["change_rel"]
+              for k, v in snaps.items()}
+    log(f"layer scan SR: losses {arm_s['losses']} vs arm R "
+        f"{arm_r['losses']}, rel {loss_rel:.3e}; change-rel "
+        f"{gate['change_rel']:.3e} (limit {PIPE_CHANGE_RTOL}), planted "
+        f"{faults}; step ms p50 {arm_s['step_ms_p50']:.1f} vs R "
+        f"{arm_r['step_ms_p50']:.1f}; peak {arm_s['peak_memory_bytes']} vs "
+        f"R {arm_r['peak_memory_bytes']} B; launches {arm_s['launches']}")
+    if not (loss_rel <= PIPE_RTOL["recompute"]
+            and gate["change_rel"] <= PIPE_CHANGE_RTOL):
+        fail(f"arm SR differs from arm R: losses {loss_rel:.3e}, the "
+             f"parameters' change {gate['change_rel']:.3e}")
+    blind = {k: v for k, v in faults.items() if not v > PIPE_CHANGE_RTOL}
+    if blind:
+        fail(f"arm SR: the change gate cannot see planted faults {blind}")
+    del got, ref, p0, snaps
+    release(torch)
+    return {"rolled_recompute": arm_s, "arm_r": arm_r,
+            "loss_max_rel": loss_rel, **gate,
+            "planted_faults_change_rel": faults, "zero_buckets": n_buckets}
+
+
+def scan_arms_dp(torch, fa, zk, card):
+    """Arms S3D and DP: the dp-2 gang through the port's launcher (both
+    ranks on cuda:0 under gloo), then one process's GPipe at batch 32 from
+    the same weights beside arm DP, and B8 at the stacked shard width."""
+    import tempfile
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_scan_")
+    env = dict(os.environ, PADDLE_DIST_BACKEND="gloo",
+               PADDLE_DIST_DEVICE="cuda:0", CHIP_SMOKE_DP_OUT=out_dir)
+    t0 = time.perf_counter()
+    rc, text = launch_gang(["--scan-worker"], env, 400, "scan_gang.log")
+    gang_s = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"the phase-12 gang failed (rc {rc}): {text[-3000:]}")
+    ranks = []
+    for r in range(DP_WORLD):
+        with open(os.path.join(out_dir, f"scan_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    for key in ("0", "3"):
+        a, b = ranks[0]["s3d"][key], ranks[1]["s3d"][key]
+        if a["losses"] != b["losses"] or a["digest"] != b["digest"]:
+            fail(f"S3D stage {key}: rank 0 and rank 1 differ")
+    s0, s3 = ranks[0]["s3d"]["0"], ranks[0]["s3d"]["3"]
+    halves = {"state": s3["state_bytes"] / s0["state_bytes"],
+              "params": s3["param_bytes"] / s0["param_bytes"]}
+    if not all(0.45 < v < 0.55 for v in halves.values()):
+        fail(f"S3D: a rank's stage-3 bytes over stage 0's {halves}, not "
+             f"about a half")
+    sound, fault = ranks[0]["dp"]["sound"], ranks[0]["dp"]["fault"]
+    if sound["losses"] != ranks[1]["dp"]["sound"]["losses"]:
+        fail("DP: rank 0 and rank 1 fetch different losses")
+
+    # one process's GPipe at batch 32 from the same weights
+    cfg0 = pipe_config(0.0, pp=2)
+    toks = gpt_tokens(cfg0, PIPE_BATCH, SCAN_STEPS, seed=0)
+    main, start, loss = build_scan(cfg0, rolled=False, micro=SCAN_MICRO)
+    scope = pipe_start(torch, start)
+    p0 = params_by_name(torch, main, scope, host=True)
+    one, _ = pipe_eager(torch, fa, zk, main, scope, loss, toks)
+    ref = params_by_name(torch, main, scope)
+    loss_rel = max(abs(x - y) / abs(y) for x, y in
+                   zip(sound["losses"], one["losses"]))
+    got = {arm: torch.load(os.path.join(out_dir, f"dp_{arm}_params.pt"))
+           for arm in ("sound", "fault")}
+    gate = param_gate_readings(torch, main, got["sound"], ref, p0)
+    fault_reading = param_gate_readings(torch, main, got["fault"], ref,
+                                        p0)["change_rel"]
+    log(f"layer scan DP: dp 2 x pp 2 losses {sound['losses']} vs one "
+        f"process's GPipe {one['losses']}, rel {loss_rel:.3e}; change-rel "
+        f"{gate['change_rel']:.3e} (limit {PIPE_CHANGE_RTOL}); the planted "
+        f"fault (no dp average) {fault_reading:.3e}, ranks agree "
+        f"{fault['ranks_agree']}; gang {gang_s:.1f} s")
+    if not (loss_rel <= PIPE_RTOL["gpipe"]
+            and gate["change_rel"] <= PIPE_CHANGE_RTOL):
+        fail(f"arm DP differs from one process: losses {loss_rel:.3e}, the "
+             f"parameters' change {gate['change_rel']:.3e}")
+    if not fault_reading > PIPE_CHANGE_RTOL:
+        fail(f"arm DP: the change gate cannot see the skipped dp average "
+             f"({fault_reading:.3e})")
+    del main, start, loss, scope, p0, ref, got
+    release(torch)
+    shutil_rm(out_dir)
+    shard = check_b8_stacked(torch, zk, SCAN_B8_SHAPES[1])
+    return {"ranks": ranks, "gang_s": gang_s,
+            "launch": "python -m paddle_tpu_torch.distributed.launch "
+                      "--nproc_per_node 2 chip_smoke.py --scan-worker, "
+                      "PADDLE_DIST_BACKEND=gloo PADDLE_DIST_DEVICE=cuda:0",
+            "s3d_bytes_stage3_over_stage0": halves,
+            "dp_one_process_gpipe": one, "dp_loss_max_rel": loss_rel,
+            "dp_change_rel": gate["change_rel"],
+            "dp_change_rel_top": gate["change_rel_top"],
+            "dp_planted_fault_change_rel": fault_reading,
+            "b8_stacked_shard": shard}
+
+
+def shutil_rm(path):
+    import shutil
+    shutil.rmtree(path, ignore_errors=True)
+
+
+def train_gpt_rolled(torch, fa, zk, card):
+    """Phase 12: arms S, S3, SR, S3D and DP, and B8 on the stacked
+    buckets."""
+    t0 = time.perf_counter()
+    row = {"card": card,
+           "config": "GPTConfig() at S 512, batch 32, fleet AMP bf16, "
+                     "Adam(1e-4), weights from the startup program, tokens "
+                     "from numpy seed 0; dropout 0.1 in arms S, S3 and "
+                     "S3D, 0 in SR and DP; arm S3D in f32 (AMP off)"}
+    row["b8_stacked_whole"] = check_b8_stacked(torch, zk, SCAN_B8_SHAPES[0])
+    row.update(scan_arm_s(torch, fa, zk))
+    row["remat"] = scan_arm_sr(torch, fa, zk)
+    row["dp"] = scan_arms_dp(torch, fa, zk, card)
+    row["phase_s"] = time.perf_counter() - t0
+    return row
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4859,6 +5525,26 @@ def main():
         for name in fa.KERNEL_NAMES + ("zero_adam",):
             rows[name]["launches_by_path"][path] = counts[name]
 
+    # ---- rolled layers: layer scan, its stage-3 buckets, dp x pp ---------
+    release(torch)
+    scan_row = train_gpt_rolled(torch, fa, zk, card)
+    dp0 = scan_row["dp"]["ranks"][0]
+    arms = {"layer_scan_S_rolled_3_steps": scan_row["rolled"]["launches"],
+            "layer_scan_SR_remat_stage1_3_steps":
+                scan_row["remat"]["rolled_recompute"]["launches"],
+            "layer_scan_S3_stage3_3_steps": scan_row["stage3"]["launches"],
+            "layer_scan_S3D_dp2_stage3_rank0_3_steps": dict(
+                dp0["s3d"]["3"]["flash_launches"],
+                zero_adam=dp0["s3d"]["3"]["b8_launches"]),
+            "layer_scan_DP_dp2_pp2_rank0_3_steps": dict(
+                dp0["dp"]["sound"]["flash_launches"],
+                zero_adam=dp0["dp"]["sound"]["b8_launches"])}
+    for path, counts in arms.items():
+        for name in fa.KERNEL_NAMES + ("zero_adam",):
+            rows[name]["launches_by_path"][path] = counts[name]
+    rows["zero_adam"]["stacked"] = [scan_row.pop("b8_stacked_whole"),
+                                    scan_row["dp"].pop("b8_stacked_shard")]
+
     for row in rows.values():
         if not row["launches"]:
             fail(f"{row['name']} was never launched on its main path run")
@@ -4872,6 +5558,7 @@ def main():
     print(json.dumps({"data_path": data_row}), flush=True)
     print(json.dumps({"data_parallel": dp_row}), flush=True)
     print(json.dumps({"pipeline": pipe_row}), flush=True)
+    print(json.dumps({"layer_scan": scan_row}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -4883,6 +5570,8 @@ if __name__ == "__main__":
         sys.exit(dp_worker())
     if "--dp-nccl-refusal" in sys.argv:
         sys.exit(dp_nccl_refusal())
+    if "--scan-worker" in sys.argv:
+        sys.exit(scan_worker())
     adopt_orphans()
     try:
         rc = main()

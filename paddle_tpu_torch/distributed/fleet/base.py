@@ -11,9 +11,13 @@ process (parallel/mesh.py): `pipeline_configs["stage_devices"]`, a key of
 the port's, or `cuda:0` ... `cuda:P-1` without it. `distributed_optimizer`
 given a strategy rebuilds the mesh from it, as the reference does
 (`base.py:209-212`). `minimize` applies the strategy in the
-reference's order (`base.py:346-430`): AMP marks the program, recompute
-fuses the forward into `__segment__` ops at
-`recompute_configs["checkpoints"]`, gradient merge wraps the optimizer
+reference's order (`base.py:346-430`): AMP marks the program, layer scan
+(`layer_scan` or FLAGS_layer_scan) rolls the per-layer segments ending at
+`layer_scan_configs["segments"]` (default `loss._layer_checkpoints`)
+into one `__layer_scan__` op with `remat` = `recompute`
+(parallel/transforms.py), recompute fuses the forward into `__segment__`
+ops at `recompute_configs["checkpoints"]` less the boundaries the roll
+consumed, gradient merge wraps the optimizer
 (`gradient_merge_configs` `k_steps`, `avg`), and pipeline wraps it in
 PipelineOptimizer (`pipeline_configs["accumulate_steps"]` microbatches);
 then it delegates to the optimizer, applies gradient bucketing and the
@@ -30,13 +34,16 @@ per bucket, ZeRO state sharded over the ranks): a dp > 1 program with
 local gradients.
 
 Honoured: `amp`, `amp_configs`, `recompute`, `recompute_configs`,
-`gradient_merge`, `gradient_merge_configs`, `pipeline`,
-`pipeline_configs`, `pipeline_parallel_degree`, `fuse_grad_size_in_mb`,
-`sharding`, `sharding_stage`, `sharding_configs` (`stage`,
-`fuse_grad_size_in_mb`) and `FLAGS_zero_stage`. Any other strategy field
-set away from its default raises: tensor, sequence and expert
-parallelism and layer scan are ROADMAP item 16; LocalSGD is what is left
-of item 15.1; the parameter server and `a_sync` are item 19.2.
+`layer_scan`, `layer_scan_configs`, `gradient_merge`,
+`gradient_merge_configs`, `pipeline`, `pipeline_configs`,
+`pipeline_parallel_degree`, `fuse_grad_size_in_mb`, `sharding`,
+`sharding_stage`, `sharding_configs` (`stage`, `fuse_grad_size_in_mb`),
+`FLAGS_layer_scan` and `FLAGS_zero_stage`. dp and pp compose: each dp
+rank pipelines its batch and the pipeline runner averages the gradients
+over the ranks (parallel/pipeline.py). Any other strategy field set away
+from its default raises: tensor, sequence and expert parallelism are
+ROADMAP item 16; LocalSGD is what is left of item 15.1; the parameter
+server and `a_sync` are item 19.2.
 """
 from __future__ import annotations
 
@@ -67,10 +74,10 @@ _DEFAULTS = {
     "sparse_cache_rows": 0,
 }
 _HONOURED = {"amp", "amp_configs", "recompute", "recompute_configs",
-             "gradient_merge", "gradient_merge_configs", "pipeline",
-             "pipeline_configs", "pipeline_parallel_degree",
-             "fuse_grad_size_in_mb", "sharding", "sharding_stage",
-             "sharding_configs"}
+             "layer_scan", "layer_scan_configs", "gradient_merge",
+             "gradient_merge_configs", "pipeline", "pipeline_configs",
+             "pipeline_parallel_degree", "fuse_grad_size_in_mb", "sharding",
+             "sharding_stage", "sharding_configs"}
 # the ROADMAP item that owns each field the port does not take yet
 _OWNER = {"a_sync": "19.2", "a_sync_configs": "19.2",
           "sparse_cache_rows": "19.2", "localsgd": "15.1",
@@ -251,11 +258,28 @@ class DistributedOptimizer:
                                   if s.amp_configs.get("use_pure_bf16", True)
                                   else "float16")
             program.bump_version()
+        # layer scan runs before recompute: the roll consumes the interior
+        # layer boundaries, and remat becomes the scan body's
+        rolled = None
+        from ...flags import flag
+        if s.layer_scan or flag("FLAGS_layer_scan"):
+            segs = ((s.layer_scan_configs or {}).get("segments")
+                    or getattr(loss, "_layer_checkpoints", None) or [])
+            if segs:
+                from ...framework.program import default_startup_program
+                from ...parallel.transforms import apply_layer_scan
+                rolled = apply_layer_scan(
+                    program, segs, remat=bool(s.recompute),
+                    startup_program=startup_program
+                    or default_startup_program())
         if s.recompute and s.recompute_configs.get("checkpoints"):
             from ...parallel.transforms import apply_recompute
-            apply_recompute(program, [
-                c.name if hasattr(c, "name") else str(c)
-                for c in s.recompute_configs["checkpoints"]])
+            consumed = set(rolled or ())
+            ck = [c.name if hasattr(c, "name") else str(c)
+                  for c in s.recompute_configs["checkpoints"]]
+            ck = [c for c in ck if c not in consumed]
+            if ck:
+                apply_recompute(program, ck)
         gm_k = int(s.gradient_merge_configs.get("k_steps", 1)) \
             if s.gradient_merge else 1
         if gm_k > 1:
@@ -269,7 +293,6 @@ class DistributedOptimizer:
         result = opt.minimize(loss, startup_program, parameter_list,
                               no_grad_set)
 
-        from ...flags import flag
         zero_stage = int(s.sharding_stage or 0)
         if s.sharding:
             zero_stage = max(zero_stage,

@@ -35,9 +35,9 @@ Each rank's device and backend are explicit:
 * The group's timeout is FLAGS_gloo_timeout_ms: a rank that cannot reach
   its group raises within it.
 
-`tp`/`sp`/`ep` > 1, and pp > 1 at dp > 1, raise in
-`parallel.mesh.build_mesh` (ROADMAP item 16); pp stages live inside one
-process.
+`tp`/`sp`/`ep` > 1 raise in `parallel.mesh.build_mesh` (ROADMAP item
+16); pp stages live inside one process, and at dp > 1 each rank has its
+own.
 """
 from __future__ import annotations
 
@@ -167,6 +167,21 @@ def check_devices_distinct(identities, backend_name: str) -> None:
         seen[ident] = rank
 
 
+def exchange_identities(store, rank: int, world: int, ident: str):
+    """Every rank's device identity, in rank order, through the store.
+    Rank 0, which hosts a TCPStore, leaves last: it waits until every rank
+    has read every identity, so a rank that raises at once (two ranks on
+    one GPU under nccl) cannot close the store under a rank still reading
+    from it."""
+    store.set(f"paddle_dist/device/{rank}", ident)
+    idents = [store.get(f"paddle_dist/device/{r}").decode()
+              for r in range(world)]
+    store.set(f"paddle_dist/device_read/{rank}", "1")
+    if rank == 0:
+        store.wait([f"paddle_dist/device_read/{r}" for r in range(world)])
+    return idents
+
+
 def init_parallel_env(backend: Optional[str] = None, device=None,
                       timeout_s: Optional[float] = None) -> ParallelEnv:
     """Build this process's default group from the env contract (module
@@ -197,9 +212,7 @@ def init_parallel_env(backend: Optional[str] = None, device=None,
     timeout_s = _timeout_s() if timeout_s is None else float(timeout_s)
     store = _make_store(rank, world, timeout_s)
     store.set_timeout(datetime.timedelta(seconds=timeout_s))
-    store.set(f"paddle_dist/device/{rank}", _device_identity(dev))
-    idents = [store.get(f"paddle_dist/device/{r}").decode()
-              for r in range(world)]
+    idents = exchange_identities(store, rank, world, _device_identity(dev))
     check_devices_distinct(idents, name)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)

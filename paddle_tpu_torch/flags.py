@@ -18,6 +18,11 @@ from typing import Any, Dict
 _DEFS: Dict[str, tuple] = {
     # (default, help)
     # --- executor (framework/executor.py) ----------------------------------
+    "FLAGS_layer_scan": (False, "roll isomorphic per-layer segments into "
+                                "one __layer_scan__ op at fleet minimize "
+                                "time (parallel/transforms.py "
+                                "apply_layer_scan; the same switch as "
+                                "DistributedStrategy.layer_scan)"),
     "FLAGS_async_dispatch": (False, "Executor.run/run_steps default to "
                              "sync=False: fetches come back as lazy "
                              "FetchHandles that materialise to numpy only "

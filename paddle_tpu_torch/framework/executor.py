@@ -99,7 +99,7 @@ rank order (an all-gather), anything else as this rank's value. A
 program the reference's planner declines raises here, naming the cause,
 and counts it under `executor.zero_manual_fallbacks.<cause>`: a
 cross-batch op (the port's copy of the reference's list, zero.py
-`CROSS_BATCH_OPS`), SelectedRows gradients, a microbatch program. Across
+`CROSS_BATCH_OPS`), SelectedRows gradients. Across
 processes there is no GSPMD path to fall back on, and a local batch
 statistic would be wrong. A program with optimizer ops but no gradient
 buckets raises at dp > 1 too: it would train on local gradients.
@@ -124,10 +124,19 @@ fetches are the microbatch mean.
 `run_steps` refuses both, as the reference does; `train_from_dataset`
 runs them a `run()` a batch. A recompute segment (`__segment__` with
 `remat`, parallel/transforms.py) is not paired with its grad op, which
-re-runs it.
+re-runs it. At dp > 1 (dp x pp) each rank pipelines its local batch and
+the runner averages the gradients over the ranks before the optimizer
+(parallel/pipeline.py); the fetches follow the dp plan above.
 
-Not ported (ROADMAP): the PS path (item 19.2), LocalSGD (item 15.1) and
-dp x pp (item 16).
+A rolled program (parallel/transforms.py `apply_layer_scan`) reads its
+per-layer weights stacked under `@LAYERS` names; `_prepare` restacks the
+per-layer entries a load of an unrolled checkpoint left in the scope
+(`_ensure_stacked_params`, before the ZeRO adoption), copying into the
+bound `@LAYERS` tensor. The `__layer_scan__` op pairs with its grad op
+like any other: its own `forward_vjp` keeps the per-layer pullbacks (or,
+with `remat`, the layer inputs) until the reverse loop runs.
+
+Not ported (ROADMAP): the PS path (item 19.2) and LocalSGD (item 15.1).
 """
 from __future__ import annotations
 
@@ -162,10 +171,14 @@ def _grad_plan(block) -> Dict[int, int]:
     """{forward op index: index of the __vjp__ op differentiating it}.
     A grad op pairs with the latest unpaired forward op of the same type,
     input names and attrs. A recompute segment (`__segment__` with
-    `remat`) is never paired: its grad op re-runs it."""
+    `remat`) is never paired: its grad op re-runs it. One holding a layer
+    scan is: the scan's own `remat` keeps its layer inputs only
+    (parallel/transforms.py)."""
+    from ..parallel.transforms import _holds_scan
     pending, plan = {}, {}
     for idx, op in enumerate(block.ops):
-        if op.type == "__segment__" and op.attrs.get("remat"):
+        if op.type == "__segment__" and op.attrs.get("remat") \
+                and not _holds_scan(op.attrs["sub_ops"]):
             continue
         if op.type == "__vjp__":
             a = op.attrs
@@ -527,12 +540,14 @@ class Executor:
 
     def _prepare(self, program, scope):
         """Per call, before the step: the host LR schedulers write into
-        this scope from now on, a restore's per-parameter ZeRO state is
-        packed into the flat buckets, and at dp > 1 the flat state is cut
-        to this rank's shard."""
+        this scope from now on, per-layer entries of a rolled program's
+        stacked parameters are restacked, a restore's per-parameter ZeRO
+        state is packed into the flat buckets, and at dp > 1 the flat
+        state is cut to this rank's shard."""
         from ..parallel.zero import adopt_unsharded_state, shard_flat_state
         for sched in getattr(program, "_lr_schedulers", ()):
             sched._attach_scope(scope)
+        _ensure_stacked_params(program, scope, self.device)
         adopt_unsharded_state(program, scope, self.device)
         shard_flat_state(program, scope)
 
@@ -552,43 +567,45 @@ class Executor:
         block = program.global_block()
         trains = any(op.attrs.get("op_role", 0) == OpRole.Optimize
                      for op in block.ops)
+        pipelined = _pipelined(program)
         if not trains:
-            dp = 1
-        elif getattr(program, "_microbatch_k", 0):
-            zero.count_fallback("pipeline")
-            raise errors.Unimplemented(
-                "a microbatch (pipeline) program at dp %d: pipelines with "
-                "data parallelism are ROADMAP item 16", world)
-        elif not getattr(program, "_grad_buckets", None) \
-                or int(getattr(program, "_dp", 1) or 1) != world:
+            self._dp_plans[key] = 1
+            return 1
+        if not pipelined and (
+                not getattr(program, "_grad_buckets", None)
+                or int(getattr(program, "_dp", 1) or 1) != world):
             raise errors.PreconditionNotMet(
                 "a training program in a group of %d ranks that fleet did "
                 "not minimize for them: call fleet.init() first and "
                 "minimize through fleet.distributed_optimizer with "
                 "fuse_grad_size_in_mb > 0, or every rank trains on its "
                 "local gradients", world)
-        else:
-            for b in program.blocks:
-                for op in b.ops:
-                    if op.type in zero.CROSS_BATCH_OPS:
-                        cause = zero.cross_batch_cause(op.type)
-                        zero.count_fallback(cause)
-                        raise errors.Unimplemented(
-                            "op %s couples examples across the batch "
-                            "(cause %s): at dp %d each rank would compute it "
-                            "over its local batch, and the port has no "
-                            "global-batch path to fall back on", op.type,
-                            cause, world, op=op.type)
-                for v in b.vars.values():
-                    if getattr(v, "_is_selected_rows", False):
-                        zero.count_fallback("selected_rows")
-                        raise errors.Unimplemented(
-                            "SelectedRows gradient %r at dp %d (ROADMAP item "
-                            "12)", v.name, world, var=v.name)
-            if any(int(b["padded"]) % world
-                   for b in zero.zero_buckets(program)):
-                zero.count_fallback("indivisible_padding")
-            dp = world
+        if pipelined and int(getattr(program, "_dp", 1) or 1) != world:
+            raise errors.PreconditionNotMet(
+                "a pipeline program in a group of %d ranks that fleet did "
+                "not minimize for them: call fleet.init() first and "
+                "minimize through fleet.distributed_optimizer", world)
+        for b in program.blocks:
+            for op in b.ops:
+                if op.type in zero.CROSS_BATCH_OPS:
+                    cause = zero.cross_batch_cause(op.type)
+                    zero.count_fallback(cause)
+                    raise errors.Unimplemented(
+                        "op %s couples examples across the batch (cause "
+                        "%s): at dp %d each rank would compute it over its "
+                        "local batch, and the port has no global-batch path "
+                        "to fall back on", op.type, cause, world,
+                        op=op.type)
+            for v in b.vars.values():
+                if getattr(v, "_is_selected_rows", False):
+                    zero.count_fallback("selected_rows")
+                    raise errors.Unimplemented(
+                        "SelectedRows gradient %r at dp %d (ROADMAP item "
+                        "12)", v.name, world, var=v.name)
+        if any(int(b["padded"]) % world
+               for b in zero.zero_buckets(program)):
+            zero.count_fallback("indivisible_padding")
+        dp = world
         self._dp_plans[key] = dp
         return dp
 
@@ -674,15 +691,16 @@ class Executor:
             if getattr(program, "_amp", False) else None
         block = program.global_block()
         plan = self._plan(program, use_cache)
-        pipe = self._pipeline(program, scope, fetch_names, plan)
-        if pipe is not None:
-            return pipe.step(env, scope, ctx, amp_dtype)
         from ..parallel.zero import current_manual_dp
         manual = current_manual_dp()
         local_batch = next((int(v.shape[0]) for v in env.values()
                             if v.dim() >= 1), None) if manual else None
-        _run_block(block, plan, env, scope, ctx, amp_dtype, strict)
-        fetches = _fetch_values(env, scope, fetch_names)
+        pipe = self._pipeline(program, scope, fetch_names, plan)
+        if pipe is not None:
+            fetches = pipe.step(env, scope, ctx, amp_dtype)
+        else:
+            _run_block(block, plan, env, scope, ctx, amp_dtype, strict)
+            fetches = _fetch_values(env, scope, fetch_names)
         if manual:
             fetches = _dp_fetches(block, fetch_names, fetches, local_batch,
                                   manual[1])
@@ -1067,6 +1085,35 @@ class Executor:
         self.stats["graph_replays"] += k
         _metrics.inc("executor.graph_replays", k)
         return out
+
+
+def _ensure_stacked_params(program, scope, device) -> None:
+    """Scope round trip of a rolled program (reference
+    framework/executor.py:658): when every per-layer entry of a stack is
+    in the scope (an unrolled checkpoint was loaded, or a startup program
+    that was not rolled ran), restack them under the `@LAYERS` name the
+    program reads and erase them. The stack is `copy_`'d into the scope's
+    `@LAYERS` tensor when it has one of that shape and dtype, so a
+    captured step bound to it stays valid; otherwise it is bound (on the
+    old tensor's device, else on `device`)."""
+    stacks = getattr(program, "_layer_stacks", None)
+    if not stacks:
+        return
+    for sname, parts in stacks.items():
+        if not parts or not all(scope.has(p) for p in parts):
+            continue
+        cur = scope.find_local(sname)
+        dev = cur.device if isinstance(cur, torch.Tensor) else device
+        with torch.no_grad():
+            stacked = torch.stack([torch.as_tensor(scope.find(p)).to(dev)
+                                   for p in parts])
+            if isinstance(cur, torch.Tensor) and cur.shape == stacked.shape \
+                    and cur.dtype == stacked.dtype:
+                cur.copy_(stacked)
+            else:
+                scope.set(sname, stacked)
+        for p in parts:
+            scope.erase(p)
 
 
 def _feed_shapes(feed) -> Dict[str, tuple]:

@@ -18,9 +18,11 @@ it (layers/learning_rate_scheduler.py).
 appended under it (reference :460); the pipeline runner
 (parallel/pipeline.py) partitions a program by it, and a `__vjp__` op
 carries its forward op's stage in `fwd_attrs`. A fused sub-graph op
-(`__segment__`, parallel/transforms.py) carries its ops' descs in its
-`sub_ops` attr: `to_desc` / `from_desc` carry them as they are, and
-`clone(for_test)` sets `is_test` in them too.
+(`__segment__`, `__layer_scan__`, parallel/transforms.py) carries its
+ops' descs in its `sub_ops` attr, and the layer scan its `layer_seeds`,
+`stacked_names`, `inv_names` and, at ZeRO stage 3, `zero3_flat`:
+`to_desc` / `from_desc` carry them as they are (JSON lists and dicts),
+and `clone(for_test)` sets `is_test` in the descs at every depth.
 
 Not ported: sub-blocks (control flow) and the dygraph switches.
 """

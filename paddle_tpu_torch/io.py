@@ -22,6 +22,13 @@ the next `run_steps` re-captures (counted in the executor's
 program packs per-parameter entries into the program's ZeRO flat buckets
 on the host first.
 
+A rolled program's stacked parameters (parallel/transforms.py
+`apply_layer_scan`) save and load as ordinary `<name>@LAYERS` [L, ...]
+persistables, at ZeRO stage 3 too (the `[L, padded]` bucket is split
+back into the stack). A checkpoint of the unrolled program loads into
+the rolled one: its per-layer entries land in the scope, and the next
+run restacks them (framework/executor.py `_ensure_stacked_params`).
+
 At dp > 1 (fleet over several processes, parallel/zero.py) a rank holds
 only its shard of each flat ZeRO array. `_portable_arrays` is then a
 collective: it all-gathers the shards, so every rank holds the

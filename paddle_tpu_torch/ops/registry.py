@@ -137,7 +137,8 @@ class LowerCtx:
 class OpDef:
     def __init__(self, name: str, lower: Callable,
                  infer: Optional[Callable] = None, is_random: bool = False,
-                 nondiff_slots=(), stateful_outputs=(), inplace=None):
+                 nondiff_slots=(), stateful_outputs=(), inplace=None,
+                 vjp: Optional[Callable] = None):
         self.name = name
         self.lower = lower
         self.infer = infer
@@ -148,6 +149,9 @@ class OpDef:
         self.stateful_outputs = frozenset(stateful_outputs)
         # output slot -> input slot the lowering updates in place
         self.inplace = dict(inplace or {})
+        # an op's own `forward_vjp` (same signature and contract), for an
+        # op whose gradient is not one torch.func.vjp over its lowering
+        self.vjp = vjp
 
 
 _REGISTRY: Dict[str, OpDef] = {}
@@ -184,12 +188,12 @@ def _load_lowerings():
 
 
 def register(name: str, *, infer=None, is_random=False, nondiff_slots=(),
-             stateful_outputs=(), inplace=None):
+             stateful_outputs=(), inplace=None, vjp=None):
     def deco(fn):
         _REGISTRY[name] = OpDef(name, fn, infer=infer, is_random=is_random,
                                 nondiff_slots=nondiff_slots,
                                 stateful_outputs=stateful_outputs,
-                                inplace=inplace)
+                                inplace=inplace, vjp=vjp)
         return fn
     return deco
 
@@ -294,7 +298,15 @@ def forward_vjp(opdef, ctx, ins, attrs, diff, out_slots):
     `vjp_fn` maps the cotangents of the floating outputs of `out_slots`
     (in slot order, as `cotangents` builds them) to one grad per diff
     entry. Non-floating outputs (a dropout mask) and slots outside
-    `out_slots` ride along as aux."""
+    `out_slots` ride along as aux. An op with its own `vjp` (the layer
+    scan's reverse loop, parallel/transforms.py) computes both itself."""
+    if opdef.vjp is not None:
+        return opdef.vjp(ctx, ins, attrs, diff, out_slots)
+    return func_vjp(opdef.lower, ctx, ins, attrs, diff, out_slots)
+
+
+def func_vjp(lower, ctx, ins, attrs, diff, out_slots):
+    """`forward_vjp` as one torch.func.vjp over the lowering `lower`."""
     primals = [ins[s][i] for s, i in diff]
     layout = []                  # (slot, index, is_float), plain metadata
 
@@ -302,7 +314,7 @@ def forward_vjp(opdef, ctx, ins, attrs, diff, out_slots):
         cur = {s: list(vs) for s, vs in ins.items()}
         for (s, i), v in zip(diff, vals):
             cur[s][i] = v
-        outs = opdef.lower(ctx, cur, attrs)
+        outs = lower(ctx, cur, attrs)
         floats, aux = [], {}
         layout.clear()
         for s, vs in outs.items():

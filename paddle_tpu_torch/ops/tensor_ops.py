@@ -84,6 +84,19 @@ def _split(ctx, ins, attrs):
     return {"Out": list(outs)}
 
 
+@register("stack")
+def _stack(ctx, ins, attrs):
+    """The startup program stacks a rolled program's per-layer initial
+    values into its `@LAYERS` parameters with this op
+    (parallel/transforms.py `apply_layer_scan`)."""
+    return {"Y": [torch.stack(list(ins["X"]), dim=attrs.get("axis", 0))]}
+
+
+@register("unstack")
+def _unstack(ctx, ins, attrs):
+    return {"Y": list(torch.unbind(ins["X"][0], dim=attrs.get("axis", 0)))}
+
+
 @register("slice")
 def _slice(ctx, ins, attrs):
     x = ins["Input"][0]

@@ -1,4 +1,4 @@
 """Parallel training for the port: gradient bucketing and ZeRO stages 0-3,
-on one process and across processes (`zero`), the data-parallel mesh
-(`mesh`), and the one program transform the bucket pass uses
-(`transforms`)."""
+on one process and across processes (`zero`), the dp x pp mesh (`mesh`,
+`spmd`), the pipeline runner (`pipeline`), and the program transforms:
+layer scan, recompute, gradient merge (`transforms`)."""

@@ -11,12 +11,19 @@ one per pipeline stage (parallel/pipeline.py). `devices=None` means
 `cuda:0` ... `cuda:P-1`; `devices=` may name one device more than once
 (two stages sharing a card) or `"cpu"` P times.
 
+dp x pp: each dp rank (process) holds its own P stage devices. Without
+`devices=`, rank r of a node (`LOCAL_RANK`) takes `cuda:r*P` ...
+`cuda:r*P+P-1`; `devices=` names this rank's stage devices (two ranks
+sharing one card name `cuda:0` P times each). The pipeline runner then
+averages the summed microbatch gradients over the dp ranks before the
+optimizer (parallel/pipeline.py).
+
 Not ported (ROADMAP item 16): tensor, sequence and expert parallelism
-(tp, sp or ep above 1 raises), and dp together with pp (raises
-`Unimplemented`; the reference composes them).
+(tp, sp or ep above 1 raises).
 """
 from __future__ import annotations
 
+import os
 from typing import List, Optional
 
 import torch
@@ -51,15 +58,18 @@ class Mesh:
         return f"Mesh(dp={self.shape['dp']})"
 
 
-def _stage_devices(pp: int, devices) -> List[torch.device]:
+def _stage_devices(pp: int, devices, dp: int = 1) -> List[torch.device]:
     if devices is None:
+        base = pp * int(os.environ.get("LOCAL_RANK", "0") or 0) \
+            if dp > 1 else 0
         have = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        if have < pp:
+        if have < base + pp:
             raise errors.Unavailable(
-                "build_mesh(pp=%d) without devices= places stage s on "
-                "cuda:s, and %d CUDA device(s) are visible: pass devices= "
-                "(one device may hold several stages)", pp, have)
-        return [torch.device("cuda", s) for s in range(pp)]
+                "build_mesh(pp=%d) without devices= places stage s of this "
+                "rank on cuda:%d+s, and %d CUDA device(s) are visible: pass "
+                "devices= (one device may hold several stages)", pp, base,
+                have)
+        return [torch.device("cuda", base + s) for s in range(pp)]
     devs = [torch.device(d) for d in devices]
     if len(devs) != pp:
         raise errors.InvalidArgument(
@@ -71,7 +81,7 @@ def _stage_devices(pp: int, devices) -> List[torch.device]:
 def build_mesh(dp: int = -1, tp: int = 1, pp: int = 1, sp: int = 1,
                ep: int = 1, devices=None) -> Mesh:
     """A mesh of `dp` processes (dp=-1: the whole group) and, with
-    pp > 1, `pp` stage devices in this process (module docstring)."""
+    pp > 1, `pp` stage devices in each of them (module docstring)."""
     for axis, n in (("tp", tp), ("sp", sp), ("ep", ep)):
         if int(n) > 1:
             raise NotImplementedError(
@@ -80,18 +90,13 @@ def build_mesh(dp: int = -1, tp: int = 1, pp: int = 1, sp: int = 1,
     world = get_world_size()
     dp = world if int(dp) == -1 else int(dp)
     pp = int(pp)
-    if pp > 1 and dp > 1:
-        raise errors.Unimplemented(
-            "a mesh with dp=%d and pp=%d: data parallelism across the "
-            "stages of a pipeline is not ported yet (ROADMAP item 16)",
-            dp, pp)
     if dp != world:
         raise ValueError(
             f"build_mesh(dp={dp}) over a group of {world} process(es): the "
             f"port runs one process per dp rank")
     if pp <= 1:
         return Mesh(dp)
-    return Mesh(dp, _stage_devices(pp, devices))
+    return Mesh(dp, _stage_devices(pp, devices, dp))
 
 
 def set_mesh(mesh: Optional[Mesh]) -> None:

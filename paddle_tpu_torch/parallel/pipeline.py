@@ -44,6 +44,19 @@ mesh's device s (parallel/mesh.py); two stages may share one device.
 
 Float fetches the body computes come back as the microbatch mean.
 
+Data parallelism (dp x pp, one process per dp rank, each with its own
+stage devices: parallel/mesh.py). Each rank pipelines its local batch.
+After the K microbatches' gradients are summed and divided by K, and
+before the one optimizer pass, the runner averages them over the ranks
+(`_dp_average`): every floating value the optimizer reads from the body
+(the gradients, a tied `wte`'s already summed over its stages) is
+concatenated in f32 per device, all-reduced (sum), scaled by 1/dp and
+cast back, as `__bucket_sync__` does, so one all-reduce a step where the
+stages share a card (`collectives_per_step`). Pipelined programs skip the
+bucket pass (fleet), so this is their only dp collective; the executor
+then reduces the fetches as it does at dp > 1 (a float scalar is the
+replica mean).
+
 Over one device (a PipelineOptimizer program without a pp mesh) the same
 runner is GPipe (the reference's `_run_block_microbatched`,
 framework/executor.py:457-585): every op on stage 0, whatever its
@@ -185,6 +198,7 @@ class _PipelineBlock:
         self.body_writes = body_writes
         self.plan = plan
         self.last_max_live_envs = 0
+        self.collectives_per_step = 0
 
     def _assign_stages(self, fwd_ops, bwd_ops, opt_ops, plan, pp):
         """(op index -> stage, state/var name -> stage, number of stages)
@@ -299,6 +313,31 @@ class _PipelineBlock:
             if n in seg_env:
                 env[n] = seg_env[n]
 
+    def _dp_average(self, env, dp):
+        """The summed-and-scaled gradients averaged over the dp ranks, as
+        `__bucket_sync__` averages a bucket: per device, the gradients
+        concatenated in f32, one all-reduce (sum), `* 1/dp`, each piece
+        cast back to its gradient's dtype."""
+        from ..distributed.collective import all_reduce
+        groups: Dict[str, List[str]] = {}
+        for n in self.acc_names:
+            v = env.get(n)
+            if v is not None and v.is_floating_point():
+                groups.setdefault(str(v.device), []).append(n)
+        with torch.no_grad():
+            for key in sorted(groups):
+                names = groups[key]
+                flat = torch.cat([env[n].reshape(-1).to(torch.float32)
+                                  for n in names])
+                flat = all_reduce(flat) * (1.0 / dp)
+                off = 0
+                for n in names:
+                    v = env[n]
+                    env[n] = flat[off:off + v.numel()].reshape(v.shape) \
+                        .to(v.dtype)
+                    off += v.numel()
+        self.collectives_per_step = len(groups)
+
     # -- the step ---------------------------------------------------------
     def step(self, feeds, scope, ctx, amp_dtype):
         from ..framework.executor import _fetch_values, _split_feeds
@@ -364,6 +403,10 @@ class _PipelineBlock:
         self.last_max_live_envs = max_live
         for n, v in acc.items():
             env_step[n] = v / K if v.is_floating_point() else v
+        from .zero import current_manual_dp
+        manual = current_manual_dp()
+        if manual is not None and manual[1] > 1:
+            self._dp_average(env_step, manual[1])
 
         for seg in self.opt_segs:
             self._run_seg(seg, env_step, lookup_static, scope, ctxs,

@@ -58,9 +58,24 @@ processes (counterpart of paddle_tpu/parallel/zero.py).
    step bound to it stays valid. This is the elastic resize: train at dp
    4, resume at dp 2.
 
-Not ported: the stacked `@LAYERS` stage-3 path (`_plan_stacked_stage3`,
-`_zero_update_stacked`: layer scan is ROADMAP item 16, so such a program
-raises); and the `checked_pass` verifier (analysis/, item 20).
+4. **Rolled programs at stage 3** (reference `_plan_stacked_stage3` :844,
+   `_build_zero3_stacked_bucket` :885, `_zero_update_stacked` :391): each
+   stacked `@LAYERS` parameter of a `__layer_scan__` op (parallel/
+   transforms.py) gets a bucket of its own, `[L, padded]` (the layer's
+   elements padded to 64), `layout` "stacked". The scan and its `__vjp__`
+   twin read the bucket (`zero3_flat` in their attrs) and the gradient
+   var becomes `[L, padded]`. At dp > 1 a rank holds `[L, padded/dp]`
+   (the trailing axis; `shard_names` records the layout): the scan body
+   all-gathers one layer's row an iteration, and its reverse loop
+   reduce-scatters that layer's gradient into row i of the rank's
+   gradient, so the update is local: scale by 1/dp, then ONE
+   `_apply_update_rule` over the rank's whole `[L, padded/dp]` shard (one
+   B6-B8 launch on the card). A dp that does not divide the padding keeps
+   the full `[L, padded]` and all-reduces the gradient first. Checkpoints
+   hold the stack unsharded as `<name>@LAYERS` ([L, ...]); a load packs
+   it back.
+
+Not ported: the `checked_pass` verifier (analysis/, ROADMAP item 20).
 """
 from __future__ import annotations
 
@@ -203,12 +218,19 @@ def _lower_bucket_sync(ctx, ins, attrs):
 @register("__zero_pack__", infer=_infer_noop, nondiff_slots=("X",),
           stateful_outputs=("Out",))
 def _lower_zero_pack(ctx, ins, attrs):
-    """Pack per-parameter values into the flat [padded] bucket layout: the
-    startup-program side of ZeRO-3 parameter storage."""
+    """Pack per-parameter values into the flat [padded] bucket layout (or
+    one stacked [L, ...] value into [L, padded]): the startup-program side
+    of ZeRO-3 parameter storage."""
+    dt = convert_dtype(attrs["dtype"])
+    padded = int(attrs["padded"])
     if attrs.get("layout") == "stacked":
-        raise NotImplementedError(
-            "__zero_pack__ of a stacked @LAYERS bucket: layer scan is not "
-            "ported (ROADMAP item 16)")
+        v = ins["X"][0]
+        flat = v.reshape(v.shape[0], -1).to(dt)
+        if padded > flat.shape[1]:
+            flat = torch.cat([flat, torch.zeros(
+                flat.shape[0], padded - flat.shape[1], dtype=dt,
+                device=flat.device)], dim=1)
+        return {"Out": [flat.contiguous()]}
     return {"Out": [_flat_concat(ins["X"], convert_dtype(attrs["dtype"]),
                                  int(attrs["padded"]))]}
 
@@ -251,9 +273,7 @@ def _lower_zero_update(ctx, ins, attrs):
     the scope's parameter tensors; stage >= 2 also emits the (averaged)
     gradient shard as resident state (`FlatGradOut`)."""
     if attrs.get("layout") == "stacked":
-        raise NotImplementedError(
-            "__zero_update__ of a stacked @LAYERS bucket: layer scan is not "
-            "ported (ROADMAP item 16)")
+        return _zero_update_stacked(ctx, ins, attrs)
     from ..distributed import collective as coll
     op_type = attrs["update_op"]
     stage = int(attrs.get("stage", 1))
@@ -309,6 +329,43 @@ def _lower_zero_update(ctx, ins, attrs):
     outs["FlatStateOut"] = [res[slot_map[kind][1]][0] for kind in kinds]
     if stage >= 2:
         outs["FlatGradOut"] = [g_shard]
+    return outs
+
+
+def _zero_update_stacked(ctx, ins, attrs):
+    """Stage-3 update of a stacked `@LAYERS` bucket: the gradient comes
+    from the layer scan's reverse loop already in the storage's layout
+    (a rank's `[L, padded/dp]` reduce-scattered row by row), so the update
+    is local: scale by 1/dp, then one update of the whole `[L, padded/dp]`
+    shard. A full-width bucket inside a data-parallel step (dp does not
+    divide the padding) all-reduces its local gradient first."""
+    op_type = attrs["update_op"]
+    padded = int(attrs["padded"])
+    kinds = list(attrs["state_kinds"])
+    dt = convert_dtype(attrs["dtype"])
+    p, g = ins["FlatParam"][0], ins["Grad"][0]
+    manual = current_manual_dp()
+    with torch.no_grad():
+        if manual is not None:
+            dp = manual[1]
+            if g.shape[-1] == padded and p.shape[-1] == padded:
+                from ..distributed.collective import all_reduce
+                g = all_reduce(g.clone())
+            g = g * (1.0 / dp)
+        g = g.reshape(p.shape).to(dt).contiguous()
+        inner_ins = {"Param": [p], "Grad": [g],
+                     "LearningRate": ins["LearningRate"]}
+        for extra in _UPDATE_EXTRA_SLOTS[op_type]:
+            inner_ins[extra] = ins[extra]
+        slot_map = _UPDATE_STATE_SLOTS[op_type]
+        for kind, val in zip(kinds, ins["FlatState"]):
+            inner_ins[slot_map[kind][0]] = [val]
+        res = _apply_update_rule(ctx, op_type, inner_ins,
+                                 dict(attrs["update_attrs"]))
+    outs = {"FlatParamOut": [res["ParamOut"][0]],
+            "FlatStateOut": [res[slot_map[kind][1]][0] for kind in kinds]}
+    if int(attrs.get("stage", 3)) >= 2:
+        outs["FlatGradOut"] = [g]
     return outs
 
 
@@ -406,13 +463,14 @@ def apply_grad_bucketing(program: Program, startup_program: Program,
             if gname and pname and pouts[0] == pname:
                 update_ops[pname] = op
 
-    if stage >= 3 and getattr(program, "_layer_stacks", None):
-        raise NotImplementedError(
-            "ZeRO stage 3 over stacked @LAYERS parameters (the reference's "
-            "_plan_stacked_stage3): layer scan is not ported (ROADMAP item "
-            "16)")
-
     zero_meta: List[dict] = []
+    # stage 3, rolled programs: the stacked @LAYERS parameters of a layer
+    # scan get [L, padded] buckets of their own, gathered a layer at a time
+    if stage >= 3:
+        handled = _plan_stacked_stage3(program, startup_program, block,
+                                       dense_pgs, update_ops,
+                                       grad_consumers, zero_meta)
+        dense_pgs = [pg for pg in dense_pgs if pg[0].name not in handled]
     if stage >= 1:
         # group params whose update op shares (type, attrs, lr, pows, dtype)
         def upd_key(item):
@@ -625,7 +683,7 @@ def _insert_zero_gathers(block, zero_meta) -> None:
     parameters live as briefly as possible."""
     plans = []
     for b in zero_meta:
-        if not b.get("flat_param"):
+        if b.get("layout") != "flat" or not b.get("flat_param"):
             continue
         pset = set(b["params"])
         first = next((i for i, op in enumerate(block.ops)
@@ -647,6 +705,143 @@ def _insert_zero_gathers(block, zero_meta) -> None:
                    "op_role": OpRole.Forward})
 
 
+def _plan_stacked_stage3(program, startup_program, block, dense_pgs,
+                         update_ops, grad_consumers, zero_meta) -> set:
+    """Route the stacked `@LAYERS` parameters of layer scans to their own
+    `[L, padded]` buckets (reference :844). A parameter whose gradient is
+    clipped or regularised first stays on the flat path. Returns the
+    parameter names handled here."""
+    stacks = getattr(program, "_layer_stacks", None) or {}
+    scan_ops = [op for op in block.ops if op.type == "__layer_scan__"]
+    if not stacks or not scan_ops:
+        return set()
+    vjp_ops = [op for op in block.ops
+               if op.type == "__vjp__"
+               and op.attrs.get("fwd_type") == "__layer_scan__"]
+    handled = set()
+    for pv, _ in dense_pgs:
+        sname = pv.name
+        if sname not in stacks:
+            continue
+        op = update_ops.get(sname)
+        if op is None or op.type not in _UPDATE_STATE_SLOTS:
+            continue
+        g = op.inputs["Grad"][0]
+        if g != grad_var_name(sname) or grad_consumers.get(g, 0) != 1:
+            continue
+        scan = next((s for s in scan_ops
+                     if sname in s.inputs.get("Stacked", [])), None)
+        vjp = next((v for v in vjp_ops
+                    if sname in v.inputs.get("Stacked", [])), None)
+        if scan is None or vjp is None:
+            continue
+        zero_meta.append(_build_zero3_stacked_bucket(
+            program, startup_program, block, pv, op, scan, vjp,
+            len(zero_meta)))
+        handled.add(sname)
+    return handled
+
+
+def _build_zero3_stacked_bucket(program, startup_program, block, pv,
+                                upd_op, scan_op, vjp_op, idx) -> dict:
+    """One stacked parameter's `[L, padded]` bucket (reference :885): flat
+    state, parameter storage and gradient buffer, the scan and its vjp
+    twin rewired to the storage, one stacked `__zero_update__`."""
+    from ..framework import unique_name
+
+    L = int(pv.shape[0])
+    per_shape = tuple(int(d) for d in pv.shape[1:])
+    per = 1
+    for d in per_shape:
+        per *= max(d, 1)
+    padded = _pad64(per)
+    dtype = dtype_name(pv.dtype)
+    kinds = sorted(_UPDATE_STATE_SLOTS[upd_op.type])
+    label = f"zero3_s{idx}"
+    startup_block = startup_program.global_block() \
+        if startup_program is not None else None
+
+    flat = {}
+    per_param_state = {}
+    for kind in kinds:
+        in_slot = _UPDATE_STATE_SLOTS[upd_op.type][kind][0]
+        mn = upd_op.inputs[in_slot][0]
+        fname = unique_name.generate(f"{label}_{kind}")
+        block.create_var(name=fname, shape=(L, padded), dtype=dtype,
+                         persistable=True, stop_gradient=True)
+        flat[kind] = fname
+        per_param_state.setdefault(pv.name, {})[kind] = mn
+        block.vars.pop(mn, None)
+        if startup_block is not None:
+            _drop_startup_inits(startup_block, {mn})
+            _startup_flat_zeros(startup_block, fname, (L, padded), dtype)
+
+    fpname = unique_name.generate(f"{label}_param")
+    block.create_var(name=fpname, shape=(L, padded), dtype=dtype,
+                     persistable=True, stop_gradient=True)
+    pv.persistable = False
+    flat_grad = unique_name.generate(f"{label}_gradbuf")
+    block.create_var(name=flat_grad, shape=(L, padded), dtype=dtype,
+                     persistable=True, stop_gradient=True)
+    if startup_block is not None:
+        _startup_flat_zeros(startup_block, flat_grad, (L, padded), dtype)
+        if pv.name in startup_block.vars:
+            startup_block.vars[pv.name].persistable = False
+            startup_block.create_var(name=fpname, shape=(L, padded),
+                                     dtype=dtype, persistable=True,
+                                     stop_gradient=True)
+            startup_block.append_op(
+                "__zero_pack__", inputs={"X": [pv.name]},
+                outputs={"Out": [fpname]},
+                attrs={"padded": padded, "dtype": dtype,
+                       "layout": "stacked"})
+
+    # the scan and its vjp twin read the bucket, one row a layer
+    si = scan_op.inputs["Stacked"].index(pv.name)
+    zero3 = list(scan_op.attrs.get("zero3_flat")
+                 or [None] * len(scan_op.inputs["Stacked"]))
+    zero3[si] = {"size": per, "shape": list(per_shape), "padded": padded}
+    scan_op.inputs["Stacked"][si] = fpname
+    scan_op.attrs["zero3_flat"] = zero3
+    vi = vjp_op.inputs["Stacked"].index(pv.name)
+    vjp_op.inputs["Stacked"][vi] = fpname
+    vjp_op.attrs["fwd_attrs"] = dict(vjp_op.attrs["fwd_attrs"])
+    vjp_op.attrs["fwd_attrs"]["zero3_flat"] = zero3
+    # the gradient is the bucket's: [L, padded]
+    gvar = block.find_var_recursive(grad_var_name(pv.name))
+    if gvar is not None:
+        gvar.shape = (L, padded)
+        gvar.dtype = convert_dtype(dtype)
+
+    gname = upd_op.inputs["Grad"][0]
+    pos = block.ops.index(upd_op)
+    block.ops.remove(upd_op)
+    inputs = {"FlatParam": [fpname], "Grad": [gname],
+              "LearningRate": list(upd_op.inputs.get("LearningRate", ())),
+              "FlatState": [flat[k] for k in kinds]}
+    for s in _UPDATE_EXTRA_SLOTS[upd_op.type]:
+        inputs[s] = list(upd_op.inputs.get(s, ()))
+    update_attrs = {k: v for k, v in upd_op.attrs.items() if k != "op_role"}
+    block.ops.insert(pos, Operator(
+        block, "__zero_update__", inputs,
+        {"FlatParamOut": [fpname], "FlatStateOut": [flat[k] for k in kinds],
+         "FlatGradOut": [flat_grad]},
+        {"update_op": upd_op.type, "update_attrs": update_attrs,
+         "sizes": [per], "shapes": [list(per_shape)], "padded": padded,
+         "num_layers": L, "dtype": dtype, "state_kinds": kinds,
+         "pre_synced": False, "stage": 3, "layout": "stacked",
+         "op_role": OpRole.Optimize}))
+    program.bump_version()
+
+    return {"op_type": upd_op.type, "params": [pv.name], "grads": [gname],
+            "sizes": [per], "shapes": [list(per_shape)], "padded": padded,
+            "flat_numel": L * padded, "num_layers": L, "dtype": dtype,
+            "flat": flat, "per_param_state": per_param_state,
+            "pre_synced": False, "stage": 3, "layout": "stacked",
+            "flat_grad": flat_grad, "flat_param": fpname,
+            "stack_var": pv.name}
+
+
 # ---------------------------------------------------------------------------
 # the checkpoint round trip
 # ---------------------------------------------------------------------------
@@ -656,11 +851,23 @@ def zero_buckets(program) -> List[dict]:
         "zero_buckets") or []
 
 
+def _stacked(b) -> bool:
+    return b.get("layout") == "stacked"
+
+
+def _entry_shapes(b) -> List[tuple]:
+    """The checkpoint entries' shapes of bucket `b`, in bucket order: the
+    parameters', or a stacked bucket's one [L, ...] stack."""
+    if _stacked(b):
+        return [(int(b["num_layers"]),) + tuple(b["shapes"][0])]
+    return [tuple(s) for s in b["shapes"]]
+
+
 def _flat_groups(program, b) -> List[tuple]:
     """(flat var, per-entry names in bucket order) for each flat array of
     bucket `b` that stands for per-parameter checkpoint entries: the state
     kinds whose per-parameter vars the pass removed, and at stage 3 the
-    parameters themselves."""
+    parameters themselves (a stacked bucket's `@LAYERS` stack)."""
     gb = program.global_block()
     groups = []
     for kind, fname in b["flat"].items():
@@ -670,6 +877,20 @@ def _flat_groups(program, b) -> List[tuple]:
     if b.get("flat_param"):
         groups.append((b["flat_param"], list(b["params"])))
     return groups
+
+
+def _unpack(flat, b) -> List[np.ndarray]:
+    """A bucket's flat host array -> its entries' unsharded arrays."""
+    flat = np.asarray(flat)
+    if _stacked(b):
+        L = int(b["num_layers"])
+        return [flat.reshape(L, -1)[:, :int(b["sizes"][0])]
+                .reshape(_entry_shapes(b)[0])]
+    flat, off, out = flat.reshape(-1), 0, []
+    for size, shape in zip(b["sizes"], b["shapes"]):
+        out.append(flat[off:off + size].reshape(tuple(shape)))
+        off += size
+    return out
 
 
 def unbucket_state_for_save(program, arrays: dict) -> dict:
@@ -685,18 +906,15 @@ def unbucket_state_for_save(program, arrays: dict) -> dict:
             flat = out.pop(fname, None)
             if flat is None:
                 continue
-            flat, off = np.asarray(flat).reshape(-1), 0
-            for n, size, shape in zip(legacy, b["sizes"], b["shapes"]):
-                out[n] = flat[off:off + size].reshape(tuple(shape))
-                off += size
+            out.update(zip(legacy, _unpack(flat, b)))
         if b.get("flat_grad"):
             out.pop(b["flat_grad"], None)
     return out
 
 
 def _packable(values, b) -> bool:
-    return all(tuple(np.shape(v)) == tuple(shape)
-               for v, shape in zip(values, b["shapes"]))
+    return all(tuple(np.shape(v)) == shape
+               for v, shape in zip(values, _entry_shapes(b)))
 
 
 def pack_unsharded_arrays(program, arrays: dict) -> dict:
@@ -715,12 +933,18 @@ def pack_unsharded_arrays(program, arrays: dict) -> dict:
             vals = [np.asarray(out[n]) for n in legacy]
             if not _packable(vals, b):
                 continue
-            flat = np.zeros(int(b["padded"]),
-                            dtype=np.dtype(vals[0].dtype))
-            off = 0
-            for v in vals:
-                flat[off:off + v.size] = v.reshape(-1)
-                off += v.size
+            if _stacked(b):
+                L = int(b["num_layers"])
+                flat = np.zeros((L, int(b["padded"])),
+                                dtype=np.dtype(vals[0].dtype))
+                flat[:, :int(b["sizes"][0])] = vals[0].reshape(L, -1)
+            else:
+                flat = np.zeros(int(b["padded"]),
+                                dtype=np.dtype(vals[0].dtype))
+                off = 0
+                for v in vals:
+                    flat[off:off + v.size] = v.reshape(-1)
+                    off += v.size
             for n in legacy:
                 del out[n]
             out[fname] = flat
@@ -763,71 +987,92 @@ def _dp_width(program) -> int:
     return get_world_size()
 
 
-def shard_names(program) -> Dict[str, int]:
-    """{flat var: padded} of every flat array a rank holds as its
-    `[padded/dp]` shard: the state kinds, stage-2 gradient buffers and
-    stage-3 parameter storage of each bucket whose padding dp divides."""
+def shard_names(program) -> Dict[str, tuple]:
+    """{flat var: (rows, padded)} of every flat array a rank holds as its
+    shard of the trailing axis: the state kinds, stage-2 gradient buffers
+    and stage-3 parameter storage of each bucket whose padding dp divides
+    (`[padded]` -> `[padded/dp]`, rows 0; a stacked bucket's `[L, padded]`
+    -> `[L, padded/dp]`, rows L)."""
     dp = _dp_width(program)
-    out: Dict[str, int] = {}
+    out: Dict[str, tuple] = {}
     if dp <= 1:
         return out
     for b in zero_buckets(program):
         padded = int(b["padded"])
         if padded % dp:
             continue
+        rows = int(b["num_layers"]) if _stacked(b) else 0
         for n in list(b["flat"].values()) + [b.get("flat_grad"),
                                              b.get("flat_param")]:
             if n:
-                out[n] = padded
+                out[n] = (rows, padded)
     return out
 
 
+def _cut(v, rows, padded, dp, rank):
+    """This rank's shard of a full flat array `v` (host or device)."""
+    k = padded // dp
+    if rows:
+        return v.reshape(rows, padded)[:, rank * k:(rank + 1) * k]
+    return v.reshape(-1)[rank * k:(rank + 1) * k]
+
+
 def take_shards(program, arrays: dict) -> dict:
-    """Host arrays -> the same with every full `[padded]` flat array of
+    """Host arrays -> the same with every full flat array of
     `shard_names` cut to this rank's shard (what a load writes)."""
     names = shard_names(program)
     if not names:
         return arrays
     dp, rank = _dp_width(program), _rank()
     out = dict(arrays)
-    for n, padded in names.items():
+    for n, (rows, padded) in names.items():
         v = out.get(n)
-        if v is not None and np.size(v) == padded:
-            k = padded // dp
-            out[n] = np.asarray(v).reshape(-1)[rank * k:(rank + 1) * k]
+        if v is not None and np.size(v) == max(rows, 1) * padded:
+            out[n] = np.ascontiguousarray(
+                _cut(np.asarray(v), rows, padded, dp, rank))
     return out
 
 
 def shard_flat_state(program, scope) -> None:
-    """At dp > 1, replace each full `[padded]` flat tensor of
-    `shard_names` in the scope (the startup program's values, or a rebound
-    load) with this rank's `[padded/dp]` slice."""
+    """At dp > 1, replace each full flat tensor of `shard_names` in the
+    scope (the startup program's values, or a rebound load) with this
+    rank's shard."""
     names = shard_names(program)
     if not names:
         return
     dp, rank = _dp_width(program), _rank()
-    for n, padded in names.items():
+    for n, (rows, padded) in names.items():
         v = scope.find(n)
-        if isinstance(v, torch.Tensor) and v.numel() == padded:
-            k = padded // dp
-            scope.set(n, v.reshape(-1)[rank * k:(rank + 1) * k].clone())
+        if isinstance(v, torch.Tensor) \
+                and v.numel() == max(rows, 1) * padded:
+            scope.set(n, _cut(v, rows, padded, dp, rank).contiguous())
 
 
 def gather_flat_shards(program, scope, arrays: dict) -> dict:
     """Host arrays of the scope with each flat shard of `shard_names`
-    replaced by the full `[padded]` array gathered from every rank (a
-    collective: every rank calls it)."""
-    names = shard_names(program)
-    if not names:
-        return arrays
-    from ..distributed.collective import all_gather_flat
+    replaced by the full array gathered from every rank (a collective:
+    every rank calls it)."""
     from ..framework.scope import to_numpy
     out = dict(arrays)
-    for n, padded in sorted(names.items()):
-        v = scope.find(n)
-        if n in out and isinstance(v, torch.Tensor) and v.numel() != padded:
-            with torch.no_grad():
-                out[n] = to_numpy(all_gather_flat(v))
+    for n, full in gathered_shards(program, scope).items():
+        if n in out:
+            out[n] = to_numpy(full)
+    return out
+
+
+def gathered_shards(program, scope) -> Dict[str, torch.Tensor]:
+    """{flat var: the full array gathered from every rank} for each shard
+    of `shard_names` the scope holds (a collective: every rank calls it,
+    in name order)."""
+    from ..distributed.collective import all_gather, all_gather_flat
+    out = {}
+    with torch.no_grad():
+        for n, (rows, padded) in sorted(shard_names(program).items()):
+            v = scope.find(n)
+            if isinstance(v, torch.Tensor) \
+                    and v.numel() != max(rows, 1) * padded:
+                out[n] = torch.cat(all_gather(None, v), dim=1) if rows \
+                    else all_gather_flat(v)
     return out
 
 

@@ -93,18 +93,8 @@ def _rank_world() -> Tuple[int, int]:
 def _gathered_shards(program, scope) -> Dict[str, torch.Tensor]:
     """{flat var: the full array gathered from every rank} for the ZeRO
     shards a rank holds at dp > 1 (parallel/zero.py `shard_names`)."""
-    from ..parallel.zero import shard_names
-    names = shard_names(program)
-    if not names:
-        return {}
-    from ..distributed.collective import all_gather_flat
-    out = {}
-    with torch.no_grad():
-        for n, padded in sorted(names.items()):
-            v = scope.find(n)
-            if isinstance(v, torch.Tensor) and v.numel() != padded:
-                out[n] = all_gather_flat(v)
-    return out
+    from ..parallel.zero import gathered_shards
+    return gathered_shards(program, scope)
 
 
 def _grace_s() -> float:

@@ -140,6 +140,37 @@ def test_nccl_with_two_ranks_on_one_device_raises_typed():
     parallel.check_devices_distinct([card, "host|cuda|GPU-1"], "nccl")
 
 
+def test_store_host_leaves_the_identity_exchange_last():
+    """Rank 0 hosts a TCPStore: it returns from the identity exchange
+    only once every rank has read every identity, so its typed refusal
+    (and exit) cannot cut off a rank still reading (a rank 1 saw
+    `DistNetworkError` instead of the refusal on an H100)."""
+    class Store:
+        def __init__(self):
+            self.kv, self.waited = {}, []
+
+        def set(self, key, value):
+            self.kv[key] = value.encode()
+
+        def get(self, key):
+            return self.kv[key]
+
+        def wait(self, keys):
+            missing = [k for k in keys if k not in self.kv]
+            assert not missing, missing
+            self.waited.append(list(keys))
+
+    store = Store()
+    store.set("paddle_dist/device/0", "h|cuda|0")
+    assert parallel.exchange_identities(store, 1, 2, "h|cuda|0") == [
+        "h|cuda|0", "h|cuda|0"]
+    assert store.waited == []                 # rank 1 leaves at once
+    assert parallel.exchange_identities(store, 0, 2, "h|cuda|0") == [
+        "h|cuda|0", "h|cuda|0"]
+    assert store.waited == [["paddle_dist/device_read/0",
+                             "paddle_dist/device_read/1"]]
+
+
 def test_group_arguments_are_checked(monkeypatch):
     monkeypatch.setenv("PADDLE_TRAINER_ID", "0")
     monkeypatch.setenv("PADDLE_TRAINERS_NUM", "2")

@@ -29,11 +29,19 @@ virtual CPU devices; the port's stages run on "cpu" P times).
   the losses equal the port's one-device GPipe run (rtol 1e-5), the
   stage of every parameter and moment equals the reference's, and each
   tensor sits on its stage's device.
+* dp 2 x pp 2: two gloo ranks (`testing.gloo_gang`), each pipelining its
+  8 rows of a global batch of 16 in 4 microbatches over pp 2 ("cpu"
+  twice), SGD 0.1, 4 steps of the reference's 2-stage model
+  (tests/test_pipeline_pp.py `_build_2stage`) from the reference's
+  startup: the losses and parameters equal the reference's pp2 x dp2 run
+  and the port's one-device GPipe run at the reference's 1e-4
+  (tests/test_pipeline_pp.py:93); one dp all-reduce a step (plus the
+  loss's mean); a planted fault that skips the dp average moves the
+  parameters past that limit and the ranks apart.
 * A program of 2 stages over a pp 4 mesh raises `InvalidArgumentError`;
-  dp > 1 with pp > 1 raises `UnimplementedError` naming item 16; pp > 1
-  without `devices=` and without cards raises; run_steps refuses a pp
-  program; DistConfig takes the mesh only (sharding rules and state specs
-  raise naming item 16).
+  a dp 2 mesh in a one-process job raises; pp > 1 without `devices=` and
+  without cards raises; run_steps refuses a pp program; DistConfig takes
+  the mesh only (sharding rules and state specs raise naming item 16).
 """
 import types
 
@@ -69,6 +77,9 @@ from paddle_tpu_torch.models import gpt as port_gpt
 from paddle_tpu_torch.parallel import mesh as port_mesh
 from paddle_tpu_torch.parallel import pipeline as port_pipeline
 from paddle_tpu_torch.parallel import spmd as port_spmd
+from paddle_tpu_torch.testing import gloo_gang
+
+import torch_dist_ranks as ranks
 
 REF = types.SimpleNamespace(
     prog=ref_program, names=ref_unique_name, L=fluid.layers,
@@ -414,6 +425,46 @@ def test_gpt_8l_pp4_1f1b_window_and_stage_homes():
     assert losses[-1] < losses[0]
 
 
+def test_dp2_pp2_matches_reference_and_one_device():
+    fs = [dict(zip(("x", "y"), pp_feed(seed=i))) for i in range(4)]
+    rm, rs, rloss = build(REF, ranks.two_stage, "sgd", k=4)
+    mesh = ref_parallel.build_mesh(dp=2, pp=2, devices=jax.devices()[:4])
+    ref_parallel.attach(rm, ref_parallel.DistConfig(mesh=mesh))
+    init = ref_start(rs)
+    _, ref_losses, ref_state = ref_train(rm, rloss, fs, init)
+    om, _, oloss = build(PORT, ranks.two_stage, "sgd", k=4)
+    _, one_losses, one_state, _ = port_train(om, oloss, fs, init)
+
+    res = gloo_gang(ranks.dp_pp_arm, 2, args=(init, fs))
+    for r in res:
+        assert r["num_stages"] == 2 and r["dp_collectives_per_step"] == 1
+        assert r["all_reduce_calls"] == [2] * len(fs)   # average + loss
+        for want_losses, want_state in ((ref_losses, ref_state),
+                                        (one_losses, one_state)):
+            np.testing.assert_allclose(r["losses"], want_losses, rtol=1e-4,
+                                       atol=1e-6)
+            for n in ("w0", "b0", "w1", "b1", "w2", "b2"):
+                np.testing.assert_allclose(r["params"][n], want_state[n],
+                                           rtol=1e-4, atol=1e-6, err_msg=n)
+    assert res[0]["losses"] == res[1]["losses"]
+    assert res[0]["losses"][-1] < res[0]["losses"][0]
+
+    fault = gloo_gang(ranks.dp_pp_arm, 2, args=(init, fs, 4, 0.1, True))
+    w = one_state["w0"]
+    readings = [float(np.abs(f["params"]["w0"] - w).max()
+                      / np.abs(w).max()) for f in fault]
+    assert min(readings) > 1e-4, readings
+    assert not np.array_equal(fault[0]["params"]["w0"],
+                              fault[1]["params"]["w0"])
+
+
+def pp_feed(b=16, seed=0):
+    """tests/test_pipeline_pp.py `_feed`."""
+    rng = np.random.RandomState(seed)
+    xb = rng.randn(b, 6).astype(np.float32)
+    return xb, (np.tanh(xb.sum(1, keepdims=True)) * 0.7).astype(np.float32)
+
+
 def test_stage_mesh_mismatch_and_unported_meshes_raise(monkeypatch):
     pm, ps, ploss = build(PORT, mlp, "sgd", k=2)
     port_attach(pm, 4)
@@ -421,7 +472,9 @@ def test_stage_mesh_mismatch_and_unported_meshes_raise(monkeypatch):
     exe.run(ps, scope=scope)
     with pytest.raises(errors.InvalidArgumentError, match="stage"):
         exe.run(pm, feed=mlp_feeds(1)[0], fetch_list=[ploss], scope=scope)
-    with pytest.raises(errors.UnimplementedError, match="item 16"):
+    # dp x pp builds (test_dp2_pp2_matches_reference_and_one_device runs
+    # it); on one process dp 2 is not the group's size
+    with pytest.raises(ValueError, match="one process per dp rank"):
         port_mesh.build_mesh(dp=2, pp=2, devices=["cpu", "cpu"])
     with pytest.raises(errors.UnimplementedError, match="pipeline"):
         exe.run_steps(2, pm, feed=mlp_feeds(1)[0], fetch_list=[ploss],

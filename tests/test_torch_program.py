@@ -353,8 +353,8 @@ def test_fleet_honours_amp_and_rejects_the_rest():
 
 def test_unported_options_raise():
     from paddle_tpu_torch.distributed import fleet as port_fleet
-    with pytest.raises(NotImplementedError, match="layer_scan"):
-        port_fleet.DistributedStrategy().layer_scan = True
+    with pytest.raises(NotImplementedError, match="localsgd"):
+        port_fleet.DistributedStrategy().localsgd = True
     cfg = port_bert.BertConfig.tiny()
     cfg.moe_experts = 2
     with pytest.raises(NotImplementedError, match="item 12"):

@@ -19,9 +19,10 @@ least 3 buckets.
 * SGD, Momentum (nesterov) and AdamW + L2Decay + GlobalNorm clip at stages
   0 and 1 against the reference, same tolerances; the clipped/regularised
   buckets are `pre_synced` and keep their `__bucket_sync__`.
-* Fleet raises on stage 4, on stage 3 with tensor parallelism and on
-  stacked `@LAYERS` buckets; disabled bucketing under a sharding request
-  is counted as a fallback.
+* Fleet raises on stage 4 and on stage 3 with tensor parallelism; a
+  `_layer_stacks` record without a layer scan takes the flat stage-3
+  path, as the reference's does; disabled bucketing under a sharding
+  request is counted as a fallback.
 """
 import importlib
 
@@ -288,8 +289,15 @@ def test_fleet_raises_on_unsupported_stages():
         _build("port", 4)
     with pytest.raises(ValueError, match="cannot compose with tensor"):
         _build("port", 3, tensor_parallel_degree=2)
-    with pytest.raises(NotImplementedError, match="layer scan"):
-        _build("port", 3, layer_stacks={"enc_w@LAYERS": ["enc0_w"]})
+    # a `_layer_stacks` record without a layer scan op takes the flat
+    # stage-3 path, as the reference's pass does (the stacked buckets are
+    # tests/test_torch_zero_stacked.py's)
+    stacks = {"enc_w@LAYERS": ["enc0_w"]}
+    pm, _, _ = _build("port", 3, layer_stacks=stacks)
+    rm, _, _ = _build("ref", 3, layer_stacks=stacks)
+    assert pm.to_desc() == rm.to_desc()
+    assert {b["layout"] for b in pm._grad_buckets["zero_buckets"]} \
+        == {"flat"}
     # sharding=True with the stage from sharding_configs
     main, _, _ = _build("port", 0, sharding=True,
                         sharding_configs={"stage": 2})

@@ -323,3 +323,154 @@ def _slot_vars():
         x = layers.data(name="x", shape=[2], dtype="float32")
         ids = layers.data(name="ids", shape=[3], dtype="int64")
     return [x, ids]
+
+
+# --- rolled GPT-tiny at ZeRO stage 3 (stacked @LAYERS buckets) ----------------
+
+def rolled_gpt_arm(stage, init, tokens, ckpt_dir=None, remat=False):
+    """GPT-tiny (dropout 0.1) rolled by fleet's `layer_scan`, Adam 1e-4 at
+    ZeRO `stage`, buckets of 0.05 MB, 3 steps on this rank's block of each
+    global batch: losses, the gathered unsharded state, the collective
+    calls of each step, this rank's parameter and state bytes and the
+    bucket plan; with `ckpt_dir`, a checkpoint of the last step there."""
+    from paddle_tpu_torch.io import _portable_arrays
+    from paddle_tpu_torch.models import gpt
+    reset_programs(0)
+    cfg = gpt.GPTConfig.tiny()
+    cfg.hidden_dropout = cfg.attention_dropout = 0.1
+    _, loss = gpt.build_lm_program(cfg)
+    fleet.init(is_collective=True)
+    s = fleet.DistributedStrategy()
+    s.layer_scan = True
+    s.recompute = remat
+    s.sharding_stage = stage
+    s.fuse_grad_size_in_mb = 0.05
+    fleet.distributed_optimizer(optimizer.Adam(learning_rate=1e-4),
+                                s).minimize(loss)
+    prog = default_main_program()
+    exe = Executor("cpu")
+    exe.run(default_startup_program())
+    scope = global_scope()
+    io.restore_arrays(scope, init, program=prog, device="cpu")
+    losses, calls = [], []
+    for t in tokens:
+        coll.reset_counters()
+        out, = exe.run(prog, feed={"tokens": coll.split_batch(t)},
+                       fetch_list=[loss])
+        losses.append(float(out))
+        calls.append({k: v for k, v in coll.counters.items()
+                      if k.endswith(".calls")})
+    buckets = zero.zero_buckets(prog)
+    param_names = [b["flat_param"] for b in buckets if b.get("flat_param")]
+    param_names += [v.name for v in prog.all_parameters() if v.persistable]
+    param_bytes = int(sum(scope.find(n).numel() * scope.find(n)
+                          .element_size() for n in set(param_names)
+                          if scope.has(n)))
+    if ckpt_dir:
+        io.save_persistables(exe, ckpt_dir, prog)
+    return {"losses": losses, "state": _portable_arrays(prog, scope),
+            "calls": calls, "state_bytes": state_bytes(prog, scope),
+            "param_bytes": param_bytes,
+            "layouts": [(b["layout"], b["padded"], b.get("num_layers"),
+                         b.get("pre_synced")) for b in buckets],
+            "sync_buckets": len(prog._grad_buckets["sync_buckets"]),
+            "scan_remat": [op.attrs["remat"] for op in
+                           prog.global_block().ops
+                           if op.type == "__layer_scan__"]}
+
+
+def rolled_gpt_suite(init, tokens, ckpt_dir):
+    return {"stage0": rolled_gpt_arm(0, init, tokens),
+            "stage3": rolled_gpt_arm(3, init, tokens, ckpt_dir=ckpt_dir),
+            "stage3_remat": rolled_gpt_arm(3, init, tokens, remat=True)}
+
+
+# --- dp x pp: the reference's 2-stage model (tests/test_pipeline_pp.py) -------
+
+def two_stage(ns, act="tanh"):
+    """x[6] -> fc 16 (stage 0) -> fc 16, fc 1 (stage 1) -> square error,
+    mean: tests/test_pipeline_pp.py `_build_2stage` (its `reduce_mean` of
+    the [B, 1] cost is this mean), in either package (`ns`: layers,
+    ParamAttr, device_guard and an initialiser)."""
+    L = ns.L
+    x = L.data(name="x", shape=[6], dtype="float32")
+    y = L.data(name="y", shape=[1], dtype="float32")
+
+    def attr(name):
+        return ns.attr(name=name,
+                       initializer=ns.init.TruncatedNormal(0.0, 0.5))
+    with ns.guard("gpu:0"):
+        h = L.fc(x, size=16, act=act, param_attr=attr("w0"),
+                 bias_attr=ns.attr(name="b0"))
+    with ns.guard("gpu:1"):
+        h2 = L.fc(h, size=16, act=act, param_attr=attr("w1"),
+                  bias_attr=ns.attr(name="b1"))
+        pred = L.fc(h2, size=1, param_attr=attr("w2"),
+                    bias_attr=ns.attr(name="b2"))
+    return L.mean(L.square_error_cost(pred, y))
+
+
+def _port_ns():
+    import types
+    from paddle_tpu_torch.framework import program as pm
+    return types.SimpleNamespace(L=layers, attr=ParamAttr, init=initializer,
+                                 guard=pm.device_guard)
+
+
+def dp_pp_arm(init, feeds, micro=4, lr=0.1, skip_dp_average=False):
+    """The 2-stage model through fleet at dp = the group's size and pp 2
+    (both stages on "cpu"), PipelineOptimizer(SGD lr) with `micro`
+    microbatches of this rank's block of each global batch: losses, final
+    parameters, the pipeline's dp collectives a step and this rank's
+    all-reduce calls. `skip_dp_average` plants the fault the dp average
+    guards against (each rank keeps its local gradients)."""
+    from paddle_tpu_torch.parallel import pipeline
+    reset_programs(0)
+    loss = two_stage(_port_ns())
+    fleet.init(is_collective=True)
+    s = fleet.DistributedStrategy()
+    s.pipeline = True
+    s.pipeline_parallel_degree = 2
+    s.pipeline_configs = {"accumulate_steps": micro,
+                          "stage_devices": ["cpu", "cpu"]}
+    fleet.distributed_optimizer(optimizer.SGD(learning_rate=lr),
+                                s).minimize(loss)
+    prog = default_main_program()
+    exe = Executor("cpu")
+    scope = global_scope()
+    io.restore_arrays(scope, init, program=prog, device="cpu")
+    if skip_dp_average:
+        pipeline._PipelineBlock._dp_average = lambda self, env, dp: None
+    losses, calls = [], []
+    for f in feeds:
+        coll.reset_counters()
+        out, = exe.run(prog, feed={n: coll.split_batch(v)
+                                   for n, v in f.items()},
+                       fetch_list=[loss])
+        losses.append(float(out))
+        calls.append(coll.counters.get("all_reduce.calls", 0))
+    pb, = exe._pipelines.values()
+    return {"losses": losses,
+            "params": {n: scope.numpy(n) for n in init},
+            "dp_collectives_per_step": pb.collectives_per_step,
+            "num_stages": pb.num_stages,
+            "all_reduce_calls": calls}
+
+
+def rolled_indivisible(init, tokens):
+    """Rolled GPT-tiny at stages 0 and 3 in a gang whose size does not
+    divide the 64-element padding: stage 3 keeps full-width `[L, padded]`
+    storage, all-reduces its local gradients, and counts the fallback."""
+    metrics.reset()
+    out = {"stage0": rolled_gpt_arm(0, init, tokens)}
+    out["stage3"] = rolled_gpt_arm(3, init, tokens)
+    prog = default_main_program()
+    out["storage"] = {b["flat_param"]: list(global_scope().find(
+        b["flat_param"]).shape) for b in zero.zero_buckets(prog)
+        if b["layout"] == "stacked"}
+    out["padded"] = {b["flat_param"]: [b["num_layers"], b["padded"]]
+                     for b in zero.zero_buckets(prog)
+                     if b["layout"] == "stacked"}
+    out["indivisible"] = metrics.get(
+        "executor.zero_manual_fallbacks.indivisible_padding")
+    return out
