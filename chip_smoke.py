@@ -247,6 +247,44 @@ result line):
      within 5e-2), and the dp average skipped in a second run of the gang
      (the planted fault) reading above that limit; the gang leaves no
      process.
+13. tensor and sequence parallelism, GPT-2 small (GPTConfig(): hidden
+   768, 12 heads, vocab 50257; fleet AMP bf16, Adam(1e-4), ZeRO stage 0,
+   weights from the startup program, tokens from numpy seed 0):
+   * B1-B3's global-head keying: a launch over heads 6-11 keyed (0, 12,
+     6) bit-equal to those heads of the full 12-head launch at dropout
+     0.1 (O, dQ, dK, dV; f32 with a key-padding mask, bf16 causal), the
+     slice keyed on its own heads different; the identity
+     keying bit-equal to the kernels built with the flat b*nh+h key (the
+     `flat_keying` variant) on the phase-3 arms;
+   * B1-B3 against their plain version (FLASH_TOLERANCE) at the shapes
+     the tp and Ulysses paths launch them at, [8, 6, 512, 64] and [4, 6,
+     1024, 64], f32, causal, dropout 0.1, keyed (0, 12, 6) as rank 1
+     keys them; each launch alone timed beside its causal bound and the
+     plain version;
+   * the one-process references (tp 1, sp 1) from the same weights: arm
+     T's shape at dropout 0 and 0.1, and SR / SU's (B1-B3 over S 1024);
+   * one gang through the port's launcher (`python -m
+     paddle_tpu_torch.distributed.launch --nproc_per_node 2 chip_smoke.py
+     --mp-worker`, both ranks on cuda:0 under gloo), every rank feeding
+     the global batch, 3 eager steps an arm:
+     T, tp 2 (batch 8, cut from 32 for gloo's host traffic; S 512):
+     losses within 1e-4 relative of tp 1 and the parameters' change
+     within 5e-2 of tp 1's, at dropout 0 and 0.1; planted faults (layer
+     0's row-parallel all-reduce skipped; the dropout keyed on the
+     launch's own heads) read above a limit; 81,940,224 parameter
+     elements a rank; B1-B3 12 a step at [8, 6, 512, 64]; each step's
+     DTensor collectives equal to `mp_plan_tp`; run_steps(3) == 3 run()
+     calls bit for bit;
+     SR / SU, sp 2 ring / Ulysses (batch 4, S 1024 = max_position): the
+     same gates against sp 1 at dropout 0 and 0.1, planted faults (the
+     ring's rotation skipped; Ulysses' sequence blocks in reverse
+     order); the ring's 4 permutes a layer and step (K and V, and their
+     gradients), Ulysses' 8 all-to-alls and B1-B3 12 a step at [4, 6,
+     1024, 64];
+     step ms, host ms in collectives and peak memory of every arm, and
+     one more step of T, SR, SU (each rank) and of the dropout-0
+     references profiled: the device's busy time beside the step's wall
+     and its host ms in collectives; the gang leaves no process.
 Each main-path run resets the kernel launch counts just before it and
 fails if a kernel of its path was never launched.
 
@@ -259,8 +297,11 @@ Output: a `{"kernels": [...]}` line, a `{"serving": ...}` line, a
 `{"resilience": ...}` line, a `{"training": ...}` line, a
 `{"gpt_training": ...}` line, a `{"training_state": ...}` line, a
 `{"data_path": ...}` line, a `{"data_parallel": ...}` line, a
-`{"pipeline": ...}` line, a `{"layer_scan": ...}` line, and last
-`{"ok": true, "device": {...}}`.
+`{"pipeline": ...}` line, a `{"layer_scan": ...}` line, a
+`{"model_parallel": ...}` line, and last `{"ok": true, "device": {...}}`.
+The flash rows' `launches_by_path` add phase 13's rank-0 launches (T and
+SU), their `keying` entry its keying checks and `keyed_paths` the
+keyed launches against the plain version at those paths' shapes.
 The flash rows' `launches` are the GPT path's (the captured arm's 30
 timed steps); `launches_by_path` keeps the BERT path's beside them.
 """
@@ -898,6 +939,27 @@ def flash_bounds(B, nh, S, hd, elem, mask_bytes, rate):
     return out
 
 
+CAUSAL_BOUND_RATE = "3xTF32 (494.7 / 3 TFLOP/s), causal half counted"
+
+
+def causal_flash_bounds(B, nh, S, hd):
+    """{kernel: (bound ms, bound_by)} of f32 causal launches without a
+    mask: flash_bounds' bytes, its products cut to the causal half ((S +
+    1) / (2 S) of the dense work), at the 3xTF32 rate."""
+    half = (S + 1) / (2 * S)
+    t, lse, work = B * nh * S * hd * 4, 4 * B * nh * S, B * nh * S * S * hd
+    out = {}
+    for name, n_bytes, n_ops in (
+            ("flash_fwd", 4 * t + lse, 4 * work),
+            ("flash_bwd_dq", 6 * t + lse, 6 * work),
+            ("flash_bwd_dkdv", 7 * t + lse, 8 * work)):
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = n_ops * half / (TF32_FLOPS_PER_S / 3) * 1e3
+        out[name] = (max(t_bytes, t_ops),
+                     "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
 def flash_sass(sass, name):
     """{dtype_hd: HMMA count} of flash kernel `name` from
     `sass_mma_counts`, or "not measured" without cuobjdump."""
@@ -1201,21 +1263,12 @@ def check_flash_gpt(torch, fa):
         lib[f"bwd_{rate}"] = cuda_ms(torch, lambda: torch.autograd.grad(
             os_, (qq, kk, vv), do, retain_graph=True))
         del os_
-    # flash_bounds' bytes and products, the products cut to the causal
-    # half: (S + 1) / (2 S) of the dense work
-    half = (S + 1) / (2 * S)
-    t, lse, work = B * nh * S * hd * 4, 4 * B * nh * S, B * nh * S * S * hd
-    for name, n_bytes, n_ops in (
-            ("flash_fwd", 4 * t + lse, 4 * work),
-            ("flash_bwd_dq", 6 * t + lse, 6 * work),
-            ("flash_bwd_dkdv", 7 * t + lse, 8 * work)):
-        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-        t_ops = n_ops * half / (TF32_FLOPS_PER_S / 3) * 1e3
-        bound = max(t_bytes, t_ops)
+    bounds = causal_flash_bounds(B, nh, S, hd)
+    for name in fa.KERNEL_NAMES:
+        bound, bound_by = bounds[name]
         out[name].update(
             ms=ms[name], plain_ms=plain[name], bound_ms=bound,
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            bound_rate="3xTF32 (494.7 / 3 TFLOP/s), causal half counted",
+            bound_by=bound_by, bound_rate=CAUSAL_BOUND_RATE,
             library_ms=lib["fwd_0.1"] if name == "flash_fwd"
             else lib["bwd_0.1"],
             library_call="SDPA is_causal=True dropout_p=0.1 "
@@ -5376,6 +5429,707 @@ def train_gpt_rolled(torch, fa, zk, card):
     return row
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: tensor and sequence parallelism (arms T, SR, SU)
+# ---------------------------------------------------------------------------
+
+MP_WORLD = 2
+MP_STEPS = 3
+MP_LR = 1e-4
+MP_T = (8, 512)            # arm T: batch (cut from 32 for gloo's host
+#                            traffic) and sequence
+MP_S = (4, 1024)           # arms SR / SU: batch and sequence (max_position)
+MP_LOSS_RTOL = 1e-4
+MP_CHANGE_RTOL = 5e-2
+MP_DROPOUT = 0.1
+# GPT-2 small at tp 2: half of the layers' QKV / proj / FFN weights and the
+# QKV / FFN-in biases (42,499,584 of 84,999,168), the rest whole (wte's
+# 50257 rows do not divide by 2)
+MP_PARAM_ELEMENTS_TP2 = 81_940_224
+MP_KEYING_SHAPE = (8, 12, 512, 64)
+
+
+def mp_local_heads(cfg, batch):
+    """[B, nh / 2, S, hd]: a rank's B1-B3 shape at tp 2 or in Ulysses at
+    sp 2."""
+    nh = cfg.num_heads
+    return [batch, nh // 2, cfg.seq_len, cfg.hidden_size // nh]
+
+
+def mp_config(seq, dropout, sp_mode=None):
+    """GPTConfig() at `seq` with `dropout`; `sp_mode` asks the attention
+    for ring or Ulysses sequence parallelism."""
+    from paddle_tpu_torch.models import gpt
+    cfg = gpt.GPTConfig(hidden_dropout=dropout, attention_dropout=dropout)
+    cfg.seq_len = seq
+    if sp_mode:
+        cfg.sequence_parallel, cfg.sp_mode = True, sp_mode
+    return cfg
+
+
+def build_mp(cfg, tp=1, sp=1):
+    """(main, startup, loss) of GPT LM training through fleet (AMP bf16,
+    Adam(1e-4), ZeRO stage 0) with `tensor_parallel_degree` tp (GPT's
+    Megatron rules) and `sequence_parallel_degree` sp."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework import Program, program_guard, unique_name
+    from paddle_tpu_torch.models import gpt
+    main, start = Program(), Program()
+    with program_guard(main, start), unique_name.guard(), \
+            warnings.catch_warnings():
+        # the auto-selected fused head over a `wte` the rules would
+        # vocab-shard warns (fleet `_warn_tp_fused_head`); at 50257 rows
+        # the table stays whole
+        warnings.simplefilter("ignore")
+        _, loss = gpt.build_lm_program(cfg)
+        fleet.init(is_collective=True)
+        s = fleet.DistributedStrategy()
+        s.amp = True
+        s.tensor_parallel_degree = tp
+        s.sequence_parallel_degree = sp
+        if tp > 1:
+            s.tensor_parallel_rules = gpt.tp_sharding_rules()
+        fleet.distributed_optimizer(optimizer.Adam(learning_rate=MP_LR),
+                                    s).minimize(loss)
+    return main, start, loss
+
+
+def mp_whole_params(torch, main, scope):
+    """{parameter: its whole value on the host} (a collective at tp > 1:
+    every rank calls it)."""
+    from paddle_tpu_torch.parallel import gspmd
+    return {p.name: gspmd.whole(scope.find(p.name)).detach()
+            .to("cpu", copy=True) for p in main.all_parameters()}
+
+
+def mp_run(torch, fa, main, start, loss, toks, steps=None, profile=False):
+    """Startup into a fresh scope, then Executor.run over `toks` (every
+    rank feeds the global batch): losses, each step's ms (synchronised),
+    the collectives of the last step by (op, collective, bytes), their
+    host ms per step, the peak memory, the flash launches and the shapes
+    B1 ran at, the parameter elements this rank holds; and the start and
+    final parameters, whole. `profile` runs one more step after those
+    readings under torch.profiler (`device_profile`): the device's busy
+    time beside the step's wall and its host ms in collectives."""
+    from paddle_tpu_torch.distributed import collective as coll
+    from paddle_tpu_torch.framework import Executor, Scope
+    from paddle_tpu_torch.parallel import gspmd
+    scope = Scope()
+    exe = Executor("cuda")
+    exe.run(start, scope=scope)
+    p0 = mp_whole_params(torch, main, scope)
+    shapes = []
+    spied = fa.launch_fwd
+
+    def spy(q, *a, **k):
+        shapes.append(tuple(q.shape))
+        return spied(q, *a, **k)
+
+    fa.launch_fwd = spy
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    losses, ms, host, plans, calls = [], [], [], [], {}
+    try:
+        for b in toks[:steps]:
+            coll.reset_counters()
+            gspmd.by_op.clear()
+            t0 = time.perf_counter()
+            got, = exe.run(main, feed={"tokens": b}, fetch_list=[loss],
+                           scope=scope)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(got))
+            host.append(sum(coll.host_ms.values()))
+            plans.append(dict(gspmd.by_op))
+            calls = dict(coll.counters)
+    finally:
+        fa.launch_fwd = spied
+    n = len(losses)
+    row = {"losses": losses, "step_ms": ms,
+           "step_ms_p50": float(np.median(ms)),
+           "collective_host_ms_per_step": float(np.mean(host)),
+           "peak_memory_bytes": int(torch.cuda.max_memory_allocated()),
+           "flash_launches": dict(fa.launches),
+           "flash_launches_per_step": {k: v / n
+                                       for k, v in fa.launches.items()},
+           "flash_fwd_shapes": sorted({str(list(s)) for s in shapes}),
+           "param_elements": gspmd.local_param_elements(main, scope),
+           "calls_last_step": {k: v for k, v in calls.items()
+                               if k.endswith(".calls")},
+           "collectives_last_step": {
+               f"{op} {c} {nb}": k for (op, c, nb), k in
+               sorted(plans[-1].items(), key=str)} if plans else {}}
+    p1 = mp_whole_params(torch, main, scope)
+    if profile:
+        def one_step():
+            coll.reset_counters()
+            return time_steps(torch, exe, main, scope, loss, toks, 1)[0] \
+                / 1e3
+        row["profile"] = device_profile(torch, one_step, top=5)
+        row["profile"]["collective_host_ms"] = sum(coll.host_ms.values())
+        log(f"phase 13 profiled step: {row['profile']}")
+    return row, p0, p1, plans
+
+
+def mp_plan_tp(cfg, batch, amp_bytes=2):
+    """The collectives of one step of GPT LM training at tp 2 (dp 1, AMP
+    bf16, wte whole) that the program and GPT's Megatron rules imply, by
+    (op, collective, bytes): calls. Per layer, forward: the split of the
+    column-parallel QKV output needs it whole (an all-gather of [B, S, 3H]
+    f32: the f32 bias add promotes), and each row-parallel product (the
+    attention projection and FFN-out, bf16) is reduced where its bias add
+    reads it (two all-reduces of [B, S, H]); backward: Q, K and V's
+    gradients, head-sharded by the attention, are gathered whole for the
+    split's gradient (three all-gathers of [B, S, H] f32), and the
+    gradients of the two column-parallel inputs are reduced where the
+    layer norms' gradients read them (two all-reduces of [B, S, H] f32).
+    Nothing else: the vocab table, the layer norms and the biases of the
+    row-parallel layers are whole, and their gradients too."""
+    b, s, h, L = batch, cfg.seq_len, cfg.hidden_size, cfg.num_layers
+    act = b * s * h
+    return {("split", "all_gather", 3 * act * 4): L,
+            ("elementwise_add", "all_reduce", act * amp_bytes): 2 * L,
+            ("fused_attention@grad", "all_gather", act * 4): 3 * L,
+            ("layer_norm@grad", "all_reduce", act * 4): 2 * L}
+
+
+def mp_check_plan(plans, want, what):
+    for s, got in enumerate(plans):
+        if got != want:
+            diff = {str(k): (got.get(k), want.get(k))
+                    for k in set(got) | set(want)
+                    if got.get(k) != want.get(k)}
+            fail(f"{what} step {s}: collectives (got, planned) {diff}")
+
+
+def mp_readings(torch, got, ref, start):
+    """The change gate of `got` against the reference (each a {name:
+    host tensor}), as `param_gate_readings` reads it."""
+    names = sorted(ref)
+    diff = refn = change = 0.0
+    for n in names:
+        a, b, z = (x[n].double() for x in (got, ref, start))
+        diff += float((a - b).square().sum())
+        refn += float(b.square().sum())
+        change += float((b - z).square().sum())
+    return {"params_norm_rel": (diff / refn) ** 0.5,
+            "change_rel": (diff / change) ** 0.5}
+
+
+def mp_loss_rel(a, b):
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def mp_references(torch, fa, out_dir):
+    """The one-process references (tp 1, sp 1) from the same startup
+    weights: arm T's at dropout 0 and 0.1 (batch 8, S 512) and SR / SU's
+    (batch 4, S 1024, B1-B3 over the whole sequence), their losses in
+    refs.json, the start parameters in start.pt and each arm's final ones
+    in <name>.pt."""
+    refs = {}
+    arms = {"t0": (MP_T, 0.0), "t1": (MP_T, MP_DROPOUT),
+            "s0": (MP_S, 0.0), "s1": (MP_S, MP_DROPOUT)}
+    for name, ((batch, seq), rate) in arms.items():
+        cfg = mp_config(seq, rate)
+        toks = gpt_tokens(cfg, batch, MP_STEPS, seed=0)
+        main, start, loss = build_mp(cfg)
+        row, p0, p1, _ = mp_run(torch, fa, main, start, loss, toks,
+                                profile=not rate)
+        # one startup program: every arm starts from the same weights
+        if name == "t0":
+            torch.save(p0, os.path.join(out_dir, "start.pt"))
+        torch.save(p1, os.path.join(out_dir, f"{name}.pt"))
+        refs[name] = row
+        log(f"phase 13 reference {name}: losses {row['losses']}, step ms "
+            f"p50 {row['step_ms_p50']:.1f}, B1 shapes "
+            f"{row['flash_fwd_shapes']}")
+        del main, start, loss, p0, p1
+        release(torch)
+    with open(os.path.join(out_dir, "refs.json"), "w") as f:
+        json.dump(refs, f)
+    return refs
+
+
+def mp_arm(torch, fa, out_dir, rank, ref_name, cfg, batch, tp, sp,
+           fault=None, steps=None, keep=False, profile=False):
+    """One gang arm: `cfg` at tp x sp from the startup weights, MP_STEPS
+    eager steps; rank 0 reads the change gate against the reference's
+    parameters. `fault` (a context manager factory) plants a fault.
+    `keep` returns the final parameters too (whole, on the host);
+    `profile` profiles one more step (`mp_run`)."""
+    main, start, loss = build_mp(cfg, tp=tp, sp=sp)
+    toks = gpt_tokens(cfg, batch, MP_STEPS, seed=0)
+    with (fault() if fault else contextlib.nullcontext()):
+        row, p0, p1, plans = mp_run(torch, fa, main, start, loss, toks,
+                                    steps, profile)
+    if rank == 0:
+        start0 = torch.load(os.path.join(out_dir, "start.pt"))
+        for n, v in p0.items():
+            if not torch.equal(v, start0[n]):
+                fail(f"phase 13 {ref_name} tp {tp} sp {sp}: the startup "
+                     f"weights differ from the reference's at {n}")
+        ref = torch.load(os.path.join(out_dir, f"{ref_name}.pt"))
+        row.update(mp_readings(torch, p1, ref, start0))
+        del ref, start0
+    del main, start, loss, p0
+    release(torch)
+    return (row, plans, p1) if keep else (row, plans)
+
+
+@contextlib.contextmanager
+def mp_patch(obj, name, value):
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+def mp_fault_skip_reduce(cfg):
+    """Planted fault: layer 0's attention projection keeps its partial
+    sum (its row-parallel all-reduce skipped): each rank takes its own
+    part of the product as if it were the whole."""
+    from paddle_tpu_torch.ops import registry
+    from paddle_tpu_torch.parallel import gspmd
+    opdef = registry.get("mul")
+    lower = opdef.lower
+    h, layers_ = cfg.hidden_size, cfg.num_layers
+    seen = [0]
+
+    def faulty(ctx, ins, attrs):
+        out = lower(ctx, ins, attrs)
+        w = ins["Y"][0]
+        if ctx.mesh is None or not gspmd.is_dtensor(w) \
+                or tuple(w.shape) != (h, h):
+            return out
+        seen[0] += 1
+        o = out["Out"][0]
+        if (seen[0] - 1) % layers_ == 0 \
+                and any(p.is_partial() for p in o.placements):
+            from torch.distributed.tensor import DTensor, Replicate
+            out["Out"][0] = DTensor.from_local(
+                o.to_local(), o.device_mesh,
+                [Replicate()] * o.device_mesh.ndim, run_check=False)
+        return out
+
+    return lambda: mp_patch(opdef, "lower", faulty)
+
+
+def ring_attention_module():
+    """parallel/ring_attention.py (the package exports its function under
+    the module's name)."""
+    import importlib
+    return importlib.import_module("paddle_tpu_torch.parallel.ring_attention")
+
+
+def mp_fault_local_keying():
+    """Planted fault: the attention's dropout keyed on the launch's own
+    heads (h_off 0), not the global ones."""
+    ra = ring_attention_module()
+    keying = ra._keying
+    return mp_patch(ra, "_keying",
+                    lambda mesh, b, nh: keying(mesh, b, nh)[:2] + (0,))
+
+
+def mp_fault_skip_rotation():
+    """Planted fault: the ring's one rotation at sp 2 skipped (each rank
+    attends to its own K/V block twice)."""
+    ra = ring_attention_module()
+
+    class Still:
+        @staticmethod
+        def apply(x, group, shift):
+            return x
+    return mp_patch(ra, "_Permute", Still)
+
+
+def mp_fault_ulysses_order():
+    """Planted fault: Ulysses' all-to-all lays the sequence blocks out in
+    reverse rank order."""
+    ra = ring_attention_module()
+    seq2head = ra._seq2head
+
+    def reversed_blocks(x, group, p):
+        import torch
+        y = seq2head(x, group, p)
+        return torch.cat(list(reversed(y.chunk(p, dim=2))), dim=2)
+    return mp_patch(ra, "_seq2head", reversed_blocks)
+
+
+def mp_worker():
+    """One rank of phase 13's gang (`chip_smoke.py --mp-worker`, started
+    by the port's launcher, both ranks on cuda:0 under gloo): arm T (tp 2:
+    dropout 0 with its collectives against the plan, run_steps(3) == 3
+    run() calls bit for bit, the planted unreduced projection; dropout 0.1
+    and its planted local keying), then arms SR and SU (sp 2, ring and
+    Ulysses, at dropout 0 and 0.1 and each's planted fault). Reads the
+    references' parameters from $CHIP_SMOKE_MP_OUT and writes
+    mp_rank<r>.json there."""
+    import faulthandler
+    import torch
+    sys.path.insert(0, HERE)
+    from paddle_tpu_torch.distributed import fleet, parallel
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    faulthandler.enable(all_threads=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fleet.init(is_collective=True)
+    rank, world = parallel.get_rank(), parallel.get_world_size()
+    dev = parallel.rank_device()
+    if world != MP_WORLD or parallel.backend() != "gloo" \
+            or dev != torch.device("cuda", 0):
+        fail(f"mp rank {rank}: expected gloo on cuda:0 at {MP_WORLD} ranks")
+    out_dir = os.environ["CHIP_SMOKE_MP_OUT"]
+    out = {"rank": rank}
+
+    # ---- T: tp 2 ----------------------------------------------------------
+    batch, seq = MP_T
+    cfg = mp_config(seq, 0.0)
+    sound, plans, p_sound = mp_arm(torch, fa, out_dir, rank, "t0", cfg,
+                                   batch, 2, 1, keep=True, profile=True)
+    log(f"mp rank {rank} T: losses {sound['losses']}, step ms "
+        f"{sound['step_ms']}, collectives {sound['calls_last_step']}")
+    mp_check_plan(plans, mp_plan_tp(cfg, batch), f"T rank {rank}")
+    if sound["param_elements"] != MP_PARAM_ELEMENTS_TP2:
+        fail(f"T rank {rank}: {sound['param_elements']} parameter elements, "
+             f"want {MP_PARAM_ELEMENTS_TP2}")
+    L = cfg.num_layers
+    if sound["flash_launches_per_step"] != {n: L for n in fa.KERNEL_NAMES} \
+            or sound["flash_fwd_shapes"] != [str(mp_local_heads(cfg, batch))]:
+        fail(f"T rank {rank}: B1-B3 launches a step "
+             f"{sound['flash_launches_per_step']} at "
+             f"{sound['flash_fwd_shapes']}")
+    out["T"] = {"sound": sound}
+    out["T"]["fault_unreduced_proj"], _ = mp_arm(
+        torch, fa, out_dir, rank, "t0", cfg, batch, 2, 1,
+        fault=mp_fault_skip_reduce(cfg))
+    out["T"]["run_steps_vs_run"] = mp_run_steps_gate(
+        torch, cfg, batch, sound["losses"], p_sound)
+    del p_sound
+    cfg1 = mp_config(seq, MP_DROPOUT)
+    out["T"]["dropout"], _ = mp_arm(torch, fa, out_dir, rank, "t1", cfg1,
+                                    batch, 2, 1)
+    out["T"]["fault_local_keying"], _ = mp_arm(
+        torch, fa, out_dir, rank, "t1", cfg1, batch, 2, 1,
+        fault=mp_fault_local_keying)
+    # ---- SR / SU: sp 2 ----------------------------------------------------
+    batch, seq = MP_S
+    faults = {"ring": mp_fault_skip_rotation,
+              "ulysses": mp_fault_ulysses_order}
+    for mode in ("ring", "ulysses"):
+        arm = {}
+        for key, rate, fault in (("sound", 0.0, None),
+                                 ("dropout", MP_DROPOUT, None),
+                                 ("fault", 0.0, faults[mode])):
+            cfg = mp_config(seq, rate, sp_mode=mode)
+            arm[key], plans = mp_arm(
+                torch, fa, out_dir, rank, "s1" if rate else "s0", cfg,
+                batch, 1, 2, fault=fault, profile=key == "sound")
+            log(f"mp rank {rank} {mode} {key}: losses {arm[key]['losses']}, "
+                f"step ms {arm[key]['step_ms']}")
+        out["SR" if mode == "ring" else "SU"] = arm
+    with open(os.path.join(out_dir, f"mp_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    log(f"mp rank {rank}: done")
+    return 0
+
+
+def mp_run_steps_gate(torch, cfg, batch, run_losses, run_params):
+    """run_steps(3) at tp 2 from the startup weights against arm T's 3
+    Executor.run calls (`run_losses`, `run_params`), bit for bit: the
+    losses and every parameter, whole."""
+    from paddle_tpu_torch.framework import Executor, Scope
+    main, start, loss = build_mp(cfg, tp=2)
+    toks = gpt_tokens(cfg, batch, MP_STEPS, seed=0)
+    scope, exe = Scope(), Executor("cuda")
+    exe.run(start, scope=scope)
+    got, = exe.run_steps(MP_STEPS, main, feed={"tokens": toks},
+                         fetch_list=[loss], scope=scope)
+    losses = [float(x) for x in np.asarray(got).ravel()]
+    params = mp_whole_params(torch, main, scope)
+    differ = [n for n in params if not torch.equal(params[n], run_params[n])]
+    if losses != run_losses or differ:
+        fail(f"T: run_steps({MP_STEPS}) != {MP_STEPS} run() calls: losses "
+             f"{losses} vs {run_losses}, parameters differing {differ[:5]}")
+    del main, start, loss, scope, exe, params
+    release(torch)
+    return {"losses": losses, "parameters": len(run_params),
+            "bitwise": True}
+
+
+def check_flash_keying(torch, fa):
+    """B1-B3's global-head keying on the card: a launch over heads 6-11
+    with keying (0, 12, 6) against those heads of the full 12-head launch
+    at dropout 0.1 (O, dQ, dK, dV bit for bit; f32 and bf16, causal and a
+    key-padding mask); and the identity
+    keying against the kernels built with the flat b*nh+h key (the
+    `flat_keying` variant, the hash's key before the keying existed) on
+    the phase-3 arms, bit for bit."""
+    from paddle_tpu_torch.ops.kernels import flash_variants as fv
+    B, nh, S, hd = MP_KEYING_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(7)
+    base = [torch.randn((B, nh, S, hd), generator=g, device="cuda")
+            for _ in range(4)]
+    mask = padding_mask(torch, B, S, seed=2)
+    out = {"shape": list(MP_KEYING_SHAPE), "slice": [6, 12], "arms": []}
+
+    def grads(q, k, v, do, **kw):
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        o = fa.flash_attention(qq, kk, vv, **kw)
+        return (o.detach(),) + torch.autograd.grad(o, (qq, kk, vv), do)
+
+    for dtype, m, causal in (("float32", mask, False),
+                             ("bfloat16", None, True)):
+        dt = getattr(torch, dtype)
+        q, k, v, do = (t.to(dt) for t in base)
+        kw = dict(scale=1.0 / np.sqrt(hd), causal=causal,
+                  dropout=MP_DROPOUT, seed=4321, mask=m)
+        full = grads(q, k, v, do, **kw)
+        sl = [t[:, 6:].contiguous() for t in (q, k, v, do)]
+        part = grads(*sl, keying=(0, nh, 6), **kw)
+        equal = all(torch.equal(a[:, 6:], b) for a, b in zip(full, part))
+        wrong = grads(*sl, **kw)       # the launch's own heads: planted
+        differs = not torch.equal(full[0][:, 6:], wrong[0])
+        torch.cuda.synchronize()
+        what = f"{dtype} causal={causal} mask={m is not None}"
+        log(f"flash keying {what}: heads 6-11 keyed (0, 12, 6) bit-equal "
+            f"to the full launch {equal}; unkeyed slice differs {differs}")
+        if not equal:
+            fail(f"flash keying {what}: the keyed head slice differs from "
+                 f"the full launch")
+        if not differs:
+            fail(f"flash keying {what}: the slice keyed on its own heads "
+                 f"draws the full launch's mask (the gate cannot see a "
+                 f"wrong key)")
+        out["arms"].append({"arm": what, "bitwise": equal,
+                            "own_heads_differ": differs})
+    # the identity keying against the flat key, on the phase-3 arms
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import paged_attention as pk
+    from paddle_tpu_torch.ops.kernels import zero_update as zk
+    load = _build.load
+    libs = fv.build(["base", "flat_keying"])
+    mask16 = padding_mask(torch, 16, 512, seed=0)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    t16 = [torch.randn((16, 12, 512, 64), generator=g, device="cuda")
+           for _ in range(4)]
+    same = []
+    try:
+        for dtype, m, causal, rate in (("float32", mask16, False, 0.1),
+                                       ("bfloat16", mask16, False, 0.1),
+                                       ("bfloat16", None, True, 0.1),
+                                       ("float32", None, False, 0.0)):
+            dt = getattr(torch, dtype)
+            q, k, v, do = (t.to(dt) for t in t16)
+            kw = dict(scale=0.125, causal=causal, dropout=rate,
+                      seed=1234 if rate else None, mask=m)
+            got = {}
+            for name in ("base", "flat_keying"):
+                fv._use(libs[name][0])
+                got[name] = grads(q, k, v, do, **kw)
+            eq = all(torch.equal(a, b) for a, b in zip(got["base"],
+                                                       got["flat_keying"]))
+            same.append({"arm": f"{dtype} mask={m is not None} "
+                                f"causal={causal} dropout={rate}",
+                         "bitwise": eq})
+            if not eq:
+                fail(f"flash keying: the identity keying differs from the "
+                     f"flat key on {same[-1]['arm']}")
+    finally:
+        _build.load = load
+        fa._lib = zk._lib = pk._lib = None
+    out["identity_vs_flat_key"] = same
+    release(torch)
+    return out
+
+
+def check_flash_keyed_paths(torch, fa):
+    """B1-B3 against their plain version at the shapes phase 13's paths
+    launch them at (a rank's 6 of 12 heads: T at [8, 6, 512, 64], SU at
+    [4, 6, 1024, 64]), f32 as fleet AMP hands them over, causal, dropout
+    0.1 with the seed in device memory, keyed as rank 1 keys them (0, 12,
+    6): O, dQ, dK and dV held with FLASH_TOLERANCE. Then each launch alone
+    (launch_fwd, launch_bwd_dq, launch_bwd_dkdv on prepared operands)
+    timed beside its bound (`causal_flash_bounds`) and beside the plain
+    version. Returns {kernel: [numbers at each shape]}."""
+    out = {n: [] for n in fa.KERNEL_NAMES}
+    g = torch.Generator(device="cuda").manual_seed(11)
+    seed = fa.seed_tensor(4321, torch.device("cuda"))
+    for batch, seq in (MP_T, MP_S):
+        B, nh, S, hd = mp_local_heads(mp_config(seq, 0.0), batch)
+        keying = (0, 2 * nh, nh)
+        scale = 1.0 / np.sqrt(hd)
+        q, k, v, do = (torch.randn((B, nh, S, hd), generator=g,
+                                   device="cuda") for _ in range(4))
+        kw = dict(scale=scale, causal=True, dropout=MP_DROPOUT, seed=seed,
+                  keying=keying)
+
+        def run(fn):
+            qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+            o = fn(qq, kk, vv, **kw)
+            return (o.detach(),) + torch.autograd.grad(o, (qq, kk, vv), do)
+
+        got, want = run(fa.flash_attention), run(fa.flash_attention_plain)
+        torch.cuda.synchronize()
+        what = f"[{B}, {nh}, {S}, {hd}] f32 causal dropout {MP_DROPOUT} " \
+               f"keying {keying}"
+        if not all(torch.isfinite(t).all() for t in got):
+            fail(f"flash {what}: non-finite kernel output")
+        pairs = {"flash_fwd": [(got[0], want[0])],
+                 "flash_bwd_dq": [(got[1], want[1])],
+                 "flash_bwd_dkdv": [(got[2], want[2]), (got[3], want[3])]}
+        a = (q, k, v, None, None, seed, scale, True, MP_DROPOUT, keying)
+        o, lse = fa.launch_fwd(*a)
+        qa = (q, k, v, o, lse, do) + a[3:]
+        delta = fa.launch_bwd_dq(*qa)[1]
+        ka = (q, k, v, delta, lse, do) + a[3:]
+        ms = {"flash_fwd": cuda_ms(torch, lambda: fa.launch_fwd(*a)),
+              "flash_bwd_dq": cuda_ms(torch, lambda: fa.launch_bwd_dq(*qa)),
+              "flash_bwd_dkdv": cuda_ms(
+                  torch, lambda: fa.launch_bwd_dkdv(*ka))}
+        with torch.no_grad():
+            plain = {"flash_fwd": cuda_ms(
+                torch, lambda: fa.flash_attention_plain(q, k, v, **kw),
+                iters=5, warmup=1)}
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        op = fa.flash_attention_plain(qq, kk, vv, **kw)
+        plain["flash_bwd_dq"] = cuda_ms(torch, lambda: torch.autograd.grad(
+            op, qq, do, retain_graph=True), iters=5, warmup=1)
+        plain["flash_bwd_dkdv"] = cuda_ms(
+            torch, lambda: torch.autograd.grad(op, (kk, vv), do,
+                                               retain_graph=True),
+            iters=5, warmup=1)
+        bounds = causal_flash_bounds(B, nh, S, hd)
+        for name, ps in pairs.items():
+            atol, rtol = FLASH_TOLERANCE["float32"][
+                "o" if name == "flash_fwd" else "grad"]
+            err, need, p99, typical = flash_agreement(torch, ps, rtol)
+            bound, bound_by = bounds[name]
+            log(f"flash {name} {what}: |kernel - plain| max {err:.3e}, p99 "
+                f"{p99:.3e}; needs atol {need:.3e} beside rtol {rtol:.3g} "
+                f"(atol {atol:.1e}); alone {ms[name]:.4f} ms, plain "
+                f"{plain[name]:.4f} ms, bound {bound:.4f} ms ({bound_by})")
+            if need > atol:
+                fail(f"{name} {what}: kernel disagrees with its plain "
+                     f"version: |kernel - plain| exceeds {atol} + {rtol} * "
+                     f"|plain| by up to {need - atol}")
+            out[name].append(dict(
+                shape=[B, nh, S, hd], dtype="float32", causal=True,
+                dropout=MP_DROPOUT, keying=list(keying), max_abs_err=err,
+                p99_abs_err=p99, atol_needed=need, atol=atol, rtol=rtol,
+                median_abs_plain=typical, ms=ms[name], plain_ms=plain[name],
+                bound_ms=bound, bound_by=bound_by,
+                bound_rate=CAUSAL_BOUND_RATE))
+        del got, want, pairs, op, qq, kk, vv, q, k, v, do, o, lse, delta
+    release(torch)
+    return out
+
+
+def train_gpt_model_parallel(torch, fa, card):
+    """Phase 13: the B1-B3 keying checks, the one-process references, then
+    arms T, SR and SU in one gang of two ranks on cuda:0 under gloo."""
+    import tempfile
+    t0 = time.perf_counter()
+    row = {"card": card,
+           "config": "GPTConfig() (hidden 768, 12 heads, vocab 50257), "
+                     "fleet AMP bf16, Adam(1e-4), ZeRO stage 0, weights from "
+                     "the startup program, tokens from numpy seed 0; arm T "
+                     "tp 2 at batch 8 (cut from 32: gloo's host traffic), S "
+                     "512; arms SR / SU sp 2 at batch 4, S 1024"}
+    row["flash_keying"] = check_flash_keying(torch, fa)
+    row["flash_keyed_paths"] = check_flash_keyed_paths(torch, fa)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_mp_")
+    refs = mp_references(torch, fa, out_dir)
+    env = dict(os.environ, PADDLE_DIST_BACKEND="gloo",
+               PADDLE_DIST_DEVICE="cuda:0", CHIP_SMOKE_MP_OUT=out_dir)
+    t1 = time.perf_counter()
+    rc, text = launch_gang(["--mp-worker"], env, 900, "mp_gang.log")
+    gang_s = time.perf_counter() - t1
+    if rc != 0:
+        fail(f"the phase-13 gang failed (rc {rc}): {text[-3000:]}")
+    ranks = []
+    for r in range(MP_WORLD):
+        with open(os.path.join(out_dir, f"mp_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    shutil_rm(out_dir)
+    row.update(mp_judge(fa, refs, ranks))
+    row.update({"references": refs, "ranks": ranks, "gang_s": gang_s,
+                "launch": "python -m paddle_tpu_torch.distributed.launch "
+                          "--nproc_per_node 2 chip_smoke.py --mp-worker, "
+                          "PADDLE_DIST_BACKEND=gloo "
+                          "PADDLE_DIST_DEVICE=cuda:0",
+                "phase_s": time.perf_counter() - t0})
+    return row
+
+
+def mp_judge(fa, refs, ranks):
+    """Phase 13's gates over the references and the gang's ranks: each
+    arm within MP_LOSS_RTOL (losses) and MP_CHANGE_RTOL (the parameters'
+    change) of its one-process reference, each planted fault outside one
+    of them, the ranks' losses equal, B1-B3 launched on the Ulysses path
+    at the rank's heads, the ring's permutes and Ulysses' all-to-alls."""
+    r0 = ranks[0]
+    gates = {}
+
+    def gate(name, arm, ref, fault=None, fault_limit_loss=None):
+        loss_rel = mp_loss_rel(arm["losses"], ref["losses"])
+        g = {"loss_max_rel": loss_rel, "change_rel": arm["change_rel"],
+             "params_norm_rel": arm["params_norm_rel"]}
+        ok = loss_rel <= MP_LOSS_RTOL and arm["change_rel"] <= MP_CHANGE_RTOL
+        if fault is not None:
+            g["fault_loss_max_rel"] = mp_loss_rel(fault["losses"],
+                                                  ref["losses"])
+            g["fault_change_rel"] = fault["change_rel"]
+            seen = (g["fault_change_rel"] > MP_CHANGE_RTOL
+                    or g["fault_loss_max_rel"] > MP_LOSS_RTOL)
+            g["fault_seen"] = seen
+            if not seen:
+                fail(f"phase 13 {name}: the planted fault reads inside the "
+                     f"limits {g}")
+        log(f"phase 13 {name}: {g}")
+        if not ok:
+            fail(f"phase 13 {name}: outside the limits (losses "
+                 f"{MP_LOSS_RTOL}, change {MP_CHANGE_RTOL}): {g}")
+        gates[name] = g
+
+    for r in ranks[1:]:
+        for arm in ("T", "SR", "SU"):
+            if r[arm]["sound"]["losses"] != r0[arm]["sound"]["losses"]:
+                fail(f"phase 13 {arm}: the ranks fetch different losses")
+    gate("T", r0["T"]["sound"], refs["t0"], r0["T"]["fault_unreduced_proj"])
+    gate("T dropout", r0["T"]["dropout"], refs["t1"],
+         r0["T"]["fault_local_keying"])
+    for arm in ("SR", "SU"):
+        gate(arm, r0[arm]["sound"], refs["s0"], r0[arm]["fault"])
+        gate(f"{arm} dropout", r0[arm]["dropout"], refs["s1"])
+    for arm in ("SR", "SU"):
+        calls = r0[arm]["sound"]["collectives_last_step"]
+        log(f"phase 13 {arm} DTensor collectives of a step: {calls}")
+    cfg = mp_config(MP_S[1], 0.0)
+    L = cfg.num_layers
+    su = r0["SU"]["sound"]
+    if su["flash_launches_per_step"] != {n: L for n in fa.KERNEL_NAMES} \
+            or su["flash_fwd_shapes"] != [str(mp_local_heads(cfg, MP_S[0]))]:
+        fail(f"SU: B1-B3 launches a step {su['flash_launches_per_step']} at "
+             f"{su['flash_fwd_shapes']}")
+    # a ring step at sp 2: one permute of K and one of V a layer forward,
+    # their inverses backward; Ulysses: q, k, v and back a layer forward,
+    # the inverses backward
+    for arm, op, want in (("SR", "ppermute", 4 * L),
+                          ("SU", "all_to_all", 8 * L)):
+        got = r0[arm]["sound"]["calls_last_step"].get(f"{op}.calls")
+        if got != want:
+            fail(f"{arm}: {got} {op} calls in a step, want {want}")
+    return {"gates": gates,
+            "tp_plan": {f"{k[0]} {k[1]} {k[2]}": v for k, v in
+                        mp_plan_tp(mp_config(MP_T[1], 0.0),
+                                   MP_T[0]).items()}}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5545,6 +6299,23 @@ def main():
     rows["zero_adam"]["stacked"] = [scan_row.pop("b8_stacked_whole"),
                                     scan_row["dp"].pop("b8_stacked_shard")]
 
+    # ---- tensor and sequence parallelism: tp 2, ring and Ulysses sp 2 ------
+    release(torch)
+    mp_row = train_gpt_model_parallel(torch, fa, card)
+    mp0 = mp_row["ranks"][0]
+    arms = {"model_parallel_T_tp2_rank0_3_steps":
+                mp0["T"]["sound"]["flash_launches"],
+            "model_parallel_SU_ulysses_sp2_rank0_3_steps":
+                mp0["SU"]["sound"]["flash_launches"]}
+    for path, counts in arms.items():
+        for name in fa.KERNEL_NAMES:
+            if not counts[name]:
+                fail(f"{name} was never launched on the {path} run")
+            rows[name]["launches_by_path"][path] = counts[name]
+    for name in fa.KERNEL_NAMES:
+        rows[name]["keying"] = mp_row["flash_keying"]
+        rows[name]["keyed_paths"] = mp_row["flash_keyed_paths"][name]
+
     for row in rows.values():
         if not row["launches"]:
             fail(f"{row['name']} was never launched on its main path run")
@@ -5559,6 +6330,7 @@ def main():
     print(json.dumps({"data_parallel": dp_row}), flush=True)
     print(json.dumps({"pipeline": pipe_row}), flush=True)
     print(json.dumps({"layer_scan": scan_row}), flush=True)
+    print(json.dumps({"model_parallel": mp_row}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -5572,6 +6344,8 @@ if __name__ == "__main__":
         sys.exit(dp_nccl_refusal())
     if "--scan-worker" in sys.argv:
         sys.exit(scan_worker())
+    if "--mp-worker" in sys.argv:
+        sys.exit(mp_worker())
     adopt_orphans()
     try:
         rc = main()

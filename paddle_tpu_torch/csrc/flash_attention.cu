@@ -22,8 +22,14 @@
 //         with `causal` the q loop starts at the first q tile that reaches
 //         this key tile.
 // Dropout is the reference's counter hash (_keep_mask :73): bit (q, k) of
-// head b*nh+h depends only on (seed, head, q, k), so all three kernels
-// regenerate the forward's mask although they tile differently. The seed
+// head `kh` depends only on (seed, kh, q, k), so all three kernels
+// regenerate the forward's mask although they tile differently. The keyed
+// head is the GLOBAL flat index of the launch's head b*nh+h (reference
+// ring_attention.py `_global_head_ids` :54): kh = (b_off + b) * nh_total +
+// h_off + h, computed once per block (`keyed_head`), so a launch over a
+// slice of the heads (tensor parallelism, Ulysses) or of the batch draws
+// the bits the whole launch draws there. The identity (0, nh, 0) is the
+// flat b*nh+h. The seed
 // is a uint32 in device memory (`Params::seed`), loaded once by each thread
 // at the start of a block, so a captured CUDA graph replays with the seed
 // its caller wrote there before the replay (the reference reads it from
@@ -102,6 +108,9 @@ struct Params {
     uint32_t thresh;    // keep when hash >= thresh
     const uint32_t* seed;   // device pointer; read only when dropout is on
     float keep_prob;    // 1 - rate
+    int b_off;          // dropout keying: this launch's first global batch row,
+    int nh_total;       // the global head count,
+    int h_off;          // and its first global head (identity: 0, nh, 0)
 };
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
@@ -124,6 +133,12 @@ __device__ __forceinline__ bool keep_bit(const Params& p, uint32_t seed, uint32_
     x *= 0xC2B2AE35u;
     x ^= x >> 16;
     return x >= p.thresh;
+}
+
+// The global flat head the dropout hash keys on (see the top of the file).
+__device__ __forceinline__ uint32_t keyed_head(const Params& p, int bh) {
+    return (uint32_t)(p.b_off + bh / p.nh) * (uint32_t)p.nh_total
+           + (uint32_t)(p.h_off + bh % p.nh);
 }
 
 __device__ __forceinline__ const float* mask_base(const Params& p, int bh) {
@@ -225,6 +240,7 @@ __global__ void __launch_bounds__(128 * (HD / 64)) flash_fwd_kernel(Params p) {
     const bool mask1 = mrow != nullptr && p.mask_rows == 1;
     const float inv_keep = 1.f / p.keep_prob;
     const uint32_t seed = load_seed(p);
+    const uint32_t kh = keyed_head(p, bh);
     const float sl2 = p.scale * kLog2e;        // scores in log2 units
 
     int n_kt = (p.S + BNF - 1) / BNF;
@@ -298,7 +314,7 @@ __global__ void __launch_bounds__(128 * (HD / 64)) flash_fwd_kernel(Params p) {
                 l[h] += pr;
                 if (p.dropout) {
                     const int qpos = q0 + r_lo + 8 * h, kpos = k0 + 8 * j + 2 * t + (i % 2);
-                    pr = keep_bit(p, seed, bh, qpos, kpos) ? pr * inv_keep : 0.f;
+                    pr = keep_bit(p, seed, kh, qpos, kpos) ? pr * inv_keep : 0.f;
                 }
                 s[j][i] = pr;
             }
@@ -353,6 +369,7 @@ __global__ void __launch_bounds__(128 * (HD / 64)) flash_bwd_dq_kernel(Params p)
     const bool mask1 = mrow != nullptr && p.mask_rows == 1;
     const float inv_keep = 1.f / p.keep_prob;
     const uint32_t seed = load_seed(p);
+    const uint32_t kh = keyed_head(p, bh);
 
     int n_kt = (p.S + BN - 1) / BN;
     if (p.causal) n_kt = min(n_kt, (min(q0 + BQ, p.S) + BN - 1) / BN);
@@ -417,7 +434,7 @@ __global__ void __launch_bounds__(128 * (HD / 64)) flash_bwd_dq_kernel(Params p)
                                            qpos, kpos);
                 const float pr = isfinite(sc) ? exp2f((sc - lse[h]) * kLog2e) : 0.f;
                 float dpv = dp[j][i];
-                if (p.dropout) dpv = keep_bit(p, seed, bh, qpos, kpos) ? dpv * inv_keep : 0.f;
+                if (p.dropout) dpv = keep_bit(p, seed, kh, qpos, kpos) ? dpv * inv_keep : 0.f;
                 s[j][i] = pr * (dpv - dl[h]) * p.scale;   // dS; the product rounds it to T
             }
         mma_pb<T, LD, NJ>(acc, [&](int j, int i) { return s[j][i]; }, sK + 64 * wc, lane);
@@ -464,6 +481,7 @@ __global__ void __launch_bounds__(128 * (HD / 64)) flash_bwd_dkdv_kernel(Params 
     const bool mask1 = mrow != nullptr && p.mask_rows == 1;
     const float inv_keep = 1.f / p.keep_prob;
     const uint32_t seed = load_seed(p);
+    const uint32_t kh = keyed_head(p, bh);
 
     const int n_qt = (p.S + BN - 1) / BN;
     const int qt0 = p.causal ? k0 / BN : 0;    // the first q tile that reaches k0
@@ -517,7 +535,7 @@ __global__ void __launch_bounds__(128 * (HD / 64)) flash_bwd_dkdv_kernel(Params 
                 const float l = tl[c];
                 s[j][i] = (isfinite(sc) && qpos < p.S)
                               ? exp2f((sc - (isfinite(l) ? l : 0.f)) * kLog2e) : 0.f;   // P^T
-                if (p.dropout && keep_bit(p, seed, bh, qpos, kpos)) kept |= 1u << (4 * j + i);
+                if (p.dropout && keep_bit(p, seed, kh, qpos, kpos)) kept |= 1u << (4 * j + i);
             }
         // dV += dropout(P)^T dO; the product rounds P to dO's dtype
         mma_pb<T, LD, NJ>(dv, [&](int j, int i) {
@@ -592,13 +610,15 @@ Params make_params(const void* q, const void* k, const void* v, const void* o,
                    void* out, void* dk,
                    void* dv, int B, int nh, int S, int mask_mode, int mask_rows,
                    float scale, int causal, int dropout, unsigned thresh,
-                   const unsigned* seed, float keep_prob) {
+                   const unsigned* seed, float keep_prob, int b_off, int nh_total,
+                   int h_off) {
     Params p;
     p.q = q; p.k = k; p.v = v; p.o = o; p.dout = dout; p.mask = mask; p.lse = lse;
     p.delta = delta; p.out = out; p.dk = dk; p.dv = dv;
     p.B = B; p.nh = nh; p.S = S; p.mask_mode = mask_mode; p.mask_rows = mask_rows;
     p.scale = scale; p.causal = causal; p.dropout = dropout; p.thresh = thresh;
     p.seed = seed; p.keep_prob = keep_prob;
+    p.b_off = b_off; p.nh_total = nh_total; p.h_off = h_off;
     return p;
 }
 
@@ -606,15 +626,17 @@ Params make_params(const void* q, const void* k, const void* v, const void* o,
 
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16; hd: 64 or 128. Each returns cudaGetLastError()
-// after its one launch (0 = launched).
+// dtype: 0 float32, 1 bfloat16; hd: 64 or 128; (b_off, nh_total, h_off) the
+// dropout keying (`keyed_head`). Each returns cudaGetLastError() after its one
+// launch (0 = launched).
 int flash_fwd(const void* q, const void* k, const void* v, const float* mask, void* o,
               float* lse, int dtype, int B, int nh, int S, int hd, int mask_mode,
               int mask_rows, float scale, int causal, int dropout, unsigned thresh,
-              const unsigned* seed, float keep_prob, void* stream) {
+              const unsigned* seed, float keep_prob, int b_off, int nh_total,
+                   int h_off, void* stream) {
     Params p = make_params(q, k, v, nullptr, nullptr, mask, lse, nullptr, o, nullptr,
                            nullptr, B, nh, S, mask_mode, mask_rows, scale, causal, dropout, thresh, seed,
-                           keep_prob);
+                           keep_prob, b_off, nh_total, h_off);
     return dispatch(0, dtype, hd, p, stream);
 }
 
@@ -623,10 +645,11 @@ int flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                  const void* dout, float* lse, const float* mask, void* dq, float* delta,
                  int dtype, int B, int nh, int S, int hd, int mask_mode, int mask_rows,
                  float scale, int causal, int dropout, unsigned thresh,
-                 const unsigned* seed, float keep_prob, void* stream) {
+                 const unsigned* seed, float keep_prob, int b_off, int nh_total,
+                   int h_off, void* stream) {
     Params p = make_params(q, k, v, o, dout, mask, lse, delta, dq, nullptr, nullptr, B, nh, S,
                            mask_mode, mask_rows, scale, causal, dropout, thresh, seed,
-                           keep_prob);
+                           keep_prob, b_off, nh_total, h_off);
     return dispatch(1, dtype, hd, p, stream);
 }
 
@@ -634,10 +657,11 @@ int flash_bwd_dkdv(const void* q, const void* k, const void* v, float* delta,
                    const void* dout, float* lse, const float* mask, void* dk, void* dv,
                    int dtype, int B, int nh, int S, int hd, int mask_mode, int mask_rows,
                    float scale, int causal, int dropout, unsigned thresh,
-                   const unsigned* seed, float keep_prob, void* stream) {
+                   const unsigned* seed, float keep_prob, int b_off, int nh_total,
+                   int h_off, void* stream) {
     Params p = make_params(q, k, v, nullptr, dout, mask, lse, delta, nullptr, dk, dv, B, nh,
                            S, mask_mode, mask_rows, scale, causal, dropout, thresh, seed,
-                           keep_prob);
+                           keep_prob, b_off, nh_total, h_off);
     return dispatch(2, dtype, hd, p, stream);
 }
 

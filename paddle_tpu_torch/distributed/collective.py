@@ -12,10 +12,18 @@ one that `init_parallel_env` (distributed/parallel.py) builds.
 
 ZeRO's flat buffers (parallel/zero.py) take `reduce_scatter_flat` (each
 rank receives the sum of its `[n/dp]` slice) and `all_gather_flat` (the
-shards concatenated in rank order).
+shards concatenated in rank order). Sequence parallelism
+(parallel/ring_attention.py) takes `ppermute` (each rank's tensor to the
+next rank of a group's ring) and `all_to_all_single`, over a mesh axis's
+group.
 
-Gloo takes only `all_reduce` and `broadcast` on CUDA tensors. There the
-port maps the others onto those two: `reduce_scatter_flat` is an
+Gloo (torch 2.11 on the H100, probed with two ranks on one card) takes
+all_reduce, broadcast, all_gather, all_gather_into_tensor,
+reduce_scatter_tensor and all_to_all_single on CUDA tensors, which is
+what DTensor issues, but not send/recv: `ppermute` there stages through
+host memory (counted `executor.collective_emulated.ppermute`). For the
+collectives of the dp path the port keeps mapping onto all_reduce and
+broadcast, as it has since it first ran on gloo: `reduce_scatter_flat` is an
 all-reduce of the whole buffer and a slice, `all_gather` /
 `all_gather_flat` are one broadcast from each rank, `reduce` an
 all-reduce, `scatter` a broadcast of the stacked pieces. Each such call
@@ -45,7 +53,8 @@ from .parallel import get_rank, get_world_size
 __all__ = ["ReduceOp", "all_reduce", "all_gather", "broadcast", "reduce",
            "scatter", "barrier", "split_batch", "get_rank",
            "get_world_size", "reduce_scatter_flat", "all_gather_flat",
-           "counters", "host_ms", "reset_counters"]
+           "counters", "host_ms", "reset_counters", "ppermute",
+           "all_to_all_single", "count_call", "install_gloo_functionals"]
 
 counters = collections.defaultdict(int)
 host_ms = collections.defaultdict(float)
@@ -113,6 +122,13 @@ class _Span:
             self.ev.__exit__(*exc)
             host_ms[self.op] += (time.perf_counter() - self.t0) * 1e3
         return False
+
+
+def count_call(op: str, nbytes: int) -> None:
+    """Count one collective issued outside this module (DTensor's, counted
+    by parallel/gspmd.py `CollectiveCounter`)."""
+    _counts.count(counters, f"{op}.calls")
+    _counts.count(counters, f"{op}.bytes", int(nbytes))
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -189,6 +205,127 @@ def scatter(tensor: torch.Tensor, tensor_list=None, src: int = 0,
 def barrier(group=None) -> None:
     with _Span("barrier", 0):
         _dist().barrier(group=group)
+
+
+def ppermute(tensor: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
+    """Each rank's `tensor` to the rank `shift` places after it in
+    `group`'s ring; returns what the rank `shift` places before it sent
+    (the reference's `jax.lax.ppermute` with perm i -> i + shift)."""
+    d = _dist()
+    n, r = d.get_world_size(group), d.get_rank(group)
+    t = tensor.contiguous()
+    with _Span("ppermute", _nbytes(t)):
+        stage = (t.device.type == "cuda"
+                 and d.get_backend(group) == "gloo")
+        if stage:
+            _metrics.inc("executor.collective_emulated.ppermute")
+            t = t.cpu()
+        out = torch.empty_like(t)
+        to = d.get_global_rank(group, (r + shift) % n)
+        frm = d.get_global_rank(group, (r - shift) % n)
+        for w in d.batch_isend_irecv([d.P2POp(d.isend, t, to, group),
+                                      d.P2POp(d.irecv, out, frm, group)]):
+            w.wait()
+        return out.to(tensor.device) if stage else out
+
+
+def all_to_all_single(tensor: torch.Tensor, group) -> torch.Tensor:
+    """Rank j of `group` receives the j-th of the equal dim-0 blocks of
+    every rank's `tensor`, stacked in rank order along dim 0."""
+    t = tensor.contiguous()
+    out = torch.empty_like(t)
+    with _Span("all_to_all", _nbytes(t)):
+        _dist().all_to_all_single(out, t, group=group)
+    return out
+
+
+# --- DTensor's functional collectives on CUDA under gloo -------------------
+
+_functional_libs = {}
+_RED_BY_NAME = {"sum": "sum", "max": "max", "min": "min",
+                "product": "prod", "prod": "prod"}
+
+
+def _group_of(group_name):
+    if isinstance(group_name, str):
+        from torch.distributed.distributed_c10d import _resolve_process_group
+        return _resolve_process_group(group_name)
+    return group_name
+
+
+def _sync(op, fn):
+    """A functional collective as the synchronous c10d call `fn` (counted
+    `executor.collective_emulated.<op>`)."""
+    def impl(*args):
+        _metrics.inc(f"executor.collective_emulated.{op}")
+        return fn(*args)
+    return impl
+
+
+def install_gloo_functionals(dispatch_key: str = "CUDA") -> None:
+    """Serve DTensor's functional collectives (`_c10d_functional`) on
+    `dispatch_key` tensors by the synchronous c10d calls, which gloo runs
+    on CUDA tensors. On the H100 (torch 2.11) gloo completes the
+    asynchronous functional form of a CUDA all-gather with a segmentation
+    fault in `wait_tensor`, where the synchronous `all_gather_into_tensor`
+    works; so under gloo on CUDA every functional collective is the
+    synchronous call and `wait_tensor` has nothing left to wait for.
+    Idempotent; a process with a gloo mesh on CUDA installs it once
+    (parallel/mesh.py)."""
+    if dispatch_key in _functional_libs:
+        return
+    d = _dist()
+
+    def red(op):
+        return _red(_RED_BY_NAME[str(op).lower()])
+
+    def all_reduce(x, op, group_name):
+        out = x.clone(memory_format=torch.contiguous_format)
+        d.all_reduce(out, op=red(op), group=_group_of(group_name))
+        return out
+
+    def all_reduce_(x, op, group_name):
+        d.all_reduce(x, op=red(op), group=_group_of(group_name))
+        return x
+
+    def all_gather(x, group_size, group_name):
+        x = x.contiguous()
+        out = x.new_empty((x.shape[0] * group_size,) + tuple(x.shape[1:]))
+        d.all_gather_into_tensor(out, x, group=_group_of(group_name))
+        return out
+
+    def reduce_scatter(x, op, group_size, group_name):
+        x = x.contiguous()
+        out = x.new_empty((x.shape[0] // group_size,) + tuple(x.shape[1:]))
+        d.reduce_scatter_tensor(out, x, op=red(op),
+                                group=_group_of(group_name))
+        return out
+
+    def all_to_all(x, out_splits, in_splits, group_name):
+        x = x.contiguous()
+        out = x.new_empty((int(sum(out_splits)),) + tuple(x.shape[1:]))
+        d.all_to_all_single(out, x, [int(n) for n in out_splits],
+                            [int(n) for n in in_splits],
+                            group=_group_of(group_name))
+        return out
+
+    def broadcast(x, src, group_name):
+        out = x.clone(memory_format=torch.contiguous_format)
+        d.broadcast(out, src=src, group=_group_of(group_name))
+        return out
+
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    for name, op, fn in (("all_reduce", "all_reduce", all_reduce),
+                         ("all_reduce_", "all_reduce", all_reduce_),
+                         ("all_gather_into_tensor", "all_gather",
+                          all_gather),
+                         ("reduce_scatter_tensor", "reduce_scatter",
+                          reduce_scatter),
+                         ("all_to_all_single", "all_to_all", all_to_all),
+                         ("broadcast", "broadcast", broadcast)):
+        lib.impl(name, _sync(op, fn), dispatch_key)
+    lib.impl("wait_tensor", lambda t: t, dispatch_key)
+    _functional_libs[dispatch_key] = lib
 
 
 def split_batch(array, axis: int = 0):

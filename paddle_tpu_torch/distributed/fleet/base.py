@@ -33,17 +33,31 @@ per bucket, ZeRO state sharded over the ranks): a dp > 1 program with
 `fuse_grad_size_in_mb` 0 raises, since it would train on each rank's
 local gradients.
 
+Tensor and sequence parallelism: `tensor_parallel_degree` and
+`sequence_parallel_degree` build a dp x tp x sp mesh of processes
+(parallel/mesh.py), and `minimize` attaches it with
+`tensor_parallel_rules` (parallel/spmd.py `DistConfig`), so the executor
+runs the program on DTensors (parallel/gspmd.py): the reference's GSPMD
+attach (`base.py:519-533`). Such a program skips the bucket pass, as the
+reference's mixed mesh does; ZeRO stages above 0 with tp or sp, pp with
+tp or sp, and layer scan with tp or sp raise (ROADMAP item 16). With tp
+above 1, an auto-selected fused LM head whose weight the rules
+vocab-shard warns (`_warn_tp_fused_head`, reference :310).
+
 Honoured: `amp`, `amp_configs`, `recompute`, `recompute_configs`,
 `layer_scan`, `layer_scan_configs`, `gradient_merge`,
 `gradient_merge_configs`, `pipeline`, `pipeline_configs`,
-`pipeline_parallel_degree`, `fuse_grad_size_in_mb`, `sharding`,
-`sharding_stage`, `sharding_configs` (`stage`, `fuse_grad_size_in_mb`),
-`FLAGS_layer_scan` and `FLAGS_zero_stage`. dp and pp compose: each dp
-rank pipelines its batch and the pipeline runner averages the gradients
-over the ranks (parallel/pipeline.py). Any other strategy field set away
-from its default raises: tensor, sequence and expert parallelism are
-ROADMAP item 16; LocalSGD is what is left of item 15.1; the parameter
-server and `a_sync` are item 19.2.
+`pipeline_parallel_degree`, `tensor_parallel_degree`,
+`sequence_parallel_degree`, `tensor_parallel_rules`,
+`fuse_grad_size_in_mb`, `sharding`, `sharding_stage`, `sharding_configs`
+(`stage`, `fuse_grad_size_in_mb`), `FLAGS_layer_scan` and
+`FLAGS_zero_stage`. dp and pp compose: each dp rank pipelines its batch
+and the pipeline runner averages the gradients over the ranks
+(parallel/pipeline.py). Any other strategy field set away from its
+default raises: expert parallelism is ROADMAP item 12; LocalSGD is what
+is left of item 15.1 (and raises with tp, sp or pp too, as at the
+reference's :419-425); the parameter server and `a_sync` are item
+19.2.
 """
 from __future__ import annotations
 
@@ -76,12 +90,14 @@ _DEFAULTS = {
 _HONOURED = {"amp", "amp_configs", "recompute", "recompute_configs",
              "layer_scan", "layer_scan_configs", "gradient_merge",
              "gradient_merge_configs", "pipeline", "pipeline_configs",
-             "pipeline_parallel_degree", "fuse_grad_size_in_mb", "sharding",
-             "sharding_stage", "sharding_configs"}
+             "pipeline_parallel_degree", "tensor_parallel_degree",
+             "sequence_parallel_degree", "tensor_parallel_rules",
+             "fuse_grad_size_in_mb", "sharding", "sharding_stage",
+             "sharding_configs"}
 # the ROADMAP item that owns each field the port does not take yet
 _OWNER = {"a_sync": "19.2", "a_sync_configs": "19.2",
           "sparse_cache_rows": "19.2", "localsgd": "15.1",
-          "localsgd_configs": "15.1"}
+          "localsgd_configs": "15.1", "expert_parallel_degree": "12"}
 
 
 class Role:
@@ -153,8 +169,8 @@ class DistributedStrategy:
         if name not in _HONOURED and value != _DEFAULTS[name]:
             raise NotImplementedError(
                 f"DistributedStrategy.{name} is not ported yet (ROADMAP "
-                f"item {_OWNER.get(name, '16')}): the port's fleet is data "
-                f"parallel and honours only {sorted(_HONOURED)}")
+                f"item {_OWNER.get(name, '16')}): the port's fleet honours "
+                f"only {sorted(_HONOURED)}")
         object.__setattr__(self, name, value)
 
 
@@ -193,7 +209,8 @@ class _Fleet:
     def _build_mesh(self, s: DistributedStrategy):
         from ...parallel import mesh as mesh_mod
         self._mesh = mesh_mod.build_mesh(
-            dp=-1, pp=s.pipeline_parallel_degree,
+            dp=-1, tp=s.tensor_parallel_degree,
+            pp=s.pipeline_parallel_degree, sp=s.sequence_parallel_degree,
             devices=(s.pipeline_configs or {}).get("stage_devices"))
         mesh_mod.set_mesh(self._mesh)
 
@@ -230,11 +247,56 @@ class _Fleet:
 
     def distributed_optimizer(self, optimizer, strategy=None):
         if strategy is not None:
+            _check_stage3_tp(int(strategy.sharding_stage or 0), strategy)
             self._strategy = strategy
             self._build_mesh(strategy)
         return DistributedOptimizer(optimizer,
                                     self._strategy or DistributedStrategy(),
                                     self)
+
+
+def _check_stage3_tp(zero_stage: int, s) -> None:
+    """ZeRO stage 3 and tensor parallelism do not compose (reference
+    :474); checked before the mesh is built too."""
+    if zero_stage >= 3 and s.tensor_parallel_degree > 1:
+        raise ValueError(
+            "sharding_stage=3 flat-shards parameter STORAGE over dp and "
+            "cannot compose with tensor_parallel_rules in this build "
+            "(the TP rules would shard the same storage a second way); "
+            "use stage <= 2 with tensor parallelism")
+
+
+def _warn_tp_fused_head(program, strategy):
+    """The build-then-init hole of the models' fused-head auto-select
+    (reference :310, models/bert.py `_tp_vocab_shards_head`): a program
+    built before the tp mesh existed may reach minimize with an
+    auto-selected `fused_lm_head_ce` whose weight the tp rules vocab-shard.
+    The port gathers such a weight once per op (ops/fused_ce.py), so the
+    result is right, but the vocab-parallel head is lost: warn with the
+    fix. A user-forced fused head has no `auto_selected` attr and is left
+    alone."""
+    rules = strategy.tensor_parallel_rules
+    if rules is None:
+        return
+    for op in program.global_block().ops:
+        if op.type != "fused_lm_head_ce" \
+                or not op.attrs.get("auto_selected"):
+            continue
+        w = (op.inputs.get("W") or [None])[0]
+        if w is None:
+            continue
+        vdim = 1 if op.attrs.get("w_layout", "vh") == "hv" else 0
+        spec = list(rules.spec_for(w))
+        ax = spec[vdim] if vdim < len(spec) else None
+        if ax == "tp" or (isinstance(ax, (tuple, list)) and "tp" in ax):
+            import warnings
+            warnings.warn(
+                f"auto-selected fused_lm_head_ce uses weight {w!r} that the "
+                "tensor-parallel rules vocab-shard: the op gathers the whole "
+                "weight on every rank, undoing the vocab-parallel head. "
+                "Build the model AFTER fleet.init(strategy) so the "
+                "auto-select sees the tp mesh, or force "
+                "fused_mlm_head/fused_head=False.")
 
 
 class DistributedOptimizer:
@@ -258,10 +320,18 @@ class DistributedOptimizer:
                                   if s.amp_configs.get("use_pure_bf16", True)
                                   else "float16")
             program.bump_version()
+        mesh = self._fleet._mesh if self._fleet is not None else None
+        mixed = mesh is not None and mesh.mixed
+        if s.tensor_parallel_degree > 1:
+            _warn_tp_fused_head(program, s)
+        from ...flags import flag
+        if mixed and (s.layer_scan or flag("FLAGS_layer_scan")):
+            raise NotImplementedError(
+                "layer scan with tensor or sequence parallelism is not "
+                "ported (ROADMAP item 16)")
         # layer scan runs before recompute: the roll consumes the interior
         # layer boundaries, and remat becomes the scan body's
         rolled = None
-        from ...flags import flag
         if s.layer_scan or flag("FLAGS_layer_scan"):
             segs = ((s.layer_scan_configs or {}).get("segments")
                     or getattr(loss, "_layer_checkpoints", None) or [])
@@ -306,22 +376,21 @@ class DistributedOptimizer:
                 "gradient shards) and 3 (+parameter storage) — "
                 "parallel/zero.py; set strategy.sharding_stage to 1, 2 "
                 "or 3")
-        if zero_stage >= 3 and s.tensor_parallel_degree > 1:
-            raise ValueError(
-                "sharding_stage=3 flat-shards parameter STORAGE over dp and "
-                "cannot compose with tensor_parallel_rules in this build "
-                "(the TP rules would shard the same storage a second way); "
-                "use stage <= 2 with tensor parallelism")
+        _check_stage3_tp(zero_stage, s)
+        if zero_stage >= 1 and mixed:
+            raise NotImplementedError(
+                f"ZeRO stage {zero_stage} with tensor or sequence "
+                f"parallelism: the flat dp-sharded state runs on GSPMD in "
+                f"the reference and is not ported (ROADMAP item 16)")
         dp = self._fleet.dp() if self._fleet is not None else 1
         bucket_mb = float((s.sharding_configs or {}).get(
             "fuse_grad_size_in_mb", s.fuse_grad_size_in_mb))
-        if bucket_mb <= 0 and dp > 1:
+        if bucket_mb <= 0 and dp > 1 and not mixed:
             raise ValueError(
                 f"fuse_grad_size_in_mb={bucket_mb} at dp {dp}: the port "
                 "averages gradients across ranks per bucket, so a dp > 1 "
                 "program needs the bucket pass; without it every rank "
                 "would train on its local gradients")
-        mesh = self._fleet._mesh if self._fleet is not None else None
         pp = int(mesh.shape.get("pp", 1)) if mesh is not None else 1
         # a device_guard-staged program: a bucket op across stages would
         # break the pipeline runner's stage assignment
@@ -329,7 +398,15 @@ class DistributedOptimizer:
                      or s.pipeline_parallel_degree > 1
                      or any("pipeline_stage" in op.attrs
                             for op in program.global_block().ops))
-        if bucket_mb > 0 and gm_k <= 1 and not pipelined:
+        if mixed:
+            # the reference's mixed mesh declines the bucketed manual-dp
+            # path (parallel/zero.py:1253): DTensor reduces the gradients
+            from ...parallel.spmd import DistConfig, attach
+            from ...parallel.mesh import ShardingRules
+            attach(program, DistConfig(
+                mesh=mesh,
+                param_rules=s.tensor_parallel_rules or ShardingRules()))
+        elif bucket_mb > 0 and gm_k <= 1 and not pipelined:
             from ...framework.program import default_startup_program
             from ...parallel.zero import apply_grad_bucketing
             apply_grad_bucketing(

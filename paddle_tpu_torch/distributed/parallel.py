@@ -35,9 +35,11 @@ Each rank's device and backend are explicit:
 * The group's timeout is FLAGS_gloo_timeout_ms: a rank that cannot reach
   its group raises within it.
 
-`tp`/`sp`/`ep` > 1 raise in `parallel.mesh.build_mesh` (ROADMAP item
-16); pp stages live inside one process, and at dp > 1 each rank has its
-own.
+tp and sp ranks are processes of this group too: `parallel.mesh.build_mesh`
+lays the group out as dp x tp x sp, row-major, over a `DeviceMesh` whose
+per-axis subgroups (`Mesh.group(axis)`) carry DTensor's collectives and
+the attention's; pp stages live inside one process (at dp > 1 each rank
+has its own), and ep raises (ROADMAP item 12).
 """
 from __future__ import annotations
 

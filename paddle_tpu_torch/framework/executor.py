@@ -128,6 +128,22 @@ re-runs it. At dp > 1 (dp x pp) each rank pipelines its local batch and
 the runner averages the gradients over the ranks before the optimizer
 (parallel/pipeline.py); the fetches follow the dp plan above.
 
+Tensor and sequence parallelism (the counterpart of the reference's
+GSPMD path, :99-191; parallel/gspmd.py). A program whose attached
+DistConfig has a mesh with tp or sp above 1 runs on DTensors over the
+mesh's DeviceMesh, one process per rank: `_prepare` distributes the
+scope's parameters and optimizer state by the rules (at startup and
+after a load: whatever plain tensor it finds), every rank feeds the
+global batch and keeps its block of it (`feed_sharding`), the lowerings
+run on DTensors (DTensor inserts the collectives, counted by op and
+bytes in `distributed.collective.counters`), each update rule takes its
+gradient in its parameter's placements (the dp average at dp x tp),
+written state keeps its placements (`copy_` into the local shard), and a
+fetch comes back whole. Such a program never takes the manual-dp path
+(the reference's `mixed_mesh` declines it too, parallel/zero.py:1253),
+and `run_steps` runs the eager step body each step, on the card as on
+the CPU (equal to sequential `run()` calls).
+
 A rolled program (parallel/transforms.py `apply_layer_scan`) reads its
 per-layer weights stacked under `@LAYERS` names; `_prepare` restacks the
 per-layer entries a load of an unrolled checkpoint left in the scope
@@ -338,8 +354,13 @@ def _write_persistable(scope: Scope, name: str, value, strict: bool):
     cur = scope.find_local(name)
     if isinstance(cur, torch.Tensor) and cur.shape == value.shape \
             and cur.dtype == value.dtype and cur.device == value.device:
+        from ..parallel.gspmd import align_grad, is_dtensor
         with torch.no_grad():
-            cur.copy_(value)
+            if is_dtensor(cur):
+                # state on a tp/sp mesh keeps its placements
+                cur.to_local().copy_(align_grad(value, cur).to_local())
+            else:
+                cur.copy_(value)
         return
     if strict:
         raise errors.Unavailable(
@@ -544,21 +565,25 @@ class Executor:
         stacked parameters are restacked, a restore's per-parameter ZeRO
         state is packed into the flat buckets, and at dp > 1 the flat
         state is cut to this rank's shard."""
+        from ..parallel import gspmd
         from ..parallel.zero import adopt_unsharded_state, shard_flat_state
         for sched in getattr(program, "_lr_schedulers", ()):
             sched._attach_scope(scope)
         _ensure_stacked_params(program, scope, self.device)
         adopt_unsharded_state(program, scope, self.device)
         shard_flat_state(program, scope)
+        dist = gspmd.mixed_config(program)
+        if dist is not None:
+            gspmd.distribute_scope(program, scope, dist, self.device)
 
     def _dp_width(self, program) -> int:
         """The dp a step of `program` runs at (1: a plain step); raises
         for the programs the reference's manual-dp planner declines
         (module docstring). Checked once per program version."""
         from ..distributed.parallel import get_world_size
-        from ..parallel import zero
+        from ..parallel import gspmd, zero
         world = get_world_size()
-        if world <= 1:
+        if world <= 1 or gspmd.mixed_config(program) is not None:
             return 1
         key = (program._uid, program._version)
         dp = self._dp_plans.get(key)
@@ -691,6 +716,11 @@ class Executor:
             if getattr(program, "_amp", False) else None
         block = program.global_block()
         plan = self._plan(program, use_cache)
+        from ..parallel import gspmd
+        dist = gspmd.mixed_config(program)
+        if dist is not None:
+            return self._mesh_step(program, dist, block, plan, env, scope,
+                                   ctx, fetch_names, amp_dtype, strict)
         from ..parallel.zero import current_manual_dp
         manual = current_manual_dp()
         local_batch = next((int(v.shape[0]) for v in env.values()
@@ -705,6 +735,18 @@ class Executor:
             fetches = _dp_fetches(block, fetch_names, fetches, local_batch,
                                   manual[1])
         return fetches
+
+    @staticmethod
+    def _mesh_step(program, dist, block, plan, env, scope, ctx, fetch_names,
+                   amp_dtype, strict):
+        """One step on DTensors over a tp/sp mesh (module docstring)."""
+        from ..parallel import gspmd
+        ctx.mesh = dist.resolve_mesh()
+        with gspmd.step_context():
+            env = {n: gspmd.place_feed(dist, n, t) for n, t in env.items()}
+            _run_block(block, plan, env, scope, ctx, amp_dtype, strict)
+            return [gspmd.whole(v)
+                    for v in _fetch_values(env, scope, fetch_names)]
 
     def _pipeline(self, program, scope, fetch_names, plan):
         """The program's pipeline runner (parallel/pipeline.py) over its
@@ -898,7 +940,10 @@ class Executor:
         with _trace.RecordEvent(f"executor_run_steps#{k}",
                                 args={"step": self._step_counter, "k": k}), \
                 _dp_context(dp):
-            if self.device.type == "cuda" and not self._uncaptured(dp):
+            from ..parallel.gspmd import mixed_config
+            mixed = mixed_config(program) is not None
+            if self.device.type == "cuda" and not self._uncaptured(dp) \
+                    and not mixed:
                 stacked = self._run_captured(program, feeds, seeds, scope,
                                              fetch_names)
             else:
@@ -910,7 +955,7 @@ class Executor:
                     per_step.append(self._step(program, env, scope, ctx,
                                                fetch_names))
                     self.stats["eager_steps"] += 1
-                    if dp > 1:
+                    if dp > 1 or mixed:
                         _metrics.inc("executor.uncaptured_collective_steps")
                 stacked = [torch.stack([s[i] for s in per_step])
                            for i in range(len(fetch_names))]
@@ -1226,6 +1271,19 @@ def _run_block(block, plan, env, scope, ctx, amp_dtype, strict=False,
                    for s, names in op.inputs.items()}
         if amp_dtype is not None:
             ins = _amp_cast(op, ins, amp_dtype)
+        if ctx.mesh is not None:
+            # every input whole or sharded, never a pending partial sum: a
+            # row-parallel product is reduced once, where it is next read
+            # (Megatron's all-reduce), not again in each nonlinear op
+            from ..parallel import gspmd
+            gspmd.current_op[0] = op.attrs["fwd_type"] + "@grad" \
+                if op.type == "__vjp__" else op.type
+            ins = {s: [gspmd.settled(v) for v in vs]
+                   for s, vs in ins.items()}
+            if ins.get("Param") and ins.get("Grad"):
+                # an update rule's gradient in its parameter's placements
+                ins["Grad"] = [gspmd.align_grad(g, p)
+                               for g, p in zip(ins["Grad"], ins["Param"])]
         for out_slot, in_slot in opdef.inplace.items():
             # an update rule whose output names another var (a gated
             # update) must leave its input as it was

@@ -51,9 +51,14 @@ class Scope:
 def to_numpy(value) -> np.ndarray:
     """Host copy of a scope value; bf16 (which numpy lacks) comes back as
     float32. Always a copy: a CPU tensor's `.numpy()` shares its memory,
-    and the optimizer updates the scope's tensors in place."""
+    and the optimizer updates the scope's tensors in place. A DTensor comes
+    back whole."""
     if isinstance(value, torch.Tensor):
         t = value.detach()
+        if hasattr(t, "full_tensor"):
+            # a DTensor on a tp/sp mesh: the whole value (a collective;
+            # every rank of the mesh converts it, parallel/gspmd.py)
+            t = t.full_tensor()
         if t.dtype == torch.bfloat16:
             t = t.float()
         return np.array(t.cpu().numpy(), copy=True)
@@ -97,9 +102,10 @@ def load_arrays(scope: Scope, arrays: Mapping[str, np.ndarray],
     tensor, in place, when it has the array's shape and dtype, so its
     address never changes and a captured step bound to it stays valid;
     otherwise a new tensor is bound (on the old tensor's device, else on
-    `device`) and the next `run_steps` re-captures. Returns the number of
-    such rebinds of an existing tensor (also counted in
-    `io.load_rebinds`)."""
+    `device`) and the next `run_steps` re-captures. A DTensor (a tp/sp
+    mesh) takes its own block of the whole array, so a checkpoint of whole
+    arrays loads at any tp. Returns the number of such rebinds of an
+    existing tensor (also counted in `io.load_rebinds`)."""
     from ..observability import metrics
     rebinds = 0
     dev = None
@@ -108,6 +114,14 @@ def load_arrays(scope: Scope, arrays: Mapping[str, np.ndarray],
         cur = scope.find_local(name)
         if isinstance(cur, torch.Tensor) and _fits(cur, src):
             with torch.no_grad():
+                if hasattr(cur, "full_tensor"):
+                    # a DTensor on a tp/sp mesh: this rank's block of the
+                    # whole array (parallel/gspmd.py)
+                    from torch.distributed.tensor import distribute_tensor
+                    src = distribute_tensor(
+                        src.to(cur.device, cur.dtype), cur.device_mesh,
+                        cur.placements, src_data_rank=None).to_local()
+                    cur = cur.to_local()
                 cur.copy_(src)
             continue
         if isinstance(cur, torch.Tensor):

@@ -9,8 +9,13 @@ kernels B1-B3 on the card.
 the reference does: the embeddings on stage 0, the layers in contiguous
 chunks, the MLM head on the last stage.
 
+`tp_sharding_rules()` is the reference's Megatron table with the
+vocab-sharded word embedding and MLM head; with a tp mesh set before the
+build, the auto-selected head stays dense where those rules vocab-shard
+it (`_tp_vocab_shards_head`), as in the reference.
+
 Not ported: MoE FFNs (a config with `moe_experts` raises, ROADMAP item
-12) and the tensor-parallel rules.
+12).
 """
 from __future__ import annotations
 
@@ -177,13 +182,30 @@ def bert_encoder(input_ids, cfg: BertConfig, position_ids=None,
     return x
 
 
+def _tp_vocab_shards_head() -> bool:
+    """True when the current mesh has tp > 1 and this model's tp rules
+    vocab-shard `mlm_head_w` (reference :199): the fused head's chunked
+    scan would then regather the sharded weight, so the auto-select keeps
+    the dense head (forcing `fused_mlm_head=True` still wins). A build
+    before the mesh exists is covered by fleet's `_warn_tp_fused_head`."""
+    from ..parallel.mesh import get_mesh
+    mesh = get_mesh()
+    if mesh is None or int(mesh.shape.get("tp", 1)) <= 1:
+        return False
+    spec = tp_sharding_rules().spec_for("mlm_head_w")
+    return any(ax == "tp" or (isinstance(ax, (tuple, list)) and "tp" in ax)
+               for ax in spec)
+
+
 def bert_pretrain_loss(seq_out, mlm_labels, cfg: BertConfig):
     """Masked-LM head + mean loss. The fused head (auto at S >= 512 with a
-    real vocabulary) has the dense head's parameter names and shapes."""
+    real vocabulary, unless tp vocab-shards it) has the dense head's
+    parameter names and shapes."""
     from ..ops.fused_ce import DEFAULT_CHUNK
     fused = cfg.fused_mlm_head
     if fused is None:
-        fused = cfg.seq_len >= 512 and cfg.vocab_size >= 2 * DEFAULT_CHUNK
+        fused = (cfg.seq_len >= 512 and cfg.vocab_size >= 2 * DEFAULT_CHUNK
+                 and not _tp_vocab_shards_head())
     with _stage_guard(cfg)(_last_stage(cfg)):
         if fused:
             w = layers.create_parameter([cfg.hidden_size, cfg.vocab_size],
@@ -223,3 +245,15 @@ def build_pretrain_program(cfg: BertConfig, use_input_mask=False):
     loss = bert_pretrain_loss(seq, mlm_labels, cfg)
     loss._layer_checkpoints = getattr(seq, "_layer_checkpoints", [])
     return input_ids, mlm_labels, loss
+
+
+def tp_sharding_rules():
+    """Megatron tensor-parallel rules (reference :287): the shared
+    transformer table (parallel/mesh.py `transformer_tp_rules`) with the
+    vocab-sharded word embedding and MLM head first."""
+    from ..parallel.mesh import P, transformer_tp_rules
+    return transformer_tp_rules(extra=[
+        (r"^word_embedding$", P("tp", None)),
+        (r"^mlm_head_w$", P(None, "tp")),
+        (r"^mlm_head_b$", P("tp")),
+    ])

@@ -13,9 +13,10 @@ chunks, the final LN and the tied head on the last stage (the pipeline
 runner, parallel/pipeline.py, sums the tied `wte`'s two stages'
 gradients).
 
-Not ported: the tensor-parallel rules (`tp_sharding_rules`, ROADMAP item
-16) and sequence parallelism (`fused_attention` raises,
-ops/attention.py).
+`tp_sharding_rules()` is the reference's Megatron table with the tied
+vocab table; `sequence_parallel` / `sp_mode` reach the `fused_attention`
+op, which runs ring or Ulysses attention on an sp mesh
+(ops/attention.py).
 """
 from __future__ import annotations
 
@@ -193,3 +194,12 @@ def build_lm_program(cfg: GPTConfig, fused_head: "bool | None" = None):
         mean_loss = layers.mean(loss)
         mean_loss._layer_checkpoints = getattr(seq, "_layer_checkpoints", [])
         return tokens, mean_loss
+
+
+def tp_sharding_rules():
+    """The shared transformer tp table and the tied vocab table (reference
+    :200). GPT-2's 50257 rows do not divide by 2, so at tp 2
+    `sharding_for` leaves `wte` whole on every rank, as the reference's
+    does."""
+    from ..parallel.mesh import P, transformer_tp_rules
+    return transformer_tp_rules(extra=[(r"^wte$", P("tp", None))])

@@ -7,6 +7,18 @@ dense path on the card. The reference's `S >= 512` gate (`_use_pallas`)
 was a TPU A/B result and is dropped on purpose, as are its compile probe
 and silent fallback (`_flash_probe`, `prewarm_flash`, the `except` around
 the kernel call). On CPU tensors the same wrapper runs its plain version.
+
+On a tp/sp mesh (a step on DTensors, parallel/gspmd.py; `ctx.mesh`):
+
+* sp > 1 with `sequence_parallel`: `ring_attention`, or
+  `ulysses_attention` when `sp_mode == "ulysses"`
+  (parallel/ring_attention.py), as the reference dispatches; the output
+  is gathered whole along the sequence for the rest of the layer.
+* otherwise: Q, K and V are laid out with the batch over dp, the heads
+  over tp and the sequence whole, and B1-B3 run on this rank's heads
+  (`local_call`), the dropout keyed on the global heads (`keying`), so
+  the mask is the unsharded launch's. Only key-padding masks are taken
+  there.
 """
 from __future__ import annotations
 
@@ -14,6 +26,40 @@ import math
 
 from .kernels.flash_attention import flash_attention
 from .registry import register
+
+
+def _mesh_attention(ctx, q, k, v, mask, scale, causal, dropout, seed,
+                    attrs):
+    import importlib
+    from ..parallel import gspmd
+    # the module (the package exports its function under the same name)
+    ra = importlib.import_module("paddle_tpu_torch.parallel.ring_attention")
+    mesh = ctx.mesh
+    if attrs.get("sequence_parallel") and mesh.shape.get("sp", 1) > 1:
+        fn = (ra.ulysses_attention if attrs.get("sp_mode") == "ulysses"
+              else ra.ring_attention)
+        out = fn(q, k, v, mesh=mesh, scale=scale, causal=causal, mask=mask,
+                 dropout=dropout, seed=seed)
+        # the rest of the layer reads the whole sequence (one all-gather
+        # over sp): its [B*S, H] products flatten the sequence dim, which a
+        # sequence-sharded DTensor cannot take
+        from torch.distributed.tensor import Replicate
+        sp_dim = mesh.mesh_axes.index("sp")
+        return out.redistribute(mesh.device_mesh, [
+            Replicate() if i == sp_dim else p
+            for i, p in enumerate(out.placements)])
+    # the sequence stays whole on every rank of an sp axis here
+    q, k, v, mask, mesh, scale, pl = ra._prepare(
+        q, k, v, mask, mesh, scale, dropout, seed, None)
+    b_l, nh_l = q.to_local().shape[:2]
+    keying = ra._keying(mesh, b_l, nh_l)
+
+    def body(q, k, v, mask):
+        return flash_attention(q, k, v, scale=scale, causal=causal,
+                               dropout=dropout, seed=seed, mask=mask,
+                               keying=keying)
+
+    return gspmd.local_call(body, (q, k, v, mask), [pl])
 
 
 @register("fused_attention", is_random=True, nondiff_slots=("Mask",))
@@ -24,11 +70,12 @@ def _fused_attention(ctx, ins, attrs):
     dropout = attrs.get("dropout", 0.0)
     if attrs.get("is_test", False):
         dropout = 0.0
-    if attrs.get("sequence_parallel"):
-        raise NotImplementedError(
-            "fused_attention sequence_parallel (ring / Ulysses attention) "
-            "is not ported yet: slice 3 (ROADMAP)")
     seed = ctx.op_seed(attrs) if dropout else None
-    return {"Out": [flash_attention(q, k, v, scale=scale,
-                                    causal=attrs.get("causal", False),
+    causal = attrs.get("causal", False)
+    if getattr(ctx, "mesh", None) is not None:
+        return {"Out": [_mesh_attention(ctx, q, k, v, mask, scale, causal,
+                                        dropout, seed, attrs)]}
+    # `sequence_parallel` off an sp mesh is the plain launch, as in the
+    # reference
+    return {"Out": [flash_attention(q, k, v, scale=scale, causal=causal,
                                     dropout=dropout, seed=seed, mask=mask)]}

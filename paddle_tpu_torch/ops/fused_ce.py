@@ -139,5 +139,41 @@ def _fused_lm_head_ce(ctx, ins, attrs):
     if bias is None:
         bias = torch.zeros((w.shape[0],), dtype=x.dtype, device=x.device)
     ignore_index = int(attrs.get("ignore_index", -100))
+    if getattr(ctx, "mesh", None) is not None:
+        return {"Loss": [_mesh_ce(x, w, bias, labels, chunk, ignore_index)]}
     loss, _ = ChunkedLMCE.apply(x, w, bias, labels, chunk, ignore_index)
     return {"Loss": [loss.float()]}
+
+
+def _mesh_ce(x, w, bias, labels, chunk, ignore_index):
+    """The op on a tp/sp mesh (parallel/gspmd.py): a vocab-sharded `w` (and
+    bias) is gathered ONCE for the op, not once per chunk as the sharded
+    slices of the scan would make DTensor do, and the scan runs on the
+    local tokens. The gradients of `w` and the bias go back to their
+    shards (the gather's backward); where the tokens are sharded over a
+    mesh dim (the batch over dp), theirs are partial sums over it. The
+    same function as the dense head; a vocab-parallel head is later work
+    (ROADMAP item 16)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from ..parallel import gspmd
+    xd = x if gspmd.is_dtensor(x) else None
+    mesh = (xd if xd is not None else w).device_mesh
+    rep = [Replicate()] * mesh.ndim
+
+    def as_dt(t):
+        return t if gspmd.is_dtensor(t) else DTensor.from_local(
+            t, mesh, rep, run_check=False)
+
+    x, w, bias, labels = (as_dt(t) for t in (x, w, bias, labels))
+    x = gspmd.settled(x)
+    w, bias = (t.redistribute(mesh, rep) for t in (w, bias))
+    labels = labels.redistribute(mesh, x.placements)
+    red = [Partial() if isinstance(p, Shard) else Replicate()
+           for p in x.placements]
+
+    def body(x, w, b, lab):
+        return ChunkedLMCE.apply(x, w, b, lab, chunk, ignore_index)[0]
+
+    loss = gspmd.local_call(body, (x, w, bias, labels), [x.placements],
+                            grad_placements=[None, red, red, None])
+    return loss.float()

@@ -20,6 +20,13 @@ source, with its design and bound, is paddle_tpu_torch/csrc/flash_attention.cu.
 * `launches` counts kernel launches per kernel name; it moves only where
   a kernel is launched (inside a CUDA graph capture, at each replay:
   ops/kernels/counts.py).
+* Dropout keys each head on its GLOBAL flat index: `keying` = (b_off,
+  nh_total, h_off) makes head h of batch row b of this launch the head
+  (b_off + b) * nh_total + h_off + h of the hash (the reference's
+  `_global_head_ids`, parallel/ring_attention.py:54), so a launch over a
+  slice of the heads (tensor parallelism, Ulysses) or of the batch draws
+  the bits the whole launch draws there. None is the identity (0, nh, 0):
+  the flat b * nh + h.
 * The dropout `seed` is an int or a one-element int32 tensor (the uint32
   bits). The kernels read it from device memory, so a captured CUDA graph
   draws the mask of whatever seed was written there before the replay;
@@ -97,9 +104,28 @@ def keep_mask(seed, head, q_pos, k_pos, rate: float):
     return x >= dropout_threshold(rate)
 
 
-def _dense_keep(seed, b, nh, s, rate, device):
+def keying_or_identity(keying, nh):
+    """(b_off, nh_total, h_off) as ints; None is the identity (0, nh, 0)."""
+    if keying is None:
+        return 0, int(nh), 0
+    b_off, nh_total, h_off = (int(x) for x in keying)
+    if b_off < 0 or h_off < 0 or h_off + nh > nh_total:
+        raise ValueError(f"flash keying {keying} does not place {nh} heads "
+                         f"inside {nh_total}")
+    return b_off, nh_total, h_off
+
+
+def keyed_heads(b, nh, keying, device):
+    """[B, nh, 1, 1] int64: the global flat head each (b, h) keys on."""
+    b_off, nh_total, h_off = keying_or_identity(keying, nh)
+    bi = torch.arange(b, dtype=torch.int64, device=device) + b_off
+    hi = torch.arange(nh, dtype=torch.int64, device=device) + h_off
+    return (bi.view(b, 1) * nh_total + hi.view(1, nh)).view(b, nh, 1, 1)
+
+
+def _dense_keep(seed, b, nh, s, rate, device, keying=None):
     idx = lambda n: torch.arange(n, dtype=torch.int64, device=device)  # noqa
-    return keep_mask(seed, idx(b * nh).view(b, nh, 1, 1),
+    return keep_mask(seed, keyed_heads(b, nh, keying, device),
                      idx(s).view(s, 1), idx(s).view(1, s), rate)
 
 
@@ -146,7 +172,7 @@ def _check(q, k, v, dropout, seed):
 # ---------------------------------------------------------------------------
 
 def flash_attention_plain(q, k, v, scale=None, causal=False, dropout=0.0,
-                          seed=None, mask=None):
+                          seed=None, mask=None, keying=None):
     """Dense attention with the kernels' semantics: f32 scores, additive
     mask, causal -inf, the finite guards for fully masked rows, the counter
     hash dropout after the normaliser, probabilities rounded to V's dtype
@@ -171,7 +197,7 @@ def flash_attention_plain(q, k, v, scale=None, causal=False, dropout=0.0,
                     torch.zeros((), device=q.device))
     probs = p / p.sum(-1, keepdim=True).clamp_min(1e-30)
     if dropout > 0.0:
-        keep = _dense_keep(seed, b, nh, s, dropout, q.device)
+        keep = _dense_keep(seed, b, nh, s, dropout, q.device, keying)
         probs = torch.where(keep, probs / (1.0 - dropout),
                             torch.zeros((), device=q.device))
     out = torch.matmul(probs.to(v.dtype).float(), v.float())
@@ -189,8 +215,8 @@ def _library():
         lib = _build.load("flash_attention")
         p, i, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                       ctypes.c_uint)
-        tail = [i, i, u, p, f, p]       # causal, dropout, thresh, seed
-        #                                 pointer, keep_prob, stream
+        tail = [i, i, u, p, f, i, i, i, p]  # causal, dropout, thresh, seed
+        #        pointer, keep_prob, b_off, nh_total, h_off, stream
         lib.flash_fwd.argtypes = [p] * 6 + [i] * 7 + [f] + tail
         lib.flash_bwd_dq.argtypes = [p] * 9 + [i] * 7 + [f] + tail
         lib.flash_bwd_dkdv.argtypes = [p] * 9 + [i] * 7 + [f] + tail
@@ -253,15 +279,17 @@ def seed_tensor(seed, device):
                       dtype=torch.int32, device=device)
 
 
-def _cfg_args(q, mask, mode, scale, causal, dropout, seed):
+def _cfg_args(q, mask, mode, scale, causal, dropout, seed, keying=None):
     """The C arguments after the pointers; `seed` is a device tensor (or
     None without dropout), kept alive by the caller across the launch."""
     b, nh, s, hd = q.shape
+    b_off, nh_total, h_off = keying_or_identity(keying, nh)
     return [_KIND[q.dtype], b, nh, s, hd, _MASK_MODES[mode],
             0 if mask is None else mask.shape[1], float(scale), int(causal),
             int(dropout > 0.0),
             dropout_threshold(dropout) if dropout > 0.0 else 0,
             _ptr(seed) if dropout > 0.0 else None, float(1.0 - dropout),
+            b_off, nh_total, h_off,
             torch.cuda.current_stream(q.device).cuda_stream]
 
 
@@ -276,7 +304,8 @@ def _raise_if(rc, name):
             f"{_library().flash_error_string(rc).decode()} (cudaError {rc})")
 
 
-def launch_fwd(q, k, v, mask, mode, seed, scale, causal, dropout):
+def launch_fwd(q, k, v, mask, mode, seed, scale, causal, dropout,
+               keying=None):
     """B1 alone: (O, lse [B*nh, S] f32). Operands contiguous on one card,
     `mask` normalised (`normalize_mask`) and contiguous, or None."""
     q, k, v = (_aligned16(t) for t in (q, k, v))
@@ -287,14 +316,14 @@ def launch_fwd(q, k, v, mask, mode, seed, scale, causal, dropout):
     with torch.cuda.device(q.device):
         rc = _library().flash_fwd(
             _ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(o), _ptr(lse),
-            *_cfg_args(q, mask, mode, scale, causal, dropout, seed))
+            *_cfg_args(q, mask, mode, scale, causal, dropout, seed, keying))
     _raise_if(rc, "flash_fwd")
     counts.count(launches, "flash_fwd")
     return o, lse
 
 
 def launch_bwd_dq(q, k, v, o, lse, do, mask, mode, seed, scale, causal,
-                  dropout):
+                  dropout, keying=None):
     """B2 alone: (dQ, delta [B*nh, S] f32); the autograd backward runs it,
     then B3 on its delta."""
     q, k, v, do = (_aligned16(t) for t in (q, k, v, do))
@@ -306,14 +335,14 @@ def launch_bwd_dq(q, k, v, o, lse, do, mask, mode, seed, scale, causal,
         rc = _library().flash_bwd_dq(
             _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(do), _ptr(lse),
             _ptr(mask), _ptr(dq), _ptr(delta),
-            *_cfg_args(q, mask, mode, scale, causal, dropout, seed))
+            *_cfg_args(q, mask, mode, scale, causal, dropout, seed, keying))
     _raise_if(rc, "flash_bwd_dq")
     counts.count(launches, "flash_bwd_dq")
     return dq, delta
 
 
 def launch_bwd_dkdv(q, k, v, delta, lse, do, mask, mode, seed, scale,
-                    causal, dropout):
+                    causal, dropout, keying=None):
     """B3 alone: dK and dV, from B2's delta (O is not read)."""
     q, k, v, do = (_aligned16(t) for t in (q, k, v, do))
     seed = _seed_arg(seed, dropout, q.device)
@@ -322,7 +351,7 @@ def launch_bwd_dkdv(q, k, v, delta, lse, do, mask, mode, seed, scale,
         rc = _library().flash_bwd_dkdv(
             _ptr(q), _ptr(k), _ptr(v), _ptr(delta), _ptr(do), _ptr(lse),
             _ptr(mask), _ptr(dk), _ptr(dv),
-            *_cfg_args(q, mask, mode, scale, causal, dropout, seed))
+            *_cfg_args(q, mask, mode, scale, causal, dropout, seed, keying))
     _raise_if(rc, "flash_bwd_dkdv")
     counts.count(launches, "flash_bwd_dkdv")
     return dk, dv
@@ -332,20 +361,22 @@ class FlashAttention(torch.autograd.Function):
     """B1 forward, B2 + B3 backward (`setup_context` style, no ctx use in
     forward, so torch.func.vjp can trace it). The mask is nondiff: its
     gradient is None (the reference returns a zero cotangent, :521). The
-    backward is first-order only: differentiating it again raises."""
+    backward is first-order only: differentiating it again raises. The
+    tenth input is the dropout `keying` (None is the identity)."""
 
     @staticmethod
-    def forward(q, k, v, mask, mode, seed, scale, causal, dropout):
-        return launch_fwd(q, k, v, mask, mode, seed, scale, causal, dropout)
+    def forward(q, k, v, mask, mode, seed, scale, causal, dropout, keying):
+        return launch_fwd(q, k, v, mask, mode, seed, scale, causal, dropout,
+                          keying)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        q, k, v, mask, mode, seed, scale, causal, dropout = inputs
+        q, k, v, mask, mode, seed, scale, causal, dropout, keying = inputs
         o, lse = output
         # a seed tensor is saved like the operands; an int rides in ctx
         is_t = isinstance(seed, torch.Tensor)
         ctx.save_for_backward(q, k, v, o, lse, mask, seed if is_t else None)
-        ctx.cfg = (scale, causal, dropout)
+        ctx.cfg = (scale, causal, dropout, keying)
         ctx.mode, ctx.int_seed = mode, None if is_t else seed
         ctx.mark_non_differentiable(lse)
 
@@ -360,14 +391,15 @@ class FlashAttention(torch.autograd.Function):
                                   *ctx.cfg)
         dk, dv = launch_bwd_dkdv(q, k, v, delta, lse, do, mask, ctx.mode,
                                  seed, *ctx.cfg)
-        return dq, dk, dv, None, None, None, None, None, None
+        return (dq, dk, dv) + (None,) * 7
 
 
 def flash_attention(q, k, v, scale=None, causal=False, dropout=0.0,
-                    seed=None, mask=None):
+                    seed=None, mask=None, keying=None):
     """Tiled attention on [B, nh, S, hd]. `dropout` drops post-softmax
     probabilities with the counter-hash mask keyed on `seed` (an int or a
-    one-element int32 tensor on q's device);
+    one-element int32 tensor on q's device) and on each head's global
+    index (`keying`, module docstring);
     `mask` is an additive bias broadcastable to [B, nh, S (or 1), S]."""
     _check(q, k, v, dropout, seed)
     b, nh, s, hd = q.shape
@@ -378,7 +410,8 @@ def flash_attention(q, k, v, scale=None, causal=False, dropout=0.0,
         return torch.empty(q.shape, dtype=q.dtype, device="meta")
     if all(t.device.type == "cpu" for t in tensors):
         return flash_attention_plain(q, k, v, scale=scale, causal=causal,
-                                     dropout=dropout, seed=seed, mask=mask)
+                                     dropout=dropout, seed=seed, mask=mask,
+                                     keying=keying)
     dev = q.device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError(f"flash_attention: all tensors must be on one CUDA "
@@ -400,5 +433,6 @@ def flash_attention(q, k, v, scale=None, causal=False, dropout=0.0,
     seed = _seed_arg(seed, dropout, dev)
     o, _ = FlashAttention.apply(q.contiguous(), k.contiguous(),
                                 v.contiguous(), mask, mode, seed,
-                                float(scale), bool(causal), float(dropout))
+                                float(scale), bool(causal), float(dropout),
+                                keying_or_identity(keying, nh))
     return o

@@ -67,6 +67,13 @@ VARIANTS = {
             (CU, "? s[j][i] * inv_keep : 0.f;", "? s[j][i] / p.keep_prob : 0.f;"),
             (CU, "& 1u ? dpv * inv_keep : 0.f;", "& 1u ? dpv / p.keep_prob : 0.f;"),
             (CU, "? pr * inv_keep : 0.f;", "? pr / p.keep_prob : 0.f;")],
+    # the dropout hash keyed on the launch's flat b*nh+h, as before the
+    # global-head keying (chip_smoke's phase 13 holds the identity keying
+    # to it bit for bit)
+    "flat_keying": [(CU, "    return (uint32_t)(p.b_off + bh / p.nh) * "
+                         "(uint32_t)p.nh_total\n"
+                         "           + (uint32_t)(p.h_off + bh % p.nh);",
+                     "    return (uint32_t)bh;")],
     # 64-row streamed tiles in B2/B3: the ring takes twice the shared memory
     "bn64": [(CU, "constexpr int BN = 32;", "constexpr int BN = 64;")],
     # 64-row K/V tiles in B1's ring

@@ -73,14 +73,16 @@ class LowerCtx:
     either case, by the same ops, so an eager step and a replayed graph
     with the same seed value draw the same masks."""
 
-    __slots__ = ("run_seed", "device", "is_eval_shape", "amp_dtype",
+    __slots__ = ("run_seed", "device", "is_eval_shape", "amp_dtype", "mesh",
                  "_seed", "_run_key", "_keys")
 
     def __init__(self, run_seed=0, device=None, is_eval_shape: bool = False,
-                 amp_dtype=None):
+                 amp_dtype=None, mesh=None):
         self.device = torch.device("cpu" if device is None else device)
         self.is_eval_shape = is_eval_shape
         self.amp_dtype = amp_dtype
+        # the tp/sp mesh a step on DTensors runs over (parallel/gspmd.py)
+        self.mesh = mesh
         if isinstance(run_seed, torch.Tensor):
             self.run_seed, self._seed = None, run_seed
         else:
@@ -306,7 +308,11 @@ def forward_vjp(opdef, ctx, ins, attrs, diff, out_slots):
 
 
 def func_vjp(lower, ctx, ins, attrs, diff, out_slots):
-    """`forward_vjp` as one torch.func.vjp over the lowering `lower`."""
+    """`forward_vjp` as one torch.func.vjp over the lowering `lower`; on a
+    tp/sp mesh (`ctx.mesh`, DTensor operands) through autograd instead
+    (`_autograd_vjp`)."""
+    if ctx.mesh is not None:
+        return _autograd_vjp(lower, ctx, ins, attrs, diff, out_slots)
     primals = [ins[s][i] for s, i in diff]
     layout = []                  # (slot, index, is_float), plain metadata
 
@@ -334,6 +340,43 @@ def func_vjp(lower, ctx, ins, attrs, diff, out_slots):
     for s, j, is_f in layout:
         outs.setdefault(s, []).append(next(it) if is_f else aux[(s, j)])
     return outs, vjp_fn
+
+
+def _autograd_vjp(lower, ctx, ins, attrs, diff, out_slots):
+    """`func_vjp` through torch.autograd: DTensor's methods (to_local,
+    redistribute), which the DTensor lowerings call, are not reachable
+    through torch.func's wrapped tensors. The same backward formulas run;
+    an input the outputs do not depend on gets a zero gradient, as
+    torch.func.vjp gives it."""
+    cur = {s: list(vs) for s, vs in ins.items()}
+    primals = []
+    for s, i in diff:
+        p = cur[s][i].detach().requires_grad_(True)
+        cur[s][i] = p
+        primals.append(p)
+    with torch.enable_grad():
+        outs = lower(ctx, cur, attrs)
+    floats = [v for s in out_slots for v in outs.get(s, ())
+              if v is not None and v.is_floating_point()]
+    outs = {s: [v.detach() if isinstance(v, torch.Tensor) else v
+                for v in vs] for s, vs in outs.items()}
+
+    def pullback(cts):
+        pairs = [(f, c) for f, c in zip(floats, cts) if f.requires_grad]
+        if not pairs:
+            return tuple(torch.zeros_like(p) for p in primals)
+        from ..parallel.gspmd import align_grad
+        # contiguous: DTensor's view rules assume a local shard laid out
+        # as its shape (a permuted cotangent's shard may not be)
+        grads = torch.autograd.grad([f for f, _ in pairs],
+                                    primals,
+                                    [align_grad(c, f).contiguous()
+                                     for f, c in pairs],
+                                    allow_unused=True)
+        return tuple(torch.zeros_like(p) if g is None else g
+                     for g, p in zip(grads, primals))
+
+    return outs, pullback
 
 
 def cotangents(ins, out_slots, counts, outs):

@@ -119,6 +119,9 @@ def _gather(ctx, ins, attrs):
     replaced by Index's shape (reference tensor_ops.py:247, jnp.take)."""
     x, idx = ins["X"][0], ins["Index"][0]
     axis = attrs.get("axis", 0) % x.dim()
+    if getattr(ctx, "mesh", None) is not None and axis == 0 \
+            and x.dim() == 2 and idx.dim() == 1:
+        return {"Out": [_mesh_lookup(x, idx)]}
     if axis == 0 and x.dim() == 2:
         # a table lookup (GPT's tied wte): embedding's CUDA backward sums
         # repeated ids in a fixed order, where index_select's atomics
@@ -166,3 +169,45 @@ def _where(ctx, ins, attrs):
 @register("expand")
 def _expand(ctx, ins, attrs):
     return {"Out": [torch.tile(ins["X"][0], tuple(attrs["expand_times"]))]}
+
+
+def _mesh_lookup(table, idx):
+    """A table lookup on a tp/sp mesh (parallel/gspmd.py). A table whose
+    rows are sharded is the Megatron vocab-parallel embedding: each rank
+    looks up the ids its rows hold, zero elsewhere, and the result is a
+    partial sum over the sharding dims (one all-reduce where it is next
+    read); the table's gradient stays on its shard. A replicated table is
+    the plain lookup."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from ..parallel import gspmd
+    if not gspmd.is_dtensor(table) or not any(
+            isinstance(p, Shard) and p.dim == 0 for p in table.placements):
+        return torch.nn.functional.embedding(idx.long(), table)
+    mesh = table.device_mesh
+    if not gspmd.is_dtensor(idx):
+        idx = DTensor.from_local(idx, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    idx = idx.redistribute(mesh, [p if isinstance(p, Shard) else Replicate()
+                                  for p in idx.placements])
+    rows = table.shape[0]
+    coords = mesh.get_coordinate()
+    n_local = table.to_local().shape[0]
+    # the first global row of this rank's shard (even shards, row-major
+    # over the mesh dims that shard the rows)
+    first, stride = 0, rows
+    for d, p in enumerate(table.placements):
+        if isinstance(p, Shard) and p.dim == 0:
+            stride //= mesh.size(d)
+            first += coords[d] * stride
+    out_pl = [Partial() if isinstance(tp, Shard) and tp.dim == 0 else ip
+              for tp, ip in zip(table.placements, idx.placements)]
+
+    def body(t, i):
+        i = i.long() - first
+        hit = (i >= 0) & (i < n_local)
+        rows_ = torch.nn.functional.embedding(
+            torch.where(hit, i, torch.zeros_like(i)), t)
+        return torch.where(hit.unsqueeze(-1), rows_,
+                           torch.zeros((), dtype=t.dtype, device=t.device))
+
+    return gspmd.local_call(body, (table, idx), [out_pl])

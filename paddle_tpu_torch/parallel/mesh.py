@@ -1,30 +1,44 @@
-"""The device mesh (counterpart of paddle_tpu/parallel/mesh.py): the dp
-and pp axes.
+"""The device mesh and the sharding rules (counterpart of
+paddle_tpu/parallel/mesh.py).
 
 The reference's mesh is a jax `Mesh` of devices with named axes
-dp/tp/pp/sp/ep, held by one process. The port runs one process per dp
-rank (distributed/parallel.py), so its `dp` axis spans the processes of
-the default group: `build_mesh(dp=-1)` spans the group, and `dp` must
-equal its size. Its `pp` axis lives inside the process, as the
-reference's single-controller pipeline does: a list of P torch devices,
-one per pipeline stage (parallel/pipeline.py). `devices=None` means
-`cuda:0` ... `cuda:P-1`; `devices=` may name one device more than once
-(two stages sharing a card) or `"cpu"` P times.
+dp/tp/pp/sp/ep, held by one process, and GSPMD shards parameters by
+`ShardingRules`. The port runs one process per rank of the dp, tp and sp
+axes (distributed/parallel.py) and keeps pp inside the process:
 
-dp x pp: each dp rank (process) holds its own P stage devices. Without
-`devices=`, rank r of a node (`LOCAL_RANK`) takes `cuda:r*P` ...
-`cuda:r*P+P-1`; `devices=` names this rank's stage devices (two ranks
-sharing one card name `cuda:0` P times each). The pipeline runner then
-averages the summed microbatch gradients over the dp ranks before the
-optimizer (parallel/pipeline.py).
+* dp, tp, sp span the processes of the default group, laid out row-major
+  as the reference's `np.array(devices).reshape(dp, tp, pp, sp, ep)`:
+  rank = (d * tp + t) * sp + s. `build_mesh(dp=-1)` takes what the other
+  axes leave of the group. With tp or sp above 1 the mesh holds a
+  `torch.distributed.device_mesh.DeviceMesh` over those of dp/tp/sp that
+  are above 1 (`Mesh.device_mesh`, its dims in that order), and the
+  executor runs the program on DTensors over it (framework/executor.py):
+  the counterpart of GSPMD. dp alone stays on the manual-dp path
+  (parallel/zero.py) and holds no DeviceMesh.
+* pp lives inside the process, as the reference's single-controller
+  pipeline does: a list of P torch devices, one per stage
+  (parallel/pipeline.py). `devices=None` means `cuda:0` ... `cuda:P-1`;
+  `devices=` may name one device more than once (two stages sharing a
+  card) or `"cpu"` P times. dp x pp: each dp rank holds its own P stage
+  devices; without `devices=`, rank r of a node (`LOCAL_RANK`) takes
+  `cuda:r*P` ... `cuda:r*P+P-1`.
 
-Not ported (ROADMAP item 16): tensor, sequence and expert parallelism
-(tp, sp or ep above 1 raises).
+`ShardingRules` maps a parameter name to a spec, a tuple with one mesh
+axis name (or a tuple of names, or None) per tensor dim, as the
+reference's `PartitionSpec`: the first regex that matches wins, an
+`@LAYERS` stacked name takes its per-layer rule shifted one dim right, and
+`sharding_for` drops an axis that does not divide its dim (the
+reference's :130-144) and returns DTensor placements for the mesh.
+
+Not ported: pp together with tp or sp (ROADMAP item 16) and ep (item 12,
+`switch_moe` is not ported): both raise.
 """
 from __future__ import annotations
 
+import math
 import os
-from typing import List, Optional
+import re
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -32,30 +46,82 @@ from ..distributed.parallel import (get_rank, get_world_size,
                                     init_parallel_env)
 from ..framework import errors
 
-__all__ = ["Mesh", "build_mesh", "set_mesh", "get_mesh", "get_rank",
-           "get_world_size", "init_parallel_env"]
+__all__ = ["Mesh", "P", "PartitionSpec", "ShardingRules", "REPLICATED",
+           "build_mesh", "set_mesh", "get_mesh", "get_rank",
+           "get_world_size", "init_parallel_env", "moe_sharding_rules",
+           "transformer_tp_rules"]
 
 _current: Optional["Mesh"] = None
+# the process axes, in the reference's row-major order (pp is in-process)
+PROCESS_AXES = ("dp", "tp", "sp")
+
+
+class PartitionSpec(tuple):
+    """One entry per tensor dim: a mesh axis name, a tuple of names, or
+    None (the reference's jax PartitionSpec, without jax)."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
+
+    def __repr__(self):
+        return f"P{tuple(self)!r}"
+
+
+P = PartitionSpec
 
 
 class Mesh:
-    """dp processes of the default group x pp stage devices of this
-    process. `devices` holds the pp axis: stage s runs on devices[s]."""
+    """dp x tp x sp processes of the default group x pp stage devices of
+    this process. `devices` holds the pp axis: stage s runs on devices[s].
+    `device_mesh` is the DeviceMesh over the process axes above 1 when tp
+    or sp is above 1, else None."""
 
-    axis_names = ("dp", "pp")
+    axis_names = ("dp", "tp", "pp", "sp", "ep")
 
-    def __init__(self, dp: int, devices: Optional[List[torch.device]] = None):
+    def __init__(self, dp: int, devices: Optional[List[torch.device]] = None,
+                 tp: int = 1, sp: int = 1, device_mesh=None):
         self.devices = list(devices or [])
-        self.shape = {"dp": int(dp), "pp": max(1, len(self.devices))}
+        self.shape = {"dp": int(dp), "tp": int(tp),
+                      "pp": max(1, len(self.devices)), "sp": int(sp),
+                      "ep": 1}
+        self.device_mesh = device_mesh
+        self.mesh_axes: Tuple[str, ...] = tuple(
+            a for a in PROCESS_AXES if self.shape[a] > 1) \
+            if device_mesh is not None else ()
 
     @property
     def size(self) -> int:
+        """The dp width (the manual-dp path's replica count)."""
         return self.shape["dp"]
 
+    @property
+    def mixed(self) -> bool:
+        """tp or sp above 1: the program runs on DTensors."""
+        return self.device_mesh is not None
+
+    def coordinate(self, axis: str) -> int:
+        """This rank's index along a process axis (0 for an axis of 1)."""
+        if axis not in PROCESS_AXES:
+            raise ValueError(f"{axis!r} is not a process axis")
+        rank = get_rank()
+        strides = {"dp": self.shape["tp"] * self.shape["sp"],
+                   "tp": self.shape["sp"], "sp": 1}
+        return (rank // strides[axis]) % self.shape[axis]
+
+    def group(self, axis: str):
+        """The process group of this rank's line along `axis` (None for
+        an axis of 1)."""
+        if self.shape.get(axis, 1) <= 1 or self.device_mesh is None:
+            return None
+        return self.device_mesh.get_group(axis)
+
     def __repr__(self):
+        parts = [f"dp={self.shape['dp']}"]
+        parts += [f"{a}={self.shape[a]}" for a in ("tp", "sp")
+                  if self.shape[a] > 1]
         if self.shape["pp"] > 1:
-            return f"Mesh(dp={self.shape['dp']}, pp={self.devices})"
-        return f"Mesh(dp={self.shape['dp']})"
+            parts.append(f"pp={self.devices}")
+        return f"Mesh({', '.join(parts)})"
 
 
 def _stage_devices(pp: int, devices, dp: int = 1) -> List[torch.device]:
@@ -78,22 +144,52 @@ def _stage_devices(pp: int, devices, dp: int = 1) -> List[torch.device]:
     return devs
 
 
+def _device_mesh(dp: int, tp: int, sp: int):
+    """The DeviceMesh over the process axes above 1, on the device type of
+    this rank's group (distributed/parallel.py)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from ..distributed.parallel import rank_device
+    names = tuple(a for a, n in zip(PROCESS_AXES, (dp, tp, sp)) if n > 1)
+    dims = tuple(n for n in (dp, tp, sp) if n > 1)
+    ranks = torch.arange(dp * tp * sp).reshape(dims)
+    return DeviceMesh(rank_device().type, ranks, mesh_dim_names=names)
+
+
 def build_mesh(dp: int = -1, tp: int = 1, pp: int = 1, sp: int = 1,
                ep: int = 1, devices=None) -> Mesh:
-    """A mesh of `dp` processes (dp=-1: the whole group) and, with
-    pp > 1, `pp` stage devices in each of them (module docstring)."""
-    for axis, n in (("tp", tp), ("sp", sp), ("ep", ep)):
-        if int(n) > 1:
-            raise NotImplementedError(
-                f"a mesh with {axis}={n}: tensor, sequence and expert "
-                f"parallelism are not ported yet (ROADMAP item 16)")
+    """A mesh of dp x tp x sp processes (dp=-1: what tp and sp leave of
+    the group) and, with pp > 1, `pp` stage devices in each of them
+    (module docstring)."""
+    tp, pp, sp, ep = int(tp), int(pp), int(sp), int(ep)
+    if ep > 1:
+        raise NotImplementedError(
+            f"a mesh with ep={ep}: expert parallelism needs switch_moe, "
+            f"which is not ported (ROADMAP item 12)")
+    if pp > 1 and (tp > 1 or sp > 1):
+        raise NotImplementedError(
+            f"a mesh with pp={pp} and tp={tp}, sp={sp}: pipeline stages "
+            f"together with tensor or sequence parallelism are not ported "
+            f"(ROADMAP item 16)")
     world = get_world_size()
-    dp = world if int(dp) == -1 else int(dp)
-    pp = int(pp)
-    if dp != world:
+    fixed = tp * sp
+    if int(dp) == -1:
+        if world % fixed:
+            raise ValueError(
+                f"build_mesh(tp={tp}, sp={sp}) over a group of {world} "
+                f"process(es): tp * sp must divide it")
+        dp = world // fixed
+    dp = int(dp)
+    if dp * fixed != world:
         raise ValueError(
-            f"build_mesh(dp={dp}) over a group of {world} process(es): the "
-            f"port runs one process per dp rank")
+            f"build_mesh(dp={dp}, tp={tp}, sp={sp}) over a group of {world} "
+            f"process(es): the port runs one process per dp rank (and per "
+            f"tp and sp rank)")
+    if fixed > 1:
+        from ..distributed.parallel import backend, rank_device
+        if rank_device().type == "cuda" and backend() == "gloo":
+            from ..distributed.collective import install_gloo_functionals
+            install_gloo_functionals()
+        return Mesh(dp, tp=tp, sp=sp, device_mesh=_device_mesh(dp, tp, sp))
     if pp <= 1:
         return Mesh(dp)
     return Mesh(dp, _stage_devices(pp, devices, dp))
@@ -106,3 +202,102 @@ def set_mesh(mesh: Optional[Mesh]) -> None:
 
 def get_mesh() -> Optional[Mesh]:
     return _current
+
+
+# ---------------------------------------------------------------------------
+# Sharding rules (reference :103-144)
+# ---------------------------------------------------------------------------
+
+def _axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+class ShardingRules:
+    """Name pattern -> spec table for parameters (the Megatron rules as
+    data). Patterns are checked in order; the first regex match wins."""
+
+    def __init__(self, rules: Sequence[Tuple[str, tuple]] = (),
+                 default: tuple = P()):
+        self._rules = [(re.compile(pat), P(*spec)) for pat, spec in rules]
+        self._default = P(*default)
+
+    def spec_for(self, name: str, shape=None) -> PartitionSpec:
+        # [L]-stacked per-layer params (parallel/transforms.py
+        # apply_layer_scan): the per-layer rule shifted one dim right, the
+        # layer axis unsharded
+        if name.endswith("@LAYERS"):
+            base = self.spec_for(name[:-len("@LAYERS")],
+                                 tuple(shape[1:]) if shape else None)
+            return P(None, *base)
+        for pat, spec in self._rules:
+            if pat.search(name):
+                return spec
+        return self._default
+
+    def fixed_spec(self, mesh_shape, name: str, shape=None) -> PartitionSpec:
+        """`spec_for` with every axis that does not divide its dim dropped
+        (the reference's `sharding_for` :130-144); `mesh_shape` maps axis
+        names to sizes."""
+        spec = self.spec_for(name, shape)
+        if shape is None:
+            return spec
+        fixed = []
+        for dim, ax in zip(shape,
+                           list(spec) + [None] * (len(shape) - len(spec))):
+            if ax is None:
+                fixed.append(None)
+                continue
+            size = math.prod(int(mesh_shape[a]) for a in _axes(ax))
+            fixed.append(ax if dim % size == 0 and dim > 0 else None)
+        return P(*fixed)
+
+    def sharding_for(self, mesh: Mesh, name: str, shape=None):
+        """DTensor placements of `name` on the mesh's DeviceMesh: Shard(d)
+        on each mesh dim the fixed spec names for tensor dim d, Replicate
+        elsewhere."""
+        return placements(mesh, self.fixed_spec(mesh.shape, name, shape))
+
+
+def placements(mesh: Mesh, spec) -> list:
+    """A spec as DTensor placements, one per dim of `mesh.device_mesh`;
+    an axis of size 1 (not a mesh dim) is dropped."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = [Replicate() for _ in mesh.mesh_axes]
+    for d, entry in enumerate(spec):
+        for ax in _axes(entry):
+            if ax in mesh.mesh_axes:
+                out[mesh.mesh_axes.index(ax)] = Shard(d)
+            elif mesh.shape.get(ax, 1) > 1:
+                raise ValueError(f"spec {spec} names axis {ax!r}, which "
+                                 f"this mesh runs outside its DeviceMesh")
+    return out
+
+
+REPLICATED = ShardingRules()
+
+
+def moe_sharding_rules(extra=()) -> ShardingRules:
+    """Expert-parallel rules (reference :150): the leading [E] dim of
+    switch_moe's expert weights over ep. The port has no ep axis yet
+    (ROADMAP item 12); the rows are kept so that a table built from them
+    reads as the reference's."""
+    rules = [(r"_expert_(w|b)[12]_?\d*$", P("ep"))]
+    return ShardingRules(list(extra) + rules)
+
+
+def transformer_tp_rules(extra=()) -> ShardingRules:
+    """The Megatron table every transformer in models/ shares (reference
+    :157): column-parallel QKV and FFN-in (their output dim over tp),
+    row-parallel attention projection and FFN-out (their input dim).
+    Models put their embedding and head rules first through `extra`."""
+    rules = [
+        (r"_attn_qkv_w$", P(None, "tp")),
+        (r"_attn_qkv_b$", P("tp")),
+        (r"_ffn_in_w$", P(None, "tp")),
+        (r"_ffn_in_b$", P("tp")),
+        (r"_attn_proj_w$", P("tp", None)),
+        (r"_ffn_out_w$", P("tp", None)),
+    ]
+    return moe_sharding_rules(extra=list(extra) + rules)

@@ -1,27 +1,60 @@
-"""DistConfig and `attach` (counterpart of paddle_tpu/parallel/spmd.py:43,
-:87): a mesh attached to a Program. The executor runs a program whose
-attached mesh has pp > 1 through the pipeline runner
-(parallel/pipeline.py), one stage a device of the mesh's pp axis.
+"""DistConfig and `attach` (counterpart of paddle_tpu/parallel/spmd.py):
+a mesh, and the rules that place parameters, state and feeds on it,
+attached to a Program.
 
-The reference's DistConfig also carries GSPMD sharding rules: parameter
-rules and state specs. The port's takes the mesh only; any other argument
-raises (ROADMAP item 16).
+The executor (framework/executor.py) runs a program whose attached mesh
+has pp > 1 through the pipeline runner (parallel/pipeline.py), and one
+whose mesh has tp or sp above 1 on DTensors over the mesh's DeviceMesh:
+parameters and their optimizer state placed by `state_sharding`, feeds
+by `feed_sharding`, every collective put in by DTensor's propagation, as
+GSPMD puts them in for the reference.
+
+`state_specs` (the flat ZeRO state's dp specs, reference :55) is read by
+nothing in the port: a non-empty one raises on every mesh (ROADMAP item
+16), so dp-sharded state is never asked for and silently replicated.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
-from .mesh import Mesh, get_mesh
+from .mesh import P, Mesh, ShardingRules, get_mesh, placements
+
+# Per-parameter optimizer-accumulator name pattern -> dp spec: the
+# reference's GSPMD fallback when a sharding request could not take the
+# flat-bucket path (reference :26-33).
+ZERO1_FALLBACK_STATE_RULES = (
+    (r"_(moment\d?|velocity|mean_square|mean_grad|momentum)_\d+$",
+     P("dp")),
+)
+
+
+def zero1_fallback_rules(base: ShardingRules) -> ShardingRules:
+    """`base` TP rules + the per-parameter accumulator dp rows above."""
+    merged = ShardingRules(ZERO1_FALLBACK_STATE_RULES)
+    merged._rules = list(base._rules) + list(merged._rules)
+    merged._default = base._default
+    return merged
 
 
 class DistConfig:
-    def __init__(self, mesh: Optional[Mesh] = None, **unported):
-        if unported:
-            raise NotImplementedError(
-                f"DistConfig({', '.join(sorted(unported))}=...): sharding "
-                f"rules and state specs are not ported yet; the port's "
-                f"DistConfig takes the mesh only (ROADMAP item 16)")
+    def __init__(self, mesh: Optional[Mesh] = None,
+                 param_rules: Optional[ShardingRules] = None,
+                 batch_axes: Sequence[str] = ("dp",),
+                 replicated_feeds: Sequence[str] = (),
+                 state_specs: Optional[dict] = None):
         self.mesh = mesh
+        self.param_rules = param_rules if param_rules is not None \
+            else ShardingRules()
+        if not isinstance(self.param_rules, ShardingRules):
+            raise TypeError(f"DistConfig(param_rules=) takes ShardingRules, "
+                            f"got {type(param_rules).__name__}")
+        self.batch_axes = tuple(batch_axes)
+        self.replicated_feeds = tuple(replicated_feeds)
+        self.state_specs = dict(state_specs or {})
+        if self.state_specs:
+            raise NotImplementedError(
+                "DistConfig(state_specs=...): the flat ZeRO state's dp "
+                "specs are not ported (ROADMAP item 16)")
 
     def resolve_mesh(self) -> Optional[Mesh]:
         return self.mesh if self.mesh is not None else get_mesh()
@@ -30,6 +63,36 @@ class DistConfig:
     def pp(self) -> int:
         mesh = self.resolve_mesh()
         return 1 if mesh is None else int(mesh.shape.get("pp", 1))
+
+    @property
+    def mixed(self) -> bool:
+        mesh = self.resolve_mesh()
+        return mesh is not None and mesh.mixed
+
+    def feed_spec(self, mesh, name, shape) -> P:
+        """The reference's `feed_sharding` (:60-74) as a spec: dim 0 over
+        the batch axes above 1 when the global batch divides, else
+        replicated (as are `replicated_feeds` and scalars)."""
+        ndim = len(shape)
+        if name in self.replicated_feeds or ndim == 0:
+            return P()
+        axes = tuple(a for a in self.batch_axes if mesh.shape.get(a, 1) > 1)
+        n = 1
+        for a in axes:
+            n *= mesh.shape[a]
+        if not axes or shape[0] % n != 0:
+            return P()
+        spec = [None] * ndim
+        spec[0] = axes if len(axes) > 1 else axes[0]
+        return P(*spec)
+
+    def feed_sharding(self, mesh, name, shape):
+        """DTensor placements of a feed of global `shape`."""
+        return placements(mesh, self.feed_spec(mesh, name, shape))
+
+    def state_sharding(self, mesh, name, shape):
+        """DTensor placements of a parameter or state entry."""
+        return self.param_rules.sharding_for(mesh, name, shape)
 
 
 def attach(program, dist_config: DistConfig):

@@ -193,18 +193,18 @@ def _fake_launchers(monkeypatch):
             if t is not None:
                 t.data_ptr()
 
-    def fwd(q, k, v, mask, mode, seed, scale, causal, dropout):
+    def fwd(q, k, v, mask, mode, seed, scale, causal, dropout, keying):
         ptrs(q, k, v, mask)
         b, nh, s, _ = q.shape
         kw = dict(scale=scale, causal=causal, dropout=dropout,
                   seed=seed if dropout else None,
-                  mask=_expand_mask(mask, mode, b, nh))
+                  mask=_expand_mask(mask, mode, b, nh), keying=keying)
         port_fa.launches["flash_fwd"] += 1
         lse = torch.zeros((b * nh, s))
         return port_fa.flash_attention_plain(q, k, v, **kw), lse
 
     def grads(q, k, v, o, lse, do, mask, mode, seed, scale, causal,
-              dropout):
+              dropout, keying):
         ptrs(q, k, v, o, lse, do, mask)
         b, nh, _, _ = q.shape
         with torch.enable_grad():
@@ -212,7 +212,7 @@ def _fake_launchers(monkeypatch):
             out = port_fa.flash_attention_plain(
                 qq, kk, vv, scale=scale, causal=causal, dropout=dropout,
                 seed=seed if dropout else None,
-                mask=_expand_mask(mask, mode, b, nh))
+                mask=_expand_mask(mask, mode, b, nh), keying=keying)
             return torch.autograd.grad(out, (qq, kk, vv), do)
 
     def dq(*a):
@@ -247,7 +247,7 @@ def test_autograd_function_under_func_vjp(monkeypatch):
 
     def f(q, k, v):
         return port_fa.FlashAttention.apply(q, k, v, m3, mode, 9, SCALE,
-                                            False, 0.1)[0]
+                                            False, 0.1, None)[0]
 
     out, pull = torch.func.vjp(f, q, k, v)
     got = (out,) + pull(do)
@@ -275,7 +275,7 @@ def test_delta_handed_from_b2_to_b3(monkeypatch):
                                       NH, S)
     out, pull = torch.func.vjp(
         lambda q, k, v: port_fa.FlashAttention.apply(
-            q, k, v, m3, mode, 9, SCALE, False, 0.1)[0], q, k, v)
+            q, k, v, m3, mode, 9, SCALE, False, 0.1, None)[0], q, k, v)
     pull(do)
     assert len(handed) == 1
     o, got_do, delta = handed[0]
@@ -415,7 +415,7 @@ def test_autograd_function_is_first_order_only(monkeypatch, nested):
 
     def f(q):
         return port_fa.FlashAttention.apply(q, k, v, None, None, 9, SCALE,
-                                            False, 0.1)[0]
+                                            False, 0.1, None)[0]
 
     with pytest.raises((NotImplementedError, RuntimeError),
                        match="first-order only|differentiate twice"):

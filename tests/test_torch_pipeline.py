@@ -482,9 +482,18 @@ def test_stage_mesh_mismatch_and_unported_meshes_raise(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(errors.UnavailableError, match="devices="):
         port_mesh.build_mesh(pp=2)
+    # tp and sp are process axes (tests/test_torch_tp.py runs them): one
+    # process holds no tp 2 mesh; pp with tp or sp is still item 16, ep
+    # item 12
+    with pytest.raises(ValueError, match="per tp and sp rank"):
+        port_mesh.build_mesh(dp=1, tp=2)
     with pytest.raises(NotImplementedError, match="item 16"):
-        port_mesh.build_mesh(tp=2)
-    for unported in ({"state_specs": {"w": ("tp",)}},
-                     {"param_rules": object()}, {"batch_axes": ("dp",)}):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            port_spmd.DistConfig(mesh=None, **unported)
+        port_mesh.build_mesh(tp=2, pp=2, devices=["cpu", "cpu"])
+    with pytest.raises(NotImplementedError, match="item 12"):
+        port_mesh.build_mesh(ep=2)
+    with pytest.raises(TypeError, match="ShardingRules"):
+        port_spmd.DistConfig(mesh=None, param_rules=object())
+    with pytest.raises(NotImplementedError, match="item 16"):
+        port_spmd.DistConfig(mesh=None, state_specs={"w": ("tp",)})
+    cfg = port_spmd.DistConfig(mesh=None, batch_axes=("dp",))
+    assert cfg.batch_axes == ("dp",) and not cfg.mixed

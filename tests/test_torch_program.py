@@ -337,8 +337,13 @@ def test_random_lowerings_are_deterministic_and_distributed():
 def test_fleet_honours_amp_and_rejects_the_rest():
     s = port_fleet.DistributedStrategy()
     s.amp = True
-    with pytest.raises(NotImplementedError, match="tensor_parallel_degree"):
-        s.tensor_parallel_degree = 2
+    # tensor and sequence parallelism are honoured (tests/test_torch_tp.py
+    # runs them); expert parallelism waits for switch_moe (item 12)
+    s.tensor_parallel_degree = 2
+    s.sequence_parallel_degree = 2
+    s.tensor_parallel_degree = s.sequence_parallel_degree = 1
+    with pytest.raises(NotImplementedError, match="item 12"):
+        s.expert_parallel_degree = 2
     with pytest.raises(AttributeError, match="unknown"):
         s.shardingg = True
     main, start = port_program.Program(), port_program.Program()
