@@ -277,16 +277,23 @@ def install_gloo_functionals(dispatch_key: str = "CUDA") -> None:
     d = _dist()
 
     def red(op):
-        return _red(_RED_BY_NAME[str(op).lower()])
+        # gloo has no AVG: a sum, divided by the group's size after
+        op = str(op).lower()
+        return _red("sum" if op == "avg" else _RED_BY_NAME[op])
 
-    def all_reduce(x, op, group_name):
-        out = x.clone(memory_format=torch.contiguous_format)
-        d.all_reduce(out, op=red(op), group=_group_of(group_name))
+    def averaged(out, op, group):
+        if str(op).lower() == "avg":
+            out.div_(d.get_world_size(group))
         return out
 
     def all_reduce_(x, op, group_name):
-        d.all_reduce(x, op=red(op), group=_group_of(group_name))
-        return x
+        group = _group_of(group_name)
+        d.all_reduce(x, op=red(op), group=group)
+        return averaged(x, op, group)
+
+    def all_reduce(x, op, group_name):
+        return all_reduce_(x.clone(memory_format=torch.contiguous_format),
+                           op, group_name)
 
     def all_gather(x, group_size, group_name):
         x = x.contiguous()
@@ -297,9 +304,9 @@ def install_gloo_functionals(dispatch_key: str = "CUDA") -> None:
     def reduce_scatter(x, op, group_size, group_name):
         x = x.contiguous()
         out = x.new_empty((x.shape[0] // group_size,) + tuple(x.shape[1:]))
-        d.reduce_scatter_tensor(out, x, op=red(op),
-                                group=_group_of(group_name))
-        return out
+        group = _group_of(group_name)
+        d.reduce_scatter_tensor(out, x, op=red(op), group=group)
+        return averaged(out, op, group)
 
     def all_to_all(x, out_splits, in_splits, group_name):
         x = x.contiguous()
@@ -347,10 +354,19 @@ def _single(name):
             "all_gather": "all_gather_into_tensor"}[name])
 
 
+def _size_rank(group):
+    """(size, this rank's index) of `group` (None: the default group)."""
+    if group is None:
+        return get_world_size(), get_rank()
+    d = _dist()
+    return d.get_world_size(group), d.get_rank(group)
+
+
 def reduce_scatter_flat(flat: torch.Tensor, group=None) -> torch.Tensor:
-    """The sum over ranks of this rank's `[n/dp]` slice of the flat buffer
-    `flat` ([n], n divisible by dp); a new tensor."""
-    world, rank = get_world_size(), get_rank()
+    """The sum over the ranks of `group` (the default group: every rank)
+    of this rank's `[n/size]` slice of the flat buffer `flat` ([n], n
+    divisible by the group's size); a new tensor."""
+    world, rank = _size_rank(group)
     shard = flat.numel() // world
     with _Span("reduce_scatter", _nbytes(flat)):
         if _emulated("reduce_scatter", flat, group):
@@ -363,8 +379,9 @@ def reduce_scatter_flat(flat: torch.Tensor, group=None) -> torch.Tensor:
 
 
 def all_gather_flat(shard: torch.Tensor, group=None) -> torch.Tensor:
-    """The ranks' `[n/dp]` shards concatenated in rank order: `[n]`."""
-    world, rank = get_world_size(), get_rank()
+    """The `[n/size]` shards of the ranks of `group` (the default group:
+    every rank) concatenated in their order in the group: `[n]`."""
+    world, rank = _size_rank(group)
     s = shard.contiguous()
     n = s.numel()
     with _Span("all_gather", _nbytes(s) * world):
@@ -374,7 +391,9 @@ def all_gather_flat(shard: torch.Tensor, group=None) -> torch.Tensor:
                 piece = out[r * n:(r + 1) * n]
                 if r == rank:
                     piece.copy_(s)
-                _dist().broadcast(piece, src=r, group=group)
+                src = r if group is None \
+                    else _dist().get_global_rank(group, r)
+                _dist().broadcast(piece, src=src, group=group)
         else:
             _single("all_gather")(out, s, group=group)
         return out

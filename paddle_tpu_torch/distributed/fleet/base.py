@@ -36,13 +36,20 @@ local gradients.
 Tensor and sequence parallelism: `tensor_parallel_degree` and
 `sequence_parallel_degree` build a dp x tp x sp mesh of processes
 (parallel/mesh.py), and `minimize` attaches it with
-`tensor_parallel_rules` (parallel/spmd.py `DistConfig`), so the executor
-runs the program on DTensors (parallel/gspmd.py): the reference's GSPMD
-attach (`base.py:519-533`). Such a program skips the bucket pass, as the
-reference's mixed mesh does; ZeRO stages above 0 with tp or sp, pp with
-tp or sp, and layer scan with tp or sp raise (ROADMAP item 16). With tp
-above 1, an auto-selected fused LM head whose weight the rules
-vocab-shard warns (`_warn_tp_fused_head`, reference :310).
+`tensor_parallel_rules` and the flat ZeRO state's dp specs
+(parallel/spmd.py `DistConfig`), so the executor runs the program on
+DTensors (parallel/gspmd.py): the reference's GSPMD attach
+(`base.py:514-533`). The bucket pass runs there as on any mesh, exactly
+when the reference's `bucketable` holds, and ZeRO stages 1 and 2 keep
+their flat state sharded over dp (parallel/zero.py `_lower_zero_update`);
+a sharding request the pass declines (gradient merge, pipeline) takes
+`zero1_fallback_rules`, the per-parameter accumulators sharded over dp by
+name. Layer scan rolls the layers before the attach, and pp composes with
+tp and sp (parallel/mesh.py: P stage devices in each process). ZeRO
+stage 3 with tp raises, as in the reference, and so does stage 3 with sp
+(ROADMAP item 16). With tp above 1, an auto-selected fused LM head whose
+weight the rules vocab-shard warns (`_warn_tp_fused_head`, reference
+:310).
 
 Honoured: `amp`, `amp_configs`, `recompute`, `recompute_configs`,
 `layer_scan`, `layer_scan_configs`, `gradient_merge`,
@@ -325,10 +332,6 @@ class DistributedOptimizer:
         if s.tensor_parallel_degree > 1:
             _warn_tp_fused_head(program, s)
         from ...flags import flag
-        if mixed and (s.layer_scan or flag("FLAGS_layer_scan")):
-            raise NotImplementedError(
-                "layer scan with tensor or sequence parallelism is not "
-                "ported (ROADMAP item 16)")
         # layer scan runs before recompute: the roll consumes the interior
         # layer boundaries, and remat becomes the scan body's
         rolled = None
@@ -377,11 +380,11 @@ class DistributedOptimizer:
                 "parallel/zero.py; set strategy.sharding_stage to 1, 2 "
                 "or 3")
         _check_stage3_tp(zero_stage, s)
-        if zero_stage >= 1 and mixed:
+        if zero_stage >= 3 and mixed:
             raise NotImplementedError(
-                f"ZeRO stage {zero_stage} with tensor or sequence "
-                f"parallelism: the flat dp-sharded state runs on GSPMD in "
-                f"the reference and is not ported (ROADMAP item 16)")
+                f"ZeRO stage {zero_stage} with sequence parallelism: "
+                f"parameter storage flat-sharded over dp on a tp/sp mesh is "
+                f"not ported (ROADMAP item 16)")
         dp = self._fleet.dp() if self._fleet is not None else 1
         bucket_mb = float((s.sharding_configs or {}).get(
             "fuse_grad_size_in_mb", s.fuse_grad_size_in_mb))
@@ -398,15 +401,8 @@ class DistributedOptimizer:
                      or s.pipeline_parallel_degree > 1
                      or any("pipeline_stage" in op.attrs
                             for op in program.global_block().ops))
-        if mixed:
-            # the reference's mixed mesh declines the bucketed manual-dp
-            # path (parallel/zero.py:1253): DTensor reduces the gradients
-            from ...parallel.spmd import DistConfig, attach
-            from ...parallel.mesh import ShardingRules
-            attach(program, DistConfig(
-                mesh=mesh,
-                param_rules=s.tensor_parallel_rules or ShardingRules()))
-        elif bucket_mb > 0 and gm_k <= 1 and not pipelined:
+        # the reference's `bucketable` (:492-512), on every mesh
+        if bucket_mb > 0 and gm_k <= 1 and not pipelined:
             from ...framework.program import default_startup_program
             from ...parallel.zero import apply_grad_bucketing
             apply_grad_bucketing(
@@ -418,9 +414,20 @@ class DistributedOptimizer:
             count_fallback("grad_merge" if gm_k > 1 else
                            "pipeline" if pipelined else
                            "bucketing_disabled")
-        if pp > 1:
-            from ...parallel.spmd import DistConfig, attach
-            attach(program, DistConfig(mesh=mesh))
+        if mixed or pp > 1:
+            # the reference's attach (:514-533): the tp rules, the flat
+            # ZeRO state's dp specs, and the per-parameter accumulators'
+            # dp rows where a sharding request found no flat bucket
+            from ...parallel.mesh import ShardingRules
+            from ...parallel.spmd import DistConfig, attach, \
+                zero1_fallback_rules
+            from ...parallel.zero import zero_buckets
+            rules = s.tensor_parallel_rules or ShardingRules()
+            if zero_stage >= 1 and not zero_buckets(program):
+                rules = zero1_fallback_rules(rules)
+            attach(program, DistConfig(
+                mesh=mesh, param_rules=rules,
+                state_specs=getattr(program, "_zero_state_specs", None)))
         program._dp = dp
         program.bump_version()
         return result

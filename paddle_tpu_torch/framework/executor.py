@@ -140,15 +140,20 @@ bytes in `distributed.collective.counters`), each update rule takes its
 gradient in its parameter's placements (the dp average at dp x tp),
 written state keeps its placements (`copy_` into the local shard), and a
 fetch comes back whole. Such a program never takes the manual-dp path
-(the reference's `mixed_mesh` declines it too, parallel/zero.py:1253),
-and `run_steps` runs the eager step body each step, on the card as on
-the CPU (equal to sequential `run()` calls).
+(the reference's `mixed_mesh` declines it too, parallel/zero.py:1253):
+its ZeRO flat state is a DTensor sharded over the mesh's dp dim (stages
+1-2, parallel/zero.py `_lower_zero_update`), and a pipelined program runs
+through its pipeline runner, which places each microbatch's feeds
+(parallel/pipeline.py). `run_steps` runs the eager step body each step,
+on the card as on the CPU (equal to sequential `run()` calls), and
+refuses pipelined programs as everywhere.
 
 A rolled program (parallel/transforms.py `apply_layer_scan`) reads its
 per-layer weights stacked under `@LAYERS` names; `_prepare` restacks the
 per-layer entries a load of an unrolled checkpoint left in the scope
 (`_ensure_stacked_params`, before the ZeRO adoption), copying into the
-bound `@LAYERS` tensor. The `__layer_scan__` op pairs with its grad op
+bound `@LAYERS` tensor (on a tp/sp mesh, this rank's block of the stack
+in its placements). The `__layer_scan__` op pairs with its grad op
 like any other: its own `forward_vjp` keeps the per-layer pullbacks (or,
 with `remat`, the layer inputs) until the reverse loop runs.
 
@@ -736,17 +741,25 @@ class Executor:
                                   manual[1])
         return fetches
 
-    @staticmethod
-    def _mesh_step(program, dist, block, plan, env, scope, ctx, fetch_names,
-                   amp_dtype, strict):
-        """One step on DTensors over a tp/sp mesh (module docstring)."""
+    def _mesh_step(self, program, dist, block, plan, env, scope, ctx,
+                   fetch_names, amp_dtype, strict):
+        """One step on DTensors over a tp/sp mesh (module docstring); a
+        pipelined program through its runner, which places each
+        microbatch's feeds."""
         from ..parallel import gspmd
         ctx.mesh = dist.resolve_mesh()
+        pipe = self._pipeline(program, scope, fetch_names, plan)
         with gspmd.step_context():
-            env = {n: gspmd.place_feed(dist, n, t) for n, t in env.items()}
-            _run_block(block, plan, env, scope, ctx, amp_dtype, strict)
-            return [gspmd.whole(v)
-                    for v in _fetch_values(env, scope, fetch_names)]
+            if pipe is not None:
+                fetches = pipe.step(env, scope, ctx, amp_dtype,
+                                    place=lambda n, t: gspmd.place_feed(
+                                        dist, n, t))
+            else:
+                env = {n: gspmd.place_feed(dist, n, t)
+                       for n, t in env.items()}
+                _run_block(block, plan, env, scope, ctx, amp_dtype, strict)
+                fetches = _fetch_values(env, scope, fetch_names)
+            return [gspmd.whole(v) for v in fetches]
 
     def _pipeline(self, program, scope, fetch_names, plan):
         """The program's pipeline runner (parallel/pipeline.py) over its
@@ -1144,16 +1157,27 @@ def _ensure_stacked_params(program, scope, device) -> None:
     stacks = getattr(program, "_layer_stacks", None)
     if not stacks:
         return
+    from ..parallel.gspmd import is_dtensor, whole
     for sname, parts in stacks.items():
         if not parts or not all(scope.has(p) for p in parts):
             continue
         cur = scope.find_local(sname)
         dev = cur.device if isinstance(cur, torch.Tensor) else device
         with torch.no_grad():
-            stacked = torch.stack([torch.as_tensor(scope.find(p)).to(dev)
-                                   for p in parts])
+            # whole per-layer values (a DTensor entry gathered: every rank
+            # restacks, in the stacks' order)
+            stacked = torch.stack([whole(torch.as_tensor(scope.find(p)))
+                                   .to(dev) for p in parts])
             if isinstance(cur, torch.Tensor) and cur.shape == stacked.shape \
                     and cur.dtype == stacked.dtype:
+                if is_dtensor(cur):
+                    # a tp/sp mesh: this rank's block of the stack, in the
+                    # stack's placements
+                    from torch.distributed.tensor import distribute_tensor
+                    stacked = distribute_tensor(
+                        stacked, cur.device_mesh, cur.placements,
+                        src_data_rank=None).to_local()
+                    cur = cur.to_local()
                 cur.copy_(stacked)
             else:
                 scope.set(sname, stacked)

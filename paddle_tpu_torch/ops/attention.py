@@ -13,7 +13,8 @@ On a tp/sp mesh (a step on DTensors, parallel/gspmd.py; `ctx.mesh`):
 * sp > 1 with `sequence_parallel`: `ring_attention`, or
   `ulysses_attention` when `sp_mode == "ulysses"`
   (parallel/ring_attention.py), as the reference dispatches; the output
-  is gathered whole along the sequence for the rest of the layer.
+  stays sharded over sp along the sequence (the reference's `out_specs`),
+  so the rest of the layer runs on this rank's rows.
 * otherwise: Q, K and V are laid out with the batch over dp, the heads
   over tp and the sequence whole, and B1-B3 run on this rank's heads
   (`local_call`), the dropout keyed on the global heads (`keying`), so
@@ -38,16 +39,11 @@ def _mesh_attention(ctx, q, k, v, mask, scale, causal, dropout, seed,
     if attrs.get("sequence_parallel") and mesh.shape.get("sp", 1) > 1:
         fn = (ra.ulysses_attention if attrs.get("sp_mode") == "ulysses"
               else ra.ring_attention)
-        out = fn(q, k, v, mesh=mesh, scale=scale, causal=causal, mask=mask,
-                 dropout=dropout, seed=seed)
-        # the rest of the layer reads the whole sequence (one all-gather
-        # over sp): its [B*S, H] products flatten the sequence dim, which a
-        # sequence-sharded DTensor cannot take
-        from torch.distributed.tensor import Replicate
-        sp_dim = mesh.mesh_axes.index("sp")
-        return out.redistribute(mesh.device_mesh, [
-            Replicate() if i == sp_dim else p
-            for i, p in enumerate(out.placements)])
+        # the output stays sharded over sp along the sequence, as the
+        # reference's out_specs leave it: the rest of the layer runs on
+        # this rank's rows (ops/math_ops.py `_mesh_mm` for its products)
+        return fn(q, k, v, mesh=mesh, scale=scale, causal=causal, mask=mask,
+                  dropout=dropout, seed=seed)
     # the sequence stays whole on every rank of an sp axis here
     q, k, v, mask, mesh, scale, pl = ra._prepare(
         q, k, v, mask, mesh, scale, dropout, seed, None)

@@ -151,7 +151,8 @@ def _mesh_ce(x, w, bias, labels, chunk, ignore_index):
     slices of the scan would make DTensor do, and the scan runs on the
     local tokens. The gradients of `w` and the bias go back to their
     shards (the gather's backward); where the tokens are sharded over a
-    mesh dim (the batch over dp), theirs are partial sums over it. The
+    mesh dim (the batch over dp, the sequence over sp), theirs are partial
+    sums over it. The
     same function as the dense head; a vocab-parallel head is later work
     (ROADMAP item 16)."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
@@ -174,6 +175,9 @@ def _mesh_ce(x, w, bias, labels, chunk, ignore_index):
     def body(x, w, b, lab):
         return ChunkedLMCE.apply(x, w, b, lab, chunk, ignore_index)[0]
 
+    # the rows may be sharded unevenly (the shifted [0, S-1) rows of a
+    # sequence-sharded activation): the loss is [*labels' shape, 1]
     loss = gspmd.local_call(body, (x, w, bias, labels), [x.placements],
-                            grad_placements=[None, red, red, None])
+                            grad_placements=[None, red, red, None],
+                            shapes=[tuple(labels.shape) + (1,)])
     return loss.float()

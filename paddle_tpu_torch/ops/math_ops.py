@@ -160,12 +160,90 @@ def _mean(ctx, ins, attrs):
     return {"Out": [torch.mean(ins["X"][0])]}
 
 
+def _folds_a_shard(x, xd: int) -> bool:
+    """`x` is a DTensor [*lead, K] (lead = its first `xd` dims) sharded on
+    a lead dim after the first: a flatten to [prod(lead), K] would fold a
+    sharded dim into the rows (a sequence-sharded activation), which
+    DTensor refuses (torch 2.11) or gathers."""
+    from ..parallel.gspmd import is_dtensor
+    return (is_dtensor(x) and xd >= 2 and x.dim() == xd + 1
+            and any(p.is_shard() and 0 < p.dim % x.dim() < xd
+                    for p in x.placements))
+
+
+def _mesh_mm(x, y, xd: int):
+    """x [*lead, K] @ y [K, N] -> [*lead, N] on the local shards
+    (parallel/gspmd.py `local_call`): the rows of x stay sharded as they
+    are, and each mesh dim's layout follows from the operands'. Rows
+    sharded: the output rows too, y's gradient a partial sum (each rank
+    holds its rows' part). K sharded on both: the output a partial sum.
+    N sharded (y column-parallel): the output's last dim, x's gradient a
+    partial sum. A pair that fits none of these is redistributed first."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from ..parallel import gspmd
+    x = gspmd.settled(x)
+    mesh = x.device_mesh
+    if not gspmd.is_dtensor(y):
+        y = DTensor.from_local(y, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    y = gspmd.settled(y)
+
+    def lead(p):
+        return p.is_shard() and p.dim % x.dim() < xd
+
+    xp, yp = list(x.placements), list(y.placements)
+    for i in range(mesh.ndim):
+        if lead(xp[i]):
+            if not yp[i].is_replicate():
+                yp[i] = Replicate()
+        elif xp[i].is_shard():                  # the contraction
+            if yp[i].is_replicate():
+                yp[i] = Shard(0)
+            elif yp[i] != Shard(0):
+                xp[i] = Replicate()
+        elif yp[i] == Shard(0):
+            xp[i] = Shard(xd)
+    if xp != list(x.placements):
+        x = x.redistribute(mesh, xp)
+    if yp != list(y.placements):
+        y = y.redistribute(mesh, yp)
+    out_pl, gx, gy = [], [], []
+    for px, py in zip(xp, yp):
+        if lead(px):
+            out_pl.append(Shard(px.dim % x.dim()))
+            gx.append(px)
+            gy.append(Partial())
+        elif px.is_shard():
+            out_pl.append(Partial())
+            gx.append(px)
+            gy.append(py)
+        elif py.is_shard():
+            out_pl.append(Shard(xd))
+            gx.append(Partial())
+            gy.append(py)
+        else:
+            out_pl.append(Replicate())
+            gx.append(px)
+            gy.append(py)
+
+    def body(xl, yl):
+        out = torch.matmul(xl.reshape(-1, xl.shape[-1]), yl)
+        return out.reshape(tuple(xl.shape[:xd]) + (yl.shape[1],))
+
+    shape = tuple(x.shape[:xd]) + (int(y.shape[1]),)
+    return gspmd.local_call(body, (x, y), [out_pl], grad_placements=[gx, gy],
+                            shapes=[shape])
+
+
 @register("mul")
 def _mul(ctx, ins, attrs):
-    """Flatten to 2-D by num_col_dims, then one GEMM."""
+    """Flatten to 2-D by num_col_dims, then one GEMM; a sequence-sharded
+    DTensor on local shards (`_mesh_mm`)."""
     x, y = ins["X"][0], ins["Y"][0]
     xd = attrs.get("x_num_col_dims", 1)
     yd = attrs.get("y_num_col_dims", 1)
+    if yd == 1 and y.dim() == 2 and _folds_a_shard(x, xd):
+        return {"Out": [_mesh_mm(x, y, xd)]}
     xm = x.reshape(math.prod(x.shape[:xd]), -1)
     ym = y.reshape(math.prod(y.shape[:yd]), -1)
     out = torch.matmul(xm, ym)
@@ -181,7 +259,10 @@ def _matmul(ctx, ins, attrs):
         x = x.transpose(-1, -2)
     if attrs.get("transpose_Y", False) and y.dim() > 1:
         y = y.transpose(-1, -2)
-    out = torch.matmul(x, y)
+    if y.dim() == 2 and _folds_a_shard(x, x.dim() - 1):
+        out = _mesh_mm(x, y, x.dim() - 1)
+    else:
+        out = torch.matmul(x, y)
     alpha = attrs.get("alpha", 1.0)
     if alpha != 1.0:
         out = out * alpha
@@ -195,4 +276,6 @@ def _matmul_v2(ctx, ins, attrs):
         x = x.transpose(-1, -2)
     if attrs.get("trans_y", False):
         y = y.transpose(-1, -2)
+    if y.dim() == 2 and _folds_a_shard(x, x.dim() - 1):
+        return {"Out": [_mesh_mm(x, y, x.dim() - 1)]}
     return {"Out": [torch.matmul(x, y)]}

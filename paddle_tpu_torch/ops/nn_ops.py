@@ -65,18 +65,43 @@ def _srl(x, n: int):
     return (x >> n) & ((1 << (32 - n)) - 1)
 
 
-def keep_mask(key, shape, rate: float, device):
+def keep_mask(key, shape, rate: float, device, block=None):
     """The dropout keep mask: element (r, c) of `shape` viewed as [rows,
     last dim] is kept when fmix32((r * H1) ^ (c * H2) ^ key), as uint32, is
     at least the flash kernels' threshold for `rate` (P(keep) = 1 - rate).
     The layout of the flash kernels' `keep_mask` with one head; int32
     arithmetic that wraps, compared as unsigned by flipping the sign bit.
-    `key` is a one-element int32 tensor (ctx.op_seed) or an int."""
+    `key` is a one-element int32 tensor (ctx.op_seed) or an int. `block`
+    ([(start, size)] per dim of `shape`) asks for that block of the mask
+    only, keyed on its elements' indices in the whole of `shape` (a
+    DTensor's local shard, parallel/gspmd.py `block_offsets`)."""
     from .kernels.flash_attention import dropout_threshold
-    cols = shape[-1] if len(shape) else 1
-    rows = max(1, torch.Size(shape).numel() // max(cols, 1))
-    r = torch.arange(rows, dtype=torch.int32, device=device) * _H1
-    c = torch.arange(cols, dtype=torch.int32, device=device) * _H2
+    if block is None or not len(shape):
+        cols = shape[-1] if len(shape) else 1
+        rows = max(1, torch.Size(shape).numel() // max(cols, 1))
+        r = torch.arange(rows, dtype=torch.int32, device=device)
+        c = torch.arange(cols, dtype=torch.int32, device=device)
+        out_shape = shape
+    else:
+        # the global row index of each local row: sum of index * stride
+        # over the leading dims of `shape`
+        lead = [n for _, n in block[:-1]]
+        r = torch.zeros(lead, dtype=torch.int64, device=device)
+        stride = 1
+        for d in reversed(range(len(lead))):
+            view = [1] * len(lead)
+            view[d] = lead[d]
+            idx = block[d][0] + torch.arange(lead[d], dtype=torch.int64,
+                                             device=device)
+            r = r + idx.view(view) * stride
+            stride *= int(shape[d])
+        rows, cols = max(1, r.numel()), block[-1][1]
+        r = r.reshape(-1).to(torch.int32)
+        c = (block[-1][0] + torch.arange(cols, dtype=torch.int64,
+                                         device=device)).to(torch.int32)
+        out_shape = tuple(n for _, n in block)
+    r = r * _H1
+    c = c * _H2
     x = (r.view(rows, 1) ^ c.view(1, cols)) ^ key
     x = x ^ _srl(x, 16)
     x = x * _H1
@@ -84,7 +109,7 @@ def keep_mask(key, shape, rate: float, device):
     x = x * _H2
     x = x ^ _srl(x, 16)
     thresh = dropout_threshold(rate) + _I32_MIN
-    return ((x ^ _I32_MIN) >= thresh).reshape(shape)
+    return ((x ^ _I32_MIN) >= thresh).reshape(out_shape)
 
 
 @register("dropout", is_random=True)
@@ -101,16 +126,31 @@ def _dropout(ctx, ins, attrs):
         out = x if impl == "upscale_in_train" else x * (1.0 - p)
         return {"Out": [out], "Mask": [torch.ones(x.shape, dtype=torch.uint8,
                                                   device=x.device)]}
-    if ctx.is_eval_shape:
-        keep = torch.empty(x.shape, dtype=torch.bool, device=x.device)
+    from ..parallel import gspmd
+    key = None if ctx.is_eval_shape else ctx.op_seed(attrs)
+    block = gspmd.block_offsets(x) if gspmd.is_dtensor(x) else None
+
+    def body(x):
+        if key is None:
+            keep = torch.empty(x.shape, dtype=torch.bool, device=x.device)
+        else:
+            keep = keep_mask(key, shape, p, x.device, block)
+        zero = torch.zeros((), dtype=x.dtype, device=x.device)
+        if impl == "upscale_in_train":
+            out = torch.where(keep, x / (1.0 - p), zero).to(x.dtype)
+        else:
+            out = torch.where(keep, x, zero).to(x.dtype)
+        return out, keep.to(torch.uint8)
+
+    shape = tuple(x.shape)
+    if block is None:
+        out, mask = body(x)
     else:
-        keep = keep_mask(ctx.op_seed(attrs), tuple(x.shape), p, x.device)
-    zero = torch.zeros((), dtype=x.dtype, device=x.device)
-    if impl == "upscale_in_train":
-        out = torch.where(keep, x / (1.0 - p), zero).to(x.dtype)
-    else:
-        out = torch.where(keep, x, zero).to(x.dtype)
-    return {"Out": [out], "Mask": [keep.to(torch.uint8)]}
+        # on a mesh: this rank's block of the mask, keyed on the global
+        # element indices, so every layout draws the unsharded mask
+        out, mask = gspmd.local_call(body, (x,), [x.placements] * 2,
+                                     shapes=[shape] * 2)
+    return {"Out": [out], "Mask": [mask]}
 
 
 @register("lookup_table", nondiff_slots=("Ids",))

@@ -97,16 +97,67 @@ def _unstack(ctx, ins, attrs):
     return {"Y": list(torch.unbind(ins["X"][0], dim=attrs.get("axis", 0)))}
 
 
+def _mesh_slice(x, bounds):
+    """`x[bounds]` on the local shards of a DTensor sharded along a sliced
+    dim, when each rank's part of the slice is the block DTensor's Shard
+    gives it in the result (a slice that drops fewer rows at the end than
+    there are ranks: the shifted-label rows [0, S-1) of a sequence-sharded
+    activation); None otherwise (DTensor's own slice, which gathers)."""
+    from ..parallel import gspmd
+    if not any(p.is_shard() and p.dim % x.dim() in bounds
+               for p in x.placements):
+        return None
+    mesh, coord = x.device_mesh, x.device_mesh.get_coordinate()
+    local = {}
+    for a, (s, e) in bounds.items():
+        dims = [i for i, p in enumerate(x.placements)
+                if p.is_shard() and p.dim % x.dim() == a]
+        if not dims:
+            local[a] = slice(s, e)
+            continue
+        n, size = mesh.size(dims[0]), int(x.shape[a])
+        if len(dims) > 1 or size % n:
+            return None
+        c = size // n
+        got = [(max(r * c, s) - s,
+                max(0, min((r + 1) * c, e) - max(r * c, s)))
+               for r in range(n)]
+        want = gspmd.chunks(e - s, n)
+        if [g[1] for g in got] != [w[1] for w in want] or any(
+                g != w for g, w in zip(got, want) if w[1]):
+            return None
+        lo = coord[dims[0]] * c
+        local[a] = slice(max(s - lo, 0), max(min(e - lo, c), 0))
+    shape = [int(n) for n in x.shape]
+    for a, (s, e) in bounds.items():
+        shape[a] = e - s
+    idx = [slice(None)] * x.dim()
+    for a, sl in local.items():
+        idx[a] = sl
+    return gspmd.local_call(lambda t: t[tuple(idx)], (x,), [x.placements],
+                            shapes=[shape])
+
+
 @register("slice")
 def _slice(ctx, ins, attrs):
     x = ins["Input"][0]
     idx = [slice(None)] * x.dim()
+    bounds = {}
     for a, s, e in zip(attrs["axes"], attrs["starts"], attrs["ends"]):
         dim = x.shape[a]
+        a = a % x.dim()
         s = max(s + dim, 0) if s < 0 else min(s, dim)
         e = max(e + dim, 0) if e < 0 else min(e, dim)
         idx[a] = slice(s, e)
-    out = x[tuple(idx)]
+        bounds[a] = (s, e)
+    out = None
+    if getattr(ctx, "mesh", None) is not None \
+            and not attrs.get("decrease_axis"):
+        from ..parallel.gspmd import is_dtensor
+        if is_dtensor(x):
+            out = _mesh_slice(x, bounds)
+    if out is None:
+        out = x[tuple(idx)]
     for a in sorted(attrs.get("decrease_axis", []), reverse=True):
         out = out.squeeze(a)
     return {"Out": [out]}
@@ -176,8 +227,8 @@ def _mesh_lookup(table, idx):
     rows are sharded is the Megatron vocab-parallel embedding: each rank
     looks up the ids its rows hold, zero elsewhere, and the result is a
     partial sum over the sharding dims (one all-reduce where it is next
-    read); the table's gradient stays on its shard. A replicated table is
-    the plain lookup."""
+    read); the table's gradient stays on its shard, a partial sum over the
+    dims that shard the ids. A replicated table is the plain lookup."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     from ..parallel import gspmd
     if not gspmd.is_dtensor(table) or not any(
@@ -210,4 +261,11 @@ def _mesh_lookup(table, idx):
         return torch.where(hit.unsqueeze(-1), rows_,
                            torch.zeros((), dtype=t.dtype, device=t.device))
 
-    return gspmd.local_call(body, (table, idx), [out_pl])
+    # the table's gradient: on its shard over the dims that shard its
+    # rows, a partial sum over the dims that shard the ids (the batch
+    # over dp: each rank's rows hold its own ids' part)
+    grad_pl = [Partial() if isinstance(ip, Shard) and not (
+        isinstance(tp, Shard) and tp.dim == 0) else tp
+        for tp, ip in zip(table.placements, idx.placements)]
+    return gspmd.local_call(body, (table, idx), [out_pl],
+                            grad_placements=[grad_pl, None])

@@ -30,6 +30,18 @@ same lowerings eagerly on DTensors over the mesh's DeviceMesh
   `Partial` placement.
 * Lowerings that launch a kernel (flash attention) or need local tensors
   (the fused head's GEMM) run on local shards through `local_call`.
+* At sp > 1 the attention's output stays sharded along the sequence (the
+  reference's `out_specs`), and so does the rest of the layer: the
+  products flatten a sequence-sharded activation on local shards
+  (ops/math_ops.py `_mesh_mm`), dropout keys its mask on the global
+  element indices of each rank's block (`block_offsets`), and the shifted
+  label rows [0, S-1) are cut on local shards into DTensor's uneven
+  blocks (ops/tensor_ops.py `_mesh_slice`). The token feeds stay sharded
+  over dp alone, as the reference's `batch_axes`, so the embedding sum
+  before the first attention is whole on every sp rank.
+* ZeRO stages 1-2: the flat bucket state is a DTensor `Shard(0)` on the
+  mesh's dp dim (parallel/spmd.py `state_specs`), updated on this rank's
+  shard (parallel/zero.py `_lower_zero_update`).
 * Fetches come back whole (`whole`, `full_tensor()`).
 """
 from __future__ import annotations
@@ -43,7 +55,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 __all__ = ["mixed_config", "is_dtensor", "state_plan", "distribute_scope",
            "place_feed", "whole", "align_grad", "settled", "step_context",
-           "local_call", "local_param_elements", "CollectiveCounter"]
+           "local_call", "local_param_elements", "CollectiveCounter",
+           "chunks", "block_offsets"]
 
 
 def mixed_config(program):
@@ -80,8 +93,12 @@ def state_plan(program, dist) -> Dict[str, list]:
                 continue
             for n in names:
                 var = block.find_var_recursive(n)
+                # an accumulator the rules place themselves (ZeRO's
+                # fallback rows shard it over dp) keeps its own layout
                 if var is not None and var.persistable \
-                        and tuple(var.shape) == tuple(pvar.shape):
+                        and tuple(var.shape) == tuple(pvar.shape) \
+                        and not any(dist.param_rules.fixed_spec(
+                            mesh.shape, n, tuple(var.shape))):
                     plan[n] = plan[params[0]]
     program._gspmd_plan = (key, plan)
     return plan
@@ -227,14 +244,48 @@ def step_context():
         yield
 
 
-def local_call(fn, args, out_placements, grad_placements=None):
+def chunks(n: int, p: int):
+    """[(start, size)] of the p blocks DTensor's Shard cuts a dim of n
+    into (torch.chunk's: ceil(n / p) each, the last ones shorter or
+    empty)."""
+    c = -(-n // p) if p else n
+    return [(min(r * c, n), max(0, min(n, (r + 1) * c) - min(r * c, n)))
+            for r in range(p)]
+
+
+def block_offsets(t):
+    """This rank's block of DTensor `t` as [(global start, size)] per
+    tensor dim (mesh dims applied in order, as DTensor nests them)."""
+    out = [(0, int(n)) for n in t.shape]
+    coord = t.device_mesh.get_coordinate()
+    for i, p in enumerate(t.placements):
+        if p.is_shard():
+            d = p.dim % t.dim()
+            start, size = out[d]
+            s, n = chunks(size, t.device_mesh.size(i))[coord[i]]
+            out[d] = (start + s, n)
+    return out
+
+
+def contiguous_stride(shape):
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= max(int(n), 1)
+    return tuple(reversed(stride))
+
+
+def local_call(fn, args, out_placements, grad_placements=None, shapes=None):
     """`fn` on the local shards of the DTensors in `args` (other values
     pass as they are), its tensor results wrapped back as DTensors with
     `out_placements` (one list per result). `grad_placements` (one per
     DTensor argument, None = its own placements) says how each argument's
     gradient is laid out: Partial on the mesh dims where the call reduces
-    over a sharded batch. The counterpart of DTensor's `local_map`, written
-    out so that the gradient placements are explicit."""
+    over a sharded batch. `shapes` (one global shape per result, None =
+    the local shape times the shards) is needed where a result is
+    sharded unevenly (a dim that its mesh size does not divide). The
+    counterpart of DTensor's `local_map`, written out so that the gradient
+    placements are explicit."""
     from torch.distributed.tensor import DTensor
     mesh = None
     local = []
@@ -250,7 +301,11 @@ def local_call(fn, args, out_placements, grad_placements=None):
     out = fn(*local)
     single = not isinstance(out, (tuple, list))
     outs = [out] if single else list(out)
-    wrapped = [DTensor.from_local(o, mesh, pl, run_check=False)
-               if isinstance(o, torch.Tensor) and pl is not None else o
-               for o, pl in zip(outs, out_placements)]
+    shapes = shapes or [None] * len(outs)
+    wrapped = [o if not isinstance(o, torch.Tensor) or pl is None
+               else DTensor.from_local(o, mesh, pl, run_check=False)
+               if shp is None else DTensor.from_local(
+                   o, mesh, pl, run_check=False, shape=torch.Size(shp),
+                   stride=contiguous_stride(shp))
+               for o, pl, shp in zip(outs, out_placements, shapes)]
     return wrapped[0] if single else wrapped

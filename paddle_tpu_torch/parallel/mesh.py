@@ -19,9 +19,16 @@ axes (distributed/parallel.py) and keeps pp inside the process:
   pipeline does: a list of P torch devices, one per stage
   (parallel/pipeline.py). `devices=None` means `cuda:0` ... `cuda:P-1`;
   `devices=` may name one device more than once (two stages sharing a
-  card) or `"cpu"` P times. dp x pp: each dp rank holds its own P stage
-  devices; without `devices=`, rank r of a node (`LOCAL_RANK`) takes
-  `cuda:r*P` ... `cuda:r*P+P-1`.
+  card) or `"cpu"` P times. pp composes with every process axis: each
+  process (one (dp, tp, sp) coordinate) holds its own P stage devices, as
+  each of the reference's stages owns a pp submesh that keeps every other
+  axis (reference parallel/pipeline.py:247-256); without `devices=`, the
+  process of a node with `LOCAL_RANK` r takes `cuda:r*P` ...
+  `cuda:r*P+P-1`. With tp or sp, a stage's DTensors live on its device
+  over the process axes' DeviceMesh (parallel/pipeline.py); under NCCL
+  that group is bound to the rank's own device, so every stage must be
+  that device (`_check_stages_on_group`, which refuses the default
+  stages there).
 
 `ShardingRules` maps a parameter name to a spec, a tuple with one mesh
 axis name (or a tuple of names, or None) per tensor dim, as the
@@ -30,8 +37,7 @@ reference's `PartitionSpec`: the first regex that matches wins, an
 `sharding_for` drops an axis that does not divide its dim (the
 reference's :130-144) and returns DTensor placements for the mesh.
 
-Not ported: pp together with tp or sp (ROADMAP item 16) and ep (item 12,
-`switch_moe` is not ported): both raise.
+Not ported: ep (ROADMAP item 12, `switch_moe` is not ported) raises.
 """
 from __future__ import annotations
 
@@ -124,10 +130,10 @@ class Mesh:
         return f"Mesh({', '.join(parts)})"
 
 
-def _stage_devices(pp: int, devices, dp: int = 1) -> List[torch.device]:
+def _stage_devices(pp: int, devices, procs: int = 1) -> List[torch.device]:
     if devices is None:
         base = pp * int(os.environ.get("LOCAL_RANK", "0") or 0) \
-            if dp > 1 else 0
+            if procs > 1 else 0
         have = torch.cuda.device_count() if torch.cuda.is_available() else 0
         if have < base + pp:
             raise errors.Unavailable(
@@ -142,6 +148,26 @@ def _stage_devices(pp: int, devices, dp: int = 1) -> List[torch.device]:
             "build_mesh(pp=%d) with %d devices: name one device a stage",
             pp, len(devs))
     return devs
+
+
+def _check_stages_on_group(stages: List[torch.device]) -> None:
+    """With tp or sp, every stage's DTensors take their collectives on the
+    process axes' group. NCCL binds that group to this rank's device
+    (`rank_device()`, cuda:LOCAL_RANK), so under NCCL every stage must
+    sit there; the default `cuda:r*P+s` stages would not. Gloo moves each
+    collective through host memory and takes any stage device."""
+    from ..distributed.parallel import backend, rank_device
+    if backend() != "nccl":
+        return
+    home = rank_device()
+    off = [str(d) for d in stages if d != home]
+    if off:
+        raise errors.Unimplemented(
+            "pp with tp or sp under NCCL: stage device(s) %s are not this "
+            "rank's group device %s, and the DTensor collectives of a "
+            "stage run on its group's device; pass devices= naming %s for "
+            "every stage (a DTensor on a second card per rank has never "
+            "run, ROADMAP item 16)", ", ".join(off), home, home)
 
 
 def _device_mesh(dp: int, tp: int, sp: int):
@@ -165,11 +191,6 @@ def build_mesh(dp: int = -1, tp: int = 1, pp: int = 1, sp: int = 1,
         raise NotImplementedError(
             f"a mesh with ep={ep}: expert parallelism needs switch_moe, "
             f"which is not ported (ROADMAP item 12)")
-    if pp > 1 and (tp > 1 or sp > 1):
-        raise NotImplementedError(
-            f"a mesh with pp={pp} and tp={tp}, sp={sp}: pipeline stages "
-            f"together with tensor or sequence parallelism are not ported "
-            f"(ROADMAP item 16)")
     world = get_world_size()
     fixed = tp * sp
     if int(dp) == -1:
@@ -184,15 +205,17 @@ def build_mesh(dp: int = -1, tp: int = 1, pp: int = 1, sp: int = 1,
             f"build_mesh(dp={dp}, tp={tp}, sp={sp}) over a group of {world} "
             f"process(es): the port runs one process per dp rank (and per "
             f"tp and sp rank)")
+    stages = _stage_devices(pp, devices, world) if pp > 1 else None
     if fixed > 1:
         from ..distributed.parallel import backend, rank_device
+        if stages:
+            _check_stages_on_group(stages)
         if rank_device().type == "cuda" and backend() == "gloo":
             from ..distributed.collective import install_gloo_functionals
             install_gloo_functionals()
-        return Mesh(dp, tp=tp, sp=sp, device_mesh=_device_mesh(dp, tp, sp))
-    if pp <= 1:
-        return Mesh(dp)
-    return Mesh(dp, _stage_devices(pp, devices, dp))
+        return Mesh(dp, stages, tp=tp, sp=sp,
+                    device_mesh=_device_mesh(dp, tp, sp))
+    return Mesh(dp, stages)
 
 
 def set_mesh(mesh: Optional[Mesh]) -> None:

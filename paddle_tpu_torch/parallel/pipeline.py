@@ -57,6 +57,18 @@ bucket pass (fleet), so this is their only dp collective; the executor
 then reduces the fetches as it does at dp > 1 (a float scalar is the
 replica mean).
 
+Tensor and sequence parallelism (pp x tp x sp, one process per (dp, tp,
+sp) coordinate, each with its own P stage devices: parallel/mesh.py).
+The executor runs the step on DTensors (parallel/gspmd.py): the runner
+cuts the GLOBAL feeds into microbatches and places each microbatch on the
+mesh (dim 0 over dp), every stage's lowerings see the mesh, each stage's
+state is a DTensor whose local shard lives on the stage's device, and a
+value that crosses stages moves its local shard to the next stage's
+device and keeps its placements (`_to_device`). DTensor reduces the
+gradients over dp and tp where the optimizer reads them, so `_dp_average`
+(the manual-dp path) does not run there. On one card every stage device
+is `cuda:0`, so no crossing between two GPUs has run.
+
 Over one device (a PipelineOptimizer program without a pp mesh) the same
 runner is GPipe (the reference's `_run_block_microbatched`,
 framework/executor.py:457-585): every op on stage 0, whatever its
@@ -86,6 +98,21 @@ def _op_writes(op) -> List[str]:
 
 def _grad_base(name: str) -> str:
     return name.split("@GRAD")[0]
+
+
+def _to_device(v, dev):
+    """`v` on `dev`: a DTensor's local shard moved there and wrapped back
+    with its placements (module docstring)."""
+    from . import gspmd
+    if not gspmd.is_dtensor(v):
+        return v if v.device == dev else v.to(dev)
+    loc = v.to_local()
+    if loc.device == dev:
+        return v
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(loc.to(dev), v.device_mesh, v.placements,
+                              run_check=False, shape=v.shape,
+                              stride=v.stride())
 
 
 class _Segment:
@@ -287,9 +314,10 @@ class _PipelineBlock:
         moved)."""
         for n in self.state_names:
             t = scope.find(n)
-            dev = self.devices[self.var_stage[n]]
-            if isinstance(t, torch.Tensor) and t.device != dev:
-                scope.set(n, t.to(dev))
+            if isinstance(t, torch.Tensor):
+                moved = _to_device(t, self.devices[self.var_stage[n]])
+                if moved is not t:
+                    scope.set(n, moved)
 
     def _run_seg(self, seg, env, lookup, scope, ctxs, amp_dtype, saved):
         """Run `seg` on its stage's device over its inputs (moved there),
@@ -305,7 +333,7 @@ class _PipelineBlock:
                 raise errors.NotFound(
                     "pipeline: var %r is not in the scope and no pipeline "
                     "section produces it before use", n, var=n)
-            seg_env[n] = v if v.device == dev else v.to(dev)
+            seg_env[n] = _to_device(v, dev)
         with _on_device(dev):
             _run_block(self.block, self.plan, seg_env, scope,
                        ctxs[seg.stage], amp_dtype, ops=seg.ops, saved=saved)
@@ -339,14 +367,20 @@ class _PipelineBlock:
         self.collectives_per_step = len(groups)
 
     # -- the step ---------------------------------------------------------
-    def step(self, feeds, scope, ctx, amp_dtype):
+    def step(self, feeds, scope, ctx, amp_dtype, place=None):
+        """One step over `feeds`; `place(name, tensor)` (a tp/sp mesh)
+        places each microbatch's feeds on the mesh."""
         from ..framework.executor import _fetch_values, _split_feeds
         K = self.micro_k
         micro_feeds = _split_feeds(feeds, K) if K > 1 else [dict(feeds)]
+        if place is not None:
+            micro_feeds = [{n: place(n, t) for n, t in m.items()}
+                           for m in micro_feeds]
         self._place_state(scope)
         # one run seed on every stage's device: the same keys everywhere
         # (a pipeline step is never captured, so the seed is an int)
-        ctxs = [registry.LowerCtx(run_seed=ctx.run_seed, device=d)
+        ctxs = [registry.LowerCtx(run_seed=ctx.run_seed, device=d,
+                                  mesh=ctx.mesh)
                 for d in self.devices]
 
         env_step: Dict[str, torch.Tensor] = {}
@@ -380,7 +414,7 @@ class _PipelineBlock:
                 if v is None:
                     continue
                 if n in acc and v.is_floating_point():
-                    acc[n] = acc[n] + v.to(acc[n].device)
+                    acc[n] = acc[n] + _to_device(v, acc[n].device)
                 else:
                     acc[n] = v          # the first, or non-float: the last
             for n in fetch_stack:
@@ -417,7 +451,8 @@ class _PipelineBlock:
                 continue
             if vs[-1].is_floating_point():
                 dev = vs[0].device
-                env_step[n] = torch.stack([v.to(dev) for v in vs]).mean(0)
+                env_step[n] = torch.stack([_to_device(v, dev)
+                                           for v in vs]).mean(0)
             else:
                 env_step[n] = vs[-1]
         return _fetch_values(env_step, scope, self.fetch_names)

@@ -9,9 +9,15 @@ parameters and their optimizer state placed by `state_sharding`, feeds
 by `feed_sharding`, every collective put in by DTensor's propagation, as
 GSPMD puts them in for the reference.
 
-`state_specs` (the flat ZeRO state's dp specs, reference :55) is read by
-nothing in the port: a non-empty one raises on every mesh (ROADMAP item
-16), so dp-sharded state is never asked for and silently replicated.
+`state_specs` (the flat ZeRO state's dp specs, reference :55, recorded by
+parallel/zero.py `apply_grad_bucketing` and attached by fleet) places each
+flat bucket var `Shard(0)` on the mesh's dp dim and replicated elsewhere,
+or replicated where dp does not divide its length (`flat_state_partition`,
+the reference's one divisibility rule). The stacked `(None, "dp")` spec of
+a rolled stage-3 bucket is refused on a tp/sp mesh, as stage 3 with tp is
+in both packages. A mesh of dp alone runs the manual-dp path, which shards
+the flat state itself (parallel/zero.py), so there the specs are kept and
+not read.
 """
 from __future__ import annotations
 
@@ -36,7 +42,32 @@ def zero1_fallback_rules(base: ShardingRules) -> ShardingRules:
     return merged
 
 
+def spec_axes(spec) -> tuple:
+    """A `state_specs` value ("dp" or a tuple of axes / None) as a spec
+    tuple (reference zero.py:1208)."""
+    return (spec,) if isinstance(spec, str) else tuple(spec)
+
+
+def flat_state_partition(spec, shape, mesh) -> P:
+    """The one divisibility rule for flat ZeRO bucket storage (reference
+    zero.py:1214): `spec` when every dim it shards divides by its mesh
+    axis, else replicated."""
+    axes = spec_axes(spec)
+    ok = shape is not None and len(shape) >= len(axes)
+    for d, a in zip(shape or (), axes):
+        if a is not None and not (d and d % max(
+                int(mesh.shape.get(a, 1)), 1) == 0):
+            ok = False
+    return P(*axes) if ok else P()
+
+
 class DistConfig:
+    """A mesh and how a program lives on it: `param_rules` place the
+    parameters and their state, `batch_axes` shard the feeds' batch,
+    `replicated_feeds` stay whole, and `state_specs` place the flat ZeRO
+    state (module docstring). Stages 1-2 compose with tp and sp; a
+    stacked stage-3 spec on a tp/sp mesh raises (ROADMAP item 16)."""
+
     def __init__(self, mesh: Optional[Mesh] = None,
                  param_rules: Optional[ShardingRules] = None,
                  batch_axes: Sequence[str] = ("dp",),
@@ -51,10 +82,13 @@ class DistConfig:
         self.batch_axes = tuple(batch_axes)
         self.replicated_feeds = tuple(replicated_feeds)
         self.state_specs = dict(state_specs or {})
-        if self.state_specs:
+        if self.mixed and any(len(spec_axes(v)) > 1
+                              for v in self.state_specs.values()):
             raise NotImplementedError(
-                "DistConfig(state_specs=...): the flat ZeRO state's dp "
-                "specs are not ported (ROADMAP item 16)")
+                "DistConfig(state_specs=...) with a stacked (None, 'dp') "
+                "spec on a tp/sp mesh: rolled ZeRO stage-3 buckets do not "
+                "compose with tensor or sequence parallelism (ROADMAP item "
+                "16; stage 3 with tp is refused in the reference too)")
 
     def resolve_mesh(self) -> Optional[Mesh]:
         return self.mesh if self.mesh is not None else get_mesh()
@@ -91,7 +125,11 @@ class DistConfig:
         return placements(mesh, self.feed_spec(mesh, name, shape))
 
     def state_sharding(self, mesh, name, shape):
-        """DTensor placements of a parameter or state entry."""
+        """DTensor placements of a parameter or state entry: a flat ZeRO
+        bucket var by its `state_specs` entry, the rest by the rules."""
+        spec = self.state_specs.get(name)
+        if spec is not None:
+            return placements(mesh, flat_state_partition(spec, shape, mesh))
         return self.param_rules.sharding_for(mesh, name, shape)
 
 

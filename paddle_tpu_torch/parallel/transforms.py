@@ -81,6 +81,18 @@ LAYER_STACK_SUFFIX = "@LAYERS"
 # __segment__: a fused sub-graph op (the recompute unit)
 # ---------------------------------------------------------------------------
 
+def _settled(ctx, ins):
+    """On a tp/sp mesh, every input with its partial sums reduced, as the
+    executor's op loop settles an op's inputs (parallel/gspmd.py
+    `settled`): a sub-op reduces a row-parallel product where the
+    unrolled program's op would."""
+    if getattr(ctx, "mesh", None) is None:
+        return ins
+    from .gspmd import settled
+    return {s: [None if v is None else settled(v) for v in vs]
+            for s, vs in ins.items()}
+
+
 def _sub_op_ins(ctx, od, env):
     """The inputs of sub-op desc `od` from `env`, with the program's AMP
     casts (`ctx.amp_dtype`) as the executor's op loop applies them."""
@@ -89,7 +101,7 @@ def _sub_op_ins(ctx, od, env):
            for s, ns in od["inputs"].items()}
     if ctx.amp_dtype is not None:
         ins = _amp_cast_ins(od["type"], ins, ctx.amp_dtype)
-    return ins
+    return _settled(ctx, ins)
 
 
 def _with_seed(attrs, seed):
@@ -195,6 +207,7 @@ class _Body:
                   for s in out_slots}
             if ctx.amp_dtype is not None:
                 og = _amp_cast_ins(od["type"], og, ctx.amp_dtype)
+            og = _settled(ctx, og)
             cts = registry.cotangents(
                 og, out_slots, {s: len(od["outputs"][s]) for s in out_slots},
                 outs)
@@ -254,7 +267,7 @@ def _grad_sum(ctx, vals):
     ins = {"X": list(vals)}
     if ctx.amp_dtype is not None:
         ins = _amp_cast_ins("sum", ins, ctx.amp_dtype)
-    return registry.get("sum").lower(ctx, ins, {})["Out"][0]
+    return registry.get("sum").lower(ctx, _settled(ctx, ins), {})["Out"][0]
 
 
 def _holds_scan(sub_ops) -> bool:
@@ -454,26 +467,38 @@ def _layer_scan_vjp(ctx, ins, attrs, diff, out_slots):
 
 class _StackedGrad:
     """An [L, ...] gradient filled row by row (a layer without a gradient
-    leaves its row 0)."""
+    leaves its row 0). On a tp/sp mesh the rows are DTensors, each in its
+    layer's placements: they are kept and stacked at the end (the stack's
+    placements shift one dim right, as the `@LAYERS` parameter's do)."""
 
     def __init__(self, n_layers):
         self.n_layers = n_layers
         self.buf = None
-        self.rows = set()
+        self.rows = {}
 
     def put(self, i, row):
+        from .gspmd import is_dtensor
+        if is_dtensor(row):
+            self.rows[i] = row.detach()
+            return
         if self.buf is None:
             self.buf = torch.empty((self.n_layers,) + tuple(row.shape),
                                    dtype=row.dtype, device=row.device)
         with torch.no_grad():
             self.buf[i].copy_(row)
-        self.rows.add(i)
+        self.rows[i] = None
 
     def value(self, like):
-        if self.buf is None:
+        if not self.rows:
             return torch.zeros_like(like)
         with torch.no_grad():
-            for i in set(range(self.n_layers)) - self.rows:
+            if self.buf is None:
+                first = next(iter(self.rows.values()))
+                return torch.stack([
+                    self.rows[i] if i in self.rows
+                    else torch.zeros_like(first)
+                    for i in range(self.n_layers)])
+            for i in set(range(self.n_layers)) - set(self.rows):
                 self.buf[i].zero_()
         return self.buf
 

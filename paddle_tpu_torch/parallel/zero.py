@@ -41,6 +41,13 @@ processes (counterpart of paddle_tpu/parallel/zero.py).
    values), so state bytes per rank fall by dp (`optimizer_state_bytes`).
    On one process there is no data-parallel group: `__bucket_sync__` is
    the identity and `__zero_update__` runs the full-width branch.
+   On a tp/sp mesh (a step on DTensors, parallel/gspmd.py) DTensor
+   reduces the gradients, so `__bucket_sync__` is the identity there too,
+   and `__zero_update__` at stages 1-2 takes the reference's layout
+   (whole parameters in the flat bucket, the state `Shard(0)` over dp by
+   the `state_specs` fleet attaches), this rank's `[padded/dp]` slice at
+   its dp coordinate updated, the result all-gathered over the dp group
+   only. Stage 3 there raises (item 16).
 3. **The checkpoint round trip** (reference `unbucket_state_for_save`
    :1090, `adopt_unsharded_state` :1030): checkpoints are always written
    unsharded, each flat bucket split back into its per-parameter entries
@@ -271,47 +278,78 @@ def _lower_zero_update(ctx, ins, attrs):
     at full width, the local gradients all-reduced first inside a
     data-parallel step. Stages 1-2 copy the updated parameters back into
     the scope's parameter tensors; stage >= 2 also emits the (averaged)
-    gradient shard as resident state (`FlatGradOut`)."""
+    gradient shard as resident state (`FlatGradOut`).
+
+    On a tp/sp mesh (a step on DTensors, parallel/gspmd.py) the layout is
+    the reference's: the bucket concatenates the whole parameters, and
+    its state is `Shard(0)` on the mesh's dp dim (replicated where dp
+    does not divide the padding, parallel/spmd.py `flat_state_partition`).
+    The gradients arrive reduced in their parameters' placements (the
+    executor's `align_grad`), so they count as pre-synced and are taken
+    whole; the shard is this rank's dp COORDINATE's (not its global
+    rank's), the updated shard is all-gathered over the dp group only,
+    and each parameter keeps its own block of the whole value."""
     if attrs.get("layout") == "stacked":
         return _zero_update_stacked(ctx, ins, attrs)
     from ..distributed import collective as coll
+    from . import gspmd
     op_type = attrs["update_op"]
     stage = int(attrs.get("stage", 1))
     sizes = list(attrs["sizes"])
     padded = int(attrs["padded"])
     kinds = list(attrs["state_kinds"])
     dt = convert_dtype(attrs["dtype"])
-    manual = current_manual_dp()
+    mesh = getattr(ctx, "mesh", None)
+    if mesh is not None:
+        if stage >= 3:
+            raise NotImplementedError(
+                "ZeRO stage 3 on a tp/sp mesh: parameter storage "
+                "flat-sharded over dp does not compose with tensor or "
+                "sequence parallelism (ROADMAP item 16)")
+        dp, coord, group = mesh.shape["dp"], mesh.coordinate("dp"), \
+            mesh.group("dp")
+        pre_synced, manual = True, None
+    else:
+        manual = current_manual_dp()
+        dp, coord, group = (manual[1], _rank(), None) if manual \
+            else (1, 0, None)
+        pre_synced = bool(attrs.get("pre_synced"))
+
+    def local(t):
+        return t.to_local() if gspmd.is_dtensor(t) else t
+
+    state = list(ins["FlatState"])
     with torch.no_grad():
-        flat_g = _flat_concat(ins["Grad"], dt, padded)
+        flat_g = _flat_concat([gspmd.whole(g) for g in ins["Grad"]], dt,
+                              padded)
         if stage >= 3:
             flat_p = ins["FlatParam"][0]
             shard_mode = manual is not None and flat_p.shape[0] != padded
         else:
             params = ins["Param"]
-            flat_p = _flat_concat(params, dt, padded)
-            shard_mode = (manual is not None and manual[1] > 1
-                          and padded % manual[1] == 0)
+            flat_p = _flat_concat([gspmd.whole(p) for p in params], dt,
+                                  padded)
+            shard_mode = dp > 1 and padded % dp == 0
         if shard_mode:
-            dp = manual[1]
             shard = padded // dp
-            lo = _rank() * shard
-            if attrs.get("pre_synced"):
+            lo = coord * shard
+            if pre_synced:
                 g_shard = flat_g[lo:lo + shard]
             else:
                 g_shard = coll.reduce_scatter_flat(flat_g) * (1.0 / dp)
             p_shard = flat_p if stage >= 3 else flat_p[lo:lo + shard]
         else:
-            if manual is not None and not attrs.get("pre_synced"):
-                flat_g = coll.all_reduce(flat_g) * (1.0 / manual[1])
+            if dp > 1 and not pre_synced:
+                flat_g = coll.all_reduce(flat_g) * (1.0 / dp)
             g_shard, p_shard = flat_g, flat_p
         inner_ins = {"Param": [p_shard], "Grad": [g_shard],
-                     "LearningRate": ins["LearningRate"]}
+                     "LearningRate": [local(t) for t in
+                                      ins["LearningRate"]]}
         for extra in _UPDATE_EXTRA_SLOTS[op_type]:
-            inner_ins[extra] = ins[extra]
+            inner_ins[extra] = [local(t) for t in ins[extra]]
         slot_map = _UPDATE_STATE_SLOTS[op_type]
-        for kind, val in zip(kinds, ins["FlatState"]):
-            inner_ins[slot_map[kind][0]] = [val]
+        for kind, val in zip(kinds, state):
+            inner_ins[slot_map[kind][0]] = [local(val)]
         res = _apply_update_rule(ctx, op_type, inner_ins,
                                  dict(attrs["update_attrs"]))
         p_new = res["ParamOut"][0]
@@ -320,14 +358,32 @@ def _lower_zero_update(ctx, ins, attrs):
             outs["FlatParamOut"] = [p_new]
         else:
             if p_new.shape[0] != padded:
-                p_new = coll.all_gather_flat(p_new)
+                p_new = coll.all_gather_flat(p_new, group=group)
             off = 0
             for size, p in zip(sizes, params):
-                p.copy_(p_new[off:off + size].reshape(p.shape))
+                piece = p_new[off:off + size].reshape(p.shape)
+                if gspmd.is_dtensor(p):
+                    from torch.distributed.tensor import distribute_tensor
+                    piece = distribute_tensor(
+                        piece, p.device_mesh, p.placements,
+                        src_data_rank=None).to_local()
+                local(p).copy_(piece)
                 off += size
             outs["ParamOut"] = list(params)
-    outs["FlatStateOut"] = [res[slot_map[kind][1]][0] for kind in kinds]
+        new_state = [res[slot_map[kind][1]][0] for kind in kinds]
+    if mesh is not None:
+        # the scope keeps its DTensors: their local shards take the update
+        for val, new in zip(state, new_state):
+            if new.data_ptr() != local(val).data_ptr():
+                local(val).copy_(new)
+        new_state = state
+    outs["FlatStateOut"] = new_state
     if stage >= 2:
+        if state and gspmd.is_dtensor(state[0]):
+            from torch.distributed.tensor import DTensor
+            g_shard = DTensor.from_local(
+                g_shard.contiguous(), mesh.device_mesh, state[0].placements,
+                run_check=False, shape=torch.Size([padded]), stride=(1,))
         outs["FlatGradOut"] = [g_shard]
     return outs
 
@@ -542,6 +598,16 @@ def apply_grad_bucketing(program: Program, startup_program: Program,
     meta = {"stage": int(stage), "bucket_bytes": int(bucket_bytes),
             "sync_buckets": sync_meta, "zero_buckets": zero_meta}
     program._grad_buckets = meta
+    # the flat state's dp specs (reference :660-670): fleet attaches them
+    # on a tp/sp mesh, where the state is a DTensor sharded over dp
+    specs: Dict[str, tuple] = {}
+    for b in zero_meta:
+        spec = (None, "dp") if _stacked(b) else ("dp",)
+        for n in list(b["flat"].values()) + [b.get("flat_grad"),
+                                             b.get("flat_param")]:
+            if n:
+                specs[n] = spec
+    program._zero_state_specs = specs
     program.bump_version()
     return meta
 
@@ -983,6 +1049,11 @@ def _dp_width(program) -> int:
     program was minimized for more than one rank (fleet records it)."""
     if int(getattr(program, "_dp", 1) or 1) <= 1:
         return 1
+    from . import gspmd
+    if gspmd.mixed_config(program) is not None:
+        # a tp/sp mesh: the flat state is a DTensor sharded over the dp
+        # dim (parallel/spmd.py), and a save gathers it whole
+        return 1
     from ..distributed.parallel import get_world_size
     return get_world_size()
 
@@ -1076,6 +1147,19 @@ def gathered_shards(program, scope) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _held_bytes(scope, names) -> int:
+    """Bytes of the named scope tensors this rank holds (a DTensor's local
+    shard)."""
+    total = 0
+    for n in names:
+        v = scope.find(n) if n else None
+        if isinstance(v, torch.Tensor):
+            if hasattr(v, "to_local"):
+                v = v.to_local()
+            total += v.numel() * v.element_size()
+    return total
+
+
 def optimizer_state_bytes(program, dp: int = 1) -> dict:
     """Per-rank state accounting from program metadata (the reference's
     :1120): flat bucket bytes divide by dp when the padding does;
@@ -1120,4 +1204,33 @@ def optimizer_state_bytes(program, dp: int = 1) -> dict:
             "replicated_state_bytes": int(repl_total),
             "state_bytes_per_device": int(flat_per_dev + repl_total),
             "dp": int(dp),
+            "zero_stage": int(meta.get("stage", 1)) if buckets else 0}
+
+
+def held_state_bytes(program, scope) -> dict:
+    """The optimizer-state bytes this rank holds in `scope`, with
+    `optimizer_state_bytes`'s keys but read from the tensors rather than
+    planned (on a tp/sp mesh each state entry is a DTensor: the flat
+    state's dp shard, a tp-sharded parameter's accumulators' tp shard)."""
+    buckets = zero_buckets(program)
+    flat = [n for b in buckets for n in b["flat"].values()]
+    grads = [b.get("flat_grad") for b in buckets]
+    params = [b.get("flat_param") for b in buckets]
+    block = program.global_block()
+    repl = []
+    for op in block.ops:
+        if op.type not in _UPDATE_STATE_SLOTS \
+                or op.attrs.get("op_role", 0) != OpRole.Optimize:
+            continue
+        for in_slot, _out in _UPDATE_STATE_SLOTS[op.type].values():
+            repl.extend(n for n in op.inputs.get(in_slot, ())
+                        if n not in repl)
+    flat_b, grad_b, param_b, repl_b = (_held_bytes(scope, ns) for ns in
+                                       (flat, grads, params, repl))
+    meta = getattr(program, "_grad_buckets", None) or {}
+    return {"flat_state_bytes_per_device": flat_b,
+            "flat_grad_bytes_per_device": grad_b,
+            "flat_param_bytes_per_device": param_b,
+            "replicated_state_bytes": repl_b,
+            "state_bytes_per_device": flat_b + repl_b,
             "zero_stage": int(meta.get("stage", 1)) if buckets else 0}

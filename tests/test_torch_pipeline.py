@@ -483,17 +483,29 @@ def test_stage_mesh_mismatch_and_unported_meshes_raise(monkeypatch):
     with pytest.raises(errors.UnavailableError, match="devices="):
         port_mesh.build_mesh(pp=2)
     # tp and sp are process axes (tests/test_torch_tp.py runs them): one
-    # process holds no tp 2 mesh; pp with tp or sp is still item 16, ep
-    # item 12
+    # process holds no tp 2 mesh, with pp or without it (pp with tp or sp
+    # builds in a gang: tests/test_torch_pipeline_tp.py); what stays
+    # refused: ZeRO stage 3 with tp (as in the reference), a rolled
+    # stage-3 bucket's stacked (None, "dp") spec on a tp mesh (item 16),
+    # and ep (item 12)
     with pytest.raises(ValueError, match="per tp and sp rank"):
         port_mesh.build_mesh(dp=1, tp=2)
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(ValueError, match="tp \\* sp must divide it"):
         port_mesh.build_mesh(tp=2, pp=2, devices=["cpu", "cpu"])
+    from paddle_tpu_torch.distributed.fleet import base as fleet_base
+    s = port_fleet.DistributedStrategy()
+    s.tensor_parallel_degree = 2
+    with pytest.raises(ValueError, match="cannot compose with tensor"):
+        fleet_base._check_stage3_tp(3, s)
+    tp_mesh = port_mesh.Mesh(1, tp=2, device_mesh=object())
+    with pytest.raises(NotImplementedError, match="item 16"):
+        port_spmd.DistConfig(mesh=tp_mesh,
+                             state_specs={"w@LAYERS": (None, "dp")})
+    assert port_spmd.DistConfig(mesh=tp_mesh, state_specs={
+        "w": ("dp",)}).state_specs == {"w": ("dp",)}
     with pytest.raises(NotImplementedError, match="item 12"):
         port_mesh.build_mesh(ep=2)
     with pytest.raises(TypeError, match="ShardingRules"):
         port_spmd.DistConfig(mesh=None, param_rules=object())
-    with pytest.raises(NotImplementedError, match="item 16"):
-        port_spmd.DistConfig(mesh=None, state_specs={"w": ("tp",)})
     cfg = port_spmd.DistConfig(mesh=None, batch_axes=("dp",))
     assert cfg.batch_axes == ("dp",) and not cfg.mixed

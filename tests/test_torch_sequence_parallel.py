@@ -33,6 +33,7 @@ import jax.numpy as jnp
 
 from conftest import cpu_mesh_env
 
+import torch_mesh_ranks as mesh_ranks
 import torch_tp_ranks as ranks
 from paddle_tpu.ops.pallas import flash_attention as ref_fa
 from paddle_tpu_torch.ops.kernels import flash_attention as port_fa
@@ -78,6 +79,10 @@ def runs(tmp_path_factory):
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
             dense = ranks.model_run("gpt", init, feeds)[0]
+            dense_dropout = mesh_ranks.sp_activations(init, feeds, None,
+                                                      dropout=0.1)
+            dense_fused = mesh_ranks.sp_activations({}, feeds, None,
+                                                    vocab=16384)[0]
         out, _ = proc.communicate(timeout=300)
     finally:
         if proc.poll() is None:
@@ -88,7 +93,8 @@ def runs(tmp_path_factory):
         ref_arrays = {n: f[n] for n in f.files}
     ref = json.loads(str(ref_arrays.pop("__json__")))
     return {"ref": ref, "ref_arrays": ref_arrays, "port": port,
-            "dense": dense}
+            "dense": dense, "dense_dropout": dense_dropout,
+            "dense_fused": dense_fused}
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -99,6 +105,45 @@ def test_gpt_sp2_matches_reference_and_dense(runs, mode):
         got = r[mode]["losses"]
         np.testing.assert_allclose(got, ref[mode], rtol=2e-4, atol=0)
         np.testing.assert_allclose(got, runs["dense"], rtol=2e-4, atol=0)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_sp2_activations_after_attention_are_sequence_sharded(runs, mode):
+    """Each rank holds [B, S/2, H] of every residual sum after the first
+    attention (the embedding sum before it is whole: the token feeds are
+    sharded over dp alone, as the reference's batch_axes)."""
+    b, s, h = 4, 32, 64
+    for r in runs["port"]:
+        _, adds, _ = r[mode]["dropout"]
+        # a step: the embedding sum, then two residual sums a layer
+        assert len(adds) == 3 * (1 + 2 * 2)
+        for step in range(3):
+            first, *rest = adds[5 * step:5 * step + 5]
+            assert first == (b, s, h)
+            assert rest == [(b, s // 2, h)] * 4, adds
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_sp2_dropout_masks_equal_sp1_bitwise(runs, mode):
+    """Dropout 0.1: each dropout op's keep mask, keyed on global element
+    indices on each rank's block, equals the sp-1 run's bit for bit; the
+    losses stay within the reference's 2e-4 of sp 1."""
+    losses1, _, masks1 = runs["dense_dropout"]
+    assert len(masks1) == 5 * 3
+    for r in runs["port"]:
+        losses, _, masks = r[mode]["dropout"]
+        assert len(masks) == len(masks1)
+        assert all(np.array_equal(a, b) for a, b in zip(masks, masks1))
+        np.testing.assert_allclose(losses, losses1, rtol=2e-4, atol=0)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_sp2_fused_head_matches_sp1(runs, mode):
+    """The fused LM head on the sequence-sharded rows (the shifted rows
+    [0, S-1) split 16 / 15): losses within 2e-4 of sp 1."""
+    for r in runs["port"]:
+        np.testing.assert_allclose(r[mode]["fused_head"],
+                                   runs["dense_fused"], rtol=2e-4, atol=0)
 
 
 def test_sp2_collectives_per_attention_call(runs):

@@ -184,8 +184,10 @@ def tp_suite(gpt_init, gpt_feeds, bert_init, bert_feeds, ckpt_dir):
 
 
 def sp_suite(gpt_init, gpt_feeds, attn):
-    """sp 2: tiny GPT with ring and with Ulysses attention (dropout 0),
-    and ring_attention / ulysses_attention alone on `attn`'s q, k, v,
+    """sp 2: tiny GPT with ring and with Ulysses attention (dropout 0; at
+    dropout 0.1 with its activations' local shapes and dropout masks; with
+    the fused LM head), and ring_attention / ulysses_attention alone on
+    `attn`'s q, k, v,
     key-padding mask and output cotangent (causal, dropout 0.1, seed 5):
     outputs and q, k, v gradients, whole."""
     from torch.distributed.tensor import Replicate, distribute_tensor
@@ -193,6 +195,7 @@ def sp_suite(gpt_init, gpt_feeds, attn):
     from paddle_tpu_torch.parallel import mesh as M
     import importlib
     ra = importlib.import_module("paddle_tpu_torch.parallel.ring_attention")
+    from torch_mesh_ranks import sp_activations
     out = {}
     for mode in ("ring", "ulysses"):
         coll.reset_counters()
@@ -200,6 +203,12 @@ def sp_suite(gpt_init, gpt_feeds, attn):
                                sp_mode=mode)
         out[mode] = {"losses": losses, "calls": {
             k: v for k, v in coll.counters.items() if k.endswith(".calls")}}
+        # the activations' layout and the dropout masks at dropout 0.1,
+        # and the fused LM head (a vocabulary of two 8192 chunks)
+        out[mode]["dropout"] = sp_activations(gpt_init, gpt_feeds, mode,
+                                              dropout=0.1)
+        out[mode]["fused_head"] = sp_activations({}, gpt_feeds, mode,
+                                                 vocab=16384)[0]
     mesh = M.build_mesh(sp=2)
     dm = mesh.device_mesh
     rep = [Replicate()]
