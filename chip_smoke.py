@@ -112,7 +112,8 @@ result line):
      hands them) under the profiler: its kernels and its GEMMs' time;
      then the trained weights (params_from_scope) serve 2 greedy requests
      equal to the dense generate;
-8. GPT-2 small training that survives a restart: GPTConfig() at S 512,
+8. GPT-2 small training that survives a restart, its width cut to 4
+   layers (GPTConfig(num_layers=CUT_LAYERS)) at S 512,
    batch 32, fleet AMP bf16, ZeRO stage 1, AdamW +
    GradientClipByGlobalNorm(1.0), dropout 0.1, the LR
    linear_lr_warmup(cosine_decay(...)) built in the program:
@@ -136,8 +137,8 @@ result line):
      FLAGS_snapshot_steps 10 and 0 and of a constant LR, in ABBA order on
      one executor: step ms p50 of each, the copy to pinned memory (device
      ms), the worker's and the calling thread's ms, the skips;
-9. GPT-2 small trained from data, phase 8's program on one executor and
-   scope (one capture for every arm): a token file of 16,777,216 int32
+9. GPT-2 small trained from data, phase 8's program (4 layers) on one
+   executor and scope (one capture for every arm): a token file of 16,777,216 int32
    tokens and 4 MultiSlot text files of 1,280 of its 512-token windows,
    written from numpy seed 11; the one-batch arm (run_steps(10) windows of
    one batch) before and after arms L (a memory-mapped Dataset through
@@ -149,7 +150,7 @@ result line):
    torch.profiler; gates: the first L and the first M equal, bit for bit
    (losses and every persistable), run_steps(10) fed the same batches
    stacked on the host from the same state; one capture, no eager step
-   and 12 B1-B3 launches a step over all windows; the loader rebuilt at
+   and B1-B3 once a layer and step over all windows; the loader rebuilt at
    the same seed, past the 20 batches of two windows, yields batch 20;
    a dataloader.worker kill is respawned once at
    FLAGS_dataloader_max_respawns 1 with the same batches and fails naming
@@ -325,6 +326,43 @@ result line):
      step ms, host ms in collectives, collectives by op, parameter and
      state bytes and peak memory a rank for every arm; the gangs leave
      no process.
+15. the supervised gang, two ranks on cuda:0 under gloo through the
+   port's launcher (`chip_smoke.py --sg-worker` / `--sg-serve-worker`),
+   GPT-2 small's width cut to 2 layers (MP_LAYERS) at S 512, dropout 0,
+   fleet AMP bf16, a global batch of 8 (4 rows a rank):
+   * LSGD: LocalSGD k 4 with Adam(1e-4), 8 steps, every rank feeding the
+     global batch: losses and the final state bit-equal to a one-process
+     simulation on the card (two scopes, each on its half batch, the
+     floating state averaged as (a + b) / 2 every 4 steps); between syncs
+     the scope holds the synced view while the copies move; one
+     `__step_sync__` marker a step; planted fault: the simulation
+     averaging only the parameters reads outside; step ms p50 of local
+     and of sync steps, host ms in gloo on sync steps;
+   * PEER: ZeRO stage 1, AdamW + clip, 6 steps, under `--elastic_restarts
+     1 --elastic_full_world --collect-dumps`: snapshots every 3 steps,
+     replicated to the ring buddy after the first, then rank 1 calls
+     os._exit before any disk checkpoint exists; rank 0's next step
+     fails, the supervisor's SIGTERM flushes its own and its buddy's
+     payloads, and the full-world relaunch recovers rank 1 on the `peer`
+     rung and rank 0 on `local`, both from step 3; the final state of
+     both ranks bit-equal to an uninterrupted dp-2 stage-1 run of the
+     same schedule; the failed life's gang dump names rank 1 as
+     `suspected_straggler`; planted fault: the ladder's peer and local
+     rungs swapped reads rank 1 on another rung; the replicate's ms and
+     bytes, the ms from the kill to rank 1's first resumed step; B8
+     (adamw) bit for bit at the drill's widest shard;
+   * POD: the clean second life's pod dump has 2 rank lanes and a
+     cross-rank flow pair for every `__zero_update__` marker; planted
+     fault: rank 1's markers dropped leaves markers unpaired; the
+     straggler report and the merge ms;
+   * WORKERS: two `serving.frontend.worker_main` ranks (GPT-2 small at 12
+     layers, bf16, phase 4's geometry) serve phase 4's 8 requests split
+     by rank: tokens equal to an in-process DecodeEngine over the same
+     `params_from_scope`, B4 launched in each worker, tokens/s per
+     worker; a second gang serving them 6 times is sent SIGTERM
+     mid-serve, finishes the started ones with the same tokens, writes
+     the rest as `handed_back` and exits 0.
+   B1-B3 run here at [4, 12, 512, 64], held in phase 13's cases.
 Each main-path run resets the kernel launch counts just before it and
 fails if a kernel of its path was never launched.
 
@@ -338,8 +376,11 @@ Output: a `{"kernels": [...]}` line, a `{"serving": ...}` line, a
 `{"gpt_training": ...}` line, a `{"training_state": ...}` line, a
 `{"data_path": ...}` line, a `{"data_parallel": ...}` line, a
 `{"pipeline": ...}` line, a `{"layer_scan": ...}` line, a
-`{"model_parallel": ...}` line, a `{"composed_mesh": ...}` line, and last
-`{"ok": true, "device": {...}}`. The B8 row's `shard_dp2_tp2` is phase
+`{"model_parallel": ...}` line, a `{"composed_mesh": ...}` line, a
+`{"supervised_gang": ...}` line, and last
+`{"ok": true, "device": {...}}`. The B8 row's `shard_peer` is phase 15's
+shard check, and the B1-B3, B8 and bf16 B4 rows' `launches_by_path` add
+phase 15's LSGD, PEER (rank 0) and WORKERS launches. The B8 row's `shard_dp2_tp2` is phase
 14's shard check; the kernel rows' `launches_by_path` add phase 14's
 rank-0 launches.
 The flash rows' `launches_by_path` add phase 13's rank-0 launches (T and
@@ -348,6 +389,7 @@ keyed launches against the plain version at those paths' shapes.
 The flash rows' `launches` are the GPT path's (the captured arm's 30
 timed steps); `launches_by_path` keeps the BERT path's beside them.
 """
+import collections
 import contextlib
 import itertools
 import json
@@ -1148,9 +1190,21 @@ def check_flash_kernels(torch, fa, ptxas, sass=None):
             os_, (qq, kk, vv), do, retain_graph=True))
         extra[dtype]["sdpa_bwd"] = lib_bwd
         del os_
-        if dtype != "float32":
-            continue
         kw = dict(scale=scale, dropout=0.1, seed=seed, mask=mask)
+        if dtype != "float32":
+            # the plain version's time on the bf16 arm (B1, and B2 + B3 as
+            # one backward for the three gradients)
+            with torch.no_grad():
+                extra[dtype]["plain_fwd"] = cuda_ms(
+                    torch, lambda: fa.flash_attention_plain(q, k, v, **kw),
+                    iters=10, warmup=2)
+            op = fa.flash_attention_plain(qq, kk, vv, **kw)
+            extra[dtype]["plain_bwd"] = cuda_ms(
+                torch, lambda: torch.autograd.grad(
+                    op, (qq, kk, vv), do, retain_graph=True),
+                iters=10, warmup=2)
+            del op
+            continue
         with torch.no_grad():
             plain_fwd = cuda_ms(torch, lambda: fa.flash_attention_plain(
                 q, k, v, **kw), iters=10, warmup=2)
@@ -1203,10 +1257,12 @@ def check_flash_kernels(torch, fa, ptxas, sass=None):
         if name == "flash_fwd":
             sd = extra["bfloat16"]["sdpa_fwd"]
             row["bf16_sdpa_fwd_ms"] = sd
+            row["bf16_plain_ms"] = extra["bfloat16"]["plain_fwd"]
             row["bf16_fwd_over_sdpa_fwd"] = {
                 str(r): extra["bfloat16"][r][name] / sd for r in (0.1, 0.0)}
         else:
             row["bf16_b2_plus_b3_ms"] = extra["bfloat16"][0.1]["b2_plus_b3"]
+            row["bf16_plain_b2_plus_b3_ms"] = extra["bfloat16"]["plain_bwd"]
             row["bf16_sdpa_bwd_ms"] = extra["bfloat16"]["sdpa_bwd"]
         log(f"kernel {name}: f32 {row['ms']:.4f} ms (dropout 0: "
             f"{row['ms_dropout0']:.4f}), bf16 {row['bf16_ms']:.4f} ms; plain "
@@ -1228,8 +1284,10 @@ def check_flash_kernels(torch, fa, ptxas, sass=None):
         f"{fwd['bf16_ms_dropout0']:.4f} ms, SDPA bf16 forward "
         f"{fwd['bf16_sdpa_fwd_ms']:.4f} ms")
     log(f"flash B2+B3 bf16 dropout 0.1: "
-        f"{rows['flash_bwd_dq']['bf16_b2_plus_b3_ms']:.4f} ms; SDPA bf16 "
-        f"backward {rows['flash_bwd_dq']['bf16_sdpa_bwd_ms']:.4f} ms")
+        f"{rows['flash_bwd_dq']['bf16_b2_plus_b3_ms']:.4f} ms; plain "
+        f"{rows['flash_bwd_dq']['bf16_plain_b2_plus_b3_ms']:.4f} ms; SDPA "
+        f"bf16 backward {rows['flash_bwd_dq']['bf16_sdpa_bwd_ms']:.4f} ms; "
+        f"B1 bf16 plain {fwd['bf16_plain_ms']:.4f} ms")
     return rows
 
 
@@ -1961,6 +2019,14 @@ def gpt_config():
     from paddle_tpu_torch.models import gpt
     cfg = gpt.GPTConfig()
     cfg.seq_len = GPT_SEQ
+    return cfg
+
+
+def cut_gpt_config():
+    """gpt_config() cut to CUT_LAYERS layers (width, heads, vocab and S
+    kept): phases 8 and 9, inside the card check's time."""
+    cfg = gpt_config()
+    cfg.num_layers = CUT_LAYERS
     return cfg
 
 
@@ -2846,17 +2912,19 @@ def snapshot_cost(torch, cfg, reps=2):
 
 
 def train_gpt_resilient(torch, fa, zk, card):
-    """Phase 8: GPTConfig() at S 512, batch 32, fleet AMP bf16,
-    ZeRO stage 1, AdamW + GradientClipByGlobalNorm(1.0), dropout 0.1, the
-    LR linear_lr_warmup(cosine_decay(...)) built in the program."""
+    """Phase 8: GPT-2 small's width at CUT_LAYERS layers, S 512, batch 32,
+    fleet AMP bf16, ZeRO stage 1, AdamW + GradientClipByGlobalNorm(1.0),
+    dropout 0.1, the LR linear_lr_warmup(cosine_decay(...)) built in the
+    program."""
     import shutil
-    cfg = gpt_config()
+    cfg = cut_gpt_config()
     workdir = os.path.join(HERE, ".chip_scratch", f"state_{os.getpid()}")
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
     try:
         t0 = time.perf_counter()
-        out = {"config": "GPTConfig() (GPT-2 small, dropout 0.1), seq 512, "
+        out = {"config": f"GPTConfig(num_layers={CUT_LAYERS}) (GPT-2 "
+                         "small's width, dropout 0.1), seq 512, "
                          "batch 32, fleet AMP bf16, ZeRO stage 1, AdamW "
                          "(weight decay 0.01) + GradientClipByGlobalNorm(1.0),"
                          " LR linear_lr_warmup(cosine_decay(1e-4, 1, 8), 1, "
@@ -3038,7 +3106,7 @@ def train_gpt_from_data(torch, fa, card):
     from paddle_tpu_torch.framework import Executor, Scope
     from paddle_tpu_torch.framework import executor as executor_mod
     from paddle_tpu_torch.resilience.faults import clear_plan, install_plan
-    cfg = gpt_config()
+    cfg = cut_gpt_config()
     workdir = os.path.join(HERE, ".chip_scratch", f"data_{os.getpid()}")
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
@@ -3268,7 +3336,8 @@ def train_gpt_from_data(torch, fa, card):
            "L": float(np.median(l1["step_ms"] + l2["step_ms"])),
            "M": float(np.median(m1["step_ms"] + m2["step_ms"]))}
     out = {
-        "config": "the training_state phase's program (GPTConfig(), S 512, "
+        "config": "the training_state phase's program (GPTConfig("
+                  f"num_layers={CUT_LAYERS}), S 512, "
                   "batch 32, fleet AMP bf16, ZeRO stage 1, AdamW + clip "
                   "1.0, the static LR schedule, dropout 0.1) on one "
                   "executor and scope; arm L: a memory-mapped token file "
@@ -4009,27 +4078,36 @@ def dp_nccl_refusal():
     return 4
 
 
-def launch_gang(args, env, timeout_s, log_name, nproc=DP_WORLD):
+def launch_gang(args, env, timeout_s, log_name, nproc=DP_WORLD,
+                launcher_args=(), during=None):
     """The port's launcher as a child (`python -m
     paddle_tpu_torch.distributed.launch --nproc_per_node <nproc> ...`,
-    two ranks unless `nproc` says otherwise); returns
-    (rc, output). The output is also kept under chiprun_out/. Fails if a
-    process the gang started is left when the launcher has ended (this
-    script is a subreaper: an orphaned rank would be its child)."""
+    two ranks unless `nproc` says otherwise, `launcher_args` added to its
+    own options); returns (rc, output). `during(proc)`, when given, runs
+    while the launcher does. The output is also kept under chiprun_out/.
+    Fails if a process the gang started is left when the launcher has
+    ended (this script is a subreaper: an orphaned rank would be its
+    child)."""
     from paddle_tpu_torch.distributed.spawn import free_ports
     before = set(child_pids())
     port = free_ports(1)[0]
     cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
            "--nproc_per_node", str(nproc), "--port", str(port),
            "--rendezvous_deadline_ms", "120000", "--grace_period_s", "10",
-           os.path.join(HERE, "chip_smoke.py")] + args
+           *launcher_args, os.path.join(HERE, "chip_smoke.py")] + args
     t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
     try:
-        r = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True,
-                           text=True, timeout=timeout_s)
-    except subprocess.TimeoutExpired as e:
+        if during is not None:
+            during(proc)
+        out, err = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
         fail(f"the launched gang {args} did not end within {timeout_s} s: "
-             f"{(e.stdout or '')[-2000:]}")
+             f"{(out or '')[-2000:]}")
+    r = subprocess.CompletedProcess(cmd, proc.returncode, out, err)
     text = r.stdout + r.stderr
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", log_name), "w") as f:
@@ -5586,15 +5664,6 @@ def mp_run(torch, fa, main, start, loss, toks, steps=None, profile=False,
     exe = Executor("cuda")
     exe.run(start, scope=scope)
     p0 = mp_whole_params(torch, main, scope)
-    shapes = []
-    spied = fa.launch_fwd
-
-    def spy(q, *a, **k):
-        shapes.append((tuple(q.shape), a[8] if len(a) > 8
-                       else k.get("keying")))
-        return spied(q, *a, **k)
-
-    fa.launch_fwd = spy
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     at_start = int(torch.cuda.memory_allocated())
@@ -5602,7 +5671,7 @@ def mp_run(torch, fa, main, start, loss, toks, steps=None, profile=False,
     if zk is not None:
         zk.reset_launches()
     losses, ms, host, plans, calls = [], [], [], [], {}
-    try:
+    with flash_spy(fa) as shapes:
         for b in toks[:steps]:
             coll.reset_counters()
             gspmd.by_op.clear()
@@ -5615,8 +5684,6 @@ def mp_run(torch, fa, main, start, loss, toks, steps=None, profile=False,
             host.append(sum(coll.host_ms.values()))
             plans.append(dict(gspmd.by_op))
             calls = dict(coll.counters)
-    finally:
-        fa.launch_fwd = spied
     n = len(losses)
     row = {"losses": losses, "step_ms": ms,
            "step_ms_p50": float(np.median(ms)),
@@ -5627,8 +5694,7 @@ def mp_run(torch, fa, main, start, loss, toks, steps=None, profile=False,
            "flash_launches_per_step": {k: v / n
                                        for k, v in fa.launches.items()},
            "flash_fwd_shapes": sorted({str(list(s)) for s, _ in shapes}),
-           "flash_fwd_keyed": sorted({launch_key(s, kg)
-                                      for s, kg in shapes}),
+           "flash_fwd_keyed": launch_keys(shapes),
            "param_elements": gspmd.local_param_elements(main, scope),
            "calls_last_step": {k: v for k, v in calls.items()
                                if k.endswith(".calls")},
@@ -6025,7 +6091,7 @@ def check_flash_keying(torch, fa):
     return out
 
 
-# B1-B3's launches on the paths of phases 13 and 14, by shape: a rank's 6
+# B1-B3's launches on the paths of phases 13-15, by shape: a rank's 6
 # of 12 heads keyed (b_off, 12, h_off) at its dp and tp / sp coordinates,
 # and the one-process references' 12 heads under the identity keying (0,
 # 12, 0), which the wrapper hands the launch for keying=None
@@ -6040,9 +6106,35 @@ FLASH_PATH_CASES = (
     ((2, 6, 512, 64), ((0, 12, 0), (0, 12, 6))),
     # the one-process references: phase 13's T, SR / SU, and PT's GPipe
     ((8, 12, 512, 64), ((0, 12, 0),)),
+    # phase 15: a dp-2 rank's 4 rows of 8 (LSGD, PEER) and the LocalSGD
+    # simulation's half batches
+    ((4, 12, 512, 64), ((0, 12, 0),)),
     ((4, 12, 1024, 64), ((0, 12, 0),)),
     ((2, 12, 512, 64), ((0, 12, 0),)),
 )
+
+
+@contextlib.contextmanager
+def flash_spy(fa):
+    """[(shape, keying)] of every B1 launch inside the block."""
+    seen = []
+    spied = fa.launch_fwd
+
+    def spy(q, *a, **k):
+        seen.append((tuple(q.shape), a[8] if len(a) > 8
+                     else k.get("keying")))
+        return spied(q, *a, **k)
+
+    fa.launch_fwd = spy
+    try:
+        yield seen
+    finally:
+        fa.launch_fwd = spied
+
+
+def launch_keys(seen):
+    """The sorted `launch_key`s of `flash_spy`'s launches."""
+    return sorted({launch_key(s, kg) for s, kg in seen})
 
 
 def launch_key(shape, keying):
@@ -6732,6 +6824,701 @@ def train_gpt_composed(torch, fa, zk, card, checked):
     return row
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the supervised gang (LocalSGD, peer snapshots, pod dumps,
+# serving workers under the launcher)
+# ---------------------------------------------------------------------------
+
+SG_WORLD = 2
+SG_BATCH = 8               # the global batch: a dp-2 rank trains on 4 rows
+SG_SEQ = 512
+SG_LSGD_STEPS = 8
+SG_LSGD_K = 4
+SG_PEER_STEPS = 6
+SG_SNAPSHOT_STEPS = 3      # PEER's cadence: the snapshot of tag 3 (3 steps)
+SG_LR = 1e-4
+# phase 4's bf16 engine geometry, the workers' and the in-process engine's
+SG_SERVE = dict(dtype="bfloat16", max_slots=8, max_len=256, window=8,
+                block_size=16, num_blocks=160)
+SG_DRAIN_COPIES = 6        # the SIGTERM gang serves phase 4's 8 prompts 6x
+SG_GRACE_S = 40            # PEER's SIGTERM-to-SIGKILL grace (its flush)
+
+
+def sg_config():
+    """GPT-2 small's width at MP_LAYERS layers, S 512, dropout 0."""
+    return mp_config(SG_SEQ, 0.0)
+
+
+def build_lsgd(cfg, k):
+    """(main, startup, loss): fleet AMP bf16, Adam(SG_LR), LocalSGD every
+    `k` steps; k 0 builds the same ops without LocalSGD and without the
+    bucket pass (a LocalSGD program takes none): the simulation's."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework import Program, program_guard, unique_name
+    from paddle_tpu_torch.models import gpt
+    main, start = Program(), Program()
+    with program_guard(main, start), unique_name.guard():
+        _, loss = gpt.build_lm_program(cfg)
+        fleet.init(is_collective=True)
+        s = fleet.DistributedStrategy()
+        s.amp = True
+        if k:
+            s.localsgd, s.localsgd_configs = True, {"k_steps": k}
+        else:
+            s.fuse_grad_size_in_mb = 0
+        fleet.distributed_optimizer(optimizer.Adam(learning_rate=SG_LR),
+                                    s).minimize(loss)
+    return main, start, loss
+
+
+def sg_lsgd_arm(torch, fa):
+    """LSGD on this rank: SG_LSGD_STEPS steps of the global batch, LocalSGD
+    every SG_LSGD_K; gates that the scope holds the synced view between
+    syncs (and the copies move), and that a sync writes the copies'
+    average back."""
+    from paddle_tpu_torch.distributed import collective as coll
+    from paddle_tpu_torch.framework import Executor, Scope
+    from paddle_tpu_torch.resilience import fingerprint
+    cfg = sg_config()
+    main, start, loss = build_lsgd(cfg, SG_LSGD_K)
+    toks = gpt_tokens(cfg, SG_BATCH, SG_LSGD_STEPS, seed=0)
+    scope, exe = Scope(), Executor("cuda")
+    exe.run(start, scope=scope)
+    names = [p.name for p in main.all_parameters()]
+    view = {n: scope.find(n).detach().clone() for n in names}
+    fa.reset_launches()
+    steps = []
+    with flash_spy(fa) as keyed:
+        for s, b in enumerate(toks):
+            coll.reset_counters()
+            t0 = time.perf_counter()
+            got, = exe.run(main, feed={"tokens": b}, fetch_list=[loss],
+                           scope=scope)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            sync = (s + 1) % SG_LSGD_K == 0
+            held = all(torch.equal(scope.find(n), view[n]) for n in names)
+            copies = {n: scope.find(n + "@LOCALSGD") for n in names}
+            if sync:
+                if held or not all(torch.equal(scope.find(n), copies[n])
+                                   for n in names):
+                    fail(f"LSGD step {s}: the sync did not write the "
+                         f"copies' average into the scope's view")
+                view = {n: scope.find(n).detach().clone() for n in names}
+            elif not held or all(torch.equal(copies[n], view[n])
+                                 for n in names):
+                fail(f"LSGD step {s} (local): the scope lost the synced "
+                     f"view ({not held}) or the copies did not move")
+            steps.append({"sync": sync, "loss": float(got), "ms": ms,
+                          "gloo_host_ms": sum(coll.host_ms.values()),
+                          "calls": {k: v for k, v in coll.counters.items()
+                                    if k.endswith(".calls")}})
+    local = [r["ms"] for r in steps if not r["sync"]]
+    synced = [r for r in steps if r["sync"]]
+    return {"losses": [r["loss"] for r in steps], "steps": steps,
+            "step_ms_p50_local": float(np.median(local)),
+            "step_ms_p50_sync": float(np.median([r["ms"] for r in synced])),
+            "gloo_host_ms_sync": [r["gloo_host_ms"] for r in synced],
+            "gloo_host_ms_local": [r["gloo_host_ms"] for r in steps
+                                   if not r["sync"]],
+            "fingerprint": fingerprint(main, scope),
+            "flash_launches": dict(fa.launches),
+            "flash_fwd_keyed": launch_keys(keyed),
+            "marker_plan": exe._collective_marker_plan(main)}
+
+
+def sg_simulation(torch, fa, params_only=False):
+    """The one-process simulation of LSGD on the card: two scopes from one
+    startup state, each on its half of every global batch, the floating
+    written state of both averaged ((a + b) / 2) every SG_LSGD_K steps;
+    `params_only` (the planted fault) averages only the parameters.
+    Returns the losses (the halves' mean), the first scope's fingerprint
+    and the B1 launch keys."""
+    from paddle_tpu_torch.framework import Executor, Scope
+    from paddle_tpu_torch.framework.executor import _written_persistables
+    from paddle_tpu_torch.resilience import fingerprint
+    cfg = sg_config()
+    main, start, loss = build_lsgd(cfg, 0)
+    toks = gpt_tokens(cfg, SG_BATCH, SG_LSGD_STEPS, seed=0)
+    exe, a = Executor("cuda"), Scope()
+    exe.run(start, scope=a)
+    b = scope_copy(torch, a)
+    written = _written_persistables(main.global_block())
+    params = {p.name for p in main.all_parameters()}
+    half = SG_BATCH // SG_WORLD
+    losses = []
+    with flash_spy(fa) as keyed:
+        for s, t in enumerate(toks):
+            la, = exe.run(main, feed={"tokens": t[:half]}, fetch_list=[loss],
+                          scope=a, return_numpy=False)
+            lb, = exe.run(main, feed={"tokens": t[half:]}, fetch_list=[loss],
+                          scope=b, return_numpy=False)
+            losses.append(float((la + lb) / SG_WORLD))
+            if (s + 1) % SG_LSGD_K:
+                continue
+            with torch.no_grad():
+                for n in written:
+                    ta, tb = a.find(n), b.find(n)
+                    if not ta.is_floating_point() or (params_only
+                                                      and n not in params):
+                        continue
+                    avg = (ta + tb).div_(SG_WORLD)
+                    ta.copy_(avg)
+                    tb.copy_(avg)
+    digest = fingerprint(main, a)
+    del exe, a, b
+    release(torch)
+    return losses, digest, launch_keys(keyed)
+
+
+def sg_peer_arm(torch, fa, zk, drill):
+    """PEER's schedule on this rank: GPT at sg_config(), ZeRO stage 1,
+    AdamW + clip (build_gpt_state at SG_LR), this rank's 4 rows of every
+    global batch of 8, SG_PEER_STEPS steps. `drill` (under the launcher's
+    --elastic_full_world): in the first life, snapshots every
+    SG_SNAPSHOT_STEPS steps, replicated to the ring buddy after the first;
+    then rank 1 is lost (os._exit) and rank 0, its next step failing,
+    waits for the supervisor's SIGTERM, whose flush writes its own and its
+    buddy's payloads; in the second life both recover on the ladder and
+    resume. Without `drill`, the uninterrupted run."""
+    from paddle_tpu_torch.distributed import collective as coll
+    from paddle_tpu_torch.distributed import gloo, parallel
+    from paddle_tpu_torch.flags import set_flags
+    from paddle_tpu_torch.framework import Executor, Scope
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.resilience import fingerprint, recover
+    rank = parallel.get_rank()
+    life = int(os.environ.get("PADDLE_ELASTIC_RESTART", "0"))
+    out_dir = os.environ["CHIP_SMOKE_SG_OUT"]
+    set_flags({"FLAGS_snapshot_steps":
+               SG_SNAPSHOT_STEPS if drill and life == 0 else 0})
+    cfg = sg_config()
+    main, start, loss, _ = build_gpt_state(cfg, stage=1, lr=SG_LR)
+    toks = gpt_tokens(cfg, SG_BATCH, SG_PEER_STEPS, seed=1)
+    scope, exe = Scope(), Executor("cuda")
+    exe.run(start, scope=scope)
+    out = {"rank": rank, "life": life}
+    first = 0
+    if drill and life > 0:
+        t0 = time.perf_counter()
+        out["rung"], first = recover(scope, program=main, device="cuda",
+                                     peer=True)
+        out["recover_ms"] = (time.perf_counter() - t0) * 1e3
+        out["resumed_from"] = first
+        if first is None:
+            fail(f"PEER rank {rank}: nothing to recover")
+    host = gloo.from_env() if drill and life == 0 else None
+    widths = []
+    spied = zk.launch
+
+    def spy(lib, op_type, ins, attrs, stream):
+        widths.append(int(ins["Param"][0].numel()))
+        return spied(lib, op_type, ins, attrs, stream)
+
+    zk.launch = spy
+    fa.reset_launches()
+    zk.reset_launches()
+    losses, step_ms = [], []
+    try:
+        with flash_spy(fa) as keyed:
+            for s in range(first, SG_PEER_STEPS):
+                t0 = time.perf_counter()
+                try:
+                    got, = exe.run(main, feed={
+                        "tokens": coll.split_batch(toks[s])},
+                        fetch_list=[loss], scope=scope)
+                except Exception as e:  # noqa: BLE001 - the lost peer
+                    if not (drill and life == 0):
+                        raise
+                    # the survivor of a lost peer: the supervisor's SIGTERM
+                    # flushes its own snapshot and its buddy's
+                    log(f"PEER rank {rank}: step {s} failed ({e!r:.200}); "
+                        "waiting for the supervisor's SIGTERM")
+                    time.sleep(3 * SG_GRACE_S)
+                    raise
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(got))
+                if drill and life > 0 and s == first:
+                    out["first_step_wall"] = time.time()
+                if drill and life == 0 and s == SG_SNAPSHOT_STEPS - 1:
+                    t0 = time.perf_counter()
+                    before = metrics.get("resilience.replicate_bytes")
+                    got_step = exe.snapshots.replicate(host)
+                    out.update(
+                        replicate_ms=(time.perf_counter() - t0) * 1e3,
+                        replicate_gloo_ms=metrics.snapshot()[
+                            "resilience.replicate_ms"]["p50"],
+                        replicate_bytes=metrics.get(
+                            "resilience.replicate_bytes") - before,
+                        peer_payload_step=got_step, losses=losses)
+                    if rank == 1:
+                        out["kill_wall"] = time.time()
+                    with open(os.path.join(
+                            out_dir, f"sg_peer_life0_rank{rank}.json"),
+                            "w") as f:
+                        json.dump(out, f)
+                    if rank == 1:
+                        sys.stdout.flush()
+                        os._exit(1)          # the lost host
+    finally:
+        zk.launch = spied
+    out.update(losses=losses, step_ms=step_ms,
+               fingerprint=fingerprint(main, scope),
+               flash_launches=dict(fa.launches),
+               flash_fwd_keyed=launch_keys(keyed),
+               b8_launches=zk.launches["zero_adam"],
+               b8_widths=sorted(set(widths)),
+               marker_plan=exe._collective_marker_plan(main))
+    return out
+
+
+def sg_worker():
+    """One rank of a phase-15 training gang (`chip_smoke.py --sg-worker`,
+    started by the port's launcher, both ranks on cuda:0 under gloo).
+    $CHIP_SMOKE_SG_MODE "a": LSGD, then PEER's uninterrupted run; "peer":
+    the PEER drill (under --elastic_full_world). Writes sg_<mode>_...json
+    under $CHIP_SMOKE_SG_OUT."""
+    import faulthandler
+    import torch
+    sys.path.insert(0, HERE)
+    from paddle_tpu_torch.distributed import fleet, parallel
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import zero_update as zk
+
+    faulthandler.enable(all_threads=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fleet.init(is_collective=True)
+    rank, world = parallel.get_rank(), parallel.get_world_size()
+    if world != SG_WORLD or parallel.backend() != "gloo" \
+            or parallel.rank_device() != torch.device("cuda", 0):
+        fail(f"sg rank {rank}: expected gloo on cuda:0 at {SG_WORLD} ranks")
+    mode, out_dir = os.environ["CHIP_SMOKE_SG_MODE"], \
+        os.environ["CHIP_SMOKE_SG_OUT"]
+    if mode == "a":
+        out = {"rank": rank, "lsgd": sg_lsgd_arm(torch, fa)}
+        log(f"LSGD rank {rank}: losses {out['lsgd']['losses']}")
+        release(torch)
+        out["peer_ref"] = sg_peer_arm(torch, fa, zk, drill=False)
+        name = f"sg_a_rank{rank}.json"
+    else:
+        out = sg_peer_arm(torch, fa, zk, drill=True)
+        name = f"sg_peer_life{out['life']}_rank{rank}.json"
+    with open(os.path.join(out_dir, name), "w") as f:
+        json.dump(out, f)
+    parallel.destroy()
+    return 0
+
+
+def sg_serve_worker():
+    """One serving worker of phase 15 (`chip_smoke.py --sg-serve-worker`
+    under the launcher): `serving.frontend.worker_main` on GPT-2 small
+    (bf16, phase 4's geometry) over $CHIP_SMOKE_SG_REQ into
+    $CHIP_SMOKE_SG_OUT; its B4 launches and the serve's wall time go to
+    serve_rank<r>.json there. With $CHIP_SMOKE_SG_MARKER, the worker writes
+    its pid to <marker>.<rank> as it starts serving."""
+    import torch  # noqa: F401 - CUDA before the worker builds
+    sys.path.insert(0, HERE)
+    from paddle_tpu_torch.ops.kernels import paged_attention as kernel_mod
+    from paddle_tpu_torch.serving import frontend
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    out_dir, marker = os.environ["CHIP_SMOKE_SG_OUT"], \
+        os.environ.get("CHIP_SMOKE_SG_MARKER", "")
+    timing = {}
+    generate = frontend.ServingFrontend.generate
+
+    def timed(self, requests, timeout=300.0):
+        if marker:
+            with open(f"{marker}.{rank}", "w") as f:
+                f.write(str(os.getpid()))
+        t0 = time.perf_counter()
+        try:
+            return generate(self, requests, timeout)
+        finally:
+            timing["generate_s"] = time.perf_counter() - t0
+
+    frontend.ServingFrontend.generate = timed
+    kernel_mod.reset_launches()
+    rc = frontend.worker_main(os.environ["CHIP_SMOKE_SG_REQ"], out_dir,
+                              model="small", device="cuda", **SG_SERVE)
+    with open(os.path.join(out_dir, f"serve_rank{rank}.json"), "w") as f:
+        json.dump({"rc": rc, "launches": dict(kernel_mod.launches),
+                   **timing}, f)
+    return rc
+
+
+def phase4_bf16_rows(cfg):
+    """Phase 4's 8 bf16 requests as worker_main's JSONL rows: the same
+    draws from numpy seed 1 as `serve_gpt2` makes (its 4 f32 prompts
+    first), 32 new tokens each, the fourth seeded top-k."""
+    rng = np.random.default_rng(1)
+    for n in (9, 17, 33, 50):
+        rng.integers(0, cfg.vocab_size, n)
+    rows = []
+    for i, n in enumerate(np.linspace(17, 200, 8).astype(int)):
+        row = {"uid": f"p{i}",
+               "prompt": rng.integers(0, cfg.vocab_size, n).tolist(),
+               "max_new": 32}
+        if i == 3:
+            row.update(temperature=0.8, top_k=40, seed=1234)
+        rows.append(row)
+    return rows
+
+
+def sg_engine_tokens(torch, serving, rows):
+    """{uid: tokens} of an in-process DecodeEngine over the parameters
+    worker_main serves (GPT-2 small from the startup program seeded 0,
+    params_from_scope), phase 4's bf16 geometry."""
+    from paddle_tpu_torch.framework import Executor, default_startup_program
+    from paddle_tpu_torch.models.gpt import GPTConfig, build_lm_program
+    from paddle_tpu_torch.models.gpt_decode import params_from_scope
+    from paddle_tpu_torch.testing import reset_programs
+    reset_programs(seed=0)
+    cfg = GPTConfig.small()
+    build_lm_program(cfg)
+    Executor("cuda").run(default_startup_program())
+    params = params_from_scope(cfg, device="cuda")
+    reset_programs(seed=0)
+    eng = serving.DecodeEngine(params, cfg, device="cuda", **SG_SERVE)
+    try:
+        comps = eng.generate([serving.Request(
+            prompt=np.asarray(r["prompt"]), max_new_tokens=r["max_new"],
+            temperature=r.get("temperature", 0.0), top_k=r.get("top_k", 0),
+            seed=r.get("seed", 0), uid=r["uid"]) for r in rows],
+            timeout=300)
+    finally:
+        eng.stop()
+    del params, eng
+    release(torch)
+    if not all(c.ok for c in comps):
+        fail(f"in-process engine: {[c.finish_reason for c in comps]}")
+    return {c.uid: list(c.tokens) for c in comps}
+
+
+def read_rows(path):
+    with open(path) as f:
+        return {r["uid"]: r for r in (json.loads(ln) for ln in f if ln)}
+
+
+def sg_workers(torch, serving, out_dir):
+    """WORKERS: two worker_main ranks serve phase 4's 8 requests split by
+    rank, against the in-process engine; then a second gang serving them
+    SG_DRAIN_COPIES times is sent SIGTERM mid-serve."""
+    import signal
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    rows = phase4_bf16_rows(GPTConfig.small())
+    drain_rows = [dict(r, uid=f"d{c}_{r['uid']}")
+                  for c in range(SG_DRAIN_COPIES) for r in rows]
+    want = sg_engine_tokens(torch, serving, rows)
+    out = {}
+    for gang, reqs in (("serve", rows), ("drain", drain_rows)):
+        gdir = os.path.join(out_dir, gang)
+        os.makedirs(gdir)
+        req = os.path.join(gdir, "requests.jsonl")
+        with open(req, "w") as f:
+            for r in reqs:
+                f.write(json.dumps(r) + "\n")
+        marker = os.path.join(gdir, "serving") if gang == "drain" else ""
+        env = dict(os.environ, CHIP_SMOKE_SG_OUT=gdir, CHIP_SMOKE_SG_REQ=req,
+                   CHIP_SMOKE_SG_MARKER=marker)
+        sent = {}
+
+        def sigterm_mid_serve(proc):
+            deadline = time.monotonic() + 240
+            while time.monotonic() < deadline and proc.poll() is None:
+                pids = {}
+                for r in range(SG_WORLD):
+                    try:
+                        with open(f"{marker}.{r}") as f:
+                            pids[r] = int(f.read())
+                    except (OSError, ValueError):
+                        break
+                if len(pids) == SG_WORLD:
+                    time.sleep(0.2)     # every request submitted
+                    for r, pid in pids.items():
+                        os.kill(pid, signal.SIGTERM)
+                        sent[r] = time.time()
+                    return
+                time.sleep(0.01)
+
+        t0 = time.perf_counter()
+        rc, text = launch_gang(["--sg-serve-worker"], env, 600,
+                               f"sg_{gang}_gang.log",
+                               during=sigterm_mid_serve if marker else None)
+        if rc != 0:
+            fail(f"WORKERS gang {gang} failed (rc {rc}): {text[-3000:]}")
+        if marker and len(sent) != SG_WORLD:
+            fail("WORKERS: the drain gang never reported serving")
+        ranks = []
+        for r in range(SG_WORLD):
+            got = read_rows(os.path.join(gdir, f"rank{r}.jsonl"))
+            with open(os.path.join(gdir, f"serve_rank{r}.json")) as f:
+                info = json.load(f)
+            mine = [q["uid"] for i, q in enumerate(reqs)
+                    if i % SG_WORLD == r]
+            if sorted(got) != sorted(mine):
+                fail(f"WORKERS {gang} rank {r}: served {sorted(got)}, its "
+                     f"shard is {sorted(mine)}")
+            states = dict(collections.Counter(q["state"]
+                                              for q in got.values()))
+            for uid, q in got.items():
+                if q["state"] == "done" and \
+                        q["tokens"] != want[uid.split("_")[-1]]:
+                    fail(f"WORKERS {gang} rank {r} {uid}: tokens differ "
+                         f"from the in-process engine's")
+            b4 = info["launches"].get("paged_decode_bf16", 0)
+            if not b4:
+                fail(f"WORKERS {gang} rank {r}: B4 (bf16) never launched")
+            tokens = sum(len(q["tokens"]) for q in got.values())
+            ranks.append({"states": states, "b4_launches": b4,
+                          "generate_s": info.get("generate_s"),
+                          "tokens": tokens,
+                          "tokens_per_s": tokens / info["generate_s"]})
+            if gang == "serve" and states != {"done": len(mine)}:
+                fail(f"WORKERS rank {r}: {states}")
+            if gang == "drain" and not states.get("handed_back"):
+                fail(f"WORKERS drain rank {r}: SIGTERM mid-serve handed "
+                     f"nothing back ({states})")
+        out[gang] = {"ranks": ranks, "requests": len(reqs),
+                     "gang_s": time.perf_counter() - t0}
+        log(f"WORKERS {gang}: {ranks}")
+    return out
+
+
+def sg_fault_swap_rungs():
+    """The planted PEER fault: the ladder's peer and local rungs read each
+    other's directory."""
+    from paddle_tpu_torch.resilience import snapshot
+    real = snapshot._snapshot_rungs
+
+    def swapped(root, rank, peer=True):
+        rungs = real(root, rank, peer)
+        names = [n for n, _ in rungs]
+        return list(zip(names, [d for _, d in rungs][::-1]))
+
+    return mp_patch(snapshot, "_snapshot_rungs", swapped)
+
+
+def sg_pod_gate(podscope, dumps):
+    """POD's gate on a pod dump's rank dumps: 2 rank lanes, and a
+    cross-rank flow pair for every `__bucket_sync__` / `__zero_update__`
+    marker of a step. Returns (lanes, markers, keys without a pair)."""
+    events, meta = podscope.merge_timeline(dumps)
+    lanes = sorted({e["pid"] for e in events
+                    if e.get("name") == "process_name"})
+    paired = {e["args"]["key"] for e in events
+              if e.get("cat") == "pod_collective" and e["ph"] == "s"}
+    keys = {(e.get("args") or {}).get("key")
+            for d in dumps.values() for e in d.get("trace_events", ())
+            if e.get("cat") == "collective"
+            and (e.get("args") or {}).get("kind") in ("__bucket_sync__",
+                                                       "__zero_update__")}
+    return lanes, sorted(keys), sorted(keys - paired), meta
+
+
+def train_gpt_supervised(torch, fa, zk, serving, card, checked):
+    """Phase 15: LSGD and PEER's uninterrupted run in one gang, the PEER
+    drill under --elastic_full_world --collect-dumps, its pod dump (POD),
+    the serving workers (WORKERS), and a planted fault per gate; `checked`
+    are the B1 launches phase 13's `check_flash_keyed_paths` held."""
+    import tempfile
+    from paddle_tpu_torch.framework import Scope
+    from paddle_tpu_torch.observability import podscope
+    from paddle_tpu_torch.resilience import recover
+    t0 = time.perf_counter()
+    row = {"card": card,
+           "config": f"GPTConfig(num_layers={MP_LAYERS}) (hidden 768, 12 "
+                     "heads, vocab 50257), S 512, dropout 0, fleet AMP "
+                     f"bf16, global batch {SG_BATCH} (4 rows a rank at dp "
+                     f"2), two gloo ranks on cuda:0; LSGD Adam({SG_LR}) "
+                     f"LocalSGD k {SG_LSGD_K}, {SG_LSGD_STEPS} steps; PEER "
+                     f"ZeRO stage 1 AdamW + clip, {SG_PEER_STEPS} steps, "
+                     f"snapshots every {SG_SNAPSHOT_STEPS}; WORKERS GPT-2 "
+                     "small (12 layers) bf16, phase 4's geometry"}
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_sg_",
+                               dir=os.path.join(HERE, ".chip_scratch"))
+    base = dict(os.environ, PADDLE_DIST_BACKEND="gloo",
+                PADDLE_DIST_DEVICE="cuda:0", CHIP_SMOKE_SG_OUT=out_dir)
+
+    # ---- LSGD and PEER's uninterrupted run ---------------------------------
+    t1 = time.perf_counter()
+    rc, text = launch_gang(["--sg-worker"], dict(base,
+                                                 CHIP_SMOKE_SG_MODE="a"),
+                           600, "sg_a_gang.log")
+    row["gang_a_s"] = time.perf_counter() - t1
+    if rc != 0:
+        fail(f"the phase-15 gang a failed (rc {rc}): {text[-3000:]}")
+    ranks_a = []
+    for r in range(SG_WORLD):
+        with open(os.path.join(out_dir, f"sg_a_rank{r}.json")) as f:
+            ranks_a.append(json.load(f))
+    lsgd = [a["lsgd"] for a in ranks_a]
+    t1 = time.perf_counter()
+    sim_losses, sim_digest, sim_keyed = sg_simulation(torch, fa)
+    fault_losses, fault_digest, _ = sg_simulation(torch, fa,
+                                                  params_only=True)
+    sim_s = time.perf_counter() - t1
+    for r, got in enumerate(lsgd):
+        if got["losses"] != sim_losses or got["fingerprint"] != sim_digest:
+            fail(f"LSGD rank {r}: not bit-equal to the one-process "
+                 f"simulation: losses {got['losses']} vs {sim_losses}, "
+                 f"state {got['fingerprint'] == sim_digest}")
+        if [tuple(p) for p in got["marker_plan"]] != [("__step_sync__", 0)]:
+            fail(f"LSGD rank {r}: marker plan {got['marker_plan']}")
+    fault_lsgd = {"losses_equal": fault_losses == sim_losses,
+                  "state_equal": fault_digest == lsgd[0]["fingerprint"],
+                  "loss_max_rel": max(abs(a - b) / abs(b) for a, b in
+                                      zip(fault_losses, sim_losses))}
+    if fault_lsgd["state_equal"]:
+        fail("LSGD's planted fault (only the parameters averaged) read "
+             "inside the gate")
+    row["lsgd"] = {"ranks": lsgd, "simulation_losses": sim_losses,
+                   "simulation_s": sim_s, "bitwise": True,
+                   "fault_params_only": fault_lsgd}
+    log(f"LSGD: bit-equal to the simulation; local step p50 "
+        f"{lsgd[0]['step_ms_p50_local']:.1f} ms, sync step p50 "
+        f"{lsgd[0]['step_ms_p50_sync']:.1f} ms, gloo host ms on syncs "
+        f"{lsgd[0]['gloo_host_ms_sync']}; fault {fault_lsgd}")
+
+    # ---- PEER: the drill under --elastic_full_world --collect-dumps ------
+    flight_dir = os.path.join(out_dir, "flight")
+    snap_dir = os.path.join(out_dir, "snap")
+    env = dict(base, CHIP_SMOKE_SG_MODE="peer",
+               FLAGS_flight_dump_dir=flight_dir, PADDLE_SNAPSHOT_DIR=snap_dir,
+               FLAGS_gloo_timeout_ms="20000")
+    t1 = time.perf_counter()
+    rc, text = launch_gang(
+        ["--sg-worker"], env, 900, "sg_peer_gang.log",
+        launcher_args=("--grace_period_s", str(SG_GRACE_S),
+                       "--elastic_restarts", "1", "--elastic_full_world",
+                       "--collect-dumps"))
+    row["gang_peer_s"] = time.perf_counter() - t1
+    if rc != 0:
+        fail(f"the PEER drill failed (rc {rc}): {text[-3000:]}")
+    lives = {}
+    for life in (0, 1):
+        for r in range(SG_WORLD):
+            with open(os.path.join(
+                    out_dir, f"sg_peer_life{life}_rank{r}.json")) as f:
+                lives[(life, r)] = json.load(f)
+    second = [lives[(1, r)] for r in range(SG_WORLD)]
+    refs = [a["peer_ref"] for a in ranks_a]
+    if [s["rung"] for s in second] != ["local", "peer"]:
+        fail(f"PEER: rungs {[s['rung'] for s in second]} (rank 1 must "
+             "recover on the peer rung)")
+    if f"recovery: rank 1 rung=peer step={SG_SNAPSHOT_STEPS}" not in text:
+        fail("PEER: the launcher did not stamp rank 1's peer rung")
+    if len({s["resumed_from"] for s in second}) != 1:
+        fail(f"PEER: the ranks resumed from {[s['resumed_from'] for s in second]}")
+    for r in range(SG_WORLD):
+        if second[r]["fingerprint"] != refs[r]["fingerprint"]:
+            fail(f"PEER rank {r}: the final state is not bit-equal to the "
+                 "uninterrupted run's")
+        if second[r]["losses"] != refs[r]["losses"][SG_SNAPSHOT_STEPS:]:
+            fail(f"PEER rank {r}: resumed losses {second[r]['losses']} vs "
+                 f"{refs[r]['losses']}")
+    failures = []
+    for name in sorted(os.listdir(flight_dir)):
+        if "gang_failure" in name:
+            with open(os.path.join(flight_dir, name)) as f:
+                failures.append(json.load(f)["extra"])
+    suspects = [f.get("suspected_straggler") for f in failures]
+    if suspects != [1]:
+        fail(f"PEER: the failed life's gang dumps name {suspects}, not "
+             "rank 1")
+    # the planted fault: the peer and local rungs swapped
+    control = recover(Scope(), root=snap_dir, rank=1, stamp=False,
+                      device="cpu")
+    with sg_fault_swap_rungs():
+        swapped = recover(Scope(), root=snap_dir, rank=1, stamp=False,
+                          device="cpu")
+    if control != ("peer", SG_SNAPSHOT_STEPS) or swapped[0] == "peer":
+        fail(f"PEER's planted fault (rungs swapped) read inside the gate "
+             f"({swapped}; control {control})")
+    kill_to_step = (second[1]["first_step_wall"]
+                    - lives[(0, 1)]["kill_wall"]) * 1e3
+    row["peer"] = {
+        "rungs": [s["rung"] for s in second],
+        "resumed_from": second[0]["resumed_from"],
+        "bitwise_vs_uninterrupted": True,
+        "replicate_ms": [lives[(0, r)]["replicate_ms"]
+                         for r in range(SG_WORLD)],
+        "replicate_gloo_ms": [lives[(0, r)]["replicate_gloo_ms"]
+                              for r in range(SG_WORLD)],
+        "replicate_bytes": [lives[(0, r)]["replicate_bytes"]
+                            for r in range(SG_WORLD)],
+        "recover_ms": [s["recover_ms"] for s in second],
+        "kill_to_first_resumed_step_ms": kill_to_step,
+        "suspected_straggler": suspects[0],
+        "gang_failure_heartbeats": failures[0].get("heartbeats"),
+        "ranks": second, "uninterrupted": refs,
+        "fault_swap_rungs": {"rung": swapped[0], "control": control[0]}}
+    log(f"PEER: rungs {row['peer']['rungs']}, resumed from "
+        f"{row['peer']['resumed_from']}, bit-equal to the uninterrupted run; "
+        f"replicate {row['peer']['replicate_ms']} ms, "
+        f"{row['peer']['replicate_bytes']} bytes; kill -> first resumed "
+        f"step {kill_to_step:.0f} ms")
+
+    # ---- POD: the clean second life's pod dump ---------------------------
+    pod_dir = os.path.join(flight_dir, "pod_1_ok")
+    dumps = podscope.find_rank_dumps(pod_dir)
+    lanes, keys, unpaired, meta = sg_pod_gate(podscope, dumps)
+    if lanes != [0, 1] or not keys or unpaired:
+        fail(f"POD: lanes {lanes}, {len(keys)} markers, unpaired {unpaired}")
+    t1 = time.perf_counter()
+    res = podscope.write_pod_dump(dumps, os.path.join(out_dir, "pod_again"))
+    merge_ms = (time.perf_counter() - t1) * 1e3
+    with open(res["report"]) as f:
+        report = json.load(f)
+    stripped = {r: dict(d, trace_events=[
+        e for e in d["trace_events"]
+        if not (r == 1 and e.get("cat") == "collective")])
+        for r, d in dumps.items()}
+    _, _, fault_unpaired, _ = sg_pod_gate(podscope, stripped)
+    if not fault_unpaired:
+        fail("POD's planted fault (rank 1's markers dropped) read inside "
+             "the gate")
+    row["pod"] = {"lanes": lanes, "markers": len(keys),
+                  "flow_pairs": meta["flow_pairs"], "merge_ms": merge_ms,
+                  "straggler_report": {"suspect": report["suspect"],
+                                       "summary": report["summary"],
+                                       "ranks": report["ranks"]},
+                  "fault_drop_rank1_markers": {
+                      "unpaired": len(fault_unpaired)}}
+    log(f"POD: lanes {lanes}, {len(keys)} markers each paired "
+        f"({meta['flow_pairs']} flow pairs), merge {merge_ms:.1f} ms; "
+        f"straggler report {row['pod']['straggler_report']}")
+
+    # ---- the kernels' shapes on these paths ---------------------------------
+    unchecked = unchecked_launches({"lsgd": lsgd, "peer": second,
+                                    "uninterrupted": refs}, checked) + [
+        f"simulation: {k}" for k in sim_keyed if k not in checked]
+    if unchecked:
+        fail(f"phase 15: B1 ran at shapes / keyings no check held: "
+             f"{unchecked}")
+    widths = second[0]["b8_widths"]
+    if not widths:
+        fail("PEER: B8 was never launched on rank 0's resumed steps")
+    row["b8_shard_widths"] = widths
+    row["b8_shard"] = check_b8_shard(torch, zk, max(widths, default=0),
+                                     op="adamw")
+
+    # ---- WORKERS ------------------------------------------------------------
+    release(torch)
+    row["workers"] = sg_workers(torch, serving, out_dir)
+    shutil_rm(out_dir)
+    row.update({"launch": "python -m paddle_tpu_torch.distributed.launch "
+                          "--nproc_per_node 2 chip_smoke.py --sg-worker "
+                          "(PEER: --elastic_restarts 1 --elastic_full_world "
+                          "--collect-dumps) / --sg-serve-worker, "
+                          "PADDLE_DIST_BACKEND=gloo PADDLE_DIST_DEVICE="
+                          "cuda:0",
+                "phase_s": time.perf_counter() - t0})
+    return row
+
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6938,6 +7725,26 @@ def main():
                 fail(f"{name} was never launched on the {path} run")
             rows[name]["launches_by_path"][path] = counts[name]
 
+    # ---- the supervised gang: LocalSGD, peer snapshots, pod dumps, workers
+    release(torch)
+    sg_row = train_gpt_supervised(torch, fa, zk, serving, card,
+                                  mp_row["flash_checked_launches"])
+    lsgd0, peer0 = sg_row["lsgd"]["ranks"][0], sg_row["peer"]["ranks"][0]
+    arms = {"supervised_LSGD_dp2_rank0_8_steps": lsgd0["flash_launches"],
+            "supervised_PEER_dp2_stage1_rank0_resumed_3_steps": dict(
+                peer0["flash_launches"], zero_adam=peer0["b8_launches"])}
+    for path, counts in arms.items():
+        for name in fa.KERNEL_NAMES + ("zero_adam",):
+            if name not in counts:
+                continue
+            if not counts[name]:
+                fail(f"{name} was never launched on the {path} run")
+            rows[name]["launches_by_path"][path] = counts[name]
+    rows["zero_adam"]["shard_peer"] = sg_row.pop("b8_shard")
+    b4_paths = rows["paged_decode_bf16"].setdefault("launches_by_path", {})
+    for r, w in enumerate(sg_row["workers"]["serve"]["ranks"]):
+        b4_paths[f"supervised_WORKERS_rank{r}"] = w["b4_launches"]
+
     for row in rows.values():
         if not row["launches"]:
             fail(f"{row['name']} was never launched on its main path run")
@@ -6954,6 +7761,7 @@ def main():
     print(json.dumps({"layer_scan": scan_row}), flush=True)
     print(json.dumps({"model_parallel": mp_row}), flush=True)
     print(json.dumps({"composed_mesh": cm_row}), flush=True)
+    print(json.dumps({"supervised_gang": sg_row}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -6971,6 +7779,10 @@ if __name__ == "__main__":
         sys.exit(mp_worker())
     if "--cm-worker" in sys.argv:
         sys.exit(cm_worker())
+    if "--sg-worker" in sys.argv:
+        sys.exit(sg_worker())
+    if "--sg-serve-worker" in sys.argv:
+        sys.exit(sg_serve_worker())
     adopt_orphans()
     try:
         rc = main()

@@ -57,14 +57,23 @@ Honoured: `amp`, `amp_configs`, `recompute`, `recompute_configs`,
 `pipeline_parallel_degree`, `tensor_parallel_degree`,
 `sequence_parallel_degree`, `tensor_parallel_rules`,
 `fuse_grad_size_in_mb`, `sharding`, `sharding_stage`, `sharding_configs`
-(`stage`, `fuse_grad_size_in_mb`), `FLAGS_layer_scan` and
-`FLAGS_zero_stage`. dp and pp compose: each dp rank pipelines its batch
-and the pipeline runner averages the gradients over the ranks
-(parallel/pipeline.py). Any other strategy field set away from its
-default raises: expert parallelism is ROADMAP item 12; LocalSGD is what
-is left of item 15.1 (and raises with tp, sp or pp too, as at the
-reference's :419-425); the parameter server and `a_sync` are item
-19.2.
+(`stage`, `fuse_grad_size_in_mb`), `localsgd`, `localsgd_configs`
+(`k_steps`), `FLAGS_layer_scan` and `FLAGS_zero_stage`. dp and pp
+compose: each dp rank pipelines its batch and the pipeline runner
+averages the gradients over the ranks (parallel/pipeline.py). Any other
+strategy field set away from its default raises: expert parallelism is
+ROADMAP item 12; the parameter server and `a_sync` are item 19.2.
+
+LocalSGD (`localsgd` with `k_steps` > 1, the reference's :417-425) marks
+the program with `_localsgd_k`; the executor then trains a copy of the
+state on each dp rank and averages the copies every k-th step
+(framework/executor.py `_LocalSGDStep`). It raises with tp, sp, pp, a
+pipeline or ep, as the reference does. A LocalSGD program is not
+bucketable (reference :488-500): it takes no gradient buckets, so its
+local steps exchange no gradients or state, and a sharding request on it is
+counted under `executor.zero_manual_fallbacks.localsgd` and leaves the
+state whole on every rank (the reference's fallback attaches per-name
+specs to a step whose replica copies are whole per device too).
 """
 from __future__ import annotations
 
@@ -100,11 +109,10 @@ _HONOURED = {"amp", "amp_configs", "recompute", "recompute_configs",
              "pipeline_parallel_degree", "tensor_parallel_degree",
              "sequence_parallel_degree", "tensor_parallel_rules",
              "fuse_grad_size_in_mb", "sharding", "sharding_stage",
-             "sharding_configs"}
+             "sharding_configs", "localsgd", "localsgd_configs"}
 # the ROADMAP item that owns each field the port does not take yet
 _OWNER = {"a_sync": "19.2", "a_sync_configs": "19.2",
-          "sparse_cache_rows": "19.2", "localsgd": "15.1",
-          "localsgd_configs": "15.1", "expert_parallel_degree": "12"}
+          "sparse_cache_rows": "19.2", "expert_parallel_degree": "12"}
 
 
 class Role:
@@ -359,6 +367,18 @@ class DistributedOptimizer:
             from ...parallel.transforms import GradientMergeWrapper
             opt = GradientMergeWrapper(
                 opt, gm_k, avg=s.gradient_merge_configs.get("avg", True))
+        lsgd_k = int((s.localsgd_configs or {}).get("k_steps", 1)) \
+            if s.localsgd else 1
+        if lsgd_k > 1:
+            if (s.tensor_parallel_degree > 1 or s.pipeline
+                    or s.pipeline_parallel_degree > 1
+                    or s.sequence_parallel_degree > 1
+                    or s.expert_parallel_degree > 1):
+                raise ValueError(
+                    "localsgd shards parameter copies over the dp axis and "
+                    "cannot combine with tp/sp/pp/ep in this build")
+            program._localsgd_k = lsgd_k
+            program.bump_version()
         if s.pipeline and s.pipeline_configs.get("accumulate_steps", 1) > 1:
             from ...optimizer import PipelineOptimizer
             opt = PipelineOptimizer(
@@ -388,7 +408,7 @@ class DistributedOptimizer:
         dp = self._fleet.dp() if self._fleet is not None else 1
         bucket_mb = float((s.sharding_configs or {}).get(
             "fuse_grad_size_in_mb", s.fuse_grad_size_in_mb))
-        if bucket_mb <= 0 and dp > 1 and not mixed:
+        if bucket_mb <= 0 and dp > 1 and not mixed and lsgd_k <= 1:
             raise ValueError(
                 f"fuse_grad_size_in_mb={bucket_mb} at dp {dp}: the port "
                 "averages gradients across ranks per bucket, so a dp > 1 "
@@ -402,7 +422,7 @@ class DistributedOptimizer:
                      or any("pipeline_stage" in op.attrs
                             for op in program.global_block().ops))
         # the reference's `bucketable` (:492-512), on every mesh
-        if bucket_mb > 0 and gm_k <= 1 and not pipelined:
+        if bucket_mb > 0 and gm_k <= 1 and lsgd_k <= 1 and not pipelined:
             from ...framework.program import default_startup_program
             from ...parallel.zero import apply_grad_bucketing
             apply_grad_bucketing(
@@ -412,6 +432,7 @@ class DistributedOptimizer:
         elif zero_stage >= 1:
             from ...parallel.zero import count_fallback
             count_fallback("grad_merge" if gm_k > 1 else
+                           "localsgd" if lsgd_k > 1 else
                            "pipeline" if pipelined else
                            "bucketing_disabled")
         if mixed or pp > 1:

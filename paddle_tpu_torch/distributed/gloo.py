@@ -7,8 +7,11 @@ back: barrier, all_gather, all_reduce and broadcast of host values, as
 the reference's GlooWrapper offers them. Device tensors go through the
 process group (distributed/collective.py); this path carries host values
 only, the fingerprints of resilience/integrity.py's DivergenceSentinel
-among them. Rendezvous dials and every round are bounded by
-FLAGS_gloo_timeout_ms: a dead peer or store raises the typed
+among them, and the snapshots that resilience/snapshot.py replicates to
+a ring buddy (hundreds of MB a rank: each message is received in place
+into one buffer). Rendezvous dials and every round are bounded by
+FLAGS_gloo_timeout_ms (each wait for a peer's value, and each receive
+call of a message in flight): a dead peer or store raises the typed
 DeadlineExceededError instead of parking the rank. Fault sites:
 "gloo.rendezvous" (per dial), "gloo.exchange" (per round).
 
@@ -37,25 +40,29 @@ def _gloo_timeout_s() -> float:
 
 
 def _send_msg(sock, obj):
-    data = pickle.dumps(obj)
-    sock.sendall(struct.pack("<Q", len(data)) + data)
+    data = pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
+    sock.sendall(struct.pack("<Q", len(data)))
+    sock.sendall(data)
+
+
+def _recv_exact(sock, n: int) -> bytearray:
+    """Exactly n bytes, received in place into one buffer (a value of
+    hundreds of MB, such as a snapshot, costs one copy, not one per
+    chunk)."""
+    buf = bytearray(n)
+    view = memoryview(buf)
+    got = 0
+    while got < n:
+        k = sock.recv_into(view[got:], min(16 << 20, n - got))
+        if not k:
+            raise ConnectionError("gloo store peer closed")
+        got += k
+    return buf
 
 
 def _recv_msg(sock):
-    hdr = b""
-    while len(hdr) < 8:
-        c = sock.recv(8 - len(hdr))
-        if not c:
-            raise ConnectionError("gloo store peer closed")
-        hdr += c
-    n = struct.unpack("<Q", hdr)[0]
-    buf = b""
-    while len(buf) < n:
-        c = sock.recv(min(1 << 20, n - len(buf)))
-        if not c:
-            raise ConnectionError("gloo store peer closed")
-        buf += c
-    return pickle.loads(buf)
+    n = struct.unpack("<Q", bytes(_recv_exact(sock, 8)))[0]
+    return pickle.loads(_recv_exact(sock, n))
 
 
 class _Store:

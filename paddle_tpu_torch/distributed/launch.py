@@ -31,14 +31,26 @@ run only under `PADDLE_DIST_BACKEND=gloo`, distributed/parallel.py).
   the gang relaunches at the surviving world size, with
   `PADDLE_ELASTIC_RESTART` incremented, at most N times; trainers resume
   from their latest checkpoint (a ZeRO checkpoint is unsharded, so it
-  loads at the new dp, parallel/zero.py).
+  loads at the new dp, parallel/zero.py). With `--elastic_full_world` it
+  relaunches every rank instead (a replacement host): a rank whose
+  process died recovers its state from the snapshot its ring buddy held
+  and flushed for it in the grace window, the `peer` rung of
+  resilience/snapshot.py's recovery ladder.
+* **Pod-scope dumps**: every worker inherits one flight-dump dir and one
+  snapshot dir for the gang; the heartbeat file is JSON that the
+  trainers' flight recorder extends with the last step and its duration
+  (observability/flight.py `end_step`). On a gang failure the supervisor
+  names the suspected straggler from the heartbeats, in its log and in
+  its `gang_failure` dump (`suspected_straggler`); on every failure, and
+  on a clean exit with `--collect-dumps` (which also makes every worker
+  dump at exit), it gathers the ranks' dumps of this gang life into one
+  pod dump dir and writes the merged timeline and straggler report there
+  (observability/podscope.py; `python -m
+  paddle_tpu_torch.observability.pod_trace` merges a dir by hand). The
+  timeline's t0 is the wall time at which every rank had checked in.
 
 Chaos hook: `PADDLE_LAUNCH_STALL_RANKS="1,3"` in the launcher's env makes
 those ranks sleep before check-in (a deterministic straggler).
-
-Not ported (ROADMAP item 19.1's rest): `--collect-dumps` and the pod-dump
-merge (`observability/podscope.py`), and `--elastic_full_world` (its
-relaunched ranks recover from peer snapshots); both raise.
 """
 from __future__ import annotations
 
@@ -113,12 +125,22 @@ def _parse_args(argv=None):
                         "restarts at the surviving world size, trainers "
                         "resume from their latest checkpoint")
     p.add_argument("--elastic_full_world", action="store_true",
-                   help="elastic restarts keep the original world size; "
-                        "not ported (ROADMAP item 19.1): raises")
+                   help="elastic restarts keep the original world size "
+                        "(replacement hosts) instead of shrinking to the "
+                        "survivors: a relaunched rank whose process died "
+                        "recovers from the snapshot its ring buddy flushed "
+                        "for it (resilience/snapshot.py, the 'peer' rung)")
     p.add_argument("--collect-dumps", action="store_true",
                    dest="collect_dumps",
-                   help="gather the ranks' flight dumps into one pod dump; "
-                        "not ported (ROADMAP item 19.1): raises")
+                   help="gather the ranks' flight dumps into one pod dump "
+                        "dir on every gang exit (failures always collect) "
+                        "with the merged timeline and straggler report; "
+                        "sets PADDLE_FLIGHT_DUMP_AT_EXIT=1 so workers that "
+                        "end cleanly leave a dump")
+    p.add_argument("--pod_dump_dir", type=str, default=None,
+                   help="where the pod collection lands (default: "
+                        "pod_<restart>_<status> under the gang's flight "
+                        "dump dir)")
     p.add_argument("training_script", type=str)
     p.add_argument("training_script_args", nargs=argparse.REMAINDER)
     return p.parse_args(argv)
@@ -171,14 +193,7 @@ class GangSupervisor:
             float(flag("FLAGS_launch_heartbeat_interval_ms")) / 1000.0
         self.heartbeat_timeout_s = args.heartbeat_timeout_ms / 1000.0
         self.grace_period_s = args.grace_period_s
-        for opt, what in (("collect_dumps", "--collect-dumps and the pod "
-                           "dump merge (observability/podscope.py)"),
-                          ("elastic_full_world", "--elastic_full_world "
-                           "(relaunched ranks recover from peer "
-                           "snapshots)")):
-            if getattr(args, opt, False):
-                raise NotImplementedError(
-                    f"{what} is not ported yet (ROADMAP item 19.1)")
+        self.collect_dumps = bool(getattr(args, "collect_dumps", False))
         # ONE flight-dump dir and ONE snapshot dir for the gang (an
         # operator-set env or flag wins): workers inherit them, and the
         # supervisor reads the ranks' recovery stamps back
@@ -188,6 +203,9 @@ class GangSupervisor:
         self._snapshot_dir = (os.environ.get("PADDLE_SNAPSHOT_DIR")
                               or str(flag("FLAGS_snapshot_dir") or "")
                               or tempfile.mkdtemp(prefix="paddle_pod_snap_"))
+        # the wall time (us) at which the first gang life's ranks had all
+        # checked in: the merged pod timeline's t0
+        self._anchor_wall_us: Optional[float] = None
         self._last_heartbeats: Dict[int, dict] = {}
 
     # -- heartbeat content (JSON contract with bootstrap + flight.py) ------
@@ -213,14 +231,20 @@ class GangSupervisor:
                 for rank, path in hb_files.items()}
 
     def _note_gang_failure(self, hb_files: Dict[int, str]) -> None:
-        """Snapshot the heartbeat files (they die with the hb tempdir) and
-        name the ranks that never checked in."""
+        """Snapshot the heartbeat files (they die with the hb tempdir),
+        name the ranks that never checked in and the suspected straggler
+        (observability/podscope.py `suspect_from_heartbeats`)."""
+        from ..observability import podscope
         self._last_heartbeats = self._snapshot_heartbeats(hb_files)
         missing = sorted(r for r, hb in self._last_heartbeats.items()
                          if not hb)
         if missing:
             print(f"[launch] rank(s) {missing} never checked in "
                   "(rendezvous stragglers)", flush=True)
+        suspect = podscope.suspect_from_heartbeats(self._last_heartbeats)
+        if suspect is not None:
+            print(f"[launch] suspected straggler: rank {suspect[0]} "
+                  f"({suspect[1]})", flush=True)
 
     # -- gang lifecycle ----------------------------------------------------
     def _spawn(self, world: int, restart_idx: int, hb_dir: str):
@@ -251,6 +275,8 @@ class GangSupervisor:
                 "PADDLE_LAUNCH_START_US":
                     str(self._gang_start_wall * 1e6),
             })
+            if self.collect_dumps:
+                env["PADDLE_FLIGHT_DUMP_AT_EXIT"] = "1"
             log = None
             if args.log_dir:
                 log = open(os.path.join(args.log_dir,
@@ -383,6 +409,8 @@ class GangSupervisor:
         try:
             try:
                 self._rendezvous(procs, hb_files)
+                if self._anchor_wall_us is None:
+                    self._anchor_wall_us = time.time() * 1e6
             except self._WorkerFailed as e:
                 survivors = sum(1 for p in procs.values()
                                 if p.poll() is None)
@@ -411,8 +439,69 @@ class GangSupervisor:
                     pass
             shutil.rmtree(hb_dir, ignore_errors=True)
 
+    def collect_pod_dumps(self, status: str, world: int, rc: int,
+                          restart_idx: int) -> Optional[str]:
+        """Gather this gang life's per-rank flight dumps into one pod dump
+        dir and write the merged timeline and straggler report beside
+        them (observability/podscope.py). Runs on every failure and, with
+        --collect-dumps, on clean exits. Never raises: collection must
+        not turn a diagnosed failure into a crash of its own."""
+        import shutil
+        from ..observability import podscope
+        try:
+            dumps = podscope.find_rank_dumps(self._flight_dir)
+            # this life's ranks only: the shared dir outlives restarts
+            cutoff = getattr(self, "_gang_start_wall", None)
+            if cutoff is not None:
+                dumps = {r: d for r, d in dumps.items()
+                         if float(d.get("wall_time") or 0.0) >= cutoff - 1.0}
+            if world > 0:
+                dumps = {r: d for r, d in dumps.items() if r < world}
+            if not dumps and not self.collect_dumps:
+                return None
+            pod_dir = self.args.pod_dump_dir or os.path.join(
+                self._flight_dir, f"pod_{restart_idx}_{status}")
+            os.makedirs(pod_dir, exist_ok=True)
+            for dump in dumps.values():
+                src = dump.get("_path")
+                if src and os.path.dirname(os.path.abspath(src)) \
+                        != os.path.abspath(pod_dir):
+                    shutil.copy(src, pod_dir)
+            hb = self._last_heartbeats
+            with open(os.path.join(pod_dir, "heartbeats.json"), "w") as f:
+                json.dump({"status": status, "world": world, "rc": rc,
+                           "restart_idx": restart_idx,
+                           "anchor_us": self._anchor_wall_us,
+                           "heartbeats": {str(r): v
+                                          for r, v in sorted(hb.items())}},
+                          f, indent=1)
+            if not dumps:
+                print(f"[launch] pod dump dir {pod_dir}: no per-rank "
+                      "flight dumps found (workers exited before dumping "
+                      "or FLAGS_flight_recorder=0)", flush=True)
+                return pod_dir
+            res = podscope.write_pod_dump(
+                dumps, pod_dir, heartbeats=hb,
+                anchor_us=self._anchor_wall_us,
+                extra_meta={"status": status, "world": world, "rc": rc,
+                            "restart_idx": restart_idx})
+            summary = res["summary"]
+            suspect = ("none" if res["suspect"] is None
+                       else f"rank {res['suspect']}")
+            print(f"[launch] pod dump: {len(dumps)} rank dump(s) -> "
+                  f"{res['trace']} ({res['meta']['flow_pairs']} cross-rank "
+                  f"collective flow pair(s)); straggler report: "
+                  f"{res['report']} (suspect: {suspect}, step-time spread "
+                  f"{summary['step_time_spread_ms']:.1f} ms, collective "
+                  f"stall fraction {summary['collective_stall_fraction']})",
+                  flush=True)
+            return pod_dir
+        except Exception as e:        # noqa: BLE001 - documented above
+            print(f"[launch] pod dump collection failed: {e!r}", flush=True)
+            return None
+
     def _log_recovery_rungs(self) -> None:
-        """Stamp each rank's chosen recovery rung (local / disk:
+        """Stamp each rank's chosen recovery rung (peer / local / disk:
         resilience/snapshot.py writes the records at restore time) into
         the gang log, scoped to this gang life."""
         from ..resilience.snapshot import read_recovery_stamps
@@ -426,31 +515,46 @@ class GangSupervisor:
     def run(self) -> int:
         args = self.args
         world = len(self.ips) * max(args.nproc_per_node, 1)
+        full_world = world
         restarts = 0
         while True:
             status, survivors, rc = self.launch_once(world, restarts)
             self._log_recovery_rungs()
             if status == "ok":
+                if self.collect_dumps:
+                    self.collect_pod_dumps("ok", world, 0, restarts)
                 return 0
             # black-box the failed launch: the supervisor's own timeline
             # next to the trainers' logs, in the flight-dump format
             from ..observability import flight as _flight
+            from ..observability import podscope
+            suspect = podscope.suspect_from_heartbeats(self._last_heartbeats)
             path = _flight.dump(
                 "gang_failure",
                 extra={"world": world, "survivors": survivors,
                        "rc": rc, "restart_idx": restarts,
+                       "suspected_straggler":
+                           None if suspect is None else suspect[0],
                        "heartbeats": {str(r): v for r, v in
                                       sorted(self._last_heartbeats.items())}})
             if path:
                 print(f"[launch] flight-recorder dump: {path}", flush=True)
+            self.collect_pod_dumps("failed", world, rc, restarts)
             if restarts >= args.elastic_restarts or survivors < 1:
                 return rc
             restarts += 1
-            world = survivors
-            print(f"[launch] elastic restart {restarts}/"
-                  f"{args.elastic_restarts}: relaunching at world size "
-                  f"{world}; trainers resume from their latest "
-                  "checkpoint", flush=True)
+            if args.elastic_full_world:
+                world = full_world
+                print(f"[launch] elastic restart {restarts}/"
+                      f"{args.elastic_restarts}: relaunching at full world "
+                      f"size {world}; replaced rank(s) recover from peer "
+                      "snapshots (resilience/snapshot.py)", flush=True)
+            else:
+                world = survivors
+                print(f"[launch] elastic restart {restarts}/"
+                      f"{args.elastic_restarts}: relaunching at world size "
+                      f"{world}; trainers resume from their latest "
+                      "checkpoint", flush=True)
 
 
 def launch(argv=None):
@@ -466,6 +570,7 @@ def launch(argv=None):
         print(f"[launch] FAILED: {e!r}" + (
             f" (flight-recorder dump: {path})" if path else ""),
             file=sys.stderr, flush=True)
+        sup.collect_pod_dumps("failed", 0, 1, 0)
         raise SystemExit(1)
     sys.exit(rc)
 

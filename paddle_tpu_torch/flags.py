@@ -94,6 +94,15 @@ _DEFS: Dict[str, tuple] = {
     "FLAGS_flight_steps": (16, "flight-recorder step-ring depth"),
     "FLAGS_flight_dump_dir": ("", "where flight dumps land; empty = "
                               "<tmpdir>/paddle_tpu_torch_flight"),
+    "FLAGS_collective_markers": (True, "stamp a correlation-key instant "
+                                 "(step, bucket, seq) per collective op on "
+                                 "every dispatch (framework/executor.py); "
+                                 "matching keys across gang ranks become the "
+                                 "cross-rank flow arrows and the arrival "
+                                 "skew of the pod-scope merge "
+                                 "(observability/podscope.py); a few "
+                                 "trace-ring appends a step, nothing while "
+                                 "tracing is off"),
     # --- resilience (resilience/) ------------------------------------------
     "FLAGS_fault_plan": ("", "fault-injection plan spec, e.g. "
                              "'serving.window:error:at=2'"),

@@ -157,12 +157,43 @@ in its placements). The `__layer_scan__` op pairs with its grad op
 like any other: its own `forward_vjp` keeps the per-layer pullbacks (or,
 with `remat`, the layer inputs) until the reverse loop runs.
 
-Not ported (ROADMAP): the PS path (item 19.2) and LocalSGD (item 15.1).
+LocalSGD (the counterpart of the reference's `_LocalSGDBlock`, :219-333,
+for one process per dp rank; `_LocalSGDStep`). A program fleet marked
+with `_localsgd_k` = k > 1 trains a copy of every written persistable on
+each rank, under `<name>@LOCALSGD` in the scope, while the scope's
+`<name>` keeps the last synced view. Every rank feeds the global batch,
+as the reference's single controller does; a feed whose batch dp does
+not divide raises, and rank r trains on the r-th block of rows. Its
+dropout masks come from the run seed folded with its rank (the
+reference's fold_in of the dp index). Local steps exchange no state
+(only the fetches' dp plan below). On every k-th step (the cadence counter is the scope's
+`__localsgd_step__`) every floating copy (parameters, moments, beta
+pows) is averaged over the dp group, one all-reduce per dtype over the
+copies laid end to end, and the synced view is written back into the
+scope; integer state is left alone. Fetches follow the dp plan above. A
+LocalSGD program over a pp > 1 mesh raises, as at the reference's
+:1229; `run_steps` refuses LocalSGD programs and `train_from_dataset`
+runs them a `run()` a batch.
+
+Flight steps and collective markers. Every `run` / `run_steps` is one
+flight-recorder step of the executor's own lane
+(observability/flight.py `begin_step` / `end_step`; under the launcher,
+`end_step` mirrors the step into the worker's heartbeat file). With
+tracing on and FLAGS_collective_markers, each dispatch stamps one
+"collective" instant per collective op of the program, in program order,
+with the key `s{step}.b{bucket}.q{seq}` (the reference's
+`_emit_collective_markers`, :1367); a training program that runs at
+dp > 1 with no explicit collective op (LocalSGD, dp x pp) stamps one
+`__step_sync__`. The gang's merged pod timeline links equal keys across
+ranks (observability/podscope.py).
+
+Not ported (ROADMAP): the PS path (item 19.2).
 """
 from __future__ import annotations
 
 import collections
 import contextlib
+import itertools
 import queue
 import sys
 import threading
@@ -182,6 +213,15 @@ from ..observability import flight as _flight
 from ..observability import metrics as _metrics
 from ..observability import trace as _trace
 from ..ops import registry
+
+# the explicit collective ops of a program, in program order, stamped by
+# the collective markers (the reference's analysis/collectives.py
+# COLLECTIVE_OPS; the port keeps its own copy)
+COLLECTIVE_OPS = frozenset({
+    "__bucket_sync__", "__zero_update__", "__zero_gather__", "__zero_pack__",
+})
+LOCALSGD_SUFFIX = "@LOCALSGD"
+_flight_owner_ids = itertools.count(1)
 
 
 def _attrs_key(attrs) -> str:
@@ -563,6 +603,11 @@ class Executor:
         self._dp_plans: Dict[tuple, int] = {}
         # the pipeline runners of programs over a pp > 1 mesh
         self._pipelines: Dict[tuple, object] = {}
+        # LocalSGD runners, and each program's collective-marker plan
+        self._localsgd: Dict[tuple, "_LocalSGDStep"] = {}
+        self._coll_plans: Dict[tuple, list] = {}
+        # this executor's lane in the flight recorder
+        self._flight_owner = next(_flight_owner_ids)
 
     def _prepare(self, program, scope):
         """Per call, before the step: the host LR schedulers write into
@@ -590,6 +635,8 @@ class Executor:
         world = get_world_size()
         if world <= 1 or gspmd.mixed_config(program) is not None:
             return 1
+        if _localsgd_k(program) > 1:
+            return 1      # the LocalSGD step averages the copies itself
         key = (program._uid, program._version)
         dp = self._dp_plans.get(key)
         if dp is not None:
@@ -721,6 +768,9 @@ class Executor:
             if getattr(program, "_amp", False) else None
         block = program.global_block()
         plan = self._plan(program, use_cache)
+        if _localsgd_k(program) > 1:
+            return self._localsgd_runner(program).step(
+                block, plan, env, scope, ctx, fetch_names, amp_dtype)
         from ..parallel import gspmd
         dist = gspmd.mixed_config(program)
         if dist is not None:
@@ -760,6 +810,82 @@ class Executor:
                 _run_block(block, plan, env, scope, ctx, amp_dtype, strict)
                 fetches = _fetch_values(env, scope, fetch_names)
             return [gspmd.whole(v) for v in fetches]
+
+    def _localsgd_runner(self, program) -> "_LocalSGDStep":
+        """The program's LocalSGD step, one per program version; a pp > 1
+        mesh raises (the reference's :1229)."""
+        key = (program._uid, program._version)
+        runner = self._localsgd.get(key)
+        if runner is None:
+            if _pp(program) > 1:
+                raise errors.Unimplemented(
+                    "LocalSGD over a pp>1 mesh (pipeline stages and "
+                    "per-replica parameter copies are incompatible)")
+            runner = self._localsgd[key] = _LocalSGDStep(program)
+        return runner
+
+    # ---- flight steps and collective markers ------------------------------
+    @contextlib.contextmanager
+    def _step_window(self):
+        """One executor step: advance the counter and bracket the
+        flight-recorder window on this executor's lane (the reference's
+        `_step_window`). Shared by run() and run_steps()."""
+        self._step_counter += 1
+        idx = self._step_counter
+        _flight.begin_step(idx, owner=self._flight_owner)
+        status = "ok"
+        try:
+            yield idx
+        except BaseException:
+            status = "error"
+            raise
+        finally:
+            _flight.end_step(idx, status=status, owner=self._flight_owner)
+
+    def _collective_marker_plan(self, program) -> list:
+        """Ordered [(kind, bucket index)] of the program's collective ops
+        (the reference's :1331): the explicit `__bucket_sync__` /
+        `__zero_update__` / `__zero_gather__` / `__zero_pack__` ops in
+        program order, equal on every rank of a gang, so (step, bucket,
+        seq) keys match rank to rank; a training program that runs at
+        dp > 1 without one (LocalSGD, dp x pp) gets one `__step_sync__` a
+        dispatch."""
+        key = (program._uid, program._version)
+        plan = self._coll_plans.get(key)
+        if plan is None:
+            plan, per_kind = [], {}
+            for block in program.blocks:
+                for op in block.ops:
+                    if op.type in COLLECTIVE_OPS:
+                        b = per_kind.get(op.type, 0)
+                        per_kind[op.type] = b + 1
+                        plan.append((op.type, b))
+            if not plan:
+                from ..distributed.parallel import get_world_size
+                from ..parallel.gspmd import mixed_config
+                trains = any(op.attrs.get("op_role", 0) == OpRole.Optimize
+                             for op in program.global_block().ops)
+                if trains and get_world_size() > 1 \
+                        and mixed_config(program) is None:
+                    plan = [("__step_sync__", 0)]
+            self._coll_plans[key] = plan
+        return plan
+
+    def _emit_collective_markers(self, program, step_idx, k=None):
+        """One "collective" trace instant per collective op at dispatch,
+        args {kind, step, bucket, seq, key} (the reference's :1367). Its
+        ts is the host dispatch time: the rank's arrival at the step's
+        collectives, which the pod merge compares across ranks."""
+        from ..flags import flag
+        if not (_trace.enabled() and flag("FLAGS_collective_markers")):
+            return
+        for seq, (kind, bucket) in enumerate(
+                self._collective_marker_plan(program)):
+            args = {"kind": kind, "step": int(step_idx), "bucket": bucket,
+                    "seq": seq, "key": f"s{int(step_idx)}.b{bucket}.q{seq}"}
+            if k:
+                args["k"] = int(k)
+            _trace.instant("collective", args=args, cat="collective")
 
     def _pipeline(self, program, scope, fetch_names, plan):
         """The program's pipeline runner (parallel/pipeline.py) over its
@@ -896,19 +1022,20 @@ class Executor:
         ctx = registry.LowerCtx(
             run_seed=_next_run_seed(scope, program.random_seed),
             device=self.device)
-        self._step_counter += 1
-        t0 = time.perf_counter()
-        dp = self._dp_width(program)
-        with _trace.RecordEvent("executor_run",
-                                args={"step": self._step_counter}), \
-                _dp_context(dp):
-            fetches = self._step(program, env, scope, ctx, fetch_names,
-                                 use_cache=use_program_cache)
-        self.stats["eager_steps"] += 1
-        _metrics.observe("executor.step_host_ms",
-                         (time.perf_counter() - t0) * 1000.0)
-        out = _package_fetches(fetches, fetch_names, return_numpy, sync,
-                               step=self._step_counter)
+        with self._step_window() as step_idx:
+            t0 = time.perf_counter()
+            dp = self._dp_width(program)
+            self._emit_collective_markers(program, step_idx)
+            with _trace.RecordEvent("executor_run",
+                                    args={"step": step_idx}), \
+                    _dp_context(dp):
+                fetches = self._step(program, env, scope, ctx, fetch_names,
+                                     use_cache=use_program_cache)
+            self.stats["eager_steps"] += 1
+            _metrics.observe("executor.step_host_ms",
+                             (time.perf_counter() - t0) * 1000.0)
+            out = _package_fetches(fetches, fetch_names, return_numpy, sync,
+                                   step=step_idx)
         self._maybe_snapshot(program, scope)
         return out
 
@@ -947,11 +1074,18 @@ class Executor:
             feeds = {n: _to(t, self.device) for n, t in
                      _multi_step_feed_vals(block, feed, k).items()}
         seeds = _next_run_seeds(scope, program.random_seed, k)
-        self._step_counter += 1
+        with self._step_window() as step_idx:
+            return self._run_steps_window(
+                program, feeds, seeds, scope, fetch_names, return_numpy,
+                sync, step_idx, k)
+
+    def _run_steps_window(self, program, feeds, seeds, scope, fetch_names,
+                          return_numpy, sync, step_idx, k):
         t0 = time.perf_counter()
         dp = self._dp_width(program)
+        self._emit_collective_markers(program, step_idx, k=k)
         with _trace.RecordEvent(f"executor_run_steps#{k}",
-                                args={"step": self._step_counter, "k": k}), \
+                                args={"step": step_idx, "k": k}), \
                 _dp_context(dp):
             from ..parallel.gspmd import mixed_config
             mixed = mixed_config(program) is not None
@@ -975,7 +1109,7 @@ class Executor:
         _metrics.observe("executor.step_host_ms",
                          (time.perf_counter() - t0) * 1000.0)
         out = _package_fetches(stacked, fetch_names, return_numpy, sync,
-                               step=self._step_counter)
+                               step=step_idx)
         # after a sync fetch, so the fetch does not wait for the copy
         self._maybe_snapshot(program, scope, k)
         return out
@@ -999,27 +1133,25 @@ class Executor:
         of the captured step: one capture per program and shape); a batch
         of another shape closes the group early, and such partial groups
         and the epoch's tail run as single `run()` steps; a pipeline
-        program (microbatches, or a pp > 1 mesh) runs every batch as a
-        `run()` step. The losses are those of the same batches through
+        program (microbatches, or a pp > 1 mesh) and a LocalSGD program
+        run every batch as a `run()` step. The losses are those of the same batches through
         `run_steps` / `run`, bit for bit. `debug` prints the fetches every
         `print_period` steps."""
         if dataset is None:
             raise errors.InvalidArgument(
                 "train_from_dataset needs a dataset")
         program = program or default_main_program()
-        for attr, what, item in (
-                ("_ps_hooks", "parameter-server", "19.2"),
-                ("_localsgd_k", "LocalSGD", "15.1")):
-            if getattr(program, attr, None):
-                raise errors.Unimplemented(
-                    "train_from_dataset with %s programs is not ported yet "
-                    "(ROADMAP item %s)", what, item)
+        if getattr(program, "_ps_hooks", None):
+            raise errors.Unimplemented(
+                "train_from_dataset with parameter-server programs is not "
+                "ported yet (ROADMAP item 19.2)")
         from ..dataloader.dataloader import _bounded_put, _drain_queue
         fetch_list = fetch_list or []
         group_k = max(1, int(steps_per_loop))
-        if _pipelined(program):
-            group_k = 1       # a pipeline step runs by run(), as run_steps
-                              # refuses it (the reference's rule)
+        if _pipelined(program) or _localsgd_k(program) > 1:
+            group_k = 1       # a pipeline or LocalSGD step runs by run(),
+                              # as run_steps refuses it (the reference's
+                              # rule, :1672)
         maxsize = 4
         q: "queue.Queue" = queue.Queue(maxsize=maxsize)
         end, err = object(), []
@@ -1214,6 +1346,115 @@ def _dp_fetches(block, names, fetches, local_batch, dp):
             v = torch.cat(all_gather(None, v), dim=0)
         out.append(v)
     return out
+
+
+def _localsgd_k(program) -> int:
+    """The program's LocalSGD cadence k (0: not a LocalSGD program)."""
+    return int(getattr(program, "_localsgd_k", 0) or 0)
+
+
+def _fold_rank(seed: int, rank: int) -> int:
+    """The run seed of dp rank `rank`: rank 0 keeps the run seed, the
+    others fold their rank into its high half, so each replica draws its
+    own dropout masks."""
+    return seed if rank == 0 else (seed ^ (rank << 40)) % (1 << 63)
+
+
+class _LocalSGDStep:
+    """The LocalSGD step of one program on this rank (module docstring;
+    the reference's `_LocalSGDBlock`, :219-333, which runs every replica
+    of a dp mesh in one program: here each process runs its own)."""
+
+    def __init__(self, program):
+        from ..distributed.parallel import get_rank, get_world_size
+        self.k = _localsgd_k(program)
+        self.dp = max(1, get_world_size())
+        self.rank = get_rank() if self.dp > 1 else 0
+        self.written = _written_persistables(program.global_block())
+
+    def _rows(self, env) -> Dict[str, torch.Tensor]:
+        """This rank's block of every batched feed (the reference's
+        `P("dp")` feed specs)."""
+        out = {}
+        for name, t in env.items():
+            if t.dim() and t.shape[0] % self.dp:
+                raise errors.InvalidArgument(
+                    "localsgd: feed %r batch %d is not divisible by dp=%d",
+                    name, int(t.shape[0]), self.dp, var=name)
+            if t.dim() and self.dp > 1:
+                b = int(t.shape[0]) // self.dp
+                t = t.narrow(0, self.rank * b, b)
+            out[name] = t
+        return out
+
+    def _copies(self, scope) -> Scope:
+        """A child of `scope` holding this rank's copy of every written
+        persistable (`<name>@LOCALSGD`, made from the synced view on the
+        first step): the step reads and updates the copies, and every
+        other name falls through to `scope`."""
+        local = Scope(parent=scope)
+        for n in self.written:
+            copy = scope.find(n + LOCALSGD_SUFFIX)
+            if copy is None:
+                cur = scope.find(n)
+                if not isinstance(cur, torch.Tensor):
+                    continue          # the step binds it (first write)
+                with torch.no_grad():
+                    copy = cur.detach().clone()
+                scope.set(n + LOCALSGD_SUFFIX, copy)
+            local.set(n, copy)
+        return local
+
+    def average(self, tensors: List[torch.Tensor]) -> None:
+        """Average the floating tensors over the dp group in place: one
+        all-reduce per (dtype, device), over the tensors laid end to end,
+        then / dp (the reference's pmean)."""
+        if self.dp <= 1:
+            return
+        from ..distributed.collective import all_reduce
+        groups: Dict[tuple, List[torch.Tensor]] = {}
+        for t in tensors:
+            if t.is_floating_point():
+                groups.setdefault((t.dtype, t.device), []).append(t)
+        with torch.no_grad():
+            for ts in groups.values():
+                flat = torch.cat([t.reshape(-1) for t in ts])
+                all_reduce(flat)
+                flat.div_(self.dp)
+                off = 0
+                for t in ts:
+                    n = t.numel()
+                    t.copy_(flat[off:off + n].view_as(t))
+                    off += n
+
+    def step(self, block, plan, env, scope, ctx, fetch_names, amp_dtype):
+        env = self._rows(env)
+        local = self._copies(scope)
+        idx = int(scope.find("__localsgd_step__") or 0)
+        sync = idx % self.k == self.k - 1
+        ctx = registry.LowerCtx(run_seed=_fold_rank(ctx.run_seed, self.rank),
+                                device=ctx.device)
+        _run_block(block, plan, env, local, ctx, amp_dtype)
+        fetches = _fetch_values(env, local, fetch_names)
+        scope.set("__localsgd_step__", idx + 1)
+        copies = {}
+        for n in self.written:
+            v = local.find_local(n)
+            if isinstance(v, torch.Tensor):
+                copies[n] = v
+                if scope.find(n + LOCALSGD_SUFFIX) is not v:
+                    scope.set(n + LOCALSGD_SUFFIX, v)   # bound by the step
+        if sync:
+            self.average(list(copies.values()))
+            for n, v in copies.items():
+                _write_persistable(scope, n, v.detach().clone()
+                                   if scope.find(n) is None else v, False)
+        if self.dp > 1:
+            local_batch = next((int(t.shape[0]) for t in env.values()
+                                if t.dim() >= 1), None)
+            fetches = _dp_fetches(block, fetch_names, fetches, local_batch,
+                                  self.dp)
+        return fetches
 
 
 def _pp(program) -> int:

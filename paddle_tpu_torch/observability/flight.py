@@ -30,9 +30,16 @@ flight_r<rank>_<pid>_<reason>_<seq>.json. Format:
      "extra": {...}}
 
 `clock` reads the trace clock and the wall clock back to back, so the
-trace's perf_counter epoch can be placed on the wall clock. The launcher's
-heartbeat mirror and at-exit dump of the reference are not ported (no
-launcher in the port yet).
+trace's perf_counter epoch can be placed on the wall clock
+(observability/podscope.py merges a gang's dumps on it).
+
+Under the gang launcher (distributed/launch.py) two more contracts hold:
+`end_step` mirrors the last step index and its duration into the
+worker's heartbeat file (PADDLE_LAUNCH_HEARTBEAT_FILE), recorder on or
+off, so the supervisor can name a suspected straggler; and
+PADDLE_FLIGHT_DUMP_AT_EXIT=1 (set by `--collect-dumps`) registers an
+at-exit `dump("exit")`, so a worker that ends cleanly still leaves its
+black box for the pod merge.
 """
 from __future__ import annotations
 
@@ -80,6 +87,13 @@ def end_step(idx: int, status: str = "ok", owner: int = 0):
     # a phantom in-flight entry into every later dump()
     with _lock:
         opened = _open.pop((int(owner), int(idx)), None)
+    # liveness, not recording: the heartbeat note flows with the recorder
+    # off too, so the supervisor's straggler naming never goes blind
+    hb = os.environ.get("PADDLE_LAUNCH_HEARTBEAT_FILE")
+    if hb:
+        dur_ms = (None if opened is None
+                  else (_trace.now_us() - opened[0]) / 1000.0)
+        _note_heartbeat_step(hb, idx, dur_ms)
     if opened is None or not enabled():
         return
     t0, snap0 = opened
@@ -89,6 +103,23 @@ def end_step(idx: int, status: str = "ok", owner: int = 0):
     with _lock:
         _steps.append(rec)
         del _steps[:-keep_steps()]
+
+
+def _note_heartbeat_step(path: str, idx: int, dur_ms: Optional[float]):
+    """Mirror (last step, its duration) into the launcher's heartbeat
+    file: JSON, written by an atomic replace so the supervisor never reads
+    a torn record. Never raises: a full disk must not fail a step."""
+    try:
+        rec = {"pid": os.getpid(), "step": int(idx),
+               "wall_us": time.time() * 1e6}
+        if dur_ms is not None:
+            rec["step_ms"] = round(float(dur_ms), 3)
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump(rec, f)
+        os.replace(tmp, path)
+    except OSError:
+        pass
 
 
 def pod_identity() -> dict:
@@ -175,3 +206,11 @@ def dump(reason: str, path: Optional[str] = None,
         return path
     except Exception:   # noqa: BLE001 — documented: never raises
         return None
+
+
+# the clean-exit black box of the launcher's --collect-dumps: opt-in by
+# env, so a plain run never writes a file at interpreter exit
+if os.environ.get("PADDLE_FLIGHT_DUMP_AT_EXIT") == "1":
+    import atexit
+
+    atexit.register(lambda: dump("exit"))

@@ -9,15 +9,15 @@
               manifest + atomic rename + keep-N + fallback to the last
               complete checkpoint
   snapshot    double-buffered in-memory snapshots (device -> pinned host
-              off the main thread), SIGTERM flush, the local -> disk
+              off the main thread), replication to a ring buddy over the
+              host group, SIGTERM flush, the peer -> local -> disk
               recovery ladder
   integrity   state fingerprints, the cross-replica DivergenceSentinel
               with its quorum restore, and the NaN/loss-spike
               TrainingGuard with bounded rollback to the last good
               snapshot
 
-Not ported: peer replication of snapshots and the peer rung (ROADMAP item
-19.1), sparse tables in checkpoints (item 19.2).
+Not ported: sparse tables in checkpoints (ROADMAP item 19.2).
 """
 from .faults import (FaultPlan, FaultRule, FaultInjected, fault_point,
                      install_plan, clear_plan, current_plan)

@@ -138,13 +138,15 @@ class CheckpointManager:
     def save(self, step: int, arrays: Optional[Dict[str, np.ndarray]] = None,
              program=None, scope=None, sparse_client=None,
              sparse_tables: Sequence[int] = (),
-             meta: Optional[dict] = None) -> str:
+             meta: Optional[dict] = None, collective: bool = True) -> str:
         """Write checkpoint `step`: data file -> fault_point('ckpt.write')
         -> manifest -> atomic publish. A crash anywhere before the final
         rename leaves only a .tmp directory, which restore ignores. At dp
         > 1 every rank calls it: the payload is gathered on every rank
         (io.py), rank 0 writes it, and every rank returns after a
-        barrier."""
+        barrier. `collective=False` writes this process's own `arrays`
+        on any rank and waits for no other (a rank's snapshot flush,
+        resilience/snapshot.py, whose peers may be gone)."""
         _no_sparse(sparse_client, sparse_tables)
         if arrays is None:
             from ..framework.program import default_main_program
@@ -156,7 +158,7 @@ class CheckpointManager:
                                            scope or global_scope())
         final = self.path(step)
         from ..io import _barrier, _writer
-        if not _writer():
+        if collective and not _writer():
             _barrier()
             return final
         tmp = final + f".tmp.{os.getpid()}"
@@ -183,7 +185,8 @@ class CheckpointManager:
             if old is not None:
                 shutil.rmtree(old, ignore_errors=True)
             self._prune()
-        _barrier()
+        if collective:
+            _barrier()
         return final
 
     def _prune(self):

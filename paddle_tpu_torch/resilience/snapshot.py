@@ -28,10 +28,20 @@ training state, flushed to disk only when the process is about to die
   calling thread first (every rank on the same cadence), so every rank's
   snapshot is the whole state and any rank's restores any rank
   (`integrity.DivergenceSentinel`'s quorum restore).
+* **Peer replication** (`replicate(gloo)`): each rank ships its newest
+  snapshot to its ring buddy (rank + 1 mod world) over the host group
+  (distributed/gloo.py), as numpy arrays in one all-gather round, and
+  keeps only the payload of its own buddy (rank - 1), so a lost process's
+  state, ZeRO shards included in their portable form, survives on a
+  peer; memory stays at two snapshots a rank. Every rank must call it.
 * **Flush** writes the newest snapshot through CheckpointManager
   (checksummed manifest, atomic publish; a torn flush keeps the previous
-  one). **Recovery** (`recover`): the local snapshot rung, then a disk
-  CheckpointManager.
+  one), and the held peer payload under `peer_of_rank<r>/`, also from
+  the SIGTERM flush. Each rank writes its own, waiting for no other
+  (`collective=False`: the checkpoint's dp write, rank 0 alone and a
+  barrier, would wait on a peer that may be gone). **Recovery** (`recover`), the ladder: the peer rung
+  (what a surviving buddy flushed for this rank), then the local
+  snapshot rung, then a disk CheckpointManager.
 
 Executor wiring: with `FLAGS_snapshot_steps` > 0 every Executor calls
 `maybe_capture` after a step or a `run_steps` window of a program
@@ -44,11 +54,8 @@ then a per-process temp directory.
 Stats: `resilience.snapshots` / `snapshot_ms` (from the copy's queueing
 to the swap, on the worker) / `snapshot_host_ms` (the calling thread's
 share) / `snapshot_copy_ms` (CUDA: the copy's device time) /
-`snapshot_skips` / `snapshot_flushes`.
-
-Not ported (ROADMAP item 19.1's rest): peer
-replication (`replicate`, `peer_payload`) and the peer rung of
-`recover`, which raise.
+`snapshot_skips` / `snapshot_flushes` / `peer_replications` /
+`replicate_ms` and `replicate_bytes` (the payload this rank sent).
 """
 from __future__ import annotations
 
@@ -63,16 +70,9 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..framework import errors
 from ..observability import metrics as _metrics
 from ..observability import trace as _trace
 from .checkpoint import CheckpointManager
-
-
-def _item19(what):
-    return errors.Unimplemented(
-        "%s: peer replication of snapshots is not ported yet (ROADMAP "
-        "item 19.1)", what)
 
 
 def snapshot_dir() -> str:
@@ -159,6 +159,7 @@ class SnapshotManager:
         self.world = env_world if world is None else int(world)
         self._buffers: list = [None, None]   # Snapshot double buffer
         self._newest = -1                    # index into _buffers
+        self._peer: Optional[Snapshot] = None  # the ring buddy's payload
         self._pinned = [{}, {}]              # per slot: name -> host tensor
         self._streams: dict = {}             # device -> copy stream
         self._lock = threading.Lock()
@@ -297,37 +298,79 @@ class SnapshotManager:
         with self._lock:
             return self._buffers[self._newest] if self._newest >= 0 else None
 
-    def peer_payload(self):
-        raise _item19("SnapshotManager.peer_payload")
+    def peer_payload(self) -> Optional[Snapshot]:
+        """The ring buddy's newest payload this rank holds (None before
+        the first replication)."""
+        with self._lock:
+            return self._peer
 
-    def replicate(self, gloo):
-        raise _item19("SnapshotManager.replicate")
+    # -- peer replication --------------------------------------------------
+    def replicate(self, gloo) -> Optional[int]:
+        """Ship the newest snapshot to the ring buddy (rank + 1 mod world)
+        over the host group `gloo` (distributed/gloo.py) and keep the
+        payload of this rank's buddy (rank - 1 mod world). One all-gather
+        round of numpy arrays; every rank must call it. Waits for a
+        capture in flight first. Returns the step of the payload received,
+        or None when the buddy had none yet."""
+        self.wait()
+        snap = self.latest()
+        mine = None if snap is None else (
+            snap.step, {n: np.asarray(a) for n, a in snap.arrays.items()})
+        t0 = time.perf_counter()
+        gathered = gloo.all_gather(mine)
+        dt_ms = (time.perf_counter() - t0) * 1000.0
+        buddy = (self.rank - 1) % max(self.world, 1)
+        payload = gathered[buddy] if buddy != self.rank else None
+        with self._lock:
+            if payload is not None:
+                self._peer = Snapshot(payload[0], payload[1], rank=buddy)
+        _metrics.observe("resilience.replicate_ms", dt_ms)
+        if mine is not None:
+            _metrics.inc("resilience.replicate_bytes",
+                         sum(a.nbytes for a in mine[1].values()))
+        if payload is None:
+            return None
+        _metrics.inc("resilience.peer_replications")
+        return int(payload[0])
 
     # -- flush + SIGTERM ---------------------------------------------------
     def _own_dir(self, rank: Optional[int] = None) -> str:
         return os.path.join(self.root,
                             f"rank{self.rank if rank is None else rank}")
 
+    def _peer_dir(self, origin_rank: int) -> str:
+        return os.path.join(self.root, f"peer_of_rank{origin_rank}")
+
     def flush(self, reason: str = "manual") -> Optional[str]:
-        """Write the newest complete snapshot to disk through
-        CheckpointManager (atomic publish, checksummed manifest; a torn
-        write keeps the previous flush). Waits for a capture in flight at
-        most half the launcher's grace budget."""
+        """Write the newest complete snapshot, and the held peer payload
+        under `peer_of_rank<r>/`, to disk through CheckpointManager
+        (atomic publish, checksummed manifest; a torn write keeps the
+        previous flush). Waits for a capture in flight at most half the
+        launcher's grace budget. Returns the own snapshot's path."""
         self.wait(timeout=max(1.0, _grace_s() * 0.5))
         snap = self.latest()
-        if snap is None:
-            return None
-        mgr = CheckpointManager(self._own_dir(), max_keep=2)
-        path = mgr.save(snap.step, arrays=snap.arrays,
-                        meta={"kind": "snapshot", "reason": reason,
-                              "rank": self.rank})
-        _metrics.inc("resilience.snapshot_flushes")
+        with self._lock:
+            peer = self._peer
+        path = None
+        if snap is not None:
+            mgr = CheckpointManager(self._own_dir(), max_keep=2)
+            path = mgr.save(snap.step, arrays=snap.arrays,
+                            meta={"kind": "snapshot", "reason": reason,
+                                  "rank": self.rank}, collective=False)
+            _metrics.inc("resilience.snapshot_flushes")
+        if peer is not None:
+            mgr = CheckpointManager(self._peer_dir(peer.rank), max_keep=2)
+            mgr.save(peer.step, arrays=peer.arrays,
+                     meta={"kind": "peer_snapshot", "reason": reason,
+                           "origin_rank": peer.rank,
+                           "held_by_rank": self.rank}, collective=False)
+            _metrics.inc("resilience.snapshot_flushes")
         return path
 
     def install_sigterm_flush(self, exit_after: bool = True) -> None:
-        """SIGTERM/SIGUSR1 flush the newest snapshot, chain the previous
-        handler and (by default) exit 128 + signal. Main thread only;
-        idempotent."""
+        """SIGTERM/SIGUSR1 flush the newest snapshot and the held peer
+        payload, chain the previous handler and (by default) exit 128 +
+        signal. Main thread only; idempotent."""
         if threading.current_thread() is not threading.main_thread():
             return
 
@@ -371,6 +414,8 @@ class SnapshotManager:
             self._worker.join(timeout=5.0)
         self.uninstall()
         self._pinned = [{}, {}]
+        with self._lock:
+            self._peer = None
 
 
 # -- recovery ladder --------------------------------------------------------
@@ -387,28 +432,39 @@ def _load_rung(root_dir: str):
     return int(payload.get("step", step)), mgr.load_arrays(step)
 
 
+def _snapshot_rungs(root: str, rank: int, peer: bool = True) -> list:
+    """[(rung, dir)] of the ladder's snapshot rungs, in the order tried."""
+    rungs = [("local", os.path.join(root, f"rank{rank}"))]
+    if peer:
+        rungs.insert(0, ("peer", os.path.join(root, f"peer_of_rank{rank}")))
+    return rungs
+
+
 def recover(scope, root: Optional[str] = None, rank: Optional[int] = None,
             ckpt_manager: Optional[CheckpointManager] = None,
-            stamp: bool = True, program=None, device=None, peer=False):
-    """The recovery ladder over the local snapshot rung, then the disk
-    CheckpointManager: restores the first rung holding a complete state
-    into `scope` and returns ("local" | "disk", step), or (None, None) on
-    a fresh start. `stamp` records the outcome in
-    `<root>/recovery_rank<r>.json`. `peer=True` (the reference's first
-    rung) raises: it is ROADMAP item 19.1."""
-    if peer:
-        raise _item19("recover(peer=True)")
+            stamp: bool = True, program=None, device=None, peer=True):
+    """The recovery ladder: the peer rung (the payload a surviving ring
+    buddy flushed for this rank, `peer_of_rank<r>/`: a replaced process's
+    state with no checkpoint interval lost), then the local snapshot
+    rung, then the disk CheckpointManager. Restores the first rung that
+    holds a complete state into `scope` and returns ("peer" | "local" |
+    "disk", step), or (None, None) on a fresh start. `peer=False` skips
+    the peer rung. `stamp` records the outcome in
+    `<root>/recovery_rank<r>.json` for the launcher's log."""
     env_rank, _ = _rank_world()
     rank = env_rank if rank is None else int(rank)
     root = root or snapshot_dir()
     chosen, step = None, None
-    got = _load_rung(os.path.join(root, f"rank{rank}"))
-    if got is not None:
+    for name, rung_dir in _snapshot_rungs(root, rank, peer):
+        got = _load_rung(rung_dir)
+        if got is None:
+            continue
         step, arrays = got
         Snapshot(step, arrays, rank=rank).restore(scope, program=program,
                                                   device=device)
-        chosen = "local"
-    elif ckpt_manager is not None:
+        chosen = name
+        break
+    if chosen is None and ckpt_manager is not None:
         restored = ckpt_manager.restore_latest(program=program, scope=scope,
                                                device=device)
         if restored is not None:

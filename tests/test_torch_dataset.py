@@ -441,6 +441,44 @@ def _microbatch_runs_step_by_step():
     assert exe.stats["graph_replays"] == 0
 
 
+def _localsgd_runs_step_by_step():
+    """A LocalSGD program (k 2, SGD, one rank) through train_from_dataset
+    at steps_per_loop 3 equals run() on the same 5 batches, bit for bit:
+    a LocalSGD step is not grouped (the reference's group_k = 1), the
+    cadence counter advances once a batch, and between syncs the scope
+    keeps the synced view."""
+    main, start = port_program.Program(), port_program.Program()
+    with port_program.program_guard(main, start), port_unique_name.guard():
+        x = port_layers.data(name="px", shape=[2], dtype="float32")
+        h = port_layers.fc(x, 3, param_attr=ParamAttr(
+            name="w", initializer=TruncatedNormal(0.0, 0.5)))
+        out = port_layers.mean(port_layers.square(h))
+        port_optimizer.SGD(learning_rate=0.1).minimize(out)
+    main._localsgd_k = 2
+    exe, sa, sb = Executor("cpu"), Scope(), Scope()
+    exe.run(start, scope=sa)
+    for n in sa.local_names():
+        v = sa.find(n)
+        sb.set(n, v.clone() if isinstance(v, torch.Tensor) else v)
+    feeds = [{"px": np.random.RandomState(i).rand(4, 2).astype(np.float32)}
+             for i in range(5)]
+    eager = exe.stats["eager_steps"]
+    got = exe.train_from_dataset(main, feeds, scope=sa, fetch_list=[out],
+                                 steps_per_loop=3)
+    assert exe.stats["eager_steps"] - eager == len(feeds)
+    for f in feeds:
+        want = exe.run(main, feed=f, fetch_list=[out], scope=sb)
+    np.testing.assert_array_equal(got[0], want[0])
+    for sc in (sa, sb):
+        assert sc.find("__localsgd_step__") == 5
+        # 5 steps at k 2: the 5th is local, so the copy moved on past the
+        # synced view of step 4
+        assert not torch.equal(sc.find("w"), sc.find("w@LOCALSGD"))
+    assert torch.equal(sa.find("w"), sb.find("w"))
+    assert torch.equal(sa.find("w@LOCALSGD"), sb.find("w@LOCALSGD"))
+    assert exe.stats["graph_replays"] == 0
+
+
 @pytest.mark.parametrize("attr,item", [("_ps_hooks", "19.2"),
                                        ("_microbatch_k", "16"),
                                        ("_localsgd_k", "15.1")])
@@ -448,6 +486,10 @@ def test_unported_program_kinds_raise_naming_their_item(attr, item):
     if attr == "_microbatch_k":
         # ported: a pipeline program trains from a dataset step by step
         _microbatch_runs_step_by_step()
+        return
+    if attr == "_localsgd_k":
+        # ported: a LocalSGD program trains from a dataset step by step
+        _localsgd_runs_step_by_step()
         return
     main, out, exe, scope = _tiny_program()
     setattr(main, attr, [object()] if attr == "_ps_hooks" else 2)

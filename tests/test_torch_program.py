@@ -358,8 +358,22 @@ def test_fleet_honours_amp_and_rejects_the_rest():
 
 def test_unported_options_raise():
     from paddle_tpu_torch.distributed import fleet as port_fleet
-    with pytest.raises(NotImplementedError, match="localsgd"):
-        port_fleet.DistributedStrategy().localsgd = True
+    with pytest.raises(NotImplementedError, match="item 19.2"):
+        port_fleet.DistributedStrategy().a_sync = True
+    # LocalSGD is ported (tests/test_torch_localsgd.py): the strategy takes
+    # it, and minimize refuses it with tp, as the reference does
+    s = port_fleet.DistributedStrategy()
+    s.localsgd = True
+    s.localsgd_configs = {"k_steps": 2}
+    s.tensor_parallel_degree = 2
+    main, start = port_program.Program(), port_program.Program()
+    with port_program.program_guard(main, start), port_unique_name.guard():
+        _, _, loss = port_bert.build_pretrain_program(
+            port_bert.BertConfig.tiny())
+        from paddle_tpu_torch.distributed.fleet.base import \
+            DistributedOptimizer
+        with pytest.raises(ValueError, match="localsgd"):
+            DistributedOptimizer(port_optimizer.Adam(1e-3), s).minimize(loss)
     cfg = port_bert.BertConfig.tiny()
     cfg.moe_experts = 2
     with pytest.raises(NotImplementedError, match="item 12"):

@@ -335,13 +335,24 @@ def test_sigterm_mid_write_falls_back_via_handler(tmp_path):
 
 
 def test_peer_entry_points_raise_naming_item_19(tmp_path):
+    """Ported (tests/test_torch_peer_snapshot.py holds them against the
+    reference): replicate keeps the ring buddy's payload from one
+    all-gather round, peer_payload returns it, and recover(peer=True)
+    finds nothing on a fresh root and says so."""
+
+    class _Round:            # a stand-in host group: rank 1's payload
+        def all_gather(self, value):
+            return [value, (7, {"w": np.full(3, 7.0, np.float32)})]
+
     mgr = SnapshotManager(root=str(tmp_path), rank=0, world=2)
     try:
-        for call in (lambda: mgr.replicate(object()),
-                     mgr.peer_payload,
-                     lambda: recover(Scope(), root=str(tmp_path), peer=True)):
-            with pytest.raises(errors.UnimplementedError, match="item 19"):
-                call()
+        assert mgr.peer_payload() is None
+        assert mgr.replicate(_Round()) == 7
+        peer = mgr.peer_payload()
+        assert (peer.rank, peer.step) == (1, 7)
+        np.testing.assert_array_equal(peer.arrays["w"], np.full(3, 7.0))
+        assert recover(Scope(), root=str(tmp_path), peer=True,
+                       stamp=False) == (None, None)
     finally:
         mgr.close()
 
