@@ -363,6 +363,39 @@ result line):
      mid-serve, finishes the started ones with the same tokens, writes
      the rest as `handed_back` and exits 0.
    B1-B3 run here at [4, 12, 512, 64], held in phase 13's cases.
+16. the dense ops and the image models, under deterministic cuDNN
+   (deterministic=True, benchmark=False for the phase, restored after):
+   * card vs CPU: build_resnet50_program at image 64, batch 4, f32 (TF32
+     off), Momentum(1e-6, 0.9), 2 steps from one startup state: the losses
+     within 1e-4 relative; the trained tensors' and the running
+     statistics' change within 4 times (plus 1e-5) the distance the CPU
+     itself moves when the images change by 1e-7 relative (the backward
+     of 53 batch norms at batch 4 amplifies rounding);
+   * ResNet-50 (build_resnet50_program(): 224 x 224, 1,000 classes) at
+     batch 64, fleet AMP bf16, Momentum(0.1, 0.9), one synthetic batch
+     from numpy seed 0 for every step (bench_resnet50), random weights:
+     E, stage 0, 5 eager Executor.run steps (one more profiled, the
+     batch_norm lowering and its grad ops in profiler ranges: the BN
+     forward and its recompute in the grad op); C, stage 0, two
+     run_steps(5) windows on one capture, bit-equal to E over E's 5
+     steps (losses and every written persistable, the running statistics
+     included); Z, ZeRO stage 1, the same windows, bit-equal to C over 10
+     steps (the flat velocities unpacked), B7 once a bucket and step;
+     planted faults each outside its gate (the running statistics written
+     twice a step; the first bucket's update without its velocity); step
+     ms p50, images/s, MFU (12.3 GFLOP an image, bench.py:1020, over
+     989.4 TFLOP/s), peak memory and one profiled step of each arm (busy
+     share, top kernels, cuDNN's convolution kernels and B7 apart);
+     evaluation: clone(for_test) on one batch, finite logits and the
+     running statistics unwritten; B7 at the widest bucket bit for bit
+     against its plain version, timed alone and through its wrapper
+     beside the plain version, torch._fused_sgd_ (momentum) and its bytes
+     bound;
+   * SE-ResNeXt-50 (224, batch 32, fleet AMP, Momentum(0.01, 0.9): the
+     grouped 3x3 convs at cardinality 32, sigmoid gates, dropout,
+     cross_entropy, top_k and accuracy) and LeNet (28 x 28, batch 32,
+     fleet AMP, Adam 1e-3), 3 eager steps each on one batch: finite,
+     falling losses.
 Each main-path run resets the kernel launch counts just before it and
 fails if a kernel of its path was never launched.
 
@@ -377,8 +410,10 @@ Output: a `{"kernels": [...]}` line, a `{"serving": ...}` line, a
 `{"data_path": ...}` line, a `{"data_parallel": ...}` line, a
 `{"pipeline": ...}` line, a `{"layer_scan": ...}` line, a
 `{"model_parallel": ...}` line, a `{"composed_mesh": ...}` line, a
-`{"supervised_gang": ...}` line, and last
-`{"ok": true, "device": {...}}`. The B8 row's `shard_peer` is phase 15's
+`{"supervised_gang": ...}` line, an `{"image_training": ...}` line, and
+last `{"ok": true, "device": {...}}`. The B7 row's `resnet50_bucket` is
+phase 16's check at ResNet-50's widest bucket, and its
+`launches_by_path` adds phase 16's arm Z. The B8 row's `shard_peer` is phase 15's
 shard check, and the B1-B3, B8 and bf16 B4 rows' `launches_by_path` add
 phase 15's LSGD, PEER (rank 0) and WORKERS launches. The B8 row's `shard_dp2_tp2` is phase
 14's shard check; the kernel rows' `launches_by_path` add phase 14's
@@ -925,23 +960,25 @@ def captured_only(st, what):
              f"replay its captured window only)")
 
 
-def device_profile(torch, run, top=8, ranges=(), kernels=()):
+def device_profile(torch, run, top=8, ranges=(), kernels=(), groups=None):
     """One more run of `run()` (which returns its wall seconds) under
     torch.profiler: the share of the wall time the card spent in kernels,
     the number of device launches, the `top` kernels that took most of the
     time, the device time of the kernels launched inside each profiler
     range of `ranges` (see `annotated`) and the span from the first to the
     last of them on the device timeline, and the device time of the
-    kernels whose names contain each of `kernels`. The profiler's own cost lengthens the wall
+    kernels whose names contain each of `kernels`, and of those whose
+    names contain any fragment of each of `groups` ({label: fragments},
+    each kernel counted once). The profiler's own cost lengthens the wall
     time, so the busy share is a lower bound."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall = run()
-    return profile_summary(prof, wall, top, ranges, kernels)
+    return profile_summary(prof, wall, top, ranges, kernels, groups)
 
 
-def profile_summary(prof, wall, top=8, ranges=(), kernels=()):
+def profile_summary(prof, wall, top=8, ranges=(), kernels=(), groups=None):
     """`device_profile`'s numbers from a finished torch.profiler run
     `prof` that lasted `wall` seconds."""
     from torch.autograd import DeviceType
@@ -975,6 +1012,10 @@ def profile_summary(prof, wall, top=8, ranges=(), kernels=()):
     for k in kernels:
         out[f"{k}_device_ms"] = sum(us for name, us in full.items()
                                     if k in name) / 1e3
+    for label, frags in (groups or {}).items():
+        out[f"{label}_device_ms"] = sum(
+            us for name, us in full.items()
+            if any(f in name for f in frags)) / 1e3
     return out
 
 
@@ -7519,6 +7560,567 @@ def train_gpt_supervised(torch, fa, zk, serving, card, checked):
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the dense ops and the image models
+# ---------------------------------------------------------------------------
+
+IMG_SIZE = 224             # ResNet-50 at ImageNet's 224 x 224, 1,000 classes
+IMG_CLASSES = 1000
+IMG_BATCH = 64             # bench.py's BENCH_RESNET_BATCH default
+IMG_LR, IMG_MU = 0.1, 0.9  # bench.py:1002 Momentum
+IMG_E_STEPS = 5            # arm E: eager Executor.run steps
+IMG_WINDOW = 5             # arms C / Z: two run_steps(5) windows, 10 steps
+IMG_CPU = (64, 4, 2)       # card vs CPU: image size, batch, steps (f32)
+# card vs CPU's learning rate: the first step's gradients at this size
+# are large (at 0.1 the loss grows from 8.8 to 57 in one step; at 1e-4 it
+# still falls to 7.6 on the next batch), so a rounding difference in the
+# first update moved the second step's loss by 3.4e-3 on an H100; at 1e-6
+# the second step's loss is a forward from nearly the first's weights,
+# and the update's arithmetic is the same at any rate
+IMG_CPU_LR = 1e-6
+SE_BATCH, SE_STEPS, SE_LR = 32, 3, 0.01
+LENET_BATCH, LENET_STEPS = 32, 3
+# RESNET50_TRAIN_FLOPS_PER_IMAGE (bench.py:1020): 3 x 4.1 GFLOP
+RESNET50_TRAIN_FLOPS = 3 * 4.1e9
+# card vs CPU, f32 with TF32 off. Convolutions sum over C*kh*kw in other
+# orders in cuDNN and oneDNN (~1e-7 relative an element: each op alone
+# agrees to 3e-7). The forward stays there: each step's loss within 1e-4
+# relative. The backward of 53 batch norms at batch 4 (the last stage
+# normalises over 16 values a channel) amplifies rounding: on the CPU
+# alone a 1e-7 relative change of the images moves the first layers'
+# gradients by 1-2.4%, and an H100's sit 2.6-4.0% from the CPU's. So the
+# trained tensors and the running statistics are held against that
+# floor, measured in the same run: within 4 times its distance, plus
+# 1e-5
+IMG_CPU_LOSS_RTOL = 1e-4
+IMG_CPU_FLOOR_X = 4.0
+IMG_CPU_CHANGE_ATOL = 1e-5
+# kernel-name fragments of cuDNN's convolution kernels (and its layout
+# transposes around them), for the profiled step's conv time
+CONV_KERNELS = ("conv", "xmma", "fprop", "dgrad", "wgrad", "implicit",
+                "cudnn", "Nhwc", "nhwc", "nchw")
+
+
+def image_data(size, batch, channels=3, classes=IMG_CLASSES, seed=0):
+    """bench.py:1007-1011's synthetic batch: N(0, 1) images, uniform
+    labels, from numpy seed `seed`."""
+    rng = np.random.RandomState(seed)
+    return {"image": rng.randn(batch, channels, size,
+                               size).astype(np.float32),
+            "label": rng.randint(0, classes, (batch, 1)).astype(np.int64)}
+
+
+def build_image(model, stage=None, amp=True, lr=IMG_LR, size=IMG_SIZE,
+                plant=None):
+    """(main, startup, loss, extra) of an image model minimised as
+    bench_resnet50 does: fleet (AMP bf16, ZeRO `stage`) over Momentum(lr,
+    0.9), or Adam for LeNet; `stage` None builds the plain optimizer
+    without fleet. `extra` is the accuracy var where the model has one."""
+    from paddle_tpu_torch import layers, optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework import Program, program_guard, unique_name
+    from paddle_tpu_torch.models import lenet, resnet, se_resnext
+    main, start = Program(), Program()
+    extra = None
+    with program_guard(main, start), unique_name.guard():
+        if model == "resnet50":
+            _, _, loss = resnet.build_resnet50_program(
+                num_classes=IMG_CLASSES, image_size=size)
+        elif model == "se_resnext50":
+            _, _, loss, extra = se_resnext.build_se_resnext_program(
+                class_dim=IMG_CLASSES, image_shape=(3, size, size))
+        else:
+            img = layers.data(name="image", shape=[1, 28, 28],
+                              dtype="float32")
+            label = layers.data(name="label", shape=[1], dtype="int64")
+            _, loss, extra = lenet.build_static(img, label)
+        opt = optimizer.Adam(learning_rate=1e-3) if model == "lenet" \
+            else optimizer.Momentum(learning_rate=lr, momentum=IMG_MU)
+        if stage is not None:
+            fleet.init(is_collective=True)
+            strategy = fleet.DistributedStrategy()
+            strategy.amp = amp
+            strategy.sharding_stage = stage
+            opt = fleet.distributed_optimizer(opt, strategy)
+        opt.minimize(loss)
+    if plant is not None:
+        plant(main)
+    return main, start, loss, extra
+
+
+def image_state(torch, main, scope):
+    """{name: device tensor} of every persistable the step writes, the
+    flat ZeRO velocities unpacked per parameter (as stage 0 holds
+    them)."""
+    from paddle_tpu_torch.parallel import zero
+    out = {n: scope.find(n) for n in (
+        v.name for v in main.global_block().vars.values() if v.persistable)
+        if isinstance(scope.find(n), torch.Tensor)}
+    for b in zero.zero_buckets(main):
+        for kind, flat in b["flat"].items():
+            t, off = out.pop(flat), 0
+            for p, size, shape in zip(b["params"], b["sizes"], b["shapes"]):
+                out[b["per_param_state"][p][kind]] = \
+                    t[off:off + size].reshape(shape)
+                off += size
+    return out
+
+
+def image_diffs(torch, a, b):
+    """Names whose tensors differ between two `image_state`s (or are
+    missing from one), with the largest absolute difference."""
+    out = {}
+    for n in sorted(set(a) | set(b)):
+        if n not in a or n not in b:
+            out[n] = "missing"
+        elif not torch.equal(a[n], b[n]):
+            out[n] = (a[n].float() - b[n].float()).abs().max().item()
+    return out
+
+
+def image_window(torch, exe, main, scope, feed, loss, k=IMG_WINDOW):
+    """run_steps(k) to its loss fetch: (wall seconds, losses)."""
+    t0 = time.perf_counter()
+    out, = exe.run_steps(k, main, feed=feed, fetch_list=[loss], scope=scope)
+    losses = [float(x) for x in out]
+    return time.perf_counter() - t0, losses
+
+
+def image_captured(torch, main, scope, feed, loss, windows, exe=None):
+    """`windows` run_steps(IMG_WINDOW) calls on one executor (one capture,
+    then a replay a step), on `exe` when given: (losses, per-step ms of
+    each window, the executor)."""
+    from paddle_tpu_torch.framework import Executor
+    exe = exe or Executor("cuda")
+    losses, ms = [], []
+    for _ in range(windows):
+        wall, got = image_window(torch, exe, main, scope, feed, loss)
+        ms.append(wall * 1e3 / IMG_WINDOW)
+        losses += got
+    return losses, ms, exe
+
+
+def plant_bn_double_write(registry):
+    """Planted fault of gate E == C: every batch_norm writes its running
+    statistics twice a step (the momentum rule applied again to its own
+    output)."""
+    opdef = registry.get("batch_norm")
+    lower = opdef.lower
+
+    def twice(ctx, ins, attrs):
+        out = lower(ctx, ins, attrs)
+        if not attrs.get("is_test", False):
+            m = attrs.get("momentum", 0.9)
+            out["MeanOut"] = [out["MeanOut"][0] * m
+                              + out["SavedMean"][0] * (1 - m)]
+        return out
+
+    opdef.lower = twice
+    return lambda: setattr(opdef, "lower", lower)
+
+
+def plant_bucket_without_velocity(main):
+    """Planted fault of gate C == Z: the first bucket's update drops its
+    velocity (mu 0), as a bucket whose state were reset every step."""
+    op = next(op for op in main.global_block().ops
+              if op.type == "__zero_update__")
+    op.attrs["update_attrs"] = dict(op.attrs["update_attrs"], mu=0.0)
+
+
+def resnet_card_vs_cpu(torch):
+    """ResNet-50 at image 64, batch 4, f32 (TF32 off), Momentum(IMG_CPU_LR,
+    0.9) without fleet, IMG_CPU steps from the same startup arrays on the
+    card, on the CPU, and on the CPU again with the images scaled by (1 +
+    1e-7 N(0, 1)) (the floor: how far a rounding-sized change of the input
+    moves the result). Gates: each step's loss within IMG_CPU_LOSS_RTOL;
+    for the trained tensors (parameters and velocities) and for the
+    running statistics apart, the card's distance from the CPU's change
+    (norm of the difference over the norm of the change, over the group)
+    within IMG_CPU_FLOOR_X times the floor's, plus IMG_CPU_CHANGE_ATOL."""
+    from paddle_tpu_torch.framework import Executor, Scope, load_numpy
+    size, batch, steps = IMG_CPU
+    main, start, loss, _ = build_image("resnet50", None, amp=False,
+                                       lr=IMG_CPU_LR, size=size)
+    s0 = Scope()
+    Executor("cpu").run(start, scope=s0)
+    init = {n: s0.numpy(n) for n in s0.local_names()
+            if not n.startswith("__")}
+    stats = {op.inputs[k][0] for op in main.global_block().ops
+             if op.type == "batch_norm" for k in ("Mean", "Variance")}
+    feeds = [image_data(size, batch, seed=20 + i) for i in range(steps)]
+    rng = np.random.RandomState(21)
+    nudged = [dict(f, image=(f["image"] * (1 + 1e-7 * rng.randn(
+        *f["image"].shape))).astype(np.float32)) for f in feeds]
+    out = {}
+    for arm, dev, data in (("cuda", "cuda", feeds), ("cpu", "cpu", feeds),
+                           ("floor", "cpu", nudged)):
+        scope, exe = load_numpy(Scope(), init, dev), Executor(dev)
+        t0 = time.perf_counter()
+        losses = [float(exe.run(main, feed=f, fetch_list=[loss],
+                                scope=scope)[0]) for f in data]
+        out[arm] = (losses, {n: scope.numpy(n).astype(np.float64)
+                             for n in init})
+        log(f"resnet50 card vs cpu: {arm} {steps} steps "
+            f"{time.perf_counter() - t0:.1f} s, losses {losses}")
+    lc, sc = out["cpu"]
+
+    def distance(state, names):
+        num = sum(float(np.sum((state[n] - sc[n]) ** 2)) for n in names)
+        den = sum(float(np.sum((sc[n] - init[n]) ** 2)) for n in names)
+        return (num / den) ** 0.5
+
+    groups = {"trained": [n for n in init if n not in stats
+                          and np.any(sc[n] != init[n])],
+              "running_stats": sorted(stats)}
+    row = {"config": f"build_resnet50_program(image_size={size}), batch "
+                     f"{batch}, f32, TF32 off, Momentum({IMG_CPU_LR}, 0.9), "
+                     f"{steps} steps, one startup state",
+           "losses_cuda": out["cuda"][0], "losses_cpu": lc,
+           "losses_floor": out["floor"][0],
+           "loss_max_rel": max(abs(a - b) / abs(b)
+                               for a, b in zip(out["cuda"][0], lc))}
+    bad = []
+    for g, names in groups.items():
+        card = distance(out["cuda"][1], names)
+        floor = distance(out["floor"][1], names)
+        limit = IMG_CPU_FLOOR_X * floor + IMG_CPU_CHANGE_ATOL
+        row[g] = {"tensors": len(names), "card_distance": card,
+                  "floor_distance": floor, "limit": limit}
+        log(f"resnet50 card vs cpu: {g} ({len(names)} tensors): card "
+            f"{card:.3e}, floor {floor:.3e}, limit {limit:.3e}")
+        if not card <= limit:
+            bad.append(g)
+    log(f"resnet50 card vs cpu: loss max rel {row['loss_max_rel']:.2e} "
+        f"(limit {IMG_CPU_LOSS_RTOL})")
+    if not np.isfinite(out["cuda"][0]).all() \
+            or not row["loss_max_rel"] <= IMG_CPU_LOSS_RTOL:
+        fail(f"resnet50 card vs cpu: losses {out['cuda'][0]} vs {lc}")
+    if bad:
+        fail(f"resnet50 card vs cpu: {bad} beyond the limit: {row}")
+    return row
+
+
+def check_b7_bucket(torch, zk, n):
+    """B7 (plain momentum, mu 0.9) at ResNet-50's widest stage-1 bucket:
+    bit for bit against its plain version, timed through its wrapper and
+    alone, beside the plain version, torch._fused_sgd_ with momentum and
+    the bytes bound (20 bytes an element)."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    attrs = {"mu": IMG_MU, "use_nesterov": False}
+
+    def make():
+        g = torch.Generator(device="cuda").manual_seed(16)
+        return {"Param": [torch.randn(n, generator=g, device="cuda")],
+                "Grad": [torch.randn(n, generator=g, device="cuda")],
+                "Velocity": [torch.randn(n, generator=g, device="cuda")],
+                "LearningRate": [torch.tensor([IMG_LR], device="cuda")]}
+
+    kin, pin = make(), make()
+    got = zk.fused_flat_update("momentum", kin, attrs)
+    want = zk.fused_flat_update_plain("momentum", pin, attrs)
+    torch.cuda.synchronize()
+    err = max((g[0] - want[s][0]).abs().max().item()
+              for s, g in got.items())
+    bitwise = all(torch.equal(g[0], want[s][0]) for s, g in got.items())
+    if not bitwise:
+        fail(f"zero_momentum at the resnet50 bucket n={n}: kernel differs "
+             f"from its plain version (max abs {err})")
+    del pin, want
+    row = {"n": n, "bitwise": True, "max_abs_err": err,
+           "ms": cuda_ms(torch, lambda: zk.fused_flat_update(
+               "momentum", kin, attrs)),
+           "alone_ms": cuda_ms(torch, launch_alone(torch, zk, kin, attrs,
+                                                   "momentum")),
+           "plain_ms": cuda_ms(torch, lambda: zk.fused_flat_update_plain(
+               "momentum", kin, attrs)),
+           "bound_ms": n * ZERO_BYTES_PER_ELEMENT["zero_momentum"]
+           / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    lib = zero_library_call(torch, "momentum", "momentum",
+                            {s: v for s, v in kin.items()})
+    row["library_ms"] = None if lib is None else cuda_ms(torch, lib)
+    del kin, got, gen
+    torch.cuda.empty_cache()
+    log(f"kernel zero_momentum at resnet50's widest bucket n={n}: bit for "
+        f"bit; {row['ms']:.4f} ms (alone {row['alone_ms']:.4f}), plain "
+        f"{row['plain_ms']:.4f}, bytes bound {row['bound_ms']:.4f}, torch "
+        f"fused {row['library_ms']}")
+    return row
+
+
+def image_eager_profile(torch, registry, exe, main, scope, feed, loss):
+    """One eager step under torch.profiler with the batch_norm lowering in
+    a range (its forward and the grad op's recompute of it) and the
+    batch_norm grad ops in another (the recompute and the pullback): the
+    BN forward recompute's device ms a step is half the first range."""
+    opdef = registry.get("batch_norm")
+    vjp = registry.get("__vjp__")
+    lower, vlower = opdef.lower, vjp.lower
+
+    def bn(ctx, ins, attrs):
+        with torch.profiler.record_function("batch_norm"):
+            return lower(ctx, ins, attrs)
+
+    def bn_grad(ctx, ins, attrs):
+        if attrs["fwd_type"] != "batch_norm":
+            return vlower(ctx, ins, attrs)
+        with torch.profiler.record_function("batch_norm@grad"):
+            return vlower(ctx, ins, attrs)
+
+    def step():
+        t0 = time.perf_counter()
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    opdef.lower, vjp.lower = bn, bn_grad
+    try:
+        return device_profile(torch, step, top=12,
+                              ranges=("batch_norm", "batch_norm@grad"),
+                              groups={"conv": CONV_KERNELS})
+    finally:
+        opdef.lower, vjp.lower = lower, vlower
+
+
+def other_image_model(torch, model, batch, steps, size):
+    """SE-ResNeXt-50 (fleet AMP, Momentum(SE_LR, 0.9)) or LeNet (fleet
+    AMP, Adam 1e-3), eager Executor.run steps on one synthetic batch:
+    finite, falling losses, with the accuracy fetched."""
+    from paddle_tpu_torch.framework import Executor, Scope
+    main, start, loss, acc = build_image(model, 0, lr=SE_LR, size=size)
+    feed = image_data(size, batch, channels=1 if model == "lenet" else 3,
+                      classes=10 if model == "lenet" else IMG_CLASSES,
+                      seed=3)
+    scope, exe = Scope(), Executor("cuda")
+    exe.run(start, scope=scope)
+    torch.cuda.reset_peak_memory_stats()
+    losses, accs, ms = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        lv, av = exe.run(main, feed=feed, fetch_list=[loss, acc],
+                         scope=scope)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(lv))
+        accs.append(float(av))
+    types_ = {op.type for op in main.global_block().ops}
+    log(f"{model}: batch {batch} at {size}, losses {losses}, accuracy "
+        f"{accs}, step ms {ms}")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        fail(f"{model}: losses {losses} are not finite and falling")
+    row = {"batch": batch, "image": size, "steps": steps, "losses": losses,
+           "accuracy": accs, "step_ms": ms,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "op_types": sorted(types_ & {"conv2d", "sigmoid", "softmax",
+                                        "cross_entropy", "accuracy",
+                                        "dropout", "top_k", "pool2d",
+                                        "batch_norm", "adam", "momentum"})}
+    if model == "se_resnext50":
+        row["grouped_convs"] = sum(op.type == "conv2d"
+                                   and op.attrs["groups"] == 32
+                                   for op in main.global_block().ops)
+    del main, start, scope, exe
+    release(torch)
+    return row
+
+
+def train_image_models(torch, zk, registry, card):
+    """Phase 16 (module docstring): ResNet-50 at 224, batch 64, fleet AMP
+    bf16, Momentum(0.1, 0.9) under deterministic cuDNN: arms E, C, Z and
+    their gates with planted faults, card vs CPU, evaluation through
+    clone(for_test), B7 at the widest bucket, then SE-ResNeXt-50 and
+    LeNet. Returns (the line's row, B7's launches in arm Z)."""
+    from paddle_tpu_torch.framework import Executor, Scope
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    out = {"card": card, "cudnn": "deterministic=True, benchmark=False "
+                                  "(set for the phase, restored after)"}
+    groups = {"conv": CONV_KERNELS, "b7": ("zero_momentum",)}
+    try:
+        out["card_vs_cpu"] = resnet_card_vs_cpu(torch)
+        release(torch)
+        main0, start, loss, _ = build_image("resnet50", 0)
+        main1, _, _, _ = build_image("resnet50", 1)
+        feed = image_data(IMG_SIZE, IMG_BATCH)
+        s0 = Scope()
+        Executor("cuda").run(start, scope=s0)
+        n_params = sum(int(np.prod(p.shape)) for p in main0.all_parameters()
+                       if p.trainable)
+        # ---- arm E: eager Executor.run steps, then one profiled step
+        se, exe = scope_copy(torch, s0), Executor("cuda")
+        torch.cuda.reset_peak_memory_stats()
+        e_losses, e_ms = [], []
+        for _ in range(IMG_E_STEPS):
+            t0 = time.perf_counter()
+            e_losses.append(float(exe.run(main0, feed=feed,
+                                          fetch_list=[loss], scope=se)[0]))
+            e_ms.append((time.perf_counter() - t0) * 1e3)
+        e_peak = torch.cuda.max_memory_allocated()
+        e_state = {n: t.clone() for n, t in
+                   image_state(torch, main0, se).items()}
+        e_prof = image_eager_profile(torch, registry, exe, main0, se, feed,
+                                     loss)
+        del exe, se
+        release(torch)
+        # ---- arm C: stage 0, two run_steps(5) windows on one capture
+        sc = scope_copy(torch, s0)
+        torch.cuda.reset_peak_memory_stats()
+        c_losses, c_ms, exe = image_captured(torch, main0, sc, feed, loss, 1)
+        d_ec = image_diffs(torch, e_state,
+                           image_state(torch, main0, sc))
+        more, ms2, exe = image_captured(torch, main0, sc, feed, loss, 1, exe)
+        c_losses += more
+        c_ms += ms2
+        c_peak = torch.cuda.max_memory_allocated()
+        c_stats = dict(exe.stats)
+        c_final = {n: t.clone() for n, t in
+                   image_state(torch, main0, sc).items()}
+        c_prof = device_profile(torch, lambda: image_window(
+            torch, exe, main0, sc, feed, loss, 1)[0], top=12,
+            groups=groups)
+        log(f"image gate E == C: losses {e_losses} vs "
+            f"{c_losses[:IMG_E_STEPS]}; {len(e_state)} persistables, "
+            f"{len(d_ec)} differ {dict(list(d_ec.items())[:4])}")
+        if d_ec or c_losses[:IMG_E_STEPS] != e_losses:
+            fail(f"image gate E == C: captured differs from eager: {d_ec}")
+        if c_stats["eager_steps"] or c_stats["captures"] != 1:
+            fail(f"image arm C: executor stats {c_stats}")
+        del exe, sc
+        release(torch)
+        # ---- arm Z: stage 1 (B7 once a bucket and step), captured
+        n_buckets = op_count(main1, "__zero_update__")
+        widths = [b["padded"] for b in main1._grad_buckets["zero_buckets"]]
+        sz = scope_copy(torch, s0)
+        zk.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        z_losses, z_ms, exe = image_captured(torch, main1, sz, feed, loss, 2)
+        z_peak = torch.cuda.max_memory_allocated()
+        z_stats = dict(exe.stats)
+        b7 = zk.launches["zero_momentum"]
+        d_cz = image_diffs(torch, c_final, image_state(torch, main1, sz))
+        steps_run = 2 * IMG_WINDOW + z_stats["warmup_steps"]
+        log(f"image gate C == Z: losses {c_losses} vs {z_losses}; "
+            f"{len(c_final)} persistables, {len(d_cz)} differ "
+            f"{dict(list(d_cz.items())[:4])}; B7 launches {b7} for "
+            f"{n_buckets} buckets over {steps_run} steps")
+        if d_cz or z_losses != c_losses:
+            fail(f"image gate C == Z: stage 1 differs from stage 0: {d_cz}")
+        if not n_buckets or b7 != steps_run * n_buckets:
+            fail(f"image arm Z: {b7} B7 launches for {n_buckets} buckets "
+                 f"in {steps_run} steps")
+        if z_stats["eager_steps"] or z_stats["captures"] != 1:
+            fail(f"image arm Z: executor stats {z_stats}")
+        z_prof = device_profile(torch, lambda: image_window(
+            torch, exe, main1, sz, feed, loss, 1)[0], top=12,
+            groups=groups)
+        del exe, sz
+        release(torch)
+        # ---- planted faults, each run as its arm and read by its gate
+        faults = {}
+        undo = plant_bn_double_write(registry)
+        try:
+            sf = scope_copy(torch, s0)
+            fl, _, exe = image_captured(torch, main0, sf, feed, loss, 1)
+            d = image_diffs(torch, e_state, image_state(torch, main0, sf))
+        finally:
+            undo()
+        faults["bn_stats_written_twice"] = {
+            "gate": "E == C", "differing": len(d),
+            "losses_equal": fl == e_losses, "outside": bool(d)
+            or fl != e_losses}
+        del exe, sf
+        release(torch)
+        mf, _, _, _ = build_image("resnet50", 1,
+                                  plant=plant_bucket_without_velocity)
+        sf = scope_copy(torch, s0)
+        fl, _, exe = image_captured(torch, mf, sf, feed, loss, 2)
+        d = image_diffs(torch, c_final, image_state(torch, mf, sf))
+        faults["bucket_without_velocity"] = {
+            "gate": "C == Z", "differing": len(d),
+            "losses_equal": fl == c_losses, "outside": bool(d)
+            or fl != c_losses}
+        del exe, sf, mf
+        release(torch)
+        log(f"image planted faults: {faults}")
+        for name, f in faults.items():
+            if not f["outside"]:
+                fail(f"image planted fault {name} reads inside its gate")
+        # ---- evaluation: clone(for_test) on one batch
+        test_prog = main0.clone(for_test=True)
+        logits = next(op.inputs["Logits"][0]
+                      for op in test_prog.global_block().ops
+                      if op.type == "softmax_with_cross_entropy")
+        stats = [op.inputs[k][0] for op in test_prog.global_block().ops
+                 if op.type == "batch_norm" for k in ("Mean", "Variance")]
+        se = Scope()
+        for n, t in c_final.items():
+            se.set(n, t.clone())
+        ev = Executor("cuda").run(test_prog, feed=feed,
+                                  fetch_list=[loss, logits], scope=se)
+        moved = [n for n in stats if not torch.equal(se.find(n), c_final[n])]
+        if moved or not np.isfinite(ev[1]).all():
+            fail(f"image eval: running statistics written {moved}, logits "
+                 f"finite {bool(np.isfinite(ev[1]).all())}")
+        out["eval"] = {"loss": float(ev[0]), "logits_shape":
+                       list(ev[1].shape), "logits_finite": True,
+                       "running_stats_unchanged": len(stats)}
+        n_state = len(c_final)
+        del c_final, e_state, se, s0
+        release(torch)
+        # ---- B7 alone at the widest bucket
+        out["b7_resnet50_bucket"] = check_b7_bucket(torch, zk, max(widths))
+        # ---- the other models
+        out["se_resnext50"] = other_image_model(
+            torch, "se_resnext50", SE_BATCH, SE_STEPS, IMG_SIZE)
+        out["lenet"] = other_image_model(torch, "lenet", LENET_BATCH,
+                                         LENET_STEPS, 28)
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = saved
+    arms = {}
+    for name, losses, ms, peak, prof in (
+            ("E", e_losses, e_ms[1:], e_peak, e_prof),
+            ("C", c_losses, c_ms[1:], c_peak, c_prof),
+            ("Z", z_losses, z_ms[1:], z_peak, z_prof)):
+        p50 = float(np.median(ms))
+        ips = IMG_BATCH / (p50 / 1e3)
+        arms[name] = {"losses": losses, "step_ms": ms, "step_ms_p50": p50,
+                      "images_per_s": ips,
+                      "mfu": ips * RESNET50_TRAIN_FLOPS / BF16_FLOPS_PER_S,
+                      "peak_memory_gib": peak / 2 ** 30, "profile": prof}
+        log(f"image arm {name}: step p50 {p50:.1f} ms, {ips:.1f} images/s, "
+            f"MFU {arms[name]['mfu']:.4f}, peak "
+            f"{arms[name]['peak_memory_gib']:.2f} GiB; profile {prof}")
+    arms["E"]["timing"] = "Executor.run steps 2-5, each to its loss fetch"
+    for a in ("C", "Z"):
+        arms[a]["timing"] = ("the second run_steps(5) window to its loss "
+                             "fetch, a step's mean (the first holds the "
+                             "warm-up step and the capture)")
+    arms["C"]["executor_stats"] = c_stats
+    arms["Z"].update(zero_update_ops=n_buckets, bucket_widths=widths,
+                     b7_launches_incl_warmup=b7, executor_stats=z_stats)
+    bn_ms = e_prof.get("batch_norm_device_ms")
+    out.update(
+        config=f"build_resnet50_program() (ResNet-50: 53 conv2d + "
+               f"batch_norm, 1,000 classes) at {IMG_SIZE}x{IMG_SIZE}, batch "
+               f"{IMG_BATCH}, one synthetic batch for every step (numpy seed "
+               f"0, bench_resnet50), fleet AMP bf16, Momentum(0.1, 0.9), "
+               f"random weights (startup program)",
+        n_params=n_params, arms=arms,
+        gates={"E_eq_C": {"steps": IMG_E_STEPS, "bit_identical": True,
+                          "persistables": n_state},
+               "C_eq_Z": {"steps": 2 * IMG_WINDOW, "bit_identical": True,
+                          "persistables": n_state}},
+        planted_faults=faults,
+        bn_forward_recompute_ms_per_step=(
+            bn_ms / 2 if isinstance(bn_ms, float) else bn_ms),
+        bn_recompute_note="from arm E's profiled step: the batch_norm "
+                          "range holds the 53 forwards and the 53 "
+                          "recomputes of them in the grad ops, so the "
+                          "recompute is half of it")
+    return out, b7
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7745,6 +8347,17 @@ def main():
     for r, w in enumerate(sg_row["workers"]["serve"]["ranks"]):
         b4_paths[f"supervised_WORKERS_rank{r}"] = w["b4_launches"]
 
+    # ---- the dense ops and the image models: ResNet-50 training --------
+    release(torch)
+    image_row, b7_launches = train_image_models(torch, zk, registry, card)
+    if not b7_launches:
+        fail("zero_momentum was never launched on the ResNet-50 Z run")
+    rows["zero_momentum"]["launches_by_path"][
+        "image_Z_resnet50_stage1_captured_10_steps_incl_warmup"] = \
+        b7_launches
+    rows["zero_momentum"]["resnet50_bucket"] = \
+        image_row.pop("b7_resnet50_bucket")
+
     for row in rows.values():
         if not row["launches"]:
             fail(f"{row['name']} was never launched on its main path run")
@@ -7762,6 +8375,7 @@ def main():
     print(json.dumps({"model_parallel": mp_row}), flush=True)
     print(json.dumps({"composed_mesh": cm_row}), flush=True)
     print(json.dumps({"supervised_gang": sg_row}), flush=True)
+    print(json.dumps({"image_training": image_row}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -16,7 +16,11 @@ feeds, the scope's persistable tensors and earlier ops' outputs.
   the forward is computed once per step (flash attention's B1 launches
   once per layer). An unpaired grad op recomputes its forward
   (ops/registry.py `_lower_vjp`); both draw identical dropout masks from
-  the op's key.
+  the op's key. A stateful op (batch_norm, whose MeanOut / VarianceOut
+  name its running statistics) is never paired: its grad op recomputes
+  the forward from the same X, so its batch statistics are the
+  forward's, and returns gradients only, so the running statistics are
+  written once a step, by the forward.
 * State stays resident in the scope at fixed addresses: the optimizer
   updates parameters and moments in place (ops/optimizer_ops.py), the
   analog of the reference's buffer donation, and every other persistable

@@ -1,23 +1,40 @@
-"""Neural-net layer functions (counterpart of paddle_tpu/layers/nn.py): the
-ones BERT and GPT are built from, and the ones gradient clipping and weight-decay
-regularisation append."""
+"""Neural-net layer functions (counterpart of paddle_tpu/layers/nn.py):
+the ones BERT, GPT and the image models (ResNet, SE-ResNeXt, LeNet) are
+built from, the convolution, pooling, normalisation, activation,
+reduction, selection and metric builders over the dense ops, and the ones
+gradient clipping and weight-decay regularisation append. Not ported: the
+builders whose ops wait (`switch_moe`, `linear_chain_crf`,
+`crf_decoding`, `chunk_eval`, `hsigmoid`, `edit_distance`,
+`bilinear_tensor_product`, `add_position_encoding`, `cos_sim`,
+`cond_take`)."""
 from __future__ import annotations
 
 import math
 
 from .. import initializer as init_mod
 from ..framework.dtype import convert_dtype, dtype_name
-from ..layer_helper import LayerHelper
+from ..layer_helper import LayerHelper, ParamAttr
 
 __all__ = [
-    "data", "fc", "layer_norm", "dropout", "embedding", "elementwise_add",
-    "elementwise_sub", "elementwise_mul", "elementwise_div",
-    "elementwise_max", "elementwise_min", "elementwise_pow",
-    "elementwise_mod", "sqrt", "tanh",
-    "square", "sign", "exp", "floor", "ceil", "cos", "pow", "equal",
-    "less_than", "less_equal", "greater_than", "greater_equal", "where", "expand", "cast", "reduce_sum", "clip",
-    "clip_by_norm", "sums", "mean", "scale", "reshape", "transpose",
-    "split", "unsqueeze", "slice", "fused_attention", "matmul", "gather",
+    "data", "fc", "conv2d", "conv2d_transpose", "pool2d", "batch_norm",
+    "layer_norm", "group_norm", "instance_norm", "dropout", "embedding",
+    "relu", "sigmoid", "tanh", "softmax", "log_softmax", "gelu",
+    "leaky_relu", "elementwise_add", "elementwise_sub", "elementwise_mul",
+    "elementwise_div", "elementwise_max", "elementwise_min",
+    "elementwise_pow", "matmul", "mul", "reduce_sum", "reduce_mean",
+    "reduce_max", "reduce_min", "reduce_prod", "mean", "scale", "cast",
+    "reshape", "transpose", "concat", "split", "stack", "unstack",
+    "squeeze", "unsqueeze", "flatten", "slice", "gather", "gather_nd",
+    "scatter", "expand", "one_hot", "topk", "argmax", "argmin", "argsort",
+    "accuracy", "auc", "clip", "clip_by_norm", "sums", "elementwise_mod",
+    "elementwise_floordiv", "l2_normalize", "pad", "pad2d", "image_resize",
+    "resize_nearest", "resize_bilinear", "relu6", "softplus", "swish",
+    "hard_swish", "hard_sigmoid", "exp", "sqrt", "abs", "square", "log",
+    "floor", "ceil", "round", "sign", "pow", "cos", "sin", "equal",
+    "not_equal", "less_than", "less_equal", "greater_than",
+    "greater_equal", "logical_and", "logical_or", "logical_not",
+    "logical_xor", "where", "unique", "cumsum", "prelu", "brelu",
+    "fused_attention",
 ]
 
 
@@ -55,6 +72,158 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
                          attrs={"axis": num_flatten_dims})
         out = tmp
     return helper.append_activation(out, act)
+
+
+def _pair_list(v):
+    return [v, v] if isinstance(v, int) else list(v)
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, act=None,
+           use_cudnn=True, name=None, data_format="NCHW"):
+    """NCHW convolution; the filter defaults to N(0, sqrt(2 / fan_in))
+    (reference layers/nn.py:86-90)."""
+    helper = LayerHelper("conv2d")
+    filter_size = _pair_list(filter_size)
+    stride, padding = _pair_list(stride), _pair_list(padding)
+    dilation = _pair_list(dilation)
+    c_in = input.shape[1]
+    groups = groups or 1
+    fan_in = (c_in // groups) * filter_size[0] * filter_size[1]
+    w = helper.create_parameter(
+        param_attr, [num_filters, c_in // groups] + filter_size,
+        dtype=dtype_name(input.dtype),
+        default_initializer=init_mod.Normal(0.0, (2.0 / fan_in) ** 0.5))
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("conv2d", inputs={"Input": [input], "Filter": [w]},
+                     outputs={"Output": [out]},
+                     attrs={"strides": stride, "paddings": padding,
+                            "dilations": dilation, "groups": groups})
+    return helper.append_activation(_bias(helper, out, bias_attr,
+                                          num_filters, input.dtype), act)
+
+
+def _bias(helper, out, bias_attr, n, dtype):
+    """`out` + a [n] bias on axis 1, unless bias_attr is False."""
+    if bias_attr is False:
+        return out
+    b = helper.create_parameter(bias_attr, [n], dtype=dtype_name(dtype),
+                                is_bias=True)
+    tmp = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("elementwise_add", inputs={"X": [out], "Y": [b]},
+                     outputs={"Out": [tmp]}, attrs={"axis": 1})
+    return tmp
+
+
+def conv2d_transpose(input, num_filters, filter_size, stride=1, padding=0,
+                     dilation=1, param_attr=None, bias_attr=None, act=None,
+                     name=None):
+    helper = LayerHelper("conv2d_transpose")
+    filter_size = _pair_list(filter_size)
+    w = helper.create_parameter(param_attr,
+                                [input.shape[1], num_filters] + filter_size,
+                                dtype=dtype_name(input.dtype))
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("conv2d_transpose",
+                     inputs={"Input": [input], "Filter": [w]},
+                     outputs={"Output": [out]},
+                     attrs={"strides": _pair_list(stride),
+                            "paddings": _pair_list(padding),
+                            "dilations": _pair_list(dilation)})
+    return helper.append_activation(_bias(helper, out, bias_attr,
+                                          num_filters, input.dtype), act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, ceil_mode=False,
+           exclusive=True, name=None, adaptive=False):
+    helper = LayerHelper("pool2d")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("pool2d", inputs={"X": [input]}, outputs={"Out": [out]},
+                     attrs={"pooling_type": pool_type,
+                            "ksize": _pair_list(pool_size),
+                            "strides": _pair_list(pool_stride),
+                            "paddings": _pair_list(pool_padding),
+                            "global_pooling": global_pooling,
+                            "exclusive": exclusive, "adaptive": adaptive})
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               name=None, moving_mean_name=None, moving_variance_name=None,
+               use_global_stats=False):
+    """Scale and bias are trained; the running mean and variance are
+    non-trainable parameters the op writes (MeanOut / VarianceOut name
+    them), outside the optimizer and its buckets (reference
+    layers/nn.py:150-185)."""
+    helper = LayerHelper("batch_norm")
+    c = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    dtype = "float32"
+    scale = helper.create_parameter(
+        param_attr, [c], dtype=dtype,
+        default_initializer=init_mod.Constant(1.0))
+    bias = helper.create_parameter(bias_attr, [c], dtype=dtype, is_bias=True)
+    mean = helper.create_parameter(
+        ParamAttr(name=moving_mean_name, initializer=init_mod.Constant(0.0),
+                  trainable=False), [c], dtype=dtype)
+    var = helper.create_parameter(
+        ParamAttr(name=moving_variance_name,
+                  initializer=init_mod.Constant(1.0), trainable=False),
+        [c], dtype=dtype)
+    y = helper.create_variable_for_type_inference(input.dtype)
+    saved_mean = helper.create_variable_for_type_inference(dtype)
+    saved_var = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        "batch_norm",
+        inputs={"X": [input], "Scale": [scale], "Bias": [bias],
+                "Mean": [mean], "Variance": [var]},
+        outputs={"Y": [y], "MeanOut": [mean], "VarianceOut": [var],
+                 "SavedMean": [saved_mean], "SavedVariance": [saved_var]},
+        attrs={"momentum": momentum, "epsilon": epsilon,
+               "is_test": is_test or use_global_stats,
+               "data_layout": data_layout})
+    return helper.append_activation(y, act)
+
+
+def _norm_affine(helper, input, param_attr, bias_attr):
+    inputs = {"X": [input]}
+    c = input.shape[1]
+    if param_attr is not False:
+        inputs["Scale"] = [helper.create_parameter(
+            param_attr, [c], dtype="float32",
+            default_initializer=init_mod.Constant(1.0))]
+    if bias_attr is not False:
+        inputs["Bias"] = [helper.create_parameter(
+            bias_attr, [c], dtype="float32", is_bias=True)]
+    return inputs
+
+
+def group_norm(input, groups, epsilon=1e-5, param_attr=None, bias_attr=None,
+               act=None, name=None):
+    helper = LayerHelper("group_norm")
+    inputs = _norm_affine(helper, input, param_attr, bias_attr)
+    y = helper.create_variable_for_type_inference(input.dtype)
+    m = helper.create_variable_for_type_inference("float32")
+    v = helper.create_variable_for_type_inference("float32")
+    helper.append_op("group_norm", inputs=inputs,
+                     outputs={"Y": [y], "Mean": [m], "Variance": [v]},
+                     attrs={"groups": groups, "epsilon": epsilon})
+    return helper.append_activation(y, act)
+
+
+def instance_norm(input, epsilon=1e-5, param_attr=None, bias_attr=None,
+                  name=None):
+    helper = LayerHelper("instance_norm")
+    inputs = _norm_affine(helper, input, param_attr, bias_attr)
+    y = helper.create_variable_for_type_inference(input.dtype)
+    sm = helper.create_variable_for_type_inference("float32")
+    sv = helper.create_variable_for_type_inference("float32")
+    helper.append_op("instance_norm", inputs=inputs,
+                     outputs={"Y": [y], "SavedMean": [sm],
+                              "SavedVariance": [sv]},
+                     attrs={"epsilon": epsilon})
+    return y
 
 
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
@@ -119,14 +288,85 @@ def _unary_layer(op_type):
     return f
 
 
-sqrt = _unary_layer("sqrt")
-square = _unary_layer("square")
-sign = _unary_layer("sign")
+relu = _unary_layer("relu")
+sigmoid = _unary_layer("sigmoid")
+tanh = _unary_layer("tanh")
 exp = _unary_layer("exp")
+sqrt = _unary_layer("sqrt")
+abs = _unary_layer("abs")
+square = _unary_layer("square")
+log = _unary_layer("log")
 floor = _unary_layer("floor")
 ceil = _unary_layer("ceil")
+round = _unary_layer("round")
+sign = _unary_layer("sign")
 cos = _unary_layer("cos")
-tanh = _unary_layer("tanh")
+sin = _unary_layer("sin")
+softplus = _unary_layer("softplus")
+swish = _unary_layer("swish")
+hard_swish = _unary_layer("hard_swish")
+hard_sigmoid = _unary_layer("hard_sigmoid")
+relu6 = _unary_layer("relu6")
+logical_not = _unary_layer("logical_not")
+
+
+def softmax(input, axis=-1, name=None, use_cudnn=False):
+    helper = LayerHelper("softmax")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("softmax", inputs={"X": [input]}, outputs={"Out": [out]},
+                     attrs={"axis": axis})
+    return out
+
+
+def log_softmax(input, axis=-1, name=None):
+    helper = LayerHelper("log_softmax")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("log_softmax", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def gelu(x, approximate=False, name=None):
+    helper = LayerHelper("gelu")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("gelu", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"approximate": approximate})
+    return out
+
+
+def leaky_relu(x, alpha=0.02, name=None):
+    helper = LayerHelper("leaky_relu")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("leaky_relu", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"alpha": alpha})
+    return out
+
+
+def prelu(x, mode="all", param_attr=None, name=None):
+    """max(x, 0) + alpha * min(x, 0) from primitive ops; alpha is one
+    value, one a channel, or one an element."""
+    helper = LayerHelper("prelu")
+    if mode == "all":
+        shape = [1]
+    elif mode == "channel":
+        shape = [x.shape[1]]
+    else:
+        shape = [math.prod(x.shape[1:])]
+    alpha = helper.create_parameter(
+        param_attr, shape, dtype="float32",
+        default_initializer=init_mod.Constant(0.25))
+    pos = relu(x)
+    neg = elementwise_mul(elementwise_sub(x, pos), alpha,
+                          axis=1 if mode == "channel" else -1)
+    return elementwise_add(pos, neg)
+
+
+def brelu(x, t_min=0.0, t_max=24.0, name=None):
+    helper = LayerHelper("brelu")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("clip", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"min": t_min, "max": t_max})
+    return out
 
 
 def pow(x, factor=1.0, name=None):
@@ -156,6 +396,7 @@ elementwise_max = _binary_layer("elementwise_max")
 elementwise_min = _binary_layer("elementwise_min")
 elementwise_pow = _binary_layer("elementwise_pow")
 elementwise_mod = _binary_layer("elementwise_mod")
+elementwise_floordiv = _binary_layer("elementwise_floordiv")
 
 
 def _compare_layer(op_type):
@@ -170,10 +411,14 @@ def _compare_layer(op_type):
 
 
 equal = _compare_layer("equal")
+not_equal = _compare_layer("not_equal")
 less_than = _compare_layer("less_than")
 less_equal = _compare_layer("less_equal")
 greater_than = _compare_layer("greater_than")
 greater_equal = _compare_layer("greater_equal")
+logical_and = _compare_layer("logical_and")
+logical_or = _compare_layer("logical_or")
+logical_xor = _compare_layer("logical_xor")
 
 
 def where(condition, x, y, name=None):
@@ -202,16 +447,36 @@ def cast(x, dtype):
     return out
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
-    helper = LayerHelper("reduce_sum")
-    out = helper.create_variable_for_type_inference(input.dtype)
-    if dim is None:
-        attrs = {"reduce_all": True, "dim": [0], "keep_dim": keep_dim}
-    else:
-        attrs = {"dim": dim if isinstance(dim, (list, tuple)) else [dim],
-                 "keep_dim": keep_dim, "reduce_all": False}
-    helper.append_op("reduce_sum", inputs={"X": [input]},
-                     outputs={"Out": [out]}, attrs=attrs)
+def _reduce_layer(op_type):
+    def f(input, dim=None, keep_dim=False, name=None):
+        helper = LayerHelper(op_type)
+        out = helper.create_variable_for_type_inference(input.dtype)
+        if dim is None:
+            attrs = {"reduce_all": True, "dim": [0], "keep_dim": keep_dim}
+        else:
+            attrs = {"dim": dim if isinstance(dim, (list, tuple)) else [dim],
+                     "keep_dim": keep_dim, "reduce_all": False}
+        helper.append_op(op_type, inputs={"X": [input]},
+                         outputs={"Out": [out]}, attrs=attrs)
+        return out
+    f.__name__ = op_type
+    return f
+
+
+reduce_sum = _reduce_layer("reduce_sum")
+reduce_mean = _reduce_layer("reduce_mean")
+reduce_max = _reduce_layer("reduce_max")
+reduce_min = _reduce_layer("reduce_min")
+reduce_prod = _reduce_layer("reduce_prod")
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    helper = LayerHelper("mul")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("mul", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]},
+                     attrs={"x_num_col_dims": x_num_col_dims,
+                            "y_num_col_dims": y_num_col_dims})
     return out
 
 
@@ -267,13 +532,7 @@ def reshape(x, shape, actual_shape=None, act=None, inplace=False,
 
 
 def transpose(x, perm, name=None):
-    helper = LayerHelper("transpose2")
-    out = helper.create_variable_for_type_inference(x.dtype)
-    xshape = helper.create_variable_for_type_inference(x.dtype)
-    helper.append_op("transpose2", inputs={"X": [x]},
-                     outputs={"Out": [out], "XShape": [xshape]},
-                     attrs={"axis": list(perm)})
-    return out
+    return _with_xshape("transpose2", x, {"axis": list(perm)})
 
 
 def split(input, num_or_sections, dim=-1, name=None):
@@ -293,13 +552,7 @@ def split(input, num_or_sections, dim=-1, name=None):
 
 
 def unsqueeze(input, axes, name=None):
-    helper = LayerHelper("unsqueeze2")
-    out = helper.create_variable_for_type_inference(input.dtype)
-    xshape = helper.create_variable_for_type_inference(input.dtype)
-    helper.append_op("unsqueeze2", inputs={"X": [input]},
-                     outputs={"Out": [out], "XShape": [xshape]},
-                     attrs={"axes": list(axes)})
-    return out
+    return _with_xshape("unsqueeze2", input, {"axes": list(axes)})
 
 
 def slice(input, axes, starts, ends, name=None):
@@ -347,4 +600,213 @@ def gather(input, index, overwrite=True, axis=0):
     out = helper.create_variable_for_type_inference(input.dtype)
     helper.append_op("gather", inputs={"X": [input], "Index": [index]},
                      outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat")
+    out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op("concat", inputs={"X": list(input)},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def stack(x, axis=0, name=None):
+    helper = LayerHelper("stack")
+    out = helper.create_variable_for_type_inference(x[0].dtype)
+    helper.append_op("stack", inputs={"X": list(x)}, outputs={"Y": [out]},
+                     attrs={"axis": axis})
+    return out
+
+
+def unstack(x, axis=0, num=None, name=None):
+    helper = LayerHelper("unstack")
+    n = num if num is not None else x.shape[axis]
+    outs = [helper.create_variable_for_type_inference(x.dtype)
+            for _ in range(n)]
+    helper.append_op("unstack", inputs={"X": [x]}, outputs={"Y": outs},
+                     attrs={"axis": axis})
+    return outs
+
+
+def _with_xshape(op_type, x, attrs):
+    helper = LayerHelper(op_type)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xshape = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(op_type, inputs={"X": [x]},
+                     outputs={"Out": [out], "XShape": [xshape]}, attrs=attrs)
+    return out
+
+
+def squeeze(input, axes, name=None):
+    return _with_xshape("squeeze2", input, {"axes": list(axes)})
+
+
+def flatten(x, axis=1, name=None):
+    return _with_xshape("flatten2", x, {"axis": axis})
+
+
+def gather_nd(input, index, name=None):
+    helper = LayerHelper("gather_nd")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("gather_nd", inputs={"X": [input], "Index": [index]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def scatter(input, index, updates, overwrite=True, name=None):
+    helper = LayerHelper("scatter")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("scatter", inputs={"X": [input], "Ids": [index],
+                                        "Updates": [updates]},
+                     outputs={"Out": [out]}, attrs={"overwrite": overwrite})
+    return out
+
+
+def one_hot(input, depth, allow_out_of_range=False):
+    helper = LayerHelper("one_hot")
+    out = helper.create_variable_for_type_inference("float32")
+    helper.append_op("one_hot", inputs={"X": [input]}, outputs={"Out": [out]},
+                     attrs={"depth": depth})
+    return out
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k")
+    vals = helper.create_variable_for_type_inference(input.dtype)
+    idxs = helper.create_variable_for_type_inference("int64")
+    helper.append_op("top_k", inputs={"X": [input]},
+                     outputs={"Out": [vals], "Indices": [idxs]},
+                     attrs={"k": k})
+    return vals, idxs
+
+
+def _arg_layer(op_type):
+    def f(x, axis=0, name=None):
+        helper = LayerHelper(op_type)
+        out = helper.create_variable_for_type_inference("int64")
+        helper.append_op(op_type, inputs={"X": [x]}, outputs={"Out": [out]},
+                         attrs={"axis": axis})
+        return out
+    return f
+
+
+argmax = _arg_layer("arg_max")
+argmin = _arg_layer("arg_min")
+
+
+def argsort(input, axis=-1, descending=False, name=None):
+    helper = LayerHelper("argsort")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    idxs = helper.create_variable_for_type_inference("int64")
+    helper.append_op("argsort", inputs={"X": [input]},
+                     outputs={"Out": [out], "Indices": [idxs]},
+                     attrs={"axis": axis, "descending": descending})
+    return out, idxs
+
+
+def accuracy(input, label, k=1, correct=None, total=None):
+    """top_k, then the share of rows whose k indices hold the label."""
+    helper = LayerHelper("accuracy")
+    vals, idxs = topk(input, k)
+    acc = helper.create_variable_for_type_inference("float32")
+    correct = correct or helper.create_variable_for_type_inference("int32")
+    total = total or helper.create_variable_for_type_inference("int32")
+    helper.append_op("accuracy",
+                     inputs={"Out": [vals], "Indices": [idxs],
+                             "Label": [label]},
+                     outputs={"Accuracy": [acc], "Correct": [correct],
+                              "Total": [total]})
+    return acc
+
+
+def auc(input, label, curve="ROC", num_thresholds=4095, topk=1,
+        slide_steps=1):
+    """Streaming AUC; the bucket counts are persistable globals."""
+    helper = LayerHelper("auc")
+    stat_pos = helper.create_global_variable([num_thresholds + 1], "int64")
+    stat_neg = helper.create_global_variable([num_thresholds + 1], "int64")
+    for v in (stat_pos, stat_neg):
+        init_mod.Constant(0)(v)
+    auc_out = helper.create_variable_for_type_inference("float64")
+    helper.append_op("auc",
+                     inputs={"Predict": [input], "Label": [label],
+                             "StatPos": [stat_pos], "StatNeg": [stat_neg]},
+                     outputs={"AUC": [auc_out], "StatPosOut": [stat_pos],
+                              "StatNegOut": [stat_neg]},
+                     attrs={"num_thresholds": num_thresholds})
+    return auc_out, [stat_pos, stat_neg]
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    ssum = reduce_sum(square(x), dim=axis, keep_dim=True)
+    norm = sqrt(elementwise_max(ssum, fill_constant_like(ssum, epsilon)))
+    return elementwise_div(x, norm)
+
+
+def fill_constant_like(x, value):
+    """A `fill_constant` of x's static shape and dtype (layers.tensor's
+    `fill_constant_like` is the `fill_any_like` op instead)."""
+    from .tensor import fill_constant
+    return fill_constant(shape=list(x.shape), dtype=dtype_name(x.dtype),
+                         value=value)
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    helper = LayerHelper("pad")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("pad", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"paddings": list(paddings),
+                            "pad_value": pad_value})
+    return out
+
+
+def pad2d(input, paddings=(0, 0, 0, 0), mode="constant", pad_value=0.0,
+          data_format="NCHW", name=None):
+    helper = LayerHelper("pad2d")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("pad2d", inputs={"X": [input]}, outputs={"Out": [out]},
+                     attrs={"paddings": list(paddings), "mode": mode,
+                            "pad_value": pad_value})
+    return out
+
+
+def image_resize(input, out_shape=None, scale=None, resample="BILINEAR",
+                 name=None):
+    helper = LayerHelper("interpolate")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    attrs = {"interp_method": {"BILINEAR": "bilinear", "NEAREST": "nearest",
+                               "BICUBIC": "bicubic"}[resample]}
+    if out_shape is not None:
+        attrs["out_h"], attrs["out_w"] = out_shape
+    else:
+        attrs["scale"] = scale
+    helper.append_op("interpolate", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs=attrs)
+    return out
+
+
+def resize_nearest(input, out_shape=None, scale=None, name=None):
+    return image_resize(input, out_shape, scale, "NEAREST")
+
+
+def resize_bilinear(input, out_shape=None, scale=None, name=None):
+    return image_resize(input, out_shape, scale, "BILINEAR")
+
+
+def unique(x, dtype="int64"):
+    helper = LayerHelper("unique")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    index = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("unique", inputs={"X": [x]},
+                     outputs={"Out": [out], "Index": [index]})
+    return out, index
+
+
+def cumsum(x, axis=-1, exclusive=False, reverse=False):
+    helper = LayerHelper("cumsum")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("cumsum", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"axis": axis, "exclusive": exclusive,
+                            "reverse": reverse})
     return out

@@ -1,1 +1,2 @@
-"""Model zoo of the port (GPT decode in the serving slice)."""
+"""Model zoo of the port: GPT decode (serving), BERT and GPT-2 training,
+and the static image models (ResNet-50, SE-ResNeXt, LeNet)."""

@@ -279,3 +279,235 @@ def _matmul_v2(ctx, ins, attrs):
     if y.dim() == 2 and _folds_a_shard(x, x.dim() - 1):
         return {"Out": [_mesh_mm(x, y, x.dim() - 1)]}
     return {"Out": [torch.matmul(x, y)]}
+
+
+# ---------------------------------------------------------------------------
+# The rest of the reference's math_ops.py: activations, reductions,
+# products, comparisons and predicates.
+# ---------------------------------------------------------------------------
+
+_elementwise("elementwise_floordiv", torch.floor_divide)
+
+_unary("sigmoid", torch.sigmoid)
+_unary("log", torch.log)
+_unary("log2", torch.log2)
+_unary("log10", torch.log10)
+_unary("log1p", torch.log1p)
+_unary("rsqrt", torch.rsqrt)
+_unary("abs", torch.abs)
+_unary("reciprocal", torch.reciprocal)
+# half to even, as jnp.round
+_unary("round", torch.round)
+_unary("sin", torch.sin)
+_unary("tan", torch.tan)
+_unary("asin", torch.asin)
+_unary("acos", torch.acos)
+_unary("atan", torch.atan)
+_unary("sinh", torch.sinh)
+_unary("cosh", torch.cosh)
+_unary("softsign", torch.nn.functional.softsign)
+_unary("erf", torch.erf)
+_unary("logsigmoid", torch.nn.functional.logsigmoid)
+
+
+@register("softplus")
+def _softplus(ctx, ins, attrs):
+    """log(1 + exp(x)) without F.softplus's linear cut-over (jax.nn
+    .softplus is logaddexp(x, 0))."""
+    x = ins["X"][0]
+    return {"Out": [torch.logaddexp(x, torch.zeros_like(x))]}
+
+
+def _const(x, v):
+    return torch.full((), v, dtype=x.dtype, device=x.device)
+
+
+def _clip(x, lo, hi):
+    """jnp.clip as minimum(maximum(x, lo), hi): a value ON a bound gets
+    half the gradient, as jax's max/min split ties (torch.clamp gives
+    all)."""
+    return torch.minimum(torch.maximum(x, _const(x, lo)), _const(x, hi))
+
+
+@register("leaky_relu")
+def _leaky_relu(ctx, ins, attrs):
+    """where(x >= 0, x, alpha * x): slope 1 at 0, as jax.nn.leaky_relu
+    (F.leaky_relu takes alpha there)."""
+    x = ins["X"][0]
+    return {"Out": [torch.where(x >= 0, x, x * attrs.get("alpha", 0.02))]}
+
+
+@register("elu")
+def _elu(ctx, ins, attrs):
+    x = ins["X"][0]
+    pos = x > 0
+    neg = torch.where(pos, torch.zeros_like(x), x)
+    return {"Out": [torch.where(pos, x, attrs.get("alpha", 1.0)
+                                * torch.expm1(neg))]}
+
+
+@register("hard_sigmoid")
+def _hard_sigmoid(ctx, ins, attrs):
+    x = ins["X"][0]
+    return {"Out": [_clip(x * attrs.get("slope", 0.2)
+                          + attrs.get("offset", 0.5), 0.0, 1.0)]}
+
+
+@register("hard_swish")
+def _hard_swish(ctx, ins, attrs):
+    x = ins["X"][0]
+    t, s, o = (attrs.get("threshold", 6.0), attrs.get("scale", 6.0),
+               attrs.get("offset", 3.0))
+    return {"Out": [x * _clip(x + o, 0.0, t) / s]}
+
+
+@register("swish")
+def _swish(ctx, ins, attrs):
+    x = ins["X"][0]
+    return {"Out": [x * torch.sigmoid(attrs.get("beta", 1.0) * x)]}
+
+
+@register("relu6")
+def _relu6(ctx, ins, attrs):
+    return {"Out": [_clip(ins["X"][0], 0.0, attrs.get("threshold", 6.0))]}
+
+
+def _reduce_axes(x, attrs):
+    dim = attrs.get("dim", [0])
+    if attrs.get("reduce_all", False) or dim is None:
+        return tuple(range(x.dim()))
+    dims = dim if isinstance(dim, (list, tuple)) else [dim]
+    return tuple(d % x.dim() for d in dims)
+
+
+def _reduce(name, fn):
+    @register(name)
+    def _lower(ctx, ins, attrs, _fn=fn):
+        x = ins["X"][0]
+        return {"Out": [_fn(x, _reduce_axes(x, attrs),
+                            attrs.get("keep_dim", False))]}
+    return _lower
+
+
+def _prod(x, axes, keep):
+    """Product over several axes (torch.prod takes one): the reduced axes
+    moved last and flattened; an integer product keeps its dtype."""
+    if not axes:
+        return x
+    rest = [d for d in range(x.dim()) if d not in axes]
+    flat = x.permute(*rest, *axes).reshape(
+        [x.shape[d] for d in rest] + [-1])
+    out = torch.prod(flat, dim=-1, dtype=x.dtype)
+    if keep:
+        out = out.reshape([1 if d in axes else x.shape[d]
+                           for d in range(x.dim())])
+    return out
+
+
+def _mean(x, axes, keep):
+    """An integer mean is a float32 one, as jnp.mean."""
+    if not x.is_floating_point():
+        x = x.float()
+    return torch.mean(x, dim=axes, keepdim=keep)
+
+
+# max / min by amax / amin: tied extremes split the gradient, as jnp.max
+_reduce("reduce_mean", _mean)
+_reduce("reduce_max", lambda x, a, k: torch.amax(x, dim=a, keepdim=k))
+_reduce("reduce_min", lambda x, a, k: torch.amin(x, dim=a, keepdim=k))
+_reduce("reduce_prod", _prod)
+_reduce("reduce_all", lambda x, a, k: torch.all(x.bool(), dim=a,
+                                                keepdim=k))
+_reduce("reduce_any", lambda x, a, k: torch.any(x.bool(), dim=a,
+                                                keepdim=k))
+
+
+@register("bmm")
+def _bmm(ctx, ins, attrs):
+    return {"Out": [torch.matmul(ins["X"][0], ins["Y"][0])]}
+
+
+@register("dot")
+def _dot(ctx, ins, attrs):
+    x, y = ins["X"][0], ins["Y"][0]
+    return {"Out": [torch.sum(x * y, dim=-1, keepdim=x.dim() == 1)]}
+
+
+@register("p_norm")
+def _p_norm(ctx, ins, attrs):
+    x = ins["X"][0]
+    p = attrs.get("porder", 2.0)
+    s = torch.sum(torch.abs(x) ** p, dim=attrs.get("axis", -1),
+                  keepdim=attrs.get("keepdim", False))
+    return {"Out": [s ** (1.0 / p)]}
+
+
+@register("squared_l2_norm")
+def _squared_l2_norm(ctx, ins, attrs):
+    return {"Out": [torch.sum(torch.square(ins["X"][0])).reshape(1)]}
+
+
+@register("cumsum")
+def _cumsum(ctx, ins, attrs):
+    """As the reference: `exclusive` subtracts x; `reverse` is the
+    reversed inclusive sum (it overrides `exclusive`)."""
+    x = ins["X"][0]
+    axis = attrs.get("axis", -1)
+    if attrs.get("flatten", False):
+        x, axis = x.reshape(-1), 0
+    dt = None if x.is_floating_point() else x.dtype
+    out = torch.cumsum(x, dim=axis, dtype=dt)
+    if attrs.get("exclusive", False):
+        out = out - x
+    if attrs.get("reverse", False):
+        out = torch.flip(torch.cumsum(torch.flip(x, [axis]), dim=axis,
+                                      dtype=dt), [axis])
+    return {"Out": [out]}
+
+
+@register("maximum")
+def _maximum(ctx, ins, attrs):
+    return {"Out": [torch.maximum(ins["X"][0], ins["Y"][0])]}
+
+
+@register("minimum")
+def _minimum(ctx, ins, attrs):
+    return {"Out": [torch.minimum(ins["X"][0], ins["Y"][0])]}
+
+
+_compare("not_equal", torch.ne)
+
+
+def _logical(name, fn, unary=False):
+    @register(name, nondiff_slots=("X", "Y"))
+    def _lower(ctx, ins, attrs, _fn=fn, _unary=unary):
+        if _unary:
+            return {"Out": [_fn(ins["X"][0])]}
+        return {"Out": [_fn(ins["X"][0], ins["Y"][0])]}
+    return _lower
+
+
+_logical("logical_and", torch.logical_and)
+_logical("logical_or", torch.logical_or)
+_logical("logical_xor", torch.logical_xor)
+_logical("logical_not", torch.logical_not, unary=True)
+
+
+@register("isfinite", nondiff_slots=("X",))
+def _isfinite(ctx, ins, attrs):
+    return {"Out": [torch.all(torch.isfinite(ins["X"][0]))]}
+
+
+@register("isfinite_v2", nondiff_slots=("X",))
+def _isfinite_v2(ctx, ins, attrs):
+    return {"Out": [torch.isfinite(ins["X"][0])]}
+
+
+@register("isnan_v2", nondiff_slots=("X",))
+def _isnan(ctx, ins, attrs):
+    return {"Out": [torch.isnan(ins["X"][0])]}
+
+
+@register("isinf_v2", nondiff_slots=("X",))
+def _isinf(ctx, ins, attrs):
+    return {"Out": [torch.isinf(ins["X"][0])]}

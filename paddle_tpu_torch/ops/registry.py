@@ -159,6 +159,7 @@ class OpDef:
 _REGISTRY: Dict[str, OpDef] = {}
 # modules of the package that register lowerings on import
 _LOWERING_MODULES = ("ops.tensor_ops", "ops.math_ops", "ops.nn_ops",
+                     "ops.metric_ops",
                      "ops.fused_ce", "ops.attention", "ops.optimizer_ops",
                      "ops.int8_ops", "parallel.zero",
                      "parallel.transforms")
@@ -205,9 +206,8 @@ def get(name: str) -> OpDef:
     if name not in _REGISTRY:
         from ..framework import errors
         raise errors.Unimplemented(
-            "op %r is not registered in the port; the training slice "
-            "lowers the BERT pretrain program's ops (ROADMAP lists the "
-            "rest)", name)
+            "op %r is not registered in the port (ROADMAP item 12 lists "
+            "the op types still to port)", name)
     return _REGISTRY[name]
 
 

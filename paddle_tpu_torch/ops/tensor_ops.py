@@ -269,3 +269,346 @@ def _mesh_lookup(table, idx):
         for tp, ip in zip(table.placements, idx.placements)]
     return gspmd.local_call(body, (table, idx), [out_pl],
                             grad_placements=[grad_pl, None])
+
+
+# ---------------------------------------------------------------------------
+# The rest of the reference's tensor_ops.py: creation, random draws,
+# shape manipulation, selection and sorting.
+# ---------------------------------------------------------------------------
+
+def _canonical(dtype):
+    """The reference's 32-bit device policy: int64 lives as int32 and a
+    float64 request means float32 (jax without x64)."""
+    d = convert_dtype(dtype)
+    return torch.float32 if d == torch.float64 else d
+
+
+def _full(shape, value, dtype, device):
+    return torch.full(tuple(shape), value, dtype=dtype, device=device)
+
+
+@register("fill_constant_batch_size_like")
+def _fill_constant_bsl(ctx, ins, attrs):
+    ref = ins["Input"][0]
+    shape = list(attrs.get("shape", [1]))
+    shape[attrs.get("output_dim_idx", 0)] = \
+        ref.shape[attrs.get("input_dim_idx", 0)]
+    return {"Out": [_full(shape, attrs.get("value", 0.0),
+                          _canonical(attrs.get("dtype", "float32")),
+                          ref.device)]}
+
+
+@register("fill_any_like")
+def _fill_any_like(ctx, ins, attrs):
+    x = ins["X"][0]
+    dt = attrs.get("dtype")
+    return {"Out": [_full(x.shape, attrs.get("value", 0.0),
+                          _canonical(dt) if dt else x.dtype, x.device)]}
+
+
+@register("shape", nondiff_slots=("Input",))
+def _shape(ctx, ins, attrs):
+    """The dims as an int32 vector, built by fills (no host copy)."""
+    x = ins["Input"][0]
+    if not x.dim():
+        return {"Out": [torch.zeros((0,), dtype=torch.int32,
+                                    device=x.device)]}
+    return {"Out": [torch.stack([_full((), int(d), torch.int32, x.device)
+                                 for d in x.shape])]}
+
+
+def _random_bits(ctx, attrs, shape, stream: int):
+    """uint32 bits (in int64) for each element of `shape`: fmix32 of the
+    element index mixed with the op's device key (ctx.op_seed) and a
+    stream number, so the draw depends on the run seed and the op alone,
+    runs inside a captured step, and touches no global RNG (the values
+    differ from the reference's jax.random draws)."""
+    from .registry import fmix32
+    from .kernels.flash_attention import _U32, _mul32
+    n = 1
+    for d in shape:
+        n *= int(d)
+    key = ctx.op_seed(attrs).long() & _U32
+    idx = torch.arange(n, dtype=torch.int64, device=ctx.device)
+    x = fmix32((_mul32(idx, 0x9E37_79B9) ^ key) & _U32)
+    x = fmix32(x ^ (((stream + 1) * 0x85EB_CA6B) & _U32))
+    return x.reshape(tuple(shape))
+
+
+def _uniform01(bits):
+    """[0, 1) f32 from the top 24 bits."""
+    return (bits >> 8).float() * (1.0 / (1 << 24))
+
+
+@register("uniform_random", is_random=True)
+def _uniform_random(ctx, ins, attrs):
+    shape = tuple(attrs.get("shape", [1]))
+    dtype = _canonical(attrs.get("dtype", "float32"))
+    lo, hi = attrs.get("min", -1.0), attrs.get("max", 1.0)
+    if ctx.is_eval_shape:
+        return {"Out": [torch.empty(shape, dtype=dtype, device=ctx.device)]}
+    u = _uniform01(_random_bits(ctx, attrs, shape, 0))
+    return {"Out": [(u * (hi - lo) + lo).to(dtype)]}
+
+
+@register("gaussian_random", is_random=True)
+def _gaussian_random(ctx, ins, attrs):
+    """Box-Muller over two uniform streams of the op's key."""
+    shape = tuple(attrs.get("shape", [1]))
+    dtype = _canonical(attrs.get("dtype", "float32"))
+    if ctx.is_eval_shape:
+        return {"Out": [torch.empty(shape, dtype=dtype, device=ctx.device)]}
+    u1 = 1.0 - _uniform01(_random_bits(ctx, attrs, shape, 0))   # (0, 1]
+    u2 = _uniform01(_random_bits(ctx, attrs, shape, 1))
+    z = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2 * torch.pi) * u2)
+    out = z * attrs.get("std", 1.0) + attrs.get("mean", 0.0)
+    return {"Out": [out.to(dtype)]}
+
+
+@register("randint", is_random=True, nondiff_slots=("X",))
+def _randint(ctx, ins, attrs):
+    shape = tuple(attrs.get("shape", [1]))
+    dtype = _canonical(attrs.get("dtype", "int64"))
+    if ctx.is_eval_shape:
+        return {"Out": [torch.empty(shape, dtype=dtype, device=ctx.device)]}
+    low, high = int(attrs.get("low", 0)), int(attrs.get("high", 100))
+    bits = _random_bits(ctx, attrs, shape, 0)
+    return {"Out": [(low + bits % (high - low)).to(dtype)]}
+
+
+@register("reshape")
+def _reshape(ctx, ins, attrs):
+    return {"Out": _reshape2(ctx, ins, attrs)["Out"]}
+
+
+@register("transpose")
+def _transpose(ctx, ins, attrs):
+    return {"Out": [ins["X"][0].permute(*attrs["axis"])]}
+
+
+@register("flatten2")
+def _flatten2(ctx, ins, attrs):
+    x = ins["X"][0]
+    ax = attrs.get("axis", 1)
+    lead = 1
+    for d in x.shape[:ax]:
+        lead *= int(d)
+    return {"Out": [x.reshape(lead, -1)], "XShape": [_xshape(x)]}
+
+
+@register("flatten_contiguous_range")
+def _flatten_contiguous_range(ctx, ins, attrs):
+    x = ins["X"][0]
+    start = attrs.get("start_axis", 1)
+    stop = attrs.get("stop_axis", -1)
+    if stop < 0:
+        stop += x.dim()
+    shape = tuple(x.shape[:start]) + (-1,) + tuple(x.shape[stop + 1:])
+    return {"Out": [x.reshape(shape)], "XShape": [_xshape(x)]}
+
+
+@register("squeeze2")
+def _squeeze2(ctx, ins, attrs):
+    """Only the listed axes of size 1 go; no axes squeezes every 1."""
+    x = ins["X"][0]
+    axes = attrs.get("axes", [])
+    if axes:
+        dims = tuple(a % x.dim() for a in axes if x.shape[a % x.dim()] == 1)
+        out = x.squeeze(dims) if dims else x
+    else:
+        out = x.squeeze()
+    return {"Out": [out], "XShape": [_xshape(x)]}
+
+
+@register("concat")
+def _concat(ctx, ins, attrs):
+    return {"Out": [torch.cat(list(ins["X"]), dim=attrs.get("axis", 0))]}
+
+
+@register("tile")
+def _tile(ctx, ins, attrs):
+    return {"Out": [torch.tile(ins["X"][0], tuple(attrs["repeat_times"]))]}
+
+
+@register("expand_v2")
+def _expand_v2(ctx, ins, attrs):
+    x = ins["X"][0]
+    shape = list(attrs["shape"])
+    for i, s in enumerate(shape):
+        if s == -1:
+            shape[i] = x.shape[i - len(shape) + x.dim()]
+    return {"Out": [torch.broadcast_to(x, tuple(shape))]}
+
+
+@register("expand_as_v2")
+def _expand_as_v2(ctx, ins, attrs):
+    return {"Out": [torch.broadcast_to(ins["X"][0], ins["Y"][0].shape)]}
+
+
+@register("gather_nd", nondiff_slots=("Index",))
+def _gather_nd(ctx, ins, attrs):
+    x, idx = ins["X"][0], ins["Index"][0].long()
+    return {"Out": [x[tuple(idx[..., i] for i in range(idx.shape[-1]))]]}
+
+
+@register("scatter", nondiff_slots=("Ids",))
+def _scatter(ctx, ins, attrs):
+    """Rows `Ids` of X set to (or, without `overwrite`, added to) the
+    rows of Updates."""
+    x, ids, upd = ins["X"][0], ins["Ids"][0].long(), ins["Updates"][0]
+    return {"Out": [x.index_put((ids,), upd,
+                                accumulate=not attrs.get("overwrite",
+                                                         True))]}
+
+
+@register("strided_slice")
+def _strided_slice(ctx, ins, attrs):
+    """Python slicing per axis, negative strides included (a flip, then
+    the positive stride)."""
+    out = ins["Input"][0]
+    for a, s, e, st in zip(attrs["axes"], attrs["starts"], attrs["ends"],
+                           attrs.get("strides", [1] * len(attrs["axes"]))):
+        dim = out.shape[a]
+        r = range(*slice(s, e, st).indices(dim))
+        idx = [slice(None)] * out.dim()
+        if st > 0 or not len(r):
+            idx[a] = slice(r.start, r.stop, abs(st)) if len(r) \
+                else slice(0, 0)
+            out = out[tuple(idx)]
+        else:
+            idx[a] = slice(dim - 1 - r.start, dim - r[-1], -st)
+            out = out.flip(a)[tuple(idx)]
+    return {"Out": [out]}
+
+
+def _sorted_desc(x, dim):
+    """Descending values and indices along `dim`, tied values in index
+    order (lax.top_k's and the stable jnp.argsort's tie rule, which
+    torch.topk does not promise)."""
+    return torch.sort(x, dim=dim, descending=True, stable=True)
+
+
+@register("top_k", nondiff_slots=())
+def _top_k(ctx, ins, attrs):
+    k = attrs.get("k", 1)
+    vals, idxs = _sorted_desc(ins["X"][0], -1)
+    return {"Out": [vals[..., :k]],
+            "Indices": [idxs[..., :k].to(torch.int32)]}
+
+
+@register("top_k_v2", nondiff_slots=())
+def _top_k_v2(ctx, ins, attrs):
+    k = attrs.get("k", 1)
+    vals, idxs = _sorted_desc(ins["X"][0], attrs.get("axis", -1))
+    axis = attrs.get("axis", -1)
+    return {"Out": [vals.narrow(axis, 0, k)],
+            "Indices": [idxs.narrow(axis, 0, k).to(torch.int32)]}
+
+
+@register("arg_max", nondiff_slots=("X",))
+def _arg_max(ctx, ins, attrs):
+    """The first of tied maxima, as jnp.argmax."""
+    axis = attrs.get("axis", -1)
+    out = torch.argmax(ins["X"][0], dim=axis,
+                       keepdim=attrs.get("keepdims", False))
+    return {"Out": [out.to(_canonical(attrs.get("dtype", "int64")))]}
+
+
+@register("arg_min", nondiff_slots=("X",))
+def _arg_min(ctx, ins, attrs):
+    out = torch.argmin(ins["X"][0], dim=attrs.get("axis", -1))
+    return {"Out": [out.to(torch.int32)]}
+
+
+@register("argsort", nondiff_slots=())
+def _argsort(ctx, ins, attrs):
+    """A stable sort: tied values keep their index order either way."""
+    x = ins["X"][0]
+    axis = attrs.get("axis", -1)
+    vals, idx = torch.sort(x, dim=axis,
+                           descending=attrs.get("descending", False),
+                           stable=True)
+    return {"Out": [vals], "Indices": [idx.to(torch.int32)]}
+
+
+@register("where_index", nondiff_slots=("Condition",))
+def _where_index(ctx, ins, attrs):
+    """Data-dependent output shape: eager only (a host sync)."""
+    return {"Out": [torch.nonzero(ins["Condition"][0]).to(torch.int32)]}
+
+
+@register("masked_select", nondiff_slots=("Mask",))
+def _masked_select(ctx, ins, attrs):
+    """Data-dependent output shape: eager only."""
+    return {"Y": [ins["X"][0][ins["Mask"][0].bool()]]}
+
+
+@register("index_select", nondiff_slots=("Index",))
+def _index_select(ctx, ins, attrs):
+    x, idx = ins["X"][0], ins["Index"][0]
+    return {"Out": [torch.index_select(x, attrs.get("dim", 0) % x.dim(),
+                                       idx.long())]}
+
+
+@register("range", nondiff_slots=("Start", "End", "Step"))
+def _range(ctx, ins, attrs):
+    """From concrete scalars only (eager: reads them on the host)."""
+    import numpy as np
+    s, e, st = ins["Start"][0], ins["End"][0], ins["Step"][0]
+    vals = np.arange(float(s), float(e), float(st))
+    return {"Out": [torch.from_numpy(vals).to(s.dtype).to(s.device)]}
+
+
+@register("linspace", nondiff_slots=("Start", "Stop", "Num"))
+def _linspace(ctx, ins, attrs):
+    """From concrete scalars only (eager)."""
+    import numpy as np
+    s, e, n = ins["Start"][0], ins["Stop"][0], ins["Num"][0]
+    vals = np.linspace(float(s), float(e), int(n)).astype(np.float32)
+    return {"Out": [torch.from_numpy(vals).to(s.device)]}
+
+
+@register("eye")
+def _eye(ctx, ins, attrs):
+    n = attrs["num_rows"]
+    return {"Out": [torch.eye(n, attrs.get("num_columns", n),
+                              dtype=_canonical(attrs.get("dtype",
+                                                         "float32")),
+                              device=ctx.device)]}
+
+
+@register("tril_triu")
+def _tril_triu(ctx, ins, attrs):
+    x, diag = ins["X"][0], attrs.get("diagonal", 0)
+    fn = torch.tril if attrs.get("lower", True) else torch.triu
+    return {"Out": [fn(x, diag)]}
+
+
+@register("meshgrid")
+def _meshgrid(ctx, ins, attrs):
+    return {"Out": list(torch.meshgrid(*ins["X"], indexing="ij"))}
+
+
+@register("flip")
+def _flip(ctx, ins, attrs):
+    axis = attrs["axis"]
+    return {"Out": [torch.flip(ins["X"][0], list(axis) if isinstance(
+        axis, (list, tuple)) else [axis])]}
+
+
+@register("roll")
+def _roll(ctx, ins, attrs):
+    """Without axes the flattened tensor rolls, as jnp.roll(axis=None)."""
+    axis = attrs.get("axis")
+    shifts = attrs["shifts"]
+    if not axis:
+        return {"Out": [torch.roll(ins["X"][0], shifts)]}
+    return {"Out": [torch.roll(ins["X"][0], shifts, tuple(axis))]}
+
+
+@register("unique", nondiff_slots=("X",))
+def _unique(ctx, ins, attrs):
+    """Sorted unique values and each element's index among them
+    (data-dependent shape: eager only)."""
+    u, inv = torch.unique(ins["X"][0], sorted=True, return_inverse=True)
+    return {"Out": [u], "Index": [inv.to(torch.int32)]}

@@ -18,7 +18,9 @@ virtual CPU devices; the port's stages run on "cpu" P times).
   pp-2 mesh, and the run equals the one-device GPipe run bit for bit.
 * A persistable the forward writes (an in-place `increment` counter that
   scales the loss) is carried from one microbatch to the next: the
-  counter and the losses equal the reference's.
+  counter and the losses equal the reference's. Likewise batch_norm's
+  running mean advances once per microbatch (the reference's
+  tests/test_pipeline.py:124).
 * pp 2 against the reference at pp 2: the 2-stage MLP (Adam), a
   parameter shared by both stages (SGD; its two gradients are summed by
   a `sum` on stage 0) and GPT-tiny with its tied `wte` (Adam 1e-2, 2
@@ -92,8 +94,8 @@ PORT = types.SimpleNamespace(
 
 
 def _attr(ns, name):
-    # the port has no Xavier initialiser; the runs load the reference's
-    # startup arrays, so the initialiser only fills the startup program
+    # the runs load the reference's startup arrays, so the initialiser
+    # only fills the startup program
     return ns.attr(name=name, initializer=ns.init.TruncatedNormal(0.0, 0.5))
 
 
@@ -318,6 +320,32 @@ def test_body_written_persistable_threads_across_microbatches():
         == [8.0]
     np.testing.assert_allclose(losses, ref_losses, rtol=1e-5)
     assert_state(state, ref_state, atol=1e-6)
+
+
+def test_gpipe_threads_bn_stats_through_microbatches():
+    """The reference's test_pipeline_threads_bn_stats_through_scan on the
+    port's GPipe runner: after one step of 4 microbatches the running mean
+    is the sequential one, running = 0.9 * running + 0.1 * mean(m) for
+    each microbatch m in turn (rtol 1e-5 / atol 1e-6, f32)."""
+    main, start = port_program.Program(), port_program.Program()
+    with port_program.program_guard(main, start), port_unique_name.guard():
+        x = port_layers.data(name="x", shape=[3, 4, 4], dtype="float32")
+        loss = port_layers.reduce_mean(port_layers.batch_norm(x))
+        mean_name = [op for op in main.global_block().ops
+                     if op.type == "batch_norm"][0].inputs["Mean"][0]
+        port_optimizer.PipelineOptimizer(
+            port_optimizer.SGD(learning_rate=0.0),
+            num_microbatches=4).minimize(loss)
+    scope, exe = Scope(), Executor("cpu")
+    exe.run(start, scope=scope)
+    xs = np.random.RandomState(0).randn(16, 3, 4, 4).astype(np.float32)
+    exe.run(main, feed={"x": xs}, fetch_list=[loss], scope=scope)
+    expect = np.zeros(3, np.float32)
+    for m in range(4):
+        expect = 0.9 * expect + 0.1 * xs[4 * m:4 * m + 4].mean(
+            axis=(0, 2, 3))
+    np.testing.assert_allclose(scope.numpy(mean_name), expect, rtol=1e-5,
+                               atol=1e-6)
 
 
 @pytest.mark.parametrize("model,opt", [(mlp, "adam"), (shared, "sgd")],
