@@ -70,14 +70,16 @@ result line):
      replicas resurrect and serve the single-engine tokens); a drain of
      32 requests (the finished ones equal the single-engine tokens, the
      unstarted ones come back);
-5. the fused flat-bucket optimizer kernels B6-B8 (sgd, momentum with
-   nesterov + l2_decay and plain, adam, adamw) at the main path's bucket
-   sizes (23,440,896 and 7,120,704 elements) and a tail (1,000,003), and
-   B8 on a bucket one element past 16 bytes and on one whose arrays start
-   at different offsets, held BIT FOR BIT against their plain version on
-   the card, timed beside it, beside the bytes bound and beside PyTorch's
-   fused optimizer calls; B8 also timed alone, without its wrapper, and
-   B6/B7 alone at 23,440,896 and 1,000,003 elements beside
+5. the fused flat-bucket optimizer kernels B6-B8 (sgd, momentum in its
+   four compiled instances: l2_decay and nesterov each on or off, adam,
+   adamw) at the main path's bucket sizes (23,440,896 and 7,120,704
+   elements) and a tail (1,000,003), and B7 and B8 on a bucket one element
+   past 16 bytes and on one whose arrays start at different offsets (B7
+   in all four instances), held BIT FOR BIT against their plain version
+   on the card, timed beside it, beside the bytes bound and beside
+   PyTorch's fused optimizer calls; B7 and B8 also timed alone, without
+   their wrapper, with their share of the bytes bound and the blocks a
+   wave holds; B6/B7 alone at 23,440,896 and 1,000,003 elements beside
    torch._fused_sgd_ (the small size over copies used in turn, past the
    L2);
 6. BERT pretraining through Program / Executor.run:
@@ -112,7 +114,7 @@ result line):
      hands them) under the profiler: its kernels and its GEMMs' time;
      then the trained weights (params_from_scope) serve 2 greedy requests
      equal to the dense generate;
-8. GPT-2 small training that survives a restart, its width cut to 4
+8. GPT-2 small training that survives a restart, its width cut to 2
    layers (GPTConfig(num_layers=CUT_LAYERS)) at S 512,
    batch 32, fleet AMP bf16, ZeRO stage 1, AdamW +
    GradientClipByGlobalNorm(1.0), dropout 0.1, the LR
@@ -137,7 +139,7 @@ result line):
      FLAGS_snapshot_steps 10 and 0 and of a constant LR, in ABBA order on
      one executor: step ms p50 of each, the copy to pinned memory (device
      ms), the worker's and the calling thread's ms, the skips;
-9. GPT-2 small trained from data, phase 8's program (4 layers) on one
+9. GPT-2 small trained from data, phase 8's program (2 layers) on one
    executor and scope (one capture for every arm): a token file of 16,777,216 int32
    tokens and 4 MultiSlot text files of 1,280 of its 512-token windows,
    written from numpy seed 11; the one-batch arm (run_steps(10) windows of
@@ -163,7 +165,7 @@ result line):
    paddle_tpu_torch.distributed.launch --nproc_per_node 2 chip_smoke.py
    --dp-worker`) starts two ranks that share cuda:0 under gloo, as asked
    for explicitly (PADDLE_DIST_BACKEND=gloo, PADDLE_DIST_DEVICE=cuda:0).
-   Each trains GPT-2 small's width cut to 4 layers (CUT_LAYERS) at S 512
+   Each trains GPT-2 small's width cut to 2 layers (CUT_LAYERS) at S 512
    on its 16 rows of a global batch of 32 (fleet AMP bf16, AdamW +
    global-norm clip, dropout 0), 3 eager steps at each of ZeRO stages 0-3
    from the startup program's weights. Gates:
@@ -180,7 +182,7 @@ result line):
    collectives captured in a CUDA graph, three replays equal to the eager
    calls; B8 (adamw) bit for bit against its plain version at the shard
    width of GPT-2 small's largest bucket at dp 2, timed.
-11. pipeline training, GPT-2 small's width cut to 4 layers
+11. pipeline training, GPT-2 small's width cut to 2 layers
    (GPTConfig(num_layers=CUT_LAYERS) at S 512, fleet AMP bf16,
    Adam(1e-4), weights from the startup program, tokens from numpy seed
    0; dropout 0 where a gate compares across arithmetic orders):
@@ -212,12 +214,12 @@ result line):
      the plain ones, held as arm R is (planted faults: the second merged
      update lost, a quarter of the rows); the beta pows move on merge
      steps only; micro-step ms p50.
-12. rolled layers, GPT-2 small's width cut to 4 layers
+12. rolled layers, GPT-2 small's width cut to 2 layers
    (GPTConfig(num_layers=CUT_LAYERS) at S 512, batch 32, fleet AMP bf16,
    Adam(1e-4), weights from the startup program, tokens from numpy seed
    0), each arm through fleet's `layer_scan`:
    * B8 on the largest stacked bucket, 2-D and contiguous: the whole
-     [4, 2,359,296] and a rank's [4, 1,179,648] shard at dp 2, bit for
+     [2, 2,359,296] and a rank's [2, 1,179,648] shard at dp 2, bit for
      bit against its plain version, timed beside it, its bytes bound and
      torch's _fused_adam_;
    * S: rolled beside unrolled at dropout 0.1, stage 0, 3 eager steps from
@@ -307,7 +309,8 @@ result line):
      bytes bound and torch's _fused_adam_;
    * the one-process GPipe reference of arm PT (4 microbatches);
    * gang "z" (`chip_smoke.py --cm-worker`, 4 ranks on cuda:0 under
-     gloo): Z1 / Z2, dp 2 x tp 2 at ZeRO stage 1 / 2 beside stage 0
+     gloo; it runs at the same time as gang "lp" below): Z1 / Z2, dp 2 x
+     tp 2 at ZeRO stage 1 / 2 beside stage 0
      (batch 8, S 512), and ZS, dp 2 x sp 2 (Ulysses) at stage 1 beside
      stage 0 (batch 8, S 1024): losses and parameters bit for bit, and
      a planted fault on each mesh (the update takes the dp sum of the
@@ -329,7 +332,9 @@ result line):
 15. the supervised gang, two ranks on cuda:0 under gloo through the
    port's launcher (`chip_smoke.py --sg-worker` / `--sg-serve-worker`),
    GPT-2 small's width cut to 2 layers (MP_LAYERS) at S 512, dropout 0,
-   fleet AMP bf16, a global batch of 8 (4 rows a rank):
+   fleet AMP bf16, a global batch of 8 (4 rows a rank); the LSGD gang
+   (with PEER's uninterrupted run) and the PEER drill run at the same
+   time:
    * LSGD: LocalSGD k 4 with Adam(1e-4), 8 steps, every rank feeding the
      global batch: losses and the final state bit-equal to a one-process
      simulation on the card (two scopes, each on its half batch, the
@@ -387,10 +392,10 @@ result line):
      989.4 TFLOP/s), peak memory and one profiled step of each arm (busy
      share, top kernels, cuDNN's convolution kernels and B7 apart);
      evaluation: clone(for_test) on one batch, finite logits and the
-     running statistics unwritten; B7 at the widest bucket bit for bit
-     against its plain version, timed alone and through its wrapper
-     beside the plain version, torch._fused_sgd_ (momentum) and its bytes
-     bound;
+     running statistics unwritten; B7 at every bucket width bit for bit
+     against its plain version in its four instances, and at the widest
+     timed alone and through its wrapper beside the plain version,
+     torch._fused_sgd_ (momentum) and its bytes bound;
    * SE-ResNeXt-50 (224, batch 32, fleet AMP, Momentum(0.01, 0.9): the
      grouped 3x3 convs at cardinality 32, sigmoid gates, dropout,
      cross_entropy, top_k and accuracy) and LeNet (28 x 28, batch 32,
@@ -1430,14 +1435,19 @@ def check_flash_gpt(torch, fa):
 
 
 # the checked arms of B6-B8: (kernel, op type, label, attrs); the first arm
-# of each kernel gives its row of the kernels line
+# of each kernel gives its row of the kernels line. B7's four arms are its
+# four compiled <use_l2, nesterov> instances
+B7_L2 = {"regularization_method": "l2_decay", "regularization_coeff": 1e-4}
 ZERO_ARMS = (
     ("zero_sgd", "sgd", "sgd", {}),
     ("zero_momentum", "momentum", "momentum_nesterov_l2",
-     {"mu": 0.9, "use_nesterov": True, "regularization_method": "l2_decay",
-      "regularization_coeff": 1e-4}),
+     {"mu": 0.9, "use_nesterov": True, **B7_L2}),
     ("zero_momentum", "momentum", "momentum", {"mu": 0.9,
                                                "use_nesterov": False}),
+    ("zero_momentum", "momentum", "momentum_l2",
+     {"mu": 0.9, "use_nesterov": False, **B7_L2}),
+    ("zero_momentum", "momentum", "momentum_nesterov",
+     {"mu": 0.9, "use_nesterov": True}),
     ("zero_adam", "adam", "adam", {"beta1": 0.9, "beta2": 0.999,
                                    "epsilon": 1e-8}),
     ("zero_adam", "adamw", "adamw", {"beta1": 0.9, "beta2": 0.999,
@@ -1473,9 +1483,9 @@ def zero_library_call(torch, op_type, label, ins):
     fn = getattr(torch, "_fused_sgd_", None)
     if fn is None:
         return None
-    nesterov = label == "momentum_nesterov_l2"
+    nesterov = "nesterov" in label
     return lambda: fn(p, g, ins.get("Velocity", []),
-                      weight_decay=1e-4 if nesterov else 0.0,
+                      weight_decay=1e-4 if label.endswith("_l2") else 0.0,
                       momentum=0.9 if op_type == "momentum" else 0.0,
                       lr=1e-3, dampening=0.0, nesterov=nesterov,
                       maximize=False, is_first_step=False)
@@ -1494,13 +1504,7 @@ def launch_alone(torch, zk, ins, attrs, op_type):
         args = (ptr["LearningRate"], ptr["Param"], ptr["Grad"], n, stream)
         return lambda: lib.zero_sgd(*args)
     if op_type == "momentum":
-        rd = attrs.get("regularization_coeff", 0.0)
-        use_l2 = attrs.get("regularization_method", "") == "l2_decay" \
-            and bool(rd)
-        args = (ptr["LearningRate"], ptr["Param"], ptr["Grad"],
-                ptr["Velocity"], n, attrs.get("mu", 0.9),
-                rd if use_l2 else 0.0, int(use_l2),
-                int(bool(attrs.get("use_nesterov", False))), stream)
+        args = zk.momentum_args(ins, attrs) + (stream,)
         return lambda: lib.zero_momentum(*args)
     b1, b2 = attrs.get("beta1", 0.9), attrs.get("beta2", 0.999)
     decay = op_type == "adamw"
@@ -1551,15 +1555,21 @@ def b6_b7_alone(torch, zk, kernel, op_type, label, attrs, n, gen):
 # the vector body; offsets that differ take the scalar loop
 ZERO_OFFSET_ARMS = (("adam_offset1", (1, 1, 1, 1)),
                     ("adam_mismatched_offsets", (1, 0, 2, 3)))
+# the same for B7 (offsets of Param, Grad, Velocity), in each of its four
+# instances
+B7_OFFSET_ARMS = (("offset1", (1, 1, 1)),
+                  ("mismatched_offsets", (1, 0, 2)))
+# B7's labels timed alone (launch alone, b6_b7_alone) beside B6's sgd
+B6_B7_ALONE_LABELS = ("sgd", "momentum_nesterov_l2", "momentum")
 
 
 def check_zero_kernels(torch, zk, ptxas):
     """B6-B8 against their plain version on the card, bit for bit on every
-    output, at the stage-1 path's bucket sizes and a tail, and B8 on two
-    buckets that do not start on 16 bytes; inputs N(0, 1), m2 = |N(0, 1)|.
-    Timed (CUDA events, 5 warm-up, 50 launches) beside the plain version,
-    the bytes bound and torch's fused optimizer call; B8 also alone, without
-    its wrapper."""
+    output, at the stage-1 path's bucket sizes and a tail (B7 in its four
+    instances), and B7 and B8 on two buckets that do not start on 16 bytes;
+    inputs N(0, 1), m2 = |N(0, 1)|. Timed (CUDA events, 5 warm-up, 50
+    launches) beside the plain version, the bytes bound and torch's fused
+    optimizer call; B7 and B8 also alone, without their wrapper."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     scalars = {"LearningRate": [1e-3], "Beta1Pow": [0.9 ** 3],
@@ -1567,8 +1577,13 @@ def check_zero_kernels(torch, zk, ptxas):
     arms = [(kernel, op_type, label, attrs, n, None)
             for kernel, op_type, label, attrs in ZERO_ARMS
             for n in ZERO_SIZES]
-    arms += [("zero_adam", "adam", label, ZERO_ARMS[3][3], ZERO_SIZES[0],
-              offs) for label, offs in ZERO_OFFSET_ARMS]
+    adam = next(a for a in ZERO_ARMS if a[2] == "adam")
+    arms += [("zero_adam", "adam", label, adam[3], ZERO_SIZES[0], offs)
+             for label, offs in ZERO_OFFSET_ARMS]
+    arms += [(kernel, op_type, f"{label}_{where}", attrs, ZERO_SIZES[0],
+              offs) for where, offs in B7_OFFSET_ARMS
+             for kernel, op_type, label, attrs in ZERO_ARMS
+             if kernel == "zero_momentum"]
     for kernel, op_type, label, attrs, n, offs in arms:
         state = zk._STATE_SLOTS[op_type]
         base = {s: torch.randn(n, generator=gen, device="cuda")
@@ -1617,7 +1632,7 @@ def check_zero_kernels(torch, zk, ptxas):
                 op_type, kin, attrs)),
             "bound_ms": n * ZERO_BYTES_PER_ELEMENT[kernel]
             / HBM_BYTES_PER_S * 1e3}
-        if kernel == "zero_adam":
+        if kernel in ("zero_momentum", "zero_adam"):
             # the row's time is the launch alone; the wrapper's beside it
             times["wrapper_ms"] = times["ms"]
             times["ms"] = cuda_ms(torch, launch_alone(
@@ -1630,19 +1645,20 @@ def check_zero_kernels(torch, zk, ptxas):
         times["library_ms"] = None if lib is None \
             else cuda_ms(torch, lib)
         if kernel != "zero_adam" and n in B6_B7_ALONE_SIZES \
-                and label in ("sgd", "momentum_nesterov_l2"):
+                and label in B6_B7_ALONE_LABELS:
             (times["alone_ms"], times["alone_library_ms"],
              times["alone_copies"]) = b6_b7_alone(
                  torch, zk, kernel, op_type, label, attrs, n, gen)
             log(f"kernel {kernel} {label} n={n}: launch alone "
-                f"{times['alone_ms']:.4f} ms, torch fused "
-                f"{times['alone_library_ms']} ms (same tensors, "
-                f"{times['alone_copies']} sets in turn)")
+                f"{times['alone_ms']:.4f} ms ("
+                f"{times['bound_ms'] / times['alone_ms']:.3f} of the bytes "
+                f"bound), torch fused {times['alone_library_ms']} ms (same "
+                f"tensors, {times['alone_copies']} sets in turn)")
         log(f"kernel {kernel} {label} n={n}: {times['ms']:.4f} ms"
             + (f" alone ({times['gb_per_s']:.1f} GB/s, "
                f"{times['share_of_bytes_bound']:.3f} of the bytes bound;"
                f" through the wrapper {times['wrapper_ms']:.4f} ms)"
-               if kernel == "zero_adam" else "")
+               if "wrapper_ms" in times else "")
             + f", plain {times['plain_ms']:.4f} ms, bytes bound "
             f"{times['bound_ms']:.4f} ms, torch fused "
             f"{times['library_ms']}")
@@ -1668,11 +1684,26 @@ def check_zero_kernels(torch, zk, ptxas):
                              0).multi_processor_count)
             log(f"kernel zero_adam: {per_sm} resident blocks of 256 threads "
                 f"per SM, grid {extra['grid_blocks']} blocks")
+        if kernel == "zero_momentum":
+            per_sm = {f"use_l2={a} nesterov={b}":
+                      zk._library().zero_momentum_blocks_per_sm(a, b)
+                      for a in (0, 1) for b in (0, 1)}
+            if min(per_sm.values()) <= 0:
+                fail(f"zero_momentum: occupancy query failed ({per_sm})")
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            extra = dict(wrapper_ms=at["wrapper_ms"],
+                         gb_per_s=at["gb_per_s"],
+                         share_of_bytes_bound=at["share_of_bytes_bound"],
+                         resident_blocks_per_sm=per_sm,
+                         wave_blocks={k: v * sms for k, v in per_sm.items()})
+            log(f"kernel zero_momentum: resident blocks of 256 threads per "
+                f"SM by instance {per_sm}, {sms} SMs")
         if kernel != "zero_adam":
-            extra = {k: {str(n): c[k] for n, c in arms[label].items()
-                         if k in c}
-                     for k in ("alone_ms", "alone_library_ms",
-                               "alone_copies")}
+            extra.update({k: {f"{lb} {n}": c[k] for lb in B6_B7_ALONE_LABELS
+                              if lb in arms for n, c in arms[lb].items()
+                              if k in c}
+                          for k in ("alone_ms", "alone_library_ms",
+                                    "alone_copies")})
         rows[kernel] = kernel_row(
             kernel, max_abs_err=max(c["max_abs_err"] for a in arms.values()
                                     for c in a.values()),
@@ -1682,8 +1713,8 @@ def check_zero_kernels(torch, zk, ptxas):
                           "zero_momentum": "torch._fused_sgd_ (momentum)",
                           "zero_adam": "torch._fused_adam_"}[kernel],
             n=main_n, dtype="float32",
-            ptxas=next((v for k, v in ptxas.items()
-                        if f"{kernel}_kernel" in k), None),
+            ptxas={k: v for k, v in ptxas.items()
+                   if f"{kernel}_kernel" in k} or None,
             arms={a: {str(n): c for n, c in by_n.items()}
                   for a, by_n in arms.items()}, **extra)
     return rows
@@ -3904,10 +3935,11 @@ def serve_resilient(torch, serving, kernel_mod, metrics, engine_kw,
 # ---------------------------------------------------------------------------
 
 DP_STAGES = (0, 1, 2, 3)
-# Phases 10-12 train GPT-2 small's width at this depth, and phases 13-14 at
-# MP_LAYERS (cut from 12: the gangs' DTensor and gloo work on the host
-# grows with the layers, and the whole script must end inside 20 minutes)
-CUT_LAYERS = 4
+# Phases 8-12 train GPT-2 small's width at this depth, and phases 13-15 at
+# MP_LAYERS (cut from 12, then from 4: the gangs' DTensor and gloo work on
+# the host grows with the layers, and the whole script must end inside 20
+# minutes)
+CUT_LAYERS = 2
 DP_STEPS = 3
 DP_GLOBAL_BATCH = 32        # 16 a rank at dp 2
 DP_WORLD = 2
@@ -4129,37 +4161,86 @@ def launch_gang(args, env, timeout_s, log_name, nproc=DP_WORLD,
     Fails if a process the gang started is left when the launcher has
     ended (this script is a subreaper: an orphaned rank would be its
     child)."""
+    (rc, text, _), = launch_gangs(
+        [dict(args=args, env=env, log_name=log_name, nproc=nproc,
+              launcher_args=launcher_args)], timeout_s,
+        during=None if during is None else lambda procs: during(procs[0]))
+    return rc, text
+
+
+def gang_ports(n):
+    """n free ports at least 8 apart: a gang's launcher takes its port and
+    the next world-size ones (trainer endpoints, then the store)."""
     from paddle_tpu_torch.distributed.spawn import free_ports
+    while True:
+        ports = free_ports(n)
+        if all(abs(a - b) > 8 for a, b in itertools.combinations(ports, 2)):
+            return ports
+
+
+def launch_gangs(gangs, timeout_s, during=None):
+    """`launch_gang` for several gangs at once, each a dict of its `args`,
+    `env`, `log_name` and, optionally, `nproc` and `launcher_args`; the
+    gangs' ranks share the card and the host's cores (they spend most of
+    their time starting processes and in gloo's host copies).
+    `during(procs)`, when given, runs while the launchers do. Returns
+    [(rc, output, seconds to that gang's end)] in order. Fails if a gang
+    outlives `timeout_s` or a process one started is left when all have
+    ended."""
+    import tempfile
     before = set(child_pids())
-    port = free_ports(1)[0]
-    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
-           "--nproc_per_node", str(nproc), "--port", str(port),
-           "--rendezvous_deadline_ms", "120000", "--grace_period_s", "10",
-           *launcher_args, os.path.join(HERE, "chip_smoke.py")] + args
+    runs = []
     t0 = time.perf_counter()
-    proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
+    for g, port in zip(gangs, gang_ports(len(gangs))):
+        cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+               "--nproc_per_node", str(g.get("nproc", DP_WORLD)),
+               "--port", str(port), "--rendezvous_deadline_ms", "120000",
+               "--grace_period_s", "10", *g.get("launcher_args", ()),
+               os.path.join(HERE, "chip_smoke.py")] + g["args"]
+        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        runs.append([g, out, err, subprocess.Popen(
+            cmd, cwd=HERE, env=g["env"], stdout=out, stderr=err,
+            text=True), None])
     try:
         if during is not None:
-            during(proc)
-        out, err = proc.communicate(timeout=timeout_s)
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        out, _ = proc.communicate()
-        fail(f"the launched gang {args} did not end within {timeout_s} s: "
-             f"{(out or '')[-2000:]}")
-    r = subprocess.CompletedProcess(cmd, proc.returncode, out, err)
-    text = r.stdout + r.stderr
+            during([r[3] for r in runs])
+        while any(r[4] is None for r in runs):
+            for r in runs:
+                if r[4] is None and r[3].poll() is not None:
+                    r[4] = time.perf_counter() - t0
+            if time.perf_counter() - t0 > timeout_s:
+                late = [r for r in runs if r[4] is None]
+                for r in late:
+                    r[1].seek(0)
+                fail(f"the launched gangs {[r[0]['args'] for r in late]} "
+                     f"did not end within {timeout_s} s: "
+                     f"{[r[1].read()[-2000:] for r in late]}")
+            time.sleep(0.05)
+    finally:
+        for r in runs:
+            if r[3].poll() is None:
+                r[3].kill()
+                r[3].wait()
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(HERE, "chiprun_out", log_name), "w") as f:
-        f.write(text)
-    log(f"launched gang {args}: rc {r.returncode} in "
-        f"{time.perf_counter() - t0:.1f} s")
+    results = []
+    for g, out, err, proc, secs in runs:
+        text = ""
+        for f in (out, err):
+            f.seek(0)
+            text += f.read()
+            f.close()
+        with open(os.path.join(HERE, "chiprun_out", g["log_name"]),
+                  "w") as f:
+            f.write(text)
+        log(f"launched gang {g['args']}: rc {proc.returncode} in "
+            f"{secs:.1f} s")
+        results.append((proc.returncode, text, secs))
     left = {pid: cmd for pid, cmd in child_pids().items()
             if pid not in before}
     if left:
-        fail(f"processes left after the gang {args}: {left}")
-    return r.returncode, text
+        fail(f"processes left after the gangs "
+             f"{[g['args'] for g in gangs]}: {left}")
+    return results
 
 
 def nccl_capture_gate(torch):
@@ -6804,8 +6885,8 @@ def cm_judge(fa, zk, ranks_z, ranks_lp, widths, one, checked):
 
 def train_gpt_composed(torch, fa, zk, card, checked):
     """Phase 14: B8 at the shard width, the one-process GPipe reference,
-    then the "z" gang (4 ranks) and the "lp" gang (2 ranks), all on
-    cuda:0 under gloo; `checked` are the B1 launches phase 13's
+    then the "z" gang (4 ranks) and the "lp" gang (2 ranks) at once, all
+    on cuda:0 under gloo; `checked` are the B1 launches phase 13's
     `check_flash_keyed_paths` held."""
     import tempfile
     t0 = time.perf_counter()
@@ -6837,15 +6918,18 @@ def train_gpt_composed(torch, fa, zk, card, checked):
     row["pt_one_process"] = one
     del main, start, loss, s0, p1
     release(torch)
+    # the two gangs at once
+    sizes = {"z": 4, "lp": 2}
+    results = launch_gangs(
+        [dict(args=["--cm-worker"], log_name=f"cm_{gang}_gang.log",
+              nproc=nproc, env=dict(
+                  os.environ, PADDLE_DIST_BACKEND="gloo",
+                  PADDLE_DIST_DEVICE="cuda:0", CHIP_SMOKE_CM_OUT=out_dir,
+                  CHIP_SMOKE_CM_GANG=gang))
+         for gang, nproc in sizes.items()], 900)
     gangs = {}
-    for gang, nproc in (("z", 4), ("lp", 2)):
-        env = dict(os.environ, PADDLE_DIST_BACKEND="gloo",
-                   PADDLE_DIST_DEVICE="cuda:0", CHIP_SMOKE_CM_OUT=out_dir,
-                   CHIP_SMOKE_CM_GANG=gang)
-        t1 = time.perf_counter()
-        rc, text = launch_gang(["--cm-worker"], env, 900,
-                               f"cm_{gang}_gang.log", nproc=nproc)
-        row[f"gang_{gang}_s"] = time.perf_counter() - t1
+    for (gang, nproc), (rc, text, secs) in zip(sizes.items(), results):
+        row[f"gang_{gang}_s"] = secs
         if rc != 0:
             fail(f"the phase-14 gang {gang} failed (rc {rc}): "
                  f"{text[-3000:]}")
@@ -6858,9 +6942,10 @@ def train_gpt_composed(torch, fa, zk, card, checked):
                         checked))
     row.update({"ranks_z": gangs["z"], "ranks_lp": gangs["lp"],
                 "launch": "python -m paddle_tpu_torch.distributed.launch "
-                          "--nproc_per_node 4 (gang z) / 2 (gang lp) "
-                          "chip_smoke.py --cm-worker, PADDLE_DIST_BACKEND="
-                          "gloo PADDLE_DIST_DEVICE=cuda:0",
+                          "--nproc_per_node 4 (gang z) / 2 (gang lp), both "
+                          "at once, chip_smoke.py --cm-worker, "
+                          "PADDLE_DIST_BACKEND=gloo "
+                          "PADDLE_DIST_DEVICE=cuda:0",
                 "phase_s": time.perf_counter() - t0})
     return row
 
@@ -6883,6 +6968,10 @@ SG_SERVE = dict(dtype="bfloat16", max_slots=8, max_len=256, window=8,
                 block_size=16, num_blocks=160)
 SG_DRAIN_COPIES = 6        # the SIGTERM gang serves phase 4's 8 prompts 6x
 SG_GRACE_S = 40            # PEER's SIGTERM-to-SIGKILL grace (its flush)
+# the drain gang's grace: a worker drains for half of it, and the request
+# in flight when SIGTERM lands takes ~4.5 s on a fast host, ~8 s on a
+# loaded one (the launcher's default 10 s left 5 s)
+SG_DRAIN_GRACE_S = 20
 
 
 def sg_config():
@@ -7284,9 +7373,11 @@ def sg_workers(torch, serving, out_dir):
                 time.sleep(0.01)
 
         t0 = time.perf_counter()
-        rc, text = launch_gang(["--sg-serve-worker"], env, 600,
-                               f"sg_{gang}_gang.log",
-                               during=sigterm_mid_serve if marker else None)
+        rc, text = launch_gang(
+            ["--sg-serve-worker"], env, 600, f"sg_{gang}_gang.log",
+            launcher_args=("--grace_period_s", str(SG_DRAIN_GRACE_S))
+            if marker else (),
+            during=sigterm_mid_serve if marker else None)
         if rc != 0:
             fail(f"WORKERS gang {gang} failed (rc {rc}): {text[-3000:]}")
         if marker and len(sent) != SG_WORLD:
@@ -7359,8 +7450,9 @@ def sg_pod_gate(podscope, dumps):
 
 
 def train_gpt_supervised(torch, fa, zk, serving, card, checked):
-    """Phase 15: LSGD and PEER's uninterrupted run in one gang, the PEER
-    drill under --elastic_full_world --collect-dumps, its pod dump (POD),
+    """Phase 15: LSGD and PEER's uninterrupted run in one gang and, at the
+    same time, the PEER drill under --elastic_full_world --collect-dumps
+    (LSGD's one-process simulation runs here meanwhile), its pod dump (POD),
     the serving workers (WORKERS), and a planted fault per gate; `checked`
     are the B1 launches phase 13's `check_flash_keyed_paths` held."""
     import tempfile
@@ -7382,12 +7474,31 @@ def train_gpt_supervised(torch, fa, zk, serving, card, checked):
     base = dict(os.environ, PADDLE_DIST_BACKEND="gloo",
                 PADDLE_DIST_DEVICE="cuda:0", CHIP_SMOKE_SG_OUT=out_dir)
 
-    # ---- LSGD and PEER's uninterrupted run ---------------------------------
-    t1 = time.perf_counter()
-    rc, text = launch_gang(["--sg-worker"], dict(base,
-                                                 CHIP_SMOKE_SG_MODE="a"),
-                           600, "sg_a_gang.log")
-    row["gang_a_s"] = time.perf_counter() - t1
+    # ---- LSGD and PEER's uninterrupted run (gang a), and beside it PEER:
+    # the drill under --elastic_full_world --collect-dumps; this process
+    # runs LSGD's one-process simulation meanwhile
+    flight_dir = os.path.join(out_dir, "flight")
+    snap_dir = os.path.join(out_dir, "snap")
+    env = dict(base, CHIP_SMOKE_SG_MODE="peer",
+               FLAGS_flight_dump_dir=flight_dir, PADDLE_SNAPSHOT_DIR=snap_dir,
+               FLAGS_gloo_timeout_ms="20000")
+    sims = {}
+
+    def simulate(_procs):
+        t1 = time.perf_counter()
+        sims["plain"] = sg_simulation(torch, fa)
+        sims["fault"] = sg_simulation(torch, fa, params_only=True)
+        sims["s"] = time.perf_counter() - t1
+
+    (rc, text, row["gang_a_s"]), (rc_peer, text_peer, row["gang_peer_s"]) \
+        = launch_gangs(
+            [dict(args=["--sg-worker"], log_name="sg_a_gang.log",
+                  env=dict(base, CHIP_SMOKE_SG_MODE="a")),
+             dict(args=["--sg-worker"], env=env, log_name="sg_peer_gang.log",
+                  launcher_args=("--grace_period_s", str(SG_GRACE_S),
+                                 "--elastic_restarts", "1",
+                                 "--elastic_full_world", "--collect-dumps"))],
+            900, during=simulate)
     if rc != 0:
         fail(f"the phase-15 gang a failed (rc {rc}): {text[-3000:]}")
     ranks_a = []
@@ -7395,11 +7506,9 @@ def train_gpt_supervised(torch, fa, zk, serving, card, checked):
         with open(os.path.join(out_dir, f"sg_a_rank{r}.json")) as f:
             ranks_a.append(json.load(f))
     lsgd = [a["lsgd"] for a in ranks_a]
-    t1 = time.perf_counter()
-    sim_losses, sim_digest, sim_keyed = sg_simulation(torch, fa)
-    fault_losses, fault_digest, _ = sg_simulation(torch, fa,
-                                                  params_only=True)
-    sim_s = time.perf_counter() - t1
+    (sim_losses, sim_digest, sim_keyed), (fault_losses, fault_digest, _) = \
+        sims["plain"], sims["fault"]
+    sim_s = sims["s"]
     for r, got in enumerate(lsgd):
         if got["losses"] != sim_losses or got["fingerprint"] != sim_digest:
             fail(f"LSGD rank {r}: not bit-equal to the one-process "
@@ -7422,21 +7531,8 @@ def train_gpt_supervised(torch, fa, zk, serving, card, checked):
         f"{lsgd[0]['step_ms_p50_sync']:.1f} ms, gloo host ms on syncs "
         f"{lsgd[0]['gloo_host_ms_sync']}; fault {fault_lsgd}")
 
-    # ---- PEER: the drill under --elastic_full_world --collect-dumps ------
-    flight_dir = os.path.join(out_dir, "flight")
-    snap_dir = os.path.join(out_dir, "snap")
-    env = dict(base, CHIP_SMOKE_SG_MODE="peer",
-               FLAGS_flight_dump_dir=flight_dir, PADDLE_SNAPSHOT_DIR=snap_dir,
-               FLAGS_gloo_timeout_ms="20000")
-    t1 = time.perf_counter()
-    rc, text = launch_gang(
-        ["--sg-worker"], env, 900, "sg_peer_gang.log",
-        launcher_args=("--grace_period_s", str(SG_GRACE_S),
-                       "--elastic_restarts", "1", "--elastic_full_world",
-                       "--collect-dumps"))
-    row["gang_peer_s"] = time.perf_counter() - t1
-    if rc != 0:
-        fail(f"the PEER drill failed (rc {rc}): {text[-3000:]}")
+    if rc_peer != 0:
+        fail(f"the PEER drill failed (rc {rc_peer}): {text_peer[-3000:]}")
     lives = {}
     for life in (0, 1):
         for r in range(SG_WORLD):
@@ -7448,7 +7544,8 @@ def train_gpt_supervised(torch, fa, zk, serving, card, checked):
     if [s["rung"] for s in second] != ["local", "peer"]:
         fail(f"PEER: rungs {[s['rung'] for s in second]} (rank 1 must "
              "recover on the peer rung)")
-    if f"recovery: rank 1 rung=peer step={SG_SNAPSHOT_STEPS}" not in text:
+    if f"recovery: rank 1 rung=peer step={SG_SNAPSHOT_STEPS}" \
+            not in text_peer:
         fail("PEER: the launcher did not stamp rank 1's peer rung")
     if len({s["resumed_from"] for s in second}) != 1:
         fail(f"PEER: the ranks resumed from {[s['resumed_from'] for s in second]}")
@@ -7800,33 +7897,44 @@ def resnet_card_vs_cpu(torch):
     return row
 
 
-def check_b7_bucket(torch, zk, n):
-    """B7 (plain momentum, mu 0.9) at ResNet-50's widest stage-1 bucket:
-    bit for bit against its plain version, timed through its wrapper and
-    alone, beside the plain version, torch._fused_sgd_ with momentum and
-    the bytes bound (20 bytes an element)."""
-    gen = torch.Generator(device="cuda").manual_seed(16)
-    attrs = {"mu": IMG_MU, "use_nesterov": False}
-
-    def make():
-        g = torch.Generator(device="cuda").manual_seed(16)
+def check_b7_bucket(torch, zk, widths):
+    """B7 at ResNet-50's stage-1 bucket widths: bit for bit against its
+    plain version in its four instances (ZERO_ARMS' momentum arms, mu
+    IMG_MU) at every width; plain momentum (the phase's, mu IMG_MU) at the
+    widest timed through its wrapper and alone, beside the plain version,
+    torch._fused_sgd_ with momentum and the bytes bound (20 bytes an
+    element)."""
+    def make(n, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
         return {"Param": [torch.randn(n, generator=g, device="cuda")],
                 "Grad": [torch.randn(n, generator=g, device="cuda")],
                 "Velocity": [torch.randn(n, generator=g, device="cuda")],
                 "LearningRate": [torch.tensor([IMG_LR], device="cuda")]}
 
-    kin, pin = make(), make()
-    got = zk.fused_flat_update("momentum", kin, attrs)
-    want = zk.fused_flat_update_plain("momentum", pin, attrs)
-    torch.cuda.synchronize()
-    err = max((g[0] - want[s][0]).abs().max().item()
-              for s, g in got.items())
-    bitwise = all(torch.equal(g[0], want[s][0]) for s, g in got.items())
-    if not bitwise:
-        fail(f"zero_momentum at the resnet50 bucket n={n}: kernel differs "
-             f"from its plain version (max abs {err})")
-    del pin, want
-    row = {"n": n, "bitwise": True, "max_abs_err": err,
+    err = 0.0
+    for n in widths:
+        for _, _, label, arm in (a for a in ZERO_ARMS
+                                 if a[0] == "zero_momentum"):
+            attrs = dict(arm, mu=IMG_MU)
+            got = zk.fused_flat_update("momentum", make(n, 16), attrs)
+            want = zk.fused_flat_update_plain("momentum", make(n, 16), attrs)
+            torch.cuda.synchronize()
+            e = max((g[0] - want[s][0]).abs().max().item()
+                    for s, g in got.items())
+            if not all(torch.equal(g[0], want[s][0])
+                       for s, g in got.items()):
+                fail(f"zero_momentum {label} at the resnet50 bucket n={n}: "
+                     f"kernel differs from its plain version (max abs {e})")
+            err = max(err, e)
+            del got, want
+    log(f"kernel zero_momentum at resnet50's stage-1 buckets {widths}: bit "
+        f"for bit in its four instances")
+    n = max(widths)
+    attrs = {"mu": IMG_MU, "use_nesterov": False}
+    kin = make(n, 16)
+    row = {"n": n, "widths_bitwise": list(widths),
+           "instances": [a[2] for a in ZERO_ARMS if a[0] == "zero_momentum"],
+           "bitwise": True, "max_abs_err": err,
            "ms": cuda_ms(torch, lambda: zk.fused_flat_update(
                "momentum", kin, attrs)),
            "alone_ms": cuda_ms(torch, launch_alone(torch, zk, kin, attrs,
@@ -7835,13 +7943,15 @@ def check_b7_bucket(torch, zk, n):
                "momentum", kin, attrs)),
            "bound_ms": n * ZERO_BYTES_PER_ELEMENT["zero_momentum"]
            / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    row["share_of_bytes_bound"] = row["bound_ms"] / row["alone_ms"]
     lib = zero_library_call(torch, "momentum", "momentum",
                             {s: v for s, v in kin.items()})
     row["library_ms"] = None if lib is None else cuda_ms(torch, lib)
-    del kin, got, gen
+    del kin
     torch.cuda.empty_cache()
-    log(f"kernel zero_momentum at resnet50's widest bucket n={n}: bit for "
-        f"bit; {row['ms']:.4f} ms (alone {row['alone_ms']:.4f}), plain "
+    log(f"kernel zero_momentum at resnet50's widest bucket n={n}: "
+        f"{row['ms']:.4f} ms (alone {row['alone_ms']:.4f}, "
+        f"{row['share_of_bytes_bound']:.3f} of the bytes bound), plain "
         f"{row['plain_ms']:.4f}, bytes bound {row['bound_ms']:.4f}, torch "
         f"fused {row['library_ms']}")
     return row
@@ -8068,7 +8178,7 @@ def train_image_models(torch, zk, registry, card):
         del c_final, e_state, se, s0
         release(torch)
         # ---- B7 alone at the widest bucket
-        out["b7_resnet50_bucket"] = check_b7_bucket(torch, zk, max(widths))
+        out["b7_resnet50_bucket"] = check_b7_bucket(torch, zk, widths)
         # ---- the other models
         out["se_resnext50"] = other_image_model(
             torch, "se_resnext50", SE_BATCH, SE_STEPS, IMG_SIZE)
@@ -8142,12 +8252,24 @@ def main():
     from paddle_tpu_torch.ops.kernels import paged_attention as kernel_mod
     from paddle_tpu_torch.ops.kernels import zero_update as zk
 
+    # seconds from each phase's start to the next one's, logged as each
+    # phase ends and again before the result lines
+    phase_s, t_last = {}, [None, time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        if t_last[0] is not None:
+            phase_s[t_last[0]] = round(now - t_last[1], 1)
+            log(f"phase {t_last[0]}: {phase_s[t_last[0]]} s")
+        t_last[:] = [name, now]
+
     card = card_line()
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}")
 
     # ---- build -----------------------------------------------------------
+    lap("build")
     t0 = time.perf_counter()
     libs = _build.build()
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
@@ -8166,6 +8288,7 @@ def main():
     log(f"SASS HMMA counts: {sass}")
 
     # ---- kernels vs plain --------------------------------------------------
+    lap("kernels")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"TF32 off: matmul.allow_tf32="
@@ -8184,10 +8307,12 @@ def main():
                 else {k: c for k, c in sass.items() if fn in k}
 
     # ---- GPT-2 small served through the port --------------------------------
+    lap("serving")
     serving_row, resilience_row = serve_gpt2(
         torch, serving, gpt_decode, kernel_mod, metrics, rows, card)
 
     # ---- BERT pretraining through Program / Executor ----------------------
+    lap("bert")
     torch.cuda.empty_cache()
     parity = card_vs_cpu(torch, fa)
     training, launches0, launches1 = train_bert(torch, fa, zk, registry,
@@ -8198,6 +8323,7 @@ def main():
     rows["zero_adam"]["launches"] = launches1["zero_adam"]
 
     # ---- ZeRO stages against each other, deterministic algorithms ----------
+    lap("zero_stages")
     # warn_only: an op without a deterministic implementation warns (the
     # warnings are printed) instead of stopping the run
     torch.use_deterministic_algorithms(True, warn_only=True)
@@ -8212,6 +8338,7 @@ def main():
         rows[name]["launches"] = n
 
     # ---- GPT-2 small LM training: run_steps on one captured step ---------
+    lap("gpt")
     release(torch)
     gpt_row = {"card_vs_cpu": gpt_card_vs_cpu(torch, fa)}
     gpt_row["capture_gates"] = [
@@ -8231,6 +8358,7 @@ def main():
             gpt_row["capture_gates"][1]["launches_incl_warmup"]["zero_adam"]}
 
     # ---- GPT-2 small training that survives a restart ----------------------
+    lap("restart")
     release(torch)
     state_row, state_launches = train_gpt_resilient(torch, fa, zk, card)
     rows["zero_adam"]["launches_by_path"][
@@ -8243,10 +8371,12 @@ def main():
                 state_launches[name]}
 
     # ---- GPT-2 small trained from data ---------------------------------------
+    lap("data")
     release(torch)
     data_row = train_gpt_from_data(torch, fa, card)
 
     # ---- data parallelism across processes: GPT-2 small at dp 2 -----------
+    lap("dp")
     release(torch)
     dp_row = train_gpt_dp(torch, zk, card)
     rows["zero_adam"]["shard_dp2"] = dp_row.pop("b8_shard")
@@ -8258,6 +8388,7 @@ def main():
                 for s in map(str, DP_STAGES))
 
     # ---- pipeline training: GPipe, pp 2, recompute, gradient merge -------
+    lap("pipeline")
     release(torch)
     pipe_row = train_gpt_pipeline(torch, fa, zk, card)
     arms = {"pipeline_G_gpipe_3_steps": pipe_row["gpipe"]["launches"],
@@ -8271,6 +8402,7 @@ def main():
             rows[name]["launches_by_path"][path] = counts[name]
 
     # ---- rolled layers: layer scan, its stage-3 buckets, dp x pp ---------
+    lap("layer_scan")
     release(torch)
     scan_row = train_gpt_rolled(torch, fa, zk, card)
     dp0 = scan_row["dp"]["ranks"][0]
@@ -8291,6 +8423,7 @@ def main():
                                     scan_row["dp"].pop("b8_stacked_shard")]
 
     # ---- tensor and sequence parallelism: tp 2, ring and Ulysses sp 2 ------
+    lap("model_parallel")
     release(torch)
     mp_row = train_gpt_model_parallel(torch, fa, card)
     mp0 = mp_row["ranks"][0]
@@ -8308,6 +8441,7 @@ def main():
         rows[name]["keyed_paths"] = mp_row["flash_keyed_paths"][name]
 
     # ---- composed meshes: ZeRO, layer scan and pp with tp and sp ----------
+    lap("composed")
     release(torch)
     cm_row = train_gpt_composed(torch, fa, zk, card,
                                 mp_row["flash_checked_launches"])
@@ -8328,6 +8462,7 @@ def main():
             rows[name]["launches_by_path"][path] = counts[name]
 
     # ---- the supervised gang: LocalSGD, peer snapshots, pod dumps, workers
+    lap("supervised")
     release(torch)
     sg_row = train_gpt_supervised(torch, fa, zk, serving, card,
                                   mp_row["flash_checked_launches"])
@@ -8348,6 +8483,7 @@ def main():
         b4_paths[f"supervised_WORKERS_rank{r}"] = w["b4_launches"]
 
     # ---- the dense ops and the image models: ResNet-50 training --------
+    lap("image")
     release(torch)
     image_row, b7_launches = train_image_models(torch, zk, registry, card)
     if not b7_launches:
@@ -8361,6 +8497,8 @@ def main():
     for row in rows.values():
         if not row["launches"]:
             fail(f"{row['name']} was never launched on its main path run")
+    lap(None)
+    log(f"phase seconds: {phase_s}, {sum(phase_s.values()):.1f} s in all")
     log(f"stopped the run's processes: {stop_children()}")
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"serving": serving_row}), flush=True)

@@ -1,6 +1,7 @@
-"""Variants of the flash kernels B1-B3, of the fused Adam update B8 and of
-the paged decode kernels B4/B5, timed against each other on one card: the
-measurements behind PERF.md's account of where their time goes.
+"""Variants of the flash kernels B1-B3, of the fused updates B7 (momentum)
+and B8 (Adam) and of the paged decode kernels B4/B5, timed against each
+other on one card: the measurements behind PERF.md's account of where
+their time goes.
 
     python3 -m paddle_tpu_torch.ops.kernels.flash_variants [name ...]
 
@@ -14,8 +15,16 @@ variants in order and then in reverse, and averaged:
   head_dim 64, key-padding mask, f32 and bf16, dropout 0.1 and 0; each
   prints its ptxas registers and its max |variant - plain| on O and on the
   gradients, f32 and bf16, at dropout 0.1.
-* B8 (`ZERO_VARIANTS`): adam over one flat bucket of 23,440,896 f32
-  elements, checked bit for bit against the plain rule.
+* B7 and B8 (`ZERO_VARIANTS`): adam over one flat bucket of 23,440,896
+  f32 elements, checked bit for bit against the plain rule; momentum at
+  8,208,384, 23,440,896 and 67,108,864 elements (`MOMENTUM_SIZES`),
+  checked bit for bit in its four
+  instances (l2_decay and nesterov each on or off) and on buckets one
+  element off 16 bytes (shared and mismatched offsets), timed through the
+  wrapper and alone (the C entry on prepared arguments), in order and in
+  reverse twice, beside torch._fused_sgd_ and the bytes bound; a line
+  through the alone times gives a launch's fixed cost and the sustained
+  rate.
 * B4/B5 (`PAGED_VARIANTS`): the paged decode kernel at the serving kernel
   phase's shapes (batch 8, 12 heads, head_dim 64, block 16, max_len 1024,
   ragged positions) with f32, bf16 and int8 pools (bf16 query), and at the
@@ -47,6 +56,13 @@ from . import zero_update as zk
 
 CU, H, ZU = "flash_attention.cu", "mma_tile.cuh", "zero_update.cu"
 PA = "paged_attention.cu"
+
+
+def _csrc_variant(name):
+    """The text of csrc/variants/<name>: a body a variant inserts."""
+    return (_build.CSRC_DIR / "variants" / name).read_text()
+
+
 # name -> [(file, old text, new text)]
 VARIANTS = {
     "base": [],
@@ -93,6 +109,24 @@ VARIANTS = {
     # wrong on purpose: every element kept, no hash
     "no_hash": [(CU, "    return x >= p.thresh;", "    return qpos != 0xFFFFFFFFu;")],
 }
+
+
+def _b7_body(fragment, suffix):
+    """Substitutions that insert csrc/variants/<fragment> (another body of
+    B7 with its launcher `momentum_launch<suffix>`) into the anonymous
+    namespace of csrc/zero_update.cu and point zero_momentum at it."""
+    return [(ZU, "}  // namespace\n", _csrc_variant(fragment)
+             + "}  // namespace\n"),
+            (ZU, "  if (use_l2)\n    e = nesterov ? momentum_launch<",
+             f"  if (use_l2)\n    e = nesterov ? momentum_launch{suffix}<"),
+            (ZU, "                 : momentum_launch<true, false>",
+             f"                 : momentum_launch{suffix}<true, false>"),
+            (ZU, "    e = nesterov ? momentum_launch<false, true>",
+             f"    e = nesterov ? momentum_launch{suffix}<false, true>"),
+            (ZU, "                 : momentum_launch<false, false>",
+             f"                 : momentum_launch{suffix}<false, false>")]
+
+
 ZERO_VARIANTS = {
     "zero_base": [],
     # streaming cache hints on B8's 16-byte loads and stores
@@ -108,6 +142,48 @@ ZERO_VARIANTS = {
                              "    const bool two = w < nv;",
                          "v += nt) {\n    const int64_t w = v + nt;\n"
                          "    const bool two = false;")],
+    # B7: the register body (csrc/variants/zero_momentum_vec.cuh) in place
+    # of the ring, and the body PRs 3-18 shipped (4-byte accesses, runtime
+    # flags, 8 blocks of 256 threads per SM)
+    "zero_momentum_vec": _b7_body("zero_momentum_vec.cuh", "_vec"),
+    "zero_momentum_scalar": _b7_body("zero_momentum_scalar.cuh", "_scalar"),
+    # B7's ring in 2 or 6 stages, or in chunks of 512 (8 stages) or 2048
+    # elements
+    "zero_momentum_s2": [(ZU, "constexpr int kMomentumStages = 4;",
+                          "constexpr int kMomentumStages = 2;")],
+    "zero_momentum_s6": [(ZU, "constexpr int kMomentumStages = 4;",
+                          "constexpr int kMomentumStages = 6;")],
+    "zero_momentum_c512": [
+        (ZU, "constexpr int kMomentumChunk = 1024;",
+         "constexpr int kMomentumChunk = 512;"),
+        (ZU, "constexpr int kMomentumStages = 4;",
+         "constexpr int kMomentumStages = 8;")],
+    "zero_momentum_c2048": [(ZU, "constexpr int kMomentumChunk = 1024;",
+                             "constexpr int kMomentumChunk = 2048;")],
+    # B7's ring with each block on one contiguous run of the body, all runs
+    # of one length (to a float4), in place of chunks dealt round the blocks
+    "zero_momentum_runs": [
+        (ZU, "  const int64_t base = static_cast<int64_t>(blockIdx.x) * "
+             "kMomentumChunk;\n"
+             "  const int64_t stride = static_cast<int64_t>(gridDim.x) * "
+             "kMomentumChunk;\n"
+             "  const int64_t limit = body;\n",
+         "  const int64_t share = (body / 4 + gridDim.x - 1) / gridDim.x * 4;\n"
+         "  const int64_t base = blockIdx.x * share < body ? blockIdx.x * "
+         "share : body;\n"
+         "  const int64_t stride = kMomentumChunk;\n"
+         "  const int64_t limit = body - base < share ? body : base + share;"
+         "\n")],
+    # B7's ring loading under the default L2 policy, not evict-first
+    "zero_momentum_no_hint": [
+        (ZU, "asm(\"createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+             "\\n\"",
+         "asm(\"createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;"
+         "\\n\"")],
+    # B7's ring storing p and v with plain st.global (kept in the L2)
+    "zero_momentum_cached_stores": [
+        (ZU, "  __stcs(reinterpret_cast<float4*>(a) + v, x);",
+         "  reinterpret_cast<float4*>(a)[v] = x;")],
 }
 # B4/B5: the chunk length P and the rows each thread has in flight (kRows =
 # P / (warps x rows per warp step): 16 for f32, 8 for bf16, 4 for int8 at
@@ -181,7 +257,11 @@ def build(names):
                           r"(?:I(f|13__nv_bfloat16)Li(\d+)E)?", line)
             p = re.search(r"entry function '\S*?(paged_decode_kernel\w*?I"
                           r"\w+?)EEv", line)
-            if m:
+            z = re.search(r"entry function '\S*?(zero_momentum\w*?)_kernel"
+                          r"ILb([01])ELb([01])E", line)
+            if z:
+                entry = f"{z.group(1)}<{z.group(2)}, {z.group(3)}>"
+            elif m:
                 entry = m.group(1) if m.group(2) is None else \
                     f"{m.group(1)}_{'f32' if m.group(2) == 'f' else 'bf16'}" \
                     f"_hd{m.group(3)}"
@@ -350,7 +430,7 @@ def flash_main(names, libs):
               f"{libs[name][1]}", flush=True)
 
 
-def zero_main(names, libs):
+def adam_main(names, libs):
     n = 23_440_896
     g = torch.Generator(device="cuda").manual_seed(0)
     base = {s: torch.randn(n, generator=g, device="cuda")
@@ -381,6 +461,116 @@ def zero_main(names, libs):
         print(f"variant {name}: B8 adam n={n} {ms:.4f} ms "
               f"({28 * n / ms / 1e6:.1f} GB/s); bit for bit "
               f"{bitwise[name]}; registers {libs[name][1]}", flush=True)
+
+
+# B7 at ResNet-50's widest stage-1 bucket, BERT-base's widest bucket and
+# 2**26 elements (all past the 50 MB L2 at 20 bytes an element), in its four
+# <use_l2, nesterov> instances; a line through the three alone times splits
+# a launch into a fixed cost and a sustained rate
+MOMENTUM_SIZES = (8_208_384, 23_440_896, 67_108_864)
+MOMENTUM_ARMS = {
+    "momentum": {"mu": 0.9, "use_nesterov": False},
+    "momentum_l2": {"mu": 0.9, "use_nesterov": False,
+                    "regularization_method": "l2_decay",
+                    "regularization_coeff": 1e-4},
+    "momentum_nesterov": {"mu": 0.9, "use_nesterov": True},
+    "momentum_nesterov_l2": {"mu": 0.9, "use_nesterov": True,
+                             "regularization_method": "l2_decay",
+                             "regularization_coeff": 1e-4},
+}
+# slot offsets in elements of Param, Grad, Velocity: one shared offset (the
+# scalar head, then the vector body) and offsets that differ (the scalar
+# loop)
+MOMENTUM_OFFSETS = ((0, 0, 0), (1, 1, 1), (1, 0, 2))
+HBM_BYTES_PER_S = 3.35e12
+
+
+def momentum_case(n, gen, offsets=(0, 0, 0)):
+    """A function making fresh B7 operands of `n` elements from one draw:
+    Param, Grad and Velocity each a view `offsets[i]` elements into its own
+    buffer."""
+    base = [torch.randn(n, generator=gen, device="cuda") for _ in range(3)]
+
+    def ins():
+        out = {"LearningRate": [torch.tensor([1e-3], device="cuda")]}
+        for slot, t, o in zip(("Param", "Grad", "Velocity"), base, offsets):
+            buf = torch.empty(n + o, device="cuda")[o:]
+            out[slot] = [buf.copy_(t)]
+        return out
+    return ins
+
+
+def momentum_alone(ins, attrs):
+    """B7's C entry on `ins` with its arguments prepared beforehand (what
+    `zero_update.launch` passes), uncounted: the kernel without the
+    wrapper."""
+    lib = zk._library()
+    args = zk.momentum_args(ins, attrs) + (
+        torch.cuda.current_stream().cuda_stream,)
+    return lambda: lib.zero_momentum(*args)
+
+
+def momentum_main(names, libs):
+    """Each variant's B7 held bit for bit against the plain rule in its four
+    instances and on offset buckets, then plain momentum timed through the
+    wrapper and alone, beside torch._fused_sgd_ and the bytes bound."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    attrs = MOMENTUM_ARMS["momentum"]
+    fit = {nm: [] for nm in names}
+    for n in MOMENTUM_SIZES:
+        bitwise = {nm: True for nm in names}
+        for offs in MOMENTUM_OFFSETS:
+            ins = momentum_case(n, g, offs)
+            arms = MOMENTUM_ARMS if offs == (0, 0, 0) else \
+                {"momentum_nesterov_l2": MOMENTUM_ARMS["momentum_nesterov_l2"]}
+            for label, a in arms.items():
+                want = zk.fused_flat_update_plain("momentum", ins(), a)
+                for name in names:
+                    _use(libs[name][0])
+                    got = zk.fused_flat_update("momentum", ins(), a)
+                    ok = all(torch.equal(got[s][0], want[s][0]) for s in got)
+                    if not ok:
+                        print(f"variant {name}: B7 {label} n={n} offsets "
+                              f"{offs} differs from the plain rule",
+                              flush=True)
+                    bitwise[name] &= ok
+                del want, got
+        kin = momentum_case(n, g)()
+        wrapper = {nm: [] for nm in names}
+        alone = {nm: [] for nm in names}
+        for name in (names + names[::-1]) * 2:
+            _use(libs[name][0])
+            wrapper[name].append(_ms(lambda: zk.fused_flat_update(
+                "momentum", kin, attrs), iters=100))
+            alone[name].append(_ms(momentum_alone(kin, attrs), iters=100))
+        fused = getattr(torch, "_fused_sgd_", None)
+        library = None if fused is None else _ms(lambda: fused(
+            kin["Param"], kin["Grad"], kin["Velocity"], weight_decay=0.0,
+            momentum=0.9, lr=1e-3, dampening=0.0, nesterov=False,
+            maximize=False, is_first_step=False), iters=100)
+        bound = 20 * n / HBM_BYTES_PER_S * 1e3
+        for name in names:
+            w, a = float(np.mean(wrapper[name])), float(np.mean(alone[name]))
+            fit[name].append((n, a))
+            print(f"variant {name}: B7 momentum n={n} {a:.4f} ms alone "
+                  f"({20 * n / a / 1e6:.1f} GB/s, {bound / a:.3f} of the "
+                  f"bytes bound {bound:.4f} ms), {w:.4f} ms through the "
+                  f"wrapper; torch._fused_sgd_ {library}; bit for bit in "
+                  f"4 instances and 2 offset arms {bitwise[name]}; "
+                  f"registers {libs[name][1]}", flush=True)
+        del kin
+        torch.cuda.empty_cache()
+    for name in names:
+        slope, fixed = np.polyfit(*zip(*fit[name]), 1)
+        print(f"variant {name}: B7 alone = {fixed * 1e3:.2f} us + n x "
+              f"{slope * 1e9:.4f} ps: {20 / slope / 1e6:.1f} GB/s sustained "
+              f"({20 / slope * 1e3 / HBM_BYTES_PER_S:.3f} of 3.35 TB/s)",
+              flush=True)
+
+
+def zero_main(names, libs):
+    adam_main(names, libs)
+    momentum_main(names, libs)
 
 
 def paged_main(names, libs):

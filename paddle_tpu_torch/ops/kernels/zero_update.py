@@ -75,6 +75,8 @@ def _library():
             fn.restype = i
         lib.zero_adam_blocks_per_sm.argtypes = []
         lib.zero_adam_blocks_per_sm.restype = i
+        lib.zero_momentum_blocks_per_sm.argtypes = [i, i]
+        lib.zero_momentum_blocks_per_sm.restype = i
         lib.zero_update_error_string.argtypes = [i]
         lib.zero_update_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -131,6 +133,20 @@ def fused_flat_update(op_type: str, ins, attrs):
                       torch.cuda.current_stream(dev).cuda_stream)
 
 
+def momentum_args(ins, attrs):
+    """B7's arguments before the stream, (lr, p, g, v, n, mu, l2, use_l2,
+    nesterov): the pointers of `ins`' checked operands and the rule's
+    constants. (use_l2, nesterov) pick one of the kernel's four compiled
+    instances."""
+    (p, g, v), (lr,) = _operands("momentum", ins)
+    rd = attrs.get("regularization_coeff", 0.0)
+    use_l2 = attrs.get("regularization_method", "") == "l2_decay" \
+        and bool(rd)
+    return (lr.data_ptr(), p.data_ptr(), g.data_ptr(), v.data_ptr(),
+            p.numel(), attrs.get("mu", 0.9), rd if use_l2 else 0.0,
+            int(use_l2), int(bool(attrs.get("use_nesterov", False))))
+
+
 def launch(lib, op_type: str, ins, attrs, stream: int):
     """One launch of `op_type`'s kernel from `lib` on `stream` over checked
     operands; counts it and returns the rule's output dict. Constants go
@@ -143,15 +159,8 @@ def launch(lib, op_type: str, ins, attrs, stream: int):
                           stream)
         outs = {"ParamOut": [p]}
     elif op_type == "momentum":
-        v = state[0]
-        rd = attrs.get("regularization_coeff", 0.0)
-        use_l2 = attrs.get("regularization_method", "") == "l2_decay" \
-            and bool(rd)
-        rc = lib.zero_momentum(
-            lr.data_ptr(), p.data_ptr(), g.data_ptr(), v.data_ptr(), n,
-            attrs.get("mu", 0.9), rd if use_l2 else 0.0, int(use_l2),
-            int(bool(attrs.get("use_nesterov", False))), stream)
-        outs = {"ParamOut": [p], "VelocityOut": [v]}
+        rc = lib.zero_momentum(*momentum_args(ins, attrs), stream)
+        outs = {"ParamOut": [p], "VelocityOut": [state[0]]}
     else:
         # the kernel forms lr_t from LearningRate, Beta1Pow and Beta2Pow as
         # the rule's `adam_lr_t` does: one launch is the whole update

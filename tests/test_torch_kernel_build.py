@@ -1,6 +1,8 @@
 """PyTorch port, kernel build: paddle_tpu_torch.ops.kernels._build names each
 library by a hash of what goes into it, so an edited source or header is
 rebuilt and a stale library is never loaded. No nvcc is needed here."""
+import pytest
+
 from paddle_tpu_torch.ops.kernels import _build
 
 
@@ -40,6 +42,24 @@ def test_port_headers_listed():
     assert "mma_tile.cuh" in [h.name for h in _build.headers()]
 
 
+@pytest.mark.parametrize("body", ["vec", "scalar"])
+def test_variant_bodies_are_not_built(body):
+    """B7's other bodies under csrc/variants/ (the register body, the
+    scalar body of PRs 3-18) are read by the variants script only:
+    `_build` neither compiles them nor hashes them into a library, and
+    only their variant points zero_momentum at them."""
+    from paddle_tpu_torch.ops.kernels import flash_variants as fv
+    path = _build.CSRC_DIR / "variants" / f"zero_momentum_{body}.cuh"
+    assert path.is_file()
+    built = _build.sources() + _build.headers()
+    assert all(f.parent == _build.CSRC_DIR for f in built)
+    text = fv.variant_sources(f"zero_momentum_{body}")[fv.ZU]
+    assert f"zero_momentum_{body}_kernel" in text
+    assert text.count(f"momentum_launch_{body}<") == 4
+    assert f"zero_momentum_{body}_kernel" not in fv.variant_sources(
+        "zero_base")[fv.ZU]
+
+
 def test_flash_variants_apply_to_the_sources():
     """Every timed variant of the flash kernels still matches the
     sources it edits (each substitution exactly once), and base is the
@@ -55,7 +75,7 @@ def test_flash_variants_apply_to_the_sources():
 
 
 def test_zero_variants_apply_to_the_source():
-    """Every timed variant of the fused Adam update B8 still matches
+    """Every timed variant of the fused updates B7 and B8 still matches
     csrc/zero_update.cu (each substitution exactly once), and zero_base is
     the source as it is."""
     from paddle_tpu_torch.ops.kernels import flash_variants as fv

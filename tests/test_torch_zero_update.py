@@ -6,8 +6,9 @@ the CPU.
 * The plain versions (the port's dense rules, which are also its
   per-parameter lowerings) against the reference's fused kernel under
   `jax.jit`, run as tests/test_pallas_kernels.py runs it (interpret mode
-  on the CPU): sgd, momentum (nesterov + l2_decay, and plain), adam,
-  adamw; shapes (256,), (3, 128) and (100003,). Tolerance: 1 ulp
+  on the CPU): sgd, momentum in its four forms (l2_decay and nesterov
+  each on or off: the four compiled instances of B7), adam, adamw; shapes
+  (256,), (3, 128) and (100003,). Tolerance: 1 ulp
   (`assert_array_max_ulp(maxulp=1)`). The rules are one torch op per jnp
   op in the reference's order; under jit XLA may still round adam's
   parameter update once where the rule rounds twice, which moves one
@@ -35,7 +36,8 @@ from paddle_tpu.ops.pallas.zero_update import fused_flat_update as ref_fused
 
 from paddle_tpu_torch.ops.kernels import zero_update as zk
 
-ARMS = ["sgd", "momentum_nesterov_l2", "momentum", "adam", "adamw"]
+ARMS = ["sgd", "momentum_nesterov_l2", "momentum", "momentum_l2",
+        "momentum_nesterov", "adam", "adamw"]
 SHAPES = [(256,), (3, 128), (100003,)]
 
 
@@ -50,8 +52,8 @@ def _case(arm, shape, seed=0):
     attrs = {}
     if op_type == "momentum":
         ins["Velocity"] = [rng.randn(*shape).astype(np.float32)]
-        attrs = {"mu": 0.9, "use_nesterov": arm != "momentum"}
-        if arm != "momentum":
+        attrs = {"mu": 0.9, "use_nesterov": "nesterov" in arm}
+        if arm.endswith("_l2"):
             attrs.update(regularization_method="l2_decay",
                          regularization_coeff=1e-4)
     elif op_type in ("adam", "adamw"):
@@ -139,17 +141,23 @@ class _StandInLibrary:
 
     def zero_momentum(self, lr, p, g, v, n, mu, l2, use_l2, nesterov,
                       stream):
+        """B7's <use_l2, nesterov> instance: `momentum_step`'s rounded
+        operations in its order (the head, vector body and tail of the
+        kernel each run the same step on their elements)."""
         self.calls.append(("zero_momentum", (lr, p, g, v, n, mu, l2, use_l2,
                                              nesterov, stream)))
         f = np.float32
-        lr0 = _array(lr, 1)[0]
+        lr0, mu, l2 = _array(lr, 1)[0], f(mu), f(l2)
         pa, ga, va = _array(p, n), _array(g, n), _array(v, n)
-        gi = ga + f(l2) * pa if use_l2 else ga.copy()
-        vo = f(mu) * va + gi
-        step = gi + f(mu) * vo if nesterov else vo
+        gi = ga + l2 * pa if use_l2 else ga.copy()   # g' = g + l2*p
+        vo = mu * va + gi                            # v' = mu*v + g'
+        step = gi + mu * vo if nesterov else vo      # g' + mu*v' or v'
         pa[:] = pa - lr0 * step
         va[:] = vo
         return self.rc
+
+    def zero_momentum_blocks_per_sm(self, use_l2, nesterov):
+        return 4
 
     def zero_adam(self, lr, b1p, b2p, p, g, m1, m2, n, b1, omb1, b2, omb2,
                   eps, coeff, decay, stream):
@@ -190,10 +198,11 @@ def test_cuda_branch_with_stand_in_library(arm):
     if op_type == "sgd":
         assert args[:4] == (ptr("LearningRate"), ptr("Param"), ptr("Grad"), n)
     elif op_type == "momentum":
-        l2 = arm == "momentum_nesterov_l2"
+        l2, nesterov = arm.endswith("_l2"), "nesterov" in arm
         assert args[:9] == (ptr("LearningRate"), ptr("Param"), ptr("Grad"),
                             ptr("Velocity"), n, 0.9, 1e-4 if l2 else 0.0,
-                            int(l2), int(l2))
+                            int(l2), int(nesterov))
+        assert args[:9] == zk.momentum_args(tins, attrs)
     else:
         assert args[:8] == (ptr("LearningRate"), ptr("Beta1Pow"),
                             ptr("Beta2Pow"), ptr("Param"), ptr("Grad"),
