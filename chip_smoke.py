@@ -253,7 +253,8 @@ result line):
      the same weights (losses within 1e-4 relative, the parameters' change
      within 5e-2), and the dp average skipped in a second run of the gang
      (the planted fault) reading above that limit; the gang leaves no
-     process.
+     process. This gang runs beside phase 13's (one `launch_gangs`
+     call), and is judged after it;
 13. tensor and sequence parallelism, GPT-2 small's width cut to 2 layers
    (GPTConfig(num_layers=MP_LAYERS): hidden 768, 12 heads, vocab 50257;
    fleet AMP bf16, Adam(1e-4), ZeRO stage 0,
@@ -400,7 +401,37 @@ result line):
      grouped 3x3 convs at cardinality 32, sigmoid gates, dropout,
      cross_entropy, top_k and accuracy) and LeNet (28 x 28, batch 32,
      fleet AMP, Adam 1e-3), 3 eager steps each on one batch: finite,
-     falling losses.
+     falling losses;
+17. control flow and ragged sequences (f32, TF32 off):
+   * the control-flow gates, each program on the card against the port's
+     CPU run from the same startup arrays (integers equal, floats within
+     1e-5): an unbounded While (a sum of squares), while_loop, cond on
+     either branch, Switch on each case, StaticRNN, an array written past
+     its capacity and read past its length; run_steps(3) over the
+     unbounded While runs 3 eager steps and captures nothing; its cost:
+     run_steps(10) at 8 iterations unbounded (eager) against the same
+     loop bounded by 8 (captured), equal sums;
+   * card vs CPU: both models below at T 16, batch 4, width 32, 2 steps
+     from the same startup arrays: losses within 1e-4 relative, every
+     persistable within 1e-5;
+   * DRNN, PaddlePaddle Fluid's benchmark/fluid/models/
+     stacked_dynamic_lstm.py at its widths: embedding [5,147, 512] (IMDB's
+     vocabulary scale), fc 512 tanh, a DynamicRNN whose step is an LSTM
+     of 8 fcs at 512 (the bounded While of T iterations), the last step
+     pooled, fc 2 softmax; Adam 1e-3, batch 32, T 256 (cut from the
+     source's 1,500-token crop), ids, labels and lengths (uniform in
+     [64, 256], the first row at 256) from numpy seed 0, one batch for
+     every step: E, 3 eager Executor.run steps; C, run_steps(3) on one
+     capture bit-equal to E (losses and every persistable), then two
+     run_steps(5) windows, one more step profiled (busy share, launches);
+     Z, fleet ZeRO stage 1 (B8 once a bucket and step) the same windows,
+     bit-equal to E after 3 steps and to C after 13; step ms p50,
+     tokens/s over the live lengths, peak memory;
+   * BOOK, the Paddle book's understand_sentiment stacked_lstm_net: EMB
+     128, HID 512 (LSTM width 128), 3 dynamic_lstm layers of alternating
+     direction, max pools, fc 2 softmax, Adagrad 0.002, batch 128, T 256
+     (dense embedding; fc over the concat of its two inputs): E and C as
+     the DRNN's, bit-equal.
 Each main-path run resets the kernel launch counts just before it and
 fails if a kernel of its path was never launched.
 
@@ -415,8 +446,10 @@ Output: a `{"kernels": [...]}` line, a `{"serving": ...}` line, a
 `{"data_path": ...}` line, a `{"data_parallel": ...}` line, a
 `{"pipeline": ...}` line, a `{"layer_scan": ...}` line, a
 `{"model_parallel": ...}` line, a `{"composed_mesh": ...}` line, a
-`{"supervised_gang": ...}` line, an `{"image_training": ...}` line, and
-last `{"ok": true, "device": {...}}`. The B7 row's `resnet50_bucket` is
+`{"supervised_gang": ...}` line, an `{"image_training": ...}` line, a
+`{"sequence_training": ...}` line, and
+last `{"ok": true, "device": {...}}`. The B8 row's `launches_by_path`
+adds phase 17's arm Z. The B7 row's `resnet50_bucket` is
 phase 16's check at ResNet-50's widest bucket, and its
 `launches_by_path` adds phase 16's arm Z. The B8 row's `shard_peer` is phase 15's
 shard check, and the B1-B3, B8 and bf16 B4 rows' `launches_by_path` add
@@ -5585,17 +5618,23 @@ def scan_arm_sr(torch, fa, zk):
             "planted_faults_change_rel": faults, "zero_buckets": n_buckets}
 
 
-def scan_arms_dp(torch, fa, zk, card):
-    """Arms S3D and DP: the dp-2 gang through the port's launcher (both
-    ranks on cuda:0 under gloo), then one process's GPipe at batch 32 from
-    the same weights beside arm DP, and B8 at the stacked shard width."""
+def scan_dp_gang():
+    """Arms S3D and DP's dp-2 gang (both ranks on cuda:0 under gloo), as a
+    `launch_gangs` entry: it runs beside phase 13's gang."""
     import tempfile
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_scan_")
     env = dict(os.environ, PADDLE_DIST_BACKEND="gloo",
                PADDLE_DIST_DEVICE="cuda:0", CHIP_SMOKE_DP_OUT=out_dir)
-    t0 = time.perf_counter()
-    rc, text = launch_gang(["--scan-worker"], env, 400, "scan_gang.log")
-    gang_s = time.perf_counter() - t0
+    return dict(args=["--scan-worker"], env=env, log_name="scan_gang.log",
+                out_dir=out_dir)
+
+
+def scan_arms_dp(torch, fa, zk, gang, result):
+    """Arms S3D and DP from their gang's `result` (rc, output, seconds):
+    the ranks' gates, then one process's GPipe at batch 32 from the same
+    weights beside arm DP, and B8 at the stacked shard width."""
+    out_dir = gang["out_dir"]
+    rc, text, gang_s = result
     if rc != 0:
         fail(f"the phase-12 gang failed (rc {rc}): {text[-3000:]}")
     ranks = []
@@ -5665,8 +5704,8 @@ def shutil_rm(path):
 
 
 def train_gpt_rolled(torch, fa, zk, card):
-    """Phase 12: arms S, S3, SR, S3D and DP, and B8 on the stacked
-    buckets."""
+    """Phase 12: arms S, S3 and SR, and B8 on the stacked buckets; arms
+    S3D and DP (`scan_arms_dp`) run their gang beside phase 13's."""
     t0 = time.perf_counter()
     row = {"card": card,
            "config": f"GPTConfig(num_layers={CUT_LAYERS}) at S 512, batch "
@@ -5677,7 +5716,6 @@ def train_gpt_rolled(torch, fa, zk, card):
     row["b8_stacked_whole"] = check_b8_stacked(torch, zk, SCAN_B8_SHAPES[0])
     row.update(scan_arm_s(torch, fa, zk))
     row["remat"] = scan_arm_sr(torch, fa, zk)
-    row["dp"] = scan_arms_dp(torch, fa, zk, card)
     row["phase_s"] = time.perf_counter() - t0
     return row
 
@@ -6394,7 +6432,7 @@ def check_flash_keyed_paths(torch, fa):
     return out, checked
 
 
-def train_gpt_model_parallel(torch, fa, card):
+def train_gpt_model_parallel(torch, fa, card, beside=None):
     """Phase 13: the B1-B3 keying checks, the one-process references, then
     arms T, SR and SU in one gang of two ranks on cuda:0 under gloo."""
     import tempfile
@@ -6413,9 +6451,12 @@ def train_gpt_model_parallel(torch, fa, card):
     refs = mp_references(torch, fa, out_dir)
     env = dict(os.environ, PADDLE_DIST_BACKEND="gloo",
                PADDLE_DIST_DEVICE="cuda:0", CHIP_SMOKE_MP_OUT=out_dir)
-    t1 = time.perf_counter()
-    rc, text = launch_gang(["--mp-worker"], env, 900, "mp_gang.log")
-    gang_s = time.perf_counter() - t1
+    # `beside`: another gang started with this one (phase 12's), whose
+    # (rc, output, seconds) comes back in the row's "beside" entry
+    gangs = [dict(args=["--mp-worker"], env=env, log_name="mp_gang.log")]
+    gangs += [] if beside is None else [beside]
+    results = launch_gangs(gangs, 900)
+    rc, text, gang_s = results[0]
     if rc != 0:
         fail(f"the phase-13 gang failed (rc {rc}): {text[-3000:]}")
     ranks = []
@@ -6430,6 +6471,8 @@ def train_gpt_model_parallel(torch, fa, card):
                           "PADDLE_DIST_BACKEND=gloo "
                           "PADDLE_DIST_DEVICE=cuda:0",
                 "phase_s": time.perf_counter() - t0})
+    if beside is not None:
+        row["beside"] = results[1]
     return row
 
 
@@ -8231,6 +8274,495 @@ def train_image_models(torch, zk, registry, card):
     return out, b7
 
 
+# ---------------------------------------------------------------------------
+# phase 17: control flow and ragged sequences
+# ---------------------------------------------------------------------------
+
+SEQ_VOCAB = 5147           # IMDB's scale (the dictionary is not in the repo)
+SEQ_T = 256                # padded length, cut from the source's 1,500 crop
+SEQ_MIN_LEN = 64           # lengths uniform in [64, 256], one row at 256
+DRNN_WIDTH = 512           # stacked_dynamic_lstm's emb_dim and lstm_size
+DRNN_BATCH = 32
+DRNN_LR = 1e-3
+DRNN_E_STEPS = 3
+DRNN_WINDOW = 5            # arms C / Z: two run_steps(5) windows
+BOOK_EMB, BOOK_HID, BOOK_STACKED, BOOK_CLASSES = 128, 512, 3, 2
+BOOK_BATCH = 128
+BOOK_LR = 0.002
+SEQ_CPU = (16, 4, 32)      # card vs CPU: T, batch, width
+SEQ_CPU_RTOL = 1e-4
+
+
+def drnn_lstm_net(L, vocab, T, emb_dim, lstm_size):
+    """PaddlePaddle Fluid's benchmark/fluid/models/stacked_dynamic_lstm.py
+    in the padded-dense convention ([B, T] ids and a length vector):
+    embedding, fc tanh, a DynamicRNN whose step is an LSTM of 8 fcs (each
+    gate an input fc with bias plus a hidden fc without), the last step
+    pooled, fc 2 softmax, the mean cross entropy. `L` is a layers module
+    (the port's or the reference's). Returns (loss, feed names)."""
+    words = L.data(name="words", shape=[T], dtype="int64")
+    lens = L.data(name="lens", shape=[1], dtype="int64")
+    label = L.data(name="label", shape=[1], dtype="int64")
+    emb = L.embedding(L.unsqueeze(words, [2]), size=[vocab, emb_dim])
+    emb = L.reshape(emb, [-1, T, emb_dim])
+    sentence = L.fc(emb, lstm_size, num_flatten_dims=2, act="tanh")
+    rnn = L.DynamicRNN()
+    with rnn.block():
+        word = rnn.step_input(sentence, length=lens)
+        prev_hidden = rnn.memory(value=0.0, shape=[lstm_size])
+        prev_cell = rnn.memory(value=0.0, shape=[lstm_size])
+
+        def gate_common(ipt, hidden, size):
+            return L.fc(ipt, size) + L.fc(hidden, size, bias_attr=False)
+
+        forget_gate = L.sigmoid(gate_common(word, prev_hidden, lstm_size))
+        input_gate = L.sigmoid(gate_common(word, prev_hidden, lstm_size))
+        output_gate = L.sigmoid(gate_common(word, prev_hidden, lstm_size))
+        cell_gate = L.tanh(gate_common(word, prev_hidden, lstm_size))
+        cell = forget_gate * prev_cell + input_gate * cell_gate
+        hidden = output_gate * L.tanh(cell)
+        rnn.update_memory(prev_cell, cell)
+        rnn.update_memory(prev_hidden, hidden)
+        rnn.output(hidden)
+    # DynamicRNN's output carries no static shape in either package (build
+    # time inference cannot read its array's width): stated here, as
+    # DynamicRNN states its step slices'
+    hidden_seq = rnn()
+    hidden_seq.shape = (-1, T, lstm_size)
+    last = L.sequence_pool(hidden_seq, "last", length=lens)
+    logit = L.fc(last, 2, act="softmax")
+    return L.mean(L.cross_entropy(logit, label))
+
+
+def stacked_lstm_net(L, vocab, T, emb_dim, hid_dim, stacked_num, classes):
+    """The Paddle book's understand_sentiment `stacked_lstm_net`
+    (train_stacked_lstm.py): embedding, fc, `stacked_num` dynamic_lstm
+    layers of alternating direction each fed by an fc over the previous
+    fc and lstm outputs, both max-pooled, fc softmax, the mean cross
+    entropy. Two changes the API forces: the embedding is dense (the
+    book's is_sparse waits for SelectedRows), and `fc(input=[a, b])` is
+    `fc(concat([a, b]))` (one weight matrix over both: the same
+    function)."""
+    assert stacked_num % 2 == 1
+    words = L.data(name="words", shape=[T], dtype="int64")
+    lens = L.data(name="lens", shape=[1], dtype="int64")
+    label = L.data(name="label", shape=[1], dtype="int64")
+    emb = L.embedding(L.unsqueeze(words, [2]), size=[vocab, emb_dim])
+    emb = L.reshape(emb, [-1, T, emb_dim])
+    fc1 = L.fc(emb, hid_dim, num_flatten_dims=2)
+    lstm1, _ = L.dynamic_lstm(fc1, hid_dim, length=lens)
+    inputs = [fc1, lstm1]
+    for i in range(2, stacked_num + 1):
+        fc = L.fc(L.concat(inputs, axis=2), hid_dim, num_flatten_dims=2)
+        lstm, _ = L.dynamic_lstm(fc, hid_dim, is_reverse=(i % 2) == 0,
+                                 length=lens)
+        inputs = [fc, lstm]
+    fc_last = L.sequence_pool(inputs[0], "max", length=lens)
+    lstm_last = L.sequence_pool(inputs[1], "max", length=lens)
+    prediction = L.fc(L.concat([fc_last, lstm_last], axis=1), classes,
+                      act="softmax")
+    return L.mean(L.cross_entropy(prediction, label))
+
+
+def seq_feed(batch, T, vocab, classes=2, seed=0, min_len=None):
+    """Ids, lengths and labels from numpy `seed`: lengths uniform in
+    [min_len, T] (T // 4 by default), the first row at T so a bounded
+    loop runs its full length."""
+    rng = np.random.RandomState(seed)
+    lo = T // 4 if min_len is None else min_len
+    lens = rng.randint(lo, T + 1, (batch, 1))
+    lens[0, 0] = T
+    return {"words": rng.randint(0, vocab, (batch, T)).astype(np.int64),
+            "lens": lens.astype(np.int64),
+            "label": rng.randint(0, classes, (batch, 1)).astype(np.int64)}
+
+
+def build_seq(pkg, model, shape, opt, lr, stage=None):
+    """(main, startup, loss): `model` ("drnn" or "book") at `shape` (T,
+    width[, batch]) built with `pkg`'s layers (a namespace of prog,
+    names, L, opt, fleet: the port's or the reference's), minimised by
+    `opt` ("adam" / "adagrad"), through fleet at ZeRO `stage` when
+    given."""
+    T, width = shape[0], shape[1]
+    main, start = pkg.prog.Program(), pkg.prog.Program()
+    with pkg.prog.program_guard(main, start), pkg.names.guard():
+        if model == "drnn":
+            loss = drnn_lstm_net(pkg.L, SEQ_VOCAB, T, width, width)
+        else:
+            loss = stacked_lstm_net(pkg.L, SEQ_VOCAB, T, width // 4, width,
+                                    BOOK_STACKED, BOOK_CLASSES)
+        o = (pkg.opt.Adam(learning_rate=lr) if opt == "adam"
+             else pkg.opt.Adagrad(learning_rate=lr))
+        if stage is not None:
+            pkg.fleet.init(is_collective=True)
+            s = pkg.fleet.DistributedStrategy()
+            s.sharding_stage = stage
+            o = pkg.fleet.distributed_optimizer(o, s)
+        o.minimize(loss)
+    return main, start, loss
+
+
+def port_pkg():
+    """The port's build namespace for `build_seq`."""
+    import types
+    from paddle_tpu_torch import layers, optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework import program, unique_name
+    return types.SimpleNamespace(prog=program, names=unique_name, L=layers,
+                                 opt=optimizer, fleet=fleet)
+
+
+def cf_cases(L, bound=None):
+    """The control-flow gates' programs, built with the port's layers
+    `L`: {name: (a function returning its fetch vars, feed)}; `bound` bounds
+    the sum of squares' While."""
+    f32 = np.float32
+
+    def sum_of_squares(bound=None):
+        x = L.data(name="x", shape=[3], dtype="float32",
+                   append_batch_size=False)
+        n = L.data(name="n", shape=[1], dtype="int64",
+                   append_batch_size=False)
+        i = L.fill_constant([1], "int64", 0)
+        acc = L.fill_constant([3], "float32", 0.0)
+        flag = L.less_than(i, n)
+        w = L.While(flag, bound=bound)
+        with w.block():
+            xi = x + L.cast(i, "float32")
+            L.assign(acc + xi * xi, acc)
+            L.increment(i)
+            L.less_than(i, n, cond=flag)
+        return [acc, i]
+
+    def while_loop():
+        x = L.data(name="x", shape=[3], dtype="float32",
+                   append_batch_size=False)
+        i = L.fill_constant([1], "int32", 0)
+        n = L.fill_constant([1], "int32", 7)
+        return L.while_loop(lambda i, v: L.less_than(i, n),
+                            lambda i, v: [i + 1, v * 1.5 + 1.0], [i, x])
+
+    def cond():
+        x = L.data(name="x", shape=[3], dtype="float32",
+                   append_batch_size=False)
+        p = L.data(name="p", shape=[1], dtype="float32",
+                   append_batch_size=False)
+        zero = L.fill_constant([1], "float32", 0.0)
+        return [L.cond(L.greater_than(p, zero), lambda: L.tanh(x) * 2.0,
+                       lambda: L.exp(x) - 1.0)]
+
+    def switch():
+        p = L.data(name="p", shape=[1], dtype="float32",
+                   append_batch_size=False)
+        lr = L.create_global_var([1], 0.5, "float32", persistable=True,
+                                 name="lr")
+        b1 = L.fill_constant([1], "float32", 0.0)
+        b2 = L.fill_constant([1], "float32", 10.0)
+        with L.Switch() as sw:
+            with sw.case(L.less_than(p, b1)):
+                L.assign(p * 0.01, lr)
+            with sw.case(L.less_than(p, b2)):
+                L.assign(L.fill_constant([1], "float32", 0.1), lr)
+            with sw.default():
+                L.assign(L.fill_constant([1], "float32", 0.01), lr)
+        return [lr]
+
+    def static_rnn():
+        x = L.data(name="x", shape=[6, 4, 3], dtype="float32",
+                   append_batch_size=False)
+        rnn = L.StaticRNN()
+        with rnn.step():
+            x_t = rnn.step_input(x)
+            h = rnn.memory(shape=[-1, 8], batch_ref=x_t, ref_batch_dim_idx=0)
+            nh = L.fc(L.concat([x_t, h], axis=1), 8, act="tanh")
+            rnn.update_memory(h, nh)
+            rnn.step_output(nh)
+        return [rnn()]
+
+    def arrays():
+        a = L.data(name="x", shape=[3], dtype="float32",
+                   append_batch_size=False)
+        i = L.data(name="n", shape=[1], dtype="int64",
+                   append_batch_size=False)
+        arr = L.create_array("float32", capacity=4)
+        L.array_write(a, L.fill_constant([1], "int64", 0), array=arr,
+                      capacity=4)
+        L.array_write(a * 2.0, i, array=arr, capacity=4)
+        return [L.array_read(arr, i), L.array_length(arr)]
+
+    x3 = np.array([0.5, -1.0, 2.0], f32)
+    return {
+        "while_unbounded": (lambda: sum_of_squares(bound), {"x": x3,
+                                             "n": np.array([5], np.int64)}),
+        "while_loop": (while_loop, {"x": x3}),
+        "cond_true": (cond, {"x": x3, "p": np.array([1.0], f32)}),
+        "cond_false": (cond, {"x": x3, "p": np.array([-1.0], f32)}),
+        "switch_case0": (switch, {"p": np.array([-3.0], f32)}),
+        "switch_case1": (switch, {"p": np.array([4.0], f32)}),
+        "switch_default": (switch, {"p": np.array([12.0], f32)}),
+        "static_rnn": (static_rnn, {"x": np.random.RandomState(0).randn(
+            6, 4, 3).astype(f32)}),
+        # the write at 6 of 4 slots is dropped, the read at 6 clamped
+        "array_past_capacity": (arrays, {"x": x3,
+                                         "n": np.array([6], np.int64)}),
+    }
+
+
+def control_flow_gates(torch):
+    """Each `cf_cases` program on the card against the port's CPU run from
+    the same startup arrays: integers and bools equal, floats within 1e-5;
+    then run_steps(3) over the unbounded While on the card runs 3 eager
+    steps and captures nothing; and the cost of that: run_steps(10) of the
+    sum of squares at 8 iterations unbounded (eager, a host read an
+    iteration) against the same loop bounded by 8 (one replay a step)."""
+    from paddle_tpu_torch.framework import Executor, Scope
+    pkg = port_pkg()
+    out = {}
+    for name, (fn, feed) in cf_cases(pkg.L).items():
+        main, start = pkg.prog.Program(), pkg.prog.Program()
+        with pkg.prog.program_guard(main, start), pkg.names.guard():
+            fetch = fn()
+        got = {}
+        for dev in ("cuda", "cpu"):
+            scope = Scope()
+            Executor(dev).run(start, scope=scope)
+            if dev == "cuda":
+                init = {n: scope.numpy(n) for n in scope.local_names()
+                        if isinstance(scope.find(n), torch.Tensor)}
+            else:
+                for n, v in init.items():
+                    scope.set(n, torch.from_numpy(v))
+            got[dev] = Executor(dev).run(main, feed=feed, fetch_list=fetch,
+                                         scope=scope)
+        worst = 0.0
+        for a, b in zip(got["cuda"], got["cpu"]):
+            if a.dtype.kind == "f":
+                if not np.allclose(a, b, rtol=1e-5, atol=1e-6):
+                    fail(f"control flow {name}: card {a} vs CPU {b}")
+                worst = max(worst, float(np.abs(a - b).max()))
+            elif not np.array_equal(a, b):
+                fail(f"control flow {name}: card {a} vs CPU {b}")
+        out[name] = {"card": [a.tolist() for a in got["cuda"]],
+                     "max_abs_diff": worst}
+    fn, _ = cf_cases(pkg.L)["while_unbounded"]
+    main, start = pkg.prog.Program(), pkg.prog.Program()
+    with pkg.prog.program_guard(main, start), pkg.names.guard():
+        fetch = fn()
+    exe = Executor("cuda")
+    feeds = {"x": np.ones((3, 3), np.float32),
+             "n": np.array([[2], [4], [3]], np.int64)}
+    _, got_i = exe.run_steps(3, main, feed=feeds, fetch_list=fetch,
+                             scope=Scope())
+    stats = dict(exe.stats)
+    if stats["eager_steps"] != 3 or stats["captures"] \
+            or got_i[:, 0].tolist() != [2, 4, 3]:
+        fail(f"run_steps over the unbounded While: stats {stats}, trip "
+             f"counts {got_i[:, 0].tolist()}")
+    timing = {}
+    feeds = {"x": np.ones((10, 3), np.float32),
+             "n": np.full((10, 1), 8, np.int64)}
+    for arm, bound in (("unbounded_eager", None), ("bounded_captured", 8)):
+        main, start = pkg.prog.Program(), pkg.prog.Program()
+        with pkg.prog.program_guard(main, start), pkg.names.guard():
+            fetch = cf_cases(pkg.L, bound)["while_unbounded"][0]()
+        exe, scope = Executor("cuda"), Scope()
+        got = [exe.run_steps(10, main, feed=feeds, fetch_list=fetch,
+                             scope=scope)]
+        t0 = time.perf_counter()
+        got.append(exe.run_steps(10, main, feed=feeds, fetch_list=fetch,
+                                 scope=scope))
+        timing[arm] = {"step_ms": (time.perf_counter() - t0) * 100,
+                       "executor_stats": dict(exe.stats),
+                       "sums": got[1][0][0].tolist()}
+    if timing["unbounded_eager"]["sums"] != \
+            timing["bounded_captured"]["sums"] \
+            or timing["bounded_captured"]["executor_stats"]["captures"] != 1:
+        fail(f"the bounded While differs from the unbounded one: {timing}")
+    log(f"sum of squares at 8 iterations, a step: unbounded (eager) "
+        f"{timing['unbounded_eager']['step_ms']:.3f} ms, bounded "
+        f"(captured) {timing['bounded_captured']['step_ms']:.3f} ms")
+    out["run_steps_unbounded_while"] = {"executor_stats": stats,
+                                        "trip_counts": [2, 4, 3],
+                                        "cost_8_iterations": timing}
+    log(f"control-flow gates: {sorted(out)} hold on the card")
+    return out
+
+
+def seq_card_vs_cpu(torch):
+    """Both models at SEQ_CPU (T 16, batch 4, width 32), f32, TF32 off: 2
+    steps on the card and on the CPU from the same startup arrays; losses
+    within SEQ_CPU_RTOL, every persistable within 1e-5."""
+    from paddle_tpu_torch.framework import Executor, Scope, load_numpy
+    T, batch, width = SEQ_CPU
+    out = {}
+    for model, opt, lr in (("drnn", "adam", DRNN_LR),
+                           ("book", "adagrad", BOOK_LR)):
+        main, start, loss = build_seq(port_pkg(), model, (T, width), opt, lr)
+        feed = seq_feed(batch, T, SEQ_VOCAB)
+        s = Scope()
+        Executor("cpu").run(start, scope=s)
+        init = {n: s.numpy(n) for n in s.local_names()
+                if isinstance(s.find(n), torch.Tensor)}
+        losses, states = {}, {}
+        for dev in ("cuda", "cpu"):
+            scope = load_numpy(Scope(), init, dev)
+            exe = Executor(dev)
+            losses[dev] = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                         scope=scope)[0]) for _ in range(2)]
+            states[dev] = {n: scope.numpy(n) for n in init}
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                      losses["cpu"]))
+        diff = max(float(np.abs(states["cuda"][n] - states["cpu"][n]).max())
+                   for n in init)
+        log(f"sequence card vs CPU {model}: losses {losses['cuda']} vs "
+            f"{losses['cpu']}, rel {rel:.3e} (limit {SEQ_CPU_RTOL}); "
+            f"largest persistable difference {diff:.3e} (limit 1e-5)")
+        if not (rel <= SEQ_CPU_RTOL and diff <= 1e-5):
+            fail(f"sequence card vs CPU {model}: losses rel {rel:.3e}, "
+                 f"persistables {diff:.3e}")
+        out[model] = {"losses_card": losses["cuda"],
+                      "losses_cpu": losses["cpu"], "loss_max_rel": rel,
+                      "persistable_max_abs_diff": diff}
+    return out
+
+
+def seq_arms(torch, zk, model, feed, arms):
+    """`arms` of `model` at full width from one startup state: E
+    (DRNN_E_STEPS eager run() calls), C (captured: run_steps of
+    DRNN_E_STEPS, then two of DRNN_WINDOW), Z (the same at ZeRO stage 1,
+    B8 once a bucket and step). Gates: C's and Z's state after their
+    first window == E's, bit for bit, losses too; Z's final state == C's.
+    Returns {arm: numbers}."""
+    from paddle_tpu_torch.framework import Executor, Scope
+    opt, lr = ("adam", DRNN_LR) if model == "drnn" else ("adagrad", BOOK_LR)
+    width = DRNN_WIDTH if model == "drnn" else BOOK_HID
+    tokens = int(feed["lens"].sum())
+    out, states = {}, {}
+    s0 = None
+    for arm in arms:
+        main, start, loss = build_seq(port_pkg(), model, (SEQ_T, width), opt,
+                                      lr, stage=1 if arm == "Z" else None)
+        if s0 is None:
+            s0 = Scope()
+            Executor("cuda").run(start, scope=s0)
+        scope, exe = scope_copy(torch, s0), Executor("cuda")
+        release(torch)
+        torch.cuda.reset_peak_memory_stats()
+        zk.reset_launches()
+        losses, ms = [], []
+        if arm == "E":
+            for _ in range(DRNN_E_STEPS):
+                t0 = time.perf_counter()
+                losses.append(float(exe.run(main, feed=feed,
+                                            fetch_list=[loss],
+                                            scope=scope)[0]))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            states["E"] = {n: t.clone() for n, t in
+                           image_state(torch, main, scope).items()}
+            timed = ms[1:]
+        else:
+            for k in (DRNN_E_STEPS, DRNN_WINDOW, DRNN_WINDOW):
+                t0 = time.perf_counter()
+                got, = exe.run_steps(k, main, feed=feed, fetch_list=[loss],
+                                     scope=scope)
+                ms.append((time.perf_counter() - t0) * 1e3 / k)
+                losses += [float(x) for x in got]
+                if k == DRNN_E_STEPS and len(losses) == k:
+                    d = image_diffs(torch, states["E"],
+                                    image_state(torch, main, scope))
+                    if d or losses != out["E"]["losses"]:
+                        fail(f"{model} gate E == {arm}: {d}, losses "
+                             f"{losses} vs {out['E']['losses']}")
+            timed = ms[1:]
+            final = {n: t.clone() for n, t in
+                     image_state(torch, main, scope).items()}
+            if arm == "C":
+                states["C"] = final
+            elif "C" in states:
+                d = image_diffs(torch, states["C"], final)
+                if d or losses != out["C"]["losses"]:
+                    fail(f"{model} gate C == Z: {d}")
+        peak = torch.cuda.max_memory_allocated()
+        stats = dict(exe.stats)
+        if arm != "E" and (stats["eager_steps"] or stats["captures"] != 1):
+            fail(f"{model} arm {arm}: executor stats {stats}")
+        p50 = float(np.median(timed))
+        row = {"losses": losses, "step_ms": ms, "step_ms_p50": p50,
+               "tokens_per_s": tokens / (p50 / 1e3),
+               "peak_memory_gib": peak / 2 ** 30, "executor_stats": stats}
+        if arm == "C":
+            def one_step():
+                t0 = time.perf_counter()
+                exe.run_steps(1, main, feed=feed, fetch_list=[loss],
+                              scope=scope)
+                return time.perf_counter() - t0
+            row["profile"] = device_profile(torch, one_step, top=6)
+            row["launches_per_step"] = row["profile"].get("device_launches")
+        if arm == "Z":
+            n_buckets = op_count(main, "__zero_update__")
+            steps_run = DRNN_E_STEPS + 2 * DRNN_WINDOW \
+                + stats["warmup_steps"]
+            b8 = zk.launches["zero_adam"]
+            if not n_buckets or b8 != steps_run * n_buckets:
+                fail(f"{model} arm Z: {b8} B8 launches for {n_buckets} "
+                     f"buckets over {steps_run} steps")
+            row.update(b8_launches_incl_warmup=b8, zero_update_ops=n_buckets,
+                       bucket_widths=[b["padded"] for b in
+                                      main._grad_buckets["zero_buckets"]])
+        log(f"{model} arm {arm}: step p50 {p50:.1f} ms, "
+            f"{row['tokens_per_s']:.0f} tokens/s, peak "
+            f"{row['peak_memory_gib']:.2f} GiB, losses {losses}")
+        out[arm] = row
+        del exe, scope, main, start
+        release(torch)
+    return out
+
+
+def train_sequence_models(torch, zk, card):
+    """Phase 17 (module docstring): the control-flow gates, card vs CPU,
+    then the DRNN LSTM's arms E, C and Z and the book's stacked LSTM's E
+    and C at full width. Returns (the line's row, B8's launches in Z)."""
+    t0 = time.perf_counter()
+    row, parts = {"card": card}, {}
+
+    def part(name, fn):
+        t = time.perf_counter()
+        row[name] = fn()
+        parts[name] = time.perf_counter() - t
+        release(torch)
+
+    part("control_flow", lambda: control_flow_gates(torch))
+    part("card_vs_cpu", lambda: seq_card_vs_cpu(torch))
+    feed = seq_feed(DRNN_BATCH, SEQ_T, SEQ_VOCAB, min_len=SEQ_MIN_LEN)
+    part("drnn", lambda: seq_arms(torch, zk, "drnn", feed, ("E", "C", "Z")))
+    book_feed = seq_feed(BOOK_BATCH, SEQ_T, SEQ_VOCAB, min_len=SEQ_MIN_LEN)
+    part("book", lambda: seq_arms(torch, zk, "book", book_feed, ("E", "C")))
+    log(f"phase 17 parts (s): {parts}")
+    row.update(
+        parts_s=parts,
+        config={
+            "drnn": f"stacked_dynamic_lstm: embedding [{SEQ_VOCAB}, "
+                    f"{DRNN_WIDTH}], fc {DRNN_WIDTH} tanh, DynamicRNN LSTM "
+                    f"of 8 fcs at {DRNN_WIDTH}, last step, fc 2 softmax; "
+                    f"Adam {DRNN_LR}, batch {DRNN_BATCH}, T {SEQ_T}",
+            "book": f"stacked_lstm_net: EMB {BOOK_EMB}, HID {BOOK_HID} "
+                    f"(LSTM width {BOOK_HID // 4}), {BOOK_STACKED} "
+                    f"dynamic_lstm layers, max pools, fc {BOOK_CLASSES} "
+                    f"softmax; Adagrad {BOOK_LR}, batch {BOOK_BATCH}, T "
+                    f"{SEQ_T}; dense embedding, fc over concat",
+            "data": f"ids, labels and lengths from numpy seed 0, V "
+                    f"{SEQ_VOCAB}, lengths uniform in [{SEQ_MIN_LEN}, "
+                    f"{SEQ_T}], the first row at {SEQ_T}; one batch for "
+                    f"every step; f32, TF32 off; weights from the startup "
+                    f"program"},
+        gates={"E_eq_C_eq_Z": "bit for bit on every persistable (DRNN E, "
+                              "C, Z; BOOK E, C)",
+               "card_vs_cpu": f"losses rtol {SEQ_CPU_RTOL}, persistables "
+                              f"atol 1e-5 after 2 steps"},
+        phase_s=time.perf_counter() - t0)
+    return row, row["drnn"]["Z"]["b8_launches_incl_warmup"]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -8405,6 +8937,16 @@ def main():
     lap("layer_scan")
     release(torch)
     scan_row = train_gpt_rolled(torch, fa, zk, card)
+
+    # ---- tensor and sequence parallelism: tp 2, ring and Ulysses sp 2 ------
+    # phase 12's S3D / DP gang runs beside phase 13's gang, and is judged
+    # after it
+    lap("model_parallel")
+    release(torch)
+    scan_gang = scan_dp_gang()
+    mp_row = train_gpt_model_parallel(torch, fa, card, beside=scan_gang)
+    scan_row["dp"] = scan_arms_dp(torch, fa, zk, scan_gang,
+                                  mp_row.pop("beside"))
     dp0 = scan_row["dp"]["ranks"][0]
     arms = {"layer_scan_S_rolled_3_steps": scan_row["rolled"]["launches"],
             "layer_scan_SR_remat_stage1_3_steps":
@@ -8421,11 +8963,6 @@ def main():
             rows[name]["launches_by_path"][path] = counts[name]
     rows["zero_adam"]["stacked"] = [scan_row.pop("b8_stacked_whole"),
                                     scan_row["dp"].pop("b8_stacked_shard")]
-
-    # ---- tensor and sequence parallelism: tp 2, ring and Ulysses sp 2 ------
-    lap("model_parallel")
-    release(torch)
-    mp_row = train_gpt_model_parallel(torch, fa, card)
     mp0 = mp_row["ranks"][0]
     arms = {"model_parallel_T_tp2_rank0_3_steps":
                 mp0["T"]["sound"]["flash_launches"],
@@ -8494,6 +9031,13 @@ def main():
     rows["zero_momentum"]["resnet50_bucket"] = \
         image_row.pop("b7_resnet50_bucket")
 
+    # ---- control flow and ragged sequences: the DRNN LSTM, the book's LSTM
+    lap("sequence")
+    release(torch)
+    seq_row, b8_seq = train_sequence_models(torch, zk, card)
+    rows["zero_adam"]["launches_by_path"][
+        "sequence_Z_drnn_stage1_captured_13_steps_incl_warmup"] = b8_seq
+
     for row in rows.values():
         if not row["launches"]:
             fail(f"{row['name']} was never launched on its main path run")
@@ -8514,6 +9058,7 @@ def main():
     print(json.dumps({"composed_mesh": cm_row}), flush=True)
     print(json.dumps({"supervised_gang": sg_row}), flush=True)
     print(json.dumps({"image_training": image_row}), flush=True)
+    print(json.dumps({"sequence_training": seq_row}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

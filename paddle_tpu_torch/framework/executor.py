@@ -191,6 +191,23 @@ dp > 1 with no explicit collective op (LocalSGD, dp x pp) stamps one
 `__step_sync__`. The gang's merged pod timeline links equal keys across
 ranks (observability/podscope.py).
 
+Sub-blocks (layers/control_flow.py). An op that runs a sub-block
+(`__while__`, `__cond__`, `__switch__`, `__scan__`) finds it through
+`_current_lowering_program()` (the program whose block is running on
+this thread) and runs it with `run_sub_block` over an env made from its
+`Free`, `Carried`, `X` and `Init` values. Every write inside a sub-block
+stays in that env, persistables included: only the outer op's outputs
+reach the scope, so a branch not taken (or one computed and then not
+selected, under capture) writes nothing. A LoDTensorArray's value is a
+`(buffer or None, length)` pair; it passes through the env and the AMP
+casts as it is (no op of the AMP lists takes an array), and a fetched
+array comes back as its buffer. A program holding an unbounded
+`__while__` (trip_bound 0) reads its predicate on the host each
+iteration and cannot be captured: `run_steps` runs it eagerly each step,
+counted in `stats["eager_steps"]`. Under capture
+(`LowerCtx.capturing`) `__cond__` and `__switch__` run every branch and
+select their outputs on the device.
+
 Not ported (ROADMAP): the PS path (item 19.2).
 """
 from __future__ import annotations
@@ -226,19 +243,41 @@ COLLECTIVE_OPS = frozenset({
 })
 LOCALSGD_SUFFIX = "@LOCALSGD"
 _flight_owner_ids = itertools.count(1)
+# the programs whose blocks are running on this thread, innermost last
+_lowering = threading.local()
+
+
+def _current_lowering_program():
+    """The program whose block is running on this thread (the reference's
+    :354): a sub-block op's lowering finds its blocks there."""
+    return _lowering.programs[-1]
+
+
+def _host_synced(program) -> bool:
+    """Whether a step of `program` reads device values on the host: an
+    unbounded `__while__` in any block (its predicate, each iteration)."""
+    return any(op.type == "__while__" and not op.attrs.get("trip_bound")
+               for b in program.blocks for op in b.ops)
 
 
 def _attrs_key(attrs) -> str:
     return repr(sorted(attrs.items()))
 
 
+def _snapshot_source(name: str) -> str:
+    """The var a `<name>@PRE` snapshot copies: append_backward reads an
+    op's in-place inputs (a While's carried state) through snapshots taken
+    just before the op, which hold the values the op read."""
+    return name[:name.index("@PRE")] if "@PRE" in name else name
+
+
 def _grad_plan(block) -> Dict[int, int]:
     """{forward op index: index of the __vjp__ op differentiating it}.
     A grad op pairs with the latest unpaired forward op of the same type,
-    input names and attrs. A recompute segment (`__segment__` with
-    `remat`) is never paired: its grad op re-runs it. One holding a layer
-    scan is: the scan's own `remat` keeps its layer inputs only
-    (parallel/transforms.py)."""
+    input names (a snapshot standing for the var it copies) and attrs. A
+    recompute segment (`__segment__` with `remat`) is never paired: its
+    grad op re-runs it. One holding a layer scan is: the scan's own
+    `remat` keeps its layer inputs only (parallel/transforms.py)."""
     from ..parallel.transforms import _holds_scan
     pending, plan = {}, {}
     for idx, op in enumerate(block.ops):
@@ -247,7 +286,8 @@ def _grad_plan(block) -> Dict[int, int]:
             continue
         if op.type == "__vjp__":
             a = op.attrs
-            fwd_ins = {s: op.inputs.get(s, []) for s in a["fwd_input_slots"]}
+            fwd_ins = {s: [_snapshot_source(n) for n in op.inputs.get(s, [])]
+                       for s in a["fwd_input_slots"]}
             key = (a["fwd_type"], repr(sorted(fwd_ins.items())),
                    _attrs_key(a["fwd_attrs"]))
             cands = pending.get(key)
@@ -528,7 +568,7 @@ class _CapturedStep:
         with torch.cuda.stream(side):
             exe._step(self.program, dict(self.static), scope,
                       registry.LowerCtx(run_seed=self.seed,
-                                        device=exe.device),
+                                        device=exe.device, capturing=True),
                       self.fetch_names, strict=False)
             for n, (t, copy) in saved.items():
                 if scope.find(n) is not t:
@@ -550,7 +590,8 @@ class _CapturedStep:
                     self.outs = exe._step(
                         self.program, dict(self.static), scope,
                         registry.LowerCtx(run_seed=self.seed,
-                                          device=exe.device),
+                                          device=exe.device,
+                                          capturing=True),
                         self.fetch_names, strict=True)
                 except BaseException as e:
                     failed = e
@@ -1094,7 +1135,7 @@ class Executor:
             from ..parallel.gspmd import mixed_config
             mixed = mixed_config(program) is not None
             if self.device.type == "cuda" and not self._uncaptured(dp) \
-                    and not mixed:
+                    and not mixed and not _host_synced(program):
                 stacked = self._run_captured(program, feeds, seeds, scope,
                                              fetch_names)
             else:
@@ -1473,11 +1514,14 @@ def _pipelined(program) -> bool:
 
 
 def _fetch_values(env, scope, names):
-    """The fetches of a step: a value of the step's env as it is, a
-    persistable's as a copy (the next step updates it in place)."""
+    """The fetches of a step: a value of the step's env as it is (an
+    array as its buffer), a persistable's as a copy (the next step
+    updates it in place)."""
     out = []
     for n in names:
         val = env[n] if n in env else scope.find(n)
+        if isinstance(val, tuple):
+            val = val[0]
         if val is None:
             raise errors.NotFound("fetch target %r was not computed", n,
                                   var=n)
@@ -1505,14 +1549,46 @@ def _split_feeds(feeds, k):
     return micro
 
 
+def run_sub_block(block, env, out_names, ctx):
+    """Run a sub-block over `env` (its outer op's Free / Carried / X /
+    Init values by name, module docstring) and return the values of
+    `out_names`. Every write stays in a copy of `env`: persistables too,
+    and nothing is read from a scope, so a parameter read inside the
+    block is the env's value (under torch.func.vjp, the outer op's
+    primal, whose gradient the outer op's `__vjp__` returns)."""
+    from .scope import Scope
+    local = dict(env)
+    _run_block(block, {}, local, Scope(), ctx, ctx.amp_dtype, local=True)
+    missing = [n for n in out_names if n not in local]
+    if missing:
+        raise errors.NotFound(
+            "sub-block %d did not compute %s", block.idx, missing,
+            var=missing[0])
+    return [local[n] for n in out_names]
+
+
 def _run_block(block, plan, env, scope, ctx, amp_dtype, strict=False,
-               ops=None, saved=None):
+               ops=None, saved=None, local=False):
     """Apply each op's lowering in order over `env` (feeds and
     temporaries; persistable values live in the scope and are written
-    there in place: `_write_persistable`). `ops` is a list of (index in
-    the block, op), all of the block's by default; `saved` holds the
-    pullbacks of forward ops whose grad op has not run yet (pass the same
-    dict to the call that runs the grad ops)."""
+    there in place: `_write_persistable`; with `local`, a sub-block's,
+    they stay in `env`). `ops` is a list of (index in the block, op), all
+    of the block's by default; `saved` holds the pullbacks of forward ops
+    whose grad op has not run yet (pass the same dict to the call that
+    runs the grad ops)."""
+    stack = getattr(_lowering, "programs", None)
+    if stack is None:
+        stack = _lowering.programs = []
+    stack.append(block.program)
+    try:
+        _run_ops(block, plan, env, scope, ctx, amp_dtype, strict, ops,
+                 saved, local)
+    finally:
+        stack.pop()
+
+
+def _run_ops(block, plan, env, scope, ctx, amp_dtype, strict, ops, saved,
+             local):
     if saved is None:
         saved = {}     # __vjp__ op index -> (pullback, forward outputs)
     ctx.amp_dtype = amp_dtype
@@ -1581,7 +1657,7 @@ def _run_block(block, plan, env, scope, ctx, amp_dtype, strict=False,
                 if n == "@EMPTY@" or v is None:
                     continue
                 var = block.find_var_recursive(n)
-                if var is not None and var.persistable:
+                if var is not None and var.persistable and not local:
                     _write_persistable(scope, n, v, strict)
                 else:
                     env[n] = v

@@ -24,7 +24,13 @@ ops' descs in its `sub_ops` attr, and the layer scan its `layer_seeds`,
 `to_desc` / `from_desc` carry them as they are (JSON lists and dicts),
 and `clone(for_test)` sets `is_test` in the descs at every depth.
 
-Not ported: sub-blocks (control flow) and the dygraph switches.
+Sub-blocks (layers/control_flow.py): `create_block` opens a block whose
+parent is the current one and makes it current, `rollback` returns to the
+parent; an op running a sub-block names it by index in its attrs
+(`sub_block`, `true_block`, `case_blocks`), and `to_desc` / `from_desc` /
+`clone` carry every block in index order, so the indices survive.
+
+Not ported: the dygraph switches.
 """
 from __future__ import annotations
 
@@ -293,6 +299,19 @@ class Program:
 
     def current_block(self) -> Block:
         return self.blocks[self.current_block_idx]
+
+    def create_block(self, parent_idx=None) -> Block:
+        """A new block, child of the current one (or of `parent_idx`),
+        made current (reference program.py:314)."""
+        parent = self.current_block_idx if parent_idx is None else parent_idx
+        b = Block(self, len(self.blocks), parent)
+        self.blocks.append(b)
+        self.current_block_idx = b.idx
+        return b
+
+    def rollback(self):
+        """Make the current block's parent current again (:321)."""
+        self.current_block_idx = self.current_block().parent_idx
 
     def all_parameters(self) -> List[Parameter]:
         return self.global_block().all_parameters()

@@ -1,7 +1,8 @@
 """Tensor creation layer functions (counterpart of
 paddle_tpu/layers/tensor.py), and `increment` (the reference's
-layers/control_flow.py). `linspace` and `range` fold to an
-`assign_value` of their numpy values, as the reference's do."""
+layers/control_flow.py, which re-exports it here too). `linspace` and
+`range` fold to an `assign_value` of their numpy values, as the
+reference's do."""
 from __future__ import annotations
 
 import numpy as np
@@ -25,6 +26,8 @@ def fill_constant(shape, dtype, value, force_cpu=False, out=None, name=None):
     helper.append_op("fill_constant", outputs={"Out": [out]},
                      attrs={"shape": list(shape), "dtype": dtype_name(dtype),
                             "value": float(value)})
+    # a build-time constant: array_write sizes its buffer by it
+    out._const_value = float(value)
     return out
 
 

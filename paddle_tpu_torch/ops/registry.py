@@ -74,13 +74,18 @@ class LowerCtx:
     with the same seed value draw the same masks."""
 
     __slots__ = ("run_seed", "device", "is_eval_shape", "amp_dtype", "mesh",
-                 "_seed", "_run_key", "_keys")
+                 "capturing", "_seed", "_run_key", "_keys")
 
     def __init__(self, run_seed=0, device=None, is_eval_shape: bool = False,
-                 amp_dtype=None, mesh=None):
+                 amp_dtype=None, mesh=None, capturing: bool = False):
         self.device = torch.device("cpu" if device is None else device)
         self.is_eval_shape = is_eval_shape
         self.amp_dtype = amp_dtype
+        # the step is being captured into a CUDA graph (or warmed up for
+        # one): a lowering must not read device values on the host, so
+        # `__cond__` / `__switch__` run every branch and select
+        # (layers/control_flow.py)
+        self.capturing = capturing
         # the tp/sp mesh a step on DTensors runs over (parallel/gspmd.py)
         self.mesh = mesh
         if isinstance(run_seed, torch.Tensor):
@@ -161,7 +166,8 @@ _REGISTRY: Dict[str, OpDef] = {}
 _LOWERING_MODULES = ("ops.tensor_ops", "ops.math_ops", "ops.nn_ops",
                      "ops.metric_ops",
                      "ops.fused_ce", "ops.attention", "ops.optimizer_ops",
-                     "ops.int8_ops", "parallel.zero",
+                     "ops.int8_ops", "ops.lod_ops", "ops.sequence_ops",
+                     "layers.control_flow", "parallel.zero",
                      "parallel.transforms")
 _loaded = False
 _loading = False
@@ -313,33 +319,72 @@ def func_vjp(lower, ctx, ins, attrs, diff, out_slots):
     (`_autograd_vjp`)."""
     if ctx.mesh is not None:
         return _autograd_vjp(lower, ctx, ins, attrs, diff, out_slots)
-    primals = [ins[s][i] for s, i in diff]
-    layout = []                  # (slot, index, is_float), plain metadata
+    # a LoDTensorArray (buffer or None, length) is differentiated through
+    # its buffer: its primal, its output and its cotangent are the buffer
+    # (an array without one stands in as an empty f32 tensor)
+    primals = [_diff_part(ins[s][i]) for s, i in diff]
+    layout = []                  # (slot, index, kind), plain metadata
 
     def f(*vals):
         cur = {s: list(vs) for s, vs in ins.items()}
         for (s, i), v in zip(diff, vals):
-            cur[s][i] = v
+            old = cur[s][i]
+            cur[s][i] = v if not isinstance(old, tuple) else (
+                None if old[0] is None else v, old[1])
         outs = lower(ctx, cur, attrs)
         floats, aux = [], {}
         layout.clear()
         for s, vs in outs.items():
             for j, v in enumerate(vs):
-                is_f = (s in out_slots and v is not None
-                        and v.is_floating_point())
-                layout.append((s, j, is_f))
-                if is_f:
-                    floats.append(v)
+                # how the value rides: "f" a float output, "fa" an array's
+                # float buffer (its length in aux), "a" any other tensor,
+                # "na" an array without a buffer (its length in aux),
+                # "none" nothing (aux holds tensors only)
+                if s in out_slots and _floating(v):
+                    kind = "fa" if isinstance(v, tuple) else "f"
+                elif v is None:
+                    kind = "none"
+                elif isinstance(v, tuple) and v[0] is None:
+                    kind = "na"
                 else:
+                    kind = "a"
+                layout.append((s, j, kind))
+                if kind in ("f", "fa"):
+                    floats.append(v[0] if kind == "fa" else v)
+                if kind in ("fa", "na"):
+                    aux[(s, j)] = v[1]
+                elif kind == "a":
                     aux[(s, j)] = v
         return floats, aux
 
     floats, vjp_fn, aux = torch.func.vjp(f, *primals, has_aux=True)
     it = iter(floats)
     outs = {}
-    for s, j, is_f in layout:
-        outs.setdefault(s, []).append(next(it) if is_f else aux[(s, j)])
+    for s, j, kind in layout:
+        if kind == "f":
+            v = next(it)
+        elif kind == "fa":
+            v = (next(it), aux[(s, j)])
+        elif kind == "na":
+            v = (None, aux[(s, j)])
+        else:
+            v = aux.get((s, j))
+        outs.setdefault(s, []).append(v)
     return outs, vjp_fn
+
+
+def _diff_part(v):
+    """The differentiable tensor of an input value: an array's buffer."""
+    if isinstance(v, tuple):
+        return torch.zeros(0) if v[0] is None else v[0]
+    return v
+
+
+def _floating(v) -> bool:
+    """A floating tensor, or an array with a floating buffer."""
+    if isinstance(v, tuple):
+        v = v[0]
+    return v is not None and v.is_floating_point()
 
 
 def _autograd_vjp(lower, ctx, ins, attrs, diff, out_slots):
@@ -390,9 +435,12 @@ def cotangents(ins, out_slots, counts, outs):
         vals = outs.get(s, [])
         for j in range(counts[s]):
             ref = vals[j] if j < len(vals) else None
-            if ref is None or not ref.is_floating_point():
+            if not _floating(ref):
                 continue
+            # an array's cotangent is its buffer's
+            ref = ref[0] if isinstance(ref, tuple) else ref
             ct = ogs[j] if j < len(ogs) else None
+            ct = ct[0] if isinstance(ct, tuple) else ct
             if ct is None:
                 ct = torch.zeros_like(ref)
             elif ct.dtype != ref.dtype:
