@@ -430,8 +430,37 @@ result line):
    * BOOK, the Paddle book's understand_sentiment stacked_lstm_net: EMB
      128, HID 512 (LSTM width 128), 3 dynamic_lstm layers of alternating
      direction, max pools, fc 2 softmax, Adagrad 0.002, batch 128, T 256
-     (dense embedding; fc over the concat of its two inputs): E and C as
-     the DRNN's, bit-equal.
+     (the book's is_sparse embedding, its SelectedRows gradient on
+     Adagrad's sparse rule; fc over the concat of its two inputs): E and C
+     as the DRNN's, bit-equal;
+18. row-sparse gradients and Wide&Deep (f32, TF32 off):
+   * card vs CPU: models.build_ctr at vocab 100,001, batch 64, Adam 1e-4,
+     3 steps from the same startup arrays: losses within 1e-5 relative,
+     the AUC and every trained tensor within 1e-5; planted fault: the CPU
+     run's sparse rules skipping the merge of repeated ids;
+   * S vs D: build_ctr at full width with SGD(1.0), 3 eager steps, the
+     table sparse (S) and dense (D): the touched rows within 1e-5, the
+     untouched rows bit-equal to their initial values in both; planted
+     fault: sparse SGD setting a repeated id's rows instead of adding;
+   * CTR, models.build_ctr at PaddleRec ctr/dnn's widths: 26 sparse
+     slots sharing the table SparseFeatFactors [1,000,001, 10]
+     (is_sparse), 13 dense features, three fc 400 relu and the wide fc;
+     Adam 1e-4, batch 1,000, 20 batches from numpy seed 0 in Criteo's
+     layout (ids uniform, as bench.py:1070): E, 10 eager Executor.run
+     steps; C, two run_steps(10) windows on one capture, bit-equal to E
+     after 10 steps (losses, AUC, every written persistable); Z, fleet
+     ZeRO stage 1, the same windows, bit-equal to E after 10 and to C
+     after 20, B8 once a step on the one dense bucket and the table on
+     its sparse adam; D, C's windows with a dense table; planted fault
+     outside E == C == Z: the merge skipped; step ms p50 (C, Z, D: of 5
+     run_steps(10) windows timed after the gates), examples/s,
+     launches a step and busy share of one profiled captured step (and
+     of an eager step of E and D), peak memory, and the table's update
+     and the sum of its 26 gradients, S against D, each alone in a CUDA
+     graph;
+     B8 at the dense bucket's width bit for bit, timed alone and through
+     its wrapper beside the plain version, torch._fused_adam_ and its
+     bytes bound.
 Each main-path run resets the kernel launch counts just before it and
 fails if a kernel of its path was never launched.
 
@@ -447,9 +476,10 @@ Output: a `{"kernels": [...]}` line, a `{"serving": ...}` line, a
 `{"pipeline": ...}` line, a `{"layer_scan": ...}` line, a
 `{"model_parallel": ...}` line, a `{"composed_mesh": ...}` line, a
 `{"supervised_gang": ...}` line, an `{"image_training": ...}` line, a
-`{"sequence_training": ...}` line, and
+`{"sequence_training": ...}` line, a `{"ctr_training": ...}` line, and
 last `{"ok": true, "device": {...}}`. The B8 row's `launches_by_path`
-adds phase 17's arm Z. The B7 row's `resnet50_bucket` is
+adds phase 17's and phase 18's arm Z, and its `ctr_bucket` is phase 18's
+check at the Wide&Deep dense bucket's width. The B7 row's `resnet50_bucket` is
 phase 16's check at ResNet-50's widest bucket, and its
 `launches_by_path` adds phase 16's arm Z. The B8 row's `shard_peer` is phase 15's
 shard check, and the B1-B3, B8 and bf16 B4 rows' `launches_by_path` add
@@ -8339,15 +8369,16 @@ def stacked_lstm_net(L, vocab, T, emb_dim, hid_dim, stacked_num, classes):
     (train_stacked_lstm.py): embedding, fc, `stacked_num` dynamic_lstm
     layers of alternating direction each fed by an fc over the previous
     fc and lstm outputs, both max-pooled, fc softmax, the mean cross
-    entropy. Two changes the API forces: the embedding is dense (the
-    book's is_sparse waits for SelectedRows), and `fc(input=[a, b])` is
-    `fc(concat([a, b]))` (one weight matrix over both: the same
-    function)."""
+    entropy. The embedding is the book's `is_sparse=True` (a SelectedRows
+    gradient, which Adagrad applies to the looked-up rows); one change
+    the API forces: `fc(input=[a, b])` is `fc(concat([a, b]))` (one
+    weight matrix over both: the same function)."""
     assert stacked_num % 2 == 1
     words = L.data(name="words", shape=[T], dtype="int64")
     lens = L.data(name="lens", shape=[1], dtype="int64")
     label = L.data(name="label", shape=[1], dtype="int64")
-    emb = L.embedding(L.unsqueeze(words, [2]), size=[vocab, emb_dim])
+    emb = L.embedding(L.unsqueeze(words, [2]), size=[vocab, emb_dim],
+                      is_sparse=True)
     emb = L.reshape(emb, [-1, T, emb_dim])
     fc1 = L.fc(emb, hid_dim, num_flatten_dims=2)
     lstm1, _ = L.dynamic_lstm(fc1, hid_dim, length=lens)
@@ -8749,7 +8780,8 @@ def train_sequence_models(torch, zk, card):
                     f"(LSTM width {BOOK_HID // 4}), {BOOK_STACKED} "
                     f"dynamic_lstm layers, max pools, fc {BOOK_CLASSES} "
                     f"softmax; Adagrad {BOOK_LR}, batch {BOOK_BATCH}, T "
-                    f"{SEQ_T}; dense embedding, fc over concat",
+                    f"{SEQ_T}; is_sparse embedding (Adagrad's sparse "
+                    f"rule), fc over concat",
             "data": f"ids, labels and lengths from numpy seed 0, V "
                     f"{SEQ_VOCAB}, lengths uniform in [{SEQ_MIN_LEN}, "
                     f"{SEQ_T}], the first row at {SEQ_T}; one batch for "
@@ -8761,6 +8793,542 @@ def train_sequence_models(torch, zk, card):
                               f"atol 1e-5 after 2 steps"},
         phase_s=time.perf_counter() - t0)
     return row, row["drnn"]["Z"]["b8_launches_incl_warmup"]
+
+
+# ---------------------------------------------------------------------------
+# phase 18: row-sparse gradients and Wide&Deep
+# ---------------------------------------------------------------------------
+
+CTR_VOCAB = 1_000_001      # PaddleRec ctr/dnn --sparse_feature_dim 1000001
+CTR_BATCH = 1000           # PaddleRec ctr/dnn --batch_size 1000
+CTR_SLOTS, CTR_DENSE, CTR_EMB = 26, 13, 10
+CTR_LR = 1e-4              # Adam, the main path
+CTR_WINDOW = 10            # arms C, Z, D: two run_steps(10) windows
+CTR_TIMED = 5              # then run_steps(10) windows timed alone
+CTR_CLICK_RATE = 0.256     # Criteo's share of clicks
+CTR_SGD = (1.0, 3)         # gate S vs D: SGD's lr and eager steps (at
+                           # 1.0 one occurrence of an id moves its row
+                           # by ~1e-4, well past CTR_ATOL)
+CTR_CPU = (100_001, 64, 3)  # card vs CPU: vocab, batch, steps
+CTR_CPU_RTOL = 1e-5        # card vs CPU: losses, relative
+CTR_ATOL = 1e-5            # card vs CPU: every trained tensor; S vs D rows
+
+
+def ctr_batches(n, batch, vocab, seed=0):
+    """`n` batches in Criteo's layout from numpy `seed`: 13 dense
+    features (log(1 + x) of exponential counts, as the ctr/dnn reader
+    takes the log of Criteo's counts), 26 categorical slots whose ids are
+    uniform over the one table, as the reference's Wide&Deep benchmark
+    draws them (bench.py:1070), and a click at Criteo's rate."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        f = {"dense_input": np.log1p(rng.exponential(
+                10.0, (batch, CTR_DENSE))).astype(np.float32),
+             "label": (rng.rand(batch, 1) < CTR_CLICK_RATE).astype(np.int64)}
+        for i in range(CTR_SLOTS):
+            f[f"C{i}"] = rng.randint(0, vocab, (batch, 1)).astype(np.int64)
+        out.append(f)
+    return out
+
+
+def ctr_stacked(batches):
+    """run_steps feeds: each var's batches stacked on a leading axis."""
+    return {n: np.stack([b[n] for b in batches]) for n in batches[0]}
+
+
+def ctr_ids(batches):
+    return np.unique(np.concatenate([b[f"C{i}"].ravel() for b in batches
+                                     for i in range(CTR_SLOTS)]))
+
+
+def build_ctr_prog(vocab, opt="adam", lr=CTR_LR, stage=None, is_sparse=True):
+    """(main, startup, loss, auc): models.build_ctr at `vocab` (26 slots
+    sharing SparseFeatFactors, 13 dense features, embedding 10, three fc
+    400 relu, the wide fc), `opt` ("adam" / "sgd") at `lr`, through fleet
+    at ZeRO `stage` when given; `is_sparse=False` gives the table a dense
+    gradient (its lookups' `is_sparse` attr cleared before `minimize`)."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework import program, unique_name
+    from paddle_tpu_torch.models import build_ctr
+    main, start = program.Program(), program.Program()
+    with program.program_guard(main, start), unique_name.guard():
+        _, _, loss, auc = build_ctr(vocab_size=vocab)
+        for op in main.global_block().ops:
+            if op.type == "lookup_table":
+                op.attrs["is_sparse"] = is_sparse
+        o = optimizer.Adam(learning_rate=lr) if opt == "adam" \
+            else optimizer.SGD(learning_rate=lr)
+        if stage is not None:
+            fleet.init(is_collective=True)
+            s = fleet.DistributedStrategy()
+            s.sharding_stage = stage
+            o = fleet.distributed_optimizer(o, s)
+        o.minimize(loss)
+    return main, start, loss, auc
+
+
+def ctr_table_ops(torch, registry, batch):
+    """The table's own work in a step, S against D, each op alone in a
+    CUDA graph (`flash_variants.graph_ms`: the kernels' time, not the
+    host's): the `sum` of its 26 gradients (S: SelectedRows, rows and ids
+    concatenated; D: 26 dense [vocab, 10] gradients added) and its Adam
+    update (S: the merged rows; D: the dense rule over every row), at
+    `batch`'s ids with random rows."""
+    from paddle_tpu_torch.ops.kernels import flash_variants as fv
+    from paddle_tpu_torch.ops.sparse_grad import SelectedRows, densify
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    sparse = []
+    for i in range(CTR_SLOTS):
+        ids = torch.from_numpy(batch[f"C{i}"].reshape(-1)).cuda()
+        sparse.append(SelectedRows(
+            rows=torch.randn(ids.numel(), CTR_EMB, generator=gen,
+                             device="cuda"), ids=ids))
+    add, adam = registry.get("sum").lower, registry.get("adam").lower
+    attrs = ZERO_ARMS[5][3]
+    out = {}
+    for arm in ("S", "D"):
+        grads = sparse if arm == "S" \
+            else [densify(g, CTR_VOCAB) for g in sparse]
+        table = (CTR_VOCAB, CTR_EMB)
+        ins = {"Param": [torch.randn(table, generator=gen, device="cuda")],
+               "Grad": add(None, {"X": grads}, {})["Out"],
+               "Moment1": [torch.zeros(table, device="cuda")],
+               "Moment2": [torch.zeros(table, device="cuda")],
+               "LearningRate": [torch.full((1,), CTR_LR, device="cuda")],
+               "Beta1Pow": [torch.full((1,), 0.9, device="cuda")],
+               "Beta2Pow": [torch.full((1,), 0.999, device="cuda")]}
+        out[arm] = {
+            "grad_sum_ms": fv.graph_ms(
+                [lambda: add(None, {"X": grads}, {})]),
+            "update_ms": fv.graph_ms([lambda: adam(None, ins, attrs)])}
+        del grads, ins
+        torch.cuda.empty_cache()
+    log(f"ctr table ops alone in a CUDA graph, device ms, S vs D: {out}")
+    return out
+
+
+def plant_merge_skipped(torch, optimizer_ops):
+    """Planted fault of gates E == C == Z and card vs CPU: the sparse
+    rules skip `merge_rows`, so a repeated id is written once per
+    occurrence, each from its own row alone."""
+    merged = optimizer_ops._merged
+
+    def unmerged(g, p):
+        ids = g.ids.reshape(-1).long()
+        return ids, g.rows, torch.arange(ids.shape[0], device=ids.device)
+
+    optimizer_ops._merged = unmerged
+    return lambda: setattr(optimizer_ops, "_merged", merged)
+
+
+def plant_sgd_duplicates_set(registry):
+    """Planted fault of gate S vs D: sparse SGD sets each touched row to
+    its own step instead of adding every step of a repeated id."""
+    opdef = registry.get("sgd")
+    lower = opdef.lower
+
+    def set_rows(ctx, ins, attrs):
+        g = ins["Grad"][0]
+        if not isinstance(g, tuple):
+            return lower(ctx, ins, attrs)
+        p, lr = ins["Param"][0], ins["LearningRate"][0]
+        ids = g.ids.reshape(-1).long()
+        p.index_put_((ids,), p[ids] - lr * g.rows)
+        return {"ParamOut": [p]}
+
+    opdef.lower = set_rows
+    return lambda: setattr(opdef, "lower", lower)
+
+
+def ctr_state(torch, main, scope):
+    """`image_state` of a CTR program: every written persistable, the flat
+    ZeRO moments unpacked per parameter."""
+    return {n: t.clone() for n, t in image_state(torch, main, scope).items()}
+
+
+def ctr_arms(torch, zk, registry, batches):
+    """Arms E, C, Z and D at full width from one startup state (module
+    docstring), the gates E == C == Z with a planted fault outside them.
+    Returns {arm: numbers}."""
+    from paddle_tpu_torch.framework import Executor, Scope
+    from paddle_tpu_torch.ops import optimizer_ops
+    windows = [ctr_stacked(batches[:CTR_WINDOW]),
+               ctr_stacked(batches[CTR_WINDOW:2 * CTR_WINDOW])]
+    out, states, s0 = {}, {}, None
+    for arm in ("E", "C", "Z", "D"):
+        main, start, loss, auc = build_ctr_prog(
+            CTR_VOCAB, stage=1 if arm == "Z" else None,
+            is_sparse=arm != "D")
+        if s0 is None:
+            s0 = Scope()
+            Executor("cuda").run(start, scope=s0)
+        scope, exe = scope_copy(torch, s0), Executor("cuda")
+        release(torch)
+        torch.cuda.reset_peak_memory_stats()
+        zk.reset_launches()
+        losses, aucs, ms = [], [], []
+        if arm == "E":
+            for i, b in enumerate(batches[:CTR_WINDOW]):
+                t0 = time.perf_counter()
+                lv, av = exe.run(main, feed=b, fetch_list=[loss, auc],
+                                 scope=scope)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(lv))
+                aucs.append(float(av))
+                if i == 0:
+                    states["E1"] = ctr_state(torch, main, scope)
+            states["E"] = ctr_state(torch, main, scope)
+        else:
+            for w, feed in enumerate(windows):
+                t0 = time.perf_counter()
+                lv, av = exe.run_steps(CTR_WINDOW, main, feed=feed,
+                                       fetch_list=[loss, auc], scope=scope)
+                ms.append((time.perf_counter() - t0) * 1e3 / CTR_WINDOW)
+                losses += [float(x) for x in lv]
+                aucs += [float(x) for x in av]
+                if w == 0 and arm != "D":
+                    d = image_diffs(torch, states["E"],
+                                    ctr_state(torch, main, scope))
+                    if d or losses != out["E"]["losses"] \
+                            or aucs != out["E"]["aucs"]:
+                        fail(f"ctr gate E == {arm}: {d}, losses {losses} "
+                             f"vs {out['E']['losses']}, auc {aucs} vs "
+                             f"{out['E']['aucs']}")
+            if arm == "C":
+                states["C"] = ctr_state(torch, main, scope)
+                out["C_losses"] = (losses, aucs)
+            elif arm == "Z":
+                d = image_diffs(torch, states["C"],
+                                ctr_state(torch, main, scope))
+                if d or (losses, aucs) != out["C_losses"]:
+                    fail(f"ctr gate C == Z: {d}")
+            # the first window holds the warm-up and the capture: the
+            # step time is that of windows timed after the gates
+            gated_ms, ms = ms, []
+            for _ in range(CTR_TIMED):
+                t0 = time.perf_counter()
+                exe.run_steps(CTR_WINDOW, main, feed=windows[0],
+                              fetch_list=[loss, auc], scope=scope)
+                ms.append((time.perf_counter() - t0) * 1e3 / CTR_WINDOW)
+        peak = torch.cuda.max_memory_allocated()
+        stats = dict(exe.stats)
+        if arm != "E" and (stats["eager_steps"] or stats["captures"] != 1):
+            fail(f"ctr arm {arm}: executor stats {stats}")
+        timed = ms[1:] if arm == "E" else ms
+        p50 = float(np.median(timed))
+        row = {"losses": losses, "aucs": aucs, "step_ms": ms,
+               "step_ms_p50": p50,
+               "gated_windows_ms_a_step": None if arm == "E" else gated_ms,
+               "examples_per_s": CTR_BATCH / (p50 / 1e3),
+               "peak_memory_gib": peak / 2 ** 30, "executor_stats": stats}
+        if arm == "Z":
+            n_buckets = op_count(main, "__zero_update__")
+            steps_run = (2 + CTR_TIMED) * CTR_WINDOW + stats["warmup_steps"]
+            b8 = zk.launches["zero_adam"]
+            if n_buckets != 1 or b8 != steps_run * n_buckets:
+                fail(f"ctr arm Z: {b8} B8 launches for {n_buckets} buckets "
+                     f"over {steps_run} steps")
+            buckets = main._grad_buckets["zero_buckets"]
+            if any("SparseFeatFactors" in b["params"] for b in buckets) \
+                    or [op.inputs["Param"] for op in main.global_block().ops
+                        if op.type == "adam"] != [["SparseFeatFactors"]]:
+                fail("ctr arm Z: the table joined a bucket")
+            row.update(b8_launches_incl_warmup=b8, zero_update_ops=n_buckets,
+                       bucket_widths=[b["padded"] for b in buckets])
+        if arm != "E":
+            # one captured step more (a replay of the same capture: the
+            # same fetches), profiled: busy share, launches
+            def one_step():
+                t0 = time.perf_counter()
+                exe.run_steps(1, main, feed=ctr_stacked(batches[:1]),
+                              fetch_list=[loss, auc], scope=scope)
+                return time.perf_counter() - t0
+            row["profile_captured"] = device_profile(torch, one_step, top=6)
+            row["launches_per_step"] = \
+                row["profile_captured"].get("device_launches")
+            if exe.stats["captures"] != 1:
+                fail(f"ctr arm {arm}: the profiled step captured again: "
+                     f"{exe.stats}")
+        if arm in ("E", "D"):
+            # one eager step more, profiled: busy share, launches
+            def eager_step():
+                t0 = time.perf_counter()
+                exe.run(main, feed=batches[0], fetch_list=[loss],
+                        scope=scope)
+                return time.perf_counter() - t0
+            row["profile_eager"] = device_profile(torch, eager_step, top=6)
+        log(f"ctr arm {arm}: step p50 {p50:.2f} ms, "
+            f"{row['examples_per_s']:.0f} examples/s, peak "
+            f"{row['peak_memory_gib']:.2f} GiB, losses {losses[:3]}..."
+            f"{losses[-1]}, auc {aucs[-1]}")
+        out[arm] = row
+        del exe, scope, main, start
+        release(torch)
+    out.pop("C_losses")
+    # planted fault outside gate E == C == Z: one eager step with the
+    # merge skipped differs from E's first step
+    main, start, loss, auc = build_ctr_prog(CTR_VOCAB)
+    scope = scope_copy(torch, s0)
+    undo = plant_merge_skipped(torch, optimizer_ops)
+    try:
+        Executor("cuda").run(main, feed=batches[0], fetch_list=[loss],
+                             scope=scope)
+    finally:
+        undo()
+    d = image_diffs(torch, states["E1"], ctr_state(torch, main, scope))
+    if not d:
+        fail("ctr planted fault (merge skipped) passed gate E == C == Z")
+    out["planted_fault_E_eq_C_eq_Z"] = {
+        "fault": "the sparse rules skip merge_rows", "caught": True,
+        "differing": sorted(d)}
+    out["table_ops_device_ms_S_vs_D"] = ctr_table_ops(torch, registry,
+                                                      batches[0])
+    del s0, states
+    release(torch)
+    return out
+
+
+def ctr_sgd_gate(torch, registry, batches):
+    """Gate S vs D: SGD(CTR_SGD) for CTR_SGD steps, sparse and dense, from
+    one startup state: the touched rows within CTR_ATOL, the untouched
+    rows bit-equal to their initial values in both; planted fault: sparse
+    SGD setting a repeated id's rows instead of adding them."""
+    from paddle_tpu_torch.framework import Executor, Scope
+    lr, steps = CTR_SGD
+    data = batches[:steps]
+    touched = ctr_ids(data)
+    untouched = np.ones(CTR_VOCAB, bool)
+    untouched[touched] = False
+    tables, s0, init = {}, None, None
+    for arm in ("S", "D", "fault"):
+        main, start, loss, _ = build_ctr_prog(CTR_VOCAB, opt="sgd", lr=lr,
+                                              is_sparse=arm != "D")
+        if s0 is None:
+            s0 = Scope()
+            Executor("cuda").run(start, scope=s0)
+            init = s0.find("SparseFeatFactors").clone()
+        scope, exe = scope_copy(torch, s0), Executor("cuda")
+        undo = plant_sgd_duplicates_set(registry) if arm == "fault" \
+            else None
+        try:
+            for b in data:
+                exe.run(main, feed=b, fetch_list=[loss], scope=scope)
+        finally:
+            if undo:
+                undo()
+        tables[arm] = scope.find("SparseFeatFactors").clone()
+        del exe, scope
+    idx = torch.from_numpy(touched).cuda()
+    mask = torch.from_numpy(untouched).cuda()
+
+    def touched_diff(arm):
+        return (tables[arm][idx] - tables["D"][idx]).abs().max().item()
+
+    row = {"config": f"build_ctr at vocab {CTR_VOCAB}, batch {CTR_BATCH}, "
+                     f"SGD({lr}), {steps} eager steps",
+           "touched_rows": int(touched.size),
+           "touched_max_abs_diff": touched_diff("S"),
+           "touched_max_abs_change_D": (tables["D"][idx] - init[idx]).abs()
+           .max().item(),
+           "untouched_equal_initial": {
+               a: bool(torch.equal(tables[a][mask], init[mask]))
+               for a in ("S", "D")},
+           "planted_fault": {"fault": "sparse SGD sets a repeated id's "
+                                      "rows instead of adding them",
+                             "touched_max_abs_diff": touched_diff("fault")}}
+    log(f"ctr gate S vs D (SGD): {row}")
+    if not (row["touched_max_abs_diff"] <= CTR_ATOL
+            and all(row["untouched_equal_initial"].values())):
+        fail(f"ctr gate S vs D: {row}")
+    if not row["planted_fault"]["touched_max_abs_diff"] > CTR_ATOL:
+        fail(f"ctr planted fault passed gate S vs D: {row}")
+    row["planted_fault"]["caught"] = True
+    del tables, s0, init
+    return row
+
+
+def ctr_card_vs_cpu(torch):
+    """build_ctr at CTR_CPU (vocab 100,001, batch 64, 3 steps), Adam
+    (CTR_LR), f32, TF32 off, on the card and on the CPU from the same
+    startup arrays: losses within CTR_CPU_RTOL relative, the AUC and
+    every trained tensor (the table, the fc weights and biases, Adam's
+    moments) within CTR_ATOL; planted fault: the CPU run with the merge
+    skipped."""
+    from paddle_tpu_torch.framework import Executor, Scope, load_numpy
+    from paddle_tpu_torch.ops import optimizer_ops
+    vocab, batch, steps = CTR_CPU
+    main, start, loss, auc = build_ctr_prog(vocab)
+    s = Scope()
+    Executor("cpu").run(start, scope=s)
+    init = {n: s.numpy(n) for n in s.local_names()
+            if isinstance(s.find(n), torch.Tensor)}
+    data = ctr_batches(steps, batch, vocab, seed=1)
+    got = {}
+    for arm, dev in (("cuda", "cuda"), ("cpu", "cpu"), ("fault", "cpu")):
+        scope, exe = load_numpy(Scope(), init, dev), Executor(dev)
+        undo = plant_merge_skipped(torch, optimizer_ops) \
+            if arm == "fault" \
+            else None
+        try:
+            fetched = [exe.run(main, feed=b, fetch_list=[loss, auc],
+                               scope=scope) for b in data]
+        finally:
+            if undo:
+                undo()
+        got[arm] = ([float(f[0]) for f in fetched],
+                    [float(f[1]) for f in fetched],
+                    {n: scope.numpy(n) for n in init})
+
+    def readings(arm):
+        losses, aucs, state = got[arm]
+        lc, ac, sc = got["cpu"]
+        return {"loss_max_rel": max(abs(a - b) / abs(b)
+                                    for a, b in zip(losses, lc)),
+                "auc_max_abs_diff": max(abs(a - b) for a, b in zip(aucs, ac)),
+                "state_max_abs_diff": max(
+                    float(np.abs(state[n].astype(np.float64) - sc[n]).max())
+                    for n in init if sc[n].dtype.kind == "f")}
+
+    def holds(r):
+        return (r["loss_max_rel"] <= CTR_CPU_RTOL
+                and r["auc_max_abs_diff"] <= CTR_ATOL
+                and r["state_max_abs_diff"] <= CTR_ATOL)
+
+    row = {"config": f"build_ctr at vocab {vocab}, batch {batch}, "
+                     f"Adam({CTR_LR}), {steps} steps, f32, TF32 off",
+           "losses_card": got["cuda"][0], "losses_cpu": got["cpu"][0],
+           **readings("cuda"),
+           "planted_fault": {"fault": "the CPU run's sparse rules skip "
+                                      "merge_rows", **readings("fault")}}
+    log(f"ctr card vs CPU: {row}")
+    if not np.isfinite(got["cuda"][0]).all() or not holds(readings("cuda")):
+        fail(f"ctr card vs CPU: {row}")
+    if holds(row["planted_fault"]):
+        fail(f"ctr planted fault passed gate card vs CPU: {row}")
+    row["planted_fault"]["caught"] = True
+    return row
+
+
+def check_b8_ctr_bucket(torch, zk, width):
+    """B8 (adam, the CTR path's rule) at the Wide&Deep dense bucket's
+    width: bit for bit against its plain version, then timed on the launch
+    alone and through its wrapper beside the plain version and
+    torch._fused_adam_ over copies of the buffers used in turn (a bucket
+    of this width fits in the L2), with its bytes bound."""
+    attrs = ZERO_ARMS[5][3]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def fresh():
+        ins = {s: [torch.randn(width, generator=gen, device="cuda")]
+               for s in ("Param", "Grad", "Moment1", "Moment2")}
+        ins["Moment2"][0].abs_()
+        ins.update({"LearningRate": [torch.tensor([CTR_LR], device="cuda")],
+                    "Beta1Pow": [torch.tensor([0.9 ** 3], device="cuda")],
+                    "Beta2Pow": [torch.tensor([0.999 ** 3], device="cuda")]})
+        return ins
+
+    kin = fresh()
+    pin = {s: [v[0].clone()] for s, v in kin.items()}
+    got = zk.fused_flat_update("adam", kin, attrs)
+    want = zk.fused_flat_update_plain("adam", pin, attrs)
+    torch.cuda.synchronize()
+    if not all(torch.equal(got[s][0], want[s][0]) for s in got):
+        fail(f"zero_adam at the ctr bucket width {width}: differs from the "
+             f"plain version")
+    per_set = width * ZERO_BYTES_PER_ELEMENT["zero_adam"]
+    copies = max(1, int(-(-2 * L2_BYTES // per_set)))
+    sets = [fresh() for _ in range(copies)]
+
+    def in_turn(calls):
+        it = itertools.cycle(calls)
+        return lambda: next(it)()
+
+    lib = [zero_library_call(torch, "adam", "adam", s) for s in sets]
+    row = {"n": width, "op": "adam", "bitwise": True, "max_abs_err": 0.0,
+           "copies_in_turn": copies,
+           "ms": cuda_ms(torch, in_turn([launch_alone(torch, zk, s, attrs,
+                                                      "adam")
+                                         for s in sets])),
+           "wrapper_ms": cuda_ms(torch, in_turn([
+               (lambda s=s: zk.fused_flat_update("adam", s, attrs))
+               for s in sets])),
+           "plain_ms": cuda_ms(torch, in_turn([
+               (lambda s=s: zk.fused_flat_update_plain("adam", s, attrs))
+               for s in sets])),
+           "bound_ms": per_set / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "library_ms": None if lib[0] is None
+           else cuda_ms(torch, in_turn(lib))}
+    log(f"kernel zero_adam at the ctr dense bucket n={width}: bit for bit; "
+        f"{row['ms']:.4f} ms alone ({copies} copies in turn), "
+        f"{row['wrapper_ms']:.4f} through the wrapper, plain "
+        f"{row['plain_ms']:.4f}, bytes bound {row['bound_ms']:.4f}, torch "
+        f"fused {row['library_ms']}")
+    del sets, kin, pin, got, want
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_ctr(torch, zk, registry, card):
+    """Phase 18 (module docstring): card vs CPU, gate S vs D with SGD,
+    then the arms E, C, Z and D at full width and B8 at the dense bucket's
+    width. Returns (the line's row, B8's launches in Z, the B8 row's
+    bucket check)."""
+    t0 = time.perf_counter()
+    row, parts = {"card": card}, {}
+
+    def part(name, fn):
+        t = time.perf_counter()
+        row[name] = fn()
+        parts[name] = time.perf_counter() - t
+        release(torch)
+
+    batches = ctr_batches(2 * CTR_WINDOW, CTR_BATCH, CTR_VOCAB)
+    part("card_vs_cpu", lambda: ctr_card_vs_cpu(torch))
+    part("sgd_S_vs_D", lambda: ctr_sgd_gate(torch, registry, batches))
+    part("arms", lambda: ctr_arms(torch, zk, registry, batches))
+    z = row["arms"]["Z"]
+    bucket = check_b8_ctr_bucket(torch, zk, z["bucket_widths"][0])
+    bucket["launches"] = z["b8_launches_incl_warmup"]
+    log(f"phase 18 parts (s): {parts}")
+    row.update(
+        parts_s=parts,
+        config={
+            "model": f"models.build_ctr: {CTR_SLOTS} sparse slots sharing "
+                     f"SparseFeatFactors [{CTR_VOCAB}, {CTR_EMB}] "
+                     f"(is_sparse), {CTR_DENSE} dense features, three fc "
+                     f"400 relu, the wide fc, sigmoid cross entropy, auc; "
+                     f"Adam({CTR_LR}), batch {CTR_BATCH}, f32, TF32 off; "
+                     f"PaddleRec ctr/dnn's sparse_feature_dim and "
+                     f"batch_size",
+            "data": f"{2 * CTR_WINDOW} batches from numpy seed 0 in "
+                    f"Criteo's layout: dense log(1 + Exp(10)), ids uniform "
+                    f"over the table (bench.py:1070), clicks "
+                    f"at {CTR_CLICK_RATE}; {len(ctr_ids(batches))} "
+                    f"distinct ids of {CTR_SLOTS * CTR_BATCH * 2 * CTR_WINDOW}"
+                    f" looked up; weights from the startup program",
+            "arms": f"E: 10 eager Executor.run steps (batches 0-9); C: "
+                    f"two run_steps(10) windows (batches 0-19) on one "
+                    f"capture, then {CTR_TIMED} timed run_steps(10) "
+                    f"windows (batches 0-9); Z: C's windows through fleet "
+                    f"ZeRO stage 1 (B8 once a step on the dense bucket, "
+                    f"the table on its sparse adam); D: C's windows with "
+                    f"is_sparse=False"},
+        gates={"E_eq_C_eq_Z": "bit for bit: losses, AUC and every written "
+                              "persistable (the table, the dense "
+                              "parameters, Adam's moments unpacked from "
+                              "Z's flat bucket, the AUC statistics); E == "
+                              "C and E == Z after 10 steps, C == Z after "
+                              "20",
+               "S_vs_D": f"SGD({CTR_SGD[0]}), {CTR_SGD[1]} steps: touched "
+                         f"rows atol {CTR_ATOL}, untouched rows bit-equal "
+                         f"to their initial values",
+               "card_vs_cpu": f"losses rtol {CTR_CPU_RTOL}, AUC and every "
+                              f"trained tensor atol {CTR_ATOL}",
+               "b8": "launches in Z == buckets x (steps + warm-up)"},
+        phase_s=time.perf_counter() - t0)
+    return row, z["b8_launches_incl_warmup"], bucket
 
 
 def main():
@@ -9038,6 +9606,14 @@ def main():
     rows["zero_adam"]["launches_by_path"][
         "sequence_Z_drnn_stage1_captured_13_steps_incl_warmup"] = b8_seq
 
+    # ---- row-sparse gradients: Wide&Deep at PaddleRec's widths ----------
+    lap("ctr")
+    release(torch)
+    ctr_row, b8_ctr, rows["zero_adam"]["ctr_bucket"] = train_ctr(
+        torch, zk, registry, card)
+    rows["zero_adam"]["launches_by_path"][
+        "ctr_Z_stage1_captured_70_steps_incl_warmup"] = b8_ctr
+
     for row in rows.values():
         if not row["launches"]:
             fail(f"{row['name']} was never launched on its main path run")
@@ -9059,6 +9635,7 @@ def main():
     print(json.dumps({"supervised_gang": sg_row}), flush=True)
     print(json.dumps({"image_training": image_row}), flush=True)
     print(json.dumps({"sequence_training": seq_row}), flush=True)
+    print(json.dumps({"ctr_training": ctr_row}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

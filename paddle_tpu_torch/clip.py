@@ -3,8 +3,9 @@
 `Optimizer.apply_gradients` calls the clip on [(param, grad)] before the
 update ops; the clip appends its ops to the program and returns the
 clipped gradients, which make their ZeRO buckets `pre_synced`
-(parallel/zero.py). The port has no SelectedRows gradients, so every
-gradient is clipped."""
+(parallel/zero.py). SelectedRows gradients (`embedding(is_sparse=True)`)
+pass through unclipped and stay out of the global norm, as in the
+reference (clip.py:18-22)."""
 from __future__ import annotations
 
 from . import layers
@@ -19,14 +20,24 @@ class GradientClipBase:
         raise NotImplementedError
 
 
+def _split_sparse(params_grads):
+    """(dense pairs, SelectedRows pairs)."""
+    dense = [(p, g) for p, g in params_grads
+             if not getattr(g, "_is_selected_rows", False)]
+    sparse = [(p, g) for p, g in params_grads
+              if getattr(g, "_is_selected_rows", False)]
+    return dense, sparse
+
+
 class GradientClipByValue(GradientClipBase):
     def __init__(self, max, min=None):
         self.max = max
         self.min = -max if min is None else min
 
     def __call__(self, params_grads):
+        dense, sparse = _split_sparse(params_grads)
         return [(p, layers.clip(g, self.min, self.max))
-                for p, g in params_grads]
+                for p, g in dense] + sparse
 
 
 class GradientClipByNorm(GradientClipBase):
@@ -34,8 +45,9 @@ class GradientClipByNorm(GradientClipBase):
         self.clip_norm = clip_norm
 
     def __call__(self, params_grads):
+        dense, sparse = _split_sparse(params_grads)
         return [(p, layers.clip_by_norm(g, self.clip_norm))
-                for p, g in params_grads]
+                for p, g in dense] + sparse
 
 
 class GradientClipByGlobalNorm(GradientClipBase):
@@ -45,6 +57,7 @@ class GradientClipByGlobalNorm(GradientClipBase):
         self.clip_norm = clip_norm
 
     def __call__(self, params_grads):
+        params_grads, sparse = _split_sparse(params_grads)
         sums = [layers.reshape(layers.reduce_sum(layers.square(g)), [1])
                 for _, g in params_grads]
         global_norm = layers.sqrt(layers.sums(sums))
@@ -52,7 +65,7 @@ class GradientClipByGlobalNorm(GradientClipBase):
         scale = layers.elementwise_div(
             clip_var, layers.elementwise_max(global_norm, clip_var))
         return [(p, layers.elementwise_mul(g, scale))
-                for p, g in params_grads]
+                for p, g in params_grads] + sparse
 
 
 ClipGradByValue = GradientClipByValue

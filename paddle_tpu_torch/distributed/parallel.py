@@ -34,6 +34,9 @@ Each rank's device and backend are explicit:
   instead of hanging in NCCL's setup.
 * The group's timeout is FLAGS_gloo_timeout_ms: a rank that cannot reach
   its group raises within it.
+* `init_parallel_env` returns once every rank has built its group
+  (`group_barrier`), so a rank that tears its group down at once cannot
+  break a peer that is still building its side.
 
 tp and sp ranks are processes of this group too: `parallel.mesh.build_mesh`
 lays the group out as dp x tp x sp, row-major, over a `DeviceMesh` whose
@@ -184,6 +187,20 @@ def exchange_identities(store, rank: int, world: int, ident: str):
     return idents
 
 
+def group_barrier(store, rank: int, world: int) -> None:
+    """Every rank has built its group before any rank goes on. Gloo builds
+    a rank's side of the group in `connectFullMesh`, and a rank can finish
+    its side, return and tear its group down (a rank with nothing to do)
+    while its peer is still connecting: the peer's construction then fails
+    with "Connection closed by peer". Rank 0, which hosts a TCPStore,
+    leaves last, as in `exchange_identities`."""
+    store.set(f"paddle_dist/group_built/{rank}", "1")
+    store.wait([f"paddle_dist/group_built/{r}" for r in range(world)])
+    store.set(f"paddle_dist/group_left/{rank}", "1")
+    if rank == 0:
+        store.wait([f"paddle_dist/group_left/{r}" for r in range(world)])
+
+
 def init_parallel_env(backend: Optional[str] = None, device=None,
                       timeout_s: Optional[float] = None) -> ParallelEnv:
     """Build this process's default group from the env contract (module
@@ -220,6 +237,8 @@ def init_parallel_env(backend: Optional[str] = None, device=None,
         torch.cuda.set_device(dev)
     dist.init_process_group(name, store=store, rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=timeout_s))
+    if world > 1:
+        group_barrier(store, rank, world)
     _state.update(device=dev, backend=name)
     return env
 

@@ -4,8 +4,10 @@
 Each forward op's gradient is one generic `__vjp__` op whose lowering is
 torch.func.vjp over the forward lowering (ops/registry.py). Gradients of a
 var with several consumers accumulate by rename + `sum`, as in the
-reference. Not ported: the SelectedRows grad op of `is_sparse`
-embeddings and `gradients()`.
+reference. An `is_sparse` lookup's table gets a
+`lookup_table_sparse_grad` op instead (ops/sparse_grad.py), whose
+gradient var is marked `_is_selected_rows`; a `sum` of such gradients
+alone stays one. Not ported: `gradients()`.
 """
 from __future__ import annotations
 
@@ -82,11 +84,14 @@ class _GradAccumulator:
         gname = self._base_name(var_name)
         sum_out = gname if lst[0] != gname else f"{gname}@MERGED"
         fwd = self.block.var(var_name)
-        self.block.create_var(name=sum_out, shape=fwd.shape, dtype=fwd.dtype,
-                              stop_gradient=False)
+        out_var = self.block.create_var(name=sum_out, shape=fwd.shape,
+                                        dtype=fwd.dtype, stop_gradient=False)
         self.block.append_op("sum", inputs={"X": list(lst)},
                              outputs={"Out": [sum_out]},
                              attrs={"op_role": OpRole.Backward})
+        if all(getattr(self.block.var(n), "_is_selected_rows", False)
+               for n in lst):
+            out_var._is_selected_rows = True
         self.contribs[var_name] = [sum_out]
         return sum_out
 
@@ -190,9 +195,17 @@ def append_backward(loss: Variable, parameter_list=None,
             if slot_has:
                 grad_outputs[f"IG:{slot}"] = ig
 
-        if op.type == "lookup_table" and op.attrs.get("is_sparse", False):
-            raise NotImplementedError(
-                "is_sparse embeddings (SelectedRows grads) are not ported")
+        if op.type in ("lookup_table", "lookup_table_v2") \
+                and op.attrs.get("is_sparse", False) \
+                and list(grad_outputs) == ["IG:W"]:
+            # the table's rows that were looked up (reference :231-243)
+            block.append_op(
+                "lookup_table_sparse_grad", inputs=grad_inputs,
+                outputs=grad_outputs,
+                attrs={"padding_idx": op.attrs.get("padding_idx", -1),
+                       "op_role": OpRole.Backward})
+            block.var(grad_outputs["IG:W"][0])._is_selected_rows = True
+            continue
         block.append_op("__vjp__", inputs=grad_inputs, outputs=grad_outputs,
                         attrs=registry.make_vjp_attrs(op, diff_entries,
                                                       out_slots))

@@ -103,7 +103,9 @@ rank order (an all-gather), anything else as this rank's value. A
 program the reference's planner declines raises here, naming the cause,
 and counts it under `executor.zero_manual_fallbacks.<cause>`: a
 cross-batch op (the port's copy of the reference's list, zero.py
-`CROSS_BATCH_OPS`), SelectedRows gradients. Across
+`CROSS_BATCH_OPS`), SelectedRows gradients (the reference takes those
+to GSPMD, which the port has not for sparse tables: ROADMAP item 26,
+and a tp/sp mesh raises for them too). Across
 processes there is no GSPMD path to fall back on, and a local batch
 statistic would be wrong. A program with optimizer ops but no gradient
 buckets raises at dp > 1 too: it would train on local gradients.
@@ -207,6 +209,13 @@ iteration and cannot be captured: `run_steps` runs it eagerly each step,
 counted in `stats["eager_steps"]`. Under capture
 (`LowerCtx.capturing`) `__cond__` and `__switch__` run every branch and
 select their outputs on the device.
+
+SelectedRows gradients (ops/sparse_grad.py, `embedding(is_sparse=True)`)
+are `(rows, ids)` pairs: they pass through the env like an array (a
+fetched one comes back as its rows), the AMP casts cast their rows, and
+a captured step holds them as it holds any temporary. Their grad op,
+`lookup_table_sparse_grad`, is no `__vjp__`: its forward lookup is never
+paired and runs once.
 
 Not ported (ROADMAP): the PS path (item 19.2).
 """
@@ -327,10 +336,20 @@ def _amp_cast_ins(op_type, ins, low_dtype):
         if base_slot in skip:
             out[slot] = vals
             continue
-        out[slot] = [v.to(target) if (v is not None and v.is_floating_point()
-                                      and v.dtype != target) else v
-                     for v in vals]
+        out[slot] = [_amp_to(v, target) for v in vals]
     return out
+
+
+def _amp_to(v, target):
+    """`v` in `target` if it is floating: a tensor, or a SelectedRows
+    gradient's rows; anything else as it is."""
+    from ..ops.sparse_grad import is_selected_rows
+    if is_selected_rows(v):
+        return v._replace(rows=_amp_to(v.rows, target))
+    if isinstance(v, torch.Tensor) and v.is_floating_point() \
+            and v.dtype != target:
+        return v.to(target)
+    return v
 
 
 def _coerce_host(block, name, value):
@@ -718,12 +737,14 @@ class Executor:
                         "local batch, and the port has no global-batch path "
                         "to fall back on", op.type, cause, world,
                         op=op.type)
-            for v in b.vars.values():
-                if getattr(v, "_is_selected_rows", False):
-                    zero.count_fallback("selected_rows")
-                    raise errors.Unimplemented(
-                        "SelectedRows gradient %r at dp %d (ROADMAP item "
-                        "12)", v.name, world, var=v.name)
+        sparse = _selected_rows_grad(program)
+        if sparse is not None:
+            zero.count_fallback("selected_rows")
+            raise errors.Unimplemented(
+                "SelectedRows gradient %r at dp %d: the reference trains "
+                "such a program through GSPMD, which the port has not for "
+                "sparse tables yet (ROADMAP item 26)", sparse, world,
+                var=sparse)
         if any(int(b["padded"]) % world
                for b in zero.zero_buckets(program)):
             zero.count_fallback("indivisible_padding")
@@ -842,6 +863,12 @@ class Executor:
         pipelined program through its runner, which places each
         microbatch's feeds."""
         from ..parallel import gspmd
+        sparse = _selected_rows_grad(program)
+        if sparse is not None:
+            raise errors.Unimplemented(
+                "SelectedRows gradient %r on a tp/sp mesh: a sparse table "
+                "on DTensors is not ported (ROADMAP item 26)", sparse,
+                var=sparse)
         ctx.mesh = dist.resolve_mesh()
         pipe = self._pipeline(program, scope, fetch_names, plan)
         with gspmd.step_context():
@@ -1500,6 +1527,17 @@ class _LocalSGDStep:
             fetches = _dp_fetches(block, fetch_names, fetches, local_batch,
                                   self.dp)
         return fetches
+
+
+def _selected_rows_grad(program) -> Optional[str]:
+    """The name of a SelectedRows gradient var of `program`
+    (`embedding(is_sparse=True)`), or None; looked up once a version."""
+    cached = getattr(program, "_selected_rows_grad", None)
+    if cached is None or cached[0] != program._version:
+        name = next((v.name for b in program.blocks for v in b.vars.values()
+                     if getattr(v, "_is_selected_rows", False)), None)
+        cached = program._selected_rows_grad = (program._version, name)
+    return cached[1]
 
 
 def _pp(program) -> int:

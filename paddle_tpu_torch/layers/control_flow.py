@@ -23,9 +23,10 @@ Lowerings. A sub-block op runs its block with the executor's
 * `__cond__` / `__switch__` read their predicates on the host and run the
   taken branch only; under capture (`LowerCtx.capturing`) they run every
   branch and select the outputs with `torch.where`. The forward values
-  are the taken branch's; a gradient through a branch not taken is zero
-  times its local derivative, NaN where that is infinite (ROADMAP Queue
-  3).
+  are the taken branch's, and so is the gradient: a branch's inputs are
+  cut from the gradient (a `where` with their detached copies) unless it
+  is the branch taken, so a branch not taken adds nothing, not even the
+  NaN of a zero cotangent times an infinite local derivative.
 * `__scan__` (StaticRNN) runs its block once a step over the leading
   axis of its inputs.
 * Arrays are `(buffer or None, length)` pairs: a `capacity`-slot buffer
@@ -111,6 +112,28 @@ def _select(pred, a, b):
     return torch.where(pred.reshape(()).to(torch.bool), a, b)
 
 
+def _grad_where(taken, v):
+    """`v` (a tensor, or a pair of them) with its gradient cut unless the
+    [] bool `taken` holds: the same values, a `where` between `v` and its
+    detached copy."""
+    if isinstance(v, tuple):
+        parts = [_grad_where(taken, x) for x in v]
+        return type(v)(*parts) if hasattr(v, "_fields") else tuple(parts)
+    if not isinstance(v, torch.Tensor) or not v.is_floating_point():
+        return v
+    return torch.where(taken, v, v.detach())
+
+
+def _taken_only(taken, env):
+    """A branch's env under capture: its inputs' gradients flow only where
+    it is the branch taken. The selected outputs give a branch not taken
+    a zero cotangent, and zero times an infinite local derivative (a
+    division by zero there) would be NaN; so its inputs are cut from the
+    gradient instead, and the captured step's gradient is the eager
+    one's."""
+    return {n: _grad_where(taken, v) for n, v in env.items()}
+
+
 # ---------------------------------------------------------------------------
 # cond
 # ---------------------------------------------------------------------------
@@ -158,8 +181,9 @@ def _lower_cond(ctx, ins, attrs):
     env = dict(zip(attrs["free_names"], ins["Free"]))
     tb, fb = _sub_block(attrs["true_block"]), _sub_block(attrs["false_block"])
     if ctx.capturing:
-        t = _run(tb, env, attrs["true_outs"], ctx)
-        f = _run(fb, env, attrs["false_outs"], ctx)
+        p = pred.reshape(()).to(torch.bool)
+        t = _run(tb, _taken_only(p, env), attrs["true_outs"], ctx)
+        f = _run(fb, _taken_only(~p, env), attrs["false_outs"], ctx)
         return {"Out": [_select(pred, a, b) for a, b in zip(t, f)]}
     if _host_true(pred):
         return {"Out": _run(tb, env, attrs["true_outs"], ctx)}
@@ -640,9 +664,11 @@ def _lower_switch(ctx, ins, attrs):
                      ins["Conds"]))
     carried = list(ins["Carried"])
 
-    def run_case(block_idx):
+    def run_case(block_idx, taken=None):
         env = dict(free)
         env.update(zip(written, carried))
+        if taken is not None:
+            env = _taken_only(taken, env)
         return _run(_sub_block(block_idx), env, written, ctx)
 
     cases = list(zip(attrs["case_conds"], attrs["case_blocks"]))
@@ -652,10 +678,18 @@ def _lower_switch(ctx, ins, attrs):
             if cname is None or _host_true(conds[cname]):
                 return {"Out": run_case(bidx)}
         return {"Out": carried}
-    # every case, selected from the last to the first
+    # every case, selected from the last to the first; a case's inputs
+    # carry gradients only where it is the case taken (`_taken_only`)
+    taken, rest = [], None          # rest: no earlier case holds
+    for cname, _ in cases:
+        c = None if cname is None else conds[cname].reshape(()).to(
+            torch.bool)
+        taken.append(c if rest is None else rest if c is None else rest & c)
+        if c is not None:
+            rest = ~c if rest is None else rest & ~c
     out = carried
-    for cname, bidx in reversed(cases):
-        got = run_case(bidx)
+    for (cname, bidx), mine in reversed(list(zip(cases, taken))):
+        got = run_case(bidx, mine)
         out = got if cname is None else [
             _select(conds[cname], a, b) for a, b in zip(got, out)]
     return {"Out": out}

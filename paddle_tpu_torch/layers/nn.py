@@ -263,12 +263,15 @@ def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
 
 def embedding(input, size, is_sparse=False, is_distributed=False,
               padding_idx=None, param_attr=None, dtype="float32"):
-    """lookup_table; is_sparse (SelectedRows grads) is not ported."""
-    if is_sparse or is_distributed:
-        raise NotImplementedError(
-            "embedding(is_sparse / is_distributed) is not ported yet")
+    """lookup_table. `is_sparse` gives the table a SelectedRows gradient
+    (ops/sparse_grad.py) that the optimizer applies to the touched rows
+    only; `is_distributed` only marks the table (`w.is_distributed`), as
+    in the reference: the parameter-server pass that reads it is ROADMAP
+    item 19.2."""
     helper = LayerHelper("embedding")
     w = helper.create_parameter(param_attr, list(size), dtype=dtype)
+    if is_distributed:
+        w.is_distributed = True
     out = helper.create_variable_for_type_inference(dtype)
     helper.append_op("lookup_table", inputs={"W": [w], "Ids": [input]},
                      outputs={"Out": [out]},

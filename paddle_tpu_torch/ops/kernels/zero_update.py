@@ -47,7 +47,8 @@ def reset_launches():
 
 def supports(op_type: str, ins) -> bool:
     """True when a fused kernel covers this update: a FUSED_OPS op with a
-    dense floating gradient."""
+    dense floating gradient. A SelectedRows gradient stays on the
+    registry's sparse rule (reference :62-67)."""
     if op_type not in FUSED_OPS:
         return False
     g = ins["Grad"][0]

@@ -148,7 +148,25 @@ def _scale(ctx, ins, attrs):
 
 @register("sum")
 def _sum(ctx, ins, attrs):
+    """Elementwise sum. SelectedRows inputs (reference :175-195): all
+    sparse, the rows and ids concatenated; mixed, each sparse one's rows
+    added into the dense sum at its ids, in the ids' order."""
     xs = ins["X"]
+    from .sparse_grad import SelectedRows, is_selected_rows
+    if any(is_selected_rows(x) for x in xs):
+        sparse = [x for x in xs if is_selected_rows(x)]
+        dense = [x for x in xs if not is_selected_rows(x)]
+        if not dense:
+            return {"Out": [SelectedRows(
+                rows=torch.cat([s.rows for s in sparse], 0),
+                ids=torch.cat([s.ids for s in sparse], 0))]}
+        out = dense[0]
+        for x in dense[1:]:
+            out = out + x
+        for s in sparse:
+            out = out.index_put((s.ids.reshape(-1).long(),),
+                                s.rows.to(out.dtype), accumulate=True)
+        return {"Out": [out]}
     out = xs[0]
     for x in xs[1:]:
         out = out + x

@@ -378,10 +378,6 @@ def _lookup_table(ctx, ins, attrs):
     idx = ids
     if idx.dim() and idx.shape[-1] == 1:
         idx = idx.squeeze(-1)
-    if attrs.get("is_sparse", False):
-        raise NotImplementedError(
-            "lookup_table is_sparse=True (SelectedRows grads) is not "
-            "ported yet")
     out = torch.nn.functional.embedding(idx, w)
     pad = attrs.get("padding_idx", -1)
     if pad is not None and pad >= 0:

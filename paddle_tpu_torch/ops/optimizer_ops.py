@@ -13,6 +13,16 @@ to 1 ulp), and equals the fused update kernels B6-B8 on the card bit for
 bit (ops/kernels/zero_update.py): these functions are both the
 per-parameter lowerings and the kernels' plain versions.
 
+A SelectedRows gradient (ops/sparse_grad.py, `embedding(is_sparse=True)`)
+takes the reference's sparse branch in `sgd`, `momentum`, `adam`,
+`adamw` and `adagrad`: the rule touches the looked-up rows only (Adam's
+`lazy_mode`: moments and parameter at the merged ids). `sgd` adds each
+row's step in the ids' order, duplicates included, as the reference's
+scatter-add does; the others merge the ids (`merge_rows`) and compute
+each touched row once, with the reference's operations in its order, and
+write the rows back with one `index_put_` per tensor. Every other rule
+raises on a SelectedRows gradient (`_check_dense`): none densifies it.
+
 The update happens IN PLACE on the scope's tensors (Param and the
 optimizer state), the PyTorch analog of the reference's buffer donation:
 the results are `copy_`'d into the input tensors, and the op's outputs name
@@ -29,6 +39,7 @@ from __future__ import annotations
 import torch
 
 from .registry import register
+from .sparse_grad import is_selected_rows, merge_rows, writer_slots
 
 _OPT = dict(nondiff_slots=("Param", "Grad", "LearningRate", "Moment",
                            "Moment1", "Moment2", "Beta1Pow", "Beta2Pow",
@@ -63,8 +74,22 @@ def _update(ins, outs):
 def _check_dense(op_type, g):
     if not isinstance(g, torch.Tensor) or g.layout != torch.strided:
         raise NotImplementedError(
-            f"{op_type}: SelectedRows (row-sparse) gradients are not ported; "
-            f"the port's optimizer rules take dense gradients only")
+            f"{op_type}: a SelectedRows (row-sparse) gradient has no update "
+            f"rule here, as in the reference: sgd, momentum, adam, adamw "
+            f"and adagrad take one")
+
+
+def _merged(g, p):
+    """(ids, rows, writers) of the SelectedRows gradient `g` of `p`: the
+    merged ids (int64), their summed rows and each slot's writer slot."""
+    sr = merge_rows(g, p.shape[0])
+    return sr.ids, sr.rows, writer_slots(sr.ids)
+
+
+def _set_rows(t, ids, vals, writers):
+    """t[ids] = vals in place, each padding slot writing its real slot's
+    value (ops/sparse_grad.py)."""
+    t.index_put_((ids,), vals[writers].to(t.dtype))
 
 
 def adam_lr_t(lr, b1p, b2p):
@@ -76,6 +101,12 @@ def adam_lr_t(lr, b1p, b2p):
 @register("sgd", **_OPT)
 def _sgd(ctx, ins, attrs):
     p, g, lr = ins["Param"][0], ins["Grad"][0], ins["LearningRate"][0]
+    if is_selected_rows(g):
+        # each row's step added in the ids' order, duplicates too (:25)
+        with torch.no_grad():
+            upd = (-lr.to(p.dtype)) * g.rows.to(p.dtype)
+            p.index_put_((g.ids.reshape(-1).long(),), upd, accumulate=True)
+        return {"ParamOut": [p]}
     _check_dense("sgd", g)
     with torch.no_grad():
         p.copy_(p - lr.to(p.dtype) * g.to(p.dtype))
@@ -86,9 +117,24 @@ def _sgd(ctx, ins, attrs):
 def _momentum(ctx, ins, attrs):
     p, g = ins["Param"][0], ins["Grad"][0]
     v, lr = ins["Velocity"][0], ins["LearningRate"][0]
-    _check_dense("momentum", g)
     mu = attrs.get("mu", 0.9)
     rd = attrs.get("regularization_coeff", 0.0)
+    if is_selected_rows(g):
+        # merged rows only (:39)
+        ids, gr, w = _merged(g, p)
+        with torch.no_grad():
+            gr = gr.to(v.dtype)
+            if attrs.get("regularization_method", "") == "l2_decay" and rd:
+                gr = gr + rd * p[ids].to(v.dtype)
+            v_rows = mu * v[ids] + gr
+            if attrs.get("use_nesterov", False):
+                upd = lr * (gr + mu * v_rows)
+            else:
+                upd = lr * v_rows
+            _set_rows(p, ids, p[ids] - upd.to(p.dtype), w)
+            _set_rows(v, ids, v_rows, w)
+        return {"ParamOut": [p], "VelocityOut": [v]}
+    _check_dense("momentum", g)
     with torch.no_grad():
         if attrs.get("regularization_method", "") == "l2_decay" and rd:
             g = g + rd * p
@@ -106,10 +152,12 @@ def _adam_update(op_type, ins, attrs, decay_coeff=None):
     p, g, lr = ins["Param"][0], ins["Grad"][0], ins["LearningRate"][0]
     m1, m2 = ins["Moment1"][0], ins["Moment2"][0]
     b1p, b2p = ins["Beta1Pow"][0], ins["Beta2Pow"][0]
-    _check_dense(op_type, g)
     b1 = attrs.get("beta1", 0.9)
     b2 = attrs.get("beta2", 0.999)
     eps = attrs.get("epsilon", 1e-8)
+    if is_selected_rows(g):
+        return _sparse_adam(ins, g, b1, b2, eps, decay_coeff)
+    _check_dense(op_type, g)
     with torch.no_grad():
         gf = g.to(m1.dtype)
         m1_out = b1 * m1 + (1 - b1) * gf
@@ -122,6 +170,27 @@ def _adam_update(op_type, ins, attrs, decay_coeff=None):
         p.copy_(p_out)
         m1.copy_(m1_out)
         m2.copy_(m2_out)
+    return {"ParamOut": [p], "Moment1Out": [m1], "Moment2Out": [m2]}
+
+
+def _sparse_adam(ins, g, b1, b2, eps, decay_coeff):
+    """Adam's lazy rows (:92): moments and parameter at the merged ids
+    only; AdamW's decay of those rows, after their update (:128)."""
+    p, lr = ins["Param"][0], ins["LearningRate"][0]
+    m1, m2 = ins["Moment1"][0], ins["Moment2"][0]
+    ids, gr, w = _merged(g, p)
+    with torch.no_grad():
+        gf = gr.to(m1.dtype)
+        m1_rows = b1 * m1[ids] + (1 - b1) * gf
+        m2_rows = b2 * m2[ids] + (1 - b2) * (gf * gf)
+        lr_t = adam_lr_t(lr, ins["Beta1Pow"][0], ins["Beta2Pow"][0])
+        p_rows = p[ids] - (lr_t * m1_rows
+                           / (torch.sqrt(m2_rows) + eps)).to(p.dtype)
+        if decay_coeff is not None:
+            p_rows = p_rows - (lr * decay_coeff * p_rows).to(p.dtype)
+        _set_rows(p, ids, p_rows, w)
+        _set_rows(m1, ids, m1_rows, w)
+        _set_rows(m2, ids, m2_rows, w)
     return {"ParamOut": [p], "Moment1Out": [m1], "Moment2Out": [m2]}
 
 
@@ -179,8 +248,18 @@ def _adamax(ctx, ins, attrs):
 def _adagrad(ctx, ins, attrs):
     p, g, lr = ins["Param"][0], ins["Grad"][0], ins["LearningRate"][0]
     m = ins["Moment"][0]
-    _check_dense("adagrad", g)
     eps = attrs.get("epsilon", 1e-6)
+    if is_selected_rows(g):
+        # merged rows only (:161)
+        ids, gr, w = _merged(g, p)
+        with torch.no_grad():
+            gr = gr.to(m.dtype)
+            m_rows = m[ids] + torch.square(gr)
+            upd = (lr * gr / (torch.sqrt(m_rows) + eps)).to(p.dtype)
+            _set_rows(p, ids, p[ids] - upd, w)
+            _set_rows(m, ids, m_rows, w)
+        return {"ParamOut": [p], "MomentOut": [m]}
+    _check_dense("adagrad", g)
     with torch.no_grad():
         m_out = m + torch.square(g)
         p_out = p - lr * g / (torch.sqrt(m_out) + eps)

@@ -208,7 +208,10 @@ class Optimizer:
         out = []
         for p, g in params_grads:
             reg = getattr(p, "regularizer", None) or self.regularization
-            if reg is not None:
+            # a SelectedRows gradient skips regularization, as in the
+            # reference (:153-155)
+            if reg is not None and not getattr(g, "_is_selected_rows",
+                                               False):
                 g = reg._append(p, g)
             out.append((p, g))
         return out

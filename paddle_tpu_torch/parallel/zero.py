@@ -17,6 +17,8 @@ processes (counterpart of paddle_tpu/parallel/zero.py).
      bucket's first forward use by `__zero_gather__`.
    A bucket whose gradients are clipped or regularised before the update
    is `pre_synced`: its raw gradients keep a `__bucket_sync__`.
+   SelectedRows gradients (`embedding(is_sparse=True)`) join no bucket:
+   their parameters keep their per-parameter sparse rule.
 2. **Lowerings.** Inside a data-parallel step (`current_manual_dp()` is
    ("dp", dp): the executor's manual-dp plan, framework/executor.py) they
    compute what the reference's manual path computes, over the port's
@@ -488,7 +490,10 @@ def apply_grad_bucketing(program: Program, startup_program: Program,
     for p, g in params_grads or []:
         gv = block.find_var_recursive(g.name if hasattr(g, "name") else g)
         pv = block.find_var_recursive(p.name if hasattr(p, "name") else p)
-        if gv is None or pv is None:
+        # a SelectedRows gradient stays on its per-parameter rule
+        # (reference :513-519)
+        if gv is None or pv is None or \
+                getattr(gv, "_is_selected_rows", False):
             continue
         dense_pgs.append((pv, gv))
     if not dense_pgs:

@@ -17,7 +17,7 @@ the CPU.
 * Eager against captured forms (`LowerCtx.capturing`: every branch run,
   outputs selected on the device) of `cond`, `Switch` and the bounded
   `While`: equal bits. A branch not taken that divides by zero: the eager
-  gradient is the reference's, the captured one NaN (ROADMAP Queue 3).
+  and the captured gradients are the reference's (d/dw = 2).
 * An unbounded While in a training program raises a typed error, as the
   reference refuses it; `run_steps` runs a program holding one eagerly
   each step (counted); a Switch case not taken (or run and not selected,
@@ -282,9 +282,9 @@ def test_cond_gradient_through_a_branch_not_taken():
     """The taken branch is 2w at w = 0; the other divides by zero. The
     reference's lax.cond and the port's eager form differentiate the taken
     branch only: d/dw = 2. The captured form runs both and selects with
-    `where`, whose zero cotangent times the other branch's infinite
-    derivative is NaN: the divergence ROADMAP Queue 3 records, pinned
-    here."""
+    `where`; the branch not taken sees its inputs cut from the gradient,
+    so its infinite derivative adds nothing and the captured gradient is
+    the reference's too."""
     rm, rs, rf = build(REF, guarded_program)
     pm, ps, pf = build(PORT, guarded_program)
     assert_descs_equal(rm, pm)
@@ -296,7 +296,46 @@ def test_cond_gradient_through_a_branch_not_taken():
     np.testing.assert_array_equal(eager[1], ref_out[1])
     captured = port_step(pm, scope, feed, pf, capturing=True)
     assert captured[0] == eager[0]
-    assert np.isnan(captured[1]).all()
+    np.testing.assert_array_equal(captured[1], ref_out[1])
+
+
+def guarded_switch_program(ns):
+    """out = 2w where p < 0, else (the default) 1/w; loss = sum(out); w a
+    parameter at 0."""
+    L = ns.L
+    p = L.data(name="p", shape=[1], dtype="float32", append_batch_size=False)
+    w = L.create_parameter([3], "float32", name="w",
+                           default_initializer=ns.Constant(0.0))
+    out = w * 0.0
+    zero = L.fill_constant([1], "float32", 0.0)
+    one = L.fill_constant([3], "float32", 1.0)
+    with L.Switch() as sw:
+        with sw.case(L.less_than(p, zero)):
+            L.assign(w * 2.0, out)
+        with sw.default():
+            L.assign(L.elementwise_div(one, w), out)
+    loss = L.reduce_sum(out)
+    ns.bw.append_backward(loss)
+    return loss, "w@GRAD"
+
+
+def test_switch_gradient_through_a_case_not_taken():
+    """The Switch's counterpart of the cond test: the case taken is 2w at
+    w = 0, the default not taken divides by zero. Eager and captured
+    forms give the reference's d/dw = 2 (the captured one gave NaN before
+    each case's inputs were cut from the gradient where it is not the
+    case taken)."""
+    rm, rs, rf = build(REF, guarded_switch_program)
+    pm, ps, pf = build(PORT, guarded_switch_program)
+    assert_descs_equal(rm, pm)
+    feed = {"p": np.array([-1.0], np.float32)}
+    init, (ref_out,), _ = run_ref(rm, rs, rf, feed)
+    np.testing.assert_array_equal(ref_out[1], [2.0, 2.0, 2.0])
+    scope = load_numpy(Scope(), init, "cpu")
+    for capturing in (False, True):
+        got = port_step(pm, scope, feed, pf, capturing=capturing)
+        assert got[0] == ref_out[0]
+        np.testing.assert_array_equal(got[1], ref_out[1])
 
 
 # ---------------------------------------------------------------------------

@@ -252,6 +252,14 @@ def test_unported_launch_modes_raise_naming_their_item(tmp_path):
 with open({log!r}, "a") as f:
     f.write(f"restart={{restart}} world={{world}} rank={{rank}}\\n")
 if restart == 0 and rank == 1:
+    # the launcher stops rank 0 as soon as this rank fails: fail only once
+    # rank 0 has written its line, which a loaded machine can delay
+    t_end = time.monotonic() + 60
+    while time.monotonic() < t_end:
+        with open({log!r}) as f:
+            if "restart=0 world=2 rank=0" in f.read():
+                break
+        time.sleep(0.01)
     sys.exit(3)
 time.sleep(0.2 if restart else 600)
 """)

@@ -6,7 +6,8 @@ batch 4):
   step is an LSTM of 8 fcs) with Adam, and the same through fleet at
   ZeRO stage 1;
 * BOOK: the Paddle book's understand_sentiment stacked_lstm_net (3
-  dynamic_lstm layers of alternating direction) with Adagrad.
+  dynamic_lstm layers of alternating direction) with Adagrad, its
+  embedding `is_sparse` as the book's (Adagrad's SelectedRows rule).
 
 Built in both packages from fresh programs, the main and startup descs
 are EQUAL (every block). From the reference's startup arrays, 3 steps on
