@@ -461,6 +461,35 @@ result line):
      B8 at the dense bucket's width bit for bit, timed alone and through
      its wrapper beside the plain version, torch._fused_adam_ and its
      bytes bound.
+19. the extra ops and the book's recommender system (f32, TF32 off):
+   * the extra ops: every case of tests/torch_extra_op_cases.py (the 87
+     types of ops/extra_ops.py and more arms of some, the CPU tests'
+     inputs) lowered on the CPU and twice on the card under
+     deterministic cuDNN, and the `__vjp__` of every vjp case likewise:
+     the card within rtol 1e-4 / atol 1e-5 of the CPU (integers equal,
+     NaN in the same places), the two card runs bit for bit; planted
+     faults: segment_pool's MAX over a zero fill on the card (card vs
+     CPU), lrn drawing from torch's global generator (twice);
+   * card vs CPU: the recommender at batch 16, SGD(0.2), 3 steps from
+     the same startup arrays: losses within 1e-5 relative, every
+     parameter within 1e-5; planted fault: the CPU run's sparse SGD
+     setting a repeated id's rows instead of adding them;
+   * the PaddlePaddle book's recommender system at MovieLens-1M's
+     dictionary sizes and the book's widths (embeddings 32 / 16, fcs,
+     the title's sequence_conv 32 x 3 and sum pools, towers of fc 200
+     tanh, cos_sim, scale 5, square error), every embedding is_sparse,
+     SGD(0.2), batch 256, 20 batches from numpy seed 0: E, 10 eager
+     Executor.run steps; C, two run_steps(10) windows on one capture,
+     bit-equal to E after 10 steps (losses, every written persistable);
+     Z, fleet ZeRO stage 1, the same windows, bit-equal to E after 10
+     and to C after 20, B6 once a step on the one dense bucket and the
+     seven tables on their sparse sgd; planted fault outside E == C == Z:
+     sparse SGD setting a repeated id's rows; step ms p50 (C, Z: of 5
+     run_steps(10) windows timed after the gates), examples/s, launches
+     a step and busy share of one profiled step, peak memory; B6 at the
+     dense bucket's width bit for bit, timed alone and through its
+     wrapper beside the plain version, torch._fused_sgd_ and its bytes
+     bound.
 Each main-path run resets the kernel launch counts just before it and
 fails if a kernel of its path was never launched.
 
@@ -476,8 +505,11 @@ Output: a `{"kernels": [...]}` line, a `{"serving": ...}` line, a
 `{"pipeline": ...}` line, a `{"layer_scan": ...}` line, a
 `{"model_parallel": ...}` line, a `{"composed_mesh": ...}` line, a
 `{"supervised_gang": ...}` line, an `{"image_training": ...}` line, a
-`{"sequence_training": ...}` line, a `{"ctr_training": ...}` line, and
-last `{"ok": true, "device": {...}}`. The B8 row's `launches_by_path`
+`{"sequence_training": ...}` line, a `{"ctr_training": ...}` line, a
+`{"recsys_training": ...}` line, and last `{"ok": true, "device":
+{...}}`. The B6 row's `launches_by_path` adds phase 19's arm Z, and its
+`recsys_bucket` is phase 19's check at the recommender's dense bucket
+width. The B8 row's `launches_by_path`
 adds phase 17's and phase 18's arm Z, and its `ctr_bucket` is phase 18's
 check at the Wide&Deep dense bucket's width. The B7 row's `resnet50_bucket` is
 phase 16's check at ResNet-50's widest bucket, and its
@@ -9211,33 +9243,36 @@ def ctr_card_vs_cpu(torch):
     return row
 
 
-def check_b8_ctr_bucket(torch, zk, width):
-    """B8 (adam, the CTR path's rule) at the Wide&Deep dense bucket's
-    width: bit for bit against its plain version, then timed on the launch
-    alone and through its wrapper beside the plain version and
-    torch._fused_adam_ over copies of the buffers used in turn (a bucket
-    of this width fits in the L2), with its bytes bound."""
-    attrs = ZERO_ARMS[5][3]
+def check_bucket(torch, zk, op, width, lr, what):
+    """B6 (`op` "sgd") or B8 ("adam") at a path's dense bucket width
+    (`what` names the path): bit for bit against its plain version, then
+    timed on the launch alone and through its wrapper beside the plain
+    version and torch's fused call over copies of the buffers used in turn
+    (a small bucket fits in the L2), with its bytes bound."""
+    kernel = "zero_sgd" if op == "sgd" else "zero_adam"
+    attrs = {} if op == "sgd" else ZERO_ARMS[5][3]
     gen = torch.Generator(device="cuda").manual_seed(2)
 
     def fresh():
         ins = {s: [torch.randn(width, generator=gen, device="cuda")]
-               for s in ("Param", "Grad", "Moment1", "Moment2")}
-        ins["Moment2"][0].abs_()
-        ins.update({"LearningRate": [torch.tensor([CTR_LR], device="cuda")],
-                    "Beta1Pow": [torch.tensor([0.9 ** 3], device="cuda")],
-                    "Beta2Pow": [torch.tensor([0.999 ** 3], device="cuda")]})
+               for s in ("Param", "Grad") + zk._STATE_SLOTS[op]}
+        ins["LearningRate"] = [torch.tensor([lr], device="cuda")]
+        if op == "adam":
+            ins["Moment2"][0].abs_()
+            ins.update({"Beta1Pow": [torch.tensor([0.9 ** 3], device="cuda")],
+                        "Beta2Pow": [torch.tensor([0.999 ** 3],
+                                                  device="cuda")]})
         return ins
 
     kin = fresh()
     pin = {s: [v[0].clone()] for s, v in kin.items()}
-    got = zk.fused_flat_update("adam", kin, attrs)
-    want = zk.fused_flat_update_plain("adam", pin, attrs)
+    got = zk.fused_flat_update(op, kin, attrs)
+    want = zk.fused_flat_update_plain(op, pin, attrs)
     torch.cuda.synchronize()
     if not all(torch.equal(got[s][0], want[s][0]) for s in got):
-        fail(f"zero_adam at the ctr bucket width {width}: differs from the "
-             f"plain version")
-    per_set = width * ZERO_BYTES_PER_ELEMENT["zero_adam"]
+        fail(f"{kernel} at the {what} bucket width {width}: differs from "
+             f"the plain version")
+    per_set = width * ZERO_BYTES_PER_ELEMENT[kernel]
     copies = max(1, int(-(-2 * L2_BYTES // per_set)))
     sets = [fresh() for _ in range(copies)]
 
@@ -9245,23 +9280,23 @@ def check_b8_ctr_bucket(torch, zk, width):
         it = itertools.cycle(calls)
         return lambda: next(it)()
 
-    lib = [zero_library_call(torch, "adam", "adam", s) for s in sets]
-    row = {"n": width, "op": "adam", "bitwise": True, "max_abs_err": 0.0,
+    lib = [zero_library_call(torch, op, op, s) for s in sets]
+    row = {"n": width, "op": op, "bitwise": True, "max_abs_err": 0.0,
            "copies_in_turn": copies,
            "ms": cuda_ms(torch, in_turn([launch_alone(torch, zk, s, attrs,
-                                                      "adam")
+                                                      op)
                                          for s in sets])),
            "wrapper_ms": cuda_ms(torch, in_turn([
-               (lambda s=s: zk.fused_flat_update("adam", s, attrs))
+               (lambda s=s: zk.fused_flat_update(op, s, attrs))
                for s in sets])),
            "plain_ms": cuda_ms(torch, in_turn([
-               (lambda s=s: zk.fused_flat_update_plain("adam", s, attrs))
+               (lambda s=s: zk.fused_flat_update_plain(op, s, attrs))
                for s in sets])),
            "bound_ms": per_set / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
            "library_ms": None if lib[0] is None
            else cuda_ms(torch, in_turn(lib))}
-    log(f"kernel zero_adam at the ctr dense bucket n={width}: bit for bit; "
-        f"{row['ms']:.4f} ms alone ({copies} copies in turn), "
+    log(f"kernel {kernel} at the {what} dense bucket n={width}: bit for "
+        f"bit; {row['ms']:.4f} ms alone ({copies} copies in turn), "
         f"{row['wrapper_ms']:.4f} through the wrapper, plain "
         f"{row['plain_ms']:.4f}, bytes bound {row['bound_ms']:.4f}, torch "
         f"fused {row['library_ms']}")
@@ -9289,7 +9324,8 @@ def train_ctr(torch, zk, registry, card):
     part("sgd_S_vs_D", lambda: ctr_sgd_gate(torch, registry, batches))
     part("arms", lambda: ctr_arms(torch, zk, registry, batches))
     z = row["arms"]["Z"]
-    bucket = check_b8_ctr_bucket(torch, zk, z["bucket_widths"][0])
+    bucket = check_bucket(torch, zk, "adam", z["bucket_widths"][0], CTR_LR,
+                          "ctr")
     bucket["launches"] = z["b8_launches_incl_warmup"]
     log(f"phase 18 parts (s): {parts}")
     row.update(
@@ -9329,6 +9365,488 @@ def train_ctr(torch, zk, registry, card):
                "b8": "launches in Z == buckets x (steps + warm-up)"},
         phase_s=time.perf_counter() - t0)
     return row, z["b8_launches_incl_warmup"], bucket
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the extra ops and the book's recommender system
+# ---------------------------------------------------------------------------
+
+RECSYS_BATCH = 256         # the book's BATCH_SIZE
+RECSYS_WINDOW = 10         # arms C, Z: two run_steps(10) windows
+RECSYS_TIMED = 5           # then run_steps(10) windows timed alone
+RECSYS_CPU = (16, 3)       # card vs CPU: batch, steps
+RECSYS_CPU_RTOL = 1e-5     # card vs CPU: losses, relative
+RECSYS_ATOL = 1e-5         # card vs CPU: every trained parameter
+# the extra ops, card against CPU: |card - cpu| <= atol + rtol * |cpu|
+# (f32, TF32 off; cuSOLVER / cuBLAS / cuDNN sum in other orders than the
+# CPU's LAPACK and kernels; the NaN of a matrix that is not positive
+# definite in the same places); integer and bool outputs equal
+EXTRA_RTOL, EXTRA_ATOL = 1e-4, 1e-5
+
+
+def extra_cases_module():
+    """tests/torch_extra_op_cases.py (numpy only): the extra ops' cases and
+    the recommender's builder, shared with the CPU tests."""
+    path = os.path.join(HERE, "tests")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    import torch_extra_op_cases
+    return torch_extra_op_cases
+
+
+def same_bits(torch, a, b):
+    """Two tensors with the same dtype, shape and bits (NaN included)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a = a.contiguous().view(ints[a.element_size()])
+        b = b.contiguous().view(ints[b.element_size()])
+    return torch.equal(a, b)
+
+
+def outs_error(torch, card, cpu):
+    """(holds, largest |card - cpu| over the floating outputs) of two
+    lowerings' output dicts: the same slots, shapes and dtypes; integers
+    and bools equal; floats within EXTRA_RTOL / EXTRA_ATOL, NaN where the
+    CPU has NaN."""
+    worst, holds = 0.0, set(card) == set(cpu)
+    for slot in cpu:
+        for a, b in zip(card.get(slot, []), cpu[slot]):
+            if b is None:
+                holds &= a is None
+                continue
+            a = a.cpu()
+            if a.dtype != b.dtype or a.shape != b.shape:
+                holds = False
+            elif not b.is_floating_point():
+                holds &= torch.equal(a, b)
+            elif b.numel():
+                # an infinity (an empty segment's MAX) or NaN of the CPU's
+                # is held exactly, a finite value within the tolerance
+                exact = (a == b) | (torch.isnan(a) & torch.isnan(b))
+                d = torch.where(exact, 0.0, (a - b).abs())
+                worst = max(worst, d.max().item())
+                holds &= bool((exact | (torch.isfinite(b) & (
+                    d <= EXTRA_ATOL + EXTRA_RTOL * b.abs()))).all())
+    return holds, worst
+
+
+def plant_segment_max_zero_fill(registry):
+    """Planted fault of gate card vs CPU: segment_pool's MAX / MIN as
+    scatter_reduce(include_self=False) over zeros, on the card only: an
+    empty segment gives 0 where jax fills -inf / +inf."""
+    opdef = registry.get("segment_pool")
+    lower = opdef.lower
+
+    def zero_fill(ctx, ins, attrs):
+        x = ins["X"][0]
+        if x.device.type != "cuda" or attrs.get("pooltype") not in (
+                "MAX", "MIN"):
+            return lower(ctx, ins, attrs)
+        seg = ins["SegmentIds"][0].reshape(-1).long()
+        idx = seg.reshape((-1,) + (1,) * (x.dim() - 1)).expand(x.shape)
+        init = x.new_zeros((attrs["num_segments"],) + tuple(x.shape[1:]))
+        return {"Out": [init.scatter_reduce(
+            0, idx, x, "amax" if attrs["pooltype"] == "MAX" else "amin",
+            include_self=False)]}
+
+    opdef.lower = zero_fill
+    return lambda: setattr(opdef, "lower", lower)
+
+
+def plant_global_rng(torch, registry):
+    """Planted fault of gate twice on the card: lrn adds noise drawn from
+    torch's global generator (which no lowering may touch), so two runs
+    on the same inputs differ."""
+    opdef = registry.get("lrn")
+    lower = opdef.lower
+
+    def noisy(ctx, ins, attrs):
+        out = lower(ctx, ins, attrs)
+        out["Out"] = [out["Out"][0] + 1e-3 * torch.rand_like(out["Out"][0])]
+        return out
+
+    opdef.lower = noisy
+    return lambda: setattr(opdef, "lower", lower)
+
+
+def extra_ops_card_vs_cpu(torch, registry):
+    """Gate card vs CPU and gate twice on the card over every case of the
+    extra ops (tests/torch_extra_op_cases.py, f32): each lowering on the
+    CPU, then twice on the card, under deterministic cuDNN; every vjp
+    case's `__vjp__` likewise. Planted faults: segment_pool's MAX over a
+    zero fill on the card (card vs CPU), lrn drawing from the global
+    generator (twice)."""
+    cases = extra_cases_module()
+    table = cases.extra_cases()
+    ctx_cpu = registry.LowerCtx(device="cpu")
+    ctx_gpu = registry.LowerCtx(device="cuda")
+
+    def tensors(ins, dev):
+        return {s: [torch.from_numpy(np.array(a)).to(dev) for a in vs]
+                for s, vs in ins.items()}
+
+    def run(op, ins, attrs, dev):
+        ctx = ctx_gpu if dev == "cuda" else ctx_cpu
+        return registry.get(op).lower(ctx, tensors(ins, dev), dict(attrs))
+
+    def check(op, ins, attrs):
+        cpu = run(op, ins, attrs, "cpu")
+        first = run(op, ins, attrs, "cuda")
+        second = run(op, ins, attrs, "cuda")
+        holds, err = outs_error(torch, first, cpu)
+        twice = all(
+            (a is None and b is None) or same_bits(torch, a, b)
+            for s in first for a, b in zip(first[s], second[s]))
+        return cpu, holds, err, twice
+
+    rows, bad = {}, []
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    t0 = time.perf_counter()
+    try:
+        for case in sorted(table):
+            ins, attrs = table[case]
+            op = cases.op_of(case)
+            cpu, holds, err, twice = check(op, ins, attrs)
+            rows[case] = {"max_abs_err": err, "within": holds,
+                          "twice_bit_equal": twice}
+            if case in cases.VJP_CASES:
+                vins, vattrs = cases.vjp_case(op, ins, attrs, cpu,
+                                              registry.make_vjp_attrs)
+                _, vholds, verr, vtwice = check("__vjp__", vins, vattrs)
+                rows[case].update(vjp_max_abs_err=verr, vjp_within=vholds,
+                                  vjp_twice_bit_equal=vtwice)
+            if not all(v for k, v in rows[case].items()
+                       if isinstance(v, bool)):
+                bad.append(case)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        faults = {}
+        undo = plant_segment_max_zero_fill(registry)
+        try:
+            ins, attrs = table["segment_pool:max"]
+            _, holds, err, _ = check("segment_pool", ins, attrs)
+        finally:
+            undo()
+        faults["card_vs_cpu"] = {"fault": "segment_pool MAX over a zero "
+                                          "fill on the card",
+                                 "within": holds, "max_abs_err": err}
+        undo = plant_global_rng(torch, registry)
+        try:
+            ins, attrs = table["lrn"]
+            _, _, _, twice = check("lrn", ins, attrs)
+        finally:
+            undo()
+        faults["twice"] = {"fault": "lrn draws from torch's global "
+                                    "generator", "twice_bit_equal": twice}
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = saved
+    n_types = len({cases.op_of(c) for c in table})
+    vjp = [c for c in rows if "vjp_within" in rows[c]]
+    worst = max(rows, key=lambda c: rows[c]["max_abs_err"])
+    out = {"types": n_types, "cases": len(rows), "vjp_cases": len(vjp),
+           "tolerance": f"rtol {EXTRA_RTOL}, atol {EXTRA_ATOL}; integers "
+                        f"equal; twice on the card bit for bit",
+           "cudnn": "deterministic=True, benchmark=False",
+           "failed": bad, "seconds": elapsed,
+           "max_abs_err": {"case": worst,
+                           "value": rows[worst]["max_abs_err"]},
+           "vjp_max_abs_err": max((rows[c]["vjp_max_abs_err"] for c in vjp),
+                                  default=0.0),
+           "planted_faults": faults, "by_case": rows}
+    log(f"extra ops card vs CPU: {n_types} types, {len(rows)} cases, "
+        f"{len(vjp)} pullbacks, {elapsed:.1f} s; failed {bad}; worst "
+        f"{out['max_abs_err']}, pullbacks {out['vjp_max_abs_err']}; "
+        f"faults {faults}")
+    if bad or n_types != 87:
+        fail(f"extra ops card vs CPU / twice: {bad}")
+    if faults["card_vs_cpu"]["within"]:
+        fail("extra ops planted fault passed gate card vs CPU")
+    if faults["twice"]["twice_bit_equal"]:
+        fail("extra ops planted fault passed gate twice on the card")
+    faults["card_vs_cpu"]["caught"] = faults["twice"]["caught"] = True
+    return out
+
+
+def build_recsys_prog(batch_sizes=None, stage=None, is_sparse=True):
+    """(main, startup, loss): the book's recommender system
+    (tests/torch_extra_op_cases.py `recsys`) at MovieLens-1M's
+    dictionaries and the book's widths, SGD(0.2), through fleet at ZeRO
+    `stage` when given."""
+    from paddle_tpu_torch import layers, optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework import program, unique_name
+    cases = extra_cases_module()
+    main, start = program.Program(), program.Program()
+    with program.program_guard(main, start), unique_name.guard():
+        loss, _ = cases.recsys(layers, is_sparse=is_sparse)
+        o = optimizer.SGD(learning_rate=cases.RECSYS_LR)
+        if stage is not None:
+            fleet.init(is_collective=True)
+            s = fleet.DistributedStrategy()
+            s.sharding_stage = stage
+            o = fleet.distributed_optimizer(o, s)
+        o.minimize(loss)
+    return main, start, loss
+
+
+def recsys_tables(main):
+    return {op.inputs["W"][0] for op in main.global_block().ops
+            if op.type == "lookup_table"}
+
+
+def recsys_card_vs_cpu(torch, registry):
+    """The recommender at RECSYS_CPU (batch 16, 3 steps), f32, TF32 off, on
+    the card and on the CPU from the same startup arrays: losses within
+    RECSYS_CPU_RTOL relative, every parameter within RECSYS_ATOL; planted
+    fault: the CPU run's sparse SGD setting a repeated id's rows instead
+    of adding them."""
+    from paddle_tpu_torch.framework import Executor, Scope, load_numpy
+    batch, steps = RECSYS_CPU
+    main, start, loss = build_recsys_prog()
+    s = Scope()
+    Executor("cpu").run(start, scope=s)
+    init = {n: s.numpy(n) for n in s.local_names()
+            if isinstance(s.find(n), torch.Tensor)}
+    names = [p.name for p in main.global_block().all_parameters()]
+    data = extra_cases_module().recsys_feed(steps, batch, seed=1)
+    got = {}
+    for arm, dev in (("cuda", "cuda"), ("cpu", "cpu"), ("fault", "cpu")):
+        scope, exe = load_numpy(Scope(), init, dev), Executor(dev)
+        undo = plant_sgd_duplicates_set(registry) if arm == "fault" \
+            else None
+        try:
+            losses = [float(exe.run(main, feed=b, fetch_list=[loss],
+                                    scope=scope)[0]) for b in data]
+        finally:
+            if undo:
+                undo()
+        got[arm] = (losses, {n: scope.numpy(n) for n in names})
+
+    def readings(arm):
+        losses, state = got[arm]
+        lc, sc = got["cpu"]
+        return {"loss_max_rel": max(abs(a - b) / abs(b)
+                                    for a, b in zip(losses, lc)),
+                "param_max_abs_diff": max(
+                    float(np.abs(state[n].astype(np.float64) - sc[n]).max())
+                    for n in names)}
+
+    def holds(r):
+        return (r["loss_max_rel"] <= RECSYS_CPU_RTOL
+                and r["param_max_abs_diff"] <= RECSYS_ATOL)
+
+    row = {"config": f"the recommender at batch {batch}, SGD(0.2), {steps} "
+                     f"steps, f32, TF32 off",
+           "losses_card": got["cuda"][0], "losses_cpu": got["cpu"][0],
+           **readings("cuda"),
+           "planted_fault": {"fault": "the CPU run's sparse SGD sets a "
+                                      "repeated id's rows instead of "
+                                      "adding them", **readings("fault")}}
+    log(f"recsys card vs CPU: {row}")
+    if not np.isfinite(got["cuda"][0]).all() or not holds(readings("cuda")):
+        fail(f"recsys card vs CPU: {row}")
+    if holds(row["planted_fault"]):
+        fail(f"recsys planted fault passed gate card vs CPU: {row}")
+    row["planted_fault"]["caught"] = True
+    return row
+
+
+def recsys_arms(torch, zk, registry, batches):
+    """Arms E, C and Z at the book's widths from one startup state (module
+    docstring), the gates E == C == Z with a planted fault outside them.
+    Returns {arm: numbers}."""
+    from paddle_tpu_torch.framework import Executor, Scope
+    windows = [ctr_stacked(batches[:RECSYS_WINDOW]),
+               ctr_stacked(batches[RECSYS_WINDOW:2 * RECSYS_WINDOW])]
+    out, states, s0 = {}, {}, None
+    for arm in ("E", "C", "Z"):
+        main, start, loss = build_recsys_prog(stage=1 if arm == "Z"
+                                              else None)
+        if s0 is None:
+            s0 = Scope()
+            Executor("cuda").run(start, scope=s0)
+        scope, exe = scope_copy(torch, s0), Executor("cuda")
+        release(torch)
+        torch.cuda.reset_peak_memory_stats()
+        zk.reset_launches()
+        losses, ms = [], []
+        if arm == "E":
+            for i, b in enumerate(batches[:RECSYS_WINDOW]):
+                t0 = time.perf_counter()
+                losses.append(float(exe.run(main, feed=b, fetch_list=[loss],
+                                            scope=scope)[0]))
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if i == 0:
+                    states["E1"] = ctr_state(torch, main, scope)
+            states["E"] = ctr_state(torch, main, scope)
+            timed = ms[1:]
+        else:
+            for w, feed in enumerate(windows):
+                got, = exe.run_steps(RECSYS_WINDOW, main, feed=feed,
+                                     fetch_list=[loss], scope=scope)
+                losses += [float(x) for x in got]
+                if w == 0:
+                    d = image_diffs(torch, states["E"],
+                                    ctr_state(torch, main, scope))
+                    if d or losses != out["E"]["losses"]:
+                        fail(f"recsys gate E == {arm}: {d}, losses "
+                             f"{losses} vs {out['E']['losses']}")
+            if arm == "C":
+                states["C"] = ctr_state(torch, main, scope)
+                c_losses = losses
+            else:
+                d = image_diffs(torch, states["C"],
+                                ctr_state(torch, main, scope))
+                if d or losses != c_losses:
+                    fail(f"recsys gate C == Z: {d}")
+            for _ in range(RECSYS_TIMED):
+                t0 = time.perf_counter()
+                exe.run_steps(RECSYS_WINDOW, main, feed=windows[0],
+                              fetch_list=[loss], scope=scope)
+                ms.append((time.perf_counter() - t0) * 1e3 / RECSYS_WINDOW)
+            timed = ms
+        peak = torch.cuda.max_memory_allocated()
+        stats = dict(exe.stats)
+        if arm != "E" and (stats["eager_steps"] or stats["captures"] != 1):
+            fail(f"recsys arm {arm}: executor stats {stats}")
+        p50 = float(np.median(timed))
+        row = {"losses": losses, "step_ms": ms, "step_ms_p50": p50,
+               "examples_per_s": RECSYS_BATCH / (p50 / 1e3),
+               "peak_memory_gib": peak / 2 ** 30, "executor_stats": stats}
+        if arm == "Z":
+            n_buckets = op_count(main, "__zero_update__")
+            steps_run = (2 + RECSYS_TIMED) * RECSYS_WINDOW \
+                + stats["warmup_steps"]
+            b6 = zk.launches["zero_sgd"]
+            buckets = main._grad_buckets["zero_buckets"]
+            tables = recsys_tables(main)
+            sgd_params = {op.inputs["Param"][0]
+                          for op in main.global_block().ops
+                          if op.type == "sgd"}
+            if n_buckets != 1 or b6 != steps_run * n_buckets:
+                fail(f"recsys arm Z: {b6} B6 launches for {n_buckets} "
+                     f"buckets over {steps_run} steps")
+            if any(tables & set(b["params"]) for b in buckets) \
+                    or sgd_params != tables:
+                fail("recsys arm Z: a table joined a bucket")
+            row.update(b6_launches_incl_warmup=b6, zero_update_ops=n_buckets,
+                       bucket_widths=[b["padded"] for b in buckets],
+                       sparse_tables_on_sgd=len(tables))
+        if arm == "E":
+            def step():
+                t0 = time.perf_counter()
+                exe.run(main, feed=batches[0], fetch_list=[loss],
+                        scope=scope)
+                return time.perf_counter() - t0
+        else:
+            def step():
+                t0 = time.perf_counter()
+                exe.run_steps(1, main, feed=ctr_stacked(batches[:1]),
+                              fetch_list=[loss], scope=scope)
+                return time.perf_counter() - t0
+        row["profile"] = device_profile(torch, step, top=6)
+        row["launches_per_step"] = row["profile"].get("device_launches")
+        if arm != "E" and exe.stats["captures"] != 1:
+            fail(f"recsys arm {arm}: the profiled step captured again: "
+                 f"{exe.stats}")
+        log(f"recsys arm {arm}: step p50 {p50:.3f} ms, "
+            f"{row['examples_per_s']:.0f} examples/s, peak "
+            f"{row['peak_memory_gib']:.3f} GiB, launches a step "
+            f"{row['launches_per_step']}, losses {losses[:3]}..."
+            f"{losses[-1]}")
+        out[arm] = row
+        del exe, scope, main, start
+        release(torch)
+    # planted fault outside gate E == C == Z: one eager step whose sparse
+    # SGD sets a repeated id's rows differs from E's first step
+    main, start, loss = build_recsys_prog()
+    scope = scope_copy(torch, s0)
+    undo = plant_sgd_duplicates_set(registry)
+    try:
+        Executor("cuda").run(main, feed=batches[0], fetch_list=[loss],
+                             scope=scope)
+    finally:
+        undo()
+    d = image_diffs(torch, states["E1"], ctr_state(torch, main, scope))
+    if not d:
+        fail("recsys planted fault (sparse SGD sets repeated rows) passed "
+             "gate E == C == Z")
+    out["planted_fault_E_eq_C_eq_Z"] = {
+        "fault": "sparse SGD sets a repeated id's rows instead of adding "
+                 "them", "caught": True, "differing": sorted(d)}
+    del s0, states
+    release(torch)
+    return out
+
+
+def train_recsys(torch, zk, registry, card):
+    """Phase 19 (module docstring): the extra ops card vs CPU and twice on
+    the card, the recommender card vs CPU, its arms E, C and Z at the
+    book's widths and B6 at its dense bucket's width. Returns (the line's
+    row, B6's launches in Z, the B6 bucket check)."""
+    t0 = time.perf_counter()
+    row, parts = {"card": card}, {}
+    cases = extra_cases_module()
+
+    def part(name, fn):
+        t = time.perf_counter()
+        row[name] = fn()
+        parts[name] = time.perf_counter() - t
+        release(torch)
+
+    part("extra_ops", lambda: extra_ops_card_vs_cpu(torch, registry))
+    part("card_vs_cpu", lambda: recsys_card_vs_cpu(torch, registry))
+    batches = cases.recsys_feed(2 * RECSYS_WINDOW, RECSYS_BATCH)
+    part("arms", lambda: recsys_arms(torch, zk, registry, batches))
+    z = row["arms"]["Z"]
+    bucket = check_bucket(torch, zk, "sgd", z["bucket_widths"][0],
+                          cases.RECSYS_LR, "recsys")
+    bucket["launches"] = z["b6_launches_incl_warmup"]
+    log(f"phase 19 parts (s): {parts}")
+    sizes = cases.ML1M
+    row.update(
+        parts_s=parts,
+        config={
+            "model": f"the PaddlePaddle book's recommender system (chapter "
+                     f"5, test_recommender_system.py): user id "
+                     f"[{sizes['user']}, 32] fc 32, gender [{sizes['gender']}, 16], age "
+                     f"[{sizes['age']}, 16], job [{sizes['job']}, 16] fc 16 "
+                     f"each, concat, fc 200 tanh; movie id [{sizes['movie']}"
+                     f", 32] fc 32, categories [{sizes['category']}, 32] "
+                     f"sequence_pool sum, title [{sizes['title']}, 32] "
+                     f"sequence_conv 32 x 3 tanh sequence_pool sum, concat, "
+                     f"fc 200 tanh; cos_sim, scale 5, square_error_cost, "
+                     f"mean; every embedding is_sparse; SGD(0.2), batch "
+                     f"{RECSYS_BATCH}, f32, TF32 off; MovieLens-1M's "
+                     f"dictionary sizes (the title dictionary's as the "
+                     f"book's data gives it)",
+            "data": f"{2 * RECSYS_WINDOW} batches from numpy seed 0: ids "
+                    f"uniform over each dictionary, 1-{cases.CATEGORY_LEN} "
+                    f"categories and 1-{cases.TITLE_LEN} title words a "
+                    f"movie (padded ids and a length vector), ratings "
+                    f"uniform in 1-5; weights from the startup program",
+            "arms": f"E: {RECSYS_WINDOW} eager Executor.run steps (batches "
+                    f"0-9); C: two run_steps({RECSYS_WINDOW}) windows "
+                    f"(batches 0-19) on one capture, then {RECSYS_TIMED} "
+                    f"timed run_steps({RECSYS_WINDOW}) windows (batches "
+                    f"0-9); Z: C's windows through fleet ZeRO stage 1 (B6 "
+                    f"once a step on the dense bucket, the seven tables on "
+                    f"their sparse sgd)"},
+        gates={"extra_ops": row["extra_ops"]["tolerance"],
+               "E_eq_C_eq_Z": "bit for bit: losses and every written "
+                              "persistable; E == C and E == Z after 10 "
+                              "steps, C == Z after 20",
+               "card_vs_cpu": f"losses rtol {RECSYS_CPU_RTOL}, every "
+                              f"parameter atol {RECSYS_ATOL}",
+               "b6": "launches in Z == buckets x (steps + warm-up)"},
+        phase_s=time.perf_counter() - t0)
+    return row, z["b6_launches_incl_warmup"], bucket
 
 
 def main():
@@ -9614,6 +10132,16 @@ def main():
     rows["zero_adam"]["launches_by_path"][
         "ctr_Z_stage1_captured_70_steps_incl_warmup"] = b8_ctr
 
+    # ---- the extra ops and the book's recommender system -----------------
+    lap("recsys")
+    release(torch)
+    recsys_row, b6_recsys, rows["zero_sgd"]["recsys_bucket"] = train_recsys(
+        torch, zk, registry, card)
+    if not b6_recsys:
+        fail("zero_sgd was never launched on the recommender's Z run")
+    rows["zero_sgd"]["launches_by_path"][
+        "recsys_Z_stage1_captured_70_steps_incl_warmup"] = b6_recsys
+
     for row in rows.values():
         if not row["launches"]:
             fail(f"{row['name']} was never launched on its main path run")
@@ -9636,6 +10164,7 @@ def main():
     print(json.dumps({"image_training": image_row}), flush=True)
     print(json.dumps({"sequence_training": seq_row}), flush=True)
     print(json.dumps({"ctr_training": ctr_row}), flush=True)
+    print(json.dumps({"recsys_training": recsys_row}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -5,8 +5,7 @@ reduction, selection and metric builders over the dense ops, and the ones
 gradient clipping and weight-decay regularisation append. Not ported: the
 builders whose ops wait (`switch_moe`, `linear_chain_crf`,
 `crf_decoding`, `chunk_eval`, `hsigmoid`, `edit_distance`,
-`bilinear_tensor_product`, `add_position_encoding`, `cos_sim`,
-`cond_take`)."""
+`bilinear_tensor_product`, `add_position_encoding`, `cond_take`)."""
 from __future__ import annotations
 
 import math
@@ -34,7 +33,7 @@ __all__ = [
     "not_equal", "less_than", "less_equal", "greater_than",
     "greater_equal", "logical_and", "logical_or", "logical_not",
     "logical_xor", "where", "unique", "cumsum", "prelu", "brelu",
-    "fused_attention",
+    "fused_attention", "cos_sim",
 ]
 
 
@@ -745,6 +744,19 @@ def l2_normalize(x, axis, epsilon=1e-12, name=None):
     ssum = reduce_sum(square(x), dim=axis, keep_dim=True)
     norm = sqrt(elementwise_max(ssum, fill_constant_like(ssum, epsilon)))
     return elementwise_div(x, norm)
+
+
+def cos_sim(X, Y, name=None):
+    """Row-wise cosine similarity -> [B, 1] (cos_sim_op.cc; the
+    recommender-system book model's scorer), with the rows' norms as
+    the op's XNorm and YNorm outputs."""
+    helper = LayerHelper("cos_sim")
+    out = helper.create_variable_for_type_inference(X.dtype)
+    xn = helper.create_variable_for_type_inference(X.dtype)
+    yn = helper.create_variable_for_type_inference(X.dtype)
+    helper.append_op("cos_sim", inputs={"X": [X], "Y": [Y]},
+                     outputs={"Out": [out], "XNorm": [xn], "YNorm": [yn]})
+    return out
 
 
 def fill_constant_like(x, value):

@@ -168,6 +168,7 @@ _LOWERING_MODULES = ("ops.tensor_ops", "ops.math_ops", "ops.nn_ops",
                      "ops.fused_ce", "ops.attention", "ops.optimizer_ops",
                      "ops.int8_ops", "ops.lod_ops", "ops.sequence_ops",
                      "ops.sparse_grad", "ops.dense_tail_ops",
+                     "ops.extra_ops",
                      "layers.control_flow", "parallel.zero",
                      "parallel.transforms")
 _loaded = False

@@ -39,18 +39,24 @@ def is_selected_rows(v) -> bool:
     return isinstance(v, SelectedRows)
 
 
-def sorted_runs(sr: SelectedRows):
-    """The merge's one pass over the ids, of static size: (sorted ids,
-    `perm` of the stable sort, first-of-run flags, each sorted entry's
-    slot, the K slots' summed rows). Slot j holds the j-th distinct id in
+def id_runs(ids: torch.Tensor):
+    """The runs of equal values in flat `ids`, of static size and without
+    a host read: (sorted ids, `perm` of the stable sort, first-of-run
+    flags, each sorted entry's slot). Slot j holds the j-th distinct id in
     ascending order; `perm` at a run's first entry is that id's first
     occurrence."""
-    ids = sr.ids.reshape(-1).long()
     k = ids.shape[0]
     sorted_ids, perm = torch.sort(ids, stable=True)
     first = torch.ones(k, dtype=torch.bool, device=ids.device)
     first[1:] = sorted_ids[1:] != sorted_ids[:-1]
     slot = torch.cumsum(first.long(), 0) - 1
+    return sorted_ids, perm, first, slot
+
+
+def sorted_runs(sr: SelectedRows):
+    """The merge's one pass over the ids (`id_runs`), with the K slots'
+    summed rows."""
+    sorted_ids, perm, first, slot = id_runs(sr.ids.reshape(-1).long())
     sums = torch.zeros_like(sr.rows).index_put_(
         (slot,), sr.rows[perm], accumulate=True)
     return sorted_ids, perm, first, slot, sums
