@@ -174,8 +174,9 @@ result line):
    B1-B3 one launch a layer and step, B8 one a bucket and step at the shard
    width on each rank; each step's collectives equal the plan; stage 1
    holds half of stage 0's optimizer state a rank, give or take the
-   padding; the gang ends and leaves no process. Then: two ranks asking
-   for NCCL on one card both raise the port's typed error (no hang); one
+   padding; the gang ends and leaves no process. Beside it, a gang of two
+   ranks asking for NCCL on one card: both raise the port's typed error
+   (no hang: the gang ends within 180 s). Then: one
    process at batch 32 from the same weights (the loss of each step
    within 1e-4 relative of dp 2's); on an NCCL group of one, a
    reduce-scatter, an all-gather and an all-reduce through the port's
@@ -365,16 +366,17 @@ result line):
      layers, bf16, phase 4's geometry) serve phase 4's 8 requests split
      by rank: tokens equal to an in-process DecodeEngine over the same
      `params_from_scope`, B4 launched in each worker, tokens/s per
-     worker; a second gang serving them 6 times is sent SIGTERM
-     mid-serve, finishes the started ones with the same tokens, writes
-     the rest as `handed_back` and exits 0.
+     worker; a second gang, started beside the first, serving them 6
+     times is sent SIGTERM mid-serve, finishes the started ones with the
+     same tokens, writes the rest as `handed_back` and exits 0.
    B1-B3 run here at [4, 12, 512, 64], held in phase 13's cases.
 16. the dense ops and the image models, under deterministic cuDNN
    (deterministic=True, benchmark=False for the phase, restored after):
    * card vs CPU: build_resnet50_program at image 64, batch 4, f32 (TF32
      off), Momentum(1e-6, 0.9), 2 steps from one startup state: the losses
-     within 1e-4 relative; the trained tensors' and the running
-     statistics' change within 4 times (plus 1e-5) the distance the CPU
+     within 1e-4 relative; the change of each kind of trained tensor
+     (the parameters, the velocities) and of the running statistics,
+     each group apart, within 4 times (plus 1e-5) the distance the CPU
      itself moves when the images change by 1e-7 relative (the backward
      of 53 batch norms at batch 4 amplifies rounding);
    * ResNet-50 (build_resnet50_program(): 224 x 224, 1,000 classes) at
@@ -490,6 +492,45 @@ result line):
      dense bucket's width bit for bit, timed alone and through its
      wrapper beside the plain version, torch._fused_sgd_ and its bytes
      bound.
+20. the tail ops and ResNet-50 trained by DGC momentum (TF32 off,
+   deterministic cuDNN):
+   * the tail ops: every case of tests/torch_tail_op_cases.py (the 67
+     types of ops/tail_ops.py this port has, and more arms of some, the
+     CPU tests' inputs) lowered on the CPU and twice on the card, and
+     the `__vjp__` of every vjp case likewise: the card within rtol 1e-4
+     / atol 1e-5 of the CPU (integers, the random types' draws among
+     them, equal; infinities and NaN exact), the two card runs bit for
+     bit; planted faults: `hash` summing without the uint32 wrap on the
+     card (card vs CPU), `bernoulli` drawing from torch's global
+     generator (twice);
+   * card vs CPU: ResNet-50 at image 64, batch 4, f32,
+     DGCMomentumOptimizer(1e-6, 0.9) with the ramp below begun at step 1
+     and local_grad_clip_norm 1.0, 2 steps (the second is DGC's first,
+     with the clip) from the same startup arrays, by phase 16's floor
+     method over the parameters, velocities, U, V, the counter and the
+     running statistics, each group apart (both losses come before the
+     DGC step; at lr 1e-6 the parameters move ~1e-6 as far as U and V);
+     planted faults, each on a card arm of its own: dgc_clip_by_norm
+     passing the gradient through, dgc_momentum keeping the momentum
+     rule after the ramp begins, dgc selecting with the next segment's
+     sparsity;
+   * ResNet-50 (224 x 224, 1,000 classes) at batch 64, fleet AMP bf16 at
+     stage 0, DGCMomentumOptimizer(0.1, 0.9) with the DGC paper's
+     ImageNet sparsity ramp (0.75, 0.9375, 0.984375, 0.996, 0.999) cut
+     to begin at step 2 over 8 steps (Paddle documents 1252 and 1000),
+     one synthetic batch from numpy seed 0: E, 10 eager Executor.run
+     steps, each fetching every EncodeGrad (the kept share of a step
+     against 1 - s); C, two run_steps(5) windows on one capture,
+     bit-equal to E (losses and every written persistable: parameters,
+     U, V, velocities, the counter, the running statistics), its second
+     window and 2 more timed and one step profiled; planted fault: C's
+     first window without momentum factor masking, against E after 5
+     steps; step ms p50 and images/s beside phase
+     16's Momentum arm C, launches a captured step, peak memory;
+   * conservation on the card: the dgc op on the widest parameter's U
+     and V after C, a seeded gradient and the counter: EncodeGrad + VOut
+     == V + m U + G exactly; planted fault: dgc keeping the residual of
+     the elements it sends.
 Each main-path run resets the kernel launch counts just before it and
 fails if a kernel of its path was never launched.
 
@@ -506,8 +547,8 @@ Output: a `{"kernels": [...]}` line, a `{"serving": ...}` line, a
 `{"model_parallel": ...}` line, a `{"composed_mesh": ...}` line, a
 `{"supervised_gang": ...}` line, an `{"image_training": ...}` line, a
 `{"sequence_training": ...}` line, a `{"ctr_training": ...}` line, a
-`{"recsys_training": ...}` line, and last `{"ok": true, "device":
-{...}}`. The B6 row's `launches_by_path` adds phase 19's arm Z, and its
+`{"recsys_training": ...}` line, a `{"dgc_training": ...}` line, and
+last `{"ok": true, "device": {...}}`. The B6 row's `launches_by_path` adds phase 19's arm Z, and its
 `recsys_bucket` is phase 19's check at the recommender's dense bucket
 width. The B8 row's `launches_by_path`
 adds phase 17's and phase 18's arm Z, and its `ctr_bucket` is phase 18's
@@ -4460,7 +4501,14 @@ def train_gpt_dp(torch, zk, card):
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_")
     env = dict(os.environ, PADDLE_DIST_BACKEND="gloo",
                PADDLE_DIST_DEVICE="cuda:0", CHIP_SMOKE_DP_OUT=out_dir)
-    rc, text = launch_gang(["--dp-worker"], env, 600, "dp_gang.log")
+    # NCCL asked for with two ranks on one card: the typed error, no hang;
+    # its gang runs beside the dp-2 gang
+    env_nccl = dict(os.environ, PADDLE_DIST_BACKEND="nccl",
+                    PADDLE_DIST_DEVICE="cuda:0")
+    (rc, text, _), (rc_nccl, text_nccl, nccl_s) = launch_gangs(
+        [dict(args=["--dp-worker"], env=env, log_name="dp_gang.log"),
+         dict(args=["--dp-nccl-refusal"], env=env_nccl,
+              log_name="dp_nccl_refusal.log")], 600)
     if rc != 0:
         fail(f"the dp-2 gang failed (rc {rc}): {text[-3000:]}")
     ranks = []
@@ -4479,16 +4527,11 @@ def train_gpt_dp(torch, zk, card):
         fail(f"dp stage 1 holds {st1} B of optimizer state a rank, stage 0 "
              f"{st0}: not half, give or take the padding")
 
-    # NCCL asked for with two ranks on one card: the typed error, no hang
-    env_nccl = dict(os.environ, PADDLE_DIST_BACKEND="nccl",
-                    PADDLE_DIST_DEVICE="cuda:0")
-    rc, text = launch_gang(["--dp-nccl-refusal"], env_nccl, 180,
-                           "dp_nccl_refusal.log")
-    refused = text.count("refused: ")
-    if rc != 0 or refused != DP_WORLD:
-        fail(f"two NCCL ranks on one card: rc {rc}, {refused} typed "
-             f"refusals: {text[-2000:]}")
-    nccl_line = next(line for line in text.splitlines()
+    refused = text_nccl.count("refused: ")
+    if rc_nccl != 0 or refused != DP_WORLD or nccl_s > 180:
+        fail(f"two NCCL ranks on one card: rc {rc_nccl} in {nccl_s:.1f} s "
+             f"(limit 180), {refused} typed refusals: {text_nccl[-2000:]}")
+    nccl_line = next(line for line in text_nccl.splitlines()
                      if "refused: " in line)
 
     # one process at batch 32 from the same weights (the startup program's)
@@ -7438,15 +7481,16 @@ def read_rows(path):
 
 def sg_workers(torch, serving, out_dir):
     """WORKERS: two worker_main ranks serve phase 4's 8 requests split by
-    rank, against the in-process engine; then a second gang serving them
-    SG_DRAIN_COPIES times is sent SIGTERM mid-serve."""
+    rank, against the in-process engine; beside them, a second gang
+    serving them SG_DRAIN_COPIES times is sent SIGTERM mid-serve (the two
+    gangs share the card and the host's cores)."""
     import signal
     from paddle_tpu_torch.models.gpt import GPTConfig
     rows = phase4_bf16_rows(GPTConfig.small())
     drain_rows = [dict(r, uid=f"d{c}_{r['uid']}")
                   for c in range(SG_DRAIN_COPIES) for r in rows]
     want = sg_engine_tokens(torch, serving, rows)
-    out = {}
+    gangs, plans = [], {}
     for gang, reqs in (("serve", rows), ("drain", drain_rows)):
         gdir = os.path.join(out_dir, gang)
         os.makedirs(gdir)
@@ -7455,34 +7499,38 @@ def sg_workers(torch, serving, out_dir):
             for r in reqs:
                 f.write(json.dumps(r) + "\n")
         marker = os.path.join(gdir, "serving") if gang == "drain" else ""
-        env = dict(os.environ, CHIP_SMOKE_SG_OUT=gdir, CHIP_SMOKE_SG_REQ=req,
-                   CHIP_SMOKE_SG_MARKER=marker)
-        sent = {}
-
-        def sigterm_mid_serve(proc):
-            deadline = time.monotonic() + 240
-            while time.monotonic() < deadline and proc.poll() is None:
-                pids = {}
-                for r in range(SG_WORLD):
-                    try:
-                        with open(f"{marker}.{r}") as f:
-                            pids[r] = int(f.read())
-                    except (OSError, ValueError):
-                        break
-                if len(pids) == SG_WORLD:
-                    time.sleep(0.2)     # every request submitted
-                    for r, pid in pids.items():
-                        os.kill(pid, signal.SIGTERM)
-                        sent[r] = time.time()
-                    return
-                time.sleep(0.01)
-
-        t0 = time.perf_counter()
-        rc, text = launch_gang(
-            ["--sg-serve-worker"], env, 600, f"sg_{gang}_gang.log",
+        plans[gang] = (gdir, reqs, marker)
+        gangs.append(dict(
+            args=["--sg-serve-worker"], log_name=f"sg_{gang}_gang.log",
+            env=dict(os.environ, CHIP_SMOKE_SG_OUT=gdir,
+                     CHIP_SMOKE_SG_REQ=req, CHIP_SMOKE_SG_MARKER=marker),
             launcher_args=("--grace_period_s", str(SG_DRAIN_GRACE_S))
-            if marker else (),
-            during=sigterm_mid_serve if marker else None)
+            if marker else ()))
+    sent = {}
+
+    def sigterm_mid_serve(procs):
+        marker, proc = plans["drain"][2], procs[1]
+        deadline = time.monotonic() + 240
+        while time.monotonic() < deadline and proc.poll() is None:
+            pids = {}
+            for r in range(SG_WORLD):
+                try:
+                    with open(f"{marker}.{r}") as f:
+                        pids[r] = int(f.read())
+                except (OSError, ValueError):
+                    break
+            if len(pids) == SG_WORLD:
+                time.sleep(0.2)     # every request submitted
+                for r, pid in pids.items():
+                    os.kill(pid, signal.SIGTERM)
+                    sent[r] = time.time()
+                return
+            time.sleep(0.01)
+
+    results = launch_gangs(gangs, 600, during=sigterm_mid_serve)
+    out = {}
+    for (gang, (gdir, reqs, marker)), (rc, text, secs) in zip(
+            plans.items(), results):
         if rc != 0:
             fail(f"WORKERS gang {gang} failed (rc {rc}): {text[-3000:]}")
         if marker and len(sent) != SG_WORLD:
@@ -7517,8 +7565,8 @@ def sg_workers(torch, serving, out_dir):
             if gang == "drain" and not states.get("handed_back"):
                 fail(f"WORKERS drain rank {r}: SIGTERM mid-serve handed "
                      f"nothing back ({states})")
-        out[gang] = {"ranks": ranks, "requests": len(reqs),
-                     "gang_s": time.perf_counter() - t0}
+        out[gang] = {"ranks": ranks, "requests": len(reqs), "gang_s": secs,
+                     "beside": "the other gang, at once"}
         log(f"WORKERS {gang}: {ranks}")
     return out
 
@@ -7813,11 +7861,12 @@ def image_data(size, batch, channels=3, classes=IMG_CLASSES, seed=0):
 
 
 def build_image(model, stage=None, amp=True, lr=IMG_LR, size=IMG_SIZE,
-                plant=None):
+                plant=None, make_opt=None):
     """(main, startup, loss, extra) of an image model minimised as
     bench_resnet50 does: fleet (AMP bf16, ZeRO `stage`) over Momentum(lr,
-    0.9), or Adam for LeNet; `stage` None builds the plain optimizer
-    without fleet. `extra` is the accuracy var where the model has one."""
+    0.9), or Adam for LeNet, or `make_opt(optimizer module, lr)` when
+    given; `stage` None builds the plain optimizer without fleet. `extra`
+    is the accuracy var where the model has one."""
     from paddle_tpu_torch import layers, optimizer
     from paddle_tpu_torch.distributed import fleet
     from paddle_tpu_torch.framework import Program, program_guard, unique_name
@@ -7836,8 +7885,12 @@ def build_image(model, stage=None, amp=True, lr=IMG_LR, size=IMG_SIZE,
                               dtype="float32")
             label = layers.data(name="label", shape=[1], dtype="int64")
             _, loss, extra = lenet.build_static(img, label)
-        opt = optimizer.Adam(learning_rate=1e-3) if model == "lenet" \
-            else optimizer.Momentum(learning_rate=lr, momentum=IMG_MU)
+        if make_opt is not None:
+            opt = make_opt(optimizer, lr)
+        elif model == "lenet":
+            opt = optimizer.Adam(learning_rate=1e-3)
+        else:
+            opt = optimizer.Momentum(learning_rate=lr, momentum=IMG_MU)
         if stage is not None:
             fleet.init(is_collective=True)
             strategy = fleet.DistributedStrategy()
@@ -7929,76 +7982,132 @@ def plant_bucket_without_velocity(main):
     op.attrs["update_attrs"] = dict(op.attrs["update_attrs"], mu=0.0)
 
 
-def resnet_card_vs_cpu(torch):
+# the trained tensors grouped by the input slot of the update op that
+# reads them: at IMG_CPU_LR the parameters move ~1e-6 as far as the
+# optimizer state, so each kind is held against its own floor
+UPDATE_SLOT_GROUPS = {"Param": "parameters", "Velocity": "velocity",
+                      "U": "dgc_u", "V": "dgc_v"}
+
+
+def resnet_card_vs_cpu(torch, make_opt=None, faults=(), label="resnet50"):
     """ResNet-50 at image 64, batch 4, f32 (TF32 off), Momentum(IMG_CPU_LR,
-    0.9) without fleet, IMG_CPU steps from the same startup arrays on the
-    card, on the CPU, and on the CPU again with the images scaled by (1 +
-    1e-7 N(0, 1)) (the floor: how far a rounding-sized change of the input
-    moves the result). Gates: each step's loss within IMG_CPU_LOSS_RTOL;
-    for the trained tensors (parameters and velocities) and for the
-    running statistics apart, the card's distance from the CPU's change
-    (norm of the difference over the norm of the change, over the group)
-    within IMG_CPU_FLOOR_X times the floor's, plus IMG_CPU_CHANGE_ATOL."""
+    0.9) (or `make_opt`'s optimizer) without fleet, IMG_CPU steps from the
+    same startup arrays on the card, on the CPU, and on the CPU again with
+    the images scaled by (1 + 1e-7 N(0, 1)) (the floor: how far a
+    rounding-sized change of the input moves the result). Gates: each
+    step's loss within IMG_CPU_LOSS_RTOL; for each group of trained
+    tensors (UPDATE_SLOT_GROUPS, and any other persistable the steps
+    change) and for the running statistics, the card's distance from the
+    CPU's change (norm of the difference over the norm of the change,
+    over the group, in f64 on the card) within IMG_CPU_FLOOR_X times the
+    floor's, plus IMG_CPU_CHANGE_ATOL. `faults` [(name, install returning
+    its undo)]: planted faults, each run on the card as an arm of its own
+    and held against the CPU's run by the same gate, which must refuse
+    each."""
     from paddle_tpu_torch.framework import Executor, Scope, load_numpy
+    t_setup = time.perf_counter()
     size, batch, steps = IMG_CPU
     main, start, loss, _ = build_image("resnet50", None, amp=False,
-                                       lr=IMG_CPU_LR, size=size)
+                                       lr=IMG_CPU_LR, size=size,
+                                       make_opt=make_opt)
+    ops = main.global_block().ops
+    update = sorted({op.type for op in ops if "Velocity" in op.inputs})
     s0 = Scope()
     Executor("cpu").run(start, scope=s0)
     init = {n: s0.numpy(n) for n in s0.local_names()
             if not n.startswith("__")}
-    stats = {op.inputs[k][0] for op in main.global_block().ops
+    stats = {op.inputs[k][0] for op in ops
              if op.type == "batch_norm" for k in ("Mean", "Variance")}
     feeds = [image_data(size, batch, seed=20 + i) for i in range(steps)]
     rng = np.random.RandomState(21)
     nudged = [dict(f, image=(f["image"] * (1 + 1e-7 * rng.randn(
         *f["image"].shape))).astype(np.float32)) for f in feeds]
+
+    def held(get):
+        return {n: torch.as_tensor(get(n)).to("cuda").double()
+                for n in init}
+
+    log(f"{label} card vs cpu: set-up "
+        f"{time.perf_counter() - t_setup:.1f} s")
+
     out = {}
-    for arm, dev, data in (("cuda", "cuda", feeds), ("cpu", "cpu", feeds),
-                           ("floor", "cpu", nudged)):
+    arms = [("cuda", "cuda", feeds, None), ("cpu", "cpu", feeds, None),
+            ("floor", "cpu", nudged, None)]
+    arms += [(f"fault {i}", "cuda", feeds, f) for i, f in enumerate(faults)]
+    for arm, dev, data, fault in arms:
         scope, exe = load_numpy(Scope(), init, dev), Executor(dev)
+        undo = fault[1]() if fault is not None else None
         t0 = time.perf_counter()
-        losses = [float(exe.run(main, feed=f, fetch_list=[loss],
-                                scope=scope)[0]) for f in data]
-        out[arm] = (losses, {n: scope.numpy(n).astype(np.float64)
-                             for n in init})
-        log(f"resnet50 card vs cpu: {arm} {steps} steps "
-            f"{time.perf_counter() - t0:.1f} s, losses {losses}")
+        try:
+            losses = [float(exe.run(main, feed=f, fetch_list=[loss],
+                                    scope=scope)[0]) for f in data]
+        finally:
+            if undo is not None:
+                undo()
+        t1 = time.perf_counter()
+        out[arm] = (losses, held(scope.find))
+        del scope, exe
+        log(f"{label} card vs cpu: {arm} {steps} steps {t1 - t0:.1f} s "
+            f"(state {time.perf_counter() - t1:.1f} s), losses {losses}")
     lc, sc = out["cpu"]
+    start_state = held(init.get)
 
     def distance(state, names):
-        num = sum(float(np.sum((state[n] - sc[n]) ** 2)) for n in names)
-        den = sum(float(np.sum((sc[n] - init[n]) ** 2)) for n in names)
-        return (num / den) ** 0.5
+        num = sum(torch.sum((state[n] - sc[n]) ** 2) for n in names)
+        den = sum(torch.sum((sc[n] - start_state[n]) ** 2) for n in names)
+        return float((num / den) ** 0.5)
 
-    groups = {"trained": [n for n in init if n not in stats
-                          and np.any(sc[n] != init[n])],
-              "running_stats": sorted(stats)}
+    slot_of = {}
+    for op in ops:
+        for slot, g in UPDATE_SLOT_GROUPS.items():
+            for n in op.inputs.get(slot, ()):
+                slot_of.setdefault(n, g)
+    groups = {}
+    for n in init:
+        if n not in stats and bool(torch.any(sc[n] != start_state[n])):
+            groups.setdefault(slot_of.get(n, "other"), []).append(n)
+    groups["running_stats"] = sorted(stats)
     row = {"config": f"build_resnet50_program(image_size={size}), batch "
-                     f"{batch}, f32, TF32 off, Momentum({IMG_CPU_LR}, 0.9), "
-                     f"{steps} steps, one startup state",
+                     f"{batch}, f32, TF32 off, {'/'.join(update)}("
+                     f"{IMG_CPU_LR}, 0.9), {steps} steps, one startup "
+                     f"state",
            "losses_cuda": out["cuda"][0], "losses_cpu": lc,
            "losses_floor": out["floor"][0],
            "loss_max_rel": max(abs(a - b) / abs(b)
                                for a, b in zip(out["cuda"][0], lc))}
-    bad = []
+    bad, outside = [], {f"fault {i}": [] for i in range(len(faults))}
     for g, names in groups.items():
         card = distance(out["cuda"][1], names)
         floor = distance(out["floor"][1], names)
         limit = IMG_CPU_FLOOR_X * floor + IMG_CPU_CHANGE_ATOL
         row[g] = {"tensors": len(names), "card_distance": card,
                   "floor_distance": floor, "limit": limit}
-        log(f"resnet50 card vs cpu: {g} ({len(names)} tensors): card "
-            f"{card:.3e}, floor {floor:.3e}, limit {limit:.3e}")
+        for arm in outside:
+            row[g][f"{arm} distance"] = d = distance(out[arm][1], names)
+            if not d <= limit:
+                outside[arm].append(g)
+        log(f"{label} card vs cpu: {g} ({len(names)} tensors): card "
+            f"{card:.3e}, floor {floor:.3e}, limit {limit:.3e}; faults "
+            f"{[row[g][f'{arm} distance'] for arm in outside]}")
         if not card <= limit:
             bad.append(g)
-    log(f"resnet50 card vs cpu: loss max rel {row['loss_max_rel']:.2e} "
+    log(f"{label} card vs cpu: loss max rel {row['loss_max_rel']:.2e} "
         f"(limit {IMG_CPU_LOSS_RTOL})")
     if not np.isfinite(out["cuda"][0]).all() \
             or not row["loss_max_rel"] <= IMG_CPU_LOSS_RTOL:
-        fail(f"resnet50 card vs cpu: losses {out['cuda'][0]} vs {lc}")
+        fail(f"{label} card vs cpu: losses {out['cuda'][0]} vs {lc}")
     if bad:
-        fail(f"resnet50 card vs cpu: {bad} beyond the limit: {row}")
+        fail(f"{label} card vs cpu: {bad} beyond the limit: {row}")
+    row["planted_faults"] = []
+    for (name, _), (arm, groups_out) in zip(faults, outside.items()):
+        rel = max(abs(a - b) / abs(b) for a, b in zip(out[arm][0], lc))
+        caught = bool(groups_out) or not rel <= IMG_CPU_LOSS_RTOL
+        row["planted_faults"].append({
+            "fault": name, "groups_beyond_limit": groups_out,
+            "loss_max_rel": rel, "caught": caught})
+        log(f"{label} card vs cpu: planted fault {row['planted_faults'][-1]}")
+        if not caught:
+            fail(f"{label} card vs cpu: planted fault {name} passed")
     return row
 
 
@@ -9471,25 +9580,33 @@ def plant_global_rng(torch, registry):
     return lambda: setattr(opdef, "lower", lower)
 
 
-def extra_ops_card_vs_cpu(torch, registry):
-    """Gate card vs CPU and gate twice on the card over every case of the
-    extra ops (tests/torch_extra_op_cases.py, f32): each lowering on the
-    CPU, then twice on the card, under deterministic cuDNN; every vjp
-    case's `__vjp__` likewise. Planted faults: segment_pool's MAX over a
-    zero fill on the card (card vs CPU), lrn drawing from the global
-    generator (twice)."""
-    cases = extra_cases_module()
-    table = cases.extra_cases()
+def op_cases_card_vs_cpu(torch, registry, cases, table, n_types, faults,
+                         label):
+    """Gate card vs CPU and gate twice on the card over every case of
+    `table` (from the case module `cases`, f32): each lowering on the CPU,
+    then twice on the card, under deterministic cuDNN; every vjp case's
+    `__vjp__` likewise (tests/torch_extra_op_cases.py `vjp_case`). A
+    LoDTensorArray (buffer, length) counts as two tensors. `faults`:
+    {"card_vs_cpu" / "twice": (what, install returning its undo, case)},
+    each planted fault read by its gate, which must refuse it."""
+    vjp_case = extra_cases_module().vjp_case
     ctx_cpu = registry.LowerCtx(device="cpu")
     ctx_gpu = registry.LowerCtx(device="cuda")
 
-    def tensors(ins, dev):
-        return {s: [torch.from_numpy(np.array(a)).to(dev) for a in vs]
-                for s, vs in ins.items()}
+    def tensor(a, dev):
+        if a is None:
+            return None
+        if isinstance(a, tuple):
+            return tuple(tensor(v, dev) for v in a)
+        return torch.from_numpy(np.array(a)).to(dev)
 
     def run(op, ins, attrs, dev):
         ctx = ctx_gpu if dev == "cuda" else ctx_cpu
-        return registry.get(op).lower(ctx, tensors(ins, dev), dict(attrs))
+        tins = {s: [tensor(a, dev) for a in vs] for s, vs in ins.items()}
+        outs = registry.get(op).lower(ctx, tins, dict(attrs))
+        return {s: [a for v in vs
+                    for a in (v if isinstance(v, tuple) else (v,))]
+                for s, vs in outs.items()}
 
     def check(op, ins, attrs):
         cpu = run(op, ins, attrs, "cpu")
@@ -9515,8 +9632,8 @@ def extra_ops_card_vs_cpu(torch, registry):
             rows[case] = {"max_abs_err": err, "within": holds,
                           "twice_bit_equal": twice}
             if case in cases.VJP_CASES:
-                vins, vattrs = cases.vjp_case(op, ins, attrs, cpu,
-                                              registry.make_vjp_attrs)
+                vins, vattrs = vjp_case(op, ins, attrs, cpu,
+                                        registry.make_vjp_attrs)
                 _, vholds, verr, vtwice = check("__vjp__", vins, vattrs)
                 rows[case].update(vjp_max_abs_err=verr, vjp_within=vholds,
                                   vjp_twice_bit_equal=vtwice)
@@ -9525,52 +9642,61 @@ def extra_ops_card_vs_cpu(torch, registry):
                 bad.append(case)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
-        faults = {}
-        undo = plant_segment_max_zero_fill(registry)
-        try:
-            ins, attrs = table["segment_pool:max"]
-            _, holds, err, _ = check("segment_pool", ins, attrs)
-        finally:
-            undo()
-        faults["card_vs_cpu"] = {"fault": "segment_pool MAX over a zero "
-                                          "fill on the card",
-                                 "within": holds, "max_abs_err": err}
-        undo = plant_global_rng(torch, registry)
-        try:
-            ins, attrs = table["lrn"]
-            _, _, _, twice = check("lrn", ins, attrs)
-        finally:
-            undo()
-        faults["twice"] = {"fault": "lrn draws from torch's global "
-                                    "generator", "twice_bit_equal": twice}
+        found = {}
+        for gate, (what, install, case) in faults.items():
+            undo = install()
+            try:
+                ins, attrs = table[case]
+                _, holds, err, twice = check(cases.op_of(case), ins, attrs)
+            finally:
+                undo()
+            found[gate] = {"fault": what, "within": holds,
+                           "max_abs_err": err} if gate == "card_vs_cpu" \
+                else {"fault": what, "twice_bit_equal": twice}
     finally:
         torch.backends.cudnn.deterministic, \
             torch.backends.cudnn.benchmark = saved
-    n_types = len({cases.op_of(c) for c in table})
+    n_seen = len({cases.op_of(c) for c in table})
     vjp = [c for c in rows if "vjp_within" in rows[c]]
     worst = max(rows, key=lambda c: rows[c]["max_abs_err"])
-    out = {"types": n_types, "cases": len(rows), "vjp_cases": len(vjp),
+    out = {"types": n_seen, "cases": len(rows), "vjp_cases": len(vjp),
            "tolerance": f"rtol {EXTRA_RTOL}, atol {EXTRA_ATOL}; integers "
-                        f"equal; twice on the card bit for bit",
+                        f"equal; infinities and NaN exact; twice on the "
+                        f"card bit for bit",
            "cudnn": "deterministic=True, benchmark=False",
            "failed": bad, "seconds": elapsed,
            "max_abs_err": {"case": worst,
                            "value": rows[worst]["max_abs_err"]},
            "vjp_max_abs_err": max((rows[c]["vjp_max_abs_err"] for c in vjp),
                                   default=0.0),
-           "planted_faults": faults, "by_case": rows}
-    log(f"extra ops card vs CPU: {n_types} types, {len(rows)} cases, "
+           "planted_faults": found, "by_case": rows}
+    log(f"{label} card vs CPU: {n_seen} types, {len(rows)} cases, "
         f"{len(vjp)} pullbacks, {elapsed:.1f} s; failed {bad}; worst "
         f"{out['max_abs_err']}, pullbacks {out['vjp_max_abs_err']}; "
-        f"faults {faults}")
-    if bad or n_types != 87:
-        fail(f"extra ops card vs CPU / twice: {bad}")
-    if faults["card_vs_cpu"]["within"]:
-        fail("extra ops planted fault passed gate card vs CPU")
-    if faults["twice"]["twice_bit_equal"]:
-        fail("extra ops planted fault passed gate twice on the card")
-    faults["card_vs_cpu"]["caught"] = faults["twice"]["caught"] = True
+        f"faults {found}")
+    if bad or n_seen != n_types:
+        fail(f"{label} card vs CPU / twice: {bad}")
+    if found["card_vs_cpu"]["within"]:
+        fail(f"{label} planted fault passed gate card vs CPU")
+    if found["twice"]["twice_bit_equal"]:
+        fail(f"{label} planted fault passed gate twice on the card")
+    found["card_vs_cpu"]["caught"] = found["twice"]["caught"] = True
     return out
+
+
+def extra_ops_card_vs_cpu(torch, registry):
+    """The extra ops' cases (the 87 types) card vs CPU and twice on the
+    card. Planted faults: segment_pool's MAX over a zero fill on the card
+    (card vs CPU), lrn drawing from the global generator (twice)."""
+    cases = extra_cases_module()
+    return op_cases_card_vs_cpu(
+        torch, registry, cases, cases.extra_cases(), 87,
+        {"card_vs_cpu": ("segment_pool MAX over a zero fill on the card",
+                         lambda: plant_segment_max_zero_fill(registry),
+                         "segment_pool:max"),
+         "twice": ("lrn draws from torch's global generator",
+                   lambda: plant_global_rng(torch, registry), "lrn")},
+        "extra ops")
 
 
 def build_recsys_prog(batch_sizes=None, stage=None, is_sparse=True):
@@ -9847,6 +9973,428 @@ def train_recsys(torch, zk, registry, card):
                "b6": "launches in Z == buckets x (steps + warm-up)"},
         phase_s=time.perf_counter() - t0)
     return row, z["b6_launches_incl_warmup"], bucket
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the tail ops and DGC
+# ---------------------------------------------------------------------------
+
+DGC_LR, DGC_MU = IMG_LR, IMG_MU   # phase 16's Momentum(0.1, 0.9)
+DGC_E_STEPS = 2 * IMG_WINDOW      # arm E: 10 eager steps; C: two windows
+DGC_TIMED = 3              # run_steps(5) windows timed: C's second, 2 more
+# card vs CPU: IMG_CPU's 2 steps at image 64, batch 4, f32, the local
+# clip on, the ramp begun at step 1: the second step (the counter at 1)
+# is DGC's first, with the clip and s 0.75
+DGC_CPU_BEGIN = 1
+DGC_CLIP = 1.0
+
+
+def tail_cases_module():
+    """tests/torch_tail_op_cases.py (numpy only): the tail ops' cases and
+    the DGC ramp, shared with the CPU tests."""
+    extra_cases_module()          # puts tests/ on the path
+    import torch_tail_op_cases
+    return torch_tail_op_cases
+
+
+def make_dgc(cases, clip=None, begin=None):
+    """DGCMomentumOptimizer(lr, 0.9) with the DGC paper's ImageNet
+    sparsity ramp, cut to begin at step 2 (or `begin`) over 8 steps."""
+    def make(optimizer, lr):
+        return optimizer.DGCMomentumOptimizer(
+            learning_rate=lr, momentum=DGC_MU,
+            rampup_begin_step=int(cases.DGC_RAMP["rampup_begin_step"]
+                                  if begin is None else begin),
+            rampup_step=int(cases.DGC_RAMP["rampup_step"]),
+            sparsity=cases.DGC_SPARSITY, local_grad_clip_norm=clip)
+    return make
+
+
+def dgc_sparsity_at(cases, step):
+    """The sparsity of `step` (None before the ramp), as the dgc op
+    computes it."""
+    begin = cases.DGC_RAMP["rampup_begin_step"]
+    if step < begin:
+        return None
+    sched = cases.DGC_SPARSITY
+    interval = max(cases.DGC_RAMP["rampup_step"] / len(sched), 1.0)
+    seg = int(np.float32(np.float32(step - begin) / np.float32(interval)))
+    return sched[min(max(seg, 0), len(sched) - 1)]
+
+
+def plant_hash_unwrapped_sum(torch, registry):
+    """Planted fault of gate card vs CPU: `hash` on the card sums the
+    mixed ids without the uint32 wrap."""
+    from paddle_tpu_torch.ops.kernels.flash_attention import _U32, _mul32
+    opdef = registry.get("hash")
+    lower = opdef.lower
+
+    def unwrapped(ctx, ins, attrs):
+        x = ins["X"][0]
+        if x.device.type != "cuda":
+            return lower(ctx, ins, attrs)
+        flat = x.long().reshape(x.shape[0], -1) & _U32
+        hs = []
+        for k in range(1, attrs.get("num_hash", 1) + 1):
+            mixed = _mul32(flat, (k * 2654435761) & _U32)
+            hs.append((mixed ^ (mixed >> 16)).sum(-1)
+                      % attrs.get("mod_by", 100000007))
+        h = torch.stack(hs, 1)
+        h = h - ((h >> 31) << 32)
+        return {"Out": [h.to(torch.int32).reshape(x.shape[0], -1, 1)]}
+
+    opdef.lower = unwrapped
+    return lambda: setattr(opdef, "lower", lower)
+
+
+def plant_bernoulli_global_rng(torch, registry):
+    """Planted fault of gate twice on the card: `bernoulli` draws from
+    torch's global generator (which no lowering may touch)."""
+    opdef = registry.get("bernoulli")
+    lower = opdef.lower
+
+    def global_draw(ctx, ins, attrs):
+        x = ins["X"][0]
+        return {"Out": [(torch.rand_like(x) < x).to(x.dtype)]}
+
+    opdef.lower = global_draw
+    return lambda: setattr(opdef, "lower", lower)
+
+
+def tail_ops_card_vs_cpu(torch, registry, cases):
+    """The tail ops' cases (the 67 types) card vs CPU and twice on the
+    card; the random types' integer draws are hash arithmetic, equal on
+    both. Planted faults: `hash` summing without the uint32 wrap on the
+    card (card vs CPU), `bernoulli` drawing from the global generator
+    (twice)."""
+    return op_cases_card_vs_cpu(
+        torch, registry, cases, cases.tail_cases(), 67,
+        {"card_vs_cpu": ("hash sums without the uint32 wrap on the card",
+                         lambda: plant_hash_unwrapped_sum(torch, registry),
+                         "hash"),
+         "twice": ("bernoulli draws from torch's global generator",
+                   lambda: plant_bernoulli_global_rng(torch, registry),
+                   "bernoulli")},
+        "tail ops")
+
+
+def plant_lowering(registry, op_type, faulty):
+    """Install `faulty(lower, ctx, ins, attrs)` as `op_type`'s lowering;
+    returns the undo."""
+    opdef = registry.get(op_type)
+    lower = opdef.lower
+    opdef.lower = lambda ctx, ins, attrs: faulty(lower, ctx, ins, attrs)
+    return lambda: setattr(opdef, "lower", lower)
+
+
+# planted faults of gate DGC card vs CPU, each installed on a card arm:
+# (what it does, op type, the faulty lowering)
+DGC_CARD_FAULTS = (
+    ("dgc_clip_by_norm passes the gradient through on the card",
+     "dgc_clip_by_norm", lambda lower, ctx, ins, attrs: {"Out": ins["X"]}),
+    ("dgc_momentum on the card keeps the momentum rule after the ramp "
+     "begins (no SGD step, the velocity not frozen)", "dgc_momentum",
+     lambda lower, ctx, ins, attrs: lower(
+         ctx, {k: v for k, v in ins.items() if k != "current_step"},
+         attrs)),
+    ("dgc on the card selects with the next segment's sparsity",
+     "dgc", lambda lower, ctx, ins, attrs: lower(ctx, ins, dict(
+         attrs, sparsity=list(attrs["sparsity"][1:])
+         + [attrs["sparsity"][-1]]))),
+)
+
+
+def plant_dgc_no_masking(torch, registry):
+    """Planted fault of gate E == C (installed for a captured arm): dgc
+    keeps the momentum of the elements it sends (no momentum factor
+    masking)."""
+    from paddle_tpu_torch.ops.tail_ops import fma
+    opdef = registry.get("dgc")
+    lower = opdef.lower
+
+    def unmasked(ctx, ins, attrs):
+        out = lower(ctx, ins, attrs)
+        u, g = ins["U"][0], ins["Grad"][0]
+        step = ins["current_step"][0].reshape(()).float()
+        out["UOut"] = [torch.where(
+            step >= attrs["rampup_begin_step"],
+            fma(attrs.get("m", 0.9), u, g), out["UOut"][0])]
+        return out
+
+    opdef.lower = unmasked
+    return lambda: setattr(opdef, "lower", lower)
+
+
+def plant_dgc_residual_kept(registry):
+    """Planted fault of the conservation gate: dgc keeps the residual of
+    the elements it sends."""
+    opdef = registry.get("dgc")
+    lower = opdef.lower
+
+    def kept(ctx, ins, attrs):
+        out = lower(ctx, ins, attrs)
+        out["VOut"] = [out["VOut"][0] + out["EncodeGrad"][0]]
+        return out
+
+    opdef.lower = kept
+    return lambda: setattr(opdef, "lower", lower)
+
+
+def dgc_pairs(main):
+    """[(parameter, its dgc op)] in program order."""
+    ops = main.global_block().ops
+    by_grad = {op.inputs["Grad"][0]: op.inputs["Param"][0] for op in ops
+               if op.type == "dgc_momentum"}
+    return [(by_grad[op.outputs["EncodeGrad"][0]], op) for op in ops
+            if op.type == "dgc"]
+
+
+def dgc_arms(torch, registry, cases):
+    """ResNet-50 at 224, batch 64, fleet AMP bf16 at stage 0, DGC
+    momentum: E, DGC_E_STEPS eager Executor.run steps (each fetching
+    every EncodeGrad on the device: the kept share of a step); C, two
+    run_steps(5) windows on one capture, bit-equal to E (losses and every
+    written persistable: parameters, U, V, velocity, the counter, the
+    running statistics), its second window and DGC_TIMED - 1 more timed
+    (a step's mean each, p50 over the windows) and one step
+    profiled; planted fault: C's first window without momentum factor
+    masking, against E after as many steps. Returns
+    (the row, the widest parameter's U and V and the counter after
+    C)."""
+    from paddle_tpu_torch.framework import Executor, Scope
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name], t_lap[0] = now - t_lap[0], now
+
+    main, start, loss, _ = build_image("resnet50", 0, make_opt=make_dgc(cases))
+    feed = image_data(IMG_SIZE, IMG_BATCH)
+    s0 = Scope()
+    Executor("cuda").run(start, scope=s0)
+    lap("build")
+    pairs = dgc_pairs(main)
+    encoded = [op.outputs["EncodeGrad"][0] for _, op in pairs]
+    counter = pairs[0][1].inputs["current_step"][0]
+    numel = {p: int(np.prod(main.global_block().var(p).shape))
+             for p, _ in pairs}
+    # ---- arm E: eager steps, the kept share of each
+    se, exe = scope_copy(torch, s0), Executor("cuda")
+    e_losses, kept = [], []
+    e_window = None
+    for step in range(DGC_E_STEPS):
+        out = exe.run(main, feed=feed, fetch_list=[loss] + encoded,
+                      scope=se, return_numpy=False)
+        e_losses.append(float(out[0]))
+        sent = int(sum(torch.count_nonzero(t) for t in out[1:]))
+        s = dgc_sparsity_at(cases, step)
+        # before the ramp the gradient passes through: its nonzero share
+        kept.append({"step": step, "sparsity": s,
+                     "kept_share": sent / sum(numel.values()),
+                     "one_minus_s": None if s is None else 1.0 - s})
+        if step + 1 == IMG_WINDOW:
+            e_window = {n: t.clone() for n, t in
+                        image_state(torch, main, se).items()}
+    e_state = {n: t.clone() for n, t in image_state(torch, main, se).items()}
+    del exe, se
+    release(torch)
+    lap("E")
+    # ---- arm C: two run_steps(5) windows on one capture
+    sc = scope_copy(torch, s0)
+    torch.cuda.reset_peak_memory_stats()
+    c_losses, c_ms, exe = image_captured(torch, main, sc, feed, loss, 2)
+    c_peak = torch.cuda.max_memory_allocated()
+    c_stats = dict(exe.stats)
+    c_state = image_state(torch, main, sc)
+    d_ec = image_diffs(torch, e_state, c_state)
+    widest = max(numel, key=numel.get)
+    op = dict(pairs)[widest]
+    sample = {"param": widest, "numel": numel[widest],
+              "U": c_state[op.inputs["U"][0]].clone(),
+              "V": c_state[op.inputs["V"][0]].clone(),
+              "step": c_state[counter].clone()}
+    log(f"dgc gate E == C: losses {e_losses} vs {c_losses}; "
+        f"{len(e_state)} persistables, {len(d_ec)} differ "
+        f"{dict(list(d_ec.items())[:4])}; stats {c_stats}")
+    if d_ec or c_losses != e_losses:
+        fail(f"dgc gate E == C: captured differs from eager: {d_ec}")
+    if c_stats["eager_steps"] or c_stats["captures"] != 1:
+        fail(f"dgc arm C: executor stats {c_stats}")
+    del c_state
+    lap("C")
+    timed = c_ms[1:] + [image_window(torch, exe, main, sc, feed, loss)[0]
+                        * 1e3 / IMG_WINDOW for _ in range(DGC_TIMED - 1)]
+    prof = device_profile(torch, lambda: image_window(
+        torch, exe, main, sc, feed, loss, 1)[0], top=8,
+        groups={"conv": CONV_KERNELS, "sort": ("sort", "Sort", "radix")})
+    del exe, sc
+    release(torch)
+    lap("timed_and_profile")
+    # ---- planted fault: C's first window without momentum factor
+    # masking, against E after as many steps (the ramp begins at step 2)
+    undo = plant_dgc_no_masking(torch, registry)
+    try:
+        sf = scope_copy(torch, s0)
+        fl, _, exe = image_captured(torch, main, sf, feed, loss, 1)
+        d = image_diffs(torch, e_window, image_state(torch, main, sf))
+    finally:
+        undo()
+    fault = {"fault": "dgc keeps the momentum of the elements it sends",
+             "gate": "E == C", "steps": IMG_WINDOW, "differing": len(d),
+             "losses_equal": fl == e_losses[:IMG_WINDOW],
+             "caught": bool(d) or fl != e_losses[:IMG_WINDOW]}
+    log(f"dgc planted fault: {fault}")
+    if not fault["caught"]:
+        fail("dgc planted fault reads inside gate E == C")
+    n_state = len(e_state)
+    del exe, sf, s0, e_state, e_window
+    release(torch)
+    lap("fault")
+    log(f"dgc arms parts (s): {laps}")
+    p50 = float(np.median(timed))
+    return {
+        "config": f"build_resnet50_program() at {IMG_SIZE}x{IMG_SIZE}, "
+                  f"{IMG_CLASSES} classes, batch {IMG_BATCH}, one "
+                  f"synthetic batch for every step (numpy seed 0), fleet "
+                  f"AMP bf16 at ZeRO stage 0, DGCMomentumOptimizer("
+                  f"{DGC_LR}, {DGC_MU}, sparsity={cases.DGC_SPARSITY}, "
+                  f"rampup_begin_step="
+                  f"{int(cases.DGC_RAMP['rampup_begin_step'])}, "
+                  f"rampup_step={int(cases.DGC_RAMP['rampup_step'])}), "
+                  f"random weights (startup program)",
+        "reduced": "rampup_begin_step 2 and rampup_step 8 against Paddle's "
+                   "documented 1252 and 1000: the 10 steps cross the "
+                   "momentum -> DGC switch and all five segments",
+        "params": len(pairs), "param_elements": sum(numel.values()),
+        "gates": {"E_eq_C": {"steps": DGC_E_STEPS, "bit_identical": True,
+                             "persistables": n_state}},
+        "losses": e_losses, "kept_share": kept,
+        "C": {"step_ms": timed, "step_ms_p50": p50,
+              "images_per_s": IMG_BATCH / (p50 / 1e3),
+              "timing": f"{DGC_TIMED} run_steps({IMG_WINDOW}) windows: "
+                        f"the gate's second and {DGC_TIMED - 1} after it, "
+                        f"each to its loss fetch, a step's mean each; p50 "
+                        f"over the windows",
+              "gate_windows_step_ms": c_ms, "peak_memory_gib":
+                  c_peak / 2 ** 30, "executor_stats": c_stats,
+              "profile": prof},
+        "planted_fault": fault, "parts_s": laps,
+    }, sample
+
+
+def dgc_conservation(torch, registry, cases, sample):
+    """On the card, the dgc op on the widest parameter's U and V after arm
+    C, a gradient from a seeded generator and the counter: EncodeGrad +
+    VOut == V + m U + G exactly (what is sent and what stays add up to
+    the accumulated gradient), and the kept share against 1 - s. Planted
+    fault: dgc keeping the residual of the elements it sends."""
+    from paddle_tpu_torch.ops.tail_ops import fma
+    attrs = dict(cases.DGC_RAMP, m=DGC_MU, sparsity=cases.DGC_SPARSITY)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(20)
+    u, v, step = sample["U"], sample["V"], sample["step"]
+    g = torch.randn(u.shape, generator=gen, device="cuda")
+    ctx = registry.LowerCtx(device="cuda")
+
+    def check():
+        out = registry.get("dgc").lower(
+            ctx, {"U": [u], "V": [v], "Grad": [g], "current_step": [step]},
+            attrs)
+        sent, kept = out["EncodeGrad"][0], out["VOut"][0]
+        held = torch.equal(sent + kept, v + fma(DGC_MU, u, g))
+        return held, int(torch.count_nonzero(sent)) / sent.numel()
+
+    held, share = check()
+    undo = plant_dgc_residual_kept(registry)
+    try:
+        fault_held, _ = check()
+    finally:
+        undo()
+    s = dgc_sparsity_at(cases, float(step.reshape(-1)[0]))
+    row = {"param": sample["param"], "elements": sample["numel"],
+           "step": float(step.reshape(-1)[0]), "sparsity": s,
+           "kept_share": share, "expected_share": 1.0 - s,
+           "exact": held,
+           "planted_fault": {"fault": "dgc keeps the residual of the "
+                                      "elements it sends",
+                             "caught": not fault_held}}
+    log(f"dgc conservation: {row}")
+    if not held:
+        fail(f"dgc conservation: EncodeGrad + VOut != V + m U + G: {row}")
+    if fault_held:
+        fail("dgc planted fault passed the conservation gate")
+    return row
+
+
+def train_dgc(torch, registry, card, momentum_c):
+    """Phase 20 (module docstring): the tail ops card vs CPU and twice on
+    the card, ResNet-50 trained by DGC momentum card vs CPU, its arms E
+    and C, and DGC's conservation on the card. `momentum_c` is phase 16's
+    Momentum arm C in this run, for beside the readings."""
+    from paddle_tpu_torch.ops import tail_ops
+    t0 = time.perf_counter()
+    row, parts = {"card": card}, {}
+    cases = tail_cases_module()
+    for fid, fn in cases.PY_FUNCS.items():
+        tail_ops.register_py_func(fid, fn)
+
+    def part(name, fn):
+        t = time.perf_counter()
+        row[name] = fn()
+        parts[name] = time.perf_counter() - t
+        release(torch)
+
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        part("tail_ops", lambda: tail_ops_card_vs_cpu(torch, registry,
+                                                      cases))
+        part("card_vs_cpu", lambda: resnet_card_vs_cpu(
+            torch, make_opt=make_dgc(cases, DGC_CLIP, DGC_CPU_BEGIN),
+            faults=[(name, lambda t=op_type, f=faulty: plant_lowering(
+                registry, t, f)) for name, op_type, faulty
+                in DGC_CARD_FAULTS],
+            label="dgc resnet50"))
+        sample = {}
+
+        def arms():
+            out, got = dgc_arms(torch, registry, cases)
+            sample.update(got)
+            return out
+        part("arms", arms)
+        part("conservation", lambda: dgc_conservation(torch, registry,
+                                                      cases, sample))
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = saved
+    c = row["arms"]["C"]
+    row["beside_momentum_C"] = {
+        "dgc_step_ms_p50": c["step_ms_p50"],
+        "dgc_images_per_s": c["images_per_s"],
+        "momentum_step_ms_p50": momentum_c["step_ms_p50"],
+        "momentum_images_per_s": momentum_c["images_per_s"],
+        "momentum_timing": momentum_c["timing"]}
+    log(f"phase 20 parts (s): {parts}")
+    log(f"dgc arm C: step p50 {c['step_ms_p50']:.1f} ms, "
+        f"{c['images_per_s']:.1f} images/s (Momentum C "
+        f"{momentum_c['step_ms_p50']:.1f} ms), peak "
+        f"{c['peak_memory_gib']:.2f} GiB, launches a step "
+        f"{c['profile'].get('device_launches')}; kept share "
+        f"{row['arms']['kept_share']}")
+    row.update(parts_s=parts, gates={
+        "tail_ops": row["tail_ops"]["tolerance"],
+        "card_vs_cpu": f"phase 16's floor method: losses rtol "
+                       f"{IMG_CPU_LOSS_RTOL}; parameters, velocities, U, "
+                       f"V, the counter and the running statistics, each "
+                       f"group within {IMG_CPU_FLOOR_X} x its floor + "
+                       f"{IMG_CPU_CHANGE_ATOL}",
+        "E_eq_C": "bit for bit: losses, parameters, U, V, velocity, the "
+                  "counter and the running statistics after 10 steps",
+        "conservation": "EncodeGrad + VOut == V + m U + G exactly"},
+        phase_s=time.perf_counter() - t0)
+    return row
 
 
 def main():
@@ -10142,6 +10690,11 @@ def main():
     rows["zero_sgd"]["launches_by_path"][
         "recsys_Z_stage1_captured_70_steps_incl_warmup"] = b6_recsys
 
+    # ---- the tail ops and ResNet-50 trained by DGC momentum ---------------
+    lap("dgc")
+    release(torch)
+    dgc_row = train_dgc(torch, registry, card, image_row["arms"]["C"])
+
     for row in rows.values():
         if not row["launches"]:
             fail(f"{row['name']} was never launched on its main path run")
@@ -10165,6 +10718,7 @@ def main():
     print(json.dumps({"sequence_training": seq_row}), flush=True)
     print(json.dumps({"ctr_training": ctr_row}), flush=True)
     print(json.dumps({"recsys_training": recsys_row}), flush=True)
+    print(json.dumps({"dgc_training": dgc_row}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -264,9 +264,24 @@ def _current_lowering_program():
 
 def _host_synced(program) -> bool:
     """Whether a step of `program` reads device values on the host: an
-    unbounded `__while__` in any block (its predicate, each iteration)."""
-    return any(op.type == "__while__" and not op.attrs.get("trip_bound")
-               for b in program.blocks for op in b.ops)
+    unbounded `__while__` in any block (its predicate, each iteration),
+    an op registered `host_read` (`print`, `py_func`, `chunk_eval`), or
+    one whose `shape_slot` holds a tensor that is not a `fill_constant`
+    known at build time."""
+    for b in program.blocks:
+        for op in b.ops:
+            if op.type == "__while__" and not op.attrs.get("trip_bound"):
+                return True
+            if not registry.has(op.type):
+                continue
+            opdef = registry.get(op.type)
+            if opdef.host_read:
+                return True
+            for n in op.inputs.get(opdef.shape_slot, ()):
+                var = b.find_var_recursive(n)
+                if getattr(var, "_const_value", None) is None:
+                    return True
+    return False
 
 
 def _attrs_key(attrs) -> str:

@@ -1,10 +1,10 @@
 """Neural-net layer functions (counterpart of paddle_tpu/layers/nn.py):
 the ones BERT, GPT and the image models (ResNet, SE-ResNeXt, LeNet) are
 built from, the convolution, pooling, normalisation, activation,
-reduction, selection and metric builders over the dense ops, and the ones
-gradient clipping and weight-decay regularisation append. Not ported: the
-builders whose ops wait (`switch_moe`, `linear_chain_crf`,
-`crf_decoding`, `chunk_eval`, `hsigmoid`, `edit_distance`,
+reduction, selection and metric builders over the dense ops, the ones
+gradient clipping and weight-decay regularisation append, `cos_sim` and
+`chunk_eval`. Not ported: the builders whose ops wait (`switch_moe`,
+`linear_chain_crf`, `crf_decoding`, `hsigmoid`, `edit_distance`,
 `bilinear_tensor_product`, `add_position_encoding`, `cond_take`)."""
 from __future__ import annotations
 
@@ -33,7 +33,7 @@ __all__ = [
     "not_equal", "less_than", "less_equal", "greater_than",
     "greater_equal", "logical_and", "logical_or", "logical_not",
     "logical_xor", "where", "unique", "cumsum", "prelu", "brelu",
-    "fused_attention", "cos_sim",
+    "fused_attention", "cos_sim", "chunk_eval",
 ]
 
 
@@ -757,6 +757,30 @@ def cos_sim(X, Y, name=None):
     helper.append_op("cos_sim", inputs={"X": [X], "Y": [Y]},
                      outputs={"Out": [out], "XNorm": [xn], "YNorm": [yn]})
     return out
+
+
+def chunk_eval(input, label, chunk_scheme, num_chunk_types,
+               excluded_chunk_types=None, seq_length=None):
+    """Chunk-level precision, recall and F1 (IOB, IOE, IOBES or plain;
+    chunk_eval_op.cc), counted on the host: a program holding it runs
+    eagerly. Returns the reference's 6-tuple."""
+    helper = LayerHelper("chunk_eval")
+    outs = {n: helper.create_variable_for_type_inference("float32")
+            for n in ("Precision", "Recall", "F1-Score")}
+    for n in ("NumInferChunks", "NumLabelChunks", "NumCorrectChunks"):
+        outs[n] = helper.create_variable_for_type_inference("int64")
+    ins = {"Inference": [input], "Label": [label]}
+    if seq_length is not None:
+        ins["SeqLength"] = [seq_length]
+    helper.append_op("chunk_eval", inputs=ins,
+                     outputs={k: [v] for k, v in outs.items()},
+                     attrs={"num_chunk_types": int(num_chunk_types),
+                            "chunk_scheme": chunk_scheme,
+                            "excluded_chunk_types":
+                                list(excluded_chunk_types or [])})
+    return (outs["Precision"], outs["Recall"], outs["F1-Score"],
+            outs["NumInferChunks"], outs["NumLabelChunks"],
+            outs["NumCorrectChunks"])
 
 
 def fill_constant_like(x, value):

@@ -145,7 +145,8 @@ class OpDef:
     def __init__(self, name: str, lower: Callable,
                  infer: Optional[Callable] = None, is_random: bool = False,
                  nondiff_slots=(), stateful_outputs=(), inplace=None,
-                 vjp: Optional[Callable] = None):
+                 vjp: Optional[Callable] = None, host_read=False,
+                 shape_slot: Optional[str] = None):
         self.name = name
         self.lower = lower
         self.infer = infer
@@ -159,6 +160,12 @@ class OpDef:
         # an op's own `forward_vjp` (same signature and contract), for an
         # op whose gradient is not one torch.func.vjp over its lowering
         self.vjp = vjp
+        # reads device values on the host every step (a captured step
+        # cannot): run_steps runs a program holding it eagerly
+        self.host_read = host_read
+        # the input slot whose values set the output's shape: read on the
+        # host unless a build-time `fill_constant` made it
+        self.shape_slot = shape_slot
 
 
 _REGISTRY: Dict[str, OpDef] = {}
@@ -169,8 +176,8 @@ _LOWERING_MODULES = ("ops.tensor_ops", "ops.math_ops", "ops.nn_ops",
                      "ops.int8_ops", "ops.lod_ops", "ops.sequence_ops",
                      "ops.sparse_grad", "ops.dense_tail_ops",
                      "ops.extra_ops",
-                     "layers.control_flow", "parallel.zero",
-                     "parallel.transforms")
+                     "layers.control_flow", "ops.tail_ops",
+                     "parallel.zero", "parallel.transforms")
 _loaded = False
 _loading = False
 _load_lock = threading.RLock()
@@ -199,12 +206,14 @@ def _load_lowerings():
 
 
 def register(name: str, *, infer=None, is_random=False, nondiff_slots=(),
-             stateful_outputs=(), inplace=None, vjp=None):
+             stateful_outputs=(), inplace=None, vjp=None, host_read=False,
+             shape_slot=None):
     def deco(fn):
         _REGISTRY[name] = OpDef(name, fn, infer=infer, is_random=is_random,
                                 nondiff_slots=nondiff_slots,
                                 stateful_outputs=stateful_outputs,
-                                inplace=inplace, vjp=vjp)
+                                inplace=inplace, vjp=vjp,
+                                host_read=host_read, shape_slot=shape_slot)
         return fn
     return deco
 

@@ -15,8 +15,11 @@ def _fill_constant(ctx, ins, attrs):
     shape = attrs.get("shape", [1])
     dtype = convert_dtype(attrs.get("dtype", "float32"))
     value = attrs.get("value", 0.0)
-    return {"Out": [torch.full(tuple(shape), value, dtype=dtype,
-                               device=ctx.device)]}
+    out = torch.full(tuple(shape), value, dtype=dtype, device=ctx.device)
+    # a build-time constant: an op that takes a shape from a tensor reads
+    # it here instead of on the host (ops/tail_ops.py `_host_shape`)
+    out._const_value = value
+    return {"Out": [out]}
 
 
 @register("fill_zeros_like")

@@ -4,7 +4,8 @@ paddle_tpu/optimizer.py: `Optimizer` :40 with its LR plumbing :61-95,
 :241, `AdamOptimizer` :270, `AdamW` :353, `AdagradOptimizer` :364,
 `AdamaxOptimizer` :385, `RMSPropOptimizer` :415, `LambOptimizer` :447,
 `ExponentialMovingAverage` :460, `AdadeltaOptimizer` :520,
-`DecayedAdagradOptimizer` :547, `FtrlOptimizer` :569).
+`DecayedAdagradOptimizer` :547, `FtrlOptimizer` :569,
+`DGCMomentumOptimizer` :615).
 
 `minimize` = append_backward, then `apply_gradients`: the grad clip's ops
 (clip.py), each parameter's weight-decay term (regularizer.py, from the
@@ -27,7 +28,15 @@ or, over a mesh with pp > 1, as the 1F1B pipeline
 (framework/executor.py, parallel/pipeline.py); `RecomputeOptimizer` and
 `GradientMergeOptimizer` are parallel/transforms.py's wrappers.
 
-Not ported (ROADMAP item 18): DGC, Dpsgd, Lookahead and ModelAverage.
+`DGCMomentumOptimizer` is Deep Gradient Compression's update in one
+process (fleet's `dgc` flag is a no-op, as the reference's): per
+parameter an optional `dgc_clip_by_norm`, `dgc` (the momentum-corrected
+residuals U and V, and the sparsified gradient it emits) and
+`dgc_momentum` (momentum before `rampup_begin_step`, SGD on the
+sparsified gradient from it on), with one persistable step counter that
+an `increment` after the updates advances (ops/tail_ops.py).
+
+Not ported (ROADMAP item 18): Dpsgd, Lookahead and ModelAverage.
 """
 from __future__ import annotations
 
@@ -49,7 +58,8 @@ __all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum",
            "RMSProp", "RMSPropOptimizer", "Lamb", "LambOptimizer",
            "LarsMomentum", "LarsMomentumOptimizer", "Adadelta",
            "AdadeltaOptimizer", "DecayedAdagrad", "DecayedAdagradOptimizer",
-           "Ftrl", "FtrlOptimizer", "ExponentialMovingAverage",
+           "Ftrl", "FtrlOptimizer", "DGCMomentumOptimizer",
+           "ExponentialMovingAverage",
            "PipelineOptimizer", "RecomputeOptimizer",
            "GradientMergeOptimizer"]
 
@@ -588,6 +598,83 @@ class FtrlOptimizer(Optimizer):
                      "LinearAccumOut": [acc("linear", p)]},
             attrs={"l1": self._l1, "l2": self._l2, "lr_power": self._lr_power,
                    "op_role": OpRole.Optimize})
+
+
+class DGCMomentumOptimizer(MomentumOptimizer):
+    """Deep Gradient Compression's momentum (Lin et al., ICLR 2018; the
+    reference's optimizer.py:615): per-parameter accumulators `velocity`,
+    `dgc_u` and `dgc_v`, the sparsity ramp `sparsity` over `rampup_step`
+    steps from `rampup_begin_step`, an optional local clip, and the step
+    counter `dgc_counter` (persistable [1] f32)."""
+
+    def __init__(self, learning_rate, momentum, rampup_begin_step=0,
+                 rampup_step=1, sparsity=(0.999,), use_nesterov=False,
+                 local_grad_clip_norm=None, num_trainers=None, **kw):
+        super().__init__(learning_rate, momentum, use_nesterov, **kw)
+        self.type = "dgc_momentum"
+        self._rampup_begin_step = float(rampup_begin_step)
+        self._rampup_step = float(rampup_step)
+        self._sparsity = [float(s) for s in sparsity]
+        self._local_grad_clip_norm = local_grad_clip_norm
+        self._counter_var = None
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+            self._add_accumulator("dgc_u", p)
+            self._add_accumulator("dgc_v", p)
+        if self._counter_var is None:
+            self._counter_var = layers.create_global_var(
+                [1], 0.0, "float32", persistable=True,
+                name=unique_name.generate("dgc_counter"))
+
+    def _append_optimize_op(self, block, pg):
+        p, g = pg
+        u = self._get_accumulator("dgc_u", p)
+        v = self._get_accumulator("dgc_v", p)
+        vel = self._get_accumulator("velocity", p)
+        step = self._counter_var
+        if self._local_grad_clip_norm is not None:
+            clipped = block.create_var(
+                name=unique_name.generate(f"{p.name}_dgc_clip"),
+                shape=p.shape, dtype=p.dtype)
+            block.append_op(
+                "dgc_clip_by_norm",
+                inputs={"X": [g], "current_step": [step]},
+                outputs={"Out": [clipped]},
+                attrs={"max_norm": float(self._local_grad_clip_norm),
+                       "rampup_begin_step": self._rampup_begin_step,
+                       "op_role": OpRole.Optimize})
+            g = clipped
+        encoded = block.create_var(
+            name=unique_name.generate(f"{p.name}_dgc_encoded"),
+            shape=p.shape, dtype=p.dtype)
+        block.append_op(
+            "dgc",
+            inputs={"U": [u], "V": [v], "Grad": [g], "current_step": [step]},
+            outputs={"UOut": [u], "VOut": [v], "EncodeGrad": [encoded]},
+            attrs={"m": self._momentum,
+                   "rampup_begin_step": self._rampup_begin_step,
+                   "rampup_step": self._rampup_step,
+                   "sparsity": self._sparsity,
+                   "op_role": OpRole.Optimize})
+        return block.append_op(
+            "dgc_momentum",
+            inputs={"Param": [p], "Grad": [encoded], "Velocity": [vel],
+                    "LearningRate": [self._lr_var], "current_step": [step]},
+            outputs={"ParamOut": [p], "VelocityOut": [vel]},
+            attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov,
+                   "rampup_begin_step": self._rampup_begin_step,
+                   "op_role": OpRole.Optimize})
+
+    def apply_gradients(self, params_grads):
+        out = super().apply_gradients(params_grads)
+        block = default_main_program().global_block()
+        block.append_op("increment",
+                        inputs={"X": [self._counter_var]},
+                        outputs={"Out": [self._counter_var]},
+                        attrs={"step": 1.0, "op_role": OpRole.Optimize})
+        return out
 
 
 class PipelineOptimizer:

@@ -133,15 +133,29 @@ def _close(got, want, what, rtol):
     assert err <= rtol * scale, (what, err, scale)
 
 
+# the reference's programs with their executor, by (stage, build kw): a
+# run starts from a fresh scope and its startup program either way, and
+# the executor keeps each program's compiled step (XLA's compile is most
+# of a reference run's time on the CPU)
+_REF_BUILT = {}
+
+
 class _Run:
     """One package's executor, scope and program."""
 
     def __init__(self, pkg, stage=0, **kw):
         self.pkg = pkg
-        self.main, self.start, self.loss, self.lr = build(pkg, stage, **kw)
         if pkg == "ref":
-            self.exe, self.scope = fluid.Executor(), RefScope()
+            key = (stage, tuple(sorted(kw.items())))
+            if key not in _REF_BUILT:
+                _REF_BUILT[key] = build(pkg, stage, **kw) \
+                    + (fluid.Executor(),)
+            self.main, self.start, self.loss, self.lr, self.exe = \
+                _REF_BUILT[key]
+            self.scope = RefScope()
         else:
+            self.main, self.start, self.loss, self.lr = build(pkg, stage,
+                                                              **kw)
             self.exe, self.scope = Executor("cpu"), Scope()
         self.exe.run(self.start, scope=self.scope)
 
@@ -210,24 +224,42 @@ def test_checkpoint_key_set_equals_reference(stage, tmp_path):
         assert int(data["__rng_counter__"]) == 2    # startup + one step
 
 
+@pytest.fixture(scope="module")
+def writers(tmp_path_factory):
+    """One writer a (package, stage), shared by the readers at both
+    stages: after 2 steps its checkpoint, then its losses over 3 more
+    steps and its portable arrays after them. Dropout is off, so a
+    writer's run is the same whichever reader it is compared with."""
+    cache = {}
+
+    def get(pkg, stage):
+        if (pkg, stage) not in cache:
+            src, toks = _Run(pkg, stage), tokens(5, seed=1)
+            for b in range(2):
+                src.step(toks[b])
+            d = str(tmp_path_factory.mktemp(f"{pkg}_s{stage}"))
+            src.save(d) if pkg == "port" else _ref_save(src, d)
+            losses = [src.step(toks[b]) for b in range(2, 5)]
+            arrays = {n: np.array(v) for n, v in src.arrays().items()}
+            cache[(pkg, stage)] = (d, losses, arrays)
+        return cache[(pkg, stage)]
+    return get
+
+
 @pytest.mark.parametrize("direction", ["ref_to_port", "port_to_ref"])
 @pytest.mark.parametrize("stages", [(0, 0), (1, 1), (1, 0), (0, 1)],
                          ids=["s0_s0", "s1_s1", "s1_s0", "s0_s1"])
-def test_checkpoint_loads_across_packages(direction, stages, tmp_path):
+def test_checkpoint_loads_across_packages(direction, stages, writers):
     """Writer at stages[0], reader at stages[1]; the writer goes on
     training from its own state beside the reader."""
     src_pkg, dst_pkg = direction.split("_to_")
-    src, dst = _Run(src_pkg, stages[0]), _Run(dst_pkg, stages[1])
+    d, a, want = writers(src_pkg, stages[0])
+    dst = _Run(dst_pkg, stages[1])
     toks = tokens(5, seed=1)
-    for b in range(2):
-        src.step(toks[b])
-    src.save(str(tmp_path)) if src_pkg == "port" else _ref_save(src,
-                                                                str(tmp_path))
-    dst.load(str(tmp_path))
-    a = [src.step(toks[b]) for b in range(2, 5)]
+    dst.load(d)
     b = [dst.step(toks[b]) for b in range(2, 5)]
     _close(b, a, "losses", 1e-6)
-    got, want = dst.arrays(), src.arrays()
+    got = dst.arrays()
     assert sorted(got) == sorted(want)
     for n in want:
         np.testing.assert_allclose(np.asarray(got[n], np.float32),

@@ -236,14 +236,29 @@ def test_rolled_matches_reference(model, remat):
                           for n in stacks if n.endswith("_w@LAYERS"))
 
 
+@pytest.fixture(scope="module")
+def unrolled():
+    """The unrolled run of (model, amp), shared by the plain and the
+    remat arms: its losses and scope after the steps (the same program,
+    startup and feeds give the same bits either time)."""
+    cache = {}
+
+    def get(model, amp):
+        if (model, amp) not in cache:
+            um, us, uloss = build("port", model, rolled=False, amp=amp,
+                                  dropout=0.1)
+            cache[(model, amp)] = port_run(um, uloss, feeds(model), start=us)
+        return cache[(model, amp)]
+    return get
+
+
 @pytest.mark.parametrize("model,amp", [("gpt", False), ("gpt", True),
                                        ("bert", False)],
                          ids=["gpt_f32", "gpt_amp_bf16", "bert_f32"])
 @pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
-def test_rolled_equals_unrolled_bitwise(model, amp, remat):
+def test_rolled_equals_unrolled_bitwise(model, amp, remat, unrolled):
     fs = feeds(model)
-    um, us, uloss = build("port", model, rolled=False, amp=amp, dropout=0.1)
-    u_losses, u_scope = port_run(um, uloss, fs, start=us)
+    u_losses, u_scope = unrolled(model, amp)
     rm, rs, rloss = build("port", model, remat=remat, amp=amp, dropout=0.1,
                           recompute=False)
     assert [op.attrs["remat"] for op in scan_ops(rm)] == [remat]
