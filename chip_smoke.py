@@ -402,7 +402,7 @@ result line):
    * SE-ResNeXt-50 (224, batch 32, fleet AMP, Momentum(0.01, 0.9): the
      grouped 3x3 convs at cardinality 32, sigmoid gates, dropout,
      cross_entropy, top_k and accuracy) and LeNet (28 x 28, batch 32,
-     fleet AMP, Adam 1e-3), 3 eager steps each on one batch: finite,
+     fleet AMP, Adam 1e-3), 2 eager steps each on one batch: finite,
      falling losses;
 17. control flow and ragged sequences (f32, TF32 off):
    * the control-flow gates, each program on the card against the port's
@@ -423,18 +423,18 @@ result line):
      pooled, fc 2 softmax; Adam 1e-3, batch 32, T 256 (cut from the
      source's 1,500-token crop), ids, labels and lengths (uniform in
      [64, 256], the first row at 256) from numpy seed 0, one batch for
-     every step: E, 3 eager Executor.run steps; C, run_steps(3) on one
-     capture bit-equal to E (losses and every persistable), then two
-     run_steps(5) windows, one more step profiled (busy share, launches);
+     every step: E, 2 eager Executor.run steps; C, run_steps(2) on one
+     capture bit-equal to E (losses and every persistable), then one
+     run_steps(5) window, one more step profiled (busy share, launches);
      Z, fleet ZeRO stage 1 (B8 once a bucket and step) the same windows,
-     bit-equal to E after 3 steps and to C after 13; step ms p50,
+     bit-equal to E after 2 steps and to C after 7; step ms p50,
      tokens/s over the live lengths, peak memory;
    * BOOK, the Paddle book's understand_sentiment stacked_lstm_net: EMB
      128, HID 512 (LSTM width 128), 3 dynamic_lstm layers of alternating
      direction, max pools, fc 2 softmax, Adagrad 0.002, batch 128, T 256
      (the book's is_sparse embedding, its SelectedRows gradient on
      Adagrad's sparse rule; fc over the concat of its two inputs): E and C
-     as the DRNN's, bit-equal;
+     as the DRNN's, bit-equal (C not profiled);
 18. row-sparse gradients and Wide&Deep (f32, TF32 off):
    * card vs CPU: models.build_ctr at vocab 100,001, batch 64, Adam 1e-4,
      3 steps from the same startup arrays: losses within 1e-5 relative,
@@ -531,6 +531,42 @@ result line):
      and V after C, a seeded gradient and the counter: EncodeGrad + VOut
      == V + m U + G exactly; planted fault: dgc keeping the residual of
      the elements it sends.
+21. the dense tail, the CRF and the book's semantic role labeller (f32,
+   TF32 off, deterministic cuDNN for the cases):
+   * the dense tail: every case of tests/torch_dense_tail_op_cases.py
+     (the 24 types of ops/dense_tail_ops.py and dense_tail_ops2.py this
+     slice ports and the CRF pair, and more arms of some, the CPU tests'
+     inputs) lowered on the CPU and twice on the card, and the `__vjp__`
+     of every vjp case likewise: the card within rtol 1e-4 / atol 1e-5
+     of the CPU, crf_decoding, ctc_align, edit_distance, histogram and
+     tdm_child bit for bit, the random cases' draws equal and held to
+     their properties, the two card runs bit for bit; planted faults:
+     crf_decoding breaking ties by the last maximum on the card (card vs
+     CPU), multinomial drawing from torch's global generator (twice);
+   * card vs CPU: the SRL at the CPU test's size (dictionaries 50 / 20,
+     9 labels, depth 3, hidden 32, T 10, batch 4), 2 steps from the same
+     startup arrays, by phase 16's floor method over the dense
+     parameters, the sparse tables and `crfw` apart; planted fault on a
+     card arm: linear_chain_crf without its stop weights;
+   * the PaddlePaddle book's semantic role labeller (db_lstm) at its
+     published hyperparameters: conll05's dictionary sizes (44,068
+     words, 3,162 predicates), 67 labels, word_dim 32, mark_dim 5,
+     hidden 512, depth 8 (16 recurrences a step: 8 LSTMs forward and
+     back), the frozen sparse word table, linear_chain_crf, SGD on
+     exponential_decay(0.01, 100000, 0.5, staircase), batch 10, ragged
+     lengths 5-29 from numpy seed 0: E, 2 eager Executor.run steps; C,
+     two run_steps(2) windows on one capture, bit-equal to E after 2
+     steps (losses, every written persistable); Z, fleet ZeRO stage 1,
+     the same windows, bit-equal to E after 2 and to C after 4, B6 once
+     a step on the dense bucket, the predicate and mark tables on their
+     sparse sgd, the frozen table on none and unchanged; step ms p50 (C,
+     Z: of 3 run_steps(2) windows timed after the gates), sequences/s,
+     tokens/s over the live lengths, launches a step and busy share of
+     one profiled step, peak memory; the test program (crf_decoding,
+     chunk_eval) under run_steps(2), eager, its paths and chunk counts
+     equal to the CPU lowerings' on the same emissions; B6 at the dense
+     bucket's width bit for bit, timed alone and through its wrapper
+     beside the plain version, torch._fused_sgd_ and its bytes bound.
 Each main-path run resets the kernel launch counts just before it and
 fails if a kernel of its path was never launched.
 
@@ -547,10 +583,11 @@ Output: a `{"kernels": [...]}` line, a `{"serving": ...}` line, a
 `{"model_parallel": ...}` line, a `{"composed_mesh": ...}` line, a
 `{"supervised_gang": ...}` line, an `{"image_training": ...}` line, a
 `{"sequence_training": ...}` line, a `{"ctr_training": ...}` line, a
-`{"recsys_training": ...}` line, a `{"dgc_training": ...}` line, and
-last `{"ok": true, "device": {...}}`. The B6 row's `launches_by_path` adds phase 19's arm Z, and its
-`recsys_bucket` is phase 19's check at the recommender's dense bucket
-width. The B8 row's `launches_by_path`
+`{"recsys_training": ...}` line, a `{"dgc_training": ...}` line, an
+`{"srl_training": ...}` line, and last `{"ok": true, "device":
+{...}}`. The B6 row's `launches_by_path` adds phase 19's and phase
+21's arm Z, and its `recsys_bucket` and `srl_bucket` are those phases'
+checks at the recommender's and the SRL's dense bucket widths. The B8 row's `launches_by_path`
 adds phase 17's and phase 18's arm Z, and its `ctr_bucket` is phase 18's
 check at the Wide&Deep dense bucket's width. The B7 row's `resnet50_bucket` is
 phase 16's check at ResNet-50's widest bucket, and its
@@ -1101,7 +1138,8 @@ def captured_only(st, what):
              f"replay its captured window only)")
 
 
-def device_profile(torch, run, top=8, ranges=(), kernels=(), groups=None):
+def device_profile(torch, run, top=8, ranges=(), kernels=(), groups=None,
+                   cpu=True):
     """One more run of `run()` (which returns its wall seconds) under
     torch.profiler: the share of the wall time the card spent in kernels,
     the number of device launches, the `top` kernels that took most of the
@@ -1111,10 +1149,12 @@ def device_profile(torch, run, top=8, ranges=(), kernels=(), groups=None):
     kernels whose names contain each of `kernels`, and of those whose
     names contain any fragment of each of `groups` ({label: fragments},
     each kernel counted once). The profiler's own cost lengthens the wall
-    time, so the busy share is a lower bound."""
+    time, so the busy share is a lower bound. `cpu=False` records the
+    device alone (no ranges): an eager step's host events cost seconds to
+    summarise."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]
+                 + [ProfilerActivity.CPU] * bool(cpu)) as prof:
         wall = run()
     return profile_summary(prof, wall, top, ranges, kernels, groups)
 
@@ -7828,8 +7868,8 @@ IMG_CPU = (64, 4, 2)       # card vs CPU: image size, batch, steps (f32)
 # the second step's loss is a forward from nearly the first's weights,
 # and the update's arithmetic is the same at any rate
 IMG_CPU_LR = 1e-6
-SE_BATCH, SE_STEPS, SE_LR = 32, 3, 0.01
-LENET_BATCH, LENET_STEPS = 32, 3
+SE_BATCH, SE_STEPS, SE_LR = 32, 2, 0.01
+LENET_BATCH, LENET_STEPS = 32, 2
 # RESNET50_TRAIN_FLOPS_PER_IMAGE (bench.py:1020): 3 x 4.1 GFLOP
 RESNET50_TRAIN_FLOPS = 3 * 4.1e9
 # card vs CPU, f32 with TF32 off. Convolutions sum over C*kh*kw in other
@@ -8455,8 +8495,8 @@ SEQ_MIN_LEN = 64           # lengths uniform in [64, 256], one row at 256
 DRNN_WIDTH = 512           # stacked_dynamic_lstm's emb_dim and lstm_size
 DRNN_BATCH = 32
 DRNN_LR = 1e-3
-DRNN_E_STEPS = 3
-DRNN_WINDOW = 5            # arms C / Z: two run_steps(5) windows
+DRNN_E_STEPS = 2
+DRNN_WINDOW = 5            # arms C / Z: then one run_steps(5) window
 BOOK_EMB, BOOK_HID, BOOK_STACKED, BOOK_CLASSES = 128, 512, 3, 2
 BOOK_BATCH = 128
 BOOK_LR = 0.002
@@ -8801,7 +8841,7 @@ def seq_card_vs_cpu(torch):
 def seq_arms(torch, zk, model, feed, arms):
     """`arms` of `model` at full width from one startup state: E
     (DRNN_E_STEPS eager run() calls), C (captured: run_steps of
-    DRNN_E_STEPS, then two of DRNN_WINDOW), Z (the same at ZeRO stage 1,
+    DRNN_E_STEPS, then one of DRNN_WINDOW), Z (the same at ZeRO stage 1,
     B8 once a bucket and step). Gates: C's and Z's state after their
     first window == E's, bit for bit, losses too; Z's final state == C's.
     Returns {arm: numbers}."""
@@ -8833,7 +8873,7 @@ def seq_arms(torch, zk, model, feed, arms):
                            image_state(torch, main, scope).items()}
             timed = ms[1:]
         else:
-            for k in (DRNN_E_STEPS, DRNN_WINDOW, DRNN_WINDOW):
+            for k in (DRNN_E_STEPS, DRNN_WINDOW):
                 t0 = time.perf_counter()
                 got, = exe.run_steps(k, main, feed=feed, fetch_list=[loss],
                                      scope=scope)
@@ -8862,7 +8902,7 @@ def seq_arms(torch, zk, model, feed, arms):
         row = {"losses": losses, "step_ms": ms, "step_ms_p50": p50,
                "tokens_per_s": tokens / (p50 / 1e3),
                "peak_memory_gib": peak / 2 ** 30, "executor_stats": stats}
-        if arm == "C":
+        if arm == "C" and model == "drnn":
             def one_step():
                 t0 = time.perf_counter()
                 exe.run_steps(1, main, feed=feed, fetch_list=[loss],
@@ -8872,7 +8912,7 @@ def seq_arms(torch, zk, model, feed, arms):
             row["launches_per_step"] = row["profile"].get("device_launches")
         if arm == "Z":
             n_buckets = op_count(main, "__zero_update__")
-            steps_run = DRNN_E_STEPS + 2 * DRNN_WINDOW \
+            steps_run = DRNN_E_STEPS + DRNN_WINDOW \
                 + stats["warmup_steps"]
             b8 = zk.launches["zero_adam"]
             if not n_buckets or b8 != steps_run * n_buckets:
@@ -9581,12 +9621,15 @@ def plant_global_rng(torch, registry):
 
 
 def op_cases_card_vs_cpu(torch, registry, cases, table, n_types, faults,
-                         label):
+                         label, exact=(), props=None):
     """Gate card vs CPU and gate twice on the card over every case of
     `table` (from the case module `cases`, f32): each lowering on the CPU,
     then twice on the card, under deterministic cuDNN; every vjp case's
     `__vjp__` likewise (tests/torch_extra_op_cases.py `vjp_case`). A
-    LoDTensorArray (buffer, length) counts as two tensors. `faults`:
+    LoDTensorArray (buffer, length) counts as two tensors. The cases of
+    the op types in `exact` must equal the CPU's bit for bit; `props(case,
+    outputs)`, when given, holds a case's card outputs to their
+    properties (True for the cases it does not judge). `faults`:
     {"card_vs_cpu" / "twice": (what, install returning its undo, case)},
     each planted fault read by its gate, which must refuse it."""
     vjp_case = extra_cases_module().vjp_case
@@ -9608,11 +9651,17 @@ def op_cases_card_vs_cpu(torch, registry, cases, table, n_types, faults,
                     for a in (v if isinstance(v, tuple) else (v,))]
                 for s, vs in outs.items()}
 
-    def check(op, ins, attrs):
+    def check(op, ins, attrs, case=None):
         cpu = run(op, ins, attrs, "cpu")
         first = run(op, ins, attrs, "cuda")
         second = run(op, ins, attrs, "cuda")
         holds, err = outs_error(torch, first, cpu)
+        if op in exact:
+            holds &= all((a is None and b is None)
+                         or same_bits(torch, a.cpu(), b)
+                         for s in cpu for a, b in zip(first[s], cpu[s]))
+        if props is not None and case is not None:
+            holds &= bool(props(case, first))
         twice = all(
             (a is None and b is None) or same_bits(torch, a, b)
             for s in first for a, b in zip(first[s], second[s]))
@@ -9628,7 +9677,7 @@ def op_cases_card_vs_cpu(torch, registry, cases, table, n_types, faults,
         for case in sorted(table):
             ins, attrs = table[case]
             op = cases.op_of(case)
-            cpu, holds, err, twice = check(op, ins, attrs)
+            cpu, holds, err, twice = check(op, ins, attrs, case)
             rows[case] = {"max_abs_err": err, "within": holds,
                           "twice_bit_equal": twice}
             if case in cases.VJP_CASES:
@@ -9647,7 +9696,8 @@ def op_cases_card_vs_cpu(torch, registry, cases, table, n_types, faults,
             undo = install()
             try:
                 ins, attrs = table[case]
-                _, holds, err, twice = check(cases.op_of(case), ins, attrs)
+                _, holds, err, twice = check(cases.op_of(case), ins, attrs,
+                                             case)
             finally:
                 undo()
             found[gate] = {"fault": what, "within": holds,
@@ -10397,6 +10447,517 @@ def train_dgc(torch, registry, card, momentum_c):
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the dense tail, the CRF and the book's semantic role labeller
+# ---------------------------------------------------------------------------
+
+SRL_WINDOW = 2             # arm E: 2 eager steps; C, Z: run_steps(2) x 2
+SRL_TIMED = 3              # then run_steps(2) windows timed alone
+SRL_DECODE_STEPS = 2       # the decode program: run_steps(2), eager
+# card vs CPU: the SRL at a small size (the CPU test's), 2 steps, f32
+SRL_CPU_SIZES = {"word": 50, "predicate": 20, "label": 9}
+SRL_CPU_WIDTHS = {"word_dim": 8, "mark_dim": 3, "hidden_dim": 32,
+                  "depth": 3}
+SRL_CPU = (10, 4, 2)       # T, batch, steps
+# the op types whose card outputs equal the CPU's bit for bit
+DENSE_TAIL_EXACT = ("crf_decoding", "ctc_align", "edit_distance",
+                    "histogram", "tdm_child")
+
+
+def dense_tail_cases_module():
+    """tests/torch_dense_tail_op_cases.py (numpy only): the dense tail's
+    and the CRF's cases and the SRL's builder, shared with the CPU
+    tests."""
+    extra_cases_module()          # puts tests/ on the path
+    import torch_dense_tail_op_cases
+    return torch_dense_tail_op_cases
+
+
+def plant_crf_last_maximum(torch, registry):
+    """Planted fault of gate card vs CPU: crf_decoding on the card breaks
+    ties by the last maximum (the classes reversed in, the tags mapped
+    back out)."""
+    def faulty(lower, ctx, ins, attrs):
+        em, tr = ins["Emission"][0], ins["Transition"][0]
+        if em.device.type != "cuda":
+            return lower(ctx, ins, attrs)
+        rev = torch.cat([tr[:2].flip(-1), tr[2:].flip(0, 1)])
+        out = lower(ctx, dict(ins, Emission=[em.flip(-1)],
+                              Transition=[rev]), attrs)
+        return {"ViterbiPath": [em.shape[-1] - 1 - out["ViterbiPath"][0]]}
+    return plant_lowering(registry, "crf_decoding", faulty)
+
+
+def plant_multinomial_global_rng(torch, registry):
+    """Planted fault of gate twice on the card: multinomial draws from
+    torch's global generator on the card."""
+    def faulty(lower, ctx, ins, attrs):
+        x = ins["X"][0]
+        if x.device.type != "cuda":
+            return lower(ctx, ins, attrs)
+        return {"Out": [torch.multinomial(
+            x, attrs["num_samples"], attrs["replacement"]).int()]}
+    return plant_lowering(registry, "multinomial", faulty)
+
+
+def dense_tail_properties(torch, cases):
+    """`props` of op_cases_card_vs_cpu for the random cases: multinomial's
+    draws in range, never the zero-probability class, distinct without
+    replacement; seed's in [1, 2**31 - 1); tdm_sampler's negatives nodes
+    of their layer other than the positive; pyramid_hash's training sums
+    finite."""
+    table = cases.dense_tail_cases()
+
+    def props(case, out):
+        if case not in cases.RANDOM:
+            return True
+        ins, attrs = table[case]
+        op = cases.op_of(case)
+        if op == "multinomial":
+            d = out["Out"][0].cpu()
+            ok = bool((d >= 0).all() and (d < ins["X"][0].shape[1]).all())
+            zero = np.argwhere(ins["X"][0] == 0)
+            ok &= all(not bool((d[r] == c).any()) for r, c in zero)
+            if not attrs["replacement"]:
+                ok &= all(len(set(r)) == len(r) for r in d.tolist())
+            return ok
+        if op == "seed":
+            return 1 <= int(out["Out"][0]) < 2 ** 31 - 1
+        if op == "tdm_sampler":
+            o = out["Out"][0][..., 0].cpu().numpy()
+            layer, offs = ins["Layer"][0], attrs["layer_offset_lod"]
+            x, travel = ins["X"][0].reshape(-1), ins["Travel"][0]
+            col, ok = 0, True
+            for li, neg in enumerate(attrs["neg_samples_num_list"]):
+                nodes = set(layer[offs[li]:offs[li + 1]].tolist())
+                width = neg + attrs["output_positive"]
+                for r, item in enumerate(x):
+                    pos = travel[item, li]
+                    negs = o[r, col + width - neg:col + width]
+                    ok &= (not o[r, col:col + width].any()) if pos == 0 \
+                        else all(v in nodes and v != pos for v in negs)
+                col += width
+            return ok
+        return bool(torch.isfinite(out["Out"][0]).all())
+    return props
+
+
+def dense_tail_card_vs_cpu(torch, registry, cases):
+    """The dense tail's and the CRF's cases (the 26 types) card vs CPU and
+    twice on the card; DENSE_TAIL_EXACT bit for bit; the random cases'
+    draws equal (hash arithmetic on the op's key) and held to their
+    properties. Planted faults: crf_decoding breaking ties by the last
+    maximum on the card (card vs CPU), multinomial drawing from the
+    global generator (twice)."""
+    return op_cases_card_vs_cpu(
+        torch, registry, cases, cases.dense_tail_cases(), 26,
+        {"card_vs_cpu": ("crf_decoding breaks ties by the last maximum on "
+                         "the card",
+                         lambda: plant_crf_last_maximum(torch, registry),
+                         "crf_decoding:ties"),
+         "twice": ("multinomial draws from torch's global generator",
+                   lambda: plant_multinomial_global_rng(torch, registry),
+                   "multinomial")},
+        "dense tail", exact=DENSE_TAIL_EXACT,
+        props=dense_tail_properties(torch, cases))
+
+
+def build_srl_prog(cases, T, sizes=None, widths=None, stage=None):
+    """(main, startup, test program, loss, feature_out, Viterbi path,
+    chunk_eval's three counts): the book's SRL (tests/
+    torch_dense_tail_op_cases.py `srl`) at `sizes` and `widths` (the
+    book's by default), SGD on exponential_decay(0.01, 100000, 0.5,
+    staircase), through fleet at ZeRO `stage` when given; the test
+    program cloned before the optimizer, with crf_decoding on `crfw` and
+    chunk_eval (IOB)."""
+    from paddle_tpu_torch import layers, optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework import program, unique_name
+    from paddle_tpu_torch.layer_helper import ParamAttr
+    sizes = sizes or cases.srl_sizes()
+    main, start = program.Program(), program.Program()
+    with program.program_guard(main, start), unique_name.guard():
+        loss, feature, target, length = cases.srl(
+            layers, ParamAttr, T, sizes, **(widths or {}))
+        test = main.clone(for_test=True)
+        lr, steps, rate = cases.SRL_LR
+        o = optimizer.SGD(learning_rate=layers.exponential_decay(
+            lr, steps, rate, staircase=True))
+        if stage is not None:
+            fleet.init(is_collective=True)
+            s = fleet.DistributedStrategy()
+            s.sharding_stage = stage
+            o = fleet.distributed_optimizer(o, s)
+        o.minimize(loss)
+        with program.program_guard(test):
+            block = test.global_block()
+            path = layers.crf_decoding(block.var(feature.name),
+                                       param_attr=ParamAttr(name="crfw"),
+                                       length=block.var(length.name))
+            counts = layers.chunk_eval(
+                path, block.var(target.name), "IOB",
+                cases.srl_chunk_types(sizes["label"]),
+                seq_length=block.var(length.name))[3:]
+    return main, start, test, loss, feature, path, counts
+
+
+def plant_crf_no_stop(torch, registry):
+    """Planted fault of gate SRL card vs CPU: linear_chain_crf drops the
+    stop weights on the card."""
+    def faulty(lower, ctx, ins, attrs):
+        tr = ins["Transition"][0]
+        if tr.device.type != "cuda":
+            return lower(ctx, ins, attrs)
+        tr = torch.cat([tr[:1], torch.zeros_like(tr[1:2]), tr[2:]])
+        return lower(ctx, dict(ins, Transition=[tr]), attrs)
+    return plant_lowering(registry, "linear_chain_crf", faulty)
+
+
+def srl_card_vs_cpu(torch, registry, cases):
+    """The SRL at SRL_CPU_SIZES / SRL_CPU_WIDTHS, T 10, batch 4, f32, TF32
+    off, 2 steps from the same startup arrays on the card, on the CPU and
+    on the CPU again from parameters scaled by (1 + 1e-7 N(0, 1)) (the
+    floor: the ids cannot be nudged, so the weights are), by phase 16's floor
+    method on each arm's change from its own start: losses within
+    IMG_CPU_LOSS_RTOL; for the dense parameters, the sparse tables and
+    `crfw` apart, the distance of the card's change from the CPU's within
+    IMG_CPU_FLOOR_X times the floor's, plus IMG_CPU_CHANGE_ATOL. Planted
+    fault, on a card arm: linear_chain_crf without its stop weights."""
+    from paddle_tpu_torch.framework import Executor, Scope, load_numpy
+    T, batch, steps = SRL_CPU
+    main, start, _, loss, _, _, _ = build_srl_prog(
+        cases, T, SRL_CPU_SIZES, SRL_CPU_WIDTHS)
+    s0 = Scope()
+    Executor("cpu").run(start, scope=s0)
+    init = {n: s0.numpy(n) for n in s0.local_names()
+            if isinstance(s0.find(n), torch.Tensor)}
+    feeds = cases.srl_feed(steps, batch, T, SRL_CPU_SIZES, seed=1)
+    params = [p.name for p in main.global_block().all_parameters()
+              if p.trainable]
+    # the parameters only: the decay's counter starts at -1, where a
+    # nudge crosses the staircase's floor
+    rng = np.random.RandomState(21)
+    nudged = {n: (v * (1 + 1e-7 * rng.randn(*v.shape))).astype(v.dtype)
+              if n in params else v for n, v in init.items()}
+    tables = {op.inputs["W"][0] for op in main.global_block().ops
+              if op.type == "lookup_table"}
+    groups = {"crfw": ["crfw"],
+              "tables": sorted(tables & set(params)),
+              "dense": sorted(set(params) - tables - {"crfw"})}
+    out = {}
+    for arm, dev, state, fault in (
+            ("cuda", "cuda", init, None), ("cpu", "cpu", init, None),
+            ("floor", "cpu", nudged, None),
+            ("fault", "cuda", init, plant_crf_no_stop)):
+        scope, exe = load_numpy(Scope(), state, dev), Executor(dev)
+        undo = fault(torch, registry) if fault else None
+        try:
+            losses = [float(exe.run(main, feed=f, fetch_list=[loss],
+                                    scope=scope)[0]) for f in feeds]
+        finally:
+            if undo:
+                undo()
+        # each arm's change from its own start (the floor's nudge cancels)
+        out[arm] = (losses, {n: torch.as_tensor(scope.numpy(n)).double()
+                             - torch.as_tensor(state[n]).double()
+                             for n in params})
+    lc, sc = out["cpu"]
+
+    def distance(change, names):
+        num = sum(float(torch.sum((change[n] - sc[n]) ** 2)) for n in names)
+        den = sum(float(torch.sum(sc[n] ** 2)) for n in names)
+        return (num / den) ** 0.5
+
+    def rel(arm):
+        return max(abs(a - b) / abs(b) for a, b in zip(out[arm][0], lc))
+
+    row = {"config": f"the SRL at dictionaries {SRL_CPU_SIZES}, "
+                     f"{SRL_CPU_WIDTHS}, T {T}, batch {batch}, {steps} "
+                     f"steps, f32, TF32 off",
+           "losses_card": out["cuda"][0], "losses_cpu": lc,
+           "loss_max_rel": rel("cuda"), "groups": {}}
+    bad, caught = [], rel("fault") > IMG_CPU_LOSS_RTOL
+    for g, names in groups.items():
+        limit = IMG_CPU_FLOOR_X * distance(out["floor"][1], names) \
+            + IMG_CPU_CHANGE_ATOL
+        r = {"tensors": len(names), "card_distance": distance(
+            out["cuda"][1], names), "floor_distance": distance(
+            out["floor"][1], names), "limit": limit,
+            "fault_distance": distance(out["fault"][1], names)}
+        row["groups"][g] = r
+        if not r["card_distance"] <= limit:
+            bad.append(g)
+        caught |= not r["fault_distance"] <= limit
+    row["planted_fault"] = {"fault": "linear_chain_crf drops the stop "
+                                     "weights on the card",
+                            "loss_max_rel": rel("fault"), "caught": caught}
+    log(f"srl card vs CPU: {row}")
+    if not np.isfinite(out["cuda"][0]).all() or bad \
+            or not row["loss_max_rel"] <= IMG_CPU_LOSS_RTOL:
+        fail(f"srl card vs CPU: {bad}, {row}")
+    if not caught:
+        fail(f"srl planted fault passed gate card vs CPU: {row}")
+    return row
+
+
+def srl_arms(torch, zk, registry, cases, batches):
+    """Arms E, C and Z at the book's widths from one startup state (module
+    docstring), the gates E == C == Z. Returns ({arm: numbers}, the
+    trained scope of C and its programs)."""
+    from paddle_tpu_torch.framework import Executor, Scope
+    T = cases.SRL_MAX_LEN
+    windows = [ctr_stacked(batches[:SRL_WINDOW]),
+               ctr_stacked(batches[SRL_WINDOW:2 * SRL_WINDOW])]
+    live = [int(b["length"].sum()) for b in batches[:SRL_WINDOW]]
+    out, states, s0, kept = {}, {}, None, None
+    for arm in ("E", "C", "Z"):
+        built = build_srl_prog(cases, T, stage=1 if arm == "Z" else None)
+        main, start, loss = built[0], built[1], built[3]
+        if s0 is None:
+            s0 = Scope()
+            Executor("cuda").run(start, scope=s0)
+        scope, exe = scope_copy(torch, s0), Executor("cuda")
+        release(torch)
+        torch.cuda.reset_peak_memory_stats()
+        zk.reset_launches()
+        losses, ms = [], []
+        if arm == "E":
+            for b in batches[:SRL_WINDOW]:
+                t0 = time.perf_counter()
+                losses.append(float(exe.run(main, feed=b, fetch_list=[loss],
+                                            scope=scope)[0]))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            states["E"] = ctr_state(torch, main, scope)
+            timed = ms[1:]
+        else:
+            for w, feed in enumerate(windows):
+                got, = exe.run_steps(SRL_WINDOW, main, feed=feed,
+                                     fetch_list=[loss], scope=scope)
+                losses += [float(x) for x in got]
+                if w == 0:
+                    d = image_diffs(torch, states["E"],
+                                    ctr_state(torch, main, scope))
+                    if d or losses != out["E"]["losses"]:
+                        fail(f"srl gate E == {arm}: {d}, losses {losses} "
+                             f"vs {out['E']['losses']}")
+            if arm == "C":
+                states["C"] = ctr_state(torch, main, scope)
+                c_losses = losses
+            else:
+                d = image_diffs(torch, states["C"],
+                                ctr_state(torch, main, scope))
+                if d or losses != c_losses:
+                    fail(f"srl gate C == Z: {d}")
+            for _ in range(SRL_TIMED):
+                t0 = time.perf_counter()
+                exe.run_steps(SRL_WINDOW, main, feed=windows[0],
+                              fetch_list=[loss], scope=scope)
+                ms.append((time.perf_counter() - t0) * 1e3 / SRL_WINDOW)
+            timed = ms
+        peak = torch.cuda.max_memory_allocated()
+        stats = dict(exe.stats)
+        if arm != "E" and (stats["eager_steps"] or stats["captures"] != 1):
+            fail(f"srl arm {arm}: executor stats {stats}")
+        p50 = float(np.median(timed))
+        row = {"losses": losses, "step_ms": ms, "step_ms_p50": p50,
+               "sequences_per_s": cases.SRL_BATCH / (p50 / 1e3),
+               "tokens_per_s": np.mean(live) / (p50 / 1e3),
+               "peak_memory_gib": peak / 2 ** 30, "executor_stats": stats}
+        if arm == "Z":
+            n_buckets = op_count(main, "__zero_update__")
+            steps_run = (2 + SRL_TIMED) * SRL_WINDOW + stats["warmup_steps"]
+            b6 = zk.launches["zero_sgd"]
+            buckets = main._grad_buckets["zero_buckets"]
+            tables = {op.inputs["W"][0] for op in main.global_block().ops
+                      if op.type == "lookup_table"}
+            sgd_params = {op.inputs["Param"][0]
+                          for op in main.global_block().ops
+                          if op.type == "sgd"}
+            if not n_buckets or b6 != steps_run * n_buckets:
+                fail(f"srl arm Z: {b6} B6 launches for {n_buckets} buckets "
+                     f"over {steps_run} steps")
+            if any(tables & set(b["params"]) for b in buckets) \
+                    or sgd_params != tables - {"emb"}:
+                fail("srl arm Z: a table joined a bucket, or the frozen "
+                     "table is updated")
+            row.update(b6_launches_incl_warmup=b6, zero_update_ops=n_buckets,
+                       bucket_widths=[b["padded"] for b in buckets],
+                       sparse_tables_on_sgd=len(sgd_params))
+        if arm == "E":
+            def step():
+                t0 = time.perf_counter()
+                exe.run(main, feed=batches[0], fetch_list=[loss],
+                        scope=scope)
+                return time.perf_counter() - t0
+        else:
+            def step():
+                t0 = time.perf_counter()
+                exe.run_steps(1, main, feed=ctr_stacked(batches[:1]),
+                              fetch_list=[loss], scope=scope)
+                return time.perf_counter() - t0
+        row["profile"] = device_profile(torch, step, top=6,
+                                        cpu=arm != "E")
+        row["launches_per_step"] = row["profile"].get("device_launches")
+        if arm != "E" and exe.stats["captures"] != 1:
+            fail(f"srl arm {arm}: the profiled step captured again: "
+                 f"{exe.stats}")
+        log(f"srl arm {arm}: step p50 {p50:.2f} ms, "
+            f"{row['sequences_per_s']:.1f} sequences/s, "
+            f"{row['tokens_per_s']:.0f} tokens/s, peak "
+            f"{row['peak_memory_gib']:.3f} GiB, launches a step "
+            f"{row['launches_per_step']}, busy "
+            f"{row['profile'].get('device_busy_share')}, losses {losses}")
+        out[arm] = row
+        if arm == "C":
+            kept = (built, scope)
+        del exe, main, start
+        release(torch)
+    if not np.isfinite(out["E"]["losses"]).all():
+        fail(f"srl losses are not finite: {out['E']['losses']}")
+    # the frozen table: no gradient, no update
+    emb0, emb = s0.find("emb"), kept[1].find("emb")
+    if not torch.equal(emb0, emb):
+        fail("srl: the frozen table `emb` changed")
+    del s0, states
+    return out, kept
+
+
+def srl_decode(torch, registry, cases, kept, batches):
+    """The test program (crf_decoding on the trained `crfw`, chunk_eval)
+    on C's trained scope: run_steps(SRL_DECODE_STEPS) runs eagerly (a host
+    read); each step's Viterbi paths and chunk counts equal those of the
+    lowerings on the CPU over the same emissions (the step's fetched
+    feature_out) and the same `crfw`."""
+    from paddle_tpu_torch.framework import Executor
+    built, scope = kept
+    test, feature, path, counts = built[2], built[4], built[5], built[6]
+    exe = Executor("cuda")
+    feed = ctr_stacked(batches[:SRL_DECODE_STEPS])
+    t0 = time.perf_counter()
+    got = exe.run_steps(SRL_DECODE_STEPS, test, feed=feed,
+                        fetch_list=[feature, path, *counts], scope=scope)
+    seconds = time.perf_counter() - t0
+    if exe.stats["eager_steps"] != SRL_DECODE_STEPS \
+            or exe.stats["captures"]:
+        fail(f"srl decode: executor stats {exe.stats}")
+    ctx = registry.LowerCtx(device="cpu")
+    crfw = torch.as_tensor(scope.numpy("crfw"))
+    labels = cases.srl_sizes()["label"]
+    equal, chunks = True, []
+    for i in range(SRL_DECODE_STEPS):
+        em = torch.as_tensor(np.asarray(got[0][i]))
+        lens = torch.as_tensor(feed["length"][i]).int()
+        want = registry.get("crf_decoding").lower(
+            ctx, {"Emission": [em], "Transition": [crfw],
+                  "SeqLen": [lens]}, {})["ViterbiPath"][0]
+        ev = registry.get("chunk_eval").lower(
+            ctx, {"Inference": [want],
+                  "Label": [torch.as_tensor(feed["target"][i]).int()],
+                  "SeqLength": [lens]},
+            {"num_chunk_types": cases.srl_chunk_types(labels),
+             "chunk_scheme": "IOB", "excluded_chunk_types": []})
+        want_counts = [int(ev[k][0]) for k in (
+            "NumInferChunks", "NumLabelChunks", "NumCorrectChunks")]
+        card_counts = [int(np.asarray(got[2 + k][i]).reshape(-1)[0])
+                       for k in range(3)]
+        equal &= np.array_equal(np.asarray(got[1][i]), want.numpy()) \
+            and card_counts == want_counts
+        chunks.append(card_counts)
+    row = {"steps": SRL_DECODE_STEPS, "seconds": seconds,
+           "executor_stats": dict(exe.stats),
+           "chunks_infer_label_correct": chunks,
+           "paths_and_counts_equal_cpu": equal}
+    log(f"srl decode: {row}")
+    if not equal:
+        fail(f"srl decode: the card's paths or chunk counts differ from the "
+             f"CPU's on the same emissions: {row}")
+    return row
+
+
+def train_srl(torch, zk, registry, card):
+    """Phase 21 (module docstring): the dense tail's and the CRF's cases
+    card vs CPU and twice on the card, the SRL card vs CPU, its arms E, C
+    and Z at the book's widths, the decode program, and B6 at its dense
+    bucket's width. Returns (the line's row, B6's launches in Z, the B6
+    bucket check)."""
+    t0 = time.perf_counter()
+    row, parts = {"card": card}, {}
+    cases = dense_tail_cases_module()
+
+    def part(name, fn):
+        t = time.perf_counter()
+        row[name] = fn()
+        parts[name] = time.perf_counter() - t
+        release(torch)
+
+    part("dense_tail_ops", lambda: dense_tail_card_vs_cpu(torch, registry,
+                                                          cases))
+    part("card_vs_cpu", lambda: srl_card_vs_cpu(torch, registry, cases))
+    batches = cases.srl_feed(2 * SRL_WINDOW, cases.SRL_BATCH)
+    kept = {}
+
+    def arms():
+        out, kept["C"] = srl_arms(torch, zk, registry, cases, batches)
+        return out
+    part("arms", arms)
+    part("decode", lambda: srl_decode(torch, registry, cases, kept.pop("C"),
+                                      batches))
+    z = row["arms"]["Z"]
+    lr = cases.SRL_LR[0]
+    bucket = check_bucket(torch, zk, "sgd", z["bucket_widths"][0], lr, "srl")
+    bucket["launches"] = z["b6_launches_incl_warmup"]
+    log(f"phase 21 parts (s): {parts}")
+    row.update(
+        parts_s=parts,
+        config={
+            "model": f"the PaddlePaddle book's semantic role labeller "
+                     f"(test_label_semantic_roles.py db_lstm): 8 inputs "
+                     f"(word, 5 context words, predicate, mark), word and "
+                     f"context on the frozen `emb` [{cases.CONLL05_WORDS}, "
+                     f"{cases.SRL_WORD_DIM}], predicate `vemb` "
+                     f"[{cases.CONLL05_PREDICATES}, {cases.SRL_WORD_DIM}], "
+                     f"mark [2, {cases.SRL_MARK_DIM}], every table "
+                     f"is_sparse; fc {cases.SRL_HIDDEN} tanh each, sums, "
+                     f"{cases.SRL_DEPTH} dynamic_lstm layers (hidden "
+                     f"{cases.SRL_HIDDEN // 4}, candidate relu, gate and "
+                     f"cell sigmoid, reversed at odd depths) over mix_hidden "
+                     f"sums of two fc tanh, feature_out the sums of two fc "
+                     f"{cases.CONLL05_LABELS} tanh, linear_chain_crf on "
+                     f"`crfw`, mean; SGD(exponential_decay(0.01, 100000, "
+                     f"0.5, staircase)), batch {cases.SRL_BATCH}, f32, TF32 "
+                     f"off; conll05's dictionary sizes, the JAX package's "
+                     f"67 labels",
+            "data": f"{2 * SRL_WINDOW} batches from numpy seed 0 in "
+                    f"conll05's layout: lengths {cases.SRL_MIN_LEN}-"
+                    f"{cases.SRL_MAX_LEN} (Conll05st's draw), padded to "
+                    f"{cases.SRL_MAX_LEN}; weights from the startup program",
+            "arms": f"E: {SRL_WINDOW} eager Executor.run steps; C: two "
+                    f"run_steps({SRL_WINDOW}) windows on one capture, then "
+                    f"{SRL_TIMED} timed windows; Z: C's windows through "
+                    f"fleet ZeRO stage 1 (B6 once a step on the dense "
+                    f"bucket, `crfw` in it: neither package reads "
+                    f"ParamAttr.learning_rate; `vemb` and the mark table on "
+                    f"their sparse sgd, the frozen `emb` on none); decode: "
+                    f"the test program under run_steps({SRL_DECODE_STEPS}), "
+                    f"eager"},
+        gates={"dense_tail_ops": row["dense_tail_ops"]["tolerance"]
+               + f"; bit for bit: {', '.join(DENSE_TAIL_EXACT)}; the "
+                 f"random cases' draws held to their properties",
+               "E_eq_C_eq_Z": f"bit for bit: losses and every written "
+                              f"persistable; E == C and E == Z after "
+                              f"{SRL_WINDOW} steps, C == Z after "
+                              f"{2 * SRL_WINDOW}",
+               "card_vs_cpu": f"phase 16's floor method: losses rtol "
+                              f"{IMG_CPU_LOSS_RTOL}; dense, tables, crfw "
+                              f"each within {IMG_CPU_FLOOR_X} x its floor "
+                              f"+ {IMG_CPU_CHANGE_ATOL}",
+               "decode": "paths and chunk counts equal the CPU's lowerings "
+                         "on the same emissions",
+               "b6": "launches in Z == buckets x (steps + warm-up)"},
+        phase_s=time.perf_counter() - t0)
+    return row, z["b6_launches_incl_warmup"], bucket
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -10695,6 +11256,17 @@ def main():
     release(torch)
     dgc_row = train_dgc(torch, registry, card, image_row["arms"]["C"])
 
+    # ---- the dense tail, the CRF and the book's semantic role labeller --
+    lap("srl")
+    release(torch)
+    srl_row, b6_srl, rows["zero_sgd"]["srl_bucket"] = train_srl(
+        torch, zk, registry, card)
+    if not b6_srl:
+        fail("zero_sgd was never launched on the SRL's Z run")
+    rows["zero_sgd"]["launches_by_path"][
+        f"srl_Z_stage1_captured_{(2 + SRL_TIMED) * SRL_WINDOW}_steps_"
+        f"incl_warmup"] = b6_srl
+
     for row in rows.values():
         if not row["launches"]:
             fail(f"{row['name']} was never launched on its main path run")
@@ -10719,6 +11291,7 @@ def main():
     print(json.dumps({"ctr_training": ctr_row}), flush=True)
     print(json.dumps({"recsys_training": recsys_row}), flush=True)
     print(json.dumps({"dgc_training": dgc_row}), flush=True)
+    print(json.dumps({"srl_training": srl_row}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -2,10 +2,12 @@
 the ones BERT, GPT and the image models (ResNet, SE-ResNeXt, LeNet) are
 built from, the convolution, pooling, normalisation, activation,
 reduction, selection and metric builders over the dense ops, the ones
-gradient clipping and weight-decay regularisation append, `cos_sim` and
-`chunk_eval`. Not ported: the builders whose ops wait (`switch_moe`,
-`linear_chain_crf`, `crf_decoding`, `hsigmoid`, `edit_distance`,
-`bilinear_tensor_product`, `add_position_encoding`, `cond_take`)."""
+gradient clipping and weight-decay regularisation append, `cos_sim`,
+`chunk_eval`, the CRF pair (`linear_chain_crf`, `crf_decoding`) and the
+dense tail's `hsigmoid`, `edit_distance`, `bilinear_tensor_product` and
+`add_position_encoding`. Not ported: `switch_moe`, whose op waits
+(ROADMAP item 12, row 6), and `cond_take`, which raises in the
+reference too."""
 from __future__ import annotations
 
 import math
@@ -33,7 +35,9 @@ __all__ = [
     "not_equal", "less_than", "less_equal", "greater_than",
     "greater_equal", "logical_and", "logical_or", "logical_not",
     "logical_xor", "where", "unique", "cumsum", "prelu", "brelu",
-    "fused_attention", "cos_sim", "chunk_eval",
+    "fused_attention", "cos_sim", "chunk_eval", "linear_chain_crf",
+    "crf_decoding", "hsigmoid", "edit_distance", "bilinear_tensor_product",
+    "add_position_encoding",
 ]
 
 
@@ -781,6 +785,126 @@ def chunk_eval(input, label, chunk_scheme, num_chunk_types,
     return (outs["Precision"], outs["Recall"], outs["F1-Score"],
             outs["NumInferChunks"], outs["NumLabelChunks"],
             outs["NumCorrectChunks"])
+
+
+def linear_chain_crf(input, label, param_attr=None, length=None):
+    """The CRF's negative log-likelihood [b, 1] of padded emissions [b, T,
+    C] (and a length vector), with a [C + 2, C] transition parameter (rows
+    0 / 1 the start / stop weights)."""
+    helper = LayerHelper("linear_chain_crf")
+    c = int(input.shape[-1])
+    trans = helper.create_parameter(param_attr, [c + 2, c],
+                                    dtype_name(input.dtype))
+    outs = {n: helper.create_variable_for_type_inference(input.dtype)
+            for n in ("LogLikelihood", "Alpha", "EmissionExps",
+                      "TransitionExps")}
+    ins = {"Emission": [input], "Transition": [trans], "Label": [label]}
+    if length is not None:
+        ins["SeqLen"] = [length]
+    helper.append_op("linear_chain_crf", inputs=ins,
+                     outputs={k: [v] for k, v in outs.items()})
+    return outs["LogLikelihood"]
+
+
+def crf_decoding(input, param_attr, label=None, length=None):
+    """Viterbi decoding against the transitions `param_attr` names (the
+    ones linear_chain_crf trains, when the block has them); with `label`,
+    the per-token 0/1 correctness of the path."""
+    helper = LayerHelper("crf_decoding")
+    attr = ParamAttr._to_attr(param_attr)
+    block = helper.main_program.global_block()
+    if attr and attr.name and block.has_var(attr.name):
+        trans = block.var(attr.name)
+    else:
+        c = int(input.shape[-1])
+        trans = helper.create_parameter(attr, [c + 2, c],
+                                        dtype_name(input.dtype))
+    path = helper.create_variable_for_type_inference("int64")
+    ins = {"Emission": [input], "Transition": [trans]}
+    if label is not None:
+        ins["Label"] = [label]
+    if length is not None:
+        ins["SeqLen"] = [length]
+    helper.append_op("crf_decoding", inputs=ins,
+                     outputs={"ViterbiPath": [path]})
+    return path
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None, path_table=None, path_code=None, is_custom=False,
+             is_sparse=False):
+    """Hierarchical sigmoid: W is [num_classes - 1, D] (the internal nodes
+    of the default tree) or, for a custom tree, [path length +
+    num_classes, D]. `is_sparse` is accepted and the update stays dense,
+    as in the reference."""
+    helper = LayerHelper("hsigmoid")
+    d = int(input.shape[-1])
+    num_nodes = int(num_classes) - 1 if not is_custom else \
+        int(path_table.shape[-1]) + num_classes
+    w = helper.create_parameter(param_attr, [num_nodes, d],
+                                dtype=dtype_name(input.dtype),
+                                default_initializer=init_mod.Xavier())
+    ins = {"X": [input], "W": [w], "Label": [label]}
+    if bias_attr is not False:
+        ins["Bias"] = [helper.create_parameter(
+            bias_attr, [num_nodes], dtype=dtype_name(input.dtype),
+            is_bias=True)]
+    if is_custom:
+        ins["PathTable"] = [path_table]
+        ins["PathCode"] = [path_code]
+    outs = {n: helper.create_variable_for_type_inference(input.dtype)
+            for n in ("Out", "PreOut", "W_Out")}
+    helper.append_op("hierarchical_sigmoid", inputs=ins,
+                     outputs={k: [v] for k, v in outs.items()},
+                     attrs={"num_classes": int(num_classes)})
+    return outs["Out"]
+
+
+def edit_distance(input, label, normalized=True, ignored_tokens=None,
+                  input_length=None, label_length=None):
+    """Levenshtein distances of padded hyps and refs (and their lengths).
+    Returns (distance, sequence_num)."""
+    helper = LayerHelper("edit_distance")
+    ins = {"Hyps": [input], "Refs": [label]}
+    if input_length is not None:
+        ins["HypsLength"] = [input_length]
+    if label_length is not None:
+        ins["RefsLength"] = [label_length]
+    out = helper.create_variable_for_type_inference("float32")
+    seq = helper.create_variable_for_type_inference("int32")
+    helper.append_op("edit_distance", inputs=ins,
+                     outputs={"Out": [out], "SequenceNum": [seq]},
+                     attrs={"normalized": bool(normalized)})
+    return out, seq
+
+
+def bilinear_tensor_product(x, y, size, act=None, name=None,
+                            param_attr=None, bias_attr=None):
+    """out[n, k] = x[n] W[k] y[n]^T + b[k] (W [size, Dx, Dy], Xavier),
+    then `act`."""
+    helper = LayerHelper("bilinear_tensor_product")
+    w = helper.create_parameter(
+        param_attr, [int(size), int(x.shape[-1]), int(y.shape[-1])],
+        dtype=dtype_name(x.dtype), default_initializer=init_mod.Xavier())
+    ins = {"X": [x], "Y": [y], "Weight": [w]}
+    if bias_attr is not False:
+        ins["Bias"] = [helper.create_parameter(
+            bias_attr, [1, int(size)], dtype=dtype_name(x.dtype),
+            is_bias=True)]
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("bilinear_tensor_product", inputs=ins,
+                     outputs={"Out": [out]})
+    return helper.append_activation(out, act)
+
+
+def add_position_encoding(input, alpha, beta, name=None):
+    """alpha * input + beta * the sinusoid position encoding."""
+    helper = LayerHelper("add_position_encoding")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("add_position_encoding", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"alpha": float(alpha), "beta": float(beta)})
+    return out
 
 
 def fill_constant_like(x, value):

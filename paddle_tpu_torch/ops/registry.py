@@ -177,6 +177,7 @@ _LOWERING_MODULES = ("ops.tensor_ops", "ops.math_ops", "ops.nn_ops",
                      "ops.sparse_grad", "ops.dense_tail_ops",
                      "ops.extra_ops",
                      "layers.control_flow", "ops.tail_ops",
+                     "ops.dense_tail_ops2", "ops.decode_ops",
                      "parallel.zero", "parallel.transforms")
 _loaded = False
 _loading = False
