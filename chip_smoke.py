@@ -567,6 +567,47 @@ result line):
      equal to the CPU lowerings' on the same emissions; B6 at the dense
      bucket's width bit for bit, timed alone and through its wrapper
      beside the plain version, torch._fused_sgd_ and its bytes bound.
+22. the detection ops and MobileNet-SSD 300 (f32, TF32 off,
+   deterministic cuDNN):
+   * the detection ops: every case of tests/torch_detection_op_cases.py
+     (the 21 types of ops/detection_ops.py, the 7 of
+     detection_assign_ops.py and the alias multiclass_nms2, and more arms
+     of some, the CPU tests' inputs) lowered on the CPU and twice on the
+     card, and the `__vjp__` of every vjp case likewise (over the inputs
+     outside the op's nondiff slots): the card within rtol 1e-4 / atol
+     1e-5 of the CPU, integers (match indices, NMS labels' Index,
+     counts, assignment labels, masks) equal, the random cases' draws
+     equal, the two card runs bit for bit; planted faults:
+     bipartite_match taking the last maximum on the card (card vs CPU,
+     on the prior grid's exact ties), rpn_target_assign drawing from
+     torch's global generator (twice);
+   * card vs CPU: MobileNet-SSD at scale 0.25, image 300, batch 2, 2
+     steps of Momentum(1e-6, 0.9) with L2Decay (arm M's rule at phase
+     16's card-vs-CPU rate) from the same startup arrays, by phase
+     16's floor method on parameters nudged by 1e-7, the parameters, the
+     velocities and the running statistics apart; planted fault on a
+     card arm: ssd_loss mining no hard negatives;
+   * MobileNet-v1 SSD 300 at PaddleCV/ssd's published configuration (21
+     classes, scale 1.0, 1,917 priors from six maps, ssd_loss summed,
+     RMSProp on piecewise_decay with L2Decay(5e-5)), batch 64, images and
+     1-8 truths an image from numpy seeds: E, 2 eager Executor.run steps;
+     C, one run_steps(2) window on one capture, bit-equal to E (losses,
+     every written persistable), then 2 windows timed; M, the program
+     with Momentum(0.001, 0.9) at fleet ZeRO stage 0, one captured
+     window; Z, M's program at stage 1, bit-equal to M, B7 once a bucket
+     a step, then 2 windows timed; step ms p50 (C, Z), images/s,
+     launches a step and busy share of one profiled captured step, peak
+     memory;
+   * the decode program (detection_output: nms_threshold 0.45,
+     nms_top_k 400, keep_top_k 200, score_threshold 0.01; detection_map
+     11point) at full width on C's trained weights, batch 8, on the card
+     and on the CPU from the same weights: counts equal, labels and
+     Index equal but near ties (scores within 1e-6, counted), scores and
+     boxes within rtol 1e-4 / atol 1e-5, both mAPs; multiclass_nms on the
+     card's own decoded inputs bit-equal to its CPU lowering;
+     B7 at Z's bucket widths bit for bit in its four instances, timed
+     alone and through its wrapper beside the plain version,
+     torch._fused_sgd_ and its bytes bound.
 Each main-path run resets the kernel launch counts just before it and
 fails if a kernel of its path was never launched.
 
@@ -584,8 +625,10 @@ Output: a `{"kernels": [...]}` line, a `{"serving": ...}` line, a
 `{"supervised_gang": ...}` line, an `{"image_training": ...}` line, a
 `{"sequence_training": ...}` line, a `{"ctr_training": ...}` line, a
 `{"recsys_training": ...}` line, a `{"dgc_training": ...}` line, an
-`{"srl_training": ...}` line, and last `{"ok": true, "device":
-{...}}`. The B6 row's `launches_by_path` adds phase 19's and phase
+`{"srl_training": ...}` line, an `{"ssd_training": ...}` line, and last
+`{"ok": true, "device": {...}}`. The B7 row's `ssd_bucket` is phase 22's
+check at the SSD's bucket widths, and its `launches_by_path` adds phase
+22's arm Z. The B6 row's `launches_by_path` adds phase 19's and phase
 21's arm Z, and its `recsys_bucket` and `srl_bucket` are those phases'
 checks at the recommender's and the SRL's dense bucket widths. The B8 row's `launches_by_path`
 adds phase 17's and phase 18's arm Z, and its `ctr_bucket` is phase 18's
@@ -8151,8 +8194,9 @@ def resnet_card_vs_cpu(torch, make_opt=None, faults=(), label="resnet50"):
     return row
 
 
-def check_b7_bucket(torch, zk, widths):
-    """B7 at ResNet-50's stage-1 bucket widths: bit for bit against its
+def check_b7_bucket(torch, zk, widths, what="resnet50"):
+    """B7 at ResNet-50's (or `what`'s) stage-1 bucket widths: bit for bit
+    against its
     plain version in its four instances (ZERO_ARMS' momentum arms, mu
     IMG_MU) at every width; plain momentum (the phase's, mu IMG_MU) at the
     widest timed through its wrapper and alone, beside the plain version,
@@ -8177,11 +8221,11 @@ def check_b7_bucket(torch, zk, widths):
                     for s, g in got.items())
             if not all(torch.equal(g[0], want[s][0])
                        for s, g in got.items()):
-                fail(f"zero_momentum {label} at the resnet50 bucket n={n}: "
+                fail(f"zero_momentum {label} at the {what} bucket n={n}: "
                      f"kernel differs from its plain version (max abs {e})")
             err = max(err, e)
             del got, want
-    log(f"kernel zero_momentum at resnet50's stage-1 buckets {widths}: bit "
+    log(f"kernel zero_momentum at {what}'s stage-1 buckets {widths}: bit "
         f"for bit in its four instances")
     n = max(widths)
     attrs = {"mu": IMG_MU, "use_nesterov": False}
@@ -8203,7 +8247,7 @@ def check_b7_bucket(torch, zk, widths):
     row["library_ms"] = None if lib is None else cuda_ms(torch, lib)
     del kin
     torch.cuda.empty_cache()
-    log(f"kernel zero_momentum at resnet50's widest bucket n={n}: "
+    log(f"kernel zero_momentum at {what}'s widest bucket n={n}: "
         f"{row['ms']:.4f} ms (alone {row['alone_ms']:.4f}, "
         f"{row['share_of_bytes_bound']:.3f} of the bytes bound), plain "
         f"{row['plain_ms']:.4f}, bytes bound {row['bound_ms']:.4f}, torch "
@@ -9621,7 +9665,7 @@ def plant_global_rng(torch, registry):
 
 
 def op_cases_card_vs_cpu(torch, registry, cases, table, n_types, faults,
-                         label, exact=(), props=None):
+                         label, exact=(), props=None, vjp_case=None):
     """Gate card vs CPU and gate twice on the card over every case of
     `table` (from the case module `cases`, f32): each lowering on the CPU,
     then twice on the card, under deterministic cuDNN; every vjp case's
@@ -9631,8 +9675,10 @@ def op_cases_card_vs_cpu(torch, registry, cases, table, n_types, faults,
     outputs)`, when given, holds a case's card outputs to their
     properties (True for the cases it does not judge). `faults`:
     {"card_vs_cpu" / "twice": (what, install returning its undo, case)},
-    each planted fault read by its gate, which must refuse it."""
-    vjp_case = extra_cases_module().vjp_case
+    each planted fault read by its gate, which must refuse it. `vjp_case`
+    builds a case's `__vjp__` (tests/torch_extra_op_cases.py's by
+    default)."""
+    vjp_case = vjp_case or extra_cases_module().vjp_case
     ctx_cpu = registry.LowerCtx(device="cpu")
     ctx_gpu = registry.LowerCtx(device="cuda")
 
@@ -10958,6 +11004,512 @@ def train_srl(torch, zk, registry, card):
     return row, z["b6_launches_incl_warmup"], bucket
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the detection ops and MobileNet-SSD 300
+# ---------------------------------------------------------------------------
+
+SSD_WINDOW = 2             # arm E: 2 eager steps; C, M, Z: run_steps(2)
+SSD_TIMED = 2              # then run_steps(2) windows timed alone (C, Z)
+SSD_MOMENTUM = (0.001, 0.9)    # arms M and Z: Momentum in place of RMSProp
+SSD_CPU = (0.25, 2, 2)     # card vs CPU at image 300: scale, batch, steps
+SSD_DECODE_BATCH = 8       # the decode program: images from numpy seed 5
+SSD_TIE = 1e-6             # decode: scores this close are near ties
+
+
+def detection_cases_module():
+    """tests/torch_detection_op_cases.py (numpy only): the detection ops'
+    cases and MobileNet-SSD's builder, shared with the CPU tests."""
+    extra_cases_module()          # puts tests/ on the path
+    import torch_detection_op_cases
+    return torch_detection_op_cases
+
+
+def plant_bipartite_last_maximum(torch, registry):
+    """Planted fault of gate card vs CPU: bipartite_match on the card
+    takes the last maximum in row-major order (the matrix reversed in,
+    the matches mapped back out)."""
+    def faulty(lower, ctx, ins, attrs):
+        d = ins["DistMat"][0]
+        if d.device.type != "cuda":
+            return lower(ctx, ins, attrs)
+        out = lower(ctx, {"DistMat": [d.flip(-1).flip(-2)]}, attrs)
+        idx = out["ColToRowMatchIndices"][0].flip(-1)
+        return {"ColToRowMatchIndices": [
+                    torch.where(idx >= 0, d.shape[-2] - 1 - idx, idx)],
+                "ColToRowMatchDist": [out["ColToRowMatchDist"][0].flip(-1)]}
+    return plant_lowering(registry, "bipartite_match", faulty)
+
+
+def plant_rpn_global_rng(torch, registry):
+    """Planted fault of gate twice on the card: rpn_target_assign keys its
+    draws from torch's global generator on the card."""
+    def faulty(lower, ctx, ins, attrs):
+        if ins["GtBoxes"][0].device.type != "cuda":
+            return lower(ctx, ins, attrs)
+        return lower(ctx, ins, dict(attrs, __rng_seed__=int(
+            torch.randint(1 << 30, ()))))
+    return plant_lowering(registry, "rpn_target_assign", faulty)
+
+
+def detection_card_vs_cpu(torch, registry, cases):
+    """The detection cases (the 29 types) card vs CPU and twice on the
+    card, each vjp case's pullback over the inputs outside the op's
+    nondiff slots. Planted faults: bipartite_match taking the last
+    maximum on the card (card vs CPU, on the prior grid's ties),
+    rpn_target_assign drawing from the global generator (twice)."""
+    def vjp_case(op, ins, attrs, outs, make_vjp_attrs):
+        return extra_cases_module().vjp_case(
+            op, ins, attrs, outs, make_vjp_attrs,
+            nondiff=registry.get(op).nondiff_slots)
+    return op_cases_card_vs_cpu(
+        torch, registry, cases, cases.detection_cases(), 29,
+        {"card_vs_cpu": ("bipartite_match takes the last maximum on the "
+                         "card",
+                         lambda: plant_bipartite_last_maximum(torch,
+                                                              registry),
+                         "bipartite_match:grid_ties"),
+         "twice": ("rpn_target_assign draws from torch's global generator",
+                   lambda: plant_rpn_global_rng(torch, registry),
+                   "rpn_target_assign:random")},
+        "detection", vjp_case=vjp_case)
+
+
+def build_ssd_prog(cases, scale=1.0, opt="rmsprop", stage=None,
+                   lr=SSD_MOMENTUM[0]):
+    """(main, startup, decode program, the net's vars, the decode's vars):
+    MobileNet-SSD 300 (tests/torch_detection_op_cases.py `mobilenet_ssd`)
+    at `scale`, RMSProp(piecewise_decay) with L2Decay(5e-5) as PaddleCV's
+    train.py, or Momentum(`lr`, SSD_MOMENTUM[1]) with the same L2Decay
+    (`opt` "momentum"), through fleet at ZeRO `stage` when given; the decode
+    program cloned before the optimizer, with detection_output and
+    detection_map (11point)."""
+    from paddle_tpu_torch import initializer, layers, optimizer, regularizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework import program, unique_name
+    from paddle_tpu_torch.layer_helper import ParamAttr
+    main, start = program.Program(), program.Program()
+    with program.program_guard(main, start), unique_name.guard():
+        net = cases.mobilenet_ssd(layers, ParamAttr, initializer.MSRA,
+                                  scale=scale)
+        test = main.clone(for_test=True)
+        l2 = regularizer.L2Decay(cases.SSD_L2)
+        if opt == "rmsprop":
+            o = optimizer.RMSProp(learning_rate=layers.piecewise_decay(
+                cases.SSD_BOUNDARIES, cases.SSD_VALUES), regularization=l2)
+        else:
+            o = optimizer.Momentum(lr, SSD_MOMENTUM[1], regularization=l2)
+        if stage is not None:
+            fleet.init(is_collective=True)
+            s = fleet.DistributedStrategy()
+            s.sharding_stage = stage
+            o = fleet.distributed_optimizer(o, s)
+        o.minimize(net["loss"])
+        with program.program_guard(test):
+            block = test.global_block()
+            decode = cases.ssd_decode(
+                layers, {k: block.var(v.name) for k, v in net.items()})
+    return main, start, test, net, decode
+
+
+def ssd_training_feed(batch):
+    """A batch without `difficult`, which only the decode program reads."""
+    return {k: v for k, v in batch.items() if k != "difficult"}
+
+
+def plant_ssd_no_negatives(registry):
+    """Planted fault of gate SSD card vs CPU: ssd_loss mines no hard
+    negatives on the card (neg_pos_ratio 0)."""
+    def faulty(lower, ctx, ins, attrs):
+        if ins["Location"][0].device.type != "cuda":
+            return lower(ctx, ins, attrs)
+        return lower(ctx, ins, dict(attrs, neg_pos_ratio=0.0))
+    return plant_lowering(registry, "ssd_loss", faulty)
+
+
+def ssd_card_vs_cpu(torch, registry, cases):
+    """MobileNet-SSD at scale SSD_CPU[0], image 300, batch 2, f32, TF32
+    off, Momentum(IMG_CPU_LR, 0.9) with L2Decay (arm M's rule at phase
+    16's card-vs-CPU rate, so the second step's gradient is the first's
+    but for rounding), SSD_CPU[2] steps from the same startup arrays on
+    the card, on the CPU, and on
+    the CPU from the trainable parameters scaled by (1 + 1e-7 N(0, 1))
+    (the floor), by phase 16's floor method on each arm's change from its
+    own start, each kind of trained tensor apart (the parameters, the
+    velocities, the batch-norm running statistics): losses within
+    IMG_CPU_LOSS_RTOL; each group's distance of the card's change from
+    the CPU's within IMG_CPU_FLOOR_X times the floor's, plus
+    IMG_CPU_CHANGE_ATOL. At the main path's rates the second step's
+    gradient hinges on the first step (the floor reads 0.8-0.9 after two
+    steps at 0.001 on the CPU at batch 2, and RMSProp's normalized step
+    hinges on the signs of gradients near zero), which would hold
+    nothing. Planted fault on a card arm: ssd_loss mining no
+    negatives."""
+    from paddle_tpu_torch.framework import Executor, Scope, load_numpy
+    scale, batch, steps = SSD_CPU
+    main, start, _, net, _ = build_ssd_prog(cases, scale=scale,
+                                            opt="momentum", lr=IMG_CPU_LR)
+    loss = net["loss"]
+    s0 = Scope()
+    Executor("cpu").run(start, scope=s0)
+    init = {n: s0.numpy(n) for n in s0.local_names()
+            if isinstance(s0.find(n), torch.Tensor)}
+    feeds = [ssd_training_feed(cases.ssd_feed(batch, seed=10 + i))
+             for i in range(steps)]
+    ops = main.global_block().ops
+    params = [p.name for p in main.global_block().all_parameters()
+              if p.trainable]
+    rng = np.random.RandomState(22)
+    nudged = {n: (v * (1 + 1e-7 * rng.randn(*v.shape))).astype(v.dtype)
+              if n in params else v for n, v in init.items()}
+    slot_names = {"Param": "parameters", "Velocity": "velocity"}
+    groups = {}
+    for op in ops:
+        if op.type == "momentum":
+            for slot, g in slot_names.items():
+                groups.setdefault(g, []).extend(op.inputs[slot])
+    groups["running_stats"] = sorted(
+        op.inputs[k][0] for op in ops if op.type == "batch_norm"
+        for k in ("Mean", "Variance"))
+    out = {}
+    for arm, dev, state, fault in (
+            ("cuda", "cuda", init, None), ("cpu", "cpu", init, None),
+            ("floor", "cpu", nudged, None),
+            ("fault", "cuda", init, plant_ssd_no_negatives)):
+        scope, exe = load_numpy(Scope(), state, dev), Executor(dev)
+        undo = fault(registry) if fault else None
+        try:
+            losses = [float(exe.run(main, feed=f, fetch_list=[loss],
+                                    scope=scope)[0]) for f in feeds]
+        finally:
+            if undo:
+                undo()
+        out[arm] = (losses, {n: scope.numpy(n).astype(np.float64)
+                             - state[n].astype(np.float64)
+                             for g in groups.values() for n in g})
+        del scope, exe
+    lc, sc = out["cpu"]
+
+    def distance(change, names):
+        num = sum(float(np.sum((change[n] - sc[n]) ** 2)) for n in names)
+        den = sum(float(np.sum(sc[n] ** 2)) for n in names)
+        return (num / den) ** 0.5 if den else 0.0
+
+    def rel(arm):
+        return max(abs(a - b) / abs(b) for a, b in zip(out[arm][0], lc))
+
+    row = {"config": f"MobileNet-SSD at scale {scale}, image 300, batch "
+                     f"{batch}, {steps} steps of Momentum({IMG_CPU_LR}, "
+                     f"{SSD_MOMENTUM[1]}) with L2Decay, f32, TF32 off",
+           "losses_card": out["cuda"][0], "losses_cpu": lc,
+           "loss_max_rel": rel("cuda"), "groups": {}}
+    bad, caught = [], rel("fault") > IMG_CPU_LOSS_RTOL
+    for g, names in groups.items():
+        limit = IMG_CPU_FLOOR_X * distance(out["floor"][1], names) \
+            + IMG_CPU_CHANGE_ATOL
+        r = {"tensors": len(names),
+             "card_distance": distance(out["cuda"][1], names),
+             "floor_distance": distance(out["floor"][1], names),
+             "limit": limit,
+             "fault_distance": distance(out["fault"][1], names)}
+        row["groups"][g] = r
+        if not r["card_distance"] <= limit:
+            bad.append(g)
+        caught |= not r["fault_distance"] <= limit
+    row["planted_fault"] = {"fault": "ssd_loss mines no hard negatives on "
+                                     "the card (neg_pos_ratio 0)",
+                            "loss_max_rel": rel("fault"), "caught": caught}
+    log(f"ssd card vs CPU: {row}")
+    if not np.isfinite(out["cuda"][0]).all() or bad \
+            or not row["loss_max_rel"] <= IMG_CPU_LOSS_RTOL:
+        fail(f"ssd card vs CPU: {bad}, {row}")
+    if not caught:
+        fail(f"ssd planted fault passed gate card vs CPU: {row}")
+    return row
+
+
+def ssd_scope(torch, start, s0, main):
+    """A scope from `start` (its accumulators) holding s0's parameters and
+    running statistics: the same weights for another update rule."""
+    from paddle_tpu_torch.framework import Executor, Scope
+    scope = Scope()
+    Executor("cuda").run(start, scope=scope)
+    for p in main.global_block().all_parameters():
+        scope.find(p.name).copy_(s0.find(p.name))
+    return scope
+
+
+def ssd_arms(torch, zk, cases, batches):
+    """Arms E and C (RMSProp, the main path) and M and Z (Momentum at ZeRO
+    stages 0 and 1) at full width from one startup's weights, under
+    deterministic cuDNN: E, SSD_WINDOW eager steps; C, one
+    run_steps(SSD_WINDOW) window on one capture, then SSD_TIMED timed; M
+    and Z likewise with Momentum, Z through fleet ZeRO stage 1 (B7 once a
+    bucket a step). Gates E == C and M == Z bit for bit (losses and every
+    written persistable). Returns ({arm: numbers}, C's programs and
+    trained scope, Z's bucket widths)."""
+    from paddle_tpu_torch.framework import Executor, Scope
+    feeds = [ssd_training_feed(b) for b in batches]
+    window = ctr_stacked(feeds)
+    out, states, s0, kept, widths = {}, {}, None, None, None
+    for arm, opt, stage in (("E", "rmsprop", None), ("C", "rmsprop", None),
+                            ("M", "momentum", 0), ("Z", "momentum", 1)):
+        built = build_ssd_prog(cases, opt=opt, stage=stage)
+        main, start, loss = built[0], built[1], built[3]["loss"]
+        if s0 is None:
+            s0 = Scope()
+            Executor("cuda").run(start, scope=s0)
+        scope = scope_copy(torch, s0) if opt == "rmsprop" \
+            else ssd_scope(torch, start, s0, main)
+        exe = Executor("cuda")
+        release(torch)
+        torch.cuda.reset_peak_memory_stats()
+        zk.reset_launches()
+        losses, ms = [], []
+        if arm == "E":
+            for f in feeds:
+                t0 = time.perf_counter()
+                losses.append(float(exe.run(main, feed=f, fetch_list=[loss],
+                                            scope=scope)[0]))
+                ms.append((time.perf_counter() - t0) * 1e3)
+        else:
+            got, = exe.run_steps(SSD_WINDOW, main, feed=window,
+                                 fetch_list=[loss], scope=scope)
+            losses = [float(x) for x in got]
+        state = ctr_state(torch, main, scope)
+        if arm in ("C", "Z"):
+            want = "E" if arm == "C" else "M"
+            d = image_diffs(torch, states[want], state)
+            log(f"ssd gate {want} == {arm}: losses {losses} vs "
+                f"{out[want]['losses']}; {len(state)} persistables, "
+                f"{len(d)} differ {dict(list(d.items())[:4])}")
+            if d or losses != out[want]["losses"]:
+                fail(f"ssd gate {want} == {arm}: {d}")
+        states[arm] = state
+        row = {"losses": losses}
+        if arm in ("C", "Z"):
+            for _ in range(SSD_TIMED):
+                t0 = time.perf_counter()
+                exe.run_steps(SSD_WINDOW, main, feed=window,
+                              fetch_list=[loss], scope=scope)
+                ms.append((time.perf_counter() - t0) * 1e3 / SSD_WINDOW)
+            stats = dict(exe.stats)
+            if stats["eager_steps"] or stats["captures"] != 1:
+                fail(f"ssd arm {arm}: executor stats {stats}")
+            row["executor_stats"] = stats
+        if arm == "Z":
+            n_buckets = op_count(main, "__zero_update__")
+            steps_run = (1 + SSD_TIMED) * SSD_WINDOW \
+                + stats["warmup_steps"]
+            b7 = zk.launches["zero_momentum"]
+            widths = [b["padded"] for b in main._grad_buckets["zero_buckets"]]
+            if not n_buckets or b7 != steps_run * n_buckets:
+                fail(f"ssd arm Z: {b7} B7 launches for {n_buckets} buckets "
+                     f"over {steps_run} steps")
+            row.update(b7_launches_incl_warmup=b7, zero_update_ops=n_buckets,
+                       bucket_widths=widths)
+        if ms:
+            p50 = float(np.median(ms))
+            row.update(step_ms=ms, step_ms_p50=p50,
+                       images_per_s=cases.SSD_BATCH / (p50 / 1e3))
+        row["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        if arm in ("C", "Z"):
+            def step():
+                t0 = time.perf_counter()
+                exe.run_steps(1, main, feed=ctr_stacked(feeds[:1]),
+                              fetch_list=[loss], scope=scope)
+                return time.perf_counter() - t0
+            row["profile"] = device_profile(torch, step, top=8)
+            row["launches_per_step"] = row["profile"].get("device_launches")
+            if exe.stats["captures"] != 1:
+                fail(f"ssd arm {arm}: the profiled step captured again")
+        log(f"ssd arm {arm}: losses {losses}, step p50 "
+            f"{row.get('step_ms_p50')} ms, {row.get('images_per_s')} "
+            f"images/s, peak {row['peak_memory_gib']:.2f} GiB, launches a "
+            f"step {row.get('launches_per_step')}, busy "
+            f"{row.get('profile', {}).get('device_busy_share')}")
+        out[arm] = row
+        if arm == "C":
+            kept = (built, scope)
+        del exe, main, start
+        release(torch)
+    if not np.isfinite(out["E"]["losses"]).all():
+        fail(f"ssd losses are not finite: {out['E']['losses']}")
+    del s0, states
+    return out, kept, widths
+
+
+def ssd_decode(torch, registry, cases, kept):
+    """The decode program (detection_output at nms_threshold 0.45,
+    nms_top_k 400, keep_top_k 200, score_threshold 0.01, then
+    detection_map 11point) at full width on C's trained weights, batch
+    SSD_DECODE_BATCH, on the card and on the CPU from the same weights:
+    counts equal; each row's label and Index equal, or its scores within
+    SSD_TIE on the two (a near tie the two orders may break apart,
+    counted); scores and the boxes of equal rows within EXTRA_RTOL /
+    EXTRA_ATOL; score pairs within SSD_TIE of each other counted; both
+    mAPs. And multiclass_nms exactly: the CPU lowering on the card's own
+    decoded boxes and probabilities equals the card's Out, Index and
+    counts bit for bit."""
+    from paddle_tpu_torch.framework import Executor, Scope, load_numpy
+    built, scope = kept
+    test, decode = built[2], built[4]
+    out_v, index_v, count_v, map_v = decode
+    nms = next(op for op in test.global_block().ops
+               if op.type == "multiclass_nms")
+    feed = cases.ssd_feed(SSD_DECODE_BATCH, seed=5)
+    fetch = [out_v, index_v, count_v, map_v, nms.inputs["BBoxes"][0],
+             nms.inputs["Scores"][0]]
+    t0 = time.perf_counter()
+    card = Executor("cuda").run(test, feed=feed, fetch_list=fetch,
+                                scope=scope)
+    card_s = time.perf_counter() - t0
+    weights = {p.name: scope.numpy(p.name)
+               for p in test.global_block().all_parameters()}
+    cpu_scope = load_numpy(Scope(), weights, "cpu")
+    t0 = time.perf_counter()
+    cpu = Executor("cpu").run(test, feed=feed, fetch_list=fetch,
+                              scope=cpu_scope)
+    cpu_s = time.perf_counter() - t0
+    # multiclass_nms alone on the card's own inputs, lowered on the CPU
+    ctx = registry.LowerCtx(device="cpu")
+    want = registry.get("multiclass_nms").lower(
+        ctx, {"BBoxes": [torch.as_tensor(card[4])],
+              "Scores": [torch.as_tensor(card[5])]}, dict(nms.attrs))
+    nms_exact = all(np.array_equal(np.asarray(card[i]),
+                                   want[s][0].numpy())
+                    for i, s in ((0, "Out"), (1, "Index"),
+                                 (2, "NmsRoisNum")))
+    k = cases.SSD_NMS["keep_top_k"]
+    a, b = (np.asarray(v[0]).reshape(SSD_DECODE_BATCH, k, 6)
+            for v in (card, cpu))
+    ia, ib = (np.asarray(v[1]).reshape(SSD_DECODE_BATCH, k)
+              for v in (card, cpu))
+    counts_equal = np.array_equal(np.asarray(card[2]), np.asarray(cpu[2]))
+    same = (a[..., 0] == b[..., 0]) & (ia == ib)
+    near = np.abs(a[..., 1] - b[..., 1]) <= SSD_TIE
+    tie_pairs = int(sum(np.sum(np.abs(np.diff(b[i, :, 1])) <= SSD_TIE)
+                        for i in range(SSD_DECODE_BATCH)))
+    scores_ok = bool(np.all(np.abs(a[..., 1] - b[..., 1])
+                            <= EXTRA_ATOL + EXTRA_RTOL * np.abs(b[..., 1])))
+    boxes_ok = bool(np.all(np.abs(a[..., 2:] - b[..., 2:])[same]
+                           <= EXTRA_ATOL + EXTRA_RTOL
+                           * np.abs(b[..., 2:])[same]))
+    row = {"batch": SSD_DECODE_BATCH, "nms": dict(cases.SSD_NMS),
+           "card_seconds": card_s, "cpu_seconds": cpu_s,
+           "counts": np.asarray(card[2]).tolist(),
+           "counts_equal": counts_equal,
+           "rows_equal": int(same.sum()),
+           "rows_near_tie_apart": int((~same & near).sum()),
+           "rows_differing": int((~same & ~near).sum()),
+           "score_pairs_within_tie": tie_pairs,
+           "scores_within": scores_ok, "boxes_within": boxes_ok,
+           "map_card": float(np.asarray(card[3]).reshape(-1)[0]),
+           "map_cpu": float(np.asarray(cpu[3]).reshape(-1)[0]),
+           "nms_on_the_card_inputs_bit_equal_cpu": nms_exact}
+    log(f"ssd decode: {row}")
+    if not (counts_equal and nms_exact and scores_ok and boxes_ok) \
+            or row["rows_differing"] \
+            or not np.isfinite(a[..., 1:]).all():
+        fail(f"ssd decode: the card's detections differ from the CPU's: "
+             f"{row}")
+    return row
+
+
+def train_ssd(torch, zk, registry, card):
+    """Phase 22 (module docstring): the detection ops' cases card vs CPU
+    and twice on the card, MobileNet-SSD card vs CPU, its arms E, C, M and
+    Z at PaddleCV's widths, the decode program card vs CPU, and B7 at Z's
+    bucket widths. Returns (the line's row, B7's launches in Z, the B7
+    bucket check)."""
+    t0 = time.perf_counter()
+    row, parts = {"card": card}, {}
+    cases = detection_cases_module()
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+    def part(name, fn):
+        t = time.perf_counter()
+        row[name] = fn()
+        parts[name] = time.perf_counter() - t
+        release(torch)
+
+    try:
+        part("detection_ops", lambda: detection_card_vs_cpu(
+            torch, registry, cases))
+        part("card_vs_cpu", lambda: ssd_card_vs_cpu(torch, registry, cases))
+        batches = [cases.ssd_feed(cases.SSD_BATCH, seed=s)
+                   for s in range(SSD_WINDOW)]
+        kept = {}
+
+        def arms():
+            out, kept["C"], kept["widths"] = ssd_arms(torch, zk, cases,
+                                                      batches)
+            return out
+        part("arms", arms)
+        del batches
+        part("decode", lambda: ssd_decode(torch, registry, cases,
+                                          kept.pop("C")))
+        bucket = check_b7_bucket(torch, zk, kept["widths"], "ssd")
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = saved
+    z = row["arms"]["Z"]
+    bucket["launches"] = z["b7_launches_incl_warmup"]
+    log(f"phase 22 parts (s): {parts}")
+    row.update(
+        parts_s=parts,
+        config={
+            "model": f"MobileNet-v1 SSD 300 (PaddlePaddle/models PaddleCV/"
+                     f"ssd mobilenet_ssd.py, train.py pascalvoc): image "
+                     f"[3, {cases.SSD_IMAGE}, {cases.SSD_IMAGE}], "
+                     f"{cases.VOC_CLASSES} classes, scale 1.0, conv_bn "
+                     f"(conv without bias, batch_norm, relu), 13 "
+                     f"depthwise-separable blocks (module11 19x19x512, "
+                     f"module13 10x10x1024), 4 extra blocks to 5, 3, 2, 1; "
+                     f"multi_box_head composed (prior_box min_sizes "
+                     f"{list(cases.SSD_MIN_SIZES)}, max_sizes "
+                     f"{[list(m) for m in cases.SSD_MAX_SIZES]}, "
+                     f"aspect_ratios {[list(r) for r in cases.SSD_ASPECT_RATIOS]},"
+                     f" flip, offset 0.5; kernel-1 conv heads), "
+                     f"{cases.SSD_PRIORS} priors; ssd_loss (overlap 0.5, "
+                     f"neg_pos_ratio 3, per_prediction) summed; "
+                     f"RMSProp(piecewise_decay({cases.SSD_BOUNDARIES}, "
+                     f"{cases.SSD_VALUES})) with L2Decay({cases.SSD_L2}); "
+                     f"batch {cases.SSD_BATCH}, f32, TF32 off, "
+                     f"deterministic cuDNN",
+            "data": f"images N(0, 1) and 1-8 truths an image padded to "
+                    f"{cases.SSD_GT} rows, from numpy seeds 0-"
+                    f"{SSD_WINDOW - 1} (Pascal VOC's layout; the data is "
+                    f"not in the repository)",
+            "arms": f"E: {SSD_WINDOW} eager Executor.run steps; C: one "
+                    f"run_steps({SSD_WINDOW}) window on one capture, then "
+                    f"{SSD_TIMED} timed; M: Momentum{SSD_MOMENTUM} with the "
+                    f"same L2Decay at fleet ZeRO stage 0, one captured "
+                    f"window; Z: M's program at stage 1 (B7 once a bucket "
+                    f"a step), one window then {SSD_TIMED} timed; decode: "
+                    f"the test program at batch {SSD_DECODE_BATCH}"},
+        gates={"detection_ops": row["detection_ops"]["tolerance"],
+               "E_eq_C": "bit for bit: losses and every written "
+                         "persistable",
+               "M_eq_Z": "bit for bit: losses and every written "
+                         "persistable (Z's flat velocities unpacked)",
+               "card_vs_cpu": f"phase 16's floor method on the parameters "
+                              f"nudged by 1e-7, Momentum: losses rtol "
+                              f"{IMG_CPU_LOSS_RTOL}; each group within "
+                              f"{IMG_CPU_FLOOR_X} x its floor + "
+                              f"{IMG_CPU_CHANGE_ATOL}",
+               "decode": f"counts equal; labels and Index equal but near "
+                         f"ties (scores within {SSD_TIE}); scores and "
+                         f"boxes rtol {EXTRA_RTOL} atol {EXTRA_ATOL}; "
+                         f"multiclass_nms on the card's inputs bit-equal "
+                         f"to its CPU lowering",
+               "b7": "launches in Z == buckets x (steps + warm-up)"},
+        phase_s=time.perf_counter() - t0)
+    return row, z["b7_launches_incl_warmup"], bucket
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -11267,6 +11819,17 @@ def main():
         f"srl_Z_stage1_captured_{(2 + SRL_TIMED) * SRL_WINDOW}_steps_"
         f"incl_warmup"] = b6_srl
 
+    # ---- the detection ops and MobileNet-SSD 300 ------------------------
+    lap("ssd")
+    release(torch)
+    ssd_row, b7_ssd, rows["zero_momentum"]["ssd_bucket"] = train_ssd(
+        torch, zk, registry, card)
+    if not b7_ssd:
+        fail("zero_momentum was never launched on the SSD's Z run")
+    rows["zero_momentum"]["launches_by_path"][
+        f"ssd_Z_stage1_captured_{(1 + SSD_TIMED) * SSD_WINDOW}_steps_"
+        f"incl_warmup"] = b7_ssd
+
     for row in rows.values():
         if not row["launches"]:
             fail(f"{row['name']} was never launched on its main path run")
@@ -11292,6 +11855,7 @@ def main():
     print(json.dumps({"recsys_training": recsys_row}), flush=True)
     print(json.dumps({"dgc_training": dgc_row}), flush=True)
     print(json.dumps({"srl_training": srl_row}), flush=True)
+    print(json.dumps({"ssd_training": ssd_row}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -175,7 +175,8 @@ _LOWERING_MODULES = ("ops.tensor_ops", "ops.math_ops", "ops.nn_ops",
                      "ops.fused_ce", "ops.attention", "ops.optimizer_ops",
                      "ops.int8_ops", "ops.lod_ops", "ops.sequence_ops",
                      "ops.sparse_grad", "ops.dense_tail_ops",
-                     "ops.extra_ops",
+                     "ops.extra_ops", "ops.detection_ops",
+                     "ops.detection_assign_ops",
                      "layers.control_flow", "ops.tail_ops",
                      "ops.dense_tail_ops2", "ops.decode_ops",
                      "parallel.zero", "parallel.transforms")

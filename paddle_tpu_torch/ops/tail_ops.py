@@ -3,8 +3,8 @@ the interpolation family, geometry and ROI pooling, deformable
 convolution, the sampled-softmax and random ops, hashing, the inference
 fusions, fake quantization, the host ops, the proximal and DGC update
 rules, the metric tail and `lstmp`. Every type of the reference file in
-its section order, with its flags, but `multiclass_nms2`, the alias of a
-detection op the port does not have yet (ROADMAP item 12, row 5). Each is
+its section order, with its flags (`multiclass_nms2` aliases
+ops/detection_ops.py's `multiclass_nms`). Each is
 differentiated by the generic `__vjp__` (`torch.func.vjp` over the
 lowering) unless it says otherwise.
 
@@ -47,6 +47,9 @@ import numpy as np
 import torch
 
 from ..framework import errors
+# multiclass_nms2 aliases multiclass_nms: its lowering, flags and shape
+# rule must be registered first
+from . import detection_assign_ops  # noqa: F401
 from .extra_ops import _max, _softplus
 from .kernels.flash_attention import _U32, _mul32
 from .math_ops import _clip, _const
@@ -1376,3 +1379,4 @@ _alias("write_to_array", "array_write")
 _alias("read_from_array", "array_read")
 # v1 feeds the broadcast target via slot 'target_tensor' (expand_as_op.cc:28)
 _alias("expand_as", "expand_as_v2", slot_map={"target_tensor": "Y"})
+_alias("multiclass_nms2", "multiclass_nms")

@@ -5,7 +5,7 @@ Every lowering module of both packages is imported: the reference's
 `contrib.slim.quantization`; the port's `registry._LOWERING_MODULES` and
 every module of `paddle_tpu_torch.ops`. The port's op types are a subset of
 the reference's, none registered outside the modules the registry loads
-itself, and they number 405 of the reference's 450.
+itself, and they number 434 of the reference's 450.
 """
 import importlib
 import pkgutil
@@ -16,7 +16,7 @@ from paddle_tpu.ops import registry as ref_registry
 import paddle_tpu_torch.ops as port_ops
 from paddle_tpu_torch.ops import registry as port_registry
 
-REF_TYPES, PORT_TYPES = 450, 405
+REF_TYPES, PORT_TYPES = 450, 434
 
 
 def _import_all(package, extra=()):

@@ -16,8 +16,8 @@ JAX reference on the CPU.
   over the reference's, the same cotangents) for the differentiable
   types.
 * `test_every_tail_op_type_has_a_case` re-reads the reference file: 67
-  types and the deferred `multiclass_nms2`, each of the 67 registered in
-  the port with the reference's flags.
+  types and the alias `multiclass_nms2` (its case is a detection case),
+  all registered in the port with the reference's flags.
 * `hash` on ids near 2**32 and `dgc` on the same U, V and G equal to the
   reference exactly; dgc's conservation EncodeGrad + VOut == V + m U + G
   bit for bit.
@@ -188,15 +188,16 @@ def _reference_types():
 
 
 def test_every_tail_op_type_has_a_case():
-    """The reference file registers 68 types; the 67 of this slice each
-    have a case here and are registered in the port with the reference's
-    flags; multiclass_nms2 (an alias of a detection op) waits."""
+    """The reference file registers 68 types; 67 each have a case here,
+    and multiclass_nms2 (the alias of a detection op) has its case in
+    tests/test_torch_detection_ops.py; all 68 are registered in the port
+    with the reference's flags."""
     types_, deferred = _reference_types()
     assert len(types_) == len(set(types_)) == 67
     assert deferred == ["multiclass_nms2"]
     assert set(types_) == {cases.op_of(c) for c in CASES}
-    assert not port_registry.has("multiclass_nms2")
-    for t in types_:
+    assert port_registry.has("multiclass_nms2")
+    for t in types_ + deferred:
         ref, port = ref_registry.get(t), port_registry.get(t)
         assert (port.nondiff_slots, port.stateful_outputs, port.is_random) \
             == (ref.nondiff_slots, ref.stateful_outputs, ref.is_random), t

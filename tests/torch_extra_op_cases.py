@@ -365,15 +365,16 @@ BF16_CASES = {
 VJP_BF16 = {"cos_sim"}
 
 
-def vjp_case(op, ins, attrs, outs, make_vjp_attrs, seed=1):
+def vjp_case(op, ins, attrs, outs, make_vjp_attrs, seed=1, nondiff=()):
     """(inputs, attrs) of the `__vjp__` op over forward case (`op`, `ins`,
     `attrs`) whose outputs are `outs` ({slot: arrays or tensors}): every
-    floating input differentiated, a numpy cotangent from `seed` for each
-    floating output (XShape and None outputs take none)."""
+    floating input outside the slots `nondiff` differentiated, a numpy
+    cotangent from `seed` for each floating output (XShape and None
+    outputs take none)."""
     out_slots = [s for s, vs in outs.items() if s != "XShape"
                  and all(v is not None for v in vs)
                  and all("float" in str(v.dtype) for v in vs)]
-    diff = [(s, i) for s, vs in ins.items()
+    diff = [(s, i) for s, vs in ins.items() if s not in nondiff
             for i, a in enumerate(vs) if np.issubdtype(a.dtype, np.floating)]
     rng = np.random.RandomState(seed)
     vjp_ins = dict(ins)
